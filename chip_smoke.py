@@ -1,0 +1,479 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of the PIMCQG query path on one NVIDIA card.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases (each failure exits non-zero and prints no result line):
+  1. the card (nvidia-smi name and power limit), torch / CUDA versions and
+     the TF32 flags, which are switched off;
+  2. build every kernel from src/repro_torch/kernels/csrc/ (one nvcc per
+     source, all started together) into build/kernels/;
+  3. hold each kernel bitwise against its plain PyTorch version on the card
+     at the main path's shapes, with pads, INT_MAX rows, int32 wraps,
+     duplicates, ties and all-pad rows injected;
+  4. build the index of a 10M x 128 clustered corpus (big-ann-benchmarks'
+     10M BIGANN/SIFT subset scale, SIFT's width) on the card, 4096 clusters
+     on 8 shards;
+  5. search 1024 queries through PIMCQGEngine.search with the launch counts
+     set to 0 just before and read just after; recall@10 against brute-force
+     ground truth computed on the card;
+  6. break one search's time down by stage, and profile one search for
+     the device's busy share and its kernels by device time;
+  7. hold each kernel bitwise against its plain version on the real
+     search's inputs (one hop's lane LUTs and rows, a gemv scan over the
+     cluster budget, the rerank candidates), and time both there.
+The second-to-last line is the kernels JSON; the last line is
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+N = 10_000_000               # corpus rows: big-ann-benchmarks' 10M scale
+H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
+# Instruction rates outside the tensor cores: 132 SMs at the 1.98 GHz boost
+# clock; per SM and clock 128 float32 lanes (the data sheet's 67 TFLOP/s
+# counts an FMA as two) and 64 int32 lanes (Hopper architecture whitepaper).
+H100_FP32_OPS = 132 * 128 * 1.98e9
+H100_INT32_OPS = 132 * 64 * 1.98e9
+INT_MAX = 2**31 - 1
+ERRS: dict[str, float] = {}  # kernel name -> max |kernel - plain| seen
+T0 = time.perf_counter()
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
+
+
+def times(torch, fn, iters: int) -> tuple[float, float]:
+    """(device ms, wall ms) per call of fn(), after a warm-up.
+
+    Device ms: the durations of the kernels fn launches, from torch.profiler
+    over ``iters`` calls, summed and divided by ``iters``; host gaps between
+    launches are left out. Wall ms: CUDA events around ``iters`` calls
+    launched back to back, which a host slower than the kernel bounds from
+    below. Device ms is None where the profiler records no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    wall = a.elapsed_time(b) / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.self_device_time_total for e in prof.key_averages()
+          if e.device_type.name == "CUDA"]
+    return (sum(us) / 1e3 / iters if sum(us) > 0 else None), wall
+
+
+def timed_row(torch, name, kernel, plain, iters, bound):
+    """Time a kernel and its plain version (device ms as the result, the
+    event wall ms beside it) and log them with the bound."""
+    ms, wall = times(torch, kernel, iters)
+    plain_ms, plain_wall = times(torch, plain, max(iters // 10, 3))
+    if ms is None or plain_ms is None:
+        log(f"{name}: device time not measured (the profiler recorded no "
+            f"kernel); CUDA-event wall ms stand in")
+        ms, plain_ms = wall, plain_wall
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+               bound_by=bound[1])
+    log(f"{name}: kernel {ms:.5f} ms on the device ({wall:.5f} ms event "
+        f"wall per back-to-back call), plain {plain_ms:.5f} ms on the device "
+        f"({plain_wall:.5f} wall), bound {bound[0]:.5f} ms ({bound[1]})")
+    return row
+
+
+def max_abs_err(torch, got, want) -> float:
+    """max |got - want| over the entries finite in both (0.0 if none)."""
+    g, w = got.double(), want.double()
+    both = torch.isfinite(g) & torch.isfinite(w)
+    return float((g - w)[both].abs().max()) if both.any() else 0.0
+
+
+def bitwise(torch, kernel, label, got, want) -> None:
+    """Exact equality (NaN-free inputs), else fail; records the measured
+    max |diff| under ``kernel`` in ERRS."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{kernel} {label}: kernel gives {got.dtype} "
+             f"{tuple(got.shape)}, plain version {want.dtype} "
+             f"{tuple(want.shape)}")
+    err = max_abs_err(torch, got, want)
+    if not torch.equal(got, want):
+        fail(f"{kernel} {label}: kernel disagrees with its plain version "
+             f"(max |diff| {err})")
+    ERRS[kernel] = max(ERRS.get(kernel, 0.0), err)
+
+
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for the same work
+# ---------------------------------------------------------------------------
+
+def rank_bound(torch, rows, lut, w, dim):
+    """Bytes: each distinct real row's code and f_add once (lanes that probe
+    one cluster gather the same rows), the LUT, sumq, s1 and s2 of each lane
+    with a real row (a lane of -1 rows needs none), every row id, every rank
+    written. Operations: a mask and an add per code bit of each real
+    (lane, row) slot, at the int32 rate."""
+    real = rows >= 0
+    distinct = int(torch.unique(rows[real]).numel())
+    live = int(real.any(-1).sum())
+    nbytes = (distinct * (w + 4) + live * (lut.shape[1] + 3) * 4
+              + rows.numel() * 4 + rows.numel() * 4)
+    ops = 2 * int(real.sum()) * dim
+    tb, to = nbytes / H100_BYTES_PER_S, ops / H100_INT32_OPS
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def topk_bound(q, c, k):
+    """Bytes: ids and dists read, k of each written per row. Operations:
+    the compares of two C log C sorts per row, at the float32 rate."""
+    nbytes = q * c * 8 + q * k * 8
+    ops = 2 * q * c * max(1, math.ceil(math.log2(c)))
+    tb, to = nbytes / H100_BYTES_PER_S, ops / H100_FP32_OPS
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_card(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
+        f"count {torch.cuda.device_count()}")
+    log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}, float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()}")
+    return card
+
+
+def phase_build_kernels():
+    from repro_torch.kernels import _build
+    t = time.perf_counter()
+    reports = _build.build_all()
+    log(f"kernels built in {time.perf_counter() - t:.2f} s "
+        f"({', '.join(_build.SOURCES)})")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+
+def synthetic_rank_inputs(torch, dev, n_lanes, n_rows, w, t_rows, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ri(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(dtype)
+    codes = ri(0, 256, (t_rows, w), torch.uint8)
+    f_add = ri(0, 1 << 20, (t_rows,))
+    f_add[ri(0, t_rows, (t_rows // 10,)).long()] = INT_MAX   # pad rows
+    rows = ri(0, t_rows, (n_lanes, n_rows))
+    rows[ri(0, 2, (n_lanes, n_rows)).bool() & (ri(0, 8, (n_lanes, n_rows))
+                                               == 0)] = -1
+    lut = ri(-(1 << 14), 1 << 14, (n_lanes, 8 * w))
+    lut[:64] = ri(-(1 << 28), 1 << 28, (64, 8 * w))   # S and t wrap
+    sumq = lut.long().sum(-1)
+    sumq = ((sumq + 2**31) % 2**32 - 2**31).to(torch.int32)
+    sumq[1::3] = ri(-(1 << 30), 1 << 30, (sumq[1::3].numel(),))  # t < 0
+    s1 = ri(1, 16, (n_lanes,))
+    s2 = ri(1, 16, (n_lanes,))
+    s2[::2] = 31                                     # one- and two-term
+    return codes, f_add, rows, lut, sumq, s1, s2
+
+
+def synthetic_topk_inputs(torch, dev, q, c, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(-1, c, (q, c), generator=g, device=dev,
+                        dtype=torch.int64).to(torch.int32)   # duplicates
+    d = torch.rand((q, c), generator=g, device=dev)
+    ids[:, -2:] = -1                                  # pads
+    ids[:8] = -1                                      # all-pad rows
+    ids[8:16] = 7                                     # one id per row
+    d[:, 3:7] = 0.5                                   # ties across columns
+    d[:, 100:140] = d[:, 10:50]
+    return ids.contiguous(), d.contiguous()
+
+
+def phase_kernels_synthetic(torch, dev):
+    from repro_torch.kernels import binary_ip, ref, topk_select
+    w, dim = 16, 128
+    args = synthetic_rank_inputs(torch, dev, 16384, 32, w, 10_000_000, 1)
+    bitwise(torch, "binary_ip_rank", "L=16384 R=32 W=16",
+            binary_ip.binary_ip_rank(*args, dim),
+            ref.binary_ip_rank_ref(*args, dim))
+    lut = args[3].clone()
+    lut[:, 121:] = 0                                  # dim % 8 != 0
+    odd = (*args[:3], lut, *args[4:])
+    bitwise(torch, "binary_ip_rank", "dim=121",
+            binary_ip.binary_ip_rank(*odd, 121),
+            ref.binary_ip_rank_ref(*odd, 121))
+    timed_row(torch, "binary_ip_rank synthetic L=16384 R=32 W=16",
+              lambda: binary_ip.binary_ip_rank(*args, dim),
+              lambda: ref.binary_ip_rank_ref(*args, dim), 50,
+              rank_bound(torch, args[2], args[3], w, dim))
+
+    for q, c, k in ((1024, 320, 10), (64, 2048, 16), (64, 4096, 100),
+                    (64, 7, 7)):                      # the supported range
+        ids, d = synthetic_topk_inputs(torch, dev, q, c, c)
+        for name, a, b in zip(("ids", "dists"),
+                              topk_select.topk_select(ids, d, k=k),
+                              ref.topk_select_ref(ids, d, k=k)):
+            bitwise(torch, "topk_select", f"Q={q} C={c} k={k} {name}", a, b)
+    ids, d = synthetic_topk_inputs(torch, dev, 1024, 320, 320)
+    timed_row(torch, "topk_select synthetic Q=1024 C=320 k=10",
+              lambda: topk_select.topk_select(ids, d, k=10),
+              lambda: ref.topk_select_ref(ids, d, k=10), 50,
+              topk_bound(1024, 320, 10))
+
+
+def phase_build_index(torch, dev):
+    from repro_torch.core import compact_index, engine
+    from repro_torch.data import synthetic
+    t = time.perf_counter()
+    x, _ = synthetic.clustered_vectors(0, N, 128, 4096)
+    q = synthetic.query_set(0, x, 1024)
+    log(f"corpus {x.shape} + queries {q.shape} made on the host in "
+        f"{time.perf_counter() - t:.1f} s")
+    icfg = compact_index.IndexConfig(dim=128, n_clusters=4096, degree=32,
+                                     knn_k=64, kmeans_sample=262_144)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng = engine.PIMCQGEngine.build(0, x, icfg, engine.SearchConfig(),
+                                    n_shards=8, device=dev, verbose=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    del x
+    log(f"index built on the card in {build_s:.1f} s; budget "
+        f"{eng.index.budget} rows/cluster; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"footprint {json.dumps(eng.footprint())}")
+    return eng, torch.from_numpy(q).to(dev), build_s
+
+
+def phase_search(torch, eng, qt):
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    eng.search(qt)                                    # warm
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    res, stats = eng.search(qt)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts = ops.launch_counts()
+    qps = [qt.shape[0] / dt]
+    for _ in range(3):
+        t = time.perf_counter()
+        eng.search(qt)
+        torch.cuda.synchronize()
+        qps.append(qt.shape[0] / (time.perf_counter() - t))
+    ids = res.ids
+    if ids.shape != (qt.shape[0], 10) or not torch.isfinite(
+            res.dists[ids >= 0]).all():
+        fail(f"search output malformed: ids {tuple(ids.shape)}")
+    gt = synthetic.ground_truth(eng.host.vectors, qt, 10)
+    hit = (ids.long()[:, :, None] == gt[:, None, :]).any(-1).sum()
+    recall = float(hit) / gt.numel()
+    live = stats.hops[stats.hops > 0].float()
+    log(f"search of {qt.shape[0]} queries: {dt * 1e3:.2f} ms, QPS "
+        f"{', '.join(f'{v:.1f}' for v in qps)} (first = the counted run)")
+    log(f"recall@10 {recall:.4f}; mean hops {float(live.mean()):.2f} over "
+        f"{live.numel()} live lanes; dropped lanes "
+        f"{int(stats.dropped_lanes)}")
+    print("kernels " + json.dumps(counts), flush=True)
+    if min(counts.values()) == 0:
+        fail(f"a kernel of the path was never launched: {counts}")
+    if recall < 0.5:
+        fail(f"recall@10 {recall:.4f} < 0.5")
+    return counts, recall, qps
+
+
+def phase_breakdown(torch, eng, qt, search_ms):
+    """Where one search's time goes: wall time of each stage of
+    PIMCQGEngine._candidates and the rerank, each ended by a synchronise,
+    then one whole search under torch.profiler for the device's busy share
+    and its kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import backends, beam_search, rerank
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    nq, cfg = qt.shape[0], eng.scfg
+    stages = {}
+    (_, lane_q, lane_cl, inv, _), stages["route"] = timed(
+        lambda: eng._route(qt, nq))
+    (shard, fc, lanes, live), stages["lane_luts"] = timed(
+        lambda: eng._lanes(qt, lane_q, lane_cl))
+    lane_cfg = backends.LaneConfig(ef=cfg.ef, max_iters=cfg.max_iters,
+                                   dim=eng.icfg.dim)
+    res, stages["beam_search"] = timed(lambda: beam_search.beam_search_lane(
+        shard, fc, lanes, backend=eng.backend, cfg=lane_cfg, active=live))
+    (_, cand, _), _ = timed(lambda: eng._candidates(qt, nq))
+    _, stages["rerank"] = timed(lambda: rerank.rerank(
+        qt, cand, eng.host.vectors, k=cfg.k))
+    loops = int(res.hops.max())
+    log(f"stage wall ms (one search, {loops} lock-step hops): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; per hop {stages['beam_search'] / max(loops, 1):.3f}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.search(qt)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    kern = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    if not kern:
+        log(f"profiled search {wall:.2f} ms wall; device time not measured "
+            f"(the profiler recorded no kernel)")
+        return
+    log(f"profiled search {wall:.2f} ms wall, device busy {busy:.2f} ms in "
+        f"{sum(e.count for e in kern)} kernel launches; idle share "
+        f"{1 - busy / search_ms:.3f} of the unprofiled median search "
+        f"({search_ms:.2f} ms), {1 - busy / wall:.3f} of the profiled one")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+
+
+def phase_kernels_real(torch, eng, qt):
+    """Kernel vs plain version on the real search's inputs; times both."""
+    from repro_torch.core import rerank
+    from repro_torch.kernels import binary_ip, ref, topk_select
+    dim = eng.icfg.dim
+    _, lane_q, lane_cl, _, _ = eng._route(qt, qt.shape[0])
+    shard, fc, lanes, live = eng._lanes(qt, lane_q, lane_cl)
+    m = shard.codes.shape[-2]
+    a = shard.arrays
+    codes = shard.codes.reshape(-1, shard.codes.shape[-1])
+    f_add = a.f_add.reshape(-1)
+    s1, s2 = a.shift1[fc].contiguous(), a.shift2[fc].contiguous()
+    entry = shard.entry[fc].long()
+    nbrs = shard.neighbors[fc, entry]                 # the first hop's rows
+    nbrs = torch.where(live[:, None], nbrs, -1)
+    rows = torch.where(nbrs >= 0, fc[:, None].int() * m + nbrs, -1).int()
+    rank_args = (codes, f_add, rows.contiguous(), lanes.lut, lanes.sumq,
+                 s1, s2)
+    bitwise(torch, "binary_ip_rank", "real hop",
+            binary_ip.binary_ip_rank(*rank_args, dim),
+            ref.binary_ip_rank_ref(*rank_args, dim))
+    rank_row = timed_row(
+        torch, f"binary_ip_rank real hop L={rows.shape[0]} R={rows.shape[1]}",
+        lambda: binary_ip.binary_ip_rank(*rank_args, dim),
+        lambda: ref.binary_ip_rank_ref(*rank_args, dim), 100,
+        rank_bound(torch, rows, lanes.lut, codes.shape[1], dim))
+
+    sel = torch.nonzero(live)[:64, 0]                # gemv: M = budget rows
+    g_rows = (fc[sel, None].int() * m + torch.arange(
+        m, device=fc.device, dtype=torch.int32)).contiguous()
+    g_args = (codes, f_add, g_rows, lanes.lut[sel].contiguous(),
+              lanes.sumq[sel].contiguous(), s1[sel].contiguous(),
+              s2[sel].contiguous())
+    bitwise(torch, "binary_ip_rank", f"gemv M={m}",
+            binary_ip.binary_ip_rank(*g_args, dim),
+            ref.binary_ip_rank_ref(*g_args, dim))
+    timed_row(torch, f"binary_ip_rank gemv L={len(sel)} M={m}",
+              lambda: binary_ip.binary_ip_rank(*g_args, dim),
+              lambda: ref.binary_ip_rank_ref(*g_args, dim), 30,
+              rank_bound(torch, g_rows, g_args[3], codes.shape[1], dim))
+
+    _, cand, _ = eng._candidates(qt, qt.shape[0])
+    d2 = rerank.exact_sqdist(qt, cand, eng.host.vectors).contiguous()
+    for x, y in zip(topk_select.topk_select(cand, d2, k=eng.scfg.k),
+                    ref.topk_select_ref(cand, d2, k=eng.scfg.k)):
+        bitwise(torch, "topk_select", "real", x, y)
+    topk_row = timed_row(
+        torch, f"topk_select real rerank Q={cand.shape[0]} C={cand.shape[1]}",
+        lambda: topk_select.topk_select(cand, d2, k=eng.scfg.k),
+        lambda: ref.topk_select_ref(cand, d2, k=eng.scfg.k), 100,
+        topk_bound(cand.shape[0], cand.shape[1], eng.scfg.k))
+    return {"binary_ip_rank": rank_row, "topk_select": topk_row}
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke runs on the card only")
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the port is not beside this script ({e}); run it from the "
+             f"root of a checkout")
+    dev = torch.device("cuda", 0)
+
+    card = phase_card(torch)
+    phase_build_kernels()
+    phase_kernels_synthetic(torch, dev)
+    eng, qt, build_s = phase_build_index(torch, dev)
+    counts, recall, qps = phase_search(torch, eng, qt)
+    phase_breakdown(torch, eng, qt,
+                    1e3 * qt.shape[0] / sorted(qps)[len(qps) // 2])
+    timing = phase_kernels_real(torch, eng, qt)
+
+    src = {"binary_ip_rank": ("src/repro_torch/kernels/csrc/binary_ip.cu",
+                              "src/repro/kernels/binary_ip.py:79"),
+           "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
+                           "src/repro/kernels/topk_select.py:181")}
+    kernels = [dict(name=name, route="cuda", source=src[name][0],
+                    replaces=src[name][1], launches=counts[name],
+                    max_abs_err=ERRS[name], ms=timing[name]["ms"],
+                    plain_ms=timing[name]["plain_ms"],
+                    bound_ms=timing[name]["bound_ms"],
+                    bound_by=timing[name]["bound_by"], library_ms=None)
+               for name in ("binary_ip_rank", "topk_select")]
+    log(f"card {card}; n={N}; build {build_s:.1f} s; recall@10 "
+        f"{recall:.4f}; QPS {qps[0]:.1f}; no single PyTorch call computes "
+        f"either kernel's function, so library_ms is null")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,42 @@
+"""Carry the JAX package's built state into the port.
+
+The functions take plain numpy arrays (``np.asarray`` of the JAX package's
+``CompactIndex`` fields, ``HostStore`` and ``Placement``), so this module
+imports neither JAX nor the JAX package, and return the port's types on
+the requested device. Both packages can then search the identical index.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.compact_index import CompactIndex, HostStore
+from .core.placement import Placement
+
+__all__ = ["compact_index_from_numpy", "host_store_from_numpy",
+           "placement_from_numpy"]
+
+
+def compact_index_from_numpy(fields: dict, device="cuda") -> CompactIndex:
+    """A dict of ``CompactIndex._fields`` -> numpy arrays (and ``dim``)."""
+    def t(name):
+        return torch.from_numpy(np.array(fields[name])).to(device)
+    return CompactIndex(**{f: t(f) for f in CompactIndex._fields
+                           if f != "dim"}, dim=int(fields["dim"]))
+
+
+def host_store_from_numpy(vectors, centroids, device="cuda") -> HostStore:
+    return HostStore(
+        torch.from_numpy(np.array(vectors, np.float32)).to(device),
+        torch.from_numpy(np.array(centroids, np.float32)).to(device))
+
+
+def placement_from_numpy(order, shard_of, local_slot, n_shards: int,
+                         per_shard: int, load, mem=None) -> Placement:
+    return Placement(order=np.asarray(order, np.int32),
+                     shard_of=np.asarray(shard_of, np.int32),
+                     local_slot=np.asarray(local_slot, np.int32),
+                     n_shards=int(n_shards), per_shard=int(per_shard),
+                     load=np.asarray(load, np.float64),
+                     mem=None if mem is None else np.asarray(mem, np.float64))

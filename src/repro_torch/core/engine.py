@@ -1,0 +1,318 @@
+"""PIMCQG engine — the end-to-end query path (counterpart of
+``repro/core/engine.py``).
+
+    host: cluster filter -> lane routing -> per-lane LUT prep
+    PU  : beam search over the compact clusters of each shard
+    host: gather candidates -> exact rerank -> top-k
+
+All S shards live on one device: the JAX package's vmap over the shard
+axis becomes lanes flattened to (S * capacity,), each carrying its shard,
+and the placed index stays (S, Cl, ...). The search runs eagerly; its two
+kernels are ``binary_ip_rank`` (every beam hop) and ``topk_select`` (the
+rerank). Entry points run on the card unless the caller passes
+``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from . import backends as backends_mod
+from . import beam_search, compact_index, ivf, placement as placement_mod
+from . import rerank as rerank_mod
+
+__all__ = ["SearchConfig", "PlacedIndex", "PIMCQGEngine", "SearchStats",
+           "route_lanes"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    nprobe: int = 8
+    ef: int = 40              # over-fetched candidate set size per lane
+    k: int = 10
+    max_iters: int = 64       # beam-expansion cap per lane
+    mode: str = "mulfree"     # RankingBackend registry key
+    scan: str = "beam"        # 'beam' | 'gemv' (full-cluster scan)
+    lane_capacity_factor: float = 2.0  # per-shard lane buffer headroom
+    # adaptive early termination (ivf.adaptive_keep_mask); 0.0 = off
+    adaptive_tau: float = 0.0
+    adaptive_min_probes: int = 1
+    adaptive_ladder: tuple = ()
+
+    def __post_init__(self):
+        if self.adaptive_tau < 0:
+            raise ValueError(
+                f"adaptive_tau must be >= 0 (0 disables), got "
+                f"{self.adaptive_tau}")
+        if self.adaptive_min_probes < 1:
+            raise ValueError(
+                f"adaptive_min_probes must be >= 1, got "
+                f"{self.adaptive_min_probes}")
+        ladder = tuple(self.adaptive_ladder)
+        object.__setattr__(self, "adaptive_ladder", ladder)
+        if any(int(r) != r or r < 1 for r in ladder) or \
+                list(ladder) != sorted(set(ladder)):
+            raise ValueError(
+                f"adaptive_ladder must be strictly-ascending positive "
+                f"ints, got {ladder!r}")
+        if self.scan not in ("beam", "gemv"):
+            raise ValueError(f"scan must be 'beam' or 'gemv', got "
+                             f"{self.scan!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacedIndex:
+    """Deployment layout: shard-major (S, Cl, ...) cluster stacks, plus the
+    active backend's own slice in ``arrays``."""
+    centroids: torch.Tensor  # (S, Cl, D) f32
+    codes: torch.Tensor      # (S, Cl, M, W) u8
+    neighbors: torch.Tensor  # (S, Cl, M, R) i32
+    entry: torch.Tensor      # (S, Cl) i32
+    n_valid: torch.Tensor    # (S, Cl) i32
+    node_ids: torch.Tensor   # (S, Cl, M) i32
+    arrays: Any              # backend NamedTuple, (S, Cl, ...) leading
+
+    def flat(self) -> "PlacedIndex":
+        """The same tensors with the shard and cluster axes merged, (S*Cl,
+        ...) — the view the lanes index with flat cluster ids."""
+        def f(t):
+            return t.reshape(-1, *t.shape[2:])
+        return PlacedIndex(
+            f(self.centroids), f(self.codes), f(self.neighbors),
+            f(self.entry), f(self.n_valid), f(self.node_ids),
+            type(self.arrays)(*(f(t) for t in self.arrays)))
+
+
+class SearchStats(NamedTuple):
+    hops: torch.Tensor           # (S, capacity) i32 per-lane expansions
+    dropped_lanes: torch.Tensor  # () i32 lanes lost to buffer overflow
+
+
+def _place(idx: compact_index.CompactIndex, pl: placement_mod.Placement,
+           backend: backends_mod.RankingBackend) -> PlacedIndex:
+    order = torch.as_tensor(pl.order, dtype=torch.int64,
+                            device=idx.codes.device)
+
+    def rs(a):
+        return a[order].reshape(pl.n_shards, pl.per_shard, *a.shape[1:])
+    arrays = backend.index_arrays(idx)
+    return PlacedIndex(
+        centroids=rs(idx.centroids), codes=rs(idx.codes),
+        neighbors=rs(idx.neighbors), entry=rs(idx.entry),
+        n_valid=rs(idx.n_valid), node_ids=rs(idx.node_ids),
+        arrays=type(arrays)(*(rs(a) for a in arrays)))
+
+
+# ---------------------------------------------------------------------------
+# Lane routing: (Q, nprobe) probes -> per-shard lane tables
+# ---------------------------------------------------------------------------
+
+def _lane_capacity(nq: int, nprobe: int, n_shards: int, factor: float) -> int:
+    """Per-shard lane-buffer size for an nq-query batch."""
+    return max(1, int(np.ceil(nq * nprobe / n_shards * factor)))
+
+
+def route_lanes(probe_cids: torch.Tensor, shard_of: torch.Tensor,
+                local_slot: torch.Tensor, valid_q: torch.Tensor | None = None,
+                capacity_valid: int | None = None, *, n_shards: int,
+                capacity: int):
+    """Static-shape per-shard lane tables.
+
+    probe_cids (Q, P) cluster ids (-1 = hole) -> lane_q (S, L) query ids and
+    lane_cl (S, L) local cluster slots (-1 pad), the inverse map (Q, P) ->
+    flat slot of the (S*L,) lane table (-1 if dropped), and the number of
+    lanes dropped for overflow. Lanes of holes and of pad queries (valid_q
+    False) sort after every real shard and never take capacity;
+    ``capacity_valid`` tightens the drop threshold to the capacity an
+    unpadded batch of the real queries would get."""
+    q, p = probe_cids.shape
+    dev = probe_cids.device
+    flat_cid = probe_cids.reshape(-1)
+    flat_q = torch.arange(q, dtype=torch.int32,
+                          device=dev).repeat_interleave(p)
+    live = flat_cid >= 0
+    lane_shard = shard_of[flat_cid.clamp(min=0).long()].to(torch.int32)
+    if valid_q is not None:
+        live = live & valid_q.repeat_interleave(p)
+    lane_shard = torch.where(live, lane_shard, n_shards)
+    sh_sorted, order = torch.sort(lane_shard, stable=True)
+    first = torch.searchsorted(
+        sh_sorted, torch.arange(n_shards, dtype=torch.int32, device=dev),
+        side="left")
+    pos = torch.arange(q * p, device=dev) \
+        - first[sh_sorted.clamp(0, n_shards - 1).long()]
+    real = sh_sorted < n_shards
+    cap = capacity if capacity_valid is None \
+        else min(capacity, int(capacity_valid))
+    ok = (pos < cap) & real
+    dropped = (~ok & real).sum().to(torch.int32)
+
+    # overflowing lanes go to a sink slot past the table; kept lanes have
+    # unique destinations, so the scatter is order-free
+    sink = n_shards * capacity
+    dest = torch.where(ok, sh_sorted.long() * capacity + pos, sink)
+    src_cl = local_slot[flat_cid[order].clamp(min=0).long()].to(torch.int32)
+    lane_q = torch.full((sink + 1,), -1, dtype=torch.int32, device=dev)
+    lane_cl = torch.full((sink + 1,), -1, dtype=torch.int32, device=dev)
+    lane_q.scatter_(0, dest, flat_q[order])
+    lane_cl.scatter_(0, dest, src_cl)
+    inv = torch.full((q * p,), -1, dtype=torch.int32, device=dev)
+    inv[order] = torch.where(ok, dest, -1).to(torch.int32)
+    return (lane_q[:sink].reshape(n_shards, capacity),
+            lane_cl[:sink].reshape(n_shards, capacity),
+            inv.reshape(q, p), dropped)
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+class PIMCQGEngine:
+    """Single-device engine: S shards, one device."""
+
+    def __init__(self, index: compact_index.CompactIndex,
+                 host: compact_index.HostStore,
+                 place: placement_mod.Placement,
+                 icfg: compact_index.IndexConfig, scfg: SearchConfig,
+                 buckets: tuple[int, ...] | None = None,
+                 device: str | torch.device = "cuda"):
+        self.device = torch.device(device)
+        self.index = index.to(self.device)
+        self.host = host.to(self.device)
+        self.place = place
+        self.icfg = icfg
+        self.scfg = scfg
+        self.backend = backends_mod.get_backend(scfg.mode)
+        self.placed = _place(self.index, place, self.backend)
+        self.shard_of = torch.as_tensor(place.shard_of, device=self.device)
+        self.local_slot = torch.as_tensor(place.local_slot,
+                                          device=self.device)
+        self.buckets = tuple(sorted(set(buckets))) if buckets else ()
+
+    # -- construction -------------------------------------------------------
+    @classmethod
+    def build(cls, seed: int, x, icfg: compact_index.IndexConfig,
+              scfg: SearchConfig, *, n_shards: int = 1,
+              freq: np.ndarray | None = None, verbose: bool = False,
+              buckets: tuple[int, ...] | None = None,
+              device: str | torch.device = "cuda") -> "PIMCQGEngine":
+        """Build the index from x (N, D) on ``device`` with a generator
+        seeded by ``seed``, place it on ``n_shards`` shards, and wrap it."""
+        device = torch.device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = torch.as_tensor(x, dtype=torch.float32).to(device)
+        idx, host = compact_index.build_compact_index(gen, x, icfg,
+                                                      verbose=verbose)
+        sizes = idx.n_valid.cpu().numpy()
+        bpc = sizes * compact_index.compact_bytes_per_node(icfg.dim,
+                                                           icfg.degree)
+        if freq is None:
+            freq = sizes.astype(np.float64)   # popularity ~ size as prior
+        pl = placement_mod.greedy_place(freq, bpc, n_shards)
+        return cls(idx, host, pl, icfg, scfg, buckets=buckets, device=device)
+
+    # -- query path ---------------------------------------------------------
+    def _route(self, queries: torch.Tensor, nq: int):
+        """Cluster filter (+ adaptive mask) and lane routing of a batch
+        whose first nq rows are real."""
+        cfg, s = self.scfg, self.place.n_shards
+        b = queries.shape[0]
+        probe, pdist = ivf.cluster_filter(queries, self.index.centroids,
+                                          nprobe=cfg.nprobe)
+        if cfg.adaptive_tau > 0:
+            keep = ivf.adaptive_keep_mask(
+                pdist, tau=cfg.adaptive_tau,
+                min_probes=cfg.adaptive_min_probes,
+                ladder=cfg.adaptive_ladder)
+            probe = torch.where(keep, probe, -1)
+        valid = torch.arange(b, device=self.device) < nq
+        capacity = _lane_capacity(b, cfg.nprobe, s, cfg.lane_capacity_factor)
+        cap_valid = _lane_capacity(nq, cfg.nprobe, s,
+                                   cfg.lane_capacity_factor)
+        lane_q, lane_cl, inv, dropped = route_lanes(
+            probe, self.shard_of, self.local_slot, valid, cap_valid,
+            n_shards=s, capacity=capacity)
+        return valid, lane_q, lane_cl, inv, dropped
+
+    def _lanes(self, queries, lane_q, lane_cl):
+        """Flat lane table -> (flat shard view, flat cluster id per lane,
+        the backend's lane LUTs, live mask)."""
+        shard = self.placed.flat()
+        s, cap = lane_q.shape
+        lane_q, lane_cl = lane_q.reshape(-1), lane_cl.reshape(-1)
+        fc = torch.arange(s, device=self.device).repeat_interleave(cap) \
+            * self.place.per_shard + lane_cl.clamp(min=0)
+        lanes = self.backend.prepare_lanes(
+            queries[lane_q.clamp(min=0).long()], shard.centroids[fc],
+            self.index.rotation, shard.arrays, fc, self.icfg.dim)
+        return shard, fc, lanes, lane_cl >= 0
+
+    def _candidates(self, queries: torch.Tensor, nq: int):
+        """Route, search every lane, and gather each query's candidates:
+        -> (valid (B,), cand (B, nprobe*ef) global ids, SearchStats)."""
+        cfg = self.scfg
+        valid, lane_q, lane_cl, inv, dropped = self._route(queries, nq)
+        shard, fc, lanes, live = self._lanes(queries, lane_q, lane_cl)
+        scan = beam_search.full_scan_lane if cfg.scan == "gemv" \
+            else beam_search.beam_search_lane
+        lane_cfg = backends_mod.LaneConfig(ef=cfg.ef, max_iters=cfg.max_iters,
+                                           dim=self.icfg.dim)
+        res = scan(shard, fc, lanes, backend=self.backend, cfg=lane_cfg,
+                   active=live)
+        gids = shard.node_ids[fc[:, None], res.ids.clamp(min=0).long()]
+        gids = torch.where((res.ids >= 0) & live[:, None], gids, -1)
+        hops = torch.where(live, res.hops, 0).reshape(lane_q.shape)
+        cand = gids[inv.clamp(min=0).long()]                  # (B, P, EF)
+        cand = torch.where((inv >= 0)[..., None], cand, -1)
+        cand = cand.reshape(queries.shape[0], cfg.nprobe * cfg.ef)
+        return valid, cand.contiguous(), SearchStats(hops, dropped)
+
+    def search(self, queries, *, pad_to: int | None = None
+               ) -> tuple[rerank_mod.RerankResult, SearchStats]:
+        """Search; with pad_to=B >= len(queries) the batch is zero-padded to
+        B rows, and the results of the real queries are those of an
+        unpadded search."""
+        queries = torch.as_tensor(queries, dtype=torch.float32).to(
+            self.device)
+        nq = queries.shape[0]
+        b = nq if pad_to is None else int(pad_to)
+        if b < nq:
+            raise ValueError(f"pad_to={b} < batch size {nq}")
+        if b > nq:
+            queries = torch.cat([queries, queries.new_zeros(
+                (b - nq, queries.shape[1]))])
+        valid, cand, stats = self._candidates(queries, nq)
+        out = rerank_mod.rerank(queries, cand, self.host.vectors,
+                                k=self.scfg.k)
+        ids = torch.where(valid[:, None], out.ids, -1)
+        dists = torch.where(valid[:, None], out.dists, float("inf"))
+        return rerank_mod.RerankResult(ids[:nq], dists[:nq]), stats
+
+    def search_bucketed(self, queries
+                        ) -> tuple[rerank_mod.RerankResult, SearchStats]:
+        """Pad an arbitrary batch to the smallest bucket that holds it."""
+        nq = len(queries)
+        if not self.buckets:
+            return self.search(queries)
+        for b in self.buckets:
+            if b >= nq:
+                return self.search(queries, pad_to=b)
+        raise ValueError(
+            f"batch of {nq} exceeds largest bucket {self.buckets[-1]}; "
+            f"split upstream")
+
+    # -- reporting ----------------------------------------------------------
+    def footprint(self) -> dict:
+        """Byte accounting of the compact index (paper Table II), with the
+        live / tombstoned / reserved split."""
+        idx = self.index
+        occupied = int(idx.n_valid.sum())
+        live = int((idx.node_ids >= 0).sum())
+        reserved = idx.n_clusters * idx.budget - occupied
+        return compact_index.footprint_report(
+            self.icfg.dim, self.icfg.degree, live,
+            tombstoned=occupied - live, slab=reserved)

@@ -1,0 +1,72 @@
+"""O2 (offline half) — greedy frequency-aware cluster -> shard placement
+(counterpart of ``repro/core/placement.py``; numpy, host side).
+
+The placement permutes cluster ids so that reshaping the permuted
+cluster-stacked tensors to (n_shards, clusters_per_shard, ...) gives the
+balanced layout, and keeps the inverse map the router uses.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["Placement", "greedy_place"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    order: np.ndarray          # (C,) cluster ids in shard-major order
+    shard_of: np.ndarray       # (C,) shard id per original cluster id
+    local_slot: np.ndarray     # (C,) slot within that shard
+    n_shards: int
+    per_shard: int             # clusters per shard
+    load: np.ndarray           # (S,) final per-shard load estimate
+    mem: np.ndarray | None = None  # (S,) final per-shard compact bytes
+
+
+def greedy_place(freq: np.ndarray, bytes_per_cluster: np.ndarray,
+                 n_shards: int, mem_budget: int | None = None,
+                 strict: bool = False) -> Placement:
+    """LPT-style greedy: clusters in decreasing frequency order, each to the
+    least-loaded shard with load and memory headroom. ``mem_budget`` caps
+    per-shard bytes: a soft cap by default, a ValueError with ``strict``."""
+    c = len(freq)
+    if c % n_shards:
+        raise ValueError(f"{c} clusters not divisible by {n_shards} shards "
+                         f"— pad n_clusters")
+    per_shard = c // n_shards
+    load = np.zeros(n_shards, np.float64)
+    mem = np.zeros(n_shards, np.float64)
+    count = np.zeros(n_shards, np.int64)
+    shard_of = np.full(c, -1, np.int32)
+
+    # stable descending sort: tied frequencies keep ascending cluster ids
+    order_desc = np.argsort(-freq.astype(np.float64), kind="stable")
+    for cid in order_desc:
+        cand = np.nonzero(count < per_shard)[0]
+        if mem_budget is not None:
+            fits = cand[mem[cand] + bytes_per_cluster[cid] <= mem_budget]
+            if len(fits):
+                cand = fits
+            elif strict:
+                raise ValueError(
+                    f"cluster {cid} ({bytes_per_cluster[cid]:.0f} B) fits no "
+                    f"shard within mem_budget={mem_budget} "
+                    f"(open shards already hold {mem[cand]} bytes)")
+        s = cand[np.argmin(load[cand])]
+        shard_of[cid] = s
+        load[s] += freq[cid]
+        mem[s] += bytes_per_cluster[cid]
+        count[s] += 1
+
+    # shard-major order with stable slot assignment
+    order = np.argsort(shard_of * c + np.arange(c), kind="stable")
+    local_slot = np.empty(c, np.int32)
+    for s in range(n_shards):
+        local_slot[order[s * per_shard:(s + 1) * per_shard]] = \
+            np.arange(per_shard)
+    return Placement(order=order.astype(np.int32), shard_of=shard_of,
+                     local_slot=local_slot, n_shards=n_shards,
+                     per_shard=per_shard, load=load, mem=mem)

@@ -1,0 +1,83 @@
+"""RabitQ quantization (counterpart of ``repro/core/rabitq.py``).
+
+A unit centroid residual ``o`` is rotated by a random orthogonal P and
+quantized to one bit per rotated dimension; ``cos_theta = sum|z| / sqrt(D)``
+is its per-node error factor. The functions are batched: a leading batch
+dimension of clusters or lanes is written out instead of vmapped.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["RabitQCodes", "QueryLUT", "random_rotation", "encode",
+           "prepare_query", "pack_codes", "unpack_codes"]
+
+
+class RabitQCodes(NamedTuple):
+    packed: torch.Tensor         # (..., N, Dpad//8) uint8 packed sign codes
+    residual_norm: torch.Tensor  # (..., N) f32  ||x - c||
+    cos_theta: torch.Tensor      # (..., N) f32  <o_bar, o>
+    dim: int                     # unpadded D
+
+
+class QueryLUT(NamedTuple):
+    lut: torch.Tensor         # (..., D) f32 rotated unit query residual
+    sum_lut: torch.Tensor     # (...,) f32
+    query_norm: torch.Tensor  # (...,) f32 ||q - c||
+
+
+def random_rotation(generator: torch.Generator, dim: int,
+                    device=None) -> torch.Tensor:
+    """Random orthogonal (D, D) matrix: QR of a Gaussian, signs fixed so the
+    draw is Haar-distributed. It does not reproduce ``jax.random``'s bits."""
+    g = torch.randn((dim, dim), generator=generator, dtype=torch.float64,
+                    device=generator.device)
+    q, r = torch.linalg.qr(g)
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    return q.to(torch.float32).to(device or generator.device)
+
+
+def pack_codes(bits: torch.Tensor) -> torch.Tensor:
+    """(..., D) bool {0,1} -> (..., D//8) uint8, little-endian bit order."""
+    *lead, d = bits.shape
+    assert d % 8 == 0, f"dim {d} not a multiple of 8"
+    b = bits.to(torch.uint8).reshape(*lead, d // 8, 8)
+    weights = (1 << torch.arange(8, device=bits.device)).to(torch.uint8)
+    return (b * weights).sum(-1, dtype=torch.uint8)
+
+
+def unpack_codes(packed: torch.Tensor, dim: int) -> torch.Tensor:
+    """(..., D//8) uint8 -> (..., D) int8 {0,1}."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., :, None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1],
+                        packed.shape[-1] * 8)[..., :dim].to(torch.int8)
+
+
+def encode(x: torch.Tensor, centroid: torch.Tensor, rotation: torch.Tensor,
+           *, dim: int | None = None) -> RabitQCodes:
+    """Encode points x (..., N, D) against centroids (..., D)."""
+    dim = dim or x.shape[-1]
+    resid = x - centroid[..., None, :]
+    norm = torch.linalg.vector_norm(resid, dim=-1)
+    o = resid / norm.clamp(min=1e-12)[..., None]
+    z = o @ rotation
+    bits = z > 0
+    cos_theta = z.abs().sum(-1) / math.sqrt(dim)
+    pad = (-dim) % 8
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    return RabitQCodes(pack_codes(bits), norm, cos_theta, dim)
+
+
+def prepare_query(q: torch.Tensor, centroid: torch.Tensor,
+                  rotation: torch.Tensor) -> QueryLUT:
+    """Per-(query, cluster) lane prep, batched: q, centroid (..., D)."""
+    resid = q - centroid
+    qnorm = torch.linalg.vector_norm(resid, dim=-1)
+    g = (resid / qnorm.clamp(min=1e-12)[..., None]) @ rotation
+    return QueryLUT(g, g.sum(-1), qnorm)

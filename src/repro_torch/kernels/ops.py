@@ -1,0 +1,56 @@
+"""The kernel seam: dispatch by device.
+
+A CUDA tensor goes to the hand-written kernel; a CPU tensor goes to the
+plain version in ``kernels/ref.py``. There is no size threshold, no
+environment switch and no fallback: a kernel that fails to build or launch
+raises. (The JAX package sends small problems to XLA even on a TPU; here
+one launch ranks all lanes of a beam hop, so the kernel carries every hop.)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import binary_ip as _binary_ip
+from . import ref as _ref
+from . import topk_select as _topk
+
+__all__ = ["binary_ip_rank", "topk_select", "launch_counts",
+           "reset_launch_counts"]
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def binary_ip_rank(codes, f_add, rows, lut, sumq, s1, s2, dim: int
+                   ) -> torch.Tensor:
+    """O3 mulfree rank of (L, R) gathered rows; see
+    ``ref.binary_ip_rank_ref`` for the exact semantics."""
+    if _on_cuda(codes):
+        return _binary_ip.binary_ip_rank(codes, f_add, rows, lut, sumq, s1,
+                                         s2, dim)
+    return _ref.binary_ip_rank_ref(codes, f_add, rows, lut, sumq, s1, s2, dim)
+
+
+def topk_select(cand_ids, dists, *, k: int):
+    """Fused dedup + top-k over (Q, C) candidate rows; see
+    ``ref.topk_select_ref`` for the exact semantics."""
+    if _on_cuda(cand_ids):
+        return _topk.topk_select(cand_ids, dists, k=k)
+    return _ref.topk_select_ref(cand_ids, dists, k=k)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per kernel since the counts were last reset."""
+    return {"binary_ip_rank": _binary_ip.launches,
+            "topk_select": _topk.launches}
+
+
+def reset_launch_counts() -> None:
+    _binary_ip.launches = 0
+    _topk.launches = 0
