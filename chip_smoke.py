@@ -21,19 +21,33 @@ Phases (each failure exits non-zero and prints no result line):
      the device's busy share and its kernels by device time;
   7. hold each kernel bitwise against its plain version on the real
      search's inputs (one hop's lane LUTs and rows, a gemv scan over the
-     cluster budget, the rerank candidates), and time both there.
+     cluster budget, the rerank candidates), and time both there;
+  8. search the same queries in GEMV mode (scan="gemv": one cluster_scan
+     launch ranks every probed cluster whole), counted like phase 5;
+  9. serve them through the sharded tier, TopologyConfig(shards=8).build:
+     8 disjoint partition engines, scatter, search_probed, and the origin
+     merge through merge_topk; after one warm-up run, the first of five
+     timed runs is counted and held against the single engine, and QPS,
+     p50 and p99 are the median of the five;
+ 10. hold merge_topk and cluster_scan bitwise against their plain versions
+     on those runs' real inputs (cluster_scan on the arguments of phase 8's
+     counted launch), and time both there.
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import pathlib
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -147,6 +161,30 @@ def rank_bound(torch, rows, lut, w, dim):
     return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
 
 
+def scan_bound(torch, base_rows, n_valid, active, lut, w, dim, ef):
+    """Bytes: each distinct probed cluster's valid rows (code + f_add) once,
+    the LUT and five scalars of each live lane, the (L, EF) ids and ranks
+    written. Operations: a mask and an add per code bit of every valid row
+    a live lane scans, at the int32 rate."""
+    nv = n_valid[active].long()
+    clusters = torch.unique(torch.stack([base_rows[active].long(), nv], 1),
+                            dim=0)
+    n_live = int(active.sum())
+    nbytes = (int(clusters[:, 1].sum()) * (w + 4)
+              + n_live * (lut.shape[1] + 5) * 4 + active.numel() * ef * 8)
+    ops = 2 * int(nv.sum()) * dim
+    tb, to = nbytes / H100_BYTES_PER_S, ops / H100_INT32_OPS
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def merge_bound(q, w, k):
+    """Bytes: every (id, dist) slot read once, k of each written per row.
+    Operations: one compare per slot, at the float32 rate."""
+    nbytes = q * w * 8 + q * k * 8
+    tb, to = nbytes / H100_BYTES_PER_S, q * w / H100_FP32_OPS
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
 def topk_bound(q, c, k):
     """Bytes: ids and dists read, k of each written per row. Operations:
     the compares of two C log C sorts per row, at the float32 rate."""
@@ -227,8 +265,56 @@ def synthetic_topk_inputs(torch, dev, q, c, seed):
     return ids.contiguous(), d.contiguous()
 
 
+def synthetic_merge_inputs(torch, dev, q, o, run, seed):
+    """O sorted runs per row in the sharded sink's slot layout: unfilled
+    tails, exact ties across runs, fully unanswered rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = torch.rand((q, o, run), generator=g, device=dev)
+    ids = torch.arange(q * o * run, dtype=torch.int32,
+                       device=dev).view(q, o, run).clone()
+    d[:, 0, -2:] = math.inf
+    ids[:, 0, -2:] = -1
+    if o > 1:
+        d[:, 1, 0] = d[:, 0, 0]                       # a tie across runs
+    d = torch.sort(d, dim=-1).values
+    d[1::7] = math.inf                                # unanswered rows
+    ids[1::7] = -1
+    return ids.view(q, o * run).contiguous(), d.view(q, o * run).contiguous()
+
+
+def synthetic_scan_inputs(torch, dev, n_lanes, m, w, n_clusters, seed):
+    """Lanes over a flattened (n_clusters * m, W) table. Every fourth lane
+    has a zero LUT and sumq, so its ranks are f_add, which holds INT_MIN,
+    INT_MAX and ties; n_valid takes 0, < EF and M; some lanes are
+    inactive."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ri(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(dtype)
+    t = n_clusters * m
+    codes = ri(0, 256, (t, w), torch.uint8)
+    f_add = ri(-(1 << 12), 1 << 12, (t,))
+    f_add[::5] = INT_MAX
+    f_add[1::7] = -2**31
+    lut = ri(-(1 << 28), 1 << 28, (n_lanes, 8 * w))
+    sumq = ri(-(1 << 30), 1 << 30, (n_lanes,))
+    lut[::4] = 0
+    sumq[::4] = 0
+    base = ri(0, n_clusters, (n_lanes,)) * m
+    nv = ri(0, m + 1, (n_lanes,))
+    nv[:4] = torch.tensor([0, m, 3, 0], device=dev)
+    s1 = ri(0, 33, (n_lanes,))
+    s2 = ri(0, 33, (n_lanes,))
+    s2[::3] = 31
+    active = ri(0, 5, (n_lanes,)) > 0
+    active[:4] = True
+    return codes, f_add, base, nv, lut, sumq, s1, s2, active
+
+
 def phase_kernels_synthetic(torch, dev):
-    from repro_torch.kernels import binary_ip, ref, topk_select
+    from repro_torch.kernels import (binary_ip, cluster_scan, merge_topk,
+                                     ref, topk_select)
     w, dim = 16, 128
     args = synthetic_rank_inputs(torch, dev, 16384, 32, w, 10_000_000, 1)
     bitwise(torch, "binary_ip_rank", "L=16384 R=32 W=16",
@@ -257,6 +343,28 @@ def phase_kernels_synthetic(torch, dev):
               lambda: topk_select.topk_select(ids, d, k=10),
               lambda: ref.topk_select_ref(ids, d, k=10), 50,
               topk_bound(1024, 320, 10))
+
+    for q, o, run, k in ((1024, 8, 10, 10), (64, 6, 12, 7), (64, 1, 10, 10),
+                         (16, 3, 1365, 100)):         # run != k, W to 4095
+        ids, d = synthetic_merge_inputs(torch, dev, q, o, run, o * run)
+        for name, a, b in zip(("ids", "dists"),
+                              merge_topk.merge_topk(ids, d, k=k, run=run),
+                              ref.merge_topk_ref(ids, d, k=k, run=run)):
+            bitwise(torch, "merge_topk", f"Q={q} O={o} run={run} k={k} "
+                    f"{name}", a, b)
+
+    for n_lanes, m, ef, dim in ((512, 3000, 40, 128), (64, 9000, 300, 121),
+                                (16, 1024, 1024, 128)):
+        args = synthetic_scan_inputs(torch, dev, n_lanes, m, 16, 64, m)
+        lut = args[4].clone()
+        lut[:, dim:] = 0
+        args = (*args[:4], lut, *args[5:])
+        for name, a, b in zip(
+                ("ids", "ranks"),
+                cluster_scan.cluster_scan(*args, dim, ef, m),
+                ref.cluster_scan_ref(*args, dim, ef, m)):
+            bitwise(torch, "cluster_scan", f"L={n_lanes} M={m} EF={ef} "
+                    f"dim={dim} {name}", a, b)
 
 
 def phase_build_index(torch, dev):
@@ -315,11 +423,11 @@ def phase_search(torch, eng, qt):
         f"{live.numel()} live lanes; dropped lanes "
         f"{int(stats.dropped_lanes)}")
     print("kernels " + json.dumps(counts), flush=True)
-    if min(counts.values()) == 0:
+    if min(counts["binary_ip_rank"], counts["topk_select"]) == 0:
         fail(f"a kernel of the path was never launched: {counts}")
     if recall < 0.5:
         fail(f"recall@10 {recall:.4f} < 0.5")
-    return counts, recall, qps
+    return counts, recall, qps, res
 
 
 def phase_breakdown(torch, eng, qt, search_ms):
@@ -432,6 +540,219 @@ def phase_kernels_real(torch, eng, qt):
     return {"binary_ip_rank": rank_row, "topk_select": topk_row}
 
 
+def recall_at(torch, eng, qt, ids) -> float:
+    from repro_torch.data import synthetic
+    gt = synthetic.ground_truth(eng.host.vectors, qt, ids.shape[1])
+    hit = (ids.long()[:, :, None] == gt[:, None, :]).any(-1).sum()
+    return float(hit) / gt.numel()
+
+
+def phase_gemv(torch, eng, qt, beam_recall):
+    """Phase 8: the same engine in GEMV mode. copy.copy shares every
+    tensor, so it costs no device memory; one cluster_scan launch ranks
+    and selects every probed cluster whole. The counted search's own
+    cluster_scan arguments are recorded for phase 10."""
+    from repro_torch.kernels import ops
+    geng = copy.copy(eng)
+    geng.scfg = dataclasses.replace(eng.scfg, scan="gemv")
+    geng.search(qt)                                   # warm
+    torch.cuda.synchronize()
+    scan_calls = []
+    real_scan = ops.cluster_scan
+
+    def recording_scan(*args):
+        scan_calls.append(args)
+        return real_scan(*args)
+    ops.cluster_scan = recording_scan
+    ops.reset_launch_counts()
+    try:
+        t = time.perf_counter()
+        res, stats = geng.search(qt)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    finally:
+        ops.cluster_scan = real_scan
+    counts = ops.launch_counts()
+    qps = [qt.shape[0] / dt]
+    for _ in range(3):
+        t = time.perf_counter()
+        geng.search(qt)
+        torch.cuda.synchronize()
+        qps.append(qt.shape[0] / (time.perf_counter() - t))
+    if res.ids.shape != (qt.shape[0], eng.scfg.k) or not torch.isfinite(
+            res.dists[res.ids >= 0]).all():
+        fail(f"gemv search output malformed: ids {tuple(res.ids.shape)}")
+    recall = recall_at(torch, eng, qt, res.ids)
+    log(f"gemv search of {qt.shape[0]} queries: {dt * 1e3:.2f} ms, QPS "
+        f"{', '.join(f'{v:.1f}' for v in qps)} (first = the counted run); "
+        f"recall@10 {recall:.4f} (beam {beam_recall:.4f}); "
+        f"{int((stats.hops > 0).sum())} live lanes")
+    print("kernels gemv " + json.dumps(counts), flush=True)
+    want = {"cluster_scan": 1, "topk_select": 1, "binary_ip_rank": 0}
+    if any(counts[k] != v for k, v in want.items()) or len(scan_calls) != 1:
+        fail(f"gemv search launched {counts} ({len(scan_calls)} recorded "
+             f"cluster_scan calls), expected {want}")
+    if recall < 0.5:
+        fail(f"gemv recall@10 {recall:.4f} < 0.5")
+    if recall < beam_recall:
+        log(f"gemv recall {recall:.4f} is below the beam's {beam_recall:.4f}"
+            f" within the same probed clusters")
+    return scan_calls[0], counts, recall, qps
+
+
+def phase_sharded(torch, eng, qt, single, beam_recall):
+    """Phase 9: the sharded tier over 8 disjoint partition engines on this
+    card; every query arrives at t = 0. Held against the single engine's
+    search of the same queries (phase 5)."""
+    from repro_torch.core import topology
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    topo = topology.TopologyConfig(shards=8, buckets=(256, 1024)).build(eng)
+    torch.cuda.synchronize()
+    log(f"partitioned into 8 engines in {time.perf_counter() - t:.1f} s; "
+        f"device memory {before / 2**30:.2f} GiB before, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    topo.warm()
+    q = qt.cpu().numpy()
+    t = time.perf_counter()
+    topo.run(q)                  # warm at the real bucket shapes and probes
+    torch.cuda.synchronize()
+    log(f"warm-up run {1e3 * (time.perf_counter() - t):.2f} ms")
+    ops.reset_launch_counts()
+    rep = topo.run(q)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    runs = [rep] + [topo.run(q) for _ in range(4)]
+    med = {key: float(np.median([getattr(r, key) for r in runs]))
+           for key in ("qps", "p50_ms", "p99_ms")}
+    per_shard = [d["queries"] for d in rep.per_engine]
+    log(f"sharded runs of {rep.n_queries} queries (the first counted): QPS "
+        f"{', '.join(f'{r.qps:.1f}' for r in runs)}; p50 ms "
+        f"{', '.join(f'{r.p50_ms:.2f}' for r in runs)}; p99 ms "
+        f"{', '.join(f'{r.p99_ms:.2f}' for r in runs)}; median QPS "
+        f"{med['qps']:.1f}, p50 {med['p50_ms']:.2f} ms, p99 "
+        f"{med['p99_ms']:.2f} ms")
+    log(f"counted run: makespan {rep.makespan_s * 1e3:.2f} ms; fanout_mean "
+        f"{rep.fanout_mean:.3f}, n_flushes {rep.n_flushes}, n_merges "
+        f"{rep.n_merges} (sizes {rep.merge_sizes}), n_unrouted "
+        f"{rep.n_unrouted}, n_shed {rep.n_shed}; queries per shard "
+        f"{per_shard}")
+    print("kernels sharded " + json.dumps(counts), flush=True)
+    if counts["merge_topk"] == 0:
+        fail(f"the sharded run never launched merge_topk: {counts}")
+    ids, dists = rep.ids, rep.dists
+    want_ids, want_d = single.ids.cpu().numpy(), single.dists.cpu().numpy()
+    if ids.shape != want_ids.shape:
+        fail(f"sharded ids {ids.shape} vs single engine {want_ids.shape}")
+    same = ids == want_ids
+    log(f"sharded ids equal the single engine's in {int(same.sum())} of "
+        f"{same.size} slots; {int((~same).sum())} differ")
+    if same.mean() < 0.999:
+        fail(f"sharded ids match the single engine in only "
+             f"{same.mean():.5f} of slots")
+    err = np.abs(dists[same] - want_d[same])
+    if not np.allclose(dists[same], want_d[same], rtol=1e-5, atol=1e-4):
+        fail(f"sharded dists differ from the single engine's where the ids "
+             f"agree (max |diff| {err.max()})")
+    recall = recall_at(torch, eng, qt, torch.from_numpy(ids).to(qt.device))
+    log(f"sharded recall@10 {recall:.4f} (single engine {beam_recall:.4f}); "
+        f"max |dist diff| where ids agree {float(err.max()):.3g}")
+    if abs(recall - beam_recall) > 0.001:
+        fail(f"sharded recall {recall:.4f} is not within 0.001 of the "
+             f"single engine's {beam_recall:.4f}")
+    return topo, counts, rep, med
+
+
+def sink_partials(torch, topo, q):
+    """The origin merge's real input: every shard's search_probed partial
+    top-k of q, gathered in ShardedSink's slot layout, (N, fanout * k)."""
+    tables, touches, _, _ = topo._route_probes(q)
+    slots = np.cumsum(touches, axis=1) - 1
+    k = topo.k
+    part_ids = np.full((len(q), topo.fanout * k), -1, np.int32)
+    part_d = np.full((len(q), topo.fanout * k), np.inf, np.float32)
+    for o, grp in enumerate(topo.groups):
+        rows = np.nonzero(touches[:, o])[0]
+        if not len(rows):
+            continue
+        res, _ = grp[0].search_probed(q[rows], tables[o][rows])
+        cols = slots[rows, o][:, None] * k + np.arange(k)
+        part_ids[rows[:, None], cols] = res.ids.cpu().numpy()
+        part_d[rows[:, None], cols] = res.dists.cpu().numpy()
+    dev = topo.device
+    return (torch.from_numpy(part_ids).to(dev),
+            torch.from_numpy(part_d).to(dev))
+
+
+def plain_scan(torch, ref, args, dim, ef, m, chunk=128):
+    """cluster_scan's plain version over every lane, ``chunk`` lanes at a
+    time: one call over all lanes would hold an (L, M, dim) int64 table."""
+    codes, f_add, per_lane = args[0], args[1], args[2:]
+    outs = [ref.cluster_scan_ref(codes, f_add,
+                                 *(t[i:i + chunk] for t in per_lane),
+                                 dim, ef, m)
+            for i in range(0, per_lane[0].shape[0], chunk)]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def phase_new_kernels_real(torch, topo, rep, scan_call, qt):
+    """Phase 10: merge_topk on the real gathered partials of phase 9 and
+    cluster_scan on the arguments of phase 8's counted gemv search, each
+    held bitwise against its plain version and timed beside it."""
+    from repro_torch.kernels import cluster_scan, merge_topk, ref
+    k = topo.k
+    ids, d = sink_partials(torch, topo, qt.cpu().numpy())
+    got = merge_topk.merge_topk(ids, d, k=k)
+    for name, a, b in zip(("ids", "dists"), got,
+                          ref.merge_topk_ref(ids, d, k=k)):
+        bitwise(torch, "merge_topk", f"real Q={ids.shape[0]} W={ids.shape[1]} "
+                f"{name}", a, b)
+    if not (got[0].cpu().numpy() == rep.ids).all():
+        fail("merge_topk on the rebuilt partials disagrees with the "
+             "sharded run's output")
+    merge_row = timed_row(
+        torch, f"merge_topk real Q={ids.shape[0]} W={ids.shape[1]} k={k}",
+        lambda: merge_topk.merge_topk(ids, d, k=k),
+        lambda: ref.merge_topk_ref(ids, d, k=k), 100,
+        merge_bound(ids.shape[0], ids.shape[1], k))
+    lib, lib_wall = times(torch, lambda: torch.topk(d, k, largest=False),
+                          100)
+    merge_row["library_ms"] = lib if lib is not None else lib_wall
+    log(f"merge_topk library (torch.topk, another tie order): "
+        f"{merge_row['library_ms']:.5f} ms on the device")
+
+    args, (dim, ef, m) = scan_call[:9], scan_call[9:]
+    live = args[8]
+    w = args[0].shape[1]
+    sel = torch.nonzero(live)[:64, 0]
+    sub = (*args[:2], *(t[sel].contiguous() for t in args[2:]))
+    for name, x, y in zip(("ids", "ranks"),
+                          cluster_scan.cluster_scan(*sub, dim, ef, m),
+                          ref.cluster_scan_ref(*sub, dim, ef, m)):
+        bitwise(torch, "cluster_scan", f"real 64 lanes {name}", x, y)
+    timed_row(torch, f"cluster_scan real 64 live lanes M={m} EF={ef}",
+              lambda: cluster_scan.cluster_scan(*sub, dim, ef, m),
+              lambda: ref.cluster_scan_ref(*sub, dim, ef, m), 30,
+              scan_bound(torch, sub[2], sub[3], sub[8], sub[4], w, dim, ef))
+    for name, x, y in zip(("ids", "ranks"),
+                          cluster_scan.cluster_scan(*args, dim, ef, m),
+                          plain_scan(torch, ref, args, dim, ef, m)):
+        bitwise(torch, "cluster_scan", f"real all {live.numel()} lanes "
+                f"{name}", x, y)
+    scan_row = timed_row(
+        torch, f"cluster_scan real gemv search L={live.numel()} "
+        f"({int(live.sum())} live) M={m} EF={ef}",
+        lambda: cluster_scan.cluster_scan(*args, dim, ef, m),
+        lambda: plain_scan(torch, ref, args, dim, ef, m), 30,
+        scan_bound(torch, args[2], args[3], args[8], args[4], w, dim, ef))
+    scan_row["library_ms"] = None
+    return {"merge_topk": merge_row, "cluster_scan": scan_row}
+
+
 def main() -> None:
     try:
         import torch
@@ -450,25 +771,45 @@ def main() -> None:
     phase_build_kernels()
     phase_kernels_synthetic(torch, dev)
     eng, qt, build_s = phase_build_index(torch, dev)
-    counts, recall, qps = phase_search(torch, eng, qt)
+    counts, recall, qps, single = phase_search(torch, eng, qt)
     phase_breakdown(torch, eng, qt,
                     1e3 * qt.shape[0] / sorted(qps)[len(qps) // 2])
     timing = phase_kernels_real(torch, eng, qt)
+    scan_call, gemv_counts, gemv_recall, gemv_qps = phase_gemv(
+        torch, eng, qt, recall)
+    topo, sharded_counts, rep, med = phase_sharded(torch, eng, qt, single,
+                                                   recall)
+    timing.update(phase_new_kernels_real(torch, topo, rep, scan_call, qt))
+    del topo
 
     src = {"binary_ip_rank": ("src/repro_torch/kernels/csrc/binary_ip.cu",
                               "src/repro/kernels/binary_ip.py:79"),
            "topk_select": ("src/repro_torch/kernels/csrc/topk_select.cu",
-                           "src/repro/kernels/topk_select.py:181")}
+                           "src/repro/kernels/topk_select.py:181"),
+           "merge_topk": ("src/repro_torch/kernels/csrc/merge_topk.cu",
+                          "src/repro/kernels/topk_select.py:236"),
+           "cluster_scan": ("src/repro_torch/kernels/csrc/cluster_scan.cu",
+                            "src/repro/kernels/binary_ip.py:162")}
+    # launches: each kernel's count in the run of its own path (phase 5 the
+    # beam search, 8 the gemv search, 9 the sharded tier)
+    launches = {"binary_ip_rank": counts["binary_ip_rank"],
+                "topk_select": counts["topk_select"],
+                "cluster_scan": gemv_counts["cluster_scan"],
+                "merge_topk": sharded_counts["merge_topk"]}
     kernels = [dict(name=name, route="cuda", source=src[name][0],
-                    replaces=src[name][1], launches=counts[name],
+                    replaces=src[name][1], launches=launches[name],
                     max_abs_err=ERRS[name], ms=timing[name]["ms"],
                     plain_ms=timing[name]["plain_ms"],
                     bound_ms=timing[name]["bound_ms"],
-                    bound_by=timing[name]["bound_by"], library_ms=None)
-               for name in ("binary_ip_rank", "topk_select")]
+                    bound_by=timing[name]["bound_by"],
+                    library_ms=timing[name].get("library_ms"))
+               for name in src]
     log(f"card {card}; n={N}; build {build_s:.1f} s; recall@10 "
-        f"{recall:.4f}; QPS {qps[0]:.1f}; no single PyTorch call computes "
-        f"either kernel's function, so library_ms is null")
+        f"{recall:.4f} beam, {gemv_recall:.4f} gemv, sharded equal to beam; "
+        f"QPS {qps[0]:.1f} beam, {gemv_qps[0]:.1f} gemv, {med['qps']:.1f} "
+        f"sharded (median of 5); no single PyTorch call computes binary_ip_rank, "
+        f"topk_select (a dedup first) or cluster_scan (a rank and a "
+        f"selection), so their library_ms is null")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,10 +33,19 @@ def host_store_from_numpy(vectors, centroids, device="cuda") -> HostStore:
 
 
 def placement_from_numpy(order, shard_of, local_slot, n_shards: int,
-                         per_shard: int, load, mem=None) -> Placement:
+                         per_shard: int, load, mem=None, mem_reclaimable=None,
+                         owners_of=None, locals_of=None,
+                         resident_table=None) -> Placement:
+    """The fields of the JAX package's ``Placement``, as numpy."""
+    def opt(a, dtype):
+        return None if a is None else np.asarray(a, dtype)
     return Placement(order=np.asarray(order, np.int32),
                      shard_of=np.asarray(shard_of, np.int32),
                      local_slot=np.asarray(local_slot, np.int32),
                      n_shards=int(n_shards), per_shard=int(per_shard),
                      load=np.asarray(load, np.float64),
-                     mem=None if mem is None else np.asarray(mem, np.float64))
+                     mem=opt(mem, np.float64),
+                     mem_reclaimable=opt(mem_reclaimable, np.float64),
+                     owners_of=opt(owners_of, np.int32),
+                     locals_of=opt(locals_of, np.int32),
+                     resident_table=opt(resident_table, np.int32))

@@ -3,7 +3,7 @@
 
 A backend owns its slice of the placed index (``index_arrays``), its
 per-lane LUT preparation (``prepare_lanes``) and its candidate-ranking
-kernel (``rank_ids`` for a beam hop, ``rank_cluster`` for the full scan),
+kernels (``rank_ids`` for a beam hop, ``scan_cluster`` for the full scan),
 and declares its rank dtype and pad rank, so that core/beam_search.py does
 not depend on any one backend. ``SearchConfig.mode`` is a registry key.
 
@@ -23,6 +23,7 @@ import torch
 
 from . import mulfree
 from ..kernels import ops as kernel_ops
+from ..kernels.ref import wrap_int32
 
 __all__ = ["LaneConfig", "RankingBackend", "register_backend", "get_backend",
            "available_backends", "MulFreeBackend", "MulFreeArrays",
@@ -81,6 +82,23 @@ class RankingBackend:
     def rank_cluster(self, shard, cl, lanes, dim: int):
         """Rank every node of cluster cl[l] per lane: (L, M)."""
         raise NotImplementedError
+
+    def scan_cluster(self, shard, cl, lanes, dim: int, ef: int, active):
+        """The EF best nodes of cluster cl[l] per lane, in the order of the
+        reference's ``lax.top_k`` over the negated int32 ranks: ascending
+        rank, ties to the lower node id, nodes at n_valid or beyond ranking
+        ``pad_rank``, a rank of INT_MIN last (its negation wraps to
+        itself). -> (ids (L, EF) int32 local, ranks (L, EF)). ``active``
+        (L,) bool marks the lanes the engine keeps; this default ranks
+        every lane through the (L, M) table of ``rank_cluster``."""
+        m = shard.codes.shape[-2]
+        node_valid = torch.arange(m, device=cl.device)[None, :] \
+            < shard.n_valid[cl][:, None]
+        r = torch.where(node_valid, self.rank_cluster(shard, cl, lanes, dim),
+                        self.pad_rank)
+        neg, ids = torch.sort(wrap_int32(-r.long()), dim=1, descending=True,
+                              stable=True)
+        return ids[:, :ef].to(torch.int32), wrap_int32(-neg[:, :ef].long())
 
 
 _REGISTRY: dict[str, RankingBackend] = {}
@@ -145,6 +163,19 @@ class MulFreeBackend(RankingBackend):
         rows = cl[:, None].to(torch.int32) * m + torch.arange(
             m, dtype=torch.int32, device=cl.device)
         return self._rank_rows(shard, cl, rows, lanes, dim)
+
+    def scan_cluster(self, shard, cl, lanes: MulFreeLanes, dim, ef, active):
+        """One ``cluster_scan`` launch over all lanes: the fused rank and
+        top-EF, without the (L, M) rank table; inactive lanes read
+        nothing."""
+        a: MulFreeArrays = shard.arrays
+        m = shard.codes.shape[-2]
+        return kernel_ops.cluster_scan(
+            shard.codes.reshape(-1, shard.codes.shape[-1]),
+            a.f_add.reshape(-1), (cl.to(torch.int32) * m).contiguous(),
+            shard.n_valid[cl].contiguous(), lanes.lut, lanes.sumq,
+            a.shift1[cl].contiguous(), a.shift2[cl].contiguous(),
+            active.contiguous(), dim, ef, m)
 
 
 register_backend(MulFreeBackend())

@@ -20,7 +20,6 @@ from typing import NamedTuple
 import torch
 
 from .backends import LaneConfig, RankingBackend
-from ..kernels.ref import wrap_int32
 
 __all__ = ["BeamResult", "beam_search_lane", "full_scan_lane"]
 
@@ -115,19 +114,13 @@ def beam_search_lane(shard, cl: torch.Tensor, lanes, *,
 def full_scan_lane(shard, cl: torch.Tensor, lanes, *,
                    backend: RankingBackend, cfg: LaneConfig,
                    active: torch.Tensor | None = None) -> BeamResult:
-    """GEMV-mode scan of every lane's whole cluster: the EF best ranks,
-    ties to the lower node id. Inactive lanes report 0 hops."""
+    """GEMV-mode scan of every lane's whole cluster through the backend's
+    ``scan_cluster``: the EF best ranks, ties to the lower node id.
+    Inactive lanes report 0 hops."""
     m = shard.codes.shape[-2]
-    cl = cl.long()
-    node_valid = torch.arange(m, device=cl.device)[None, :] \
-        < shard.n_valid[cl][:, None]
-    r = backend.rank_cluster(shard, cl, lanes, cfg.dim)          # (L, M)
-    r = torch.where(node_valid, r, backend.pad_rank)
-    # lax.top_k(-r): the negation wraps in int32 like the reference's
-    neg, ids = torch.sort(wrap_int32(-r.long()), dim=1, descending=True,
-                          stable=True)
-    hops = torch.full((cl.shape[0],), m, dtype=torch.int32, device=cl.device)
-    if active is not None:
-        hops = torch.where(active, hops, 0)
-    return BeamResult(ids[:, :cfg.ef].to(torch.int32),
-                      wrap_int32(-neg[:, :cfg.ef].long()), hops)
+    if active is None:
+        active = torch.ones(cl.shape[0], dtype=torch.bool, device=cl.device)
+    ids, rank = backend.scan_cluster(shard, cl.long(), lanes, cfg.dim,
+                                     cfg.ef, active)
+    hops = torch.where(active, m, 0).to(torch.int32)
+    return BeamResult(ids, rank, hops)

@@ -216,11 +216,10 @@ class PIMCQGEngine:
         return cls(idx, host, pl, icfg, scfg, buckets=buckets, device=device)
 
     # -- query path ---------------------------------------------------------
-    def _route(self, queries: torch.Tensor, nq: int):
-        """Cluster filter (+ adaptive mask) and lane routing of a batch
-        whose first nq rows are real."""
-        cfg, s = self.scfg, self.place.n_shards
-        b = queries.shape[0]
+    def _probes(self, queries: torch.Tensor) -> torch.Tensor:
+        """Cluster filter (+ adaptive mask): (B, nprobe) global cluster
+        ids, -1 where a probe is masked."""
+        cfg = self.scfg
         probe, pdist = ivf.cluster_filter(queries, self.index.centroids,
                                           nprobe=cfg.nprobe)
         if cfg.adaptive_tau > 0:
@@ -229,10 +228,21 @@ class PIMCQGEngine:
                 min_probes=cfg.adaptive_min_probes,
                 ladder=cfg.adaptive_ladder)
             probe = torch.where(keep, probe, -1)
+        return probe
+
+    def _route(self, queries: torch.Tensor, nq: int,
+               probe: torch.Tensor | None = None):
+        """Lane routing of a batch whose first nq rows are real, over the
+        (B, P) probe table of this engine's cluster ids (-1 = hole); the
+        cluster filter's probes unless ``probe`` is given. Lane capacity is
+        reckoned over P and this engine's inner shards."""
+        cfg, s = self.scfg, self.place.n_shards
+        if probe is None:
+            probe = self._probes(queries)
+        b, p = probe.shape
         valid = torch.arange(b, device=self.device) < nq
-        capacity = _lane_capacity(b, cfg.nprobe, s, cfg.lane_capacity_factor)
-        cap_valid = _lane_capacity(nq, cfg.nprobe, s,
-                                   cfg.lane_capacity_factor)
+        capacity = _lane_capacity(b, p, s, cfg.lane_capacity_factor)
+        cap_valid = _lane_capacity(nq, p, s, cfg.lane_capacity_factor)
         lane_q, lane_cl, inv, dropped = route_lanes(
             probe, self.shard_of, self.local_slot, valid, cap_valid,
             n_shards=s, capacity=capacity)
@@ -251,11 +261,13 @@ class PIMCQGEngine:
             self.index.rotation, shard.arrays, fc, self.icfg.dim)
         return shard, fc, lanes, lane_cl >= 0
 
-    def _candidates(self, queries: torch.Tensor, nq: int):
+    def _candidates(self, queries: torch.Tensor, nq: int,
+                    probe: torch.Tensor | None = None):
         """Route, search every lane, and gather each query's candidates:
-        -> (valid (B,), cand (B, nprobe*ef) global ids, SearchStats)."""
+        -> (valid (B,), cand (B, P*ef) global ids, SearchStats)."""
         cfg = self.scfg
-        valid, lane_q, lane_cl, inv, dropped = self._route(queries, nq)
+        valid, lane_q, lane_cl, inv, dropped = self._route(queries, nq,
+                                                           probe)
         shard, fc, lanes, live = self._lanes(queries, lane_q, lane_cl)
         scan = beam_search.full_scan_lane if cfg.scan == "gemv" \
             else beam_search.beam_search_lane
@@ -268,14 +280,11 @@ class PIMCQGEngine:
         hops = torch.where(live, res.hops, 0).reshape(lane_q.shape)
         cand = gids[inv.clamp(min=0).long()]                  # (B, P, EF)
         cand = torch.where((inv >= 0)[..., None], cand, -1)
-        cand = cand.reshape(queries.shape[0], cfg.nprobe * cfg.ef)
+        cand = cand.reshape(queries.shape[0], inv.shape[1] * cfg.ef)
         return valid, cand.contiguous(), SearchStats(hops, dropped)
 
-    def search(self, queries, *, pad_to: int | None = None
-               ) -> tuple[rerank_mod.RerankResult, SearchStats]:
-        """Search; with pad_to=B >= len(queries) the batch is zero-padded to
-        B rows, and the results of the real queries are those of an
-        unpadded search."""
+    def _padded(self, queries, pad_to: int | None):
+        """(queries on the device zero-padded to pad_to rows, real rows)."""
         queries = torch.as_tensor(queries, dtype=torch.float32).to(
             self.device)
         nq = queries.shape[0]
@@ -285,12 +294,50 @@ class PIMCQGEngine:
         if b > nq:
             queries = torch.cat([queries, queries.new_zeros(
                 (b - nq, queries.shape[1]))])
-        valid, cand, stats = self._candidates(queries, nq)
+        return queries, nq
+
+    def _finish(self, queries, nq: int, valid, cand, stats):
         out = rerank_mod.rerank(queries, cand, self.host.vectors,
                                 k=self.scfg.k)
         ids = torch.where(valid[:, None], out.ids, -1)
         dists = torch.where(valid[:, None], out.dists, float("inf"))
         return rerank_mod.RerankResult(ids[:nq], dists[:nq]), stats
+
+    def search(self, queries, *, pad_to: int | None = None
+               ) -> tuple[rerank_mod.RerankResult, SearchStats]:
+        """Search; with pad_to=B >= len(queries) the batch is zero-padded to
+        B rows, and the results of the real queries are those of an
+        unpadded search."""
+        queries, nq = self._padded(queries, pad_to)
+        return self._finish(queries, nq, *self._candidates(queries, nq))
+
+    def search_probed(self, queries, probe, *, pad_to: int | None = None
+                      ) -> tuple[rerank_mod.RerankResult, SearchStats]:
+        """Partial search over an EXPLICIT probe set (the sharded tier).
+
+        probe (Q, P) int32: per-query LOCAL cluster ids of this engine to
+        search; -1 entries are holes (probes owned by other engines) and
+        contribute nothing. Returns the exact-reranked top-k over exactly
+        those clusters; a row of all -1 probes yields ids -1 / dists inf.
+        With pad_to=B the results of the real rows are those of an unpadded
+        call, like ``search``."""
+        probe = torch.as_tensor(probe, dtype=torch.int32).cpu()
+        nq = len(queries)
+        if probe.shape[0] != nq:
+            raise ValueError(f"probe rows {probe.shape[0]} != queries {nq}")
+        # local ids only: a global id would search the wrong cluster
+        if probe.numel() and int(probe.max()) >= self.index.n_clusters:
+            raise ValueError(
+                f"probe id {int(probe.max())} out of range for this "
+                f"engine's {self.index.n_clusters} local clusters — "
+                f"search_probed takes LOCAL cluster ids (did you pass "
+                f"global ids from cluster_filter on an unpartitioned "
+                f"centroid set?)")
+        queries, nq = self._padded(queries, pad_to)
+        probe = torch.cat([probe, probe.new_full(
+            (queries.shape[0] - nq, probe.shape[1]), -1)]).to(self.device)
+        return self._finish(queries, nq,
+                            *self._candidates(queries, nq, probe))
 
     def search_bucketed(self, queries
                         ) -> tuple[rerank_mod.RerankResult, SearchStats]:
@@ -304,6 +351,22 @@ class PIMCQGEngine:
         raise ValueError(
             f"batch of {nq} exceeds largest bucket {self.buckets[-1]}; "
             f"split upstream")
+
+    @property
+    def compile_count(self) -> int:
+        """Search executables built: always 0, the port runs eagerly. Kept
+        so the serving tier reports compiles as the JAX package does."""
+        return 0
+
+    def warm(self, buckets: tuple[int, ...] | None = None) -> int:
+        """One search per bucket (the engine's own ladder by default), so
+        every kernel library is built and loaded before a timed stream.
+        Returns the number of executables built: 0."""
+        buckets = buckets if buckets is not None else self.buckets
+        dummy = np.zeros((1, self.icfg.dim), np.float32)
+        for b in buckets:
+            self.search(dummy, pad_to=int(b))
+        return 0
 
     # -- reporting ----------------------------------------------------------
     def footprint(self) -> dict:

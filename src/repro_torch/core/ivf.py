@@ -9,10 +9,12 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 __all__ = ["KMeansResult", "kmeans", "assign", "cluster_filter",
-           "adaptive_keep_mask"]
+           "adaptive_keep_mask", "owner_split_op", "split_probes_by_owner",
+           "owner_tables"]
 
 _CHUNK = 1 << 16   # rows per distance block in assign / Lloyd
 
@@ -102,3 +104,60 @@ def adaptive_keep_mask(probe_dists: torch.Tensor, *, tau: float,
         n = rungs[idx.clamp(0, len(ladder) - 1)]
     n = n.clamp(1, p)
     return torch.arange(p, device=probe_dists.device)[None, :] < n[:, None]
+
+
+def owner_split_op(probe_cids: torch.Tensor, owner_of: torch.Tensor,
+                   local_cid: torch.Tensor, live: torch.Tensor, *,
+                   n_owners: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The owner split of :func:`split_probes_by_owner` as one broadcast
+    compare on the tensors' device. ``live`` (Q, P) bool masks probes
+    (all-True for none). Returns tables (O, Q, P) int32 local cluster ids
+    with -1 holes, touches (Q, O) bool."""
+    hole = probe_cids < 0
+    safe = torch.where(hole, 0, probe_cids).long()         # avoid -1 wrap
+    own = torch.where(hole | ~live, -1, owner_of[safe].long())   # (Q, P)
+    local = torch.where(own >= 0, local_cid[safe].long(), -1)
+    owners = torch.arange(n_owners, device=own.device)[:, None, None]
+    tables = torch.where(own[None] == owners, local[None], -1).to(
+        torch.int32)
+    touches = (tables >= 0).any(dim=2).T                   # (Q, O)
+    return tables, touches
+
+
+def split_probes_by_owner(probe_cids: np.ndarray, owner_of: np.ndarray,
+                          local_cid: np.ndarray, n_owners: int,
+                          live: np.ndarray | None = None
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """Scatter-routing split of the IVF top-probe selection (host side).
+
+    ``probe_cids`` (Q, P) global cluster ids (-1 = hole, kept a hole in
+    every table), ``owner_of`` (C,) owning engine per cluster and
+    ``local_cid`` (C,) the cluster's id within its owner -> tables
+    (O, Q, P) int32 per-owner probe tables in LOCAL ids, -1 where the probe
+    belongs to another owner (each engine's ``search_probed`` payload), and
+    touches (Q, O) bool, the owners each query scatters to. ``live`` (Q, P)
+    bool masks probes out. The multi-owner (C, R) maps of a replicated
+    placement route through ``choose_owners``, which is not ported yet."""
+    owner_of = np.asarray(owner_of)
+    if owner_of.ndim == 2:
+        raise NotImplementedError(
+            "multi-owner routing (choose_owners) comes with hot-cluster "
+            "replication: ROADMAP queue A, replication and day-2 operations")
+    probe_cids = np.asarray(probe_cids)
+    hole = probe_cids < 0
+    safe = np.where(hole, 0, probe_cids)                   # avoid -1 wrap
+    own = np.where(hole, -1, owner_of[safe])               # (Q, P)
+    if live is not None:
+        own = np.where(live, own, -1)
+    local = np.where(own >= 0, np.asarray(local_cid)[safe], -1)
+    return owner_tables(own, local, n_owners)
+
+
+def owner_tables(own: np.ndarray, local: np.ndarray, n_owners: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-owner probe tables from explicit per-probe (owner, local id)
+    choices: (tables (O, Q, P) int32, touches (Q, O) bool)."""
+    tables = np.stack([np.where(own == o, local, -1).astype(np.int32)
+                       for o in range(n_owners)])
+    touches = (tables >= 0).any(axis=2).T                  # (Q, O)
+    return tables, touches

@@ -1,0 +1,1216 @@
+"""The serving topology, in process (counterpart of
+``repro/core/topology.py``; paper Fig 18).
+
+One ``AdmissionController`` (bounded admission queue, deadline shedding)
+fronts a tree of tier nodes:
+
+  * ``ReplicaGroup`` deals arrivals across engine replicas that serve the
+    same data (``replicate_engine``: views of one placed index).
+  * ``ShardGroup`` scatters each query to the shards owning its probed
+    clusters (``partition_index`` slices the clusters into disjoint
+    engines; ``ivf.owner_split_op`` splits the probes), each shard answers
+    an exact-reranked partial top-k (``PIMCQGEngine.search_probed``), and
+    the origin merges the gathered partials with the ``merge_topk`` kernel
+    on the engines' device: one launch per merge flush.
+
+``ServingTopology`` runs admission -> deal -> pump -> harvest -> merge for
+every tree shape; ``TopologyConfig(shards=S, replicas=R).build(eng)`` is
+the API. Every engine of a topology, and its merge, stay on the device of
+the engine it was built from.
+
+Parity contract: admitted results of any topology equal a single engine
+searching the same probed clusters. Replication shares one placed index,
+partitioning keeps the cluster slices disjoint, and each shard's partial
+top-k already carries exact distances, so the origin merge is selection
+alone over disjoint runs.
+
+Not ported yet, and refused with ``NotImplementedError`` naming the
+ROADMAP item: per-shard backends (``modes``), tenants, hedged dispatch,
+mutable indexes, autoscaling, rebalancing, hot-cluster replication,
+heat-aware placement, a prebuilt placement, the deprecated kwarg form of
+``topology()``, and the mesh execution backend.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from . import compact_index as compact_index_mod
+from . import engine as engine_mod
+from . import execbackend as execbackend_mod
+from . import ivf as ivf_mod
+from . import placement as placement_mod
+from ..kernels import ops as kernel_ops
+from .pipeline import (EngineWorker, StageCosts, StreamSink, percentile_ms,
+                       resolve_stream_params)
+
+__all__ = ["AdmissionController", "ReplicaGroup", "ShardGroup",
+           "ShardWorker", "ShardedSink", "ServingTopology", "TopologyReport",
+           "TopologyConfig", "TenantSpec", "replicate_engine",
+           "partition_index", "topology"]
+
+ROUTE_POLICIES = ("round-robin", "least-in-flight")
+SHED_POLICIES = ("drop-new", "drop-old")
+
+# ROADMAP items that the refused options wait for
+MODES_ITEM = "A2 (the exact and hamming backends, with heterogeneous modes)"
+DAY2_ITEM = ("A7 (replication, tenancy, hedging and day-2 operations: "
+             "choose_owners, rebalance, replicate_hot, straggler, autoscale, "
+             "mutable_index)")
+
+
+def _not_ported(what: str, item: str = DAY2_ITEM):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+
+
+# ---------------------------------------------------------------------------
+# engine multiplication: replicas (one index copy) and partitions (slices)
+# ---------------------------------------------------------------------------
+
+def replicate_engine(eng, n: int) -> list:
+    """N logical replicas of one built PIMCQGEngine for a single-device
+    tier. Replicas share the placed index tensors (one device copy: they
+    model N schedulable engines, not N copies of the corpus). The
+    reference's ``share_executables`` has no counterpart: the port builds
+    no executables."""
+    if n < 1:
+        raise ValueError(f"need at least one replica, got {n}")
+    return [eng] + [copy.copy(eng) for _ in range(n - 1)]
+
+
+def _slice_index(idx, members):
+    """Row-slice a CompactIndex down to the ``members`` cluster list."""
+    sel = torch.as_tensor(np.asarray(members), dtype=torch.int64,
+                          device=idx.codes.device)
+    return compact_index_mod.CompactIndex(
+        *(f[sel] if isinstance(f, torch.Tensor) and name != "rotation"
+          else f for name, f in zip(compact_index_mod.CompactIndex._fields,
+                                    idx)))
+
+
+def partition_index(eng, n_parts: int, *, mem_budget: int | None = None,
+                    strict: bool = False, modes=None, inner_shards: int = 1,
+                    freq: np.ndarray | None = None, mutable: bool = False,
+                    heat: np.ndarray | None = None, replicate_hot: int = 0,
+                    replica_factor: int = 2, placement=None
+                    ) -> tuple[list, placement_mod.Placement]:
+    """Slice one built engine's clusters into ``n_parts`` disjoint engines.
+
+    Each partition engine holds a DISJOINT cluster slice chosen by
+    ``placement.greedy_place`` over (freq, compact bytes), on the source
+    engine's device: per-engine memory scales down ~1/N. ``mem_budget``
+    (compact-index bytes) caps each partition; with ``strict=True`` an
+    infeasible partitioning raises. ``inner_shards`` is each partition's
+    intra-engine shard count. The host store (raw rerank vectors, global-id
+    addressed) is shared. Returns (engines, placement);
+    ``placement.shard_of`` / ``local_slot`` are the owner map and the
+    per-owner local cluster ids the scatter router consumes.
+
+    ``modes``, ``mutable``, ``heat``, ``replicate_hot``, a
+    ``replica_factor`` other than its default and ``placement`` are not
+    ported yet and raise ``NotImplementedError``."""
+    if n_parts < 1:
+        raise ValueError(f"need at least one partition, got {n_parts}")
+    if modes is not None:
+        _not_ported("per-partition backends (modes)", MODES_ITEM)
+    if mutable:
+        _not_ported("mutable partitioning (mutable=True)")
+    if heat is not None:
+        _not_ported("heat-aware placement (heat=)")
+    if replicate_hot:
+        _not_ported("hot-cluster replication (replicate_hot)")
+    if replica_factor != 2:
+        _not_ported("a hot-cluster replica factor (replica_factor)")
+    if placement is not None:
+        _not_ported("a prebuilt placement (placement=)")
+    idx, icfg = eng.index, eng.icfg
+    sizes = idx.n_valid.cpu().numpy().astype(np.float64)
+    bpc = sizes * compact_index_mod.compact_bytes_per_node(icfg.dim,
+                                                           icfg.degree)
+    if freq is None:
+        freq = sizes                      # popularity ~ size as prior
+    pl = placement_mod.greedy_place(np.asarray(freq, np.float64), bpc,
+                                    n_parts, mem_budget=mem_budget,
+                                    strict=strict)
+    engines = []
+    for o in range(n_parts):
+        members = pl.resident(o)
+        sub_pl = placement_mod.greedy_place(sizes[members], bpc[members],
+                                            inner_shards)
+        engines.append(engine_mod.PIMCQGEngine(
+            _slice_index(idx, members), eng.host, sub_pl, icfg, eng.scfg,
+            buckets=eng.buckets, device=eng.device))
+    return engines, pl
+
+
+# ---------------------------------------------------------------------------
+# admission control (numpy, as in the reference)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TenantSpec:
+    """One tenant's contract with the serving tier.
+
+    ``weight`` sets the DWRR share under contention (quanta are weights
+    normalized so the lightest tenant replenishes 1 per round).
+    ``queue_depth``/``deadline_s``/``credits`` bound, respectively, how
+    many of the tenant's queries may wait at admission (None = the tier's
+    global depth; 0 = admit nothing), how long one may wait before it is
+    shed, and how many may be dealt-but-unfinished at once (in-service
+    quota — a tenant at its quota stops being dealable until completions
+    release credits via ``StreamSink.on_finish``). ``shed_policy``
+    chooses the overflow victim: ``drop-new`` sheds the arrival (the
+    default), ``drop-old`` evicts the tenant's oldest waiter to
+    make room. ``backend`` pins the tenant to shards declaring that
+    RankingBackend mode; ``k``/``nprobe``/``adaptive_tau`` (+
+    ``adaptive_min_probes``) override the engines' search effort for this
+    tenant's queries only — nprobe/tau apply at the sharded origin
+    scatter, k truncates the tenant's result rows everywhere."""
+
+    name: str
+    weight: float = 1.0
+    queue_depth: int | None = None
+    deadline_s: float | None = None
+    credits: int | None = None
+    shed_policy: str = "drop-new"
+    backend: str | None = None
+    k: int | None = None
+    nprobe: int | None = None
+    adaptive_tau: float | None = None
+    adaptive_min_probes: int = 1
+
+    def __post_init__(self):
+        if not self.name:
+            raise ValueError("a tenant needs a non-empty name")
+        if not (isinstance(self.weight, (int, float)) and self.weight > 0):
+            raise ValueError(f"tenant {self.name!r}: weight must be > 0, "
+                             f"got {self.weight}")
+        if self.queue_depth is not None and self.queue_depth < 0:
+            raise ValueError(f"tenant {self.name!r}: queue_depth must be "
+                             f">= 0 or None, got {self.queue_depth}")
+        if self.deadline_s is not None and not self.deadline_s > 0:
+            raise ValueError(f"tenant {self.name!r}: deadline_s must be "
+                             f"> 0 or None, got {self.deadline_s}")
+        if self.credits is not None and self.credits < 1:
+            raise ValueError(f"tenant {self.name!r}: credits must be >= 1 "
+                             f"or None, got {self.credits}")
+        if self.shed_policy not in SHED_POLICIES:
+            raise ValueError(f"tenant {self.name!r}: shed_policy must be "
+                             f"one of {SHED_POLICIES}, "
+                             f"got {self.shed_policy!r}")
+        if self.k is not None and self.k < 1:
+            raise ValueError(f"tenant {self.name!r}: k must be >= 1 or "
+                             f"None, got {self.k}")
+        if self.nprobe is not None and self.nprobe < 1:
+            raise ValueError(f"tenant {self.name!r}: nprobe must be >= 1 "
+                             f"or None, got {self.nprobe}")
+        if self.adaptive_tau is not None and not self.adaptive_tau >= 0:
+            raise ValueError(f"tenant {self.name!r}: adaptive_tau must be "
+                             f">= 0 or None, got {self.adaptive_tau}")
+        if self.adaptive_min_probes < 1:
+            raise ValueError(f"tenant {self.name!r}: adaptive_min_probes "
+                             f"must be >= 1, got {self.adaptive_min_probes}")
+
+
+class AdmissionController:
+    """Bounded admission queue(s) + deadline shedding in front of a tier
+    tree, scheduled deficit-weighted-round-robin across tenants.
+
+    With no tenant registry (the default) there is ONE tenant and the
+    controller is a FIFO: ``offer`` admits an arrival
+    unless the queue is full (``depth`` entries; None = unbounded — a
+    full queue sheds the arrival immediately), ``expire`` drops queries
+    at the HEAD whose wait has reached ``deadline_s`` (each queue is
+    arrival-ordered, so its head is always the oldest): every query that
+    IS dealt downstream started within its deadline.
+
+    With ``tenants`` (a list of TenantSpec, ``tenant_of`` mapping each
+    query index to its tenant), each tenant gets its own bounded queue
+    and the dealing order is DWRR: each rotation visit banks
+    ``quantum = weight / min(weight)`` deficit (capped at quantum + 1 so
+    an idle-then-bursty tenant cannot hoard service; an EMPTY queue's
+    deficit resets to 0), one pop costs 1. Per-tenant ``deadline_s``
+    overrides the tier deadline in ``expire``/``next_deadline`` (each
+    queue's head is checked against ITS OWN deadline); per-tenant
+    ``credits`` cap dealt-but-unfinished
+    queries — ``pop`` takes a credit, ``release`` (wired to the sink's
+    completion hook) returns it, and a tenant at its cap is skipped by
+    the rotation without consuming deficit.
+
+    Tier-node credit backpressure is the other half of the contract, but
+    it lives in the tree (``room()``) — the controller only holds what
+    the tree refuses."""
+
+    def __init__(self, depth: int | None, deadline_s: float | None,
+                 arrivals: np.ndarray, *, tenants=None, tenant_of=None):
+        self.depth = depth
+        self.deadline_s = deadline_s
+        self.arr = arrivals
+        self.tenants: list[TenantSpec] = \
+            list(tenants) if tenants else [TenantSpec("default")]
+        T = len(self.tenants)
+        if tenant_of is None:
+            tenant_of = np.zeros(len(arrivals), np.int32)
+        self.tenant_of = np.asarray(tenant_of, np.int32)
+        if len(self.tenant_of) != len(arrivals):
+            raise ValueError(f"tenant_of has {len(self.tenant_of)} entries "
+                             f"for {len(arrivals)} arrivals")
+        self.queues: list[deque] = [deque() for _ in range(T)]
+        wmin = min(s.weight for s in self.tenants)
+        self.quanta = [s.weight / wmin for s in self.tenants]
+        self.deficit = [0.0] * T
+        self._cur: int | None = None      # DWRR rotation position
+        self.in_service = [0] * T         # dealt, completion not yet seen
+        self.max_in_service = [0] * T
+        self.dealt = [0] * T
+        self.evicted: deque = deque()     # drop-old victims awaiting shed
+        self._depth = [s.queue_depth if s.queue_depth is not None else depth
+                       for s in self.tenants]
+        self._deadline = [s.deadline_s if s.deadline_s is not None
+                          else deadline_s for s in self.tenants]
+
+    @property
+    def queue(self) -> deque:
+        """The single-tenant queue (back-compat introspection handle)."""
+        if len(self.queues) != 1:
+            raise AttributeError("multi-tenant controller has no single "
+                                 "queue; use .queues")
+        return self.queues[0]
+
+    def __len__(self) -> int:
+        return sum(len(q) for q in self.queues)
+
+    def offer(self, idx: int) -> bool:
+        """Admit an arrival; False = its tenant's queue is full, shed
+        immediately (``drop-new``) — under ``drop-old`` the tenant's
+        oldest waiter is evicted instead (drain via ``drain_evicted``)
+        and the arrival is admitted."""
+        tid = int(self.tenant_of[idx])
+        q = self.queues[tid]
+        d = self._depth[tid]
+        if d is not None and len(q) >= d:
+            if self.tenants[tid].shed_policy == "drop-old" and q:
+                self.evicted.append(q.popleft())
+                q.append(idx)
+                return True
+            return False
+        q.append(idx)
+        return True
+
+    def drain_evicted(self) -> list[int]:
+        """Queries evicted by drop-old offers since the last drain."""
+        out = list(self.evicted)
+        self.evicted.clear()
+        return out
+
+    def expire(self, t: float) -> list[int]:
+        """Pop (to shed) every head-of-queue query past ITS OWN deadline
+        (each tenant's queue head is checked against that tenant's
+        deadline, falling back to the tier-wide one)."""
+        out: list[int] = []
+        for tid, q in enumerate(self.queues):
+            dl = self._deadline[tid]
+            if dl is None:
+                continue
+            while q and t - self.arr[q[0]] >= dl:
+                out.append(q.popleft())
+        return out
+
+    def next_deadline(self) -> float:
+        """Earliest instant any queue head would be shed (inf if none)."""
+        nxt = math.inf
+        for tid, q in enumerate(self.queues):
+            dl = self._deadline[tid]
+            if dl is not None and q:
+                nxt = min(nxt, float(self.arr[q[0]]) + dl)
+        return nxt
+
+    # -- DWRR dealing ---------------------------------------------------------
+    def _dealable(self, tid: int) -> bool:
+        s = self.tenants[tid]
+        return bool(self.queues[tid]) and (
+            s.credits is None or self.in_service[tid] < s.credits)
+
+    def peek(self) -> int | None:
+        """The query DWRR would deal next, WITHOUT committing it (None =
+        nothing dealable: every nonempty queue is at its credit cap).
+        Idempotent — once a candidate is found the rotation parks on it,
+        so repeated peeks (and the peek inside ``pop``) return the same
+        query without banking extra deficit."""
+        T = len(self.queues)
+        if not any(self._dealable(t) for t in range(T)):
+            return None
+        # visiting a dealable tenant at least twice guarantees deficit >= 1
+        # (each visit banks quantum >= 1), so 2T+1 steps always terminate
+        for _ in range(2 * T + 1):
+            cur = self._cur
+            if cur is not None and self._dealable(cur) \
+                    and self.deficit[cur] >= 1.0:
+                return int(self.queues[cur][0])
+            nxt = 0 if cur is None else (cur + 1) % T
+            self._cur = nxt
+            if self._dealable(nxt):
+                # cap banking at one extra pop so a blocked-then-released
+                # tenant cannot hoard an unbounded burst
+                self.deficit[nxt] = min(self.deficit[nxt] + self.quanta[nxt],
+                                        self.quanta[nxt] + 1.0)
+            elif not self.queues[nxt]:
+                self.deficit[nxt] = 0.0   # no banking while idle (DWRR rule)
+        raise AssertionError("DWRR rotation failed to find a dealable "
+                             "tenant it proved exists")
+
+    def pop(self) -> int | None:
+        """Commit the peeked query: pop it, spend 1 deficit, take an
+        in-service credit. None = nothing dealable."""
+        idx = self.peek()
+        if idx is None:
+            return None
+        tid = self._cur
+        assert self.queues[tid][0] == idx
+        self.queues[tid].popleft()
+        self.deficit[tid] -= 1.0
+        self.in_service[tid] += 1
+        self.max_in_service[tid] = max(self.max_in_service[tid],
+                                       self.in_service[tid])
+        self.dealt[tid] += 1
+        return idx
+
+    def release(self, idxs):
+        """Return in-service credits on completion (the StreamSink
+        ``on_finish`` hook)."""
+        for i in np.atleast_1d(np.asarray(idxs)):
+            self.in_service[int(self.tenant_of[int(i)])] -= 1
+
+
+# ---------------------------------------------------------------------------
+# tier nodes (per-run runtime objects; leaves are EngineWorkers)
+# ---------------------------------------------------------------------------
+
+class ReplicaGroup:
+    """Deal arrivals across N children serving the SAME data (engine
+    replicas of one index copy — or of one partition, under a ShardGroup).
+
+    Routing honors credits: ``round-robin`` deterministically cycles the
+    children with room; ``least-in-flight`` joins the shortest queue
+    (device FIFO depth, then buffer). ``deal`` consumes an admission queue
+    in flush-sized chunks (one chunk = at most one flush quantum, so
+    round-robin genuinely interleaves engines instead of filling the
+    first); ``submit`` places a single query (the ShardGroup's scatter
+    path, where the query's shard is fixed and only the replica is
+    chosen)."""
+
+    def __init__(self, workers: list, route: str = "least-in-flight"):
+        self.children = list(workers)
+        self.route = route
+        self._rr = 0
+
+    # -- capacity -----------------------------------------------------------
+    def room(self) -> int:
+        return sum(w.room() for w in self.children)
+
+    def _pick(self):
+        """Next child to feed, honoring credits; None = all backpressured."""
+        if self.route == "round-robin":
+            for off in range(len(self.children)):
+                w = self.children[(self._rr + off) % len(self.children)]
+                if w.room() > 0:
+                    self._rr = (self._rr + off + 1) % len(self.children)
+                    return w
+            return None
+        live = [w for w in self.children if w.room() > 0]
+        if not live:
+            return None
+        return min(live, key=lambda w: (w.in_flight, len(w.buf)))
+
+    # -- intake -------------------------------------------------------------
+    def deal(self, admission: AdmissionController, quantum: int):
+        """Deal queries from the admission queues (DWRR order) to children
+        in flush-sized chunks; stops when every child is out of credits OR
+        every waiting tenant is at its in-service quota (the queries wait
+        upstream — credit-based backpressure)."""
+        while len(admission):
+            w = self._pick()
+            if w is None:
+                return
+            for _ in range(min(w.room(), quantum, len(admission))):
+                idx = admission.pop()
+                if idx is None:
+                    return                # waiting tenants all credit-capped
+                w.submit(idx)
+
+    def submit(self, idx: int):
+        """Place one query on a replica (credit-aware; when every child is
+        saturated the least-loaded one buffers it — a ShardGroup parent
+        only scatters while the group has room, so this fallback fires
+        only in eager-scatter mode)."""
+        w = self._pick()
+        if w is None:
+            w = min(self.children, key=lambda c: (c.in_flight, len(c.buf)))
+        w.submit(idx)
+
+    # -- pump / harvest -----------------------------------------------------
+    def pump(self, t: float, drain: bool) -> bool:
+        progress = False
+        for w in self.children:
+            progress |= w.pump(t, drain=drain, block_when_full=False)
+        return progress
+
+    def harvest(self) -> bool:
+        got = False
+        for w in self.children:
+            got |= w.harvest(block=False)
+        return got
+
+    def block_harvest_one(self) -> bool:
+        """Block on the first child with work in flight (the run loop's
+        last resort when no deadline is pending)."""
+        for w in self.children:
+            if w.inflight:
+                w.harvest(block=True)
+                return True
+        return False
+
+    def next_deadline(self) -> float:
+        return min((w.next_deadline() for w in self.children),
+                   default=math.inf)
+
+    def idle(self) -> bool:
+        return all(w.idle() for w in self.children)
+
+    def workers(self):
+        yield from self.children
+
+
+class ShardWorker(EngineWorker):
+    """EngineWorker over one PARTITION of the index. A flush carries the
+    per-query probe rows for this engine's clusters (the scatter payload,
+    consumed by ``engine.search_probed``), and a harvest deposits PARTIAL
+    top-k into the ShardedSink's gather slots instead of final results."""
+
+    def __init__(self, engine, sink: "ShardedSink", *, probes: np.ndarray,
+                 slot: np.ndarray, shard: int = 0, **kw):
+        super().__init__(engine, sink, **kw)
+        self.probes = probes              # (N, P) local cluster ids, -1 hole
+        self.slot = slot                  # (N,) this shard's gather slot
+        self.shard = shard
+
+    def _dispatch(self, take):
+        return self.exec.search_probed(
+            self.engine, self.sink.q[take], self.probes[take],
+            pad_to=self._bucket_for(len(take)))
+
+    def _finish(self, idxs, res, _t_dispatch):
+        self.sink.finish_partial(idxs, self.slot[idxs], res.ids.cpu().numpy(),
+                                 res.dists.cpu().numpy())
+
+
+class ShardedSink(StreamSink):
+    """StreamSink plus the gather stage of the sharded tier: a per-query
+    buffer of each owning shard's partial top-k (slot-major), a countdown
+    of outstanding shards, and the queue of fully-gathered queries awaiting
+    the origin's k-selection merge."""
+
+    def __init__(self, queries: np.ndarray, arrivals: np.ndarray, k: int,
+                 fanout: int):
+        super().__init__(queries, arrivals, k)
+        n = len(queries)
+        self.k = k
+        self.part_ids = np.full((n, fanout * k), -1, np.int32)
+        self.part_d = np.full((n, fanout * k), np.inf, np.float32)
+        self.pending = np.zeros(n, np.int32)
+        self.ready: deque = deque()       # (idx, gather-complete time)
+
+    def finish_partial(self, idxs: np.ndarray, slots: np.ndarray,
+                       ids: np.ndarray, dists: np.ndarray):
+        cols = slots[:, None] * self.k + np.arange(self.k)
+        self.part_ids[idxs[:, None], cols] = ids
+        self.part_d[idxs[:, None], cols] = dists
+        self.pending[idxs] -= 1
+        t = self.now()
+        for i in idxs[self.pending[idxs] == 0]:
+            self.ready.append((int(i), t))
+
+
+class ShardGroup:
+    """Scatter each dealt query to the children (per-shard ReplicaGroups)
+    owning its probed clusters. With ``backpressure`` every touched child
+    must have room before the query leaves the admission queue (head-of-
+    line FIFO, so deadline shedding upstream stays honest); without it the
+    ShardedFleet eager scatter is reproduced (children buffer unboundedly,
+    flushes self-limit on engine credits)."""
+
+    def __init__(self, children: list, touches: np.ndarray,
+                 pending: np.ndarray, sink: ShardedSink, k: int,
+                 backpressure: bool):
+        self.children = list(children)
+        self.touches = touches            # (N, O) bool
+        self.pending = pending            # (N,) owners still outstanding
+        self.sink = sink
+        self.backpressure = backpressure
+        self._none_ids = np.full((1, k), -1, np.int32)
+        self._none_d = np.full((1, k), np.inf, np.float32)
+
+    def deal(self, admission: AdmissionController, quantum: int):
+        while len(admission):
+            idx = admission.peek()
+            if idx is None:
+                return                    # waiting tenants all credit-capped
+            if self.pending[idx] == 0:    # unrouted: completes immediately
+                admission.pop()
+                self.sink.finish(np.asarray([idx]), self._none_ids,
+                                 self._none_d)
+                continue
+            owners = np.nonzero(self.touches[idx])[0]
+            if self.backpressure and any(
+                    self.children[int(o)].room() <= 0 for o in owners):
+                return                    # head waits; deadline may shed it
+            admission.pop()
+            for o in owners:
+                self.children[int(o)].submit(idx)
+
+    def pump(self, t: float, drain: bool) -> bool:
+        progress = False
+        for c in self.children:
+            progress |= c.pump(t, drain)
+        return progress
+
+    def harvest(self) -> bool:
+        got = False
+        for c in self.children:
+            got |= c.harvest()
+        return got
+
+    def block_harvest_one(self) -> bool:
+        for c in self.children:
+            if c.block_harvest_one():
+                return True
+        return False
+
+    def next_deadline(self) -> float:
+        return min((c.next_deadline() for c in self.children),
+                   default=math.inf)
+
+    def idle(self) -> bool:
+        return all(c.idle() for c in self.children)
+
+    def workers(self):
+        for c in self.children:
+            yield from c.workers()
+
+
+# ---------------------------------------------------------------------------
+# the unified topology
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TopologyReport:
+    """Per-stream output of ServingTopology.run — the union of the fleet
+    and sharded reports. Shed queries keep the sink defaults (ids -1,
+    dists inf, latency NaN) and are flagged in ``shed``; percentiles/qps
+    cover admitted queries only (goodput). Replicated-only topologies
+    report fanout 1 and no merges."""
+    ids: np.ndarray          # (N, k) int32, submission order; -1 rows = shed
+    dists: np.ndarray        # (N, k) f32 exact squared distances
+    latency_s: np.ndarray    # (N,) completion - arrival; NaN = shed
+    shed: np.ndarray         # (N,) bool
+    shed_wait_s: np.ndarray  # (N,) queue wait at shed time; NaN = admitted
+    shed_fraction: float
+    qps: float               # admitted queries / makespan (goodput)
+    p50_ms: float
+    p99_ms: float
+    n_queries: int
+    n_admitted: int
+    n_shed: int
+    n_flushes: int
+    flush_sizes: list
+    n_merges: int            # origin gather/merge flushes (sharded only)
+    merge_sizes: list
+    fanout_mean: float       # mean shards scattered to per ADMITTED query
+    n_unrouted: int          # (shed queries never scatter and don't count)
+    per_engine: list         # per-worker dicts: shard/replica/flushes/...
+    makespan_s: float
+    route: str
+    shards: int
+    replicas: list           # replica count per shard group
+    backends: list           # per-shard declared backend (scfg.mode)
+    exec: str = "inproc"     # execution backend the tier ran on
+    tenants: dict = dataclasses.field(default_factory=dict)
+    # name -> per-tenant accounting: n_queries/n_admitted/n_shed/
+    # shed_fraction/qps/p50_ms/p99_ms/dealt/max_in_service/weight/...
+    cluster_hits: np.ndarray | None = None
+    # (C,) per-cluster scatter heat over admitted queries (sharded only):
+    # how many admitted probe slots landed on each global cluster, the
+    # measurement heat-aware placement consumes
+    shard_probes: np.ndarray | None = None
+    # (S,) probes ROUTED to each shard over admitted queries (sharded
+    # only). Under replication this differs from folding cluster_hits
+    # through part_of: it counts the owner the router actually chose, so
+    # it is the skew signal rebalancing watches.
+
+
+class ServingTopology:
+    """One admission controller fronting a tree of tier nodes.
+
+    ``groups`` is the topology spec: a list of shard groups, each a list
+    of engine replicas serving that shard's data. One group = a purely
+    replicated tier (arrivals dealt across the replicas, full
+    ``engine.search``); N groups (with ``part_of``/``local_cid``/
+    ``centroids`` describing the cluster partition) = a sharded tier
+    (scatter/gather via ``engine.search_probed`` + the origin merge), each
+    shard's arrivals dealt across ITS replicas.
+
+    Admission control, credit-based backpressure and deadline shedding
+    apply at the root, whatever the tree shape. ``backpressure=False``
+    reproduces the ShardedFleet eager scatter. ``exec`` selects how the
+    tree runs; only ``"inproc"`` is ported. ``hedge``, ``tenants``,
+    ``placement``, ``mutable``, ``autoscale`` and ``rebalance`` are not
+    ported yet and raise ``NotImplementedError``."""
+
+    def __init__(self, groups, *, part_of=None, local_cid=None,
+                 centroids=None, route: str = "least-in-flight",
+                 buckets=None, costs: StageCosts | None = None,
+                 fill_threshold: int | None = None,
+                 wait_limit_s: float = 2e-3, fifo_depth: int = 4,
+                 max_batch: int = 64,
+                 admission_depth: int | str | None = "auto",
+                 shed_deadline_s: float | None = None,
+                 backpressure: bool = True, exec: str = "inproc",
+                 hedge=None, tenants=None, placement=None,
+                 mutable: bool = False, autoscale=None, rebalance=None):
+        for name, value in (("hedged dispatch (hedge=)", hedge),
+                            ("tenants (tenants=)", tenants),
+                            ("a cluster placement (placement=)", placement),
+                            ("a mutable topology (mutable=True)", mutable),
+                            ("autoscaling (autoscale=)", autoscale),
+                            ("rebalancing (rebalance=)", rebalance)):
+            if value is not None and value is not False:
+                _not_ported(name)
+        self.groups = [list(g) for g in groups]
+        if not self.groups or any(not g for g in self.groups):
+            raise ValueError("ServingTopology needs at least one engine in "
+                             "every group")
+        if route not in ROUTE_POLICIES:
+            raise ValueError(f"route must be one of {ROUTE_POLICIES}, "
+                             f"got {route!r}")
+        engines = [e for g in self.groups for e in g]
+        devices = {e.device for e in engines}
+        if len(devices) != 1:
+            raise ValueError(f"engines of one topology must share a device, "
+                             f"got {sorted(map(str, devices))}")
+        self.device = engines[0].device
+        ks = {e.scfg.k for e in engines}
+        if len(ks) != 1:
+            raise ValueError(f"engines disagree on k: {sorted(ks)}")
+        self.k = engines[0].scfg.k
+        self.route = route
+        (self.buckets, self.fill_threshold, self.wait_limit_s,
+         self.fifo_depth) = resolve_stream_params(
+            engines[0], buckets, costs, fill_threshold, wait_limit_s,
+            fifo_depth, max_batch)
+        if shed_deadline_s is not None and not shed_deadline_s > 0:
+            raise ValueError(
+                f"shed_deadline_s must be > 0 or None, got {shed_deadline_s}")
+        self.shed_deadline_s = shed_deadline_s
+        if admission_depth == "auto":
+            # room for every FIFO to refill once while a full complement is
+            # buffered: deep enough to ride a burst, bounded so overload
+            # surfaces as shedding, not unbounded queue growth
+            admission_depth = 2 * len(engines) * self.fifo_depth \
+                * self.buckets[-1]
+        if admission_depth is not None:
+            admission_depth = int(admission_depth)
+            if admission_depth < 1:
+                raise ValueError(
+                    f"admission_depth must be >= 1, got {admission_depth}")
+        self.admission_depth = admission_depth
+        self.backpressure = bool(backpressure)
+
+        self.sharded = part_of is not None
+        if self.sharded:
+            if local_cid is None or centroids is None:
+                raise ValueError("a sharded topology needs part_of, "
+                                 "local_cid AND centroids")
+            nps = {e.scfg.nprobe for e in engines}
+            if len(nps) != 1:
+                raise ValueError(f"engines disagree on nprobe: {sorted(nps)}")
+            self.nprobe = engines[0].scfg.nprobe
+            self.part_of = np.asarray(part_of, np.int32)
+            self.local_cid = np.asarray(local_cid, np.int32)
+            self.centroids = torch.as_tensor(centroids).to(self.device)
+            if not (len(self.part_of) == len(self.local_cid)
+                    == self.centroids.shape[0]):
+                raise ValueError("part_of/local_cid/centroids disagree on "
+                                 "the cluster count")
+            counts = np.bincount(self.part_of, minlength=len(self.groups))
+            for o, g in enumerate(self.groups):
+                if counts[o] != g[0].index.n_clusters:
+                    raise ValueError(
+                        f"engine {o} holds {g[0].index.n_clusters} clusters "
+                        f"but part_of assigns it {counts[o]}")
+                reps = {e.scfg.mode for e in g}
+                if len(reps) != 1:
+                    raise ValueError(f"replicas within shard {o} disagree "
+                                     f"on backend: {sorted(reps)}")
+                if any(e.index.n_clusters != g[0].index.n_clusters
+                       for e in g):
+                    raise ValueError(f"replicas within shard {o} disagree "
+                                     f"on the cluster slice")
+            self.vectors = engines[0].host.vectors
+            self.fanout = max(1, min(self.nprobe, len(self.groups)))
+            ad = {(e.scfg.adaptive_tau, e.scfg.adaptive_min_probes,
+                   e.scfg.adaptive_ladder) for e in engines}
+            if len(ad) != 1:
+                raise ValueError(
+                    f"engines disagree on adaptive termination: {sorted(ad)}")
+            (self.adaptive_tau, self.adaptive_min_probes,
+             self.adaptive_ladder) = next(iter(ad))
+        else:
+            if len(self.groups) != 1:
+                raise ValueError("multiple groups need a cluster partition "
+                                 "(part_of/local_cid/centroids)")
+            self.part_of = self.local_cid = self.centroids = None
+            self.fanout = 1
+        self.modes = [g[0].scfg.mode for g in self.groups]
+        self._exec = execbackend_mod.resolve_exec_backend(exec)
+
+    # -- warmup ---------------------------------------------------------------
+    def warm(self) -> int:
+        """One padded search (replicated) or probed search (sharded) per
+        bucket and engine, plus the origin merge per bucket on sharded
+        topologies, so every kernel library is built and loaded before a
+        timed stream. Replicas share one placed index and warm once.
+        Returns the number of executables built: 0 (the port builds
+        none)."""
+        seen: set[int] = set()
+        for e in (e for g in self.groups for e in g):
+            if id(e.placed) in seen:
+                continue
+            seen.add(id(e.placed))
+            q1 = np.zeros((1, e.icfg.dim), np.float32)
+            for b in self.buckets:
+                if self.sharded:
+                    probe = np.full((1, self.nprobe), -1, np.int32)
+                    probe[0, 0] = 0
+                    e.search_probed(q1, probe, pad_to=int(b))
+                else:
+                    e.search(q1, pad_to=int(b))
+        if self.sharded:
+            for b in self.buckets:
+                kernel_ops.merge_topk(
+                    torch.full((b, self.fanout * self.k), -1,
+                               dtype=torch.int32, device=self.device),
+                    torch.full((b, self.fanout * self.k), float("inf"),
+                               device=self.device), k=self.k)
+        return 0
+
+    # -- day-2 operations: not ported yet -------------------------------------
+    def scale_replicas(self, group: int, n: int) -> int:
+        _not_ported("replica scaling (scale_replicas)")
+
+    def apply(self, mut) -> None:
+        _not_ported("live mutation swaps (apply)")
+
+    def apply_placement(self, pl) -> None:
+        _not_ported("placement swaps (apply_placement)")
+
+    # -- scatter routing ------------------------------------------------------
+    def _route_probes(self, q: np.ndarray):
+        """(1) IVF top-probe selection at the origin, on the engines'
+        device (with adaptive early termination: easy queries keep fewer
+        probes and fan out to fewer shards), (2) the per-owner scatter
+        split. Returns (tables (O, N, P), touches (N, O), served (N, P),
+        owner_sel (N, P)): ``served`` is the global probe table with every
+        dropped slot -1 (the per-cluster heat source), ``owner_sel`` the
+        shard each served probe went to."""
+        probe, pdist = ivf_mod.cluster_filter(
+            torch.from_numpy(q).to(self.device), self.centroids,
+            nprobe=self.nprobe)
+        if self.adaptive_tau > 0:
+            keep = ivf_mod.adaptive_keep_mask(
+                pdist, tau=self.adaptive_tau,
+                min_probes=self.adaptive_min_probes,
+                ladder=self.adaptive_ladder)
+            probe = torch.where(keep, probe, -1)
+        tables, touches = ivf_mod.owner_split_op(
+            probe, torch.from_numpy(self.part_of).to(self.device),
+            torch.from_numpy(self.local_cid).to(self.device),
+            torch.ones(probe.shape, dtype=torch.bool, device=self.device),
+            n_owners=len(self.groups))
+        probe_np = probe.cpu().numpy()
+        owner_sel = np.where(probe_np >= 0,
+                             self.part_of[np.maximum(probe_np, 0)],
+                             -1).astype(np.int32)
+        return (tables.cpu().numpy(), touches.cpu().numpy(), probe_np,
+                owner_sel)
+
+    # -- origin gather/merge --------------------------------------------------
+    def _merge(self, sink: ShardedSink, t: float, drain: bool,
+               merge_sizes: list) -> bool:
+        """Merge fully-gathered queries' per-shard partial top-k runs with
+        the ``merge_topk`` kernel on the engines' device (selection only:
+        each shard already exact-reranked its partials and the cluster
+        partition keeps their ids disjoint), flushed in bucket-padded
+        batches like any other stage."""
+        if not sink.ready:
+            return False
+        if not (len(sink.ready) >= self.fill_threshold or drain
+                or t - sink.ready[0][1] >= self.wait_limit_s):
+            return False
+        take = []
+        while sink.ready and len(take) < self.buckets[-1]:
+            take.append(sink.ready.popleft()[0])
+        take = np.asarray(take)
+        nq = len(take)
+        b = next(bb for bb in self.buckets if bb >= nq)
+        cb = np.full((b, sink.part_ids.shape[1]), -1, np.int32)
+        cb[:nq] = sink.part_ids[take]
+        db = np.full((b, sink.part_d.shape[1]), np.inf, np.float32)
+        db[:nq] = sink.part_d[take]
+        out_ids, out_d = kernel_ops.merge_topk(
+            torch.from_numpy(cb).to(self.device),
+            torch.from_numpy(db).to(self.device), k=self.k)
+        sink.finish(take, out_ids[:nq].cpu().numpy(),
+                    out_d[:nq].cpu().numpy())
+        merge_sizes.append(nq)
+        return True
+
+    # -- per-run tree construction --------------------------------------------
+    def _build_tree(self, sink, tables, slots):
+        stream_kw = dict(buckets=self.buckets,
+                         fill_threshold=self.fill_threshold,
+                         wait_limit_s=self.wait_limit_s,
+                         fifo_depth=self.fifo_depth,
+                         exec_backend=self._exec)
+        if not self.sharded:
+            return ReplicaGroup([EngineWorker(e, sink, **stream_kw)
+                                 for e in self.groups[0]], self.route)
+        return [ReplicaGroup([ShardWorker(e, sink, probes=tables[o],
+                                          slot=slots[:, o], shard=o,
+                                          **stream_kw)
+                              for e in grp], self.route)
+                for o, grp in enumerate(self.groups)]
+
+    # -- the run loop ---------------------------------------------------------
+    def run(self, queries, arrival_times=None, backend=None, tenant=None,
+            ticker=None) -> TopologyReport:
+        """Replay a (possibly timed) stream through the topology.
+
+        ``arrival_times`` (N,) seconds from the stream's start (None = all
+        at t = 0); the run sleeps to honour future arrivals. ``backend``
+        (per-query backend routing) waits for heterogeneous ``modes`` and
+        raises ``NotImplementedError``; ``tenant`` needs a tenant registry,
+        which is not ported yet. ``ticker`` (callable, receives the stream
+        clock) is called once per scheduler iteration."""
+        q = np.asarray(queries, np.float32)
+        n = len(q)
+        arr = np.zeros(n) if arrival_times is None \
+            else np.asarray(arrival_times, np.float64)
+        order = np.argsort(arr, kind="stable")
+        if backend is not None:
+            _not_ported("per-query backend routing (backend=)", MODES_ITEM)
+        if tenant is not None:
+            raise ValueError("tenant-tagged streams need a TenantSpec "
+                             "registry (ServingTopology(tenants=[...]))")
+        specs, tenant_of = [TenantSpec("default")], np.zeros(n, np.int32)
+        served = owner_sel = None
+        if self.sharded:
+            tables, touches, served, owner_sel = self._route_probes(q)
+            slots = np.cumsum(touches, axis=1) - 1
+            pending = touches.sum(axis=1).astype(np.int32)
+            sink = ShardedSink(q, arr, self.k, self.fanout)
+            sink.pending[:] = pending
+            root = ShardGroup(self._build_tree(sink, tables, slots), touches,
+                              pending, sink, self.k, self.backpressure)
+        else:
+            pending = None
+            sink = StreamSink(q, arr, self.k)
+            root = self._build_tree(sink, None, None)
+        adm = AdmissionController(self.admission_depth, self.shed_deadline_s,
+                                  arr, tenants=specs, tenant_of=tenant_of)
+        shed = np.zeros(n, bool)
+        shed_wait = np.full(n, np.nan)
+        quantum = max(1, min(self.fill_threshold, self.buckets[-1]))
+        merge_sizes: list = []
+
+        def shed_one(idx: int, wait: float):
+            shed[idx] = True
+            shed_wait[idx] = wait
+
+        self._run_loop(root, sink, adm, arr, order, n, shed_one, quantum,
+                       merge_sizes, ticker)
+        makespan = sink.now()
+        run_groups = [list(c.children) for c in root.children] \
+            if self.sharded else [list(root.children)]
+        return self._report(sink, shed, shed_wait, pending, merge_sizes,
+                            makespan, n, run_groups, specs=specs,
+                            tenant_of=tenant_of, adm=adm, served=served,
+                            owner_sel=owner_sel)
+
+    def _run_loop(self, root, sink, adm, arr, order, n, shed_one,
+                  quantum, merge_sizes, ticker):
+        """The admission -> deal -> pump -> harvest -> merge scheduler."""
+        i = 0
+        while i < n or len(adm) or not root.idle() \
+                or (self.sharded and sink.ready):
+            t = sink.now()
+            if ticker is not None:
+                ticker(t)
+            # 1. arrivals -> bounded admission queues (overflow sheds now:
+            # the arrival under drop-new, the tenant's oldest under
+            # drop-old)
+            while i < n and arr[order[i]] <= t:
+                idx = int(order[i])
+                i += 1
+                if not adm.offer(idx):
+                    shed_one(idx, t - arr[idx])
+            for idx in adm.drain_evicted():
+                shed_one(idx, t - arr[idx])
+            # 2. deadline shedding at the head of each tenant queue —
+            # checked before dealing so every dealt query started within
+            # ITS deadline
+            for idx in adm.expire(t):
+                shed_one(idx, t - arr[idx])
+            # 3. deal admitted queries into the tree (credits permitting)
+            root.deal(adm, quantum)
+            # 4. pump + harvest every worker, non-blocking: one slow engine
+            # must not stall its siblings; then merge gathered queries
+            drain = i >= n and not len(adm)
+            progress = root.pump(t, drain)
+            progress |= root.harvest()
+            if self.sharded:
+                progress |= self._merge(sink, t, drain, merge_sizes)
+            if progress:
+                continue
+            # 5. idle: nap until the next arrival / flush / shed / merge
+            # deadline, or block on a device if that is all that's left
+            nxt = arr[order[i]] if i < n else math.inf
+            nxt = min(nxt, root.next_deadline(), adm.next_deadline())
+            if self.sharded and sink.ready:
+                nxt = min(nxt, sink.ready[0][1] + self.wait_limit_s)
+            if not math.isfinite(nxt):
+                if not root.block_harvest_one():
+                    time.sleep(5e-5)      # transient: nothing due anywhere
+                continue
+            # dt <= 0 means a deadline already passed but the tree is out
+            # of credits — nap briefly instead of spinning until a device
+            # frees a slot
+            dt = nxt - sink.now()
+            time.sleep(min(max(dt, 5e-5), 5e-4))
+
+    def _tenant_stats(self, sink, shed, makespan, specs, tenant_of, adm,
+                      served=None) -> dict:
+        """Per-tenant goodput/latency/shed accounting for the report (one
+        default tenant until tenancy is ported). On sharded runs each
+        tenant also gets its own ``cluster_hits`` slice of the heat."""
+        out = {}
+        for t, s in enumerate(specs):
+            rows = tenant_of == t
+            nt = int(rows.sum())
+            ns = int(shed[rows].sum())
+            hits_t = None
+            if served is not None:
+                pt = served[rows & ~shed]
+                hits_t = np.bincount(
+                    pt[pt >= 0].ravel(),
+                    minlength=len(self.part_of)).astype(np.int64)
+            out[s.name] = {
+                "weight": s.weight,
+                "backend": s.backend,
+                "k": s.k if s.k is not None else self.k,
+                "n_queries": nt,
+                "n_admitted": nt - ns,
+                "n_shed": ns,
+                "shed_fraction": ns / nt if nt else 0.0,
+                "qps": (nt - ns) / makespan if makespan > 0 else 0.0,
+                "p50_ms": percentile_ms(sink.lat[rows], 50),
+                "p99_ms": percentile_ms(sink.lat[rows], 99),
+                "dealt": adm.dealt[t] if adm is not None else nt - ns,
+                "max_in_service": adm.max_in_service[t]
+                if adm is not None else 0,
+                "cluster_hits": hits_t,
+            }
+        return out
+
+    def _report(self, sink, shed, shed_wait, pending, merge_sizes,
+                makespan: float, n: int, run_groups: list, *, specs,
+                tenant_of, adm, served=None,
+                owner_sel=None) -> TopologyReport:
+        n_shed = int(shed.sum())
+        n_admitted = n - n_shed
+        flush_sizes = [s for grp in run_groups for w in grp
+                       for s in w.flush_sizes]
+        per_engine = []
+        for o, grp_workers in enumerate(run_groups):
+            for r, w in enumerate(grp_workers):
+                per_engine.append({
+                    "engine": len(per_engine), "shard": o, "replica": r,
+                    "backend": self.modes[o],
+                    "flushes": len(w.flush_sizes),
+                    "queries": int(sum(w.flush_sizes)),
+                    "max_in_flight": w.max_in_flight,
+                    "compiles": w.compiles,
+                    "clusters": int(w.engine.index.n_clusters)
+                    if self.sharded else None})
+        cluster_hits = None
+        shard_probes = None
+        if served is not None:
+            adm_probes = served[~shed]
+            cluster_hits = np.bincount(
+                adm_probes[adm_probes >= 0].ravel(),
+                minlength=len(self.part_of)).astype(np.int64)
+        if owner_sel is not None:
+            adm_owner = owner_sel[~shed]
+            shard_probes = np.bincount(
+                adm_owner[adm_owner >= 0].ravel(),
+                minlength=len(self.groups)).astype(np.int64)
+        return TopologyReport(
+            ids=sink.out_ids, dists=sink.out_d, latency_s=sink.lat,
+            shed=shed, shed_wait_s=shed_wait,
+            shed_fraction=n_shed / n if n else 0.0,
+            qps=n_admitted / makespan if makespan > 0 else 0.0,
+            p50_ms=percentile_ms(sink.lat, 50),
+            p99_ms=percentile_ms(sink.lat, 99),
+            n_queries=n, n_admitted=n_admitted, n_shed=n_shed,
+            n_flushes=len(flush_sizes), flush_sizes=flush_sizes,
+            n_merges=len(merge_sizes), merge_sizes=merge_sizes,
+            # shed queries never reached the scatter stage: fanout is the
+            # mean over queries actually dealt (the all-queries mean
+            # whenever nothing sheds)
+            fanout_mean=float(pending[~shed].mean())
+            if pending is not None and n_admitted else
+            (1.0 if n_admitted else 0.0),
+            n_unrouted=int((pending[~shed] == 0).sum())
+            if pending is not None else 0,
+            per_engine=per_engine, makespan_s=makespan, route=self.route,
+            shards=len(self.groups) if self.sharded else 1,
+            replicas=[len(g) for g in self.groups],
+            backends=list(self.modes),
+            exec=self._exec.name,
+            tenants=self._tenant_stats(sink, shed, makespan, specs,
+                                       tenant_of, adm, served),
+            cluster_hits=cluster_hits,
+            shard_probes=shard_probes)
+
+
+@dataclasses.dataclass(frozen=True)
+class TopologyConfig:
+    """The typed serving-tier spec: shape (``shards`` / ``replicas`` /
+    ``inner_shards``), streaming (``buckets`` ... ``max_batch``), overload
+    (``admission_depth`` / ``shed_deadline_s`` / ``backpressure``) and
+    execution (``exec``). Build with ``cfg.build(eng)`` (or
+    ``topology(eng, config=cfg)``); derive variants with
+    ``dataclasses.replace``. ``modes``, ``hedge``, ``tenants``, ``mutable``,
+    ``autoscale``, ``replicate_hot``, ``replica_factor`` and ``rebalance``
+    are the reference's fields that are not ported yet: set to anything
+    but their defaults
+    they raise ``NotImplementedError``, as ``exec="mesh"`` does."""
+
+    # -- shape ---------------------------------------------------------------
+    shards: int = 1
+    replicas: int = 1
+    mem_budget: int | None = None
+    strict: bool = False
+    modes: tuple | None = None
+    inner_shards: int = 1
+    # -- streaming -----------------------------------------------------------
+    route: str = "least-in-flight"
+    buckets: tuple | None = None
+    costs: StageCosts | None = None
+    fill_threshold: int | None = None
+    wait_limit_s: float = 2e-3
+    fifo_depth: int = 4
+    max_batch: int = 64
+    # -- overload ------------------------------------------------------------
+    admission_depth: int | str | None = "auto"
+    shed_deadline_s: float | None = None
+    backpressure: bool = True
+    # -- execution -----------------------------------------------------------
+    exec: str | object = "inproc"
+    hedge: object | None = None
+    # -- not ported yet ------------------------------------------------------
+    tenants: tuple | None = None
+    mutable: bool = False
+    autoscale: object | None = None
+    replicate_hot: int = 0
+    replica_factor: int = 2
+    rebalance: object | None = None
+
+    def __post_init__(self):
+        if self.replicas < 1:
+            raise ValueError(
+                f"need at least one replica, got {self.replicas}")
+        if self.shards < 1:
+            raise ValueError(f"need at least one shard, got {self.shards}")
+        if self.route not in ROUTE_POLICIES:
+            raise ValueError(f"route must be one of {ROUTE_POLICIES}, "
+                             f"got {self.route!r}")
+        if self.inner_shards < 1:
+            raise ValueError(
+                f"need at least one inner shard, got {self.inner_shards}")
+        if self.modes is not None:
+            _not_ported("per-shard backends (modes)", MODES_ITEM)
+        for name, on in (("hedged dispatch (hedge)", self.hedge is not None),
+                         ("tenants", self.tenants is not None),
+                         ("a mutable topology (mutable)", self.mutable),
+                         ("autoscaling (autoscale)",
+                          self.autoscale is not None),
+                         ("hot-cluster replication (replicate_hot)",
+                          self.replicate_hot != 0),
+                         ("a hot-cluster replica factor (replica_factor)",
+                          self.replica_factor != 2),
+                         ("rebalancing (rebalance)",
+                          self.rebalance is not None)):
+            if on:
+                _not_ported(name)
+        if self.exec == "mesh":
+            execbackend_mod.resolve_exec_backend(self.exec)   # raises
+
+    def build(self, eng, *, freq: np.ndarray | None = None,
+              heat: np.ndarray | None = None) -> ServingTopology:
+        """Materialize this config over one built engine. ``freq`` is the
+        estimated per-cluster frequency the placer balances (the cluster
+        sizes by default); ``heat`` (measured cluster hits) is not ported
+        yet."""
+        if heat is not None:
+            _not_ported("heat-aware placement (heat=)")
+        serve_kw = dict(
+            route=self.route, buckets=self.buckets, costs=self.costs,
+            fill_threshold=self.fill_threshold,
+            wait_limit_s=self.wait_limit_s, fifo_depth=self.fifo_depth,
+            max_batch=self.max_batch, admission_depth=self.admission_depth,
+            shed_deadline_s=self.shed_deadline_s,
+            backpressure=self.backpressure, exec=self.exec)
+        if self.shards == 1:
+            return ServingTopology(
+                [replicate_engine(eng, self.replicas)], **serve_kw)
+        parts, pl = partition_index(
+            eng, self.shards, mem_budget=self.mem_budget, strict=self.strict,
+            inner_shards=self.inner_shards, freq=freq)
+        groups = [replicate_engine(p, self.replicas) for p in parts]
+        return ServingTopology(groups, part_of=pl.shard_of,
+                               local_cid=pl.local_slot,
+                               centroids=eng.index.centroids, **serve_kw)
+
+
+def topology(eng, *, config: TopologyConfig | None = None,
+             freq: np.ndarray | None = None,
+             heat: np.ndarray | None = None, **kw) -> ServingTopology:
+    """Build a serving topology over one built engine:
+    ``topology(eng, config=TopologyConfig(...))``, the same as
+    ``config.build(eng)``. The reference's deprecated kwarg form
+    (``topology(eng, shards=2, ...)``) is not ported."""
+    if kw or config is None:
+        _not_ported(f"the deprecated kwarg form topology(eng, "
+                    f"{', '.join(sorted(kw))}); use "
+                    f"TopologyConfig(...).build(eng)")
+    if not isinstance(config, TopologyConfig):
+        raise ValueError(f"config must be a TopologyConfig, "
+                         f"got {type(config).__name__}")
+    return config.build(eng, freq=freq, heat=heat)

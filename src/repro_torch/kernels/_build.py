@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled on its own for ``sm_90a`` into
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout, where the
-hash is of the source, so an edited kernel is rebuilt and a stale library is
-never loaded. Nothing is built when a module is imported: the first call
+hash is of the source and the headers it shares (``csrc/*.cuh``), so an
+edited kernel is rebuilt and a stale library is never loaded. Nothing is built when a module is imported: the first call
 that needs a kernel builds it, and ``build_all`` builds every kernel at once
 with one ``nvcc`` per source, all started together.
 """
@@ -22,7 +22,7 @@ __all__ = ["SOURCES", "build_all", "library"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("binary_ip", "topk_select")
+SOURCES = ("binary_ip", "topk_select", "merge_topk", "cluster_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,8 +40,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,0 +1,87 @@
+"""Wrapper of the CUDA ``cluster_scan`` kernel (``csrc/cluster_scan.cu``).
+
+Counterpart of the Pallas kernel ``cluster_scan`` in
+``repro/kernels/binary_ip.py``. The wrapper takes CUDA tensors only;
+``kernels/ops.py`` sends CPU tensors to the plain version in
+``kernels/ref.py``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["cluster_scan", "MAX_EF", "MAX_DPAD", "launches"]
+
+MAX_EF = 1024     # kMaxEf in the source: EF rounded up to a power of two
+MAX_DPAD = 2048   # kMaxDpad: the LUT entries a block keeps in shared memory
+launches = 0      # kernel launches since the count was last set to 0
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"cluster_scan: {name} must be a contiguous {dtype} tensor of "
+            f"shape {shape} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+def _fn():
+    fn = _build.library("cluster_scan").cluster_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def cluster_scan(codes: torch.Tensor, f_add: torch.Tensor,
+                 base_rows: torch.Tensor, n_valid: torch.Tensor,
+                 lut: torch.Tensor, sumq: torch.Tensor, s1: torch.Tensor,
+                 s2: torch.Tensor, active: torch.Tensor, dim: int, ef: int,
+                 m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ids (L, EF) int32, ranks (L, EF) int32); semantics of
+    ``ref.cluster_scan_ref``."""
+    global launches
+    dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"cluster_scan kernel needs CUDA tensors, got {dev}")
+    t, w = codes.shape
+    n_lanes = base_rows.shape[0]
+    if not 0 < dim <= 8 * w:
+        raise ValueError(f"dim {dim} outside (0, {8 * w}] for W = {w}")
+    if 8 * w > MAX_DPAD:
+        raise ValueError(f"cluster_scan kernel takes codes of at most "
+                         f"{MAX_DPAD // 8} bytes, got {w}")
+    if not 0 < ef <= min(MAX_EF, m):
+        raise ValueError(f"ef = {ef} outside (0, {min(MAX_EF, m)}]: the "
+                         f"kernel keeps at most {MAX_EF} and a cluster has "
+                         f"{m} rows")
+    if t >= 2**31:
+        raise ValueError(f"code table of {t} rows exceeds int32 row ids")
+    _check("codes", codes, torch.uint8, (t, w), dev)
+    _check("f_add", f_add, torch.int32, (t,), dev)
+    _check("lut", lut, torch.int32, (n_lanes, 8 * w), dev)
+    for name, v in (("base_rows", base_rows), ("n_valid", n_valid),
+                    ("sumq", sumq), ("s1", s1), ("s2", s2)):
+        _check(name, v, torch.int32, (n_lanes,), dev)
+    _check("active", active, torch.bool, (n_lanes,), dev)
+    out_ids = torch.empty((n_lanes, ef), dtype=torch.int32, device=dev)
+    out_ranks = torch.empty((n_lanes, ef), dtype=torch.int32, device=dev)
+    if n_lanes == 0:
+        return out_ids, out_ranks
+    vec16 = int(w % 16 == 0 and codes.data_ptr() % 16 == 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn()(codes.data_ptr(), f_add.data_ptr(), base_rows.data_ptr(),
+                    n_valid.data_ptr(), lut.data_ptr(), sumq.data_ptr(),
+                    s1.data_ptr(), s2.data_ptr(), active.data_ptr(),
+                    out_ids.data_ptr(), out_ranks.data_ptr(), n_lanes, w, dim,
+                    ef, m, t, vec16, stream)
+    if err != 0:
+        raise RuntimeError(f"cluster_scan launch failed: CUDA error {err}")
+    launches += 1
+    return out_ids, out_ranks

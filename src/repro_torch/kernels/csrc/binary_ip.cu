@@ -26,28 +26,11 @@
 // exact only below 2^24) and the epilogue runs in uint32_t, so every
 // overflow wraps as the int32 reference does without signed-overflow UB.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t lut_sum_word(uint32_t word,
-                                                 const int32_t* lut) {
-  uint32_t s = 0;
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    s += static_cast<uint32_t>(lut[j]) & (0u - ((word >> j) & 1u));
-  }
-  return s;
-}
-
-__device__ __forceinline__ int32_t shift_right(int32_t t, int32_t s) {
-  // an XLA shift by an amount outside [0, 31] fills with the sign bit
-  const int32_t a = (s < 0 || s > 31) ? 31 : s;
-  return t >> a;
-}
 
 __global__ void binary_ip_rank_kernel(
     const uint8_t* __restrict__ codes, const int32_t* __restrict__ f_add,
@@ -79,34 +62,9 @@ __global__ void binary_ip_rank_kernel(
     }
     const long long r = row < n_table ? row : n_table - 1;
     const int32_t* lt = s_lut + l * dpad;
-    const uint8_t* c = codes + static_cast<size_t>(r) * w;
-    uint32_t s = 0;
-    if (vec16) {
-      for (int b = 0; b < w; b += 16) {
-        const uint4 v = *reinterpret_cast<const uint4*>(c + b);
-        s += lut_sum_word(v.x, lt + 8 * b);
-        s += lut_sum_word(v.y, lt + 8 * b + 32);
-        s += lut_sum_word(v.z, lt + 8 * b + 64);
-        s += lut_sum_word(v.w, lt + 8 * b + 96);
-      }
-    } else {
-      for (int b = 0; b < w; ++b) {
-        const uint32_t byte = c[b];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s += static_cast<uint32_t>(lt[8 * b + j]) & (0u - ((byte >> j) & 1u));
-        }
-      }
-    }
-    const int32_t t = static_cast<int32_t>(
-        2u * s - static_cast<uint32_t>(sumq[lane]));
-    const int32_t sh2 = s2[lane];
-    const uint32_t third =
-        sh2 >= 31 ? 0u
-                  : static_cast<uint32_t>(shift_right(t, sh2 < 30 ? sh2 : 30));
-    const uint32_t tp = static_cast<uint32_t>(t) +
-                        static_cast<uint32_t>(shift_right(t, s1[lane])) + third;
-    out[o] = static_cast<int32_t>(static_cast<uint32_t>(f_add[r]) - tp);
+    const uint32_t s = code_lut_sum(codes + static_cast<size_t>(r) * w, lt, w,
+                                    vec16);
+    out[o] = o3_rank(s, f_add[r], sumq[lane], s1[lane], s2[lane]);
   }
 }
 

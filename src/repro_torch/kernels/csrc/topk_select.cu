@@ -25,40 +25,12 @@
 // C is limited to kMaxC = 4096 by the static shared memory (32 KB of keys
 // and 4 KB of flags); the wrapper raises for a wider row.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kMaxC = 4096;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t float_key(float d) {
-  if (isnan(d)) return 0xFFFFFFFFu;
-  if (d == 0.0f) d = 0.0f;  // -0.0 ties with +0.0
-  const uint32_t u = __float_as_uint(d);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ void bitonic_sort(unsigned long long* key, int p) {
-  for (int k = 2; k <= p; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < p; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long a = key[i], b = key[ixj];
-          const bool ascending = (i & k) == 0;
-          if ((a > b) == ascending) {
-            key[i] = b;
-            key[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
 
 __global__ void topk_select_kernel(const int32_t* __restrict__ ids,
                                    const float* __restrict__ dists,

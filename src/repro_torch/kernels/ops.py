@@ -12,11 +12,16 @@ from __future__ import annotations
 import torch
 
 from . import binary_ip as _binary_ip
+from . import cluster_scan as _scan
+from . import merge_topk as _merge
 from . import ref as _ref
 from . import topk_select as _topk
 
-__all__ = ["binary_ip_rank", "topk_select", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["binary_ip_rank", "cluster_scan", "topk_select", "merge_topk",
+           "launch_counts", "reset_launch_counts"]
+
+_KERNELS = {"binary_ip_rank": _binary_ip, "topk_select": _topk,
+            "merge_topk": _merge, "cluster_scan": _scan}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -37,6 +42,17 @@ def binary_ip_rank(codes, f_add, rows, lut, sumq, s1, s2, dim: int
     return _ref.binary_ip_rank_ref(codes, f_add, rows, lut, sumq, s1, s2, dim)
 
 
+def cluster_scan(codes, f_add, base_rows, n_valid, lut, sumq, s1, s2, active,
+                 dim: int, ef: int, m: int):
+    """Whole-cluster O3 rank + top-EF of every lane; see
+    ``ref.cluster_scan_ref`` for the exact semantics."""
+    if _on_cuda(codes):
+        return _scan.cluster_scan(codes, f_add, base_rows, n_valid, lut,
+                                  sumq, s1, s2, active, dim, ef, m)
+    return _ref.cluster_scan_ref(codes, f_add, base_rows, n_valid, lut, sumq,
+                                 s1, s2, active, dim, ef, m)
+
+
 def topk_select(cand_ids, dists, *, k: int):
     """Fused dedup + top-k over (Q, C) candidate rows; see
     ``ref.topk_select_ref`` for the exact semantics."""
@@ -45,12 +61,19 @@ def topk_select(cand_ids, dists, *, k: int):
     return _ref.topk_select_ref(cand_ids, dists, k=k)
 
 
+def merge_topk(part_ids, part_dists, *, k: int, run: int | None = None):
+    """Top-k of the owners' partial top-k runs (the sharded tier's origin
+    merge); see ``ref.merge_topk_ref`` for the exact semantics."""
+    if _on_cuda(part_ids):
+        return _merge.merge_topk(part_ids, part_dists, k=k, run=run)
+    return _ref.merge_topk_ref(part_ids, part_dists, k=k, run=run)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the counts were last reset."""
-    return {"binary_ip_rank": _binary_ip.launches,
-            "topk_select": _topk.launches}
+    return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    _binary_ip.launches = 0
-    _topk.launches = 0
+    for mod in _KERNELS.values():
+        mod.launches = 0

@@ -15,10 +15,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["INT_MAX", "wrap_int32", "unpack_bits", "binary_ip_rank_ref",
-           "topk_select_ref"]
+__all__ = ["INT_MAX", "INT_MIN", "wrap_int32", "unpack_bits",
+           "binary_ip_rank_ref", "cluster_scan_ref", "topk_select_ref",
+           "merge_topk_ref"]
 
 INT_MAX = 2**31 - 1
+INT_MIN = -2**31
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -67,6 +69,41 @@ def binary_ip_rank_ref(codes: torch.Tensor, f_add: torch.Tensor,
     return torch.where(rows >= 0, out, INT_MAX)
 
 
+def cluster_scan_ref(codes: torch.Tensor, f_add: torch.Tensor,
+                     base_rows: torch.Tensor, n_valid: torch.Tensor,
+                     lut: torch.Tensor, sumq: torch.Tensor, s1: torch.Tensor,
+                     s2: torch.Tensor, active: torch.Tensor, dim: int,
+                     ef: int, m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused whole-cluster O3 rank + top-EF of every lane, gather form.
+
+    Lane l's cluster is the rows base_rows[l] + [0, m) of the flattened
+    code table (ids clipped into [0, T) for the gather); each row ranks as
+    in ``binary_ip_rank_ref``, and rows at n_valid[l] or beyond rank
+    INT_MAX. The EF best come out in the order of the GEMV path
+    (``full_scan_lane``: ``lax.top_k`` over the wrapped negated ranks):
+    ascending rank, ties to the lower row, a rank of INT_MIN after INT_MAX
+    (its negation wraps to itself). Equal to ``repro``'s
+    ``cluster_scan_ref`` on every input without an INT_MIN rank. An
+    inactive lane gives ids -1 and ranks INT_MAX.
+
+    codes (T, W) u8, f_add (T,) i32, base_rows / n_valid / sumq / s1 / s2
+    (L,) i32, lut (L, Dpad) i32, active (L,) bool -> (ids (L, EF) i32 local
+    row ids, ranks (L, EF) i32).
+    """
+    if not 0 < ef <= m:
+        raise ValueError(f"ef = {ef} outside (0, {m}]")
+    i = torch.arange(m, device=codes.device)
+    rows = (base_rows.long()[:, None] + i).clamp(0, codes.shape[0] - 1)
+    r = binary_ip_rank_ref(codes, f_add, rows.to(torch.int32), lut, sumq, s1,
+                           s2, dim)
+    r = torch.where(i < n_valid[:, None], r, INT_MAX)
+    order = torch.where(r == INT_MIN, 2**31, r.long())
+    ids = torch.sort(order, dim=1, stable=True).indices[:, :ef]
+    ranks = torch.gather(r, 1, ids)
+    return (torch.where(active[:, None], ids, -1).to(torch.int32),
+            torch.where(active[:, None], ranks, INT_MAX))
+
+
 def topk_select_ref(cand_ids: torch.Tensor, dists: torch.Tensor, *, k: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused dedup + k-selection over per-query candidate rows.
@@ -86,5 +123,29 @@ def topk_select_ref(cand_ids: torch.Tensor, dists: torch.Tensor, *, k: int
     out_d, pos = torch.sort(d, dim=-1, stable=True)
     out_d = out_d[:, :k].contiguous()
     ids = torch.gather(cand_ids, 1, pos[:, :k])
+    ids = torch.where(torch.isfinite(out_d), ids, -1)
+    return ids.to(torch.int32), out_d.to(torch.float32)
+
+
+def merge_topk_ref(part_ids: torch.Tensor, part_dists: torch.Tensor, *,
+                   k: int, run: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-owner partial top-k runs into the global top-k.
+
+    part_ids (Q, O*run) int32 / part_dists (Q, O*run) f32: O concatenated
+    runs per query (run defaults to k, the sharded tier's slot layout),
+    ids disjoint across runs, -1 / inf in unfilled slots. Selection only:
+    the k smallest distances, ties to the lower column, whether or not the
+    runs are sorted. Returns (ids (Q, k) int32, -1 where the distance is
+    non-finite; dists (Q, k) f32). A stable sort gives ``lax.top_k``'s tie
+    order, which ``torch.topk`` does not.
+    """
+    w = part_ids.shape[-1]
+    if w % (k if run is None else run):
+        raise ValueError(f"row width {w} is not a whole number of runs of "
+                         f"{k if run is None else run}")
+    out_d, pos = torch.sort(part_dists, dim=-1, stable=True)
+    out_d = out_d[:, :k].contiguous()
+    ids = torch.gather(part_ids, 1, pos[:, :k])
     ids = torch.where(torch.isfinite(out_d), ids, -1)
     return ids.to(torch.int32), out_d.to(torch.float32)

@@ -6,7 +6,10 @@ tests/test_torch_cuda.py``. They import no JAX: the plain versions are
 held against the JAX package by the other tests/test_torch_*.py files on
 the CPU. The sweeps reach what the main path does not: code widths that
 take the kernel's byte loop (W not a multiple of 16), dim % 8 != 0,
-shift amounts at their edges, k == C, one-column and 4096-column rows.
+shift amounts at their edges, k == C, one-column and 4096-column rows,
+merges of 1 to 8 runs with ties and unanswered rows, cluster scans with
+INT_MIN / INT_MAX ranks, empty and short clusters, inactive lanes and EF
+at the kernel's limit.
 """
 
 import numpy as np
@@ -14,9 +17,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import binary_ip, ops, ref, topk_select  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    binary_ip, cluster_scan, merge_topk, ops, ref, topk_select)
+
+pytestmark = pytest.mark.cuda
 
 INT_MAX = 2**31 - 1
+INT_MIN = -2**31
 
 
 @pytest.fixture
@@ -107,12 +114,119 @@ def test_topk_select_kernel_refuses_too_wide_rows(card):
         topk_select.topk_select(ids, ids.float(), k=4)
 
 
+def _runs(rng, q, o, run):
+    """O sorted runs per row in the sharded sink's slot layout: unfilled
+    tails, an exact tie across runs and a fully unanswered row."""
+    d3 = np.sort(rng.random((q, o, run)).astype(np.float32), axis=-1)
+    ids3 = np.arange(q * o * run, dtype=np.int32).reshape(q, o, run)
+    d3[:, 0, -2:] = np.inf
+    ids3[:, 0, -2:] = -1
+    if o > 1:
+        d3[:, 1, 0] = d3[:, 0, 0]
+        d3[:, 1] = np.sort(d3[:, 1], axis=-1)
+    if q > 1:
+        d3[1] = np.inf
+        ids3[1] = -1
+    return ids3.reshape(q, o * run), d3.reshape(q, o * run)
+
+
+@pytest.mark.parametrize("q,o,run,k", [
+    (1, 1, 4, 4), (4, 3, 10, 10), (1024, 8, 10, 10), (2, 6, 12, 7),
+    (5, 8, 10, 3), (3, 1, 4096, 16),
+])
+def test_merge_topk_kernel_bitwise(card, q, o, run, k):
+    rng = np.random.default_rng(q * 31 + o)
+    ids, d = (torch.from_numpy(a).to(card) for a in _runs(rng, q, o, run))
+    for got, want in zip(merge_topk.merge_topk(ids, d, k=k, run=run),
+                         ref.merge_topk_ref(ids, d, k=k, run=run)):
+        assert torch.equal(got, want)
+
+
+def test_merge_topk_kernel_unsorted_rows_and_refusals(card):
+    """The kernel sorts the row, so unsorted runs still merge right; rows
+    wider than its shared memory and ragged runs are refused."""
+    rng = np.random.default_rng(5)
+    d = torch.from_numpy(rng.random((9, 40)).astype(np.float32)).to(card)
+    d[:, 5] = d[:, 30]                                 # a tie
+    ids = torch.arange(360, dtype=torch.int32, device=card).view(9, 40)
+    for got, want in zip(merge_topk.merge_topk(ids, d, k=10),
+                         ref.merge_topk_ref(ids, d, k=10)):
+        assert torch.equal(got, want)
+    wide = torch.zeros((2, merge_topk.MAX_W + 8), dtype=torch.int32,
+                       device=card)
+    with pytest.raises(ValueError, match="at most"):
+        merge_topk.merge_topk(wide, wide.float(), k=8)
+    with pytest.raises(ValueError, match="whole number of runs"):
+        merge_topk.merge_topk(ids, d, k=10, run=7)
+
+
+def _scan_inputs(rng, n_lanes, m, w, n_clusters=5):
+    """A flattened (n_clusters * m, W) table and n_lanes lanes over it. Odd
+    lanes have an all-zero LUT and sumq, so their ranks are f_add itself,
+    which holds INT_MIN, INT_MAX and ties."""
+    t = n_clusters * m
+    codes = rng.integers(0, 256, (t, w), dtype=np.uint8)
+    f_add = rng.integers(-(1 << 12), 1 << 12, (t,), dtype=np.int32)
+    f_add[::5] = INT_MAX
+    f_add[1::7] = INT_MIN
+    lut = rng.integers(-(1 << 28), 1 << 28, (n_lanes, w * 8)).astype(
+        np.int32)
+    sumq = rng.integers(-(1 << 30), 1 << 30, n_lanes).astype(np.int32)
+    lut[1::2] = 0
+    sumq[1::2] = 0
+    base = (rng.integers(0, n_clusters, n_lanes) * m).astype(np.int32)
+    nv = rng.integers(0, m + 1, n_lanes).astype(np.int32)
+    nv[:3] = [0, m, min(3, m)]                        # empty, full, < EF
+    f_add[base[1]:base[1] + 2] = [INT_MAX, INT_MIN]   # lane 1 ranks f_add
+    s1 = rng.integers(0, 33, n_lanes).astype(np.int32)
+    s2 = rng.integers(0, 33, n_lanes).astype(np.int32)
+    s2[::3] = 31
+    active = rng.random(n_lanes) < 0.8
+    active[:3] = True
+    return codes, f_add, base, nv, lut, sumq, s1, s2, active
+
+
+@pytest.mark.parametrize("n_lanes,m,w,dim,ef", [
+    (64, 700, 16, 128, 40),     # the gemv path's shape, scaled down
+    (9, 5000, 16, 125, 16),     # two chunks; dim % 8 != 0
+    (7, 40, 4, 29, 40),         # byte loop; EF == M
+    (5, 3000, 16, 128, 1024),   # EF at the kernel's limit
+    (3, 9000, 32, 256, 300),    # three chunks, EF not a power of two
+])
+def test_cluster_scan_kernel_bitwise(card, n_lanes, m, w, dim, ef):
+    rng = np.random.default_rng(n_lanes * 100 + w)
+    args = [torch.from_numpy(a).to(card)
+            for a in _scan_inputs(rng, n_lanes, m, w)]
+    got = cluster_scan.cluster_scan(*args, dim, ef, m)
+    want = ref.cluster_scan_ref(*args, dim, ef, m)
+    torch.cuda.synchronize()
+    for g, wnt in zip(got, want):
+        assert torch.equal(g, wnt)
+    if ef == m:                  # every row is kept: INT_MIN comes out last
+        assert int(want[1][1, -1]) == INT_MIN
+
+
+def test_cluster_scan_kernel_refuses_what_it_cannot_hold(card):
+    rng = np.random.default_rng(3)
+    args = [torch.from_numpy(a).to(card)
+            for a in _scan_inputs(rng, 4, 2000, 16)]
+    with pytest.raises(ValueError, match="ef = 1025"):
+        cluster_scan.cluster_scan(*args, 128, cluster_scan.MAX_EF + 1, 2000)
+    with pytest.raises(ValueError, match="ef = 41"):
+        cluster_scan.cluster_scan(*args, 128, 41, 40)
+
+
 def test_ops_send_cuda_tensors_to_the_kernels(card):
     rng = np.random.default_rng(2)
     args = [torch.from_numpy(a).to(card)
             for a in _rank_inputs(rng, 4, 8, 16, 128)]
     ids, d = (torch.from_numpy(a).to(card) for a in _cand_set(rng, 4, 40))
+    scan = [torch.from_numpy(a).to(card)
+            for a in _scan_inputs(rng, 4, 50, 16)]
     ops.reset_launch_counts()
     ops.binary_ip_rank(*args, 128)
     ops.topk_select(ids, d, k=5)
-    assert ops.launch_counts() == {"binary_ip_rank": 1, "topk_select": 1}
+    ops.merge_topk(ids, d, k=5)
+    ops.cluster_scan(*scan, 128, 10, 50)
+    assert ops.launch_counts() == {"binary_ip_rank": 1, "topk_select": 1,
+                                   "merge_topk": 1, "cluster_scan": 1}

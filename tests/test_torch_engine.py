@@ -232,7 +232,10 @@ def test_entry_points_default_to_the_card():
 def test_port_imports_neither_jax_nor_repro():
     src = pathlib.Path(__file__).resolve().parents[1] / "src"
     code = ("import sys, repro_torch.core.engine, repro_torch.bridge, "
-            "repro_torch.data.synthetic; "
+            "repro_torch.data.synthetic, repro_torch.core.topology, "
+            "repro_torch.core.fleet, repro_torch.core.pipeline, "
+            "repro_torch.core.execbackend, repro_torch.kernels.merge_topk, "
+            "repro_torch.kernels.cluster_scan; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']; "
             "assert not bad, bad")

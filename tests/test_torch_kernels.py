@@ -15,7 +15,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.kernels import binary_ip, ops, topk_select  # noqa: E402
+from repro.kernels import topk_select as jtopk  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    binary_ip, cluster_scan, merge_topk, ops, topk_select)
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 INT_MAX = 2**31 - 1
@@ -121,6 +123,78 @@ def test_topk_select_ref_bitwise_vs_jax(rng, q, c, k):
     np.testing.assert_array_equal(td.numpy(), np.asarray(rd))
 
 
+def _runs(rng, q, o, run):
+    """tests/test_topk_select.py's merge inputs: pre-sorted disjoint runs
+    with unfilled tails, an exact tie across runs and an unanswered row."""
+    d3 = np.sort(rng.random((q, o, run)).astype(np.float32), axis=-1)
+    ids3 = np.arange(q * o * run, dtype=np.int32).reshape(q, o, run)
+    d3[:, 0, -2:] = np.inf
+    ids3[:, 0, -2:] = -1
+    if o > 1:
+        d3[:, 1, 0] = d3[:, 0, 0]
+        d3[:, 1] = np.sort(d3[:, 1], axis=-1)
+    if q > 1:
+        d3[1] = np.inf
+        ids3[1] = -1
+    return ids3.reshape(q, o * run), d3.reshape(q, o * run)
+
+
+@pytest.mark.parametrize("q,o,run,k", [
+    (1, 1, 4, 4), (4, 3, 10, 10), (7, 4, 5, 5), (5, 8, 10, 10),
+    (3, 5, 10, 10), (2, 6, 12, 7),
+])
+def test_merge_topk_ref_bitwise_vs_jax(rng, q, o, run, k):
+    """Against the JAX reference and the Pallas kernel in interpret mode."""
+    ids, d = _runs(rng, q, o, run)
+    ti, td = tref.merge_topk_ref(torch.from_numpy(ids), torch.from_numpy(d),
+                                 k=k, run=run)
+    for want in (jref.merge_topk_ref(jnp.asarray(ids), jnp.asarray(d), k=k),
+                 jtopk.merge_topk(jnp.asarray(ids), jnp.asarray(d), k=k,
+                                  run=run, interpret=True)):
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(td.numpy(), np.asarray(want[1]))
+
+
+def _scan_inputs(rng, n_lanes, m, w, n_clusters=3):
+    """A flattened (n_clusters * m, W) table and n_lanes lanes over it,
+    with no rank near the int32 edges."""
+    codes = rng.integers(0, 256, (n_clusters * m, w), dtype=np.uint8)
+    f_add = rng.integers(0, 1 << 20, (n_clusters * m,), dtype=np.int32)
+    lut = rng.integers(-4096, 4096, (n_lanes, w * 8)).astype(np.int32)
+    sumq = lut.sum(-1).astype(np.int32)
+    base = (rng.integers(0, n_clusters, n_lanes) * m).astype(np.int32)
+    nv = rng.integers(0, m + 1, n_lanes).astype(np.int32)
+    s1 = np.full(n_lanes, 2, np.int32)
+    s2 = np.full(n_lanes, 31, np.int32)
+    s2[1::2] = 5
+    return (codes, f_add, base, nv, lut, sumq, s1, s2,
+            np.ones(n_lanes, bool))
+
+
+@pytest.mark.parametrize("n,w,ef,nv", [
+    (64, 8, 4, 64), (300, 16, 10, 250), (1024, 16, 32, 1000),
+    (513, 8, 16, 513),
+])
+def test_cluster_scan_ref_bitwise_vs_jax(rng, n, w, ef, nv):
+    """Lane by lane against the JAX reference, on tests/test_kernels.py's
+    sweep; lanes also take n_valid below EF and an empty cluster."""
+    args = list(_scan_inputs(rng, 4, n, w))
+    args[3][:] = [nv, 0, min(3, ef - 1), n]
+    codes, f_add, base, n_valid, lut, sumq, s1, s2, _ = args
+    dim = w * 8
+    ids, ranks = tref.cluster_scan_ref(*(torch.from_numpy(a) for a in args),
+                                       dim, ef, n)
+    for lane in range(4):
+        rows = slice(base[lane], base[lane] + n)
+        wi, wr = jref.cluster_scan_ref(
+            jnp.asarray(codes[rows]), jnp.asarray(f_add[rows]),
+            jnp.asarray(lut[lane]), jnp.int32(sumq[lane]),
+            jnp.int32(s1[lane]), jnp.int32(s2[lane]), dim, ef,
+            jnp.int32(n_valid[lane]))
+        np.testing.assert_array_equal(ids[lane].numpy(), np.asarray(wi))
+        np.testing.assert_array_equal(ranks[lane].numpy(), np.asarray(wr))
+
+
 def test_ops_dispatch_cpu_tensors_to_plain_versions(rng):
     """CPU tensors take the plain version and launch nothing."""
     ops.reset_launch_counts()
@@ -132,7 +206,15 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions(rng):
     for a, b in zip(ops.topk_select(ids, d, k=6),
                     tref.topk_select_ref(ids, d, k=6)):
         assert torch.equal(a, b)
-    assert ops.launch_counts() == {"binary_ip_rank": 0, "topk_select": 0}
+    for a, b in zip(ops.merge_topk(ids, d, k=5),
+                    tref.merge_topk_ref(ids, d, k=5)):
+        assert torch.equal(a, b)
+    scan = [torch.from_numpy(a) for a in _scan_inputs(rng, 3, 20, 4)]
+    for a, b in zip(ops.cluster_scan(*scan, 32, 6, 20),
+                    tref.cluster_scan_ref(*scan, 32, 6, 20)):
+        assert torch.equal(a, b)
+    assert ops.launch_counts() == dict.fromkeys(
+        ("binary_ip_rank", "topk_select", "merge_topk", "cluster_scan"), 0)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors(rng):
@@ -144,7 +226,13 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
     ids, d = (torch.from_numpy(a) for a in _cand_set(rng, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
         topk_select.topk_select(ids, d, k=4)
-    assert ops.launch_counts() == {"binary_ip_rank": 0, "topk_select": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        merge_topk.merge_topk(ids, d, k=4)
+    scan = [torch.from_numpy(a) for a in _scan_inputs(rng, 2, 20, 4)]
+    with pytest.raises(ValueError, match="CUDA"):
+        cluster_scan.cluster_scan(*scan, 32, 6, 20)
+    assert ops.launch_counts() == dict.fromkeys(
+        ("binary_ip_rank", "topk_select", "merge_topk", "cluster_scan"), 0)
 
 
 def test_unpack_bits_matches_jax(rng):
