@@ -8,9 +8,13 @@ Phases (each failure exits non-zero and prints no result line):
      the TF32 flags, which are switched off;
   2. build every kernel from src/repro_torch/kernels/csrc/ (one nvcc per
      source, all started together) into build/kernels/;
-  3. hold each kernel bitwise against its plain PyTorch version on the card
-     at the main path's shapes, with pads, INT_MAX rows, int32 wraps,
-     duplicates, ties and all-pad rows injected;
+  3. hold each kernel against its plain PyTorch version on the card at the
+     main path's shapes: the search kernels bitwise, with pads, INT_MAX
+     rows, int32 wraps, duplicates, ties and all-pad rows injected;
+     flash_attention within a stated per-element bound (float32 sums in
+     another order, then one bf16 rounding) over GQA groups 1 and 4, head
+     dims 64 / 80 / 96 / 128, ragged Sq and Sk, q_offset, a window that
+     bites, kv_valid_len < Sk and bf16 q over float32 K/V;
   4. build the index of a 10M x 128 clustered corpus (big-ann-benchmarks'
      10M BIGANN/SIFT subset scale, SIFT's width) on the card, 4096 clusters
      on 8 shards;
@@ -31,7 +35,20 @@ Phases (each failure exits non-zero and prints no result line):
      p50 and p99 are the median of the five;
  10. hold merge_topk and cluster_scan bitwise against their plain versions
      on those runs' real inputs (cluster_scan on the arguments of phase 8's
-     counted launch), and time both there.
+     counted launch), and time both there;
+ 11. serve h2o-danube-1.8b at full width (24 x 2560, 32 / 8 heads of 80,
+     seeded random bf16 weights) through repro_torch.launch.serve.generate:
+     8 requests of 2048 prompt tokens, 32 generated, float32 KV cache, the
+     first decode step's queries served by a StreamingScheduler over the
+     10M engine; counted like phase 5 (24 flash_attention launches, one a
+     layer of the prefill); the retrieved ids held against engine.search of
+     the same queries, the last decode step's logits against a prefill of
+     the prompt and the generated tokens (the kernel against the plain
+     one-pass decode attention; the greedy token equal in every row), and
+     the kernel against its plain version on layer 0's real q / k / v,
+     each element within its own rounding bound, timed there beside its
+     bound and
+     scaled_dot_product_attention.
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -59,6 +76,7 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 # counts an FMA as two) and 64 int32 lanes (Hopper architecture whitepaper).
 H100_FP32_OPS = 132 * 128 * 1.98e9
 H100_INT32_OPS = 132 * 64 * 1.98e9
+H100_BF16_FLOPS = 989e12     # dense tensor-core bf16, H100 SXM data sheet
 INT_MAX = 2**31 - 1
 ERRS: dict[str, float] = {}  # kernel name -> max |kernel - plain| seen
 T0 = time.perf_counter()
@@ -73,15 +91,49 @@ def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
 
 
+def profiled(torch, fn, iters: int = 1):
+    """Kernel records of ``iters`` calls of fn under torch.profiler:
+    (wall ms of those calls, [(kernel name, launches, device ms)]).
+
+    The recorded calls follow a warm-up step of as many calls with the
+    profiler already running (its records discarded), and sit 0.1 s inside
+    their step on both sides: in this long process on the H100, sessions
+    that recorded from their first launch to their last kept 96 of 100, 26
+    of 30 and once 1 of 10 launches of a one-kernel call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    kern, wall = [], []
+
+    def ready(prof):
+        kern.extend((e.key, e.count, e.self_device_time_total / 1e3)
+                    for e in prof.key_averages()
+                    if e.device_type.name == "CUDA" and e.count > 0
+                    and not e.key.startswith("ProfilerStep"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            time.sleep(0.1)
+            t = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall.append(1e3 * (time.perf_counter() - t))
+            time.sleep(0.1)
+            prof.step()
+    return wall[-1], kern
+
+
 def times(torch, fn, iters: int) -> tuple[float, float]:
     """(device ms, wall ms) per call of fn(), after a warm-up.
 
-    Device ms: the durations of the kernels fn launches, from torch.profiler
-    over ``iters`` calls, summed and divided by ``iters``; host gaps between
-    launches are left out. Wall ms: CUDA events around ``iters`` calls
-    launched back to back, which a host slower than the kernel bounds from
-    below. Device ms is None where the profiler records no kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    Device ms: the durations of the kernels fn launches over ``iters``
+    calls (``profiled``), summed and divided by ``iters``; host gaps between
+    launches are left out. The record counts only if every kernel name was
+    launched a whole multiple of ``iters`` times; up to three sessions are
+    made. Wall ms: CUDA events around ``iters`` calls launched back to
+    back, which a host slower than the kernel bounds from below. Device ms
+    is None where no session recorded a whole set of launches."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -93,14 +145,20 @@ def times(torch, fn, iters: int) -> tuple[float, float]:
     b.record()
     b.synchronize()
     wall = a.elapsed_time(b) / iters
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.self_device_time_total for e in prof.key_averages()
-          if e.device_type.name == "CUDA"]
-    return (sum(us) / 1e3 / iters if sum(us) > 0 else None), wall
+    for attempt in range(3):
+        _, kern = profiled(torch, fn, iters)
+        if kern and all(n % iters == 0 for _, n, _ in kern):
+            return sum(ms for _, _, ms in kern) / iters, wall
+        log(f"profiler session {attempt + 1} kept "
+            f"{[n for _, n, _ in kern]} kernel records over {iters} calls; "
+            f"measuring again")
+    return None, wall
+
+
+def log_top(kern, n: int) -> None:
+    """The n kernels of a profiled record with the most device time."""
+    for name, count, ms in sorted(kern, key=lambda r: -r[2])[:n]:
+        log(f"  {ms:8.3f} ms  x{count:<5d} {name[:90]}")
 
 
 def timed_row(torch, name, kernel, plain, iters, bound):
@@ -109,8 +167,8 @@ def timed_row(torch, name, kernel, plain, iters, bound):
     ms, wall = times(torch, kernel, iters)
     plain_ms, plain_wall = times(torch, plain, max(iters // 10, 3))
     if ms is None or plain_ms is None:
-        log(f"{name}: device time not measured (the profiler recorded no "
-            f"kernel); CUDA-event wall ms stand in")
+        log(f"{name}: device time not measured (no profiler session kept "
+            f"every launch); CUDA-event wall ms stand in")
         ms, plain_ms = wall, plain_wall
     row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                bound_by=bound[1])
@@ -139,6 +197,48 @@ def bitwise(torch, kernel, label, got, want) -> None:
         fail(f"{kernel} {label}: kernel disagrees with its plain version "
              f"(max |diff| {err})")
     ERRS[kernel] = max(ERRS.get(kernel, 0.0), err)
+
+
+def close(torch, kernel, label, got, want, bound) -> None:
+    """|got - want| <= bound in every element (same shape and dtype,
+    finite), else fail; ``bound`` is a tensor of want's shape. Records the
+    measured max |diff| under ``kernel`` in ERRS and logs it with the worst
+    share of its element's bound and the median |want|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{kernel} {label}: kernel gives {got.dtype} "
+             f"{tuple(got.shape)}, plain version {want.dtype} "
+             f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{kernel} {label}: non-finite output")
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max())
+    worst = float((diff / bound.double()).max())
+    over = int((diff > bound).sum())
+    ERRS[kernel] = max(ERRS.get(kernel, 0.0), err)
+    msg = (f"max |kernel - plain| {err:.3g}, at most {worst:.3g} of its "
+           f"element's bound (bound {float(bound.min()):.3g} to "
+           f"{float(bound.max()):.3g}); median |plain| "
+           f"{float(want.float().abs().median()):.3g}")
+    if over:
+        fail(f"{kernel} {label}: {over} elements over their bound; {msg}")
+    log(f"{kernel} {label}: {msg}")
+
+
+def attn_bound(torch, want):
+    """Per-element bound of the attention kernel against its plain version.
+    Both sum in float32, in another order, so a float32 output moves by
+    ~1e-6 of the values summed: 2e-5 absolute, scaled by the largest
+    |output| above 1. A bf16 output is that sum rounded to 8 significant
+    bits, and the other order can flip that rounding: the gap between two
+    neighbouring bf16 values is at most 2^-7 of the smaller one (between
+    2^-8 and 2^-7 of it, by where it sits in its binade), so each element
+    may move by 2^-7 of its own |output| on top of the float32 term, and
+    never by more than 2^-7 of the largest |output| above 1."""
+    mag = want.float().abs()
+    big = max(1.0, float(mag.max()))
+    if want.dtype == torch.bfloat16:
+        return (2.0 ** -7 * mag + 2e-5 * big).clamp(max=2.0 ** -7 * big)
+    return torch.full_like(mag, 2e-5 * big)
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +291,27 @@ def topk_bound(q, c, k):
     nbytes = q * c * 8 + q * k * 8
     ops = 2 * q * c * max(1, math.ceil(math.log2(c)))
     tb, to = nbytes / H100_BYTES_PER_S, ops / H100_FP32_OPS
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def flash_bound(q, k, v, causal, window, q_offset, kv_valid_len):
+    """Operations: two multiply-adds (QK^T and PV) per (query row, head,
+    head-dim column, valid key), 4 * B * Hq * hd * (valid keys summed over
+    the rows), at the dense bf16 tensor-core rate. Bytes: q once, the K and
+    V rows some query can see once, the output (q's type) once."""
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    valid = sk if kv_valid_len is None else kv_valid_len
+    pos = q_offset + np.arange(sq)
+    hi = np.minimum(valid, pos + 1) if causal else np.full(sq, valid)
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros(sq)
+    keys = int(np.maximum(hi - lo, 0).sum())
+    reach = int(hi.max())
+    nbytes = (2 * q.numel() * q.element_size()
+              + b * reach * k.shape[2] * d * (k.element_size()
+                                              + v.element_size()))
+    ops = 4 * b * hq * d * keys
+    tb, to = nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
     return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
 
 
@@ -365,6 +486,41 @@ def phase_kernels_synthetic(torch, dev):
                 ref.cluster_scan_ref(*args, dim, ef, m)):
             bitwise(torch, "cluster_scan", f"L={n_lanes} M={m} EF={ef} "
                     f"dim={dim} {name}", a, b)
+    phase_flash_synthetic(torch, dev)
+
+
+def phase_flash_synthetic(torch, dev):
+    """flash_attention against flash_attention_ref: GQA groups 1 and 4,
+    every head dim the kernel takes, ragged Sq / Sk (not multiples of the
+    64-row tiles), q_offset > 0, a window that bites, kv_valid_len < Sk
+    (the cache prefill's shape), bf16 q over float32 K/V (the serving
+    path's types), and query tiles past row 1024 that walk 17 KV tiles."""
+    from repro_torch.kernels import flash_attn, ref
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # b, sq, sk, hq, hkv, d, causal, window, q_off, valid, qt, kvt
+        (2, 300, 300, 8, 8, 64, True, None, 0, None, f32, f32),
+        (2, 257, 330, 8, 2, 80, True, None, 0, 300, bf, f32),
+        (1, 190, 523, 16, 4, 96, True, 128, 333, None, bf, f32),
+        (2, 129, 2080, 32, 8, 80, True, 700, 1900, 2029, bf, f32),
+        (1, 77, 200, 4, 1, 128, False, None, 0, 150, f32, bf),
+        (1, 100, 1000, 8, 2, 128, True, 37, 900, None, bf, bf),
+        (3, 1, 65, 4, 1, 64, True, None, 64, None, bf, f32),
+        (1, 1100, 1100, 8, 2, 80, True, None, 0, None, bf, f32),
+    ]
+    for b, sq, sk, hq, hkv, d, causal, window, q_off, valid, qt, kvt in cases:
+        g = torch.Generator(device=dev).manual_seed(sq * 1000 + sk)
+        q = torch.randn((b, sq, hq, d), generator=g, device=dev).to(qt)
+        k = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(kvt)
+        v = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(kvt)
+        kw = dict(causal=causal, window=window, q_offset=q_off,
+                  kv_valid_len=valid)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        close(torch, "flash_attention",
+              f"B={b} Sq={sq} Sk={sk} g={hq // hkv} hd={d} causal={causal} "
+              f"window={window} q_offset={q_off} kv_valid_len={valid} "
+              f"{str(qt)[6:]}/{str(kvt)[6:]}",
+              flash_attn.flash_attention(q, k, v, **kw), want,
+              attn_bound(torch, want))
 
 
 def phase_build_index(torch, dev):
@@ -433,9 +589,8 @@ def phase_search(torch, eng, qt):
 def phase_breakdown(torch, eng, qt, search_ms):
     """Where one search's time goes: wall time of each stage of
     PIMCQGEngine._candidates and the rerank, each ended by a synchronise,
-    then one whole search under torch.profiler for the device's busy share
-    and its kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
+    then one whole search under torch.profiler (after a discarded warm-up
+    search) for the device's busy share and its kernels by device time."""
     from repro_torch.core import backends, beam_search, rerank
 
     def timed(fn):
@@ -463,27 +618,17 @@ def phase_breakdown(torch, eng, qt, search_ms):
         + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
         + f"; per hop {stages['beam_search'] / max(loops, 1):.3f}")
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        eng.search(qt)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t)
-    kern = [e for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    wall, kern = profiled(torch, lambda: eng.search(qt))
+    busy = sum(ms for _, _, ms in kern)
     if not kern:
         log(f"profiled search {wall:.2f} ms wall; device time not measured "
             f"(the profiler recorded no kernel)")
         return
     log(f"profiled search {wall:.2f} ms wall, device busy {busy:.2f} ms in "
-        f"{sum(e.count for e in kern)} kernel launches; idle share "
+        f"{sum(n for _, n, _ in kern)} kernel launches; idle share "
         f"{1 - busy / search_ms:.3f} of the unprofiled median search "
         f"({search_ms:.2f} ms), {1 - busy / wall:.3f} of the profiled one")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
-            f"{e.key[:90]}")
+    log_top(kern, 12)
 
 
 def phase_kernels_real(torch, eng, qt):
@@ -753,6 +898,162 @@ def phase_new_kernels_real(torch, topo, rep, scan_call, qt):
     return {"merge_topk": merge_row, "cluster_scan": scan_row}
 
 
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def phase_lm(torch, dev, eng):
+    """Phase 11: the LM serving path at h2o-danube-1.8b's full width, with
+    retrieval into the 10M engine. Returns (launches of the counted run,
+    the flash_attention timing row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import StreamingScheduler, bucket_ladder
+    from repro_torch.kernels import flash_attn, ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    cfg = get_config("h2o-danube-1.8b")
+    b, prompt, n_gen = 8, 2048, 32
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers x d_model {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.window}; "
+        f"{n_params / 1e9:.3f} B params ({cfg.param_count() / 1e9:.3f} B by "
+        f"the config's count) drawn on the card in "
+        f"{time.perf_counter() - t:.1f} s")
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                           device=dev)
+    sched = StreamingScheduler(eng, buckets=bucket_ladder(b),
+                               fill_threshold=max(b // 2, 1),
+                               wait_limit_s=5e-3)
+    enc = serve.mean_pool_encoder(params, eng.icfg.dim)
+
+    def cache():
+        return model.init_cache(b, prompt + n_gen, dtype=torch.float32,
+                                device=dev)
+    serve.generate(model, params, tokens, 2, cache())     # warm-up
+    calls = []
+    real = ops.flash_attention
+
+    def recording(q, k, v, **kw):
+        if not calls:                 # layer 0 of the counted prefill
+            calls.append((q.clone(), k.clone(), v.clone(), kw))
+        return real(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c = cache()
+    ops.flash_attention = recording
+    ops.reset_launch_counts()
+    try:
+        out = serve.generate(model, params, tokens, n_gen, c,
+                             scheduler=sched, encoder=enc)
+    finally:
+        ops.flash_attention = real
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    total = out.prefill_s + out.decode_s + out.retrieve_s
+    log(f"generate B={b} prompt={prompt} gen={n_gen}: prefill "
+        f"{out.prefill_s * 1e3:.2f} ms, decode {out.decode_s * 1e3 / (n_gen - 1):.3f}"
+        f" ms per step ({n_gen - 1} steps), retrieval "
+        f"{out.retrieve_s * 1e3:.2f} ms; {b * n_gen / total:.1f} generated "
+        f"tokens/s ({b * (prompt + n_gen) / total:.1f} tokens/s with the "
+        f"prompt); peak device memory {peak:.2f} GiB")
+    print("kernels lm " + json.dumps(counts), flush=True)
+    if counts["flash_attention"] != cfg.n_layers:
+        fail(f"the prefill launched flash_attention {counts['flash_attention']}"
+             f" times, expected one a layer ({cfg.n_layers})")
+    toks = out.tokens
+    if toks.shape != (b, n_gen) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"generated tokens malformed: {tuple(toks.shape)}")
+    if not torch.isfinite(out.logits).all():
+        fail("the last decode step's logits are not finite")
+    ids = out.report.ids
+    log(f"retrieved ids (k={ids.shape[1]}) of the {b} requests: "
+        f"{ids.tolist()}")
+    res, _ = eng.search(torch.from_numpy(out.queries).to(dev))
+    same = ids == res.ids.cpu().numpy()
+    log(f"retrieved ids equal engine.search of the same queries in "
+        f"{int(same.sum())} of {same.size} slots")
+    if not same.all():
+        fail("the RAG loop's retrieved ids differ from engine.search")
+
+    # the last decode step (plain one-pass attention over the cache) against
+    # a prefill of the same tokens (the kernel), at that step's position
+    full = torch.cat([tokens, toks[:, :-1].long()], dim=1)
+    logits_p, cp = model.prefill(params, full, cache())
+    got, want = out.logits[:, -1].float(), logits_p[:, -1].float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    arg_d, arg_p = got.argmax(-1), want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    log(f"decode vs prefill logits at position {full.shape[1] - 1}: max "
+        f"|diff| {err:.4f}, max |logit| {scale:.4f} (ratio "
+        f"{err / scale:.4f}), median |logit| "
+        f"{float(want.abs().median()):.4f}; argmax agrees in "
+        f"{int((arg_d == arg_p).sum())} of {b} rows; the prefill's top-2 "
+        f"margins {[round(x, 4) for x in margin]}")
+    # both run 24 bf16 layers; the two attentions sum in another order and
+    # the matmuls run at other batch shapes, so bf16 roundings (2^-8
+    # relative) differ and compound over the layers. The greedy token must
+    # not change in any row: it is what decode serves.
+    if err > 0.05 * scale:
+        fail(f"decode logits differ from the prefill's by {err:.4f} > 5% of "
+             f"their largest magnitude {scale:.4f}")
+    if not torch.equal(arg_d, arg_p):
+        fail(f"decode's greedy token differs from the prefill's in "
+             f"{int((arg_d != arg_p).sum())} of {b} rows")
+
+    q0, k0, v0, kw0 = calls[0]
+    want0 = ref.flash_attention_ref(q0, k0, v0, **kw0)
+    close(torch, "flash_attention", f"real layer 0 q {tuple(q0.shape)} "
+          f"{str(q0.dtype)[6:]}, k/v {tuple(k0.shape)} {str(k0.dtype)[6:]}, "
+          f"{kw0}", flash_attn.flash_attention(q0, k0, v0, **kw0), want0,
+          attn_bound(torch, want0))
+    row = timed_row(
+        torch, f"flash_attention real layer 0 B={b} Sq={q0.shape[1]} "
+        f"Sk={k0.shape[1]} (valid {kw0['kv_valid_len']})",
+        lambda: flash_attn.flash_attention(q0, k0, v0, **kw0),
+        lambda: ref.flash_attention_ref(q0, k0, v0, **kw0), 10,
+        flash_bound(q0, k0, v0, kw0["causal"], kw0["window"],
+                    kw0["q_offset"], kw0["kv_valid_len"]))
+    n = q0.shape[1]
+    qs = q0.transpose(1, 2).contiguous()
+    ks = k0[:, :n].to(torch.bfloat16).transpose(1, 2).contiguous()
+    vs = v0[:, :n].to(torch.bfloat16).transpose(1, 2).contiguous()
+    lib, lib_wall = times(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True), 10)
+    row["library_ms"] = lib if lib is not None else lib_wall
+    log(f"flash_attention library (scaled_dot_product_attention, causal, "
+        f"GQA, bf16 K/V of the {n} valid keys): {row['library_ms']:.5f} ms "
+        f"on the device")
+
+    # where a prefill's and a decode step's time goes (the decode step at
+    # position prompt + n_gen - 1, the last slot of the cache)
+    nxt = toks[:, -1:]
+    for name, step in (("prefill", lambda: model.prefill(params, tokens,
+                                                         cache())),
+                       ("decode step", lambda: model.decode(params, nxt,
+                                                            cp))):
+        wall, kern = profiled(torch, step)
+        busy = sum(ms for _, _, ms in kern)
+        log(f"profiled {name}: {wall:.2f} ms wall, device busy {busy:.2f} ms "
+            f"in {sum(n for _, n, _ in kern)} kernel launches (idle share "
+            f"{1 - busy / wall:.3f})")
+        log_top(kern, 6)
+    return counts, row
+
+
 def main() -> None:
     try:
         import torch
@@ -781,6 +1082,7 @@ def main() -> None:
                                                    recall)
     timing.update(phase_new_kernels_real(torch, topo, rep, scan_call, qt))
     del topo
+    lm_counts, timing["flash_attention"] = phase_lm(torch, dev, eng)
 
     src = {"binary_ip_rank": ("src/repro_torch/kernels/csrc/binary_ip.cu",
                               "src/repro/kernels/binary_ip.py:79"),
@@ -789,13 +1091,16 @@ def main() -> None:
            "merge_topk": ("src/repro_torch/kernels/csrc/merge_topk.cu",
                           "src/repro/kernels/topk_select.py:236"),
            "cluster_scan": ("src/repro_torch/kernels/csrc/cluster_scan.cu",
-                            "src/repro/kernels/binary_ip.py:162")}
+                            "src/repro/kernels/binary_ip.py:162"),
+           "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                               "src/repro/kernels/flash_attn.py:75")}
     # launches: each kernel's count in the run of its own path (phase 5 the
-    # beam search, 8 the gemv search, 9 the sharded tier)
+    # beam search, 8 the gemv search, 9 the sharded tier, 11 the LM path)
     launches = {"binary_ip_rank": counts["binary_ip_rank"],
                 "topk_select": counts["topk_select"],
                 "cluster_scan": gemv_counts["cluster_scan"],
-                "merge_topk": sharded_counts["merge_topk"]}
+                "merge_topk": sharded_counts["merge_topk"],
+                "flash_attention": lm_counts["flash_attention"]}
     kernels = [dict(name=name, route="cuda", source=src[name][0],
                     replaces=src[name][1], launches=launches[name],
                     max_abs_err=ERRS[name], ms=timing[name]["ms"],

@@ -1,7 +1,8 @@
 """Carry the JAX package's built state into the port.
 
 The functions take plain numpy arrays (``np.asarray`` of the JAX package's
-``CompactIndex`` fields, ``HostStore`` and ``Placement``), so this module
+``CompactIndex`` fields, ``HostStore`` and ``Placement``, or of an LM's
+param tree), so this module
 imports neither JAX nor the JAX package, and return the port's types on
 the requested device. Both packages can then search the identical index.
 """
@@ -15,7 +16,7 @@ from .core.compact_index import CompactIndex, HostStore
 from .core.placement import Placement
 
 __all__ = ["compact_index_from_numpy", "host_store_from_numpy",
-           "placement_from_numpy"]
+           "placement_from_numpy", "lm_params_from_numpy"]
 
 
 def compact_index_from_numpy(fields: dict, device="cuda") -> CompactIndex:
@@ -49,3 +50,26 @@ def placement_from_numpy(order, shard_of, local_slot, n_shards: int,
                      owners_of=opt(owners_of, np.int32),
                      locals_of=opt(locals_of, np.int32),
                      resident_table=opt(resident_table, np.int32))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy refuses: the same 16
+        # bits, reinterpreted (exact; no trip through another float type)
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def lm_params_from_numpy(tree, device="cuda"):
+    """The JAX package's LM param tree (``jax.tree.map(np.asarray,
+    params)``: dicts, lists and None around numpy leaves) as the port's
+    params, leaf for leaf, in the same dtypes."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lm_params_from_numpy(v, device) for v in tree]
+    return _tensor(tree, device)

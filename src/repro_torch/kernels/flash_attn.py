@@ -1,0 +1,125 @@
+"""Wrapper of the CUDA flash-attention forward kernel (``csrc/flash_attn.cu``).
+
+Counterpart of the Pallas kernel ``flash_attention_fwd`` in
+``repro/kernels/flash_attn.py`` and of the blockwise scan of
+``repro/models/attention.py`` that the port's ``attend`` replaces. The
+wrapper takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
+plain version ``ref.flash_attention_ref``. ``check_args`` is shared by both
+routes, so a call either route refuses is refused on both.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+__all__ = ["flash_attention", "flash_attention_fwd", "check_args",
+           "HEAD_DIMS", "launches"]
+
+HEAD_DIMS = (64, 80, 96, 128)   # the kernel's instantiations (dk == dv)
+_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+launches = 0   # kernel launches since the count was last set to 0
+
+
+def _fn():
+    fn = _build.library("flash_attn").flash_attn_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_args(q, k, v, *, causal: bool, window: int | None, q_offset: int,
+               kv_valid_len: int | None) -> int:
+    """Validate the shapes and the mask; returns kv_valid_len (Sk if None).
+
+    Every query row must keep at least one valid key: for such a row the
+    kernel, which skips wholly masked tiles, gives the reference's result,
+    and every row of the serving path has its own diagonal key."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("attention takes q (B, Sq, Hq, dk), k (B, Sk, Hkv, "
+                         f"dk), v (B, Sk, Hkv, dv); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, hq, dk = q.shape
+    if k.shape[0] != b or k.shape[-1] != dk or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    sk, hkv = k.shape[1], k.shape[2]
+    if sk < 1 or hkv < 1 or hq % hkv:
+        raise ValueError(f"need Sk >= 1 and Hq % Hkv == 0, got Sk {sk}, "
+                         f"Hq {hq}, Hkv {hkv}")
+    valid = sk if kv_valid_len is None else int(kv_valid_len)
+    if not 1 <= valid <= sk:
+        raise ValueError(f"kv_valid_len {valid} outside [1, Sk = {sk}]: a "
+                         f"row with no valid key has no attention output")
+    if int(q_offset) < 0:
+        raise ValueError(f"q_offset {q_offset} < 0")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} < 1 leaves no key")
+    if causal and q_offset + sq > valid:
+        raise ValueError(f"causal rows up to position {q_offset + sq - 1} "
+                         f"need their own key, but only {valid} are valid")
+    if not causal and window is not None and q_offset + sq - window >= valid:
+        raise ValueError(f"window {window} leaves the query at position "
+                         f"{q_offset + sq - 1} no valid key of {valid}")
+    return valid
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int | None = None,
+                    q_offset: int = 0, kv_valid_len: int | None = None
+                    ) -> torch.Tensor:
+    """(B, Sq, Hq, dv) in q.dtype; semantics of ``ref.flash_attention_ref``.
+
+    q bf16 or f32, k and v of one type (bf16 or f32), each read in its own
+    type: nothing is cast. Head dims 64, 80, 96, 128 with dk == dv; the last
+    dim of each input contiguous (any other strides are passed on)."""
+    global launches
+    valid = check_args(q, k, v, causal=causal, window=window,
+                       q_offset=q_offset, kv_valid_len=kv_valid_len)
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        raise ValueError("flash_attention kernel needs q, k, v on one CUDA "
+                         f"device, got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in _TYPES or k.dtype not in _TYPES or v.dtype != k.dtype:
+        raise ValueError("flash_attention kernel takes q in bf16 / float32 "
+                         f"and k, v in one of them, got {q.dtype}, {k.dtype},"
+                         f" {v.dtype}")
+    b, sq, hq, dk = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if dk != dv or dk not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head dims "
+                         f"{HEAD_DIMS} with dk == dv, got dk {dk}, dv {dv}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("flash_attention kernel needs the head dim of q, k "
+                         "and v contiguous")
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=dev)
+    if b == 0 or sq == 0 or hq == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    _TYPES[q.dtype], _TYPES[k.dtype], b, sq, sk, hq, hkv, dk,
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                    int(causal), 0 if window is None else int(window),
+                    int(q_offset), valid, math.sqrt(dk), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, q_offset: int = 0
+                        ) -> torch.Tensor:
+    """The TPU kernel's signature: q (BH, Sq, dk), k/v (BH, Sk, dk/dv) with
+    heads folded into BH; returns (BH, Sq, dv) in q.dtype. A view onto the
+    same launch (B = BH, one head), dispatched by device like every kernel."""
+    from . import ops
+    return ops.flash_attention(q[:, :, None], k[:, :, None], v[:, :, None],
+                               causal=causal, q_offset=q_offset)[:, :, 0]

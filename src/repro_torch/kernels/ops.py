@@ -5,6 +5,8 @@ plain version in ``kernels/ref.py``. There is no size threshold, no
 environment switch and no fallback: a kernel that fails to build or launch
 raises. (The JAX package sends small problems to XLA even on a TPU; here
 one launch ranks all lanes of a beam hop, so the kernel carries every hop.)
+The attention kernel's argument checks (``flash_attn.check_args``) run on
+both routes.
 """
 
 from __future__ import annotations
@@ -13,15 +15,17 @@ import torch
 
 from . import binary_ip as _binary_ip
 from . import cluster_scan as _scan
+from . import flash_attn as _flash
 from . import merge_topk as _merge
 from . import ref as _ref
 from . import topk_select as _topk
 
 __all__ = ["binary_ip_rank", "cluster_scan", "topk_select", "merge_topk",
-           "launch_counts", "reset_launch_counts"]
+           "flash_attention", "launch_counts", "reset_launch_counts"]
 
 _KERNELS = {"binary_ip_rank": _binary_ip, "topk_select": _topk,
-            "merge_topk": _merge, "cluster_scan": _scan}
+            "merge_topk": _merge, "cluster_scan": _scan,
+            "flash_attention": _flash}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -67,6 +71,22 @@ def merge_topk(part_ids, part_dists, *, k: int, run: int | None = None):
     if _on_cuda(part_ids):
         return _merge.merge_topk(part_ids, part_dists, k=k, run=run)
     return _ref.merge_topk_ref(part_ids, part_dists, k=k, run=run)
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int | None = None,
+                    q_offset: int = 0, kv_valid_len: int | None = None
+                    ) -> torch.Tensor:
+    """Masked online-softmax attention forward, (B, Sq, Hq, dv) in q.dtype;
+    see ``ref.flash_attention_ref`` for the semantics."""
+    if _on_cuda(q):
+        return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset,
+                                      kv_valid_len=kv_valid_len)
+    _flash.check_args(q, k, v, causal=causal, window=window,
+                      q_offset=q_offset, kv_valid_len=kv_valid_len)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset,
+                                    kv_valid_len=kv_valid_len)
 
 
 def launch_counts() -> dict[str, int]:

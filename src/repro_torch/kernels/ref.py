@@ -2,7 +2,9 @@
 ``repro/kernels/ref.py``).
 
 Each function has the signature of its kernel's wrapper and defines the
-exact semantics the CUDA kernel must reproduce bitwise. The wrappers in
+semantics the CUDA kernel must reproduce: bitwise for the integer and
+selection kernels, to a stated tolerance for ``flash_attention_ref``, whose
+float32 sums the kernel takes in another order. The wrappers in
 ``kernels/ops.py`` run these for CPU tensors; ``chip_smoke.py`` holds each
 kernel against its plain version on the card.
 
@@ -13,14 +15,18 @@ reference computes, without relying on signed overflow.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["INT_MAX", "INT_MIN", "wrap_int32", "unpack_bits",
            "binary_ip_rank_ref", "cluster_scan_ref", "topk_select_ref",
-           "merge_topk_ref"]
+           "merge_topk_ref", "NEG_INF", "FLASH_TILE", "flash_attention_ref"]
 
 INT_MAX = 2**31 - 1
 INT_MIN = -2**31
+NEG_INF = -1e30      # the attention mask's fill (repro/models/attention.py)
+FLASH_TILE = 64      # keys per block of the scan: the CUDA kernel's KV tile
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -149,3 +155,51 @@ def merge_topk_ref(part_ids: torch.Tensor, part_dists: torch.Tensor, *,
     ids = torch.gather(part_ids, 1, pos[:, :k])
     ids = torch.where(torch.isfinite(out_d), ids, -1)
     return ids.to(torch.int32), out_d.to(torch.float32)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool, window: int | None = None,
+                        q_offset: int = 0, kv_valid_len: int | None = None
+                        ) -> torch.Tensor:
+    """Blockwise online-softmax attention forward (``_flash_fwd`` of
+    ``repro/models/attention.py``, the oracle of the Pallas
+    ``flash_attention_fwd``).
+
+    q (B, Sq, Hq, dk), k (B, Sk, Hkv, dk), v (B, Sk, Hkv, dv), Hq % Hkv ==
+    0; query head h reads KV head h // (Hq / Hkv). Key j is valid for the
+    query at absolute position p = q_offset + i when j < kv_valid_len (Sk
+    when None), j <= p if causal, and p - j < window if a window is given.
+    Scores, softmax and the P.V sum are float32 (q scaled by 1/sqrt(dk)
+    first), a masked score is NEG_INF, the denominator max(l, 1e-30), and
+    the output (B, Sq, Hq, dv) is cast to q.dtype. Keys are scanned in
+    blocks of FLASH_TILE; the last block is ragged instead of zero-padded,
+    which gives the reference's result for every row with a valid key.
+    """
+    b, sq, hq, dk = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = hq // hkv
+    valid = sk if kv_valid_len is None else kv_valid_len
+    qf = (q.float() / math.sqrt(dk)).reshape(b, sq, hkv, g, dk)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full((b, hkv, g, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, dv), device=q.device)
+    for j0 in range(0, sk, FLASH_TILE):
+        kj = k[:, j0:j0 + FLASH_TILE].float()
+        vj = v[:, j0:j0 + FLASH_TILE].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kj)
+        kv_pos = j0 + torch.arange(kj.shape[1], device=q.device)
+        ok = (kv_pos < valid)[None, :].expand(sq, -1)
+        if causal:
+            ok = ok & (kv_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            ok = ok & (q_pos[:, None] - kv_pos[None, :] < window)
+        s = torch.where(ok, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vj)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(q.dtype)

@@ -1,0 +1,371 @@
+"""Serving launcher: batched prefill + greedy decode, with PIMCQG retrieval
+in the loop (counterpart of ``repro/launch/serve.py``).
+
+    python -m repro_torch.launch.serve --arch h2o-danube-1.8b --rag
+
+``run`` serves the arch's smoke config with random weights drawn from
+``--seed``, as the JAX package does; ``generate`` is the loop itself
+(prefill -> decode -> retrieval) and serves any model, full width included.
+--rag wires the engine into the decode loop through a pluggable QUERY
+ENCODER: after the first decode step, its logits become a (B, dim) query
+batch that streams into the engine through
+
+  * ``StreamingScheduler`` (the default, one engine);
+  * ``FleetScheduler(replicate_engine(...))`` with --fleet N (N replicas);
+  * ``TopologyConfig(shards=N, replicas=R).build`` with --fleet N --sharded
+    (the index partitioned across N engines, scatter / gather / merge).
+
+Not ported yet, each raising NotImplementedError after the flag checks:
+--tenants and --churn (ROADMAP A7), --zipf (``zipf_query_set`` is not
+copied yet; ROADMAP A9) and --exec mesh (ROADMAP A8).
+
+--sharded / --replicas without --fleet >= 2 is an argument ERROR, not a
+silent single-engine run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Callable, NamedTuple, Protocol
+
+import numpy as np
+import torch
+
+from ..configs import get_smoke
+from ..core import compact_index, engine
+from ..core.backends import available_backends
+from ..core.fleet import FleetScheduler, TenantSpec, TopologyConfig, \
+    replicate_engine
+from ..core.pipeline import StreamingScheduler, bucket_ladder
+from ..data.synthetic import clustered_vectors
+from ..models.model import Model, build_model
+
+__all__ = ["QueryEncoder", "mean_pool_encoder", "logit_slice_encoder",
+           "ENCODERS", "parse_tenants", "check_flags", "Generation",
+           "generate", "run", "main"]
+
+
+class QueryEncoder(Protocol):
+    """Maps decode-step logits to retrieval queries.
+
+    __call__(logits (B, T, vocab) tensor) -> (B, dim) np.float32: one query
+    embedding per in-flight request, in the engine's vector space."""
+
+    def __call__(self, logits: torch.Tensor) -> np.ndarray: ...
+
+
+def mean_pool_encoder(params, dim: int) -> QueryEncoder:
+    """Default encoder: probability-weighted mean token embedding.
+
+    Mean-pools the logits over positions, softmaxes over the vocab, and
+    takes the expected row of the model's own embedding table, truncated to
+    the engine's ``dim`` and L2-normalized."""
+    emb = params["embed"]
+    if emb.shape[-1] < dim:
+        raise ValueError(f"d_model {emb.shape[-1]} < engine dim {dim}")
+
+    def encode(logits: torch.Tensor) -> np.ndarray:
+        p = torch.softmax(logits.float().mean(1), -1)
+        e = (p @ emb[:p.shape[-1]].float())[:, :dim]       # (B, dim)
+        e = e / torch.clamp(torch.linalg.norm(e, dim=-1, keepdim=True),
+                            min=1e-6)
+        return e.cpu().numpy().astype(np.float32)
+
+    return encode
+
+
+def logit_slice_encoder(dim: int) -> QueryEncoder:
+    """The historical stub (first ``dim`` logits of position 0), kept as a
+    named alternative encoder."""
+    def encode(logits: torch.Tensor) -> np.ndarray:
+        return logits[:, 0, :dim].float().cpu().numpy()
+    return encode
+
+
+# name -> factory(params, dim); resolved INSIDE run() where the engine dim
+# is known, so CLIs pass names and never duplicate the dimension
+ENCODERS: dict[str, Callable[..., QueryEncoder]] = {
+    "mean-pool": mean_pool_encoder,
+    "logit-slice": lambda params, dim: logit_slice_encoder(dim),
+}
+
+
+def parse_tenants(spec: str) -> list[TenantSpec]:
+    """Parse --tenants "name:weight[:backend],..." into TenantSpecs; every
+    malformed entry raises ValueError with the offending text. (Serving
+    tenants is not ported yet: ``run`` refuses them after this check.)"""
+    out = []
+    for entry in spec.split(","):
+        entry = entry.strip()
+        if not entry:
+            raise ValueError(f"--tenants has an empty entry: {spec!r}")
+        parts = [p.strip() for p in entry.split(":")]
+        if len(parts) not in (2, 3) or not parts[0]:
+            raise ValueError(
+                f"bad tenant entry {entry!r}: expected name:weight[:backend]")
+        name = parts[0]
+        try:
+            weight = float(parts[1])
+        except ValueError:
+            raise ValueError(f"tenant {name!r}: weight {parts[1]!r} is not "
+                             f"a number") from None
+        if not weight > 0:
+            raise ValueError(
+                f"tenant {name!r}: weight must be > 0, got {weight}")
+        backend = parts[2] if len(parts) == 3 else None
+        if backend is not None and backend not in available_backends():
+            raise ValueError(
+                f"tenant {name!r}: unknown backend {backend!r}; registered "
+                f"backends: {available_backends()}")
+        out.append(TenantSpec(name=name, weight=weight, backend=backend))
+    names = [t.name for t in out]
+    if len(set(names)) != len(names):
+        raise ValueError(f"--tenants has duplicate tenant names: {names}")
+    return out
+
+
+class Generation(NamedTuple):
+    tokens: torch.Tensor       # (B, gen) int32 greedy tokens
+    logits: torch.Tensor       # (B, 1, Vpad) logits of the last step
+    report: Any                # the retrieval's report, None without one
+    queries: np.ndarray | None  # the encoded retrieval queries
+    prefill_s: float           # host clock, ended by a synchronise
+    decode_s: float            # the gen - 1 decode steps, retrieval excluded
+    retrieve_s: float          # encoder + scheduler.run, host clock
+
+
+def generate(model: Model, params, tokens: torch.Tensor, gen: int, cache, *,
+             scheduler=None, encoder: QueryEncoder | None = None
+             ) -> Generation:
+    """Prefill ``tokens`` (B, S) into ``cache``, then greedy-decode until
+    ``gen`` tokens are out. With a scheduler, the encoder turns the first
+    decode step's logits into queries and the scheduler serves them (the
+    RAG hook of the JAX package's loop). On a card the steps are timed on
+    the host clock, each phase ended by a synchronise."""
+    if (scheduler is None) != (encoder is None):
+        raise ValueError("retrieval needs both a scheduler and an encoder")
+    cuda = tokens.device.type == "cuda"
+
+    def now():
+        if cuda:
+            torch.cuda.synchronize(tokens.device)
+        return time.perf_counter()
+
+    t0 = now()
+    logits, cache = model.prefill(params, tokens, cache)
+    out = [torch.argmax(logits[:, -1:], -1).to(torch.int32)]
+    t1 = now()
+    report = queries = None
+    retrieve_s = 0.0
+    for i in range(gen - 1):
+        logits, cache = model.decode(params, out[-1], cache)
+        out.append(torch.argmax(logits[:, -1:], -1).to(torch.int32))
+        if scheduler is not None and i == 0:
+            tr = now()
+            queries = encoder(logits)
+            report = scheduler.run(queries)
+            retrieve_s = now() - tr
+    t2 = now()
+    return Generation(torch.cat(out, dim=1), logits, report, queries,
+                      t1 - t0, t2 - t1 - retrieve_s, retrieve_s)
+
+
+def check_flags(rag: bool, fleet: int, sharded: bool, replicas: int,
+                exec: str, tenants, churn: float, zipf: float | None) -> None:
+    """The JAX package's flag checks, with its messages (ValueError), then
+    NotImplementedError for the flags this port does not serve yet."""
+    if sharded and fleet < 2:
+        raise ValueError(
+            f"--sharded partitions the index across the fleet and needs "
+            f"--fleet >= 2 (got --fleet {fleet}); a single engine has "
+            f"nothing to partition")
+    if replicas > 1 and not sharded:
+        raise ValueError(
+            f"--replicas {replicas} replicates each PARTITION and needs "
+            f"--sharded; for plain replication use --fleet N alone")
+    if replicas < 1:
+        raise ValueError(f"--replicas must be >= 1, got {replicas}")
+    if exec != "inproc" and not sharded:
+        raise ValueError(
+            f"--exec {exec} runs the SHARDED scatter/gather on a device "
+            f"mesh and needs --sharded (with --fleet >= 2)")
+    if exec == "mesh" and replicas > 1:
+        raise ValueError(
+            "--exec mesh drives one device per shard; replication on the "
+            "mesh is a multi-process launch, not --replicas")
+    if not 0.0 <= churn < 1.0:
+        raise ValueError(f"--churn must be in [0, 1), got {churn}")
+    if churn > 0 and not rag:
+        raise ValueError("--churn mutates the retrieval corpus and "
+                         "needs --rag")
+    if zipf is not None:
+        if not zipf > 0:
+            raise ValueError(f"--zipf exponent must be > 0, got {zipf}")
+        if not rag:
+            raise ValueError("--zipf skews the retrieval stream and "
+                             "needs --rag")
+    if churn > 0 and fleet > 1 and not sharded:
+        raise ValueError(
+            "--churn needs the typed mutable topology (--sharded) or a "
+            "single engine; the replicated FleetScheduler facade carries "
+            "no day-2 mutation path")
+    if tenants is not None:
+        specs = parse_tenants(tenants) if isinstance(tenants, str) \
+            else list(tenants)
+        if not rag:
+            raise ValueError("--tenants tags the retrieval stream and "
+                             "needs --rag")
+        if fleet < 2:
+            raise ValueError(
+                f"--tenants needs a serving topology to arbitrate "
+                f"(--fleet >= 2; got --fleet {fleet})")
+        tenant_backends = sorted({t.backend for t in specs
+                                  if t.backend is not None})
+        if tenant_backends and not sharded:
+            raise ValueError(
+                f"tenant backends {tenant_backends} pin tenants to shard "
+                f"modes and need --sharded")
+        if tenant_backends and fleet < len(tenant_backends):
+            raise ValueError(
+                f"{len(tenant_backends)} tenant backends "
+                f"{tenant_backends} need --fleet >= {len(tenant_backends)} "
+                f"shards to serve them (got --fleet {fleet})")
+        raise NotImplementedError("--tenants is not ported yet: ROADMAP A7 "
+                                  "(tenant registries in the topology)")
+    if churn > 0:
+        raise NotImplementedError("--churn is not ported yet: ROADMAP A7 "
+                                  "(MutableIndex and day-2 operations)")
+    if zipf is not None:
+        raise NotImplementedError("--zipf is not ported yet: ROADMAP A9 "
+                                  "(data/synthetic.zipf_query_set)")
+    if exec == "mesh":
+        raise NotImplementedError("--exec mesh is not ported yet: ROADMAP "
+                                  "A8 (the mesh execution backend)")
+
+
+
+def run(arch: str, requests: int, prompt_len: int, gen: int,
+        rag: bool = False, seed: int = 0, verbose: bool = True,
+        query_encoder: QueryEncoder | str | None = None, fleet: int = 1,
+        sharded: bool = False, replicas: int = 1, exec: str = "inproc",
+        tenants: str | list | None = None, churn: float = 0.0,
+        zipf: float | None = None, device="cuda"):
+    """The JAX package's ``run`` on the port: the arch's smoke config with
+    random weights from ``seed``; returns (tokens (B, gen) numpy, retrieved
+    ids or None)."""
+    check_flags(rag, fleet, sharded, replicas, exec, tenants, churn, zipf)
+    device = torch.device(device)
+    cfg = get_smoke(arch)
+    model = build_model(cfg)
+    gen_ = torch.Generator(device=device).manual_seed(seed)
+    params = model.init(gen_)
+
+    scheduler = encoder = None
+    if rag:
+        x, _ = clustered_vectors(seed, 2000, 32, 8)
+        icfg = compact_index.IndexConfig(dim=32, n_clusters=8, degree=8,
+                                         knn_k=16)
+        scfg = engine.SearchConfig(nprobe=2, ef=16, k=4)
+        eng = engine.PIMCQGEngine.build(seed, x, icfg, scfg, n_shards=2,
+                                        device=device)
+        stream = dict(buckets=bucket_ladder(max(requests, 1)),
+                      fill_threshold=max(requests // 2, 1),
+                      wait_limit_s=5e-3)
+        if fleet > 1 and sharded:
+            scheduler = TopologyConfig(shards=fleet, replicas=replicas,
+                                       **stream).build(eng)
+        elif fleet > 1:
+            scheduler = FleetScheduler(replicate_engine(eng, fleet),
+                                       **stream)
+        else:
+            scheduler = StreamingScheduler(eng, **stream)
+        if query_encoder is None:
+            query_encoder = "mean-pool"
+        encoder = ENCODERS[query_encoder](params, icfg.dim) \
+            if isinstance(query_encoder, str) else query_encoder
+
+    B = requests
+    tokens = torch.randint(0, cfg.vocab_size, (B, prompt_len),
+                           generator=gen_, device=device)
+    cache = model.init_cache(B, prompt_len + gen, dtype=torch.float32,
+                             device=device)
+    t0 = time.perf_counter()
+    out = generate(model, params, tokens, gen, cache, scheduler=scheduler,
+                   encoder=encoder)
+    dt = time.perf_counter() - t0
+    rep = out.report
+    retrieved = None if rep is None else rep.ids
+    if verbose:
+        print(f"[serve] {B} requests x ({prompt_len} prompt + {gen} gen) "
+              f"in {dt:.2f}s -> {B * gen / dt:.1f} tok/s")
+        if retrieved is not None:
+            print(f"[serve] rag: retrieved neighbor ids (first 4 reqs): "
+                  f"{retrieved[:4, :4].tolist()}")
+            if fleet > 1 and sharded:
+                shares = [d["queries"] for d in rep.per_engine]
+                sizes = [d["clusters"] for d in rep.per_engine]
+                print(f"[serve] rag: sharded fleet={fleet}x{replicas} "
+                      f"clusters/engine={sizes} "
+                      f"fanout={rep.fanout_mean:.2f} "
+                      f"scatter flushes={rep.n_flushes} "
+                      f"merges={rep.n_merges} "
+                      f"per-engine queries={shares} "
+                      f"shed={rep.shed_fraction:.2f} p50={rep.p50_ms:.1f}ms")
+            elif fleet > 1:
+                shares = [d["queries"] for d in rep.per_engine]
+                print(f"[serve] rag: fleet={fleet} ({rep.route}) "
+                      f"buckets={scheduler.buckets} "
+                      f"flushes={rep.n_flushes} "
+                      f"per-engine queries={shares} "
+                      f"shed={rep.shed_fraction:.2f} p50={rep.p50_ms:.1f}ms")
+            else:
+                print(f"[serve] rag: scheduler buckets={scheduler.buckets} "
+                      f"flushes={rep.n_flushes} compiles={rep.compiles} "
+                      f"p50={rep.p50_ms:.1f}ms")
+    return out.tokens.cpu().numpy(), retrieved
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--rag", action="store_true")
+    ap.add_argument("--encoder", default="mean-pool", choices=list(ENCODERS),
+                    help="query encoder for --rag (default: probability-"
+                         "weighted mean token embedding)")
+    ap.add_argument("--fleet", type=int, default=1,
+                    help="shard --rag retrieval across N engine replicas "
+                         "via the FleetScheduler (default 1: single-engine "
+                         "StreamingScheduler)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="with --fleet N: PARTITION the index across the N "
+                         "engines instead of replicating it")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="with --fleet N --sharded: replicate EACH "
+                         "partition this many ways (default 1)")
+    ap.add_argument("--exec", default="inproc", choices=["inproc", "mesh"],
+                    help="with --fleet N --sharded: execution backend "
+                         "('mesh' is not ported yet)")
+    ap.add_argument("--tenants", default=None,
+                    help="name:weight[:backend],... (not ported yet)")
+    ap.add_argument("--zipf", type=float, default=None, metavar="S",
+                    help="Zipf(S) retrieval queries (not ported yet)")
+    ap.add_argument("--churn", type=float, default=0.0,
+                    help="day-2 churn fraction (not ported yet)")
+    args = ap.parse_args()
+    try:
+        check_flags(args.rag, args.fleet, args.sharded, args.replicas,
+                    args.exec, args.tenants, args.churn, args.zipf)
+    except ValueError as e:    # flag misuse: exit 2 with usage
+        ap.error(str(e))
+    run(args.arch, args.requests, args.prompt_len, args.gen, args.rag,
+        query_encoder=args.encoder, fleet=args.fleet, sharded=args.sharded,
+        replicas=args.replicas, exec=args.exec, tenants=args.tenants,
+        churn=args.churn, zipf=args.zipf)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,218 @@
+"""Attention family, GQA half (counterpart of ``repro/models/attention.py``):
+full / sliding-window attention with a KV cache.
+
+Every prefill attends through ``attend``, which is the CUDA kernel
+``flash_attention`` on a card (``kernels/csrc/flash_attn.cu``; its plain
+version ``kernels/ref.py`` ``flash_attention_ref`` on the CPU), so the
+(S, S) score matrix is never held. Decode reads the cache in one pass with
+``attend_onepass`` (scores are (B, H, 1, S)): plain PyTorch, as in the JAX
+package, which has no kernel there.
+
+Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A10): MLA,
+cross-attention (``kv_override``, enc-dec), attention softcap, and the
+backward pass (the JAX package's custom VJP; this slice serves, it does not
+train).
+
+Layout: (B, S, H, d) at every public function, as in the JAX package.
+``KVCache.pos`` is a Python int (the JAX package traces it as a scalar): a
+device tensor would cost a host sync in every layer of every step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..kernels import ops
+from ..kernels.ref import NEG_INF
+from . import layers as L
+
+__all__ = ["attend", "attend_ref", "attend_onepass", "KVCache", "gqa_init",
+           "gqa_apply", "gqa_empty_cache", "mla_init", "mla_apply",
+           "mla_empty_cache"]
+
+_A10 = "ROADMAP A10 (the rest of the LM stack)"
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: int | None = None, q_offset: int = 0,
+           kv_valid_len: int | None = None, softcap: float = 0.0
+           ) -> torch.Tensor:
+    """Online-softmax ("flash") attention forward through the kernel seam.
+
+    q (B, Sq, Hq, dk)   k (B, Sk, Hkv, dk)   v (B, Sk, Hkv, dv),
+    Hq % Hkv == 0. Returns (B, Sq, Hq, dv) in q.dtype.
+    q_offset: absolute position of q[0] (chunked prefill).
+    kv_valid_len: mask keys at positions >= this (cache prefill).
+    The JAX package's ``kv_block`` only orders its float sums; the kernel
+    scans keys in tiles of ``ref.FLASH_TILE``."""
+    if softcap:
+        raise NotImplementedError(f"attention softcap is not ported: {_A10}")
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, kv_valid_len=kv_valid_len)
+
+
+def attend_ref(q, k, v, *, causal, window=None, q_offset=0,
+               kv_valid_len=None, softcap: float = 0.0):
+    """Naive O(S^2)-memory oracle for tests."""
+    return attend_onepass(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset, kv_valid_len=kv_valid_len,
+                          softcap=softcap)
+
+
+def attend_onepass(q, k, v, *, causal, window=None, q_offset=0,
+                   kv_valid_len=None, kv_positions=None,
+                   softcap: float = 0.0):
+    """Single-pass softmax attention (decode: Sq is tiny).
+
+    kv_positions: explicit absolute position per cache slot (rolling window
+    caches); entries < 0 are masked; causal/window masking is implied by the
+    rolling-buffer invariant and skipped."""
+    b, sq, hq, dk = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = hq // hkv
+    qf = (q.float() / math.sqrt(dk)).reshape(b, sq, hkv, g, dk)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    dev = q.device
+    q_pos = q_offset + torch.arange(sq, device=dev)
+    if kv_positions is not None:
+        ok = (kv_positions >= 0)[None, :].expand(sq, sk)
+    else:
+        kv_pos = torch.arange(sk, device=dev)
+        ok = torch.ones((sq, sk), dtype=torch.bool, device=dev) \
+            if kv_valid_len is None else \
+            (kv_pos[None, :] < kv_valid_len).expand(sq, sk)
+        if causal:
+            ok = ok & (kv_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            ok = ok & (q_pos[:, None] - kv_pos[None, :] < window)
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor    # (B, Smax, Hkv, dk)
+    v: torch.Tensor    # (B, Smax, Hkv, dv)
+    pos: int           # tokens already cached
+
+
+def gqa_init(gen: torch.Generator, cfg, *, stack: tuple = ()) -> dict:
+    """Projections stored 3-D, (d, H, hd) / (H, hd, d), as in the JAX
+    package; ``stack`` prepends the n_groups axis of stacked layers."""
+    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim or d // hq
+
+    def head_w(shape, scale):
+        return L.trunc_normal(gen, (*stack, *shape), scale, cfg.dtype)
+
+    return {"wq": head_w((d, hq, hd), 1.0 / math.sqrt(d)),
+            "wk": head_w((d, hkv, hd), 1.0 / math.sqrt(d)),
+            "wv": head_w((d, hkv, hd), 1.0 / math.sqrt(d)),
+            "wo": head_w((hq, hd, d), 1.0 / math.sqrt(hq * hd))}
+
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul; the result is contiguous."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
+
+
+def gqa_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+              cache: KVCache | None = None, window: int | None = None,
+              kv_override=None, causal: bool = True):
+    """x (B, S, d). Train/prefill when cache is None or being filled;
+    decode when S == 1 against an existing cache.
+
+    Window caches may be ROLLING: allocated with `window` slots, written
+    modulo window; kv slot positions are then reconstructed analytically.
+    The cache's tensors are written IN PLACE (the JAX package returns new
+    arrays; in place saves a copy of the cache per step) and returned in a
+    KVCache with the advanced pos."""
+    if kv_override is not None:
+        raise NotImplementedError(f"cross-attention (kv_override, enc-dec) "
+                                  f"is not ported: {_A10}")
+    b, sq, _ = x.shape
+    q = _proj_heads(x, p["wq"])
+    k = _proj_heads(x, p["wk"])
+    v = _proj_heads(x, p["wv"])
+    if cfg.rope_theta:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        out = attend(q, k, v, causal=causal, window=window)
+    else:
+        pos = cache.pos
+        slots = cache.k.shape[1]
+        rolling = window is not None and slots == window
+        if rolling:
+            if sq == 1:
+                slot = pos % window
+                cache.k[:, slot:slot + 1] = k
+                cache.v[:, slot:slot + 1] = v
+                # slot s holds absolute position pos - ((pos - s) mod W)
+                kv_positions = pos - (pos - torch.arange(
+                    window, device=x.device)) % window
+                out = attend_onepass(q, cache.k, cache.v, causal=True,
+                                     q_offset=pos, kv_positions=kv_positions)
+            else:
+                # prefill from zero: attend over in-pass K/V, stash the tail
+                out = attend(q, k, v, causal=causal, window=window,
+                             q_offset=pos)
+                take = min(window, sq)
+                idx = (pos + sq - take + torch.arange(
+                    take, device=x.device)) % window
+                cache.k[:, idx] = k[:, -take:].to(cache.k.dtype)
+                cache.v[:, idx] = v[:, -take:].to(cache.v.dtype)
+        else:
+            if pos + sq > slots:
+                raise ValueError(f"KV cache of {slots} slots holds {pos} "
+                                 f"tokens and cannot take {sq} more")
+            cache.k[:, pos:pos + sq] = k
+            cache.v[:, pos:pos + sq] = v
+            if sq == 1:
+                out = attend_onepass(q, cache.k, cache.v, causal=True,
+                                     window=window, q_offset=pos,
+                                     kv_valid_len=pos + 1)
+            else:
+                out = attend(q, cache.k, cache.v, causal=True, window=window,
+                             q_offset=pos, kv_valid_len=pos + sq)
+        cache = KVCache(cache.k, cache.v, pos + sq)
+    hq, hd, d = p["wo"].shape
+    out = out.reshape(b, sq, hq * hd) @ p["wo"].reshape(hq * hd, d)
+    return out, cache
+
+
+def gqa_empty_cache(cfg, batch: int, max_len: int, dtype, *,
+                    stack: tuple = (), device="cuda") -> KVCache:
+    hkv = cfg.n_kv_heads
+    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+    shape = (*stack, batch, max_len, hkv, hd)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V2 family): not ported yet
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg, **_):
+    raise NotImplementedError(f"MLA attention is not ported: {_A10}")
+
+
+def mla_apply(p, x, cfg, *, positions, cache=None):
+    raise NotImplementedError(f"MLA attention is not ported: {_A10}")
+
+
+def mla_empty_cache(cfg, batch, max_len, dtype, **_):
+    raise NotImplementedError(f"MLA attention is not ported: {_A10}")

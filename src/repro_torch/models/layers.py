@@ -1,0 +1,141 @@
+"""Core NN primitives (counterpart of ``repro/models/layers.py``):
+functional, over plain dicts of tensors.
+
+Params keep the JAX package's layouts and dtypes, so a JAX param tree
+carries over one to one (``repro_torch.bridge.lm_params_from_numpy``). The
+JAX package pairs each param with a sharding spec; the port runs on one
+card and keeps none.
+
+Init draws truncated normals from an explicit ``torch.Generator``: the same
+distributions as ``jax.random``, not the same numbers. Dtype policy: params
+in cfg.dtype (bf16 by default), math in float32 where it matters (norms,
+rope, softmax), outputs cast back.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["trunc_normal", "dense_init", "embed_init", "norm_init",
+           "norm_apply", "act_fn", "rope_freqs", "apply_rope", "mlp_init",
+           "mlp_apply", "logits_softcap"]
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def trunc_normal(gen: torch.Generator, shape, scale: float, dtype
+                 ) -> torch.Tensor:
+    """N(0, 1) truncated to [-2, 2], times ``scale``, drawn in float32 on
+    the generator's device by the inverse CDF, then cast to ``dtype``."""
+    lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, \
+        (1 + math.erf(2 / math.sqrt(2))) / 2
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    w.uniform_(2 * lo - 1, 2 * hi - 1, generator=gen)
+    w.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    return (w * scale).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
+               scale: float | None = None, stack: tuple = ()) -> torch.Tensor:
+    """Truncated-normal (*stack, d_in, d_out) linear weight, scale
+    1/sqrt(d_in) unless given."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return trunc_normal(gen, (*stack, d_in, d_out), scale, dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype
+               ) -> torch.Tensor:
+    w = torch.empty((vocab, d), dtype=torch.float32, device=gen.device)
+    return (w.normal_(generator=gen) * 0.02).to(dtype)
+
+
+def norm_init(d: int, kind: str, *, stack: tuple = (), device="cuda"
+              ) -> dict:
+    ones = torch.ones((*stack, d), dtype=torch.float32, device=device)
+    if kind == "layernorm":
+        return {"scale": ones, "bias": torch.zeros_like(ones)}
+    return {"scale": ones}
+
+
+# ---------------------------------------------------------------------------
+# apply helpers
+# ---------------------------------------------------------------------------
+
+def norm_apply(p, x: torch.Tensor, kind: str, eps: float = 1e-6
+               ) -> torch.Tensor:
+    xf = x.float()
+    if kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, unbiased=False, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:  # rmsnorm
+        ms = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+def act_fn(name: str):
+    # jax.nn.gelu defaults to the tanh approximation; "gelu" keeps that
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(dim: int, theta: float, device="cuda") -> torch.Tensor:
+    """(dim//2,) inverse frequencies."""
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x (..., S, H, hd), positions (..., S). Rotates the two HALVES of the
+    head (x[..., :hd/2], x[..., hd/2:]) as the JAX package does, not
+    interleaved pairs."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)                   # (hd/2,)
+    ang = positions[..., :, None].float() * inv             # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (dense FFN): swiglu / geglu / plain 2-layer
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype, kind: str, *,
+             stack: tuple = ()) -> dict:
+    p = {"wi": dense_init(gen, d, d_ff, dtype, stack=stack)}
+    if kind in ("swiglu", "geglu"):
+        p["wg"] = dense_init(gen, d, d_ff, dtype, stack=stack)
+    p["wo"] = dense_init(gen, d_ff, d, dtype, scale=1.0 / math.sqrt(d_ff),
+                         stack=stack)
+    return p
+
+
+def mlp_apply(p, x: torch.Tensor, kind: str, act: str) -> torch.Tensor:
+    f = act_fn(act)
+    if kind in ("swiglu", "geglu"):
+        a = "silu" if kind == "swiglu" else "gelu"
+        h = act_fn(a)(x @ p["wg"]) * (x @ p["wi"])
+    else:
+        h = f(x @ p["wi"])
+    return h @ p["wo"]
+
+
+def logits_softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return (torch.tanh(x.float() / cap) * cap).to(x.dtype)

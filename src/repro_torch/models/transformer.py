@@ -1,0 +1,224 @@
+"""Decoder-only LM: embedding, mixer/MLP blocks, stacked layer groups
+(counterpart of ``repro/models/transformer.py``).
+
+Layer stacking keeps the JAX package's structure, so its params carry over
+one to one: the per-layer mixer is cfg.pattern[i % len(pattern)]; layers are
+grouped into repeating pattern units whose params are stacked on a leading
+n_groups axis; first_k_dense prefix layers and the pattern remainder (tail)
+stand alone. Where the JAX package ``lax.scan``s a unit over the stacked
+params, the port loops over the stacked slices in Python. Its ``remat``
+(recompute in the backward pass) and ``constrain`` (sharding annotations)
+have no meaning for a forward pass on one card and are dropped.
+
+Caches mirror the param structure: {"prefix": [...], "groups": [KVCache
+with (n_groups, B, S, Hkv, hd) tensors per pattern slot], "tail": [...]}.
+
+Ported mixers: attn, swa and lattn (GQA), with dense MLPs. MoE, Mamba,
+RG-LRU, MLA, patches (vlm) and encoder layers raise NotImplementedError
+naming ROADMAP A10.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import attention as A
+from . import layers as L
+from .config import ModelConfig
+
+__all__ = ["block_init", "block_apply", "block_empty_cache", "decoder_init",
+           "decoder_empty_cache", "decoder_forward"]
+
+GQA_KINDS = ("attn", "swa", "lattn")
+_A10 = "ROADMAP A10 (the rest of the LM stack)"
+
+
+def _check(cfg: ModelConfig) -> None:
+    """Refuse what this slice does not port, before any work is done."""
+    for i in range(cfg.n_layers):
+        if cfg.mixer_of(i) not in GQA_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: mixer {cfg.mixer_of(i)!r} is not ported: {_A10}")
+        if cfg.mlp_of(i) != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: MLP {cfg.mlp_of(i)!r} is not ported: {_A10}")
+    if cfg.attn_kind != "gqa":
+        raise NotImplementedError(f"{cfg.name}: attention {cfg.attn_kind!r} "
+                                  f"is not ported: {_A10}")
+    if cfg.n_patches or cfg.enc_layers:
+        raise NotImplementedError(f"{cfg.name}: vlm patches and encoder "
+                                  f"layers are not ported: {_A10}")
+
+
+# ---------------------------------------------------------------------------
+# one block
+# ---------------------------------------------------------------------------
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, mlp: str,
+               *, stack: tuple = ()) -> dict:
+    if mixer not in GQA_KINDS or mlp != "dense":
+        raise NotImplementedError(f"block ({mixer!r}, {mlp!r}) is not "
+                                  f"ported: {_A10}")
+    dev = gen.device
+    return {"norm1": L.norm_init(cfg.d_model, cfg.norm, stack=stack,
+                                 device=dev),
+            "mixer": A.gqa_init(gen, cfg, stack=stack),
+            "norm2": L.norm_init(cfg.d_model, cfg.norm, stack=stack,
+                                 device=dev),
+            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
+                              cfg.mlp_kind, stack=stack)}
+
+
+def block_apply(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, mlp: str,
+                *, positions: torch.Tensor, cache=None):
+    """Returns (x, new_cache, aux_loss); aux_loss is 0 (no MoE)."""
+    if mixer not in GQA_KINDS or mlp != "dense":
+        raise NotImplementedError(f"block ({mixer!r}, {mlp!r}) is not "
+                                  f"ported: {_A10}")
+    h = L.norm_apply(p["norm1"], x, cfg.norm)
+    win = cfg.window if mixer in ("swa", "lattn") else None
+    y, cache = A.gqa_apply(p["mixer"], h, cfg, positions=positions,
+                           cache=cache, window=win)
+    x = x + y
+    h = L.norm_apply(p["norm2"], x, cfg.norm)
+    act = "silu" if cfg.mlp_kind == "swiglu" else "gelu"
+    x = x + L.mlp_apply(p["mlp"], h, cfg.mlp_kind, act)
+    return x, cache, 0.0
+
+
+def block_empty_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
+                      dtype, *, stack: tuple = (), device="cuda"):
+    if mixer not in GQA_KINDS:
+        raise NotImplementedError(f"mixer {mixer!r} is not ported: {_A10}")
+    # window-bounded mixers only ever read the trailing `window` slots
+    ln = max_len if cfg.window is None or mixer == "attn" \
+        else min(max_len, cfg.window)
+    return A.gqa_empty_cache(cfg, batch, ln, dtype, stack=stack,
+                             device=device)
+
+
+# ---------------------------------------------------------------------------
+# stacked init
+# ---------------------------------------------------------------------------
+
+def decoder_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """The param tree on the generator's device, in the JAX package's
+    structure; group params carry a leading n_groups axis."""
+    _check(cfg)
+    n_pre, n_groups, n_tail = cfg.layer_plan()
+    plen = len(cfg.pattern)
+    p = {"embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, cfg.dtype),
+         "final_norm": L.norm_init(cfg.d_model, cfg.norm, device=gen.device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_padded,
+                                    cfg.dtype)
+    p["prefix"] = [block_init(gen, cfg, cfg.mixer_of(i), cfg.mlp_of(i))
+                   for i in range(n_pre)]
+    p["groups"] = [block_init(gen, cfg, cfg.mixer_of(n_pre + j),
+                              cfg.mlp_of(n_pre + j), stack=(n_groups,))
+                   if n_groups else None for j in range(plen)]
+    first_tail = n_pre + n_groups * plen
+    p["tail"] = [block_init(gen, cfg, cfg.mixer_of(first_tail + t),
+                            cfg.mlp_of(first_tail + t))
+                 for t in range(n_tail)]
+    return p
+
+
+def decoder_empty_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                        device="cuda") -> dict:
+    _check(cfg)
+    n_pre, n_groups, n_tail = cfg.layer_plan()
+    plen = len(cfg.pattern)
+
+    def one(mixer, stack=()):
+        return block_empty_cache(cfg, mixer, batch, max_len, dtype,
+                                 stack=stack, device=device)
+
+    first_tail = n_pre + n_groups * plen
+    return {
+        "prefix": [one(cfg.mixer_of(i)) for i in range(n_pre)],
+        "groups": [one(cfg.mixer_of(n_pre + j), (n_groups,)) if n_groups
+                   else None for j in range(plen)],
+        "tail": [one(cfg.mixer_of(first_tail + t)) for t in range(n_tail)],
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _vocab_mask(cfg, device="cuda") -> torch.Tensor:
+    """(Vpad,) additive mask: -1e30 on padding columns."""
+    v = torch.arange(cfg.vocab_padded, device=device)
+    return torch.where(v < cfg.vocab_size, 0.0, -1e30).float()
+
+
+def _slice(tree, g: int):
+    """Layer g of a stacked param dict."""
+    return {k: _slice(v, g) if isinstance(v, dict) else v[g]
+            for k, v in tree.items()}
+
+
+def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                    cache=None, logits_slice: int | None = None):
+    """tokens (B, S) int. cache=None -> full-sequence forward (all logits).
+    With cache -> prefill/decode; logits for the last `logits_slice` tokens.
+
+    Returns (logits, new_cache, aux_loss_sum); aux is 0 (no MoE)."""
+    _check(cfg)
+    n_pre, n_groups, n_tail = cfg.layer_plan()
+    plen = len(cfg.pattern)
+    x = params["embed"][tokens.long()]
+    seq = x.shape[1]
+    pos0 = 0 if cache is None else _cache_pos(cache)
+    positions = (pos0 + torch.arange(seq, device=x.device))[None, :]
+    new_cache = {"prefix": [], "groups": [], "tail": []} \
+        if cache is not None else None
+
+    def run_block(p, xx, li, c):
+        xx, c2, _ = block_apply(p, xx, cfg, cfg.mixer_of(li), cfg.mlp_of(li),
+                                positions=positions, cache=c)
+        return xx, c2
+
+    for i in range(n_pre):
+        x, c2 = run_block(params["prefix"][i], x, i,
+                          None if cache is None else cache["prefix"][i])
+        if cache is not None:
+            new_cache["prefix"].append(c2)
+
+    if n_groups:
+        slots = None if cache is None else cache["groups"]
+        for gi in range(n_groups):          # the JAX package's lax.scan
+            for j in range(plen):           # layer n_pre + gi * plen + j
+                c = None if slots is None else \
+                    A.KVCache(slots[j].k[gi], slots[j].v[gi], slots[j].pos)
+                x, c2 = run_block(_slice(params["groups"][j], gi), x,
+                                  n_pre + j, c)
+        if cache is not None:
+            new_cache["groups"] = [A.KVCache(s.k, s.v, s.pos + seq)
+                                   for s in slots]
+
+    first_tail = n_pre + n_groups * plen
+    for t in range(n_tail):
+        x, c2 = run_block(params["tail"][t], x, first_tail + t,
+                          None if cache is None else cache["tail"][t])
+        if cache is not None:
+            new_cache["tail"].append(c2)
+
+    x = L.norm_apply(params["final_norm"], x, cfg.norm)
+    if logits_slice is not None:
+        x = x[:, -logits_slice:]
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = L.logits_softcap(x @ head, cfg.logit_softcap)
+    logits = logits + _vocab_mask(cfg, x.device).to(logits.dtype)
+    return logits, new_cache, 0.0
+
+
+def _cache_pos(cache) -> int:
+    for part in ("prefix", "tail"):
+        if cache[part]:
+            return cache[part][0].pos
+    for g in cache["groups"]:
+        if g is not None:
+            return g.pos
+    raise ValueError("empty cache")

@@ -1,0 +1,232 @@
+"""The port's attention on the CPU against the JAX package's.
+
+``attend`` (the flash_attention seam, whose CPU route is the plain version
+``flash_attention_ref``) is held against ``repro.models.attention.attend``
+and ``attend_ref`` over tests/test_attention.py's sweep plus window,
+q_offset and kv_valid_len cases; the TPU kernel's (BH, S, d) signature
+against tests/test_flash_kernel.py's einsum oracle on its five cases (the
+Pallas kernel itself no longer runs on the installed jax, so the oracle is
+copied here); and the GQA block's rolling-window cache against the full
+cache and against the JAX block with the same params. Inputs come from
+numpy with a seed.
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models import attention as JA  # noqa: E402
+from repro.models.config import ModelConfig as JConfig  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.kernels import flash_attn, ops  # noqa: E402
+from repro_torch.models import attention as TA  # noqa: E402
+from repro_torch.models.config import ModelConfig as TConfig  # noqa: E402
+
+# float32 on both sides; the sums run in another order (the JAX scan's
+# blocks of 16 keys, the port's tiles of 64), as in test_attention.py
+ATOL = 2e-5
+
+
+def _qkv(seed, b, sq, sk, hq, hkv, dk, dv):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, hq, dk)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, dk)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, dv)).astype(np.float32))
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,hq,hkv,dk,dv,causal,win,q_off,valid", [
+        # tests/test_attention.py's sweep
+        (2, 33, 33, 4, 2, 16, 16, True, None, 0, None),
+        (2, 64, 64, 4, 4, 8, 8, True, 24, 0, None),
+        (1, 17, 40, 6, 2, 8, 12, False, None, 0, None),
+        (2, 128, 128, 2, 1, 32, 32, True, 32, 0, None),
+        # q_offset, kv_valid_len and windows, as the cache paths use them
+        (2, 20, 50, 4, 2, 16, 16, True, None, 30, None),
+        (1, 24, 64, 4, 1, 8, 8, True, 16, 10, 40),
+        (2, 9, 40, 2, 2, 8, 8, False, None, 0, 25),
+        (1, 33, 100, 6, 3, 16, 16, True, 20, 60, 93),
+        (2, 70, 130, 8, 2, 80, 80, True, 50, 60, 130),
+    ])
+def test_attend_matches_jax(b, sq, sk, hq, hkv, dk, dv, causal, win, q_off,
+                            valid):
+    q, k, v = _qkv(sq * 7 + sk, b, sq, sk, hq, hkv, dk, dv)
+    kw = dict(causal=causal, window=win, q_offset=q_off, kv_valid_len=valid)
+    got = TA.attend(torch.from_numpy(q), torch.from_numpy(k),
+                    torch.from_numpy(v), **kw).numpy()
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    np.testing.assert_allclose(
+        got, np.asarray(JA.attend(jq, jk, jv, kv_block=16, **kw)), atol=ATOL)
+    np.testing.assert_allclose(
+        got, np.asarray(JA.attend_ref(jq, jk, jv, **kw)), atol=ATOL)
+    ref_t = TA.attend_ref(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), **kw).numpy()
+    np.testing.assert_allclose(ref_t, got, atol=ATOL)
+
+
+def test_attend_bf16_keeps_q_dtype():
+    """bf16 q over float32 K/V (the serving path's types): the output is
+    bf16 and equals the JAX attend's on the same bf16 values to one bf16
+    rounding (2^-8 of |out| < 4)."""
+    q, k, v = _qkv(5, 2, 40, 40, 4, 2, 16, 16)
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    got = TA.attend(tq, torch.from_numpy(k), torch.from_numpy(v),
+                    causal=True, window=24)
+    assert got.dtype == torch.bfloat16
+    want = JA.attend(jnp.asarray(tq.float().numpy()).astype(jnp.bfloat16),
+                     jnp.asarray(k), jnp.asarray(v), causal=True, window=24,
+                     kv_block=16)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=1.6e-2)
+
+
+def _oracle(q, k, v, causal, q_offset=0):
+    """tests/test_flash_kernel.py's einsum oracle, copied."""
+    s = jnp.einsum("bqd,bkd->bqk", q.astype(jnp.float32),
+                   k.astype(jnp.float32)) / math.sqrt(q.shape[-1])
+    if causal:
+        qp = q_offset + jnp.arange(q.shape[1])[:, None]
+        kp = jnp.arange(k.shape[1])[None, :]
+        s = jnp.where(kp <= qp, s, -1e30)
+    p = jax.nn.softmax(s, axis=-1)
+    return jnp.einsum("bqk,bkd->bqd", p, v.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("bh,sq,sk,dk,dv,causal,dtype", [
+    (2, 64, 64, 32, 32, True, "float32"),
+    (3, 128, 128, 64, 64, True, "float32"),
+    (1, 32, 96, 16, 24, False, "float32"),
+    (2, 64, 64, 32, 32, True, "bfloat16"),
+])
+def test_flash_fwd_view_matches_oracle(bh, sq, sk, dk, dv, causal, dtype):
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype))
+               for a in _qkv(bh + sq, bh, sq, sk, 1, 1, dk, dv))
+    q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]
+    out = flash_attn.flash_attention_fwd(q, k, v, causal=causal)
+    assert out.dtype == q.dtype and out.shape == (bh, sq, dv)
+    want = _oracle(*(jnp.asarray(t.float().numpy()).astype(dtype)
+                     for t in (q, k, v)), causal)
+    atol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(want),
+                               atol=atol)
+
+
+def test_flash_fwd_view_q_offset_decode_chunk():
+    """Chunked prefill: second half with q_offset equals the full pass."""
+    q, k, v = (torch.from_numpy(a)[:, :, 0]
+               for a in _qkv(1, 1, 64, 64, 1, 1, 16, 16))
+    full = flash_attn.flash_attention_fwd(q, k, v, causal=True)
+    part = flash_attn.flash_attention_fwd(q[:, 32:], k, v, causal=True,
+                                          q_offset=32)
+    np.testing.assert_allclose(part.numpy(), full[:, 32:].numpy(), atol=ATOL)
+    np.testing.assert_allclose(
+        part.numpy(), np.asarray(_oracle(*(jnp.asarray(t.numpy()) for t in (
+            q[:, 32:], k, v)), True, q_offset=32)), atol=ATOL)
+
+
+def test_attention_refuses_rows_without_keys():
+    """The checks the kernel's wrapper makes run on the CPU route too."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 16, 32, 4, 2, 8, 8))
+    with pytest.raises(ValueError, match="need their own key"):
+        ops.flash_attention(q, k, v, causal=True, q_offset=20)
+    with pytest.raises(ValueError, match="need their own key"):
+        ops.flash_attention(q, k, v, causal=True, kv_valid_len=8)
+    with pytest.raises(ValueError, match=r"outside \[1"):
+        ops.flash_attention(q, k, v, causal=False, kv_valid_len=33)
+    with pytest.raises(ValueError, match="no valid key"):
+        ops.flash_attention(q, k, v, causal=False, window=4, q_offset=40)
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        ops.flash_attention(q[:, :, :3], k, v, causal=True)
+
+
+def _mini_cfgs(window=None):
+    kw = dict(name="t", family="dense", n_layers=1, d_model=32, n_heads=4,
+              n_kv_heads=2, d_ff=64, vocab_size=64, window=window,
+              rope_theta=100.0, param_dtype="float32")
+    return JConfig(**kw), TConfig(**kw)
+
+
+def test_rolling_window_cache_equals_full_cache():
+    """Decoding with a rolling `window`-slot cache == full-length cache
+    (tests/test_attention.py:57), and both equal the JAX block's steps on
+    the same params."""
+    jcfg, tcfg = _mini_cfgs(window=8)
+    jp, _ = JA.gqa_init(jax.random.PRNGKey(2), jcfg)
+    tp = bridge.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    steps = 24
+    xs = (np.random.default_rng(2).standard_normal((1, steps, 32)) * 0.5
+          ).astype(np.float32)
+    full = TA.gqa_empty_cache(tcfg, 1, steps, torch.float32, device="cpu")
+    roll = TA.gqa_empty_cache(tcfg, 1, 8, torch.float32, device="cpu")
+    jroll = JA.KVCache(jnp.zeros((1, 8, 2, 8)), jnp.zeros((1, 8, 2, 8)),
+                       jnp.zeros((), jnp.int32))
+    outs_f, outs_r, outs_j = [], [], []
+    for t in range(steps):
+        pos = torch.tensor([[t]])
+        x = torch.from_numpy(xs[:, t:t + 1])
+        o_f, full = TA.gqa_apply(tp, x, tcfg, positions=pos, cache=full,
+                                 window=8)
+        o_r, roll = TA.gqa_apply(tp, x, tcfg, positions=pos, cache=roll,
+                                 window=8)
+        o_j, jroll = JA.gqa_apply(jp, jnp.asarray(xs[:, t:t + 1]), jcfg,
+                                  positions=jnp.array([[t]]), cache=jroll,
+                                  window=8)
+        outs_f.append(o_f.numpy())
+        outs_r.append(o_r.numpy())
+        outs_j.append(np.asarray(o_j))
+    assert roll.pos == full.pos == steps and isinstance(roll.pos, int)
+    np.testing.assert_allclose(np.concatenate(outs_r, 1),
+                               np.concatenate(outs_f, 1), atol=1e-5)
+    np.testing.assert_allclose(np.concatenate(outs_r, 1),
+                               np.concatenate(outs_j, 1), atol=1e-5)
+
+
+def test_rolling_prefill_then_decode_matches_jax():
+    """A prefill longer than the window stashes its tail in the rolling
+    cache (the multi-token branch), then decodes from it."""
+    jcfg, tcfg = _mini_cfgs(window=8)
+    jp, _ = JA.gqa_init(jax.random.PRNGKey(4), jcfg)
+    tp = bridge.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    xs = (np.random.default_rng(4).standard_normal((2, 15, 32)) * 0.5
+          ).astype(np.float32)
+    roll = TA.gqa_empty_cache(tcfg, 2, 8, torch.float32, device="cpu")
+    jroll = JA.gqa_empty_cache(jcfg, 2, 8, jnp.float32)
+    pos = np.arange(12)[None]
+    o_t, roll = TA.gqa_apply(tp, torch.from_numpy(xs[:, :12]), tcfg,
+                             positions=torch.from_numpy(pos), cache=roll,
+                             window=8)
+    o_j, jroll = JA.gqa_apply(jp, jnp.asarray(xs[:, :12]), jcfg,
+                              positions=jnp.asarray(pos), cache=jroll,
+                              window=8)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5)
+    np.testing.assert_allclose(roll.k.numpy(), np.asarray(jroll.k),
+                               atol=1e-6)
+    for t in range(12, 15):
+        o_t, roll = TA.gqa_apply(tp, torch.from_numpy(xs[:, t:t + 1]), tcfg,
+                                 positions=torch.tensor([[t]]), cache=roll,
+                                 window=8)
+        o_j, jroll = JA.gqa_apply(jp, jnp.asarray(xs[:, t:t + 1]), jcfg,
+                                  positions=jnp.array([[t]]), cache=jroll,
+                                  window=8)
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5)
+
+
+def test_unported_attention_raises():
+    _, tcfg = _mini_cfgs()
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 8, 8, 2, 2, 8, 8))
+    with pytest.raises(NotImplementedError, match="A10"):
+        TA.attend(q, k, v, causal=True, softcap=5.0)
+    gen = torch.Generator().manual_seed(0)
+    p = TA.gqa_init(gen, tcfg)
+    x = torch.zeros((1, 4, 32))
+    with pytest.raises(NotImplementedError, match="A10"):
+        TA.gqa_apply(p, x, tcfg, positions=torch.arange(4)[None],
+                     kv_override=(k, v))
+    with pytest.raises(NotImplementedError, match="A10"):
+        TA.mla_init(gen, tcfg)

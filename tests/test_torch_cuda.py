@@ -9,7 +9,9 @@ take the kernel's byte loop (W not a multiple of 16), dim % 8 != 0,
 shift amounts at their edges, k == C, one-column and 4096-column rows,
 merges of 1 to 8 runs with ties and unanswered rows, cluster scans with
 INT_MIN / INT_MAX ranks, empty and short clusters, inactive lanes and EF
-at the kernel's limit.
+at the kernel's limit, and attention over every head dim the kernel takes,
+GQA groups, ragged Sq and Sk, offsets, windows, cache lengths, both types
+and strided inputs.
 """
 
 import numpy as np
@@ -18,7 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (  # noqa: E402
-    binary_ip, cluster_scan, merge_topk, ops, ref, topk_select)
+    binary_ip, cluster_scan, flash_attn, merge_topk, ops, ref, topk_select)
 
 pytestmark = pytest.mark.cuda
 
@@ -228,5 +230,102 @@ def test_ops_send_cuda_tensors_to_the_kernels(card):
     ops.topk_select(ids, d, k=5)
     ops.merge_topk(ids, d, k=5)
     ops.cluster_scan(*scan, 128, 10, 50)
+    q, k, v = _attn_inputs(card, 1, 70, 70, 4, 2, 64, torch.float32,
+                           torch.float32)
+    ops.flash_attention(q, k, v, causal=True)
     assert ops.launch_counts() == {"binary_ip_rank": 1, "topk_select": 1,
-                                   "merge_topk": 1, "cluster_scan": 1}
+                                   "merge_topk": 1, "cluster_scan": 1,
+                                   "flash_attention": 1}
+
+
+def _attn_inputs(card, b, sq, sk, hq, hkv, d, q_dtype, kv_dtype, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, sq, hq, d), generator=g, device=card).to(q_dtype)
+    k = torch.randn((b, sk, hkv, d), generator=g, device=card).to(kv_dtype)
+    v = torch.randn((b, sk, hkv, d), generator=g, device=card).to(kv_dtype)
+    return q, k, v
+
+
+# float32 sums in another order than the plain version's: 2e-5 in float32;
+# in bf16 output that order flips a rounding of q.dtype, one bf16 ulp at the
+# outputs' size (|out| < 4: 2^-6), hence 1.6e-2.
+_ATOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
+
+
+def _assert_attn_close(got, want):
+    """Within _ATOL everywhere and, for a bf16 output, within one bf16 ulp
+    of each element's own value: the gap between neighbouring bf16 values is
+    at most 2^-7 of the smaller one, so small outputs (late causal rows
+    average many keys) get a bound of their own size, not the largest
+    output's."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    torch.testing.assert_close(g, w, rtol=0, atol=_ATOL[want.dtype])
+    if want.dtype == torch.bfloat16:
+        torch.testing.assert_close(g, w, rtol=2.0 ** -7, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,window,q_off,valid,qt,kvt", [
+    (2, 64, 64, 4, 4, 64, True, None, 0, None, "f32", "f32"),
+    (1, 100, 100, 8, 2, 80, True, None, 0, None, "bf16", "f32"),  # serving
+    (2, 33, 130, 4, 1, 96, True, None, 97, None, "f32", "f32"),   # q_offset
+    (1, 200, 200, 4, 4, 128, True, 48, 0, None, "bf16", "bf16"),  # window
+    (2, 70, 160, 8, 2, 80, True, 40, 60, 150, "bf16", "f32"),     # cache
+    (1, 17, 93, 4, 2, 64, False, None, 0, 77, "f32", "bf16"),     # noncausal
+    (1, 5, 300, 2, 1, 96, False, 100, 250, None, "f32", "f32"),
+    (3, 1, 65, 4, 2, 128, True, None, 64, None, "bf16", "f32"),   # one row
+    (1, 1100, 1100, 8, 2, 80, True, None, 0, None, "bf16", "f32"),  # 17 tiles
+])
+def test_flash_attention_kernel_matches_plain(card, b, sq, sk, hq, hkv, d,
+                                              causal, window, q_off, valid,
+                                              qt, kvt):
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    q, k, v = _attn_inputs(card, b, sq, sk, hq, hkv, d, types[qt], types[kvt],
+                           seed=sq)
+    kw = dict(causal=causal, window=window, q_offset=q_off,
+              kv_valid_len=valid)
+    got = flash_attn.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == (b, sq, hq, d)
+    _assert_attn_close(got, want)
+
+
+def test_flash_attention_kernel_strided_and_tpu_view(card):
+    """A slice of a longer cache (strided K/V) and the TPU kernel's
+    (BH, S, d) signature both go through the same launch."""
+    q, k, v = _attn_inputs(card, 2, 96, 160, 8, 2, 80, torch.bfloat16,
+                           torch.float32)
+    ks, vs = k[:, :96], v[:, :96]
+    assert not ks.is_contiguous()
+    _assert_attn_close(
+        flash_attn.flash_attention(q, ks, vs, causal=True),
+        ref.flash_attention_ref(q, ks.contiguous(), vs.contiguous(),
+                                causal=True))
+    qf, kf, vf = (t[:, :, 0].contiguous().float() for t in (q, ks, vs))
+    ops.reset_launch_counts()
+    got = flash_attn.flash_attention_fwd(qf[:, 32:], kf, vf, causal=True,
+                                         q_offset=32)
+    assert ops.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(got, ref.flash_attention_ref(
+        qf[:, 32:, None], kf[:, :, None], vf[:, :, None], causal=True,
+        q_offset=32)[:, :, 0], rtol=0, atol=2e-5)
+
+
+def test_flash_attention_kernel_refuses_rows_without_keys(card):
+    q, k, v = _attn_inputs(card, 1, 16, 32, 4, 2, 64, torch.float32,
+                           torch.float32)
+    with pytest.raises(ValueError, match="need their own key"):
+        flash_attn.flash_attention(q, k, v, causal=True, q_offset=20)
+    with pytest.raises(ValueError, match="need their own key"):
+        flash_attn.flash_attention(q, k, v, causal=True, kv_valid_len=8)
+    with pytest.raises(ValueError, match=r"outside \[1"):
+        flash_attn.flash_attention(q, k, v, causal=False, kv_valid_len=0)
+    with pytest.raises(ValueError, match="q_offset -1"):
+        flash_attn.flash_attention(q, k, v, causal=False, q_offset=-1)
+    with pytest.raises(ValueError, match="no valid key"):
+        flash_attn.flash_attention(q, k, v, causal=False, window=4,
+                                   q_offset=40)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attn.flash_attention(q[..., :48], k[..., :48], v[..., :48],
+                                   causal=True)

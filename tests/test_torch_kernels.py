@@ -17,7 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import topk_select as jtopk  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    binary_ip, cluster_scan, merge_topk, ops, topk_select)
+    binary_ip, cluster_scan, flash_attn, merge_topk, ops, topk_select)
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 INT_MAX = 2**31 - 1
@@ -213,8 +213,13 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions(rng):
     for a, b in zip(ops.cluster_scan(*scan, 32, 6, 20),
                     tref.cluster_scan_ref(*scan, 32, 6, 20)):
         assert torch.equal(a, b)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, 9, 4, 16), (2, 9, 2, 16), (2, 9, 2, 16)))
+    assert torch.equal(ops.flash_attention(q, k, v, causal=True),
+                       tref.flash_attention_ref(q, k, v, causal=True))
     assert ops.launch_counts() == dict.fromkeys(
-        ("binary_ip_rank", "topk_select", "merge_topk", "cluster_scan"), 0)
+        ("binary_ip_rank", "topk_select", "merge_topk", "cluster_scan",
+         "flash_attention"), 0)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors(rng):
@@ -231,8 +236,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
     scan = [torch.from_numpy(a) for a in _scan_inputs(rng, 2, 20, 4)]
     with pytest.raises(ValueError, match="CUDA"):
         cluster_scan.cluster_scan(*scan, 32, 6, 20)
+    q = torch.zeros((1, 4, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attn.flash_attention(q, q, q, causal=True)
     assert ops.launch_counts() == dict.fromkeys(
-        ("binary_ip_rank", "topk_select", "merge_topk", "cluster_scan"), 0)
+        ("binary_ip_rank", "topk_select", "merge_topk", "cluster_scan",
+         "flash_attention"), 0)
 
 
 def test_unpack_bits_matches_jax(rng):

@@ -1,0 +1,189 @@
+"""The port's LM serving path (Model.prefill / decode, forward) on the CPU
+against the JAX package's, with the JAX params carried over through
+``repro_torch.bridge.lm_params_from_numpy``; and the config registry field
+for field. Inputs come from numpy with a seed.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models.model import build_model as jbuild  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    build_model as tbuild, make_prefill_step, make_serve_step)
+
+# the dense GQA archs this slice serves; the others wait for ROADMAP A10
+DENSE = ("h2o-danube-1.8b", "phi3-mini-3.8b", "mistral-large-123b",
+         "stablelm-12b")
+NOT_PORTED = ("mamba2-1.3b", "grok-1-314b", "deepseek-v2-lite-16b",
+              "internvl2-1b", "whisper-large-v3", "recurrentgemma-9b")
+
+
+def _pair(arch, seed=0, **over):
+    jm = jbuild(dataclasses.replace(jconfigs.get_smoke(arch), **over))
+    tm = tbuild(dataclasses.replace(tconfigs.get_smoke(arch), **over))
+    jp, _ = jm.init(jax.random.PRNGKey(seed))
+    tp = bridge.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return jm, jp, tm, tp
+
+
+def _logits(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32)) \
+        if not isinstance(x, torch.Tensor) else x.float().numpy()
+
+
+def _serve_both(jm, jp, tm, tp, b, prompt, gen, seed, teacher=False):
+    """Prefill + greedy decode on both packages; yields the (JAX, port)
+    logits and tokens of every step. With ``teacher`` the port is fed the
+    JAX package's tokens."""
+    toks = np.random.default_rng(seed).integers(
+        0, jm.cfg.vocab_size, (b, prompt)).astype(np.int32)
+    jc = jm.init_cache(b, prompt + gen, dtype=jnp.float32)
+    tc = tm.init_cache(b, prompt + gen, dtype=torch.float32, device="cpu")
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), jc)
+    tl, tc = tm.prefill(tp, torch.from_numpy(toks), tc)
+    for i in range(gen):
+        jt = np.array(jnp.argmax(jl[:, -1:], -1).astype(jnp.int32))
+        tt = torch.argmax(tl[:, -1:], -1).to(torch.int32)
+        yield _logits(jl), _logits(tl), jt, tt.numpy()
+        if i == gen - 1:
+            break
+        jl, jc = jm.decode(jp, jnp.asarray(jt), jc)
+        tl, tc = tm.decode(tp, torch.from_numpy(jt) if teacher else tt, tc)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_decode_match_jax_f32(arch):
+    """float32 params: logits to 1e-4 and equal greedy tokens at every
+    step. The prompt (20) is longer than danube's smoke window (16), so its
+    cache rolls; phi3 and mistral use the full cache, stablelm layernorm."""
+    jm, jp, tm, tp = _pair(arch, param_dtype="float32")
+    steps = 0
+    for jl, tl, jt, tt in _serve_both(jm, jp, tm, tp, 2, 20, 6, seed=1):
+        np.testing.assert_allclose(tl, jl, atol=1e-4)
+        np.testing.assert_array_equal(tt, jt)
+        steps += 1
+    assert steps == 6
+
+
+def test_rolling_cache_is_window_sized():
+    """danube's smoke window (16) bounds its cache: the prefill of 20
+    tokens takes the rolling path, and every later step writes modulo 16."""
+    tm = tbuild(tconfigs.get_smoke("h2o-danube-1.8b"))
+    cache = tm.init_cache(2, 26, dtype=torch.float32, device="cpu")
+    assert cache["groups"][0].k.shape == (3, 2, 16, 2, 16)
+    assert cache["groups"][0].pos == 0
+
+
+def test_prefill_decode_match_jax_bf16():
+    """bf16 params (the configs' default), the port fed the JAX package's
+    tokens: bf16 rounds at other places in XLA's CPU ops and torch's (each
+    rounding 2^-8 relative), which compounds over three layers to 1-2% of
+    the largest |logit| on these configs; the bound is 5%, as
+    chip_smoke.py's decode-vs-prefill check at full width."""
+    jm, jp, tm, tp = _pair("h2o-danube-1.8b")
+    assert tp["embed"].dtype == torch.bfloat16
+    for jl, tl, _, _ in _serve_both(jm, jp, tm, tp, 2, 20, 6, seed=2,
+                                    teacher=True):
+        scale = np.abs(jl).max()
+        assert np.abs(tl - jl).max() <= 0.05 * scale
+
+
+def test_forward_and_step_builders_match_jax():
+    """The full-sequence forward (no cache) and the step builders."""
+    jm, jp, tm, tp = _pair("phi3-mini-3.8b", seed=3, param_dtype="float32")
+    toks = np.random.default_rng(3).integers(0, 256, (2, 12)).astype(np.int32)
+    jl, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    tl, aux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    assert tl.shape == (2, 12, jm.cfg.vocab_padded) and aux == 0.0
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    cache = tm.init_cache(2, 13, dtype=torch.float32, device="cpu")
+    pl, cache = make_prefill_step(tm)(tp, cache, torch.from_numpy(toks))
+    np.testing.assert_allclose(pl[:, 0].numpy(), tl[:, -1].numpy(),
+                               atol=1e-4)
+    nxt = torch.argmax(pl, -1).to(torch.int32)
+    dl, cache = make_serve_step(tm)(tp, cache, nxt)
+    assert cache["groups"][0].pos == 13 and dl.shape == pl.shape
+    with pytest.raises(ValueError, match="cannot take 1 more"):
+        make_serve_step(tm)(tp, cache, nxt)
+
+
+def test_prefill_goes_through_the_attention_seam(monkeypatch):
+    """Every layer of a prefill calls ops.flash_attention once (the chip
+    counts its launches the same way); a decode step calls it not at all."""
+    tm = tbuild(tconfigs.get_smoke("phi3-mini-3.8b"))
+    tp = tm.init(torch.Generator().manual_seed(0))
+    calls = []
+    real = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda *a, **kw: calls.append(kw) or real(*a, **kw))
+    cache = tm.init_cache(2, 10, dtype=torch.float32, device="cpu")
+    logits, cache = tm.prefill(tp, torch.zeros((2, 8), dtype=torch.int64),
+                               cache)
+    assert len(calls) == tm.cfg.n_layers
+    assert calls[0] == dict(causal=True, window=None, q_offset=0,
+                            kv_valid_len=8)
+    tm.decode(tp, torch.zeros((2, 1), dtype=torch.int32), cache)
+    assert len(calls) == tm.cfg.n_layers
+    assert torch.isfinite(logits[..., :tm.cfg.vocab_size]).all()
+
+
+def test_init_draws_the_jax_shapes_and_dtypes():
+    """The port's own seeded init has the JAX tree's structure, shapes and
+    dtypes leaf for leaf (its numbers come from another generator)."""
+    arch = "h2o-danube-1.8b"
+    jp, _ = jbuild(jconfigs.get_smoke(arch)).init(jax.random.PRNGKey(0))
+    tm = tbuild(tconfigs.get_smoke(arch))
+    tp = tm.init(torch.Generator().manual_seed(0))
+    jl = jax.tree_util.tree_flatten_with_path(jp)[0]
+    bl = bridge.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    assert transformer._check(tm.cfg) is None
+    assert jax.tree.structure(jax.tree.map(lambda _: 0, bl)) == \
+        jax.tree.structure(jax.tree.map(lambda _: 0, tp))
+    for (path, a), b in zip(jl, jax.tree.leaves(tp)):
+        assert tuple(a.shape) == tuple(b.shape), path
+        assert str(a.dtype) == str(b.dtype).removeprefix("torch."), path
+    again = tm.init(torch.Generator().manual_seed(0))
+    assert all(torch.equal(a, b) for a, b in
+               zip(jax.tree.leaves(tp), jax.tree.leaves(again)))
+    w = tp["groups"][0]["mixer"]["wq"].float()
+    assert float(w.abs().max()) <= 2 / np.sqrt(64) + 1e-6   # truncated at 2
+
+
+@pytest.mark.parametrize("arch", sorted(jconfigs.ALIASES))
+def test_configs_match_jax(arch):
+    for get in ("get_config", "get_smoke"):
+        j = getattr(jconfigs, get)(arch)
+        t = getattr(tconfigs, get)(arch)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert (t.vocab_padded, t.hd, t.layer_plan(), t.param_count(),
+                t.active_param_count(), t.sub_quadratic()) == \
+            (j.vocab_padded, j.hd, j.layer_plan(), j.param_count(),
+             j.active_param_count(), j.sub_quadratic())
+        assert [t.mixer_of(i) for i in range(t.n_layers)] == \
+            [j.mixer_of(i) for i in range(j.n_layers)]
+        assert [t.mlp_of(i) for i in range(t.n_layers)] == \
+            [j.mlp_of(i) for i in range(j.n_layers)]
+        assert t.dtype == getattr(torch, j.param_dtype)
+    assert tconfigs.ARCHS == jconfigs.ARCHS
+    assert tconfigs.all_arch_ids() == jconfigs.all_arch_ids()
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_unported_archs_raise(arch):
+    tm = tbuild(tconfigs.get_smoke(arch))
+    with pytest.raises(NotImplementedError, match="A10"):
+        tm.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="A10"):
+        tm.init_cache(1, 4, device="cpu")
