@@ -7,14 +7,20 @@ Phases (each failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch / CUDA versions and
      the TF32 flags, which are switched off;
   2. build every kernel from src/repro_torch/kernels/csrc/ (one nvcc per
-     source, all started together) into build/kernels/;
+     source, all started together) into build/kernels/, and count the
+     tensor-core instructions (HGMMA / HMMA) in the flash library's SASS,
+     which must not be zero;
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes: the search kernels bitwise, with pads, INT_MAX
      rows, int32 wraps, duplicates, ties and all-pad rows injected;
-     flash_attention within a stated per-element bound (float32 sums in
-     another order, then one bf16 rounding) over GQA groups 1 and 4, head
-     dims 64 / 80 / 96 / 128, ragged Sq and Sk, q_offset, a window that
-     bites, kv_valid_len < Sk and bf16 q over float32 K/V;
+     flash_attention over GQA groups 1 and 4, head dims 64 / 80 / 96 / 128,
+     ragged Sq and Sk, q_offset, a window that bites, kv_valid_len < Sk and
+     bf16 q over float32 K/V: float32 q within a stated per-element bound
+     of the float32 plain version (float32 sums in another order); bf16 q
+     (the tensor-core kernel) within that bound, plus the one-weight bf16
+     flip term, of its twin (``operands=torch.bfloat16``), and within the
+     derived ``flash_attention_rounding_bound`` of the float32 plain
+     version, as the twin is;
   4. build the index of a 10M x 128 clustered corpus (big-ann-benchmarks'
      10M BIGANN/SIFT subset scale, SIFT's width) on the card, 4096 clusters
      on 8 shards;
@@ -45,10 +51,12 @@ Phases (each failure exits non-zero and prints no result line):
      the same queries, the last decode step's logits against a prefill of
      the prompt and the generated tokens (the kernel against the plain
      one-pass decode attention; the greedy token equal in every row), and
-     the kernel against its plain version on layer 0's real q / k / v,
-     each element within its own rounding bound, timed there beside its
-     bound and
-     scaled_dot_product_attention.
+     the kernel on layer 0's real q / k / v held as in phase 3 (whether
+     those K/V are bf16-exact is logged), its and
+     scaled_dot_product_attention's max and 99.9th-percentile |error|
+     against a float64 computation (the kernel's percentile within 1.25x
+     of SDPA's), and timed there beside its bound, its twin, the float32
+     plain version and scaled_dot_product_attention.
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -199,11 +207,13 @@ def bitwise(torch, kernel, label, got, want) -> None:
     ERRS[kernel] = max(ERRS.get(kernel, 0.0), err)
 
 
-def close(torch, kernel, label, got, want, bound) -> None:
+def close(torch, kernel, label, got, want, bound, record=True) -> None:
     """|got - want| <= bound in every element (same shape and dtype,
-    finite), else fail; ``bound`` is a tensor of want's shape. Records the
-    measured max |diff| under ``kernel`` in ERRS and logs it with the worst
-    share of its element's bound and the median |want|."""
+    finite), else fail; ``bound`` is a tensor of want's shape (or
+    broadcasts to it). Records the measured max |diff| under ``kernel`` in
+    ERRS (unless ``record`` is False: a comparison with another function
+    than the kernel's plain version) and logs it with the worst share of
+    its element's bound and the median |want|."""
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{kernel} {label}: kernel gives {got.dtype} "
              f"{tuple(got.shape)}, plain version {want.dtype} "
@@ -214,7 +224,8 @@ def close(torch, kernel, label, got, want, bound) -> None:
     err = float(diff.max())
     worst = float((diff / bound.double()).max())
     over = int((diff > bound).sum())
-    ERRS[kernel] = max(ERRS.get(kernel, 0.0), err)
+    if record:
+        ERRS[kernel] = max(ERRS.get(kernel, 0.0), err)
     msg = (f"max |kernel - plain| {err:.3g}, at most {worst:.3g} of its "
            f"element's bound (bound {float(bound.min()):.3g} to "
            f"{float(bound.max()):.3g}); median |plain| "
@@ -225,20 +236,39 @@ def close(torch, kernel, label, got, want, bound) -> None:
 
 
 def attn_bound(torch, want):
-    """Per-element bound of the attention kernel against its plain version.
-    Both sum in float32, in another order, so a float32 output moves by
-    ~1e-6 of the values summed: 2e-5 absolute, scaled by the largest
-    |output| above 1. A bf16 output is that sum rounded to 8 significant
-    bits, and the other order can flip that rounding: the gap between two
-    neighbouring bf16 values is at most 2^-7 of the smaller one (between
-    2^-8 and 2^-7 of it, by where it sits in its binade), so each element
-    may move by 2^-7 of its own |output| on top of the float32 term, and
-    never by more than 2^-7 of the largest |output| above 1."""
-    mag = want.float().abs()
-    big = max(1.0, float(mag.max()))
-    if want.dtype == torch.bfloat16:
-        return (2.0 ** -7 * mag + 2e-5 * big).clamp(max=2.0 ** -7 * big)
-    return torch.full_like(mag, 2e-5 * big)
+    """Per-element bound of the attention kernel against its plain version
+    (``ref.flash_attention_order_bound``): both sum in float32, in another
+    order, so a float32 output moves by 2e-5 absolute, scaled by the
+    largest |output| above 1; a bf16 output may also flip its rounding,
+    2^-7 of its own |output|, never more than 2^-7 of the largest above
+    1."""
+    from repro_torch.kernels import ref
+    return ref.flash_attention_order_bound(want)
+
+
+def hold_bf16_attention(torch, label, got, q, k, v, kw) -> None:
+    """The tensor-core kernel's output ``got`` (bf16 q) held twice: against
+    its twin within ``attn_bound`` plus ``ref.flash_attention_flip_bound``
+    (a weight that the kernel's ex2 and torch.exp2, or S summed in another
+    order, round to other bf16 neighbours moves its row by up to 2^-7 of
+    the row's largest p_j |v_j| / l; the elements that needed the term are
+    counted), and against the float32 plain version within
+    ``ref.flash_attention_rounding_bound``, as the twin itself is."""
+    from repro_torch.kernels import ref
+    twin = ref.flash_attention_ref(q, k, v, operands=torch.bfloat16, **kw)
+    base = attn_bound(torch, twin)
+    flip = ref.flash_attention_flip_bound(q, k, v, **kw)
+    needed = int(((got.double() - twin.double()).abs() > base).sum())
+    close(torch, "flash_attention", f"{label} vs twin", got, twin,
+          base + flip)
+    log(f"flash_attention {label}: {needed} of {got.numel()} elements "
+        f"needed the bf16 flip term")
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    bound = ref.flash_attention_rounding_bound(q, k, v, **kw)
+    close(torch, "flash_attention", f"{label} vs float32 plain", got, plain,
+          bound, record=False)
+    close(torch, "flash_attention", f"{label} twin vs float32 plain", twin,
+          plain, bound, record=False)
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +378,16 @@ def phase_build_kernels():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build._target("flash_attn"))],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass of the flash library: {sass.stderr.strip()}")
+    hgmma, hmma = sass.stdout.count("HGMMA"), sass.stdout.count("HMMA.")
+    log(f"flash library SASS: {hgmma} HGMMA and {hmma} HMMA instructions")
+    if hgmma + hmma == 0:
+        fail("the flash library's SASS holds no tensor-core instruction")
 
 
 def synthetic_rank_inputs(torch, dev, n_lanes, n_rows, w, t_rows, seed):
@@ -490,11 +530,12 @@ def phase_kernels_synthetic(torch, dev):
 
 
 def phase_flash_synthetic(torch, dev):
-    """flash_attention against flash_attention_ref: GQA groups 1 and 4,
+    """flash_attention against its plain versions: GQA groups 1 and 4,
     every head dim the kernel takes, ragged Sq / Sk (not multiples of the
-    64-row tiles), q_offset > 0, a window that bites, kv_valid_len < Sk
-    (the cache prefill's shape), bf16 q over float32 K/V (the serving
-    path's types), and query tiles past row 1024 that walk 17 KV tiles."""
+    tiles), q_offset > 0, a window that bites, kv_valid_len < Sk (the cache
+    prefill's shape), bf16 q over float32 K/V (the serving path's types),
+    and query rows past 1024 that walk 17 KV tiles. float32 q against the
+    float32 plain version; bf16 q by ``hold_bf16_attention``."""
     from repro_torch.kernels import flash_attn, ref
     bf, f32 = torch.bfloat16, torch.float32
     cases = [  # b, sq, sk, hq, hkv, d, causal, window, q_off, valid, qt, kvt
@@ -506,6 +547,10 @@ def phase_flash_synthetic(torch, dev):
         (1, 100, 1000, 8, 2, 128, True, 37, 900, None, bf, bf),
         (3, 1, 65, 4, 1, 64, True, None, 64, None, bf, f32),
         (1, 1100, 1100, 8, 2, 80, True, None, 0, None, bf, f32),
+        # the tensor-core kernel's head sets: groups of 2, 8 and 3
+        (2, 150, 200, 8, 4, 64, True, None, 50, None, bf, f32),
+        (1, 100, 300, 8, 1, 96, True, 70, 200, None, bf, bf),
+        (2, 77, 77, 6, 2, 128, True, None, 0, None, bf, f32),
     ]
     for b, sq, sk, hq, hkv, d, causal, window, q_off, valid, qt, kvt in cases:
         g = torch.Generator(device=dev).manual_seed(sq * 1000 + sk)
@@ -514,13 +559,16 @@ def phase_flash_synthetic(torch, dev):
         v = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(kvt)
         kw = dict(causal=causal, window=window, q_offset=q_off,
                   kv_valid_len=valid)
-        want = ref.flash_attention_ref(q, k, v, **kw)
-        close(torch, "flash_attention",
-              f"B={b} Sq={sq} Sk={sk} g={hq // hkv} hd={d} causal={causal} "
-              f"window={window} q_offset={q_off} kv_valid_len={valid} "
-              f"{str(qt)[6:]}/{str(kvt)[6:]}",
-              flash_attn.flash_attention(q, k, v, **kw), want,
-              attn_bound(torch, want))
+        label = (f"B={b} Sq={sq} Sk={sk} g={hq // hkv} hd={d} "
+                 f"causal={causal} window={window} q_offset={q_off} "
+                 f"kv_valid_len={valid} {str(qt)[6:]}/{str(kvt)[6:]}")
+        got = flash_attn.flash_attention(q, k, v, **kw)
+        if qt == bf:
+            hold_bf16_attention(torch, label, got, q, k, v, kw)
+        else:
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            close(torch, "flash_attention", label, got, want,
+                  attn_bound(torch, want))
 
 
 def phase_build_index(torch, dev):
@@ -1014,29 +1062,65 @@ def phase_lm(torch, dev, eng):
              f"{int((arg_d != arg_p).sum())} of {b} rows")
 
     q0, k0, v0, kw0 = calls[0]
-    want0 = ref.flash_attention_ref(q0, k0, v0, **kw0)
-    close(torch, "flash_attention", f"real layer 0 q {tuple(q0.shape)} "
-          f"{str(q0.dtype)[6:]}, k/v {tuple(k0.shape)} {str(k0.dtype)[6:]}, "
-          f"{kw0}", flash_attn.flash_attention(q0, k0, v0, **kw0), want0,
-          attn_bound(torch, want0))
+    bf = torch.bfloat16
+    exact = [torch.equal(t.to(bf).float(), t) for t in (k0, v0)]
+    log(f"layer 0's K / V ({k0.dtype}) bf16-exact: {exact[0]} / {exact[1]}")
+    label = (f"real layer 0 q {tuple(q0.shape)} {str(q0.dtype)[6:]}, k/v "
+             f"{tuple(k0.shape)} {str(k0.dtype)[6:]}, {kw0}")
+    got0 = flash_attn.flash_attention(q0, k0, v0, **kw0)
+    hold_bf16_attention(torch, label, got0, q0, k0, v0, kw0)
     row = timed_row(
         torch, f"flash_attention real layer 0 B={b} Sq={q0.shape[1]} "
-        f"Sk={k0.shape[1]} (valid {kw0['kv_valid_len']})",
+        f"Sk={k0.shape[1]} (valid {kw0['kv_valid_len']}), plain = the twin",
         lambda: flash_attn.flash_attention(q0, k0, v0, **kw0),
-        lambda: ref.flash_attention_ref(q0, k0, v0, **kw0), 10,
+        lambda: ref.flash_attention_ref(q0, k0, v0, operands=bf, **kw0), 10,
         flash_bound(q0, k0, v0, kw0["causal"], kw0["window"],
                     kw0["q_offset"], kw0["kv_valid_len"]))
+    f32_ms, f32_wall = times(
+        torch, lambda: ref.flash_attention_ref(q0, k0, v0, **kw0), 3)
+    log(f"flash_attention float32 plain version: "
+        f"{f32_ms if f32_ms is not None else f32_wall:.5f} ms on the device")
     n = q0.shape[1]
     qs = q0.transpose(1, 2).contiguous()
-    ks = k0[:, :n].to(torch.bfloat16).transpose(1, 2).contiguous()
-    vs = v0[:, :n].to(torch.bfloat16).transpose(1, 2).contiguous()
-    lib, lib_wall = times(
-        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True, enable_gqa=True), 10)
+    ks = k0[:, :n].to(bf).transpose(1, 2).contiguous()
+    vs = v0[:, :n].to(bf).transpose(1, 2).contiguous()
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True)
+    lib, lib_wall = times(torch, sdpa, 10)
     row["library_ms"] = lib if lib is not None else lib_wall
     log(f"flash_attention library (scaled_dot_product_attention, causal, "
         f"GQA, bf16 K/V of the {n} valid keys): {row['library_ms']:.5f} ms "
         f"on the device")
+    if kw0["window"] is not None and kw0["window"] < n:
+        fail(f"the float64 check assumes the window ({kw0['window']}) spans "
+             f"the prompt ({n})")
+    # the kernel and SDPA against float64 over the same 2048 valid keys
+    # (prefill: q_offset 0, causal), one batch row at a time
+    mine, lib_out = got0.transpose(1, 2), sdpa()
+    errs = {"kernel": [], "sdpa": []}
+    for i in range(b):
+        exact64 = torch.nn.functional.scaled_dot_product_attention(
+            qs[i:i + 1].double(), ks[i:i + 1].double(),
+            vs[i:i + 1].double(), is_causal=True, enable_gqa=True)
+        errs["kernel"].append((mine[i:i + 1].double() - exact64).abs()
+                              .flatten().float())
+        errs["sdpa"].append((lib_out[i:i + 1].double() - exact64).abs()
+                            .flatten().float())
+    stats = {}
+    for name, parts in errs.items():
+        e = torch.cat(parts)
+        top = torch.topk(e, max(1, e.numel() // 1000)).values
+        stats[name] = (float(top[0]), float(top[-1]))
+    log(f"|error| against float64 over {mine.numel()} outputs: kernel max "
+        f"{stats['kernel'][0]:.4g}, 99.9th percentile "
+        f"{stats['kernel'][1]:.4g}; SDPA max {stats['sdpa'][0]:.4g}, 99.9th "
+        f"percentile {stats['sdpa'][1]:.4g} (ratio "
+        f"{stats['kernel'][1] / stats['sdpa'][1]:.4f})")
+    if stats["kernel"][1] > 1.25 * stats["sdpa"][1]:
+        fail("the kernel's 99.9th-percentile error against float64 exceeds "
+             "1.25x SDPA's")
 
     # where a prefill's and a decode step's time goes (the decode step at
     # position prompt + n_gen - 1, the last slot of the cache)

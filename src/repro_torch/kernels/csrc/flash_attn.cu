@@ -4,40 +4,96 @@
 // Replaces the Pallas TPU kernel `flash_attention_fwd`
 // (repro/kernels/flash_attn.py, `_flash_fwd_kernel`) and, through the port's
 // `attend`, the blockwise scan it stands for (repro/models/attention.py
-// `_flash_fwd`). The port's plain version is repro_torch/kernels/ref.py
-// `flash_attention_ref`. Beyond the TPU kernel's causal mask and q_offset it
-// takes the masks of the function it replaces: key j is valid for the query
-// at absolute position p = q_offset + i when j < kv_valid_len, j <= p if
-// causal, and p - j < window if window > 0. GQA reads KV head h / g for query
-// head h; K and V are not repeated.
+// `_flash_fwd`). Beyond the TPU kernel's causal mask and q_offset it takes
+// the masks of the function it replaces: key j is valid for the query at
+// absolute position p = q_offset + i when j < kv_valid_len, j <= p if
+// causal, and p - j < window if window > 0. GQA reads KV head h / g for
+// query head h; K and V are not repeated. The output is written in q's type.
 //
-// Types: q is bf16 or f32, K and V (one type) bf16 or f32, each read in its
-// own type. Scores, softmax and the P.V sum are float32 as in both JAX
-// versions; the output is written in q's type (round to nearest even).
+// Two routes, chosen by q's type in flash_attn_launch (not a fallback: a
+// launch of either route that fails returns its error):
+//
+//  * bf16 q (every prefill of the serving path): `flash_tc_kernel`, on the
+//    tensor cores. Its plain twin is ref.py `flash_attention_ref(...,
+//    operands=torch.bfloat16)`: q, K and V in bf16 (the serving path's
+//    float32 cache holds bf16-exact values, so only P is new), S = q.K^T
+//    summed in float32 and then scaled by log2(e)/sqrt(dk) in float32,
+//    p = exp2(t - m) in float32 with m the running max at the same 64-key
+//    tiles, l summed from the float32 p, and P rounded to bf16 for the P.V
+//    product only. This is what the JAX package's einsums at DEFAULT
+//    precision computed on the TPU (bf16 operands, float32 sums).
+//  * float32 q (no path on the card sends it; tests do): `flash_fwd_kernel`,
+//    the CUDA-core kernel in float32 throughout, plain version
+//    `flash_attention_ref` with the default operands.
 //
 // What bounds it on an H100: at the serving path's prefill shapes (B = 8,
-// S = 2048, 32 query heads over 8 KV heads, head_dim 80) operations, 4 *
-// B * Hq * hd * (valid keys summed over the rows) ~ 1.7e11 a layer; the bytes
-// (q, K, V read once, the output written once) ~ 0.25 GB.
+// S = 2048, 32 query heads over 8 KV heads, head_dim 80) the operations,
+// 4 * B * Hq * hd * (valid keys summed over the rows) ~ 1.7e11 a layer, or
+// 0.17 ms at the 989 TFLOP/s bf16 tensor-core rate; the bytes (q, K, V read
+// once, the output written once) ~ 0.25 GB, or 0.08 ms.
 //
-// The simple design (making it fast is later work: wgmma, TMA, bf16 tiles):
-// one block of 256 threads per (64 query rows, query head, batch row). The
-// block keeps its Q tile (scaled) in shared memory and walks the KV tiles of
-// 64 keys that its rows can see, from the first tile the window allows to the
-// last one the causal limit, kv_valid_len and Sk allow; wholly masked tiles
-// are never read. Each thread owns 4 rows x 4 keys of the score tile and 4
-// rows x dv/16 columns of the output, all on CUDA cores in float32; a row's
-// running (m, l) is reduced across its 16 threads with warp shuffles. A
-// masked score contributes p = 0, which gives the reference's result for
-// every row with at least one valid key; the wrapper refuses arguments that
-// would leave a row with none. Shared memory: Q and K tiles with a stride of
-// dk + 1 floats (no bank conflicts), V, and the P tile: 78.6 KB at dk = 80.
+// The tensor-core design (sm_90a): one block of three warpgroups per work
+// item, 128 query rows that share their KV tiles: gh query heads of one KV
+// head (4, 2 or 1, the largest that divides the GQA group) at 128 / gh
+// positions each, so each tile is staged once for gh heads. Blocks go in
+// (batch row, KV head, query block, head set) order, the heaviest query
+// blocks of each KV head (the last rows, under a causal mask) first, so the
+// blocks in flight share a few KV heads' tiles in L2. Tiles of 64 keys that
+// no row of the item can see are never loaded.
+// Warpgroup 0 is the producer; full and empty mbarriers order it against
+// the consumers. bf16 K/V: cp.async (16 bytes a thread, no registers) into
+// a ring of 4 stages, the full barrier counting the landings. float32 K/V
+// (the serving path's cache): cp.async into 2 float32 staging tiles, which
+// the producer converts (round to nearest even) into a ring of 2 bf16
+// stages. TMA is not used: it cannot convert types, and it would ask
+// 16-byte-aligned strides of the callers (rows that are not aligned take
+// element loads through registers here instead).
+// Warpgroups 1 and 2 each own 64 item rows: S = Q.K^T by `wgmma` m64n64k16
+// with Q (staged once a block) and K read from shared memory; the online
+// softmax in float32 registers (ex2.approx of the log2e-scaled scores;
+// masks only in tiles that straddle the causal diagonal, the window edge or
+// kv_valid_len); O += P.V by `wgmma` m64n{hd}k16 with P from registers (the
+// S accumulator's layout is the A operand's, so P never touches shared
+// memory) and V read in wgmma's transposed-B form. The softmax of tile j
+// runs while the tensor cores do P.V of tile j - 1.
+// Shared memory layout: every bf16 tile is stored as 8x8 "core matrices" of
+// 16 bytes a row (wgmma's no-swizzle canonical layout), row-group major:
+// element (r, c) of a tile with hd columns sits at ((r/8)*(hd/8) + c/8)*64 +
+// (r%8)*8 + c%8. That layout holds any hd that is a multiple of 8, so head
+// dim 80 (160 bytes a row, not a whole number of the 128-byte swizzle atom)
+// needs neither the 32-byte swizzle nor padding; a core matrix is 128
+// contiguous bytes, so wgmma reads it without bank conflicts. K and V use
+// the same layout: K is read K-major (the leading offset steps along hd), V
+// MN-major (the leading offset steps along the keys).
+// What bounds it now (NVIDIA H100, layer 0 of the serving path): staging
+// the K/V tiles, 2.7 GB of float32 a layer read from L2 by the 4,096 items;
+// the tensor cores run at ~15% of their rate (PERF.md).
+//
+// The float32-q design (CUDA cores): one block of 256 threads
+// per (64 query rows, query head, batch row); the Q tile (scaled), K, V and
+// P tiles in float32 shared memory, float32 FMAs on CUDA cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
+
+struct Args {
+  int sq, sk, hq, hkv;
+  long long q_sb, q_ss, q_sh;  // element strides of batch, sequence, head
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  int causal, window, q_offset, kv_valid;
+  float sqrt_dk;
+  float scale_log2;  // log2(e) / sqrt(dk), rounded once to float32
+  int q_vec, kv_vec;  // rows start on 16-byte boundaries
+};
+
+// ---------------------------------------------------------------------------
+// float32 q: CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per KV tile
@@ -49,19 +105,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-struct Args {
-  int sq, sk, hq, hkv;
-  long long q_sb, q_ss, q_sh;  // element strides of batch, sequence, head
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  int causal, window, q_offset, kv_valid;
-  float sqrt_dk;
-};
-
 template <int DK, int DV>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
@@ -204,6 +247,700 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 q: tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 128;     // query rows per block, 64 a consumer
+constexpr int kTcKeys = 64;      // keys per KV tile
+constexpr int kTcThreads = 384;  // producer + two consumer warpgroups
+constexpr int kPre = 2;          // float32 K/V tiles in flight to staging
+
+// Stages of the bf16 K/V ring: 4 for bf16 K/V, which cp.async fills in
+// place; 2 for float32 K/V, converted from kPre float32 staging tiles that
+// cp.async fills (the most that fits at hd = 128: 224 KB).
+template <typename TKV>
+constexpr int kStagesOf = sizeof(TKV) == 2 ? 4 : 2;
+
+// Row pitch (floats) of a float32 staging tile: hd / 4 16-byte units a row,
+// XOR-swizzled by row within groups of 8 units where hd / 4 is a multiple of
+// 8, else (hd = 80) padded by one unit; either way the 8 rows that a quarter
+// warp converts sit in 8 distinct 16-byte bank groups.
+template <int D>
+constexpr int kPitch = (D / 4) % 8 == 0 ? D : D + 4;
+template <int D>
+__device__ __forceinline__ int staged(int r, int c4) {  // float offset
+  return r * kPitch<D> + 4 * ((D / 4) % 8 == 0 ? c4 ^ (r & 7) : c4);
+}
+
+template <typename TKV, int D>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(__nv_bfloat16) *
+             (kTcRows * D + 2 * kStagesOf<TKV> * kTcKeys * D) +
+         (sizeof(TKV) == 4 ? kPre * 2 * kTcKeys * kPitch<D> * sizeof(float)
+                           : 0) +
+         2 * kStagesOf<TKV> * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// release: the caller's shared-memory writes are seen by the waiters
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// until the phase of the given parity has completed (acquire)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// shared-memory writes of this thread become visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed wgmma groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// 2^x to ~2 ulp, subnormal results flushed to zero (ex2.approx.ftz)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keeps the compiler from moving register reads and writes across wgmma
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory descriptor of the no-swizzle layout: lbo and sbo are
+// the byte offsets between core matrices along the leading dimension and
+// along the strided one
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// element offset of (r, c), c a multiple of 8, in a core-matrix tile of D
+// columns
+template <int D>
+__device__ __forceinline__ int cm_off(int r, int c) {
+  return ((r >> 3) * (D / 8) + (c >> 3)) * 64 + (r & 7) * 8;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 8 consecutive elements as bf16; vec: p is 16-byte aligned
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = static_cast<uint32_t>(s[2 * i]) |
+           (static_cast<uint32_t>(s[2 * i + 1]) << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+// 8 consecutive float32 elements, rounded to bf16 (nearest even)
+__device__ __forceinline__ uint4 load8(const float* p, bool) {
+  float f[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = p[i];
+  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                    pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+}
+
+// Rows row0 .. row0 + 63 of a K or V whose rows do not start on 16-byte
+// boundaries (rows at or past `lim` are zeros) into a bf16 core-matrix
+// tile, element loads through registers, by the 128 threads of a
+// warpgroup, t = 0..127. The row index is fastest across threads, so a
+// quarter warp's 16-byte stores hit eight distinct bank groups.
+template <int D, typename T>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const T* src,
+                                           long long ss, int row0, int lim,
+                                           int t) {
+  constexpr int kPer = kTcKeys * D / 8 / 128;
+  uint4 x[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int u = t + 128 * i;
+    const int r = (u & 7) + 8 * (u / D);  // D chunk slots per 8 rows
+    const int c = ((u >> 3) % (D / 8)) * 8;
+    x[i] = row0 + r < lim ? load8(src + (row0 + r) * ss + c, false)
+                          : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int u = t + 128 * i;
+    const int r = (u & 7) + 8 * (u / D);
+    const int c = ((u >> 3) % (D / 8)) * 8;
+    *reinterpret_cast<uint4*>(dst + cm_off<D>(r, c)) = x[i];
+  }
+}
+
+// 16 bytes global -> shared without registers; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// one arrival on bar once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Rows row0 .. row0 + 63 of a bf16 K or V (rows at or past lim zeros)
+// straight into their core-matrix slots, by cp.async (16-byte aligned rows).
+// Lanes 2k and 2k + 1 copy the two halves of one 32-byte sector of a row.
+template <int D>
+__device__ __forceinline__ void stage_async(__nv_bfloat16* dst,
+                                            const __nv_bfloat16* src,
+                                            long long ss, int row0, int lim,
+                                            int t) {
+#pragma unroll
+  for (int i = 0; i < kTcKeys * D / 8 / 128; ++i) {
+    const int u = t + 128 * i;
+    const int rest = u >> 4;
+    const int r = (rest / (D / 16)) * 8 + ((u >> 1) & 7);
+    const int c = (2 * (rest % (D / 16)) + (u & 1)) * 8;
+    const bool in = row0 + r < lim;
+    cp_async16(dst + cm_off<D>(r, c), in ? src + (row0 + r) * ss + c : src,
+               in ? 16 : 0);
+  }
+}
+
+// Rows row0 .. row0 + 63 of a float32 K or V into a staging tile, row by
+// row (consecutive lanes on consecutive 16 bytes of a row), by cp.async.
+template <int D>
+__device__ __forceinline__ void stage_async_f32(float* slot, const float* src,
+                                                long long ss, int row0,
+                                                int lim, int t) {
+#pragma unroll
+  for (int i = 0; i < kTcKeys * D / 4 / 128; ++i) {
+    const int u = t + 128 * i;
+    const int r = u / (D / 4), c4 = u % (D / 4);
+    const bool in = row0 + r < lim;
+    cp_async16(slot + staged<D>(r, c4),
+               in ? src + (row0 + r) * ss + 4 * c4 : src, in ? 16 : 0);
+  }
+}
+
+// A staging tile into its bf16 core-matrix tile, 8 floats a chunk, the row
+// index fastest across lanes.
+template <int D>
+__device__ __forceinline__ void convert_staged(__nv_bfloat16* dst,
+                                               const float* slot, int t) {
+#pragma unroll
+  for (int i = 0; i < kTcKeys * D / 8 / 128; ++i) {
+    const int u = t + 128 * i;
+    const int r = (u & 7) + 8 * (u / D);
+    const int c = ((u >> 3) % (D / 8)) * 8;
+    const float4 x =
+        *reinterpret_cast<const float4*>(slot + staged<D>(r, c / 4));
+    const float4 y =
+        *reinterpret_cast<const float4*>(slot + staged<D>(r, c / 4 + 1));
+    *reinterpret_cast<uint4*>(dst + cm_off<D>(r, c)) =
+        make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w),
+                   pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
+  }
+}
+
+// wgmma m64nNk16, bf16 x bf16 -> float32: S = Q K^T (both operands in
+// shared memory, K-major) and O += P V (P in registers, V MN-major)
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39}"
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&p)[4], uint64_t v) {
+  if constexpr (D == 64) wgmma_rs_n64(o, p, v);
+  else if constexpr (D == 80) wgmma_rs_n80(o, p, v);
+  else if constexpr (D == 96) wgmma_rs_n96(o, p, v);
+  else wgmma_rs_n128(o, p, v);
+}
+
+template <typename TKV, int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const TKV* __restrict__ k, const TKV* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, Args a) {
+  static_assert(D % 16 == 0 && D <= 128, "head dim");
+  constexpr int kTile = kTcKeys * D;  // elements of one K or V stage
+  constexpr int kS = kStagesOf<TKV>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sK = sQ + kTcRows * D;
+  __nv_bfloat16* sV = sK + kS * kTile;
+  float* staging = reinterpret_cast<float*>(sV + kS * kTile);
+  constexpr int kStaged = kTcKeys * kPitch<D>;  // floats of a staging tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      staging + (sizeof(TKV) == 4 ? kPre * 2 * kStaged : 0));
+  uint64_t* empty = full + kS;
+
+  // A block serves gh query heads of one KV head (4, 2 or 1: the largest
+  // that divides the group), rows_h = 128 / gh positions each, so each KV
+  // tile is staged once for gh heads. Block row r is head h0 + r / rows_h
+  // at position q0 + r % rows_h. Block x -> (batch row, KV head, query
+  // block, head set), the last fastest: the blocks in flight share a few KV
+  // heads' tiles in L2, and each KV head's heaviest query blocks (the last
+  // rows) go first.
+  const int g = a.hq / a.hkv;
+  const int gh = g % 4 == 0 ? 4 : g % 2 == 0 ? 2 : 1;
+  const int rows_h = kTcRows / gh;
+  const int n_qb = (a.sq + rows_h - 1) / rows_h;
+  int x = blockIdx.x;
+  const int h_set = x % (g / gh);
+  x /= g / gh;
+  const int q0 = (n_qb - 1 - x % n_qb) * rows_h;
+  x /= n_qb;
+  const int hk = x % a.hkv;
+  const int b = x / a.hkv;
+  const int h0 = hk * g + h_set * gh;
+  const int tid = threadIdx.x;
+
+  // the KV tiles some row of this block can see
+  const int qp_lo = a.q_offset + q0;
+  const int qp_hi = a.q_offset + min(q0 + rows_h, a.sq) - 1;
+  const int kv_lim = min(a.sk, a.kv_valid);
+  const int kv_end = a.causal ? min(kv_lim, qp_hi + 1) : kv_lim;
+  const int first =
+      (a.window > 0 ? max(0, qp_lo - a.window + 1) : 0) / kTcKeys * kTcKeys;
+  const int n_tiles = (kv_end - first + kTcKeys - 1) / kTcKeys;
+
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 128);  // every producer thread
+      mbar_init(&empty[s], 8);   // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // producer: K and V tiles into the ring
+    const TKV* kb = k + b * a.k_sb + hk * a.k_sh;
+    const TKV* vb = v + b * a.v_sb + hk * a.v_sh;
+    if (!a.kv_vec) {
+      // rows not on 16-byte boundaries: element loads through registers
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kS;
+        if (it >= kS) mbar_wait(&empty[s], (it / kS - 1) & 1);
+        const int kv0 = first + it * kTcKeys;
+        stage_rows<D>(sK + s * kTile, kb, a.k_ss, kv0, kv_lim, tid);
+        stage_rows<D>(sV + s * kTile, vb, a.v_ss, kv0, kv_lim, tid);
+        fence_async_smem();
+        mbar_arrive(&full[s]);
+      }
+    } else if constexpr (sizeof(TKV) == 2) {
+      // bf16: cp.async into the ring, the full barrier counts the landings
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kS;
+        if (it >= kS) mbar_wait(&empty[s], (it / kS - 1) & 1);
+        const int kv0 = first + it * kTcKeys;
+        stage_async<D>(sK + s * kTile, kb, a.k_ss, kv0, kv_lim, tid);
+        stage_async<D>(sV + s * kTile, vb, a.v_ss, kv0, kv_lim, tid);
+        cp_async_arrive(&full[s]);
+      }
+    } else {
+      // float32: kPre tiles in flight to staging by cp.async, converted
+      // into the bf16 ring by the whole warpgroup
+      auto fetch = [&](int it) {
+        if (it < n_tiles) {
+          float* slot = staging + (it % kPre) * 2 * kStaged;
+          const int kv0 = first + it * kTcKeys;
+          stage_async_f32<D>(slot, kb, a.k_ss, kv0, kv_lim, tid);
+          stage_async_f32<D>(slot + kStaged, vb, a.v_ss, kv0, kv_lim, tid);
+        }
+        cp_async_commit();
+      };
+      for (int it = 0; it < kPre; ++it) fetch(it);
+      for (int it = 0; it < n_tiles; ++it) {
+        cp_async_wait<kPre - 1>();  // this thread's copies of tile it
+        warpgroup_sync(3);          // and everyone's
+        const int s = it % kS;
+        if (it >= kS) mbar_wait(&empty[s], (it / kS - 1) & 1);
+        const float* slot = staging + (it % kPre) * 2 * kStaged;
+        convert_staged<D>(sK + s * kTile, slot, tid);
+        convert_staged<D>(sV + s * kTile, slot + kStaged, tid);
+        fence_async_smem();
+        mbar_arrive(&full[s]);
+        warpgroup_sync(3);  // the slot is read: refill it
+        fetch(it + kPre);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // consumers: warpgroup w (0 or 1) owns block rows 64 w .. 64 w + 63,
+  // whose positions are wg_p0 .. wg_p0 + wg_n - 1 (wg_n <= 0: none)
+  const int w = tid / 128 - 1;
+  const int tw = tid & 127;
+  const int lane = tid & 31;
+  const int wg_p0 = q0 + (rows_h == kTcRows ? 64 * w : 0);
+  const int wg_n = min(min(64, rows_h), a.sq - wg_p0);
+  const int wp_lo = a.q_offset + wg_p0, wp_hi = wp_lo + wg_n - 1;
+  // this thread's two accumulator rows r_in + 8 i (i = 0, 1), their
+  // absolute positions, and its column pair
+  const int r_in = 16 * (tw >> 5) + (lane >> 2);
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    qpos[i] = a.q_offset + q0 + (64 * w + r_in + 8 * i) % rows_h;
+  const int col = 2 * (lane & 3);
+
+  // this warpgroup's Q rows (positions past Sq as zeros)
+  __nv_bfloat16* sQw = sQ + 64 * w * D;
+#pragma unroll
+  for (int i = 0; i < 64 * D / 8 / 128; ++i) {
+    const int u = tw + 128 * i;
+    const int r = (u & 7) + 8 * (u / D);
+    const int c = ((u >> 3) % (D / 8)) * 8;
+    const int br = 64 * w + r;
+    const int p = q0 + br % rows_h;
+    *reinterpret_cast<uint4*>(sQw + cm_off<D>(r, c)) =
+        p < a.sq ? load8(q + b * a.q_sb + (h0 + br / rows_h) * a.q_sh +
+                             p * a.q_ss + c,
+                         a.q_vec)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_async_smem();
+  warpgroup_sync(1 + w);
+
+  // The tiles this warpgroup's rows can see are a contiguous run [lo, hi]
+  // of the block's: the causal limit cuts from above, the window from
+  // below. The others are only waited for and released.
+  int lo = 0, hi = n_tiles - 1;
+  if (wg_n <= 0) {
+    hi = -1;
+  } else {
+    if (a.causal) hi = min(hi, (wp_hi - first) / kTcKeys);
+    if (a.window > 0)
+      lo = max(0, (wp_lo - a.window + 1 - first) / kTcKeys);
+  }
+  auto wait_full = [&](int it) {
+    mbar_wait(&full[it % kS], (it / kS) & 1);
+  };
+  auto release = [&](int it) {
+    if (lane == 0) mbar_arrive(&empty[it % kS]);
+  };
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[32];
+  uint32_t pa[4][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+
+  // S = Q K^T of tile it (64 x 64, float32 sums of bf16 products), issued
+  auto issue_s = [&](int it) {
+    const __nv_bfloat16* kt = sK + (it % kS) * kTile;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(sc, gmma_desc(sQw + 128 * kk, 128, 16 * D),
+                   gmma_desc(kt + 128 * kk, 128, 16 * D), kk > 0);
+    wgmma_commit();
+  };
+  // O += P V of tile it, V the B operand in its transposed (MN-major) form
+  auto issue_pv = [&](int it) {
+    const __nv_bfloat16* vt = sV + (it % kS) * kTile;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<D>(acc, pa[kk], gmma_desc(vt + 16 * D * kk, 16 * D, 128));
+    wgmma_commit();
+  };
+  // the online softmax of tile it on sc: t = S log2(e) / sqrt(dk) in
+  // float32 (never contracted into an FMA), masked only where the tile
+  // straddles a mask edge; sc becomes p, and m, l and corr advance
+  auto softmax = [&](int it) {
+    const int kv0 = first + it * kTcKeys;
+    const bool whole = kv0 + kTcKeys <= kv_lim &&
+                       (!a.causal || kv0 + kTcKeys - 1 <= wp_lo) &&
+                       (a.window <= 0 || wp_hi - kv0 < a.window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float t = __fmul_rn(sc[4 * n + 2 * i + j], a.scale_log2);
+          if (!whole) {
+            const int kp = kv0 + 8 * n + col + j;
+            const bool ok = kp < kv_lim && (!a.causal || kp <= qpos[i]) &&
+                            (a.window <= 0 || qpos[i] - kp < a.window);
+            if (!ok) t = -INFINITY;
+          }
+          sc[4 * n + 2 * i + j] = t;
+          mx[i] = fmaxf(mx[i], t);
+        }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2_ftz(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float p = exp2_ftz(sc[4 * n + 2 * i + j] - m[i]);
+          sc[4 * n + 2 * i + j] = p;
+          psum[i] += p;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
+  };
+  // after the previous P.V has landed: rescale O, and P into bf16 in the A
+  // operand's register layout (keys 16 kk .. 16 kk + 15 are the
+  // accumulator's 8-column chunks 2 kk and 2 kk + 1)
+  auto rescale_and_pack = [&]() {
+    reg_fence(acc);
+    reg_fence(sc);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[4 * n] *= corr[0];
+      acc[4 * n + 1] *= corr[0];
+      acc[4 * n + 2] *= corr[1];
+      acc[4 * n + 3] *= corr[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  };
+
+  for (int it = 0; it < lo && it < n_tiles; ++it) {
+    wait_full(it);
+    release(it);
+  }
+  if (lo <= hi) {
+    // software pipeline: the softmax of tile it runs while the tensor cores
+    // do P.V of tile it - 1
+    wait_full(lo);
+    reg_fence(sc);
+    wgmma_fence();
+    issue_s(lo);
+    wgmma_wait<0>();
+    reg_fence(sc);
+    softmax(lo);
+    rescale_and_pack();
+    for (int it = lo + 1; it <= hi; ++it) {
+      wait_full(it);
+      reg_fence(sc);
+      reg_fence(acc);
+      wgmma_fence();
+      issue_s(it);
+      issue_pv(it - 1);
+      wgmma_wait<1>();  // S of tile it has landed
+      reg_fence(sc);
+      softmax(it);
+      wgmma_wait<0>();  // P.V of tile it - 1 has landed
+      release(it - 1);
+      rescale_and_pack();
+    }
+    reg_fence(acc);
+    wgmma_fence();
+    issue_pv(hi);
+    wgmma_wait<0>();
+    reg_fence(acc);
+    release(hi);
+  }
+  for (int it = max(hi + 1, lo); it < n_tiles; ++it) {
+    wait_full(it);
+    release(it);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 64 * w + r_in + 8 * i;
+    const int p = q0 + r % rows_h;
+    if (p >= a.sq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow =
+        o + ((static_cast<long long>(b) * a.sq + p) * a.hq + h0 + r / rows_h) *
+                D +
+        col;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
+          acc[4 * n + 2 * i] / den, acc[4 * n + 2 * i + 1] / den);
+  }
+}
+
 template <typename TQ, typename TKV, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            const Args& a, cudaStream_t stream) {
@@ -219,22 +956,53 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TQ, typename TKV>
-int launch_d(const void* q, const void* k, const void* v, void* o, int b,
-             int d, const Args& a, cudaStream_t stream) {
+template <typename TKV, int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
+              const Args& a, cudaStream_t stream) {
+  auto kernel = flash_tc_kernel<TKV, D>;
+  constexpr size_t smem = tc_smem_bytes<TKV, D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int g = a.hq / a.hkv;
+  const int rows_h = kTcRows / (g % 4 == 0 ? 4 : g % 2 == 0 ? 2 : 1);
+  const unsigned blocks = static_cast<unsigned>(b) * a.hq /
+                          (kTcRows / rows_h) * ((a.sq + rows_h - 1) / rows_h);
+  kernel<<<blocks, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), static_cast<__nv_bfloat16*>(o), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TKV>
+int launch_d(const void* q, const void* k, const void* v, void* o, int q_bf16,
+             int b, int d, const Args& a, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<TQ, TKV, 64>(q, k, v, o, b, a, stream);
-    case 80: return launch<TQ, TKV, 80>(q, k, v, o, b, a, stream);
-    case 96: return launch<TQ, TKV, 96>(q, k, v, o, b, a, stream);
-    case 128: return launch<TQ, TKV, 128>(q, k, v, o, b, a, stream);
+    case 64: return q_bf16 ? launch_tc<TKV, 64>(q, k, v, o, b, a, stream)
+                           : launch<float, TKV, 64>(q, k, v, o, b, a, stream);
+    case 80: return q_bf16 ? launch_tc<TKV, 80>(q, k, v, o, b, a, stream)
+                           : launch<float, TKV, 80>(q, k, v, o, b, a, stream);
+    case 96: return q_bf16 ? launch_tc<TKV, 96>(q, k, v, o, b, a, stream)
+                           : launch<float, TKV, 96>(q, k, v, o, b, a, stream);
+    case 128:
+      return q_bf16 ? launch_tc<TKV, 128>(q, k, v, o, b, a, stream)
+                    : launch<float, TKV, 128>(q, k, v, o, b, a, stream);
     default: return -1;
   }
 }
 
+// 16-byte aligned rows: the base and the batch, sequence and head strides
+bool rows_aligned(const void* p, long long sb, long long ss, long long sh,
+                  int elem) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb * elem % 16 == 0 &&
+         ss * elem % 16 == 0 && sh * elem % 16 == 0;
+}
+
 }  // namespace
 
-// q_bf16 / kv_bf16: 1 for bf16, 0 for float32. Head dims 64, 80, 96 and 128
-// with dk == dv; anything else returns -1 without a launch. Returns the CUDA
+// q_bf16 / kv_bf16: 1 for bf16, 0 for float32. bf16 q takes the tensor-core
+// kernel, float32 q the CUDA-core one. Head dims 64, 80, 96 and 128 with
+// dk == dv; anything else returns -1 without a launch. Returns the CUDA
 // error of the launch (0 on success).
 extern "C" int flash_attn_launch(
     const void* q, const void* k, const void* v, void* o, int q_bf16,
@@ -243,13 +1011,14 @@ extern "C" int flash_attn_launch(
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, int causal, int window, int q_offset, int kv_valid,
     float sqrt_dk, void* stream) {
-  const Args a{sq,   sk,   hq,   hkv,    q_sb,   q_ss,     q_sh,     k_sb,
-               k_ss, k_sh, v_sb, v_ss,   v_sh,   causal,   window,   q_offset,
-               kv_valid, sqrt_dk};
+  const int kv_elem = kv_bf16 ? 2 : 4;
+  const Args a{sq, sk, hq, hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+               v_ss, v_sh, causal, window, q_offset, kv_valid, sqrt_dk,
+               static_cast<float>(1.4426950408889634 / sqrt((double)d)),
+               rows_aligned(q, q_sb, q_ss, q_sh, q_bf16 ? 2 : 4),
+               rows_aligned(k, k_sb, k_ss, k_sh, kv_elem) &&
+                   rows_aligned(v, v_sb, v_ss, v_sh, kv_elem)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && kv_bf16)
-    return launch_d<__nv_bfloat16, __nv_bfloat16>(q, k, v, o, b, d, a, s);
-  if (q_bf16) return launch_d<__nv_bfloat16, float>(q, k, v, o, b, d, a, s);
-  if (kv_bf16) return launch_d<float, __nv_bfloat16>(q, k, v, o, b, d, a, s);
-  return launch_d<float, float>(q, k, v, o, b, d, a, s);
+  if (kv_bf16) return launch_d<__nv_bfloat16>(q, k, v, o, q_bf16, b, d, a, s);
+  return launch_d<float>(q, k, v, o, q_bf16, b, d, a, s);
 }

@@ -6,6 +6,18 @@ Counterpart of the Pallas kernel ``flash_attention_fwd`` in
 wrapper takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the
 plain version ``ref.flash_attention_ref``. ``check_args`` is shared by both
 routes, so a call either route refuses is refused on both.
+
+One launch, two kernels, chosen by q's type inside ``flash_attn_launch``:
+
+* bf16 q (every prefill of the serving path): the tensor-core kernel
+  (``wgmma``), bf16 operands and float32 sums. Its plain twin is
+  ``ref.flash_attention_ref(..., operands=torch.bfloat16)``, which rounds q,
+  K, V and P where the kernel does; the twin stays within
+  ``ref.flash_attention_rounding_bound`` of the float32 plain version.
+* float32 q: the CUDA-core kernel, float32 throughout; its plain version is
+  ``ref.flash_attention_ref`` with the default operands.
+
+Neither route falls back on the other: a launch that fails raises.
 """
 
 from __future__ import annotations

@@ -21,12 +21,15 @@ import torch
 
 __all__ = ["INT_MAX", "INT_MIN", "wrap_int32", "unpack_bits",
            "binary_ip_rank_ref", "cluster_scan_ref", "topk_select_ref",
-           "merge_topk_ref", "NEG_INF", "FLASH_TILE", "flash_attention_ref"]
+           "merge_topk_ref", "NEG_INF", "FLASH_TILE", "LOG2E",
+           "flash_attention_ref", "flash_attention_order_bound",
+           "flash_attention_flip_bound", "flash_attention_rounding_bound"]
 
 INT_MAX = 2**31 - 1
 INT_MIN = -2**31
 NEG_INF = -1e30      # the attention mask's fill (repro/models/attention.py)
-FLASH_TILE = 64      # keys per block of the scan: the CUDA kernel's KV tile
+FLASH_TILE = 64      # keys per block of the scan: the CUDA kernels' KV tile
+LOG2E = 1.4426950408889634   # the kernel's literal: the same float64
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -159,8 +162,8 @@ def merge_topk_ref(part_ids: torch.Tensor, part_dists: torch.Tensor, *,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: int | None = None,
-                        q_offset: int = 0, kv_valid_len: int | None = None
-                        ) -> torch.Tensor:
+                        q_offset: int = 0, kv_valid_len: int | None = None,
+                        operands: torch.dtype | None = None) -> torch.Tensor:
     """Blockwise online-softmax attention forward (``_flash_fwd`` of
     ``repro/models/attention.py``, the oracle of the Pallas
     ``flash_attention_fwd``).
@@ -169,21 +172,50 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     0; query head h reads KV head h // (Hq / Hkv). Key j is valid for the
     query at absolute position p = q_offset + i when j < kv_valid_len (Sk
     when None), j <= p if causal, and p - j < window if a window is given.
-    Scores, softmax and the P.V sum are float32 (q scaled by 1/sqrt(dk)
-    first), a masked score is NEG_INF, the denominator max(l, 1e-30), and
-    the output (B, Sq, Hq, dv) is cast to q.dtype. Keys are scanned in
-    blocks of FLASH_TILE; the last block is ragged instead of zero-padded,
-    which gives the reference's result for every row with a valid key.
+    Keys are scanned in blocks of FLASH_TILE; the last block is ragged
+    instead of zero-padded, which gives the reference's result for every
+    row with a valid key. The output (B, Sq, Hq, dv) is cast to q.dtype.
+
+    ``operands=None``: scores, softmax and the P.V sum in float32 (q scaled
+    by 1/sqrt(dk) first), a masked score is NEG_INF, the denominator
+    max(l, 1e-30); the JAX package's function on the CPU.
+
+    ``operands=torch.bfloat16``: the tensor-core kernel's twin, which rounds
+    where the kernel rounds. q, K and V are rounded to bf16; S = q.K^T is
+    summed in float32 and then scaled, t = S * float32(log2(e) / sqrt(dk));
+    a masked t is -inf; at each tile the running max m (from NEG_INF) takes
+    the tile's max, p = exp2(t - m) in float32, l = l * corr + sum(p) from
+    the float32 p, and only the P.V product takes P rounded to bf16 (with
+    float32 sums). What the JAX einsums at DEFAULT precision compute on a
+    TPU: bf16 operands, float32 sums.
     """
+    return _flash_scan(q, k, v, causal, window, q_offset, kv_valid_len,
+                       operands)[0]
+
+
+def _flash_scan(q, k, v, causal, window, q_offset, kv_valid_len, operands,
+                peak=False):
+    """flash_attention_ref's scan; with ``peak`` also max_j p_j max_d
+    |v_jd| / l per row, (B, Sq, Hq, 1), from the same p and l."""
+    if operands not in (None, torch.bfloat16):
+        raise ValueError(f"operands {operands}: None (float32) or bfloat16")
     b, sq, hq, dk = q.shape
     sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     valid = sk if kv_valid_len is None else kv_valid_len
-    qf = (q.float() / math.sqrt(dk)).reshape(b, sq, hkv, g, dk)
+    twin = operands is not None
+    if twin:
+        qf = q.to(operands).float().reshape(b, sq, hkv, g, dk)
+        k, v = k.to(operands), v.to(operands)
+        scale = torch.tensor(LOG2E / math.sqrt(dk), dtype=torch.float32,
+                             device=q.device)
+    else:
+        qf = (q.float() / math.sqrt(dk)).reshape(b, sq, hkv, g, dk)
     q_pos = q_offset + torch.arange(sq, device=q.device)
     m = torch.full((b, hkv, g, sq), NEG_INF, device=q.device)
     l = torch.zeros((b, hkv, g, sq), device=q.device)
     acc = torch.zeros((b, hkv, g, sq, dv), device=q.device)
+    top = torch.zeros((b, hkv, g, sq), device=q.device) if peak else None
     for j0 in range(0, sk, FLASH_TILE):
         kj = k[:, j0:j0 + FLASH_TILE].float()
         vj = v[:, j0:j0 + FLASH_TILE].float()
@@ -194,12 +226,144 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             ok = ok & (kv_pos[None, :] <= q_pos[:, None])
         if window is not None:
             ok = ok & (q_pos[:, None] - kv_pos[None, :] < window)
-        s = torch.where(ok, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
+        if twin:
+            s = torch.where(ok, s * scale, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp2(s - m_new[..., None])
+            corr = torch.exp2(m - m_new)
+            pv = p.to(operands).float()
+        else:
+            s = torch.where(ok, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            pv = p
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vj)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", pv, vj)
+        if peak:
+            vmax = vj.abs().amax(-1).permute(0, 2, 1)[:, :, None, None]
+            top = torch.maximum(top * corr, (p * vmax).amax(-1))
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(q.dtype)
+    den = torch.clamp(l, min=1e-30)
+    out = acc / den[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(q.dtype)
+    if peak:
+        top = (top / den).permute(0, 3, 1, 2).reshape(b, sq, hq, 1)
+    return out, top
+
+
+def flash_attention_order_bound(out: torch.Tensor) -> torch.Tensor:
+    """Per-element bound of two attention forwards that round alike and sum
+    in float32 in other orders, at ``out`` (either one's output).
+
+    A float32 output moves by ~1e-6 of the values summed: 2e-5 absolute,
+    scaled by the largest |output| above 1. A bf16 output is that sum
+    rounded to 8 significant bits, and the other order can flip that
+    rounding: the gap between two neighbouring bf16 values is at most 2^-7
+    of the smaller one, so each element may move by 2^-7 of its own |output|
+    on top of the float32 term, and never by more than 2^-7 of the largest
+    |output| above 1."""
+    mag = out.float().abs()
+    big = max(1.0, float(mag.max())) if mag.numel() else 1.0
+    if out.dtype == torch.bfloat16:
+        return (2.0 ** -7 * mag + 2e-5 * big).clamp(max=2.0 ** -7 * big)
+    return torch.full_like(mag, 2e-5 * big)
+
+
+def flash_attention_flip_bound(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool,
+                               window: int | None = None, q_offset: int = 0,
+                               kv_valid_len: int | None = None
+                               ) -> torch.Tensor:
+    """Per-row bound, (B, Sq, Hq, 1), of what one weight rounded to the
+    other bf16 neighbour moves in the tensor-core kernel's output against
+    its twin (``flash_attention_ref(..., operands=torch.bfloat16)``).
+
+    Both compute p_j = 2^(t_j - m) in float32 and round it to bf16 for the
+    P.V product, but their t_j differ in the last bits (S summed in another
+    order) and so do their 2^x (the kernel's ex2.approx against
+    torch.exp2). A p_j that lies that close to the midpoint between two
+    bf16 values is rounded up by one and down by the other: the two P.V
+    sums then differ by one bf16 ulp of p_j times v_j, and one ulp of a
+    value in [2^e, 2^(e+1)) is 2^(e-7), at most 2^-7 of the value. So an
+    element of row i moves by at most 2^-7 max_j p_j |v_jd| / l_i for one
+    such weight, bounded here by 2^-7 max_j p_j max_d |v_jd| / l_i with
+    the twin's p and l. Rounding that differs on a second weight of the
+    same row is ~1e-4 as likely again (the weights differ by a few float32
+    ulps, a bf16 ulp is 2^16 of those) and moves the row by its own,
+    smaller, p_j."""
+    return 2.0 ** -7 * _flash_scan(q, k, v, causal, window, q_offset,
+                                   kv_valid_len, torch.bfloat16,
+                                   peak=True)[1]
+
+
+def _bf16_exact(t: torch.Tensor) -> bool:
+    return torch.equal(t.to(torch.bfloat16).float(), t.float())
+
+
+def _max_abs_score(q, k, causal, window, q_offset, valid) -> torch.Tensor:
+    """max over each row's valid keys j of sum_d |q_d| |k_jd| / sqrt(dk),
+    (B, Sq, Hq, 1)."""
+    b, sq, hq, dk = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qa = (q.float().abs() / math.sqrt(dk)).reshape(b, sq, hkv, g, dk)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    mx = torch.zeros((b, hkv, g, sq), device=q.device)
+    for j0 in range(0, sk, FLASH_TILE):
+        ka = k[:, j0:j0 + FLASH_TILE].float().abs()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qa, ka)
+        kv_pos = j0 + torch.arange(ka.shape[1], device=q.device)
+        ok = (kv_pos < valid)[None, :].expand(sq, -1)
+        if causal:
+            ok = ok & (kv_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            ok = ok & (q_pos[:, None] - kv_pos[None, :] < window)
+        mx = torch.maximum(mx, torch.where(ok, s, 0.0).amax(-1))
+    return mx.permute(0, 3, 1, 2).reshape(b, sq, hq, 1)
+
+
+def flash_attention_rounding_bound(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, *, causal: bool,
+                                   window: int | None = None,
+                                   q_offset: int = 0,
+                                   kv_valid_len: int | None = None
+                                   ) -> torch.Tensor:
+    """Per-element bound of |twin - float32 plain|: ``flash_attention_ref``
+    with ``operands=torch.bfloat16`` against the default, (B, Sq, Hq, dv).
+
+    Write A = sum_j p_j |v_j| / l = flash_attention_ref(q, k, |v|), the
+    float32 plain version's weights applied to |v|.
+
+    * P in bf16. Rounding to nearest at 8 significant bits moves each p_j by
+      at most 2^-9 p_j, so the P.V sum moves by at most 2^-9 A; l is summed
+      from the unrounded p. Taken as 2^-8 A: one ulp, not half, which also
+      covers A being evaluated with the float32 version's weights.
+    * q and K in bf16 (zero when both are bf16-exact, as on the serving
+      path). Each product q_d k_jd moves by at most (2^-8 + 2^-18) of its
+      size, so each score by at most D_i = 2^-8 (1 + 2^-8) max_j sum_d
+      |q_d||k_jd| / sqrt(dk) over row i's valid keys. Shifting every score
+      of a row by at most D moves each softmax weight by a factor within
+      [e^-2D, e^2D], so the output by at most (e^2D - 1) A, and the P term
+      above grows by the factor e^2D.
+    * V in bf16 (zero when V is bf16-exact): each |v_j| moves by at most
+      2^-9 of itself, so the output by 2^-9 e^2D A, taken as 2^-8 e^2D A.
+    * The sums in other orders and the rounding of the output to q's type:
+      ``flash_attention_order_bound`` of the float32 plain output.
+    """
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_valid_len=kv_valid_len)
+    want = flash_attention_ref(q, k, v, **kw)
+    a = flash_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+    grow = torch.ones((), device=q.device)
+    bound = torch.zeros_like(a)
+    if not (_bf16_exact(q) and _bf16_exact(k)):
+        valid = k.shape[1] if kv_valid_len is None else kv_valid_len
+        d = 2.0 ** -8 * (1 + 2.0 ** -8) * _max_abs_score(
+            q, k, causal, window, q_offset, valid)
+        grow = torch.exp(2 * d)
+        bound = torch.expm1(2 * d) * a
+    bound = bound + 2.0 ** -8 * grow * a
+    if not _bf16_exact(v):
+        bound = bound + 2.0 ** -8 * grow * a
+    return bound + flash_attention_order_bound(want)

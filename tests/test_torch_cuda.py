@@ -252,17 +252,33 @@ def _attn_inputs(card, b, sq, sk, hq, hkv, d, q_dtype, kv_dtype, seed=0):
 _ATOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
 
 
-def _assert_attn_close(got, want):
+def _assert_attn_close(got, want, flip=None):
     """Within _ATOL everywhere and, for a bf16 output, within one bf16 ulp
     of each element's own value: the gap between neighbouring bf16 values is
     at most 2^-7 of the smaller one, so small outputs (late causal rows
     average many keys) get a bound of their own size, not the largest
-    output's."""
+    output's. ``flip`` (per row) adds ``ref.flash_attention_flip_bound``
+    to that per-element bound: the tensor-core kernel against its twin,
+    where one weight may round to the other bf16 neighbour."""
     assert got.dtype == want.dtype and got.shape == want.shape
     g, w = got.float(), want.float()
     torch.testing.assert_close(g, w, rtol=0, atol=_ATOL[want.dtype])
     if want.dtype == torch.bfloat16:
-        torch.testing.assert_close(g, w, rtol=2.0 ** -7, atol=2e-5)
+        extra = 0.0 if flip is None else flip
+        over = (g - w).abs() > 2.0 ** -7 * w.abs() + 2e-5 + extra
+        assert not over.any(), f"{int(over.sum())} elements over the bound"
+
+
+def _assert_bf16_kernel(got, q, k, v, kw):
+    """The tensor-core kernel (bf16 q) against its twin by the rule above
+    with the flip term, and against the float32 plain version within the
+    derived rounding bound."""
+    twin = ref.flash_attention_ref(q, k, v, operands=torch.bfloat16, **kw)
+    _assert_attn_close(got, twin, ref.flash_attention_flip_bound(q, k, v,
+                                                                  **kw))
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    bound = ref.flash_attention_rounding_bound(q, k, v, **kw)
+    assert ((got.double() - plain.double()).abs() <= bound).all()
 
 
 @pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,window,q_off,valid,qt,kvt", [
@@ -275,6 +291,8 @@ def _assert_attn_close(got, want):
     (1, 5, 300, 2, 1, 96, False, 100, 250, None, "f32", "f32"),
     (3, 1, 65, 4, 2, 128, True, None, 64, None, "bf16", "f32"),   # one row
     (1, 1100, 1100, 8, 2, 80, True, None, 0, None, "bf16", "f32"),  # 17 tiles
+    (1, 1100, 1100, 32, 8, 80, True, None, 0, None, "bf16", "f32"),  # danube
+    (1, 150, 300, 8, 2, 128, True, None, 150, None, "bf16", "bf16"),
 ])
 def test_flash_attention_kernel_matches_plain(card, b, sq, sk, hq, hkv, d,
                                               causal, window, q_off, valid,
@@ -285,10 +303,12 @@ def test_flash_attention_kernel_matches_plain(card, b, sq, sk, hq, hkv, d,
     kw = dict(causal=causal, window=window, q_offset=q_off,
               kv_valid_len=valid)
     got = flash_attn.flash_attention(q, k, v, **kw)
-    want = ref.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == q.dtype and got.shape == (b, sq, hq, d)
-    _assert_attn_close(got, want)
+    if q.dtype == torch.bfloat16:
+        _assert_bf16_kernel(got, q, k, v, kw)
+    else:
+        _assert_attn_close(got, ref.flash_attention_ref(q, k, v, **kw))
 
 
 def test_flash_attention_kernel_strided_and_tpu_view(card):
@@ -298,10 +318,9 @@ def test_flash_attention_kernel_strided_and_tpu_view(card):
                            torch.float32)
     ks, vs = k[:, :96], v[:, :96]
     assert not ks.is_contiguous()
-    _assert_attn_close(
-        flash_attn.flash_attention(q, ks, vs, causal=True),
-        ref.flash_attention_ref(q, ks.contiguous(), vs.contiguous(),
-                                causal=True))
+    _assert_bf16_kernel(flash_attn.flash_attention(q, ks, vs, causal=True),
+                        q, ks.contiguous(), vs.contiguous(),
+                        dict(causal=True))
     qf, kf, vf = (t[:, :, 0].contiguous().float() for t in (q, ks, vs))
     ops.reset_launch_counts()
     got = flash_attn.flash_attention_fwd(qf[:, 32:], kf, vf, causal=True,
@@ -310,6 +329,22 @@ def test_flash_attention_kernel_strided_and_tpu_view(card):
     torch.testing.assert_close(got, ref.flash_attention_ref(
         qf[:, 32:, None], kf[:, :, None], vf[:, :, None], causal=True,
         q_offset=32)[:, :, 0], rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("kvt", ["f32", "bf16"])
+def test_flash_attention_kernel_unaligned_rows(card, kvt):
+    """Rows that do not start on 16-byte boundaries (a head dim sliced out
+    of a wider buffer) take the tensor-core kernel's element loads."""
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = torch.Generator(device=card).manual_seed(3)
+    qb = torch.randn((1, 90, 8, 82), generator=g, device=card).bfloat16()
+    kb = torch.randn((1, 130, 2, 83), generator=g, device=card).to(types[kvt])
+    vb = torch.randn((1, 130, 2, 83), generator=g, device=card).to(types[kvt])
+    q, k, v = qb[..., 1:81], kb[..., 3:83], vb[..., 2:82]
+    kw = dict(causal=True, q_offset=40)
+    got = flash_attn.flash_attention(q, k, v, **kw)
+    _assert_bf16_kernel(got, q.contiguous(), k.contiguous(), v.contiguous(),
+                        kw)
 
 
 def test_flash_attention_kernel_refuses_rows_without_keys(card):
