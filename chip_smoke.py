@@ -12,7 +12,11 @@ Phases (each failure exits non-zero and prints no result line):
      which must not be zero;
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes: the search kernels bitwise, with pads, INT_MAX
-     rows, int32 wraps, duplicates, ties and all-pad rows injected;
+     rows, int32 wraps, duplicates, ties and all-pad rows injected, and
+     cluster_scan also on ranks falling, equal and late in row order (its
+     running threshold's worst case and edges), the main path's cluster
+     budget M = 17,089, LUT entries set past dim, and W = 256 (its nibble
+     tables);
      flash_attention over GQA groups 1 and 4, head dims 64 / 80 / 96 / 128,
      ragged Sq and Sk, q_offset, a window that bites, kv_valid_len < Sk and
      bf16 q over float32 K/V: float32 q within a stated per-element bound
@@ -41,7 +45,9 @@ Phases (each failure exits non-zero and prints no result line):
      p50 and p99 are the median of the five;
  10. hold merge_topk and cluster_scan bitwise against their plain versions
      on those runs' real inputs (cluster_scan on the arguments of phase 8's
-     counted launch), and time both there;
+     counted launch), and time both there; cluster_scan's shared memory per
+     block and phase 2's ptxas lines are logged, and its bound beside PR
+     12's count of its operations;
  11. serve h2o-danube-1.8b at full width (24 x 2560, 32 / 8 heads of 80,
      seeded random bf16 weights) through repro_torch.launch.serve.generate:
      8 requests of 2048 prompt tokens, 32 generated, float32 KV cache, the
@@ -87,6 +93,7 @@ H100_INT32_OPS = 132 * 64 * 1.98e9
 H100_BF16_FLOPS = 989e12     # dense tensor-core bf16, H100 SXM data sheet
 INT_MAX = 2**31 - 1
 ERRS: dict[str, float] = {}  # kernel name -> max |kernel - plain| seen
+PTXAS: dict[str, list] = {}  # kernel name -> phase 2's ptxas resource lines
 T0 = time.perf_counter()
 
 
@@ -294,17 +301,26 @@ def rank_bound(torch, rows, lut, w, dim):
 def scan_bound(torch, base_rows, n_valid, active, lut, w, dim, ef):
     """Bytes: each distinct probed cluster's valid rows (code + f_add) once,
     the LUT and five scalars of each live lane, the (L, EF) ids and ranks
-    written. Operations: a mask and an add per code bit of every valid row
-    a live lane scans, at the int32 rate."""
+    written. Operations: one table lookup and one add per code byte of
+    every valid row a live lane scans, 2 W per row, at the int32 rate. A
+    lane's LUT is fixed for its scan, so S = sum over the code bytes b of
+    T[b][code[b]], with T[b][x] the LUT summed over the set bits of x: W
+    lookups and W adds are the least a row's rank takes (the tables' ~8 x
+    256 W adds a lane and the O3 epilogue's few operations a row are left
+    out). Returns (ms, "bytes" or "operations", ms by the bit count): the
+    last prices a mask and an add per code bit, 2 dim operations a row, as
+    the bound of a kernel that ranks bit by bit."""
     nv = n_valid[active].long()
     clusters = torch.unique(torch.stack([base_rows[active].long(), nv], 1),
                             dim=0)
     n_live = int(active.sum())
     nbytes = (int(clusters[:, 1].sum()) * (w + 4)
               + n_live * (lut.shape[1] + 5) * 4 + active.numel() * ef * 8)
-    ops = 2 * int(nv.sum()) * dim
+    ops = 2 * int(nv.sum()) * w
     tb, to = nbytes / H100_BYTES_PER_S, ops / H100_INT32_OPS
-    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+    old = max(tb, 2 * int(nv.sum()) * dim / H100_INT32_OPS)
+    return (1e3 * max(tb, to), "bytes" if tb >= to else "operations",
+            1e3 * old)
 
 
 def merge_bound(q, w, k):
@@ -378,6 +394,7 @@ def phase_build_kernels():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+                PTXAS.setdefault(name, []).append(line.strip())
     cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(_build._target("flash_attn"))],
@@ -443,11 +460,16 @@ def synthetic_merge_inputs(torch, dev, q, o, run, seed):
     return ids.view(q, o * run).contiguous(), d.view(q, o * run).contiguous()
 
 
-def synthetic_scan_inputs(torch, dev, n_lanes, m, w, n_clusters, seed):
+def synthetic_scan_inputs(torch, dev, n_lanes, m, w, n_clusters, seed,
+                          kind="random"):
     """Lanes over a flattened (n_clusters * m, W) table. Every fourth lane
     has a zero LUT and sumq, so its ranks are f_add, which holds INT_MIN,
     INT_MAX and ties; n_valid takes 0, < EF and M; some lanes are
-    inactive."""
+    inactive. ``kind`` "falling", "equal" or "late" zeroes every LUT and
+    sumq and sets f_add, in row order, falling (every row passes the
+    kernel's running threshold), all equal, or rising by 2 with each
+    cluster's last row just inside the best 40, after the threshold has
+    settled."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def ri(lo, hi, shape, dtype=torch.int32):
@@ -470,6 +492,13 @@ def synthetic_scan_inputs(torch, dev, n_lanes, m, w, n_clusters, seed):
     s2[::3] = 31
     active = ri(0, 5, (n_lanes,)) > 0
     active[:4] = True
+    if kind != "random":
+        lut.zero_()
+        sumq.zero_()
+        i = torch.arange(t, device=dev, dtype=torch.int32) % m
+        f_add = {"falling": m - i, "equal": 0 * i,
+                 "late": torch.where(i == m - 1, 2 * 40 - 3, 2 * i)}[kind]
+        f_add = f_add.to(torch.int32).contiguous()
     return codes, f_add, base, nv, lut, sumq, s1, s2, active
 
 
@@ -514,18 +543,28 @@ def phase_kernels_synthetic(torch, dev):
             bitwise(torch, "merge_topk", f"Q={q} O={o} run={run} k={k} "
                     f"{name}", a, b)
 
-    for n_lanes, m, ef, dim in ((512, 3000, 40, 128), (64, 9000, 300, 121),
-                                (16, 1024, 1024, 128)):
-        args = synthetic_scan_inputs(torch, dev, n_lanes, m, 16, 64, m)
-        lut = args[4].clone()
-        lut[:, dim:] = 0
-        args = (*args[:4], lut, *args[5:])
+    # (lanes, M, EF, dim, W, ranks in row order, LUT entries past dim);
+    # the kernel ignores entries past dim whether or not they are zero
+    for n_lanes, m, ef, dim, w, kind, junk in (
+            (512, 3000, 40, 128, 16, "random", False),
+            (64, 9000, 300, 121, 16, "random", False),
+            (16, 1024, 1024, 128, 16, "random", False),
+            (64, 9000, 40, 128, 16, "falling", False),
+            (64, 3000, 40, 128, 16, "equal", False),
+            (64, 3000, 40, 128, 16, "late", False),
+            (64, 17089, 40, 121, 16, "random", True),
+            (16, 2000, 40, 2045, 256, "random", True)):
+        args = synthetic_scan_inputs(torch, dev, n_lanes, m, w, 64, m, kind)
+        if not junk:
+            lut = args[4].clone()
+            lut[:, dim:] = 0
+            args = (*args[:4], lut, *args[5:])
         for name, a, b in zip(
                 ("ids", "ranks"),
                 cluster_scan.cluster_scan(*args, dim, ef, m),
                 ref.cluster_scan_ref(*args, dim, ef, m)):
             bitwise(torch, "cluster_scan", f"L={n_lanes} M={m} EF={ef} "
-                    f"dim={dim} {name}", a, b)
+                    f"dim={dim} W={w} {kind} {name}", a, b)
     phase_flash_synthetic(torch, dev)
 
 
@@ -921,27 +960,37 @@ def phase_new_kernels_real(torch, topo, rep, scan_call, qt):
     args, (dim, ef, m) = scan_call[:9], scan_call[9:]
     live = args[8]
     w = args[0].shape[1]
+    log(f"cluster_scan at W={w} EF={ef}: {cluster_scan.smem_bytes(w, ef)} "
+        f"bytes of dynamic shared memory per block; ptxas: "
+        f"{'; '.join(PTXAS.get('cluster_scan', ['not built here']))}")
     sel = torch.nonzero(live)[:64, 0]
     sub = (*args[:2], *(t[sel].contiguous() for t in args[2:]))
     for name, x, y in zip(("ids", "ranks"),
                           cluster_scan.cluster_scan(*sub, dim, ef, m),
                           ref.cluster_scan_ref(*sub, dim, ef, m)):
         bitwise(torch, "cluster_scan", f"real 64 lanes {name}", x, y)
+    bound = scan_bound(torch, sub[2], sub[3], sub[8], sub[4], w, dim, ef)
     timed_row(torch, f"cluster_scan real 64 live lanes M={m} EF={ef}",
               lambda: cluster_scan.cluster_scan(*sub, dim, ef, m),
-              lambda: ref.cluster_scan_ref(*sub, dim, ef, m), 30,
-              scan_bound(torch, sub[2], sub[3], sub[8], sub[4], w, dim, ef))
+              lambda: ref.cluster_scan_ref(*sub, dim, ef, m), 30, bound)
+    log(f"cluster_scan 64 live lanes: bound {bound[0]:.5f} ms (a lookup and "
+        f"an add per code byte), {bound[2]:.5f} ms by the bit count (a mask "
+        f"and an add per code bit)")
     for name, x, y in zip(("ids", "ranks"),
                           cluster_scan.cluster_scan(*args, dim, ef, m),
                           plain_scan(torch, ref, args, dim, ef, m)):
         bitwise(torch, "cluster_scan", f"real all {live.numel()} lanes "
                 f"{name}", x, y)
+    bound = scan_bound(torch, args[2], args[3], args[8], args[4], w, dim, ef)
     scan_row = timed_row(
         torch, f"cluster_scan real gemv search L={live.numel()} "
         f"({int(live.sum())} live) M={m} EF={ef}",
         lambda: cluster_scan.cluster_scan(*args, dim, ef, m),
-        lambda: plain_scan(torch, ref, args, dim, ef, m), 30,
-        scan_bound(torch, args[2], args[3], args[8], args[4], w, dim, ef))
+        lambda: plain_scan(torch, ref, args, dim, ef, m), 30, bound)
+    log(f"cluster_scan all lanes: bound {bound[0]:.5f} ms (a lookup and an "
+        f"add per code byte), {bound[2]:.5f} ms by the bit count (a mask and "
+        f"an add per code bit); {int(args[3][live].clamp(0, m).sum())} valid "
+        f"rows scanned by the live lanes")
     scan_row["library_ms"] = None
     return {"merge_topk": merge_row, "cluster_scan": scan_row}
 

@@ -1,8 +1,15 @@
 """Wrapper of the CUDA ``cluster_scan`` kernel (``csrc/cluster_scan.cu``).
 
 Counterpart of the Pallas kernel ``cluster_scan`` in
-``repro/kernels/binary_ip.py``. The wrapper takes CUDA tensors only;
-``kernels/ops.py`` sends CPU tensors to the plain version in
+``repro/kernels/binary_ip.py``. One block per lane builds the lane's
+partial-sum tables in shared memory (T[b][x], the LUT summed over the set
+bits of byte value x at code byte b; nibble tables above W = 64), ranks each
+row with W lookups, and keeps a running top-EF: a row's 64-bit key (rank
+order, row) enters a candidate buffer only if it is below the EF-th best
+key so far, and the buffer is merged into the top-EF by a bitonic sort
+before it could overflow. The source note in ``csrc/cluster_scan.cu`` gives
+the layout and the filter's worst case. The wrapper takes CUDA tensors
+only; ``kernels/ops.py`` sends CPU tensors to the plain version in
 ``kernels/ref.py``.
 """
 
@@ -14,10 +21,10 @@ import torch
 
 from . import _build
 
-__all__ = ["cluster_scan", "MAX_EF", "MAX_DPAD", "launches"]
+__all__ = ["cluster_scan", "smem_bytes", "MAX_EF", "MAX_DPAD", "launches"]
 
 MAX_EF = 1024     # kMaxEf in the source: EF rounded up to a power of two
-MAX_DPAD = 2048   # kMaxDpad: the LUT entries a block keeps in shared memory
+MAX_DPAD = 2048   # kMaxDpad: the widest LUT (W = 256, nibble tables)
 launches = 0      # kernel launches since the count was last set to 0
 
 
@@ -36,6 +43,15 @@ def _fn():
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(w: int, ef: int) -> int:
+    """Dynamic shared memory of one block (keys and tables) at code width
+    W and EF, as the launch sizes it."""
+    fn = _build.library("cluster_scan").cluster_scan_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn(w, ef))
 
 
 def cluster_scan(codes: torch.Tensor, f_add: torch.Tensor,

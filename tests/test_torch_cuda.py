@@ -8,8 +8,9 @@ the CPU. The sweeps reach what the main path does not: code widths that
 take the kernel's byte loop (W not a multiple of 16), dim % 8 != 0,
 shift amounts at their edges, k == C, one-column and 4096-column rows,
 merges of 1 to 8 runs with ties and unanswered rows, cluster scans with
-INT_MIN / INT_MAX ranks, empty and short clusters, inactive lanes and EF
-at the kernel's limit, and attention over every head dim the kernel takes,
+INT_MIN / INT_MAX ranks, ranks falling or equal in row order, empty and
+short clusters, inactive lanes, EF at the kernel's limit, the nibble
+tables of W = 256, and attention over every head dim the kernel takes,
 GQA groups, ragged Sq and Sk, offsets, windows, cache lengths, both types
 and strided inputs.
 """
@@ -162,10 +163,14 @@ def test_merge_topk_kernel_unsorted_rows_and_refusals(card):
         merge_topk.merge_topk(ids, d, k=10, run=7)
 
 
-def _scan_inputs(rng, n_lanes, m, w, n_clusters=5):
+def _scan_inputs(rng, n_lanes, m, w, n_clusters=5, kind="random"):
     """A flattened (n_clusters * m, W) table and n_lanes lanes over it. Odd
     lanes have an all-zero LUT and sumq, so their ranks are f_add itself,
-    which holds INT_MIN, INT_MAX and ties."""
+    which holds INT_MIN, INT_MAX and ties. ``kind`` "falling", "equal" or
+    "late" zeroes every LUT and sumq and sets f_add falling (every row
+    passes the kernel's running threshold), all equal, or rising by 2 with
+    each cluster's last row just inside the best 40 (the running threshold
+    has settled by then), in row order."""
     t = n_clusters * m
     codes = rng.integers(0, 256, (t, w), dtype=np.uint8)
     f_add = rng.integers(-(1 << 12), 1 << 12, (t,), dtype=np.int32)
@@ -185,20 +190,39 @@ def _scan_inputs(rng, n_lanes, m, w, n_clusters=5):
     s2[::3] = 31
     active = rng.random(n_lanes) < 0.8
     active[:3] = True
+    if kind != "random":
+        lut[:] = 0
+        sumq[:] = 0
+        i = np.arange(t) % m
+        f_add = {"falling": m - i, "equal": 0 * i,
+                 "late": np.where(i == m - 1, 2 * 40 - 3, 2 * i)}[kind]
+        f_add = f_add.astype(np.int32)
     return codes, f_add, base, nv, lut, sumq, s1, s2, active
 
 
-@pytest.mark.parametrize("n_lanes,m,w,dim,ef", [
-    (64, 700, 16, 128, 40),     # the gemv path's shape, scaled down
-    (9, 5000, 16, 125, 16),     # two chunks; dim % 8 != 0
-    (7, 40, 4, 29, 40),         # byte loop; EF == M
-    (5, 3000, 16, 128, 1024),   # EF at the kernel's limit
-    (3, 9000, 32, 256, 300),    # three chunks, EF not a power of two
+def _case(*shape, kind="random"):
+    return pytest.param(*shape, kind,
+                        id="-".join(map(str, shape))
+                        + ("" if kind == "random" else f"-{kind}"))
+
+
+@pytest.mark.parametrize("n_lanes,m,w,dim,ef,kind", [
+    _case(64, 700, 16, 128, 40),     # the gemv path's shape, scaled down
+    _case(9, 5000, 16, 125, 16),     # many merges; dim % 8 != 0
+    _case(7, 40, 4, 29, 40),         # byte loop; EF == M
+    _case(5, 3000, 16, 128, 1024),   # EF at the kernel's limit
+    _case(3, 9000, 32, 256, 300),    # EF not a power of two
+    _case(6, 5000, 16, 128, 40, kind="falling"),  # every row passes tau
+    _case(6, 3000, 16, 128, 40, kind="equal"),    # all ranks tie
+    _case(6, 3000, 16, 128, 40, kind="late"),     # the 40th best comes last
+    _case(4, 17089, 16, 128, 40),    # the main path's cluster budget
+    _case(3, 2000, 256, 2045, 40),   # W = 256: the nibble tables
+    _case(300, 700, 16, 128, 40),    # more lanes than the card has SMs
 ])
-def test_cluster_scan_kernel_bitwise(card, n_lanes, m, w, dim, ef):
+def test_cluster_scan_kernel_bitwise(card, n_lanes, m, w, dim, ef, kind):
     rng = np.random.default_rng(n_lanes * 100 + w)
     args = [torch.from_numpy(a).to(card)
-            for a in _scan_inputs(rng, n_lanes, m, w)]
+            for a in _scan_inputs(rng, n_lanes, m, w, kind=kind)]
     got = cluster_scan.cluster_scan(*args, dim, ef, m)
     want = ref.cluster_scan_ref(*args, dim, ef, m)
     torch.cuda.synchronize()
