@@ -16,26 +16,37 @@ Phases (each failure exits non-zero and prints no result line):
      cluster_scan also on ranks falling, equal and late in row order (its
      running threshold's worst case and edges), the main path's cluster
      budget M = 17,089, LUT entries set past dim, and W = 256 (its nibble
-     tables);
-     flash_attention over GQA groups 1 and 4, head dims 64 / 80 / 96 / 128,
+     tables); the rows ROADMAP C3 opened (topk_select at C = 4,160 in
+     passes, merge_topk at O k = 4,800 as a tree, cluster_scan at EF =
+     1,500); beam_search bitwise in ids, ranks and hops on the adversarial
+     cases named in ``phase_beam_synthetic`` (the visited quirk, ties,
+     INT_MIN / INT_MAX, EF 1 to 100, R 16 to 48, the hop cap, inactive
+     lanes, M = 17,089 at 16,384 lanes, W 16 and 64);
+     flash_attention over GQA groups 1 and 4, head dims 64 / 80 / 96 / 128
+     / 160,
      ragged Sq and Sk, q_offset, a window that bites, kv_valid_len < Sk and
      bf16 q over float32 K/V: float32 q within a stated per-element bound
      of the float32 plain version (float32 sums in another order); bf16 q
      (the tensor-core kernel) within that bound, plus the one-weight bf16
      flip term, of its twin (``operands=torch.bfloat16``), and within the
      derived ``flash_attention_rounding_bound`` of the float32 plain
-     version, as the twin is;
+     version, as the twin is; and head dim 160 at stablelm-12b's shape,
+     timed beside scaled_dot_product_attention;
   4. build the index of a 10M x 128 clustered corpus (big-ann-benchmarks'
      10M BIGANN/SIFT subset scale, SIFT's width) on the card, 4096 clusters
      on 8 shards;
   5. search 1024 queries through PIMCQGEngine.search with the launch counts
-     set to 0 just before and read just after; recall@10 against brute-force
+     set to 0 just before and read just after (one beam_search, one
+     topk_select, no binary_ip_rank); recall@10 against brute-force
      ground truth computed on the card;
   6. break one search's time down by stage, and profile one search for
      the device's busy share and its kernels by device time;
   7. hold each kernel bitwise against its plain version on the real
-     search's inputs (one hop's lane LUTs and rows, a gemv scan over the
-     cluster budget, the rerank candidates), and time both there;
+     search's inputs (beam_search on the search's own arguments, timed
+     beside its bound and the old path, the plain lock-step loop with one
+     binary_ip_rank launch a hop; binary_ip_rank on one hop's lane LUTs
+     and rows and on a gemv-shaped call over the cluster budget; the
+     rerank candidates), and time both there;
   8. search the same queries in GEMV mode (scan="gemv": one cluster_scan
      launch ranks every probed cluster whole), counted like phase 5;
   9. serve them through the sharded tier, TopologyConfig(shards=8).build:
@@ -502,6 +513,216 @@ def synthetic_scan_inputs(torch, dev, n_lanes, m, w, n_clusters, seed,
     return codes, f_add, base, nv, lut, sumq, s1, s2, active
 
 
+def synthetic_beam_inputs(torch, dev, n_lanes, m, r, w, n_clusters, seed):
+    """Lanes over a flattened (n_clusters * m) cluster table, for
+    beam_search. Neighbour rows hold -1 pads, duplicate ids, rows of all
+    -1 and rows ending in 0, -1 (the visited quirk); odd lanes have a zero
+    LUT and sumq, so their ranks are f_add itself, which holds INT_MAX,
+    INT_MIN and, in cluster 0, only 8 values (equal ranks across the beam
+    and the neighbours); lane 1's entry ranks INT_MAX, lane 3's entry is
+    -1; about one lane in seven is inactive."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ri(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(dtype)
+    t = n_clusters * m
+    codes = ri(0, 256, (t, w), torch.uint8)
+    f_add = ri(-(1 << 12), 1 << 12, (t,))
+    f_add[:m] = ri(0, 8, (m,))
+    f_add[::13] = INT_MAX
+    f_add[5::17] = -2**31
+    nbrs = ri(0, m, (t, r))
+    nbrs[ri(0, 100, (t, r)) < 15] = -1
+    nbrs[::3, 1] = nbrs[::3, 0]                      # duplicates in a row
+    nbrs[::11] = -1                                  # rows of all -1
+    nbrs[::7, -2] = 0                                # 0 followed by -1
+    nbrs[::7, -1] = -1
+    lut = ri(-(1 << 20), 1 << 20, (n_lanes, 8 * w))
+    sumq = ri(-(1 << 24), 1 << 24, (n_lanes,))
+    lut[1::2] = 0
+    sumq[1::2] = 0
+    s1 = ri(0, 33, (n_lanes,))
+    s2 = ri(0, 33, (n_lanes,))
+    s2[::3] = 31
+    base = ri(0, n_clusters, (n_lanes,)) * m
+    base[::4] = 0                                    # the tie cluster
+    entry = ri(0, m, (n_lanes,))
+    if n_lanes > 3:
+        f_add[base[1] + entry[1]] = INT_MAX          # an entry at INT_MAX
+        entry[3] = -1
+    active = ri(0, 7, (n_lanes,)) > 0
+    active[:2] = True
+    return (codes, f_add, nbrs.contiguous(), base.contiguous(),
+            entry.contiguous(), lut, sumq, s1, s2, active)
+
+
+@dataclasses.dataclass(frozen=True)
+class BeamReads:
+    """What one beam search read: real (lane, row) slots ranked, distinct
+    rows ranked, distinct neighbour-table rows expanded."""
+    slots: int
+    rows: int
+    expanded: int
+
+
+def plain_beam_counted(torch, args, dim, ef, iters, m):
+    """beam_search's plain version, ``ref.beam_search_ref``, also counting
+    what its search reads: the real (lane, row) slots it ranks (entries and
+    fresh neighbours, through its ``binary_ip_rank_ref`` calls), the
+    distinct rows among them, and the distinct neighbour-table rows it
+    expands (its gathers of the table, a lane's counted while the lane is
+    live: at hop t while its hops exceed t). -> (result, BeamReads)."""
+    from repro_torch.kernels import ref
+    real_rank, real_loop = ref.binary_ip_rank_ref, ref.lockstep_beam_search
+    slots, ranked, gathers = [0], [], []
+
+    class Table(torch.Tensor):          # records each gather of its rows
+        def __getitem__(self, idx):
+            gathers.append(idx)
+            return super().__getitem__(idx).as_subclass(torch.Tensor)
+
+    def counting(codes, f_add, rows, *rest):
+        real = rows[rows >= 0]
+        slots[0] += int(real.numel())
+        ranked.append(torch.unique(real))
+        return real_rank(codes, f_add, rows, *rest)
+
+    def loop(nbr_table, *rest, **kw):
+        return real_loop(nbr_table.as_subclass(Table), *rest, **kw)
+    ref.binary_ip_rank_ref, ref.lockstep_beam_search = counting, loop
+    try:
+        out = ref.beam_search_ref(*args, dim, ef, iters, m)
+    finally:
+        ref.binary_ip_rank_ref, ref.lockstep_beam_search = real_rank, real_loop
+    hops = out[2]
+    expanded = torch.cat([idx[hops > t] for t, idx in enumerate(gathers)]
+                         + [hops.new_empty(0, dtype=torch.long)])
+    return out, BeamReads(slots[0], int(torch.unique(torch.cat(ranked))
+                                        .numel()),
+                          int(torch.unique(expanded).numel()))
+
+
+def beam_bound(args, ef, dim, reads):
+    """Bytes: each distinct neighbour-table row expanded (4 R) and each
+    distinct row ranked (code and f_add, W + 4) once, since lanes that probe
+    one cluster start from its entry and share rows (as ``rank_bound``
+    counts them); the LUT of each lane with an entry (every such lane ranks
+    it), each lane's five int32 scalars and its active flag, the (L, EF)
+    ids and ranks and the (L,) hops written. Operations: one table lookup
+    and one add per code byte of each ranked (lane, row) slot, 2 W, at the
+    int32 rate, the least a row's rank takes (``scan_bound``). ``reads`` is
+    this run's (``plain_beam_counted``). Returns (ms, "bytes" or
+    "operations", ms by the bit count, ms by the kernel's nibble tables):
+    the last two price 2 dim and 4 W operations a slot against the same
+    bytes, and are logged beside the bound only."""
+    codes, nbrs, entry, lut = args[0], args[2], args[4], args[5]
+    w, r = codes.shape[1], nbrs.shape[1]
+    n_lanes = entry.numel()
+    nbytes = (reads.expanded * 4 * r + reads.rows * (w + 4)
+              + int((entry >= 0).sum()) * lut.shape[1] * 4
+              + n_lanes * (5 * 4 + 1) + n_lanes * (ef * 8 + 4))
+    tb = nbytes / H100_BYTES_PER_S
+    to = 2 * reads.slots * w / H100_INT32_OPS
+
+    def by(ops):
+        return 1e3 * max(tb, ops / H100_INT32_OPS)
+    return (1e3 * max(tb, to), "bytes" if tb >= to else "operations",
+            by(2 * reads.slots * dim), by(4 * reads.slots * w))
+
+
+def quirk_beam_inputs(torch, dev):
+    """The minimal search of ROADMAP C1 (M = 4, entry 1, ranks = f_add
+    [10, 5, 20, 30]): node 0 enters the beam twice."""
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+    z = i32([0])
+    return (torch.zeros((4, 1), dtype=torch.uint8, device=dev),
+            i32([10, 5, 20, 30]),
+            i32([[2, -1, -1], [0, -1, -1], [0, 3, -1], [-1, -1, -1]]), z,
+            i32([1]), torch.zeros((1, 8), dtype=torch.int32, device=dev), z,
+            i32([2]), i32([31]), torch.ones(1, dtype=torch.bool, device=dev))
+
+
+def phase_beam_synthetic(torch, dev):
+    """beam_search against its plain version, bitwise in ids, ranks and
+    hops, on the adversarial inputs of ``synthetic_beam_inputs``: neighbour
+    rows with duplicates, all -1, and 0 followed by -1 (the quirk); equal
+    ranks across the beam and the neighbours (a tie cluster); INT_MAX and
+    INT_MIN ranks; an entry that ranks INT_MAX; EF = 1, EF < R, EF = 40
+    and EF = 100; R = 16 and R = 48; the max_iters cap hit; inactive lanes;
+    M = 17,089 at the main path's 16,384 lanes; W = 16 and W = 64; and the
+    minimal search of ROADMAP C1, where node 0 enters twice."""
+    from repro_torch.kernels import beam_search, ref
+    cases = [  # lanes, M, R, W, EF, max_iters, dim, clusters, what
+        (16384, 17089, 32, 16, 40, 64, 128, 64, "the main path's shape"),
+        (512, 3000, 32, 16, 1, 64, 128, 8, "EF = 1"),
+        (512, 3000, 32, 16, 12, 64, 121, 8, "EF < R, dim % 8 != 0"),
+        (512, 3000, 32, 16, 100, 64, 128, 8, "EF = 100"),
+        (512, 3000, 16, 16, 40, 64, 128, 8, "R = 16"),
+        (512, 3000, 48, 16, 40, 64, 128, 8, "R = 48"),
+        (512, 3000, 32, 16, 40, 5, 128, 8, "the max_iters cap"),
+        (256, 3000, 32, 64, 40, 64, 500, 8, "W = 64"),
+    ]
+    for n_lanes, m, r, w, ef, iters, dim, ncl, what in cases:
+        args = synthetic_beam_inputs(torch, dev, n_lanes, m, r, w, ncl,
+                                     n_lanes + m + r + ef)
+        got = beam_search.beam_search(*args, dim, ef, iters, m)
+        want = ref.beam_search_ref(*args, dim, ef, iters, m)
+        label = (f"L={n_lanes} M={m} R={r} W={w} EF={ef} max_iters={iters} "
+                 f"({what})")
+        for name, a, b in zip(("ids", "ranks", "hops"), got, want):
+            bitwise(torch, "beam_search", f"{label} {name}", a, b)
+        hops = want[2]
+        log(f"beam_search {label}: bitwise; hops {int(hops.min())}-"
+            f"{int(hops.max())}, {int((hops == iters).sum())} lanes at the "
+            f"cap; INT_MIN ranks kept {int((want[1] == -2**31).sum())}; "
+            f"smem {beam_search.smem_bytes(ef, r, m, w)} bytes a block")
+        if what == "the max_iters cap" and int(hops.max()) != iters:
+            fail(f"beam_search {label}: no lane reached the cap")
+    args = quirk_beam_inputs(torch, dev)
+    got = beam_search.beam_search(*args, 8, 6, 10, 4)
+    want = ref.beam_search_ref(*args, 8, 6, 10, 4)
+    for name, a, b in zip(("ids", "ranks", "hops"), got, want):
+        bitwise(torch, "beam_search", f"ROADMAP C1 search {name}", a, b)
+    if int((want[0] == 0).sum()) != 2:
+        fail(f"the ROADMAP C1 search kept node 0 {int((want[0] == 0).sum())}"
+             f" times, not twice: {want[0].tolist()}")
+    log(f"beam_search ROADMAP C1 search: bitwise, ids {got[0].tolist()[0]}")
+
+
+def phase_wide_rows(torch, dev):
+    """The shapes the kernels refused before ROADMAP C3 was repaired:
+    topk_select at C = 4,160 (chunks and a pass over their outputs; each
+    id carries one distance, as in the rerank), merge_topk at O k = 4,800
+    (a tree of launches) and cluster_scan at EF = 1,500, bitwise."""
+    from repro_torch.kernels import cluster_scan, merge_topk, ref, topk_select
+    g = torch.Generator(device=dev).manual_seed(4160)
+    ids = torch.randint(-1, 1500, (64, 4160), generator=g, device=dev,
+                        dtype=torch.int64).to(torch.int32)
+    table = torch.randint(0, 400, (1500,), generator=g,
+                          device=dev).float() / 8
+    d = torch.where(ids >= 0, table[ids.clamp(min=0).long()], 0.0)
+    for name, a, b in zip(("ids", "dists"),
+                          topk_select.topk_select(ids, d, k=10),
+                          ref.topk_select_ref(ids, d, k=10)):
+        bitwise(torch, "topk_select", f"Q=64 C=4160 k=10 {name}", a, b)
+    ids, d = synthetic_merge_inputs(torch, dev, 64, 480, 10, 4800)
+    for name, a, b in zip(("ids", "dists"),
+                          merge_topk.merge_topk(ids, d, k=10),
+                          ref.merge_topk_ref(ids, d, k=10)):
+        bitwise(torch, "merge_topk", f"Q=64 O=480 run=10 k=10 {name}", a, b)
+    args = synthetic_scan_inputs(torch, dev, 16, 3000, 16, 64, 1500)
+    for name, a, b in zip(("ids", "ranks"),
+                          cluster_scan.cluster_scan(*args, 128, 1500, 3000),
+                          ref.cluster_scan_ref(*args, 128, 1500, 3000)):
+        bitwise(torch, "cluster_scan", f"L=16 M=3000 EF=1500 {name}", a, b)
+    log(f"wide rows bitwise: topk_select C=4160, merge_topk O k=4800, "
+        f"cluster_scan EF=1500 ({cluster_scan.smem_bytes(16, 1500)} bytes "
+        f"of shared memory a block; EF up to {cluster_scan.max_ef(16)} "
+        f"served at W=16)")
+
+
 def phase_kernels_synthetic(torch, dev):
     from repro_torch.kernels import (binary_ip, cluster_scan, merge_topk,
                                      ref, topk_select)
@@ -565,6 +786,8 @@ def phase_kernels_synthetic(torch, dev):
                 ref.cluster_scan_ref(*args, dim, ef, m)):
             bitwise(torch, "cluster_scan", f"L={n_lanes} M={m} EF={ef} "
                     f"dim={dim} W={w} {kind} {name}", a, b)
+    phase_wide_rows(torch, dev)
+    phase_beam_synthetic(torch, dev)
     phase_flash_synthetic(torch, dev)
 
 
@@ -590,6 +813,11 @@ def phase_flash_synthetic(torch, dev):
         (2, 150, 200, 8, 4, 64, True, None, 50, None, bf, f32),
         (1, 100, 300, 8, 1, 96, True, 70, 200, None, bf, bf),
         (2, 77, 77, 6, 2, 128, True, None, 0, None, bf, f32),
+        # head dim 160 (stablelm-12b): causal, ragged, GQA group 4, bf16 q
+        # over float32 K/V; a window over bf16 K/V; the float32 route
+        (2, 257, 330, 8, 2, 160, True, None, 0, 300, bf, f32),
+        (1, 200, 200, 4, 1, 160, True, 48, 0, None, bf, bf),
+        (2, 129, 200, 4, 1, 160, True, None, 71, None, f32, f32),
     ]
     for b, sq, sk, hq, hkv, d, causal, window, q_off, valid, qt, kvt in cases:
         g = torch.Generator(device=dev).manual_seed(sq * 1000 + sk)
@@ -608,6 +836,39 @@ def phase_flash_synthetic(torch, dev):
             want = ref.flash_attention_ref(q, k, v, **kw)
             close(torch, "flash_attention", label, got, want,
                   attn_bound(torch, want))
+    time_hd160(torch, dev)
+
+
+def time_hd160(torch, dev):
+    """The head-dim-160 kernel at a prefill of stablelm-12b's attention
+    shape (B = 2, S = 2048, 32 / 8 heads of 160, bf16 q, float32 K/V
+    holding bf16-exact values, causal), held against its twin and timed
+    beside its bound and scaled_dot_product_attention on the same work
+    (bf16 K/V)."""
+    from repro_torch.kernels import flash_attn, ref
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(160)
+    b, s, hq, hkv, d = 2, 2048, 32, 8, 160
+    q = torch.randn((b, s, hq, d), generator=g, device=dev).to(bf)
+    k = torch.randn((b, s, hkv, d), generator=g, device=dev).to(bf).float()
+    v = torch.randn((b, s, hkv, d), generator=g, device=dev).to(bf).float()
+    kw = dict(causal=True, window=None, q_offset=0, kv_valid_len=None)
+    got = flash_attn.flash_attention(q, k, v, **kw)
+    hold_bf16_attention(torch, f"hd 160 B={b} S={s} {hq}/{hkv} heads", got,
+                        q, k, v, kw)
+    row = timed_row(
+        torch, f"flash_attention hd 160 B={b} S={s} {hq}/{hkv} heads, "
+        f"plain = the twin",
+        lambda: flash_attn.flash_attention(q, k, v, **kw),
+        lambda: ref.flash_attention_ref(q, k, v, operands=bf, **kw), 10,
+        flash_bound(q, k, v, True, None, 0, None))
+    qs, ks, vs = (t.to(bf).transpose(1, 2).contiguous() for t in (q, k, v))
+    lib, lib_wall = times(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True), 10)
+    log(f"flash_attention hd 160: kernel {row['ms']:.5f} ms, SDPA "
+        f"{lib if lib is not None else lib_wall:.5f} ms on the device "
+        f"(bf16 K/V), bound {row['bound_ms']:.5f} ms")
 
 
 def phase_build_index(torch, dev):
@@ -666,8 +927,11 @@ def phase_search(torch, eng, qt):
         f"{live.numel()} live lanes; dropped lanes "
         f"{int(stats.dropped_lanes)}")
     print("kernels " + json.dumps(counts), flush=True)
-    if min(counts["binary_ip_rank"], counts["topk_select"]) == 0:
-        fail(f"a kernel of the path was never launched: {counts}")
+    want = {"beam_search": 1, "topk_select": 1, "binary_ip_rank": 0}
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"the beam search launched {counts}, expected {want}: one "
+             f"beam_search (every lane's loop, the rank fused in) and one "
+             f"topk_select")
     if recall < 0.5:
         fail(f"recall@10 {recall:.4f} < 0.5")
     return counts, recall, qps, res
@@ -700,10 +964,9 @@ def phase_breakdown(torch, eng, qt, search_ms):
     (_, cand, _), _ = timed(lambda: eng._candidates(qt, nq))
     _, stages["rerank"] = timed(lambda: rerank.rerank(
         qt, cand, eng.host.vectors, k=cfg.k))
-    loops = int(res.hops.max())
-    log(f"stage wall ms (one search, {loops} lock-step hops): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
-        + f"; per hop {stages['beam_search'] / max(loops, 1):.3f}")
+    log(f"stage wall ms (one search; its longest lane takes "
+        f"{int(res.hops.max())} hops, {int(res.hops.sum())} in all): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
 
     wall, kern = profiled(torch, lambda: eng.search(qt))
     busy = sum(ms for _, _, ms in kern)
@@ -719,9 +982,13 @@ def phase_breakdown(torch, eng, qt, search_ms):
 
 
 def phase_kernels_real(torch, eng, qt):
-    """Kernel vs plain version on the real search's inputs; times both."""
-    from repro_torch.core import rerank
-    from repro_torch.kernels import binary_ip, ref, topk_select
+    """Kernel vs plain version on the real search's inputs; times both.
+    beam_search on the arguments the search gives it, bitwise against its
+    plain version, and timed beside its bound and the old path (the plain
+    lock-step loop of ``RankingBackend.search_lanes``, one binary_ip_rank
+    launch a hop); binary_ip_rank on one real hop and a gemv-shaped call."""
+    from repro_torch.core import backends, rerank
+    from repro_torch.kernels import beam_search, binary_ip, ref, topk_select
     dim = eng.icfg.dim
     _, lane_q, lane_cl, _, _ = eng._route(qt, qt.shape[0])
     shard, fc, lanes, live = eng._lanes(qt, lane_q, lane_cl)
@@ -730,6 +997,48 @@ def phase_kernels_real(torch, eng, qt):
     codes = shard.codes.reshape(-1, shard.codes.shape[-1])
     f_add = a.f_add.reshape(-1)
     s1, s2 = a.shift1[fc].contiguous(), a.shift2[fc].contiguous()
+    cfg = eng.scfg
+    lane_cfg = backends.LaneConfig(ef=cfg.ef, max_iters=cfg.max_iters,
+                                   dim=dim)
+    calls = []
+    real_search = beam_search.beam_search
+
+    def recording(*args):
+        calls.append(args)
+        return real_search(*args)
+    beam_search.beam_search = recording
+    try:
+        eng.backend.search_lanes(shard, fc, lanes, lane_cfg, live)
+    finally:
+        beam_search.beam_search = real_search
+    b_args = calls[0][:10]
+    got = beam_search.beam_search(*b_args, dim, cfg.ef, cfg.max_iters, m)
+    want, reads = plain_beam_counted(torch, b_args, dim, cfg.ef,
+                                     cfg.max_iters, m)
+    for name, x, y in zip(("ids", "ranks", "hops"), got, want):
+        bitwise(torch, "beam_search", f"real search {name}", x, y)
+    hops = want[2]
+    old = backends.RankingBackend.search_lanes
+    bound = beam_bound(b_args, cfg.ef, dim, reads)
+    beam_row = timed_row(
+        torch, f"beam_search real search L={live.numel()} ({int(live.sum())}"
+        f" live) M={m} R={shard.neighbors.shape[-1]} EF={cfg.ef}, plain = "
+        f"the old path",
+        lambda: beam_search.beam_search(*b_args, dim, cfg.ef, cfg.max_iters,
+                                        m),
+        lambda: old(eng.backend, shard, fc, lanes, lane_cfg, live), 30,
+        bound)
+    beam_row["library_ms"] = None
+    smem = beam_search.smem_bytes(cfg.ef, shard.neighbors.shape[-1], m,
+                                  codes.shape[1])
+    log(f"beam_search real search: {int(hops.sum())} hops over "
+        f"{int((hops > 0).sum())} lanes (at most {int(hops.max())}), "
+        f"{reads.slots} real (lane, row) slots ranked, {reads.rows} distinct "
+        f"rows, {reads.expanded} distinct rows expanded; bound "
+        f"{bound[0]:.5f} ms ({bound[1]}); by the bit count {bound[2]:.5f} "
+        f"ms, by the nibble tables' count {bound[3]:.5f} ms; {smem} "
+        f"bytes of shared memory a block; ptxas: "
+        f"{'; '.join(PTXAS.get('beam_search', ['not built here']))}")
     entry = shard.entry[fc].long()
     nbrs = shard.neighbors[fc, entry]                 # the first hop's rows
     nbrs = torch.where(live[:, None], nbrs, -1)
@@ -769,7 +1078,8 @@ def phase_kernels_real(torch, eng, qt):
         lambda: topk_select.topk_select(cand, d2, k=eng.scfg.k),
         lambda: ref.topk_select_ref(cand, d2, k=eng.scfg.k), 100,
         topk_bound(cand.shape[0], cand.shape[1], eng.scfg.k))
-    return {"binary_ip_rank": rank_row, "topk_select": topk_row}
+    return {"binary_ip_rank": rank_row, "topk_select": topk_row,
+            "beam_search": beam_row}
 
 
 def recall_at(torch, eng, qt, ids) -> float:
@@ -1226,10 +1536,15 @@ def main() -> None:
            "cluster_scan": ("src/repro_torch/kernels/csrc/cluster_scan.cu",
                             "src/repro/kernels/binary_ip.py:162"),
            "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
-                               "src/repro/kernels/flash_attn.py:75")}
+                               "src/repro/kernels/flash_attn.py:75"),
+           "beam_search": ("src/repro_torch/kernels/csrc/beam_search.cu",
+                           "src/repro/kernels/binary_ip.py:79, fused with "
+                           "src/repro/core/beam_search.py:46")}
     # launches: each kernel's count in the run of its own path (phase 5 the
-    # beam search, 8 the gemv search, 9 the sharded tier, 11 the LM path)
+    # beam search, 8 the gemv search, 9 the sharded tier, 11 the LM path);
+    # binary_ip_rank's is 0: the beam path ranks inside beam_search
     launches = {"binary_ip_rank": counts["binary_ip_rank"],
+                "beam_search": counts["beam_search"],
                 "topk_select": counts["topk_select"],
                 "cluster_scan": gemv_counts["cluster_scan"],
                 "merge_topk": sharded_counts["merge_topk"],
@@ -1246,8 +1561,9 @@ def main() -> None:
         f"{recall:.4f} beam, {gemv_recall:.4f} gemv, sharded equal to beam; "
         f"QPS {qps[0]:.1f} beam, {gemv_qps[0]:.1f} gemv, {med['qps']:.1f} "
         f"sharded (median of 5); no single PyTorch call computes binary_ip_rank, "
-        f"topk_select (a dedup first) or cluster_scan (a rank and a "
-        f"selection), so their library_ms is null")
+        f"topk_select (a dedup first), cluster_scan (a rank and a "
+        f"selection) or beam_search (a graph search), so their library_ms "
+        f"is null")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

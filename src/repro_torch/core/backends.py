@@ -2,10 +2,11 @@
 ``repro/core/backends.py``).
 
 A backend owns its slice of the placed index (``index_arrays``), its
-per-lane LUT preparation (``prepare_lanes``) and its candidate-ranking
-kernels (``rank_ids`` for a beam hop, ``scan_cluster`` for the full scan),
-and declares its rank dtype and pad rank, so that core/beam_search.py does
-not depend on any one backend. ``SearchConfig.mode`` is a registry key.
+per-lane LUT preparation (``prepare_lanes``) and its search kernels
+(``search_lanes`` for the beam search, ``rank_ids`` for one hop of the
+plain loop, ``scan_cluster`` for the full scan), and declares its rank
+dtype and pad rank, so that core/beam_search.py does not depend on any one
+backend. ``SearchConfig.mode`` is a registry key.
 
 Every call is batched over lanes: ``shard`` is the placed index with its
 shard and cluster axes flattened to one leading (S*Cl,) axis, ``cl`` (L,)
@@ -23,7 +24,7 @@ import torch
 
 from . import mulfree
 from ..kernels import ops as kernel_ops
-from ..kernels.ref import wrap_int32
+from ..kernels.ref import lockstep_beam_search, wrap_int32
 
 __all__ = ["LaneConfig", "RankingBackend", "register_backend", "get_backend",
            "available_backends", "MulFreeBackend", "MulFreeArrays",
@@ -82,6 +83,22 @@ class RankingBackend:
     def rank_cluster(self, shard, cl, lanes, dim: int):
         """Rank every node of cluster cl[l] per lane: (L, M)."""
         raise NotImplementedError
+
+    def search_lanes(self, shard, cl, lanes, cfg: LaneConfig, active):
+        """The greedy beam search of every lane over cluster cl[l]:
+        -> (ids (L, EF) int32 local, ranks (L, EF), hops (L,) int32).
+        ``active`` (L,) bool marks the lanes to search; the others rank
+        their entry and report 0 hops. This default is the plain lock-step
+        loop (``ref.lockstep_beam_search``), ranking each hop's neighbours
+        with ``rank_ids``. No registered backend takes it today:
+        ``MulFreeBackend`` overrides it with one ``beam_search`` launch."""
+        m, r = shard.neighbors.shape[-2:]
+        return lockstep_beam_search(
+            shard.neighbors.reshape(-1, r), cl.to(torch.int32) * m,
+            shard.entry[cl], active, m=m, ef=cfg.ef,
+            max_iters=cfg.max_iters, pad=self.pad_rank,
+            rank_dtype=self.rank_dtype,
+            rank=lambda ids: self.rank_ids(shard, cl, ids, lanes, cfg.dim))
 
     def scan_cluster(self, shard, cl, lanes, dim: int, ef: int, active):
         """The EF best nodes of cluster cl[l] per lane, in the order of the
@@ -163,6 +180,20 @@ class MulFreeBackend(RankingBackend):
         rows = cl[:, None].to(torch.int32) * m + torch.arange(
             m, dtype=torch.int32, device=cl.device)
         return self._rank_rows(shard, cl, rows, lanes, dim)
+
+    def search_lanes(self, shard, cl, lanes: MulFreeLanes, cfg, active):
+        """One ``beam_search`` launch runs every lane's whole loop, the O3
+        rank of each hop fused in; the same ids, ranks and hops as the plain
+        loop of the base class."""
+        a: MulFreeArrays = shard.arrays
+        m, r = shard.neighbors.shape[-2:]
+        return kernel_ops.beam_search(
+            shard.codes.reshape(-1, shard.codes.shape[-1]),
+            a.f_add.reshape(-1), shard.neighbors.reshape(-1, r),
+            (cl.to(torch.int32) * m).contiguous(),
+            shard.entry[cl].contiguous(), lanes.lut, lanes.sumq,
+            a.shift1[cl].contiguous(), a.shift2[cl].contiguous(),
+            active.contiguous(), cfg.dim, cfg.ef, cfg.max_iters, m)
 
     def scan_cluster(self, shard, cl, lanes: MulFreeLanes, dim, ef, active):
         """One ``cluster_scan`` launch over all lanes: the fused rank and

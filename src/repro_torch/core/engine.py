@@ -8,7 +8,8 @@
 All S shards live on one device: the JAX package's vmap over the shard
 axis becomes lanes flattened to (S * capacity,), each carrying its shard,
 and the placed index stays (S, Cl, ...). The search runs eagerly; its two
-kernels are ``binary_ip_rank`` (every beam hop) and ``topk_select`` (the
+kernels are ``beam_search`` (every lane's whole beam search, one launch)
+or, with ``scan="gemv"``, ``cluster_scan``, and ``topk_select`` (the
 rerank). Entry points run on the card unless the caller passes
 ``device="cpu"``.
 """

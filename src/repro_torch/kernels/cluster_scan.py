@@ -21,9 +21,9 @@ import torch
 
 from . import _build
 
-__all__ = ["cluster_scan", "smem_bytes", "MAX_EF", "MAX_DPAD", "launches"]
+__all__ = ["cluster_scan", "smem_bytes", "max_smem", "max_ef", "MAX_DPAD",
+           "launches"]
 
-MAX_EF = 1024     # kMaxEf in the source: EF rounded up to a power of two
 MAX_DPAD = 2048   # kMaxDpad: the widest LUT (W = 256, nibble tables)
 launches = 0      # kernel launches since the count was last set to 0
 
@@ -54,6 +54,25 @@ def smem_bytes(w: int, ef: int) -> int:
     return int(fn(w, ef))
 
 
+def max_smem() -> int:
+    """The dynamic shared memory a block may take (common.cuh's
+    ``kMaxSmem``), as the library holds it."""
+    fn = _build.library("cluster_scan").cluster_scan_max_smem
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return int(fn())
+
+
+def max_ef(w: int) -> int:
+    """The largest EF whose block fits ``max_smem()`` at code width W: the
+    top-EF slots are EF rounded up to a power of two (8,192 for every W up
+    to 256)."""
+    ef, limit = 1, max_smem()
+    while smem_bytes(w, 2 * ef) <= limit:
+        ef *= 2
+    return ef
+
+
 def cluster_scan(codes: torch.Tensor, f_add: torch.Tensor,
                  base_rows: torch.Tensor, n_valid: torch.Tensor,
                  lut: torch.Tensor, sumq: torch.Tensor, s1: torch.Tensor,
@@ -72,10 +91,14 @@ def cluster_scan(codes: torch.Tensor, f_add: torch.Tensor,
     if 8 * w > MAX_DPAD:
         raise ValueError(f"cluster_scan kernel takes codes of at most "
                          f"{MAX_DPAD // 8} bytes, got {w}")
-    if not 0 < ef <= min(MAX_EF, m):
-        raise ValueError(f"ef = {ef} outside (0, {min(MAX_EF, m)}]: the "
-                         f"kernel keeps at most {MAX_EF} and a cluster has "
-                         f"{m} rows")
+    if not 0 < ef <= m:
+        raise ValueError(f"ef = {ef} outside (0, {m}]: a cluster has {m} "
+                         f"rows")
+    if smem_bytes(w, ef) > max_smem():
+        raise NotImplementedError(
+            f"cluster_scan of ef = {ef} at W = {w} needs "
+            f"{smem_bytes(w, ef)} bytes of shared memory a block, more than "
+            f"{max_smem()}; the kernel serves EF <= {max_ef(w)} (ROADMAP C3)")
     if t >= 2**31:
         raise ValueError(f"code table of {t} rows exceeds int32 row ids")
     _check("codes", codes, torch.uint8, (t, w), dev)

@@ -33,7 +33,9 @@
 //    S = sum over b of T[b][code[b]]: W lookups and W adds in place of 8W
 //    masks and 8W adds. Sums modulo 2^32 do not depend on their order, so
 //    S equals the bit-by-bit sum bitwise for every LUT, entries near
-//    +-2^31 included. The O3 epilogue is common.cuh's `o3_rank`.
+//    +-2^31 included. The tables and the row sum are common.cuh's
+//    `build_tables` and `table_sum` (beam_search.cu ranks through the same
+//    nibble tables); the O3 epilogue is common.cuh's `o3_rank`.
 //    Layout: T[b][x] at b * 256 + x, byte b's 256 entries contiguous, at
 //    the start of shared memory. The 32 threads of a warp rank 32 rows and
 //    look up the same b at one time, so their addresses differ only in x:
@@ -76,7 +78,8 @@
 //    n_valid + EF can never be among the EF best.
 // 3. Launch geometry: one block of kThreads per lane; inactive lanes exit
 //    at once. The tables, the keys and the buffer are dynamic shared memory
-//    sized from W and EF (`cluster_scan_smem`: 25 KB at W = 16, EF = 40);
+//    sized from W and EF (`cluster_scan_smem`: 25 KB at W = 16, EF = 40;
+//    EF up to 8,192 fits a block's 227 KB at every W up to 256);
 //    the LUT is staged in the key slots while the tables are built.
 //    Registers are capped for kBlocksPerSm blocks on an SM.
 
@@ -84,7 +87,6 @@
 
 namespace {
 
-constexpr int kMaxEf = 1024;
 constexpr int kMaxDpad = 2048;
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;    // caps registers at 32 a thread
@@ -112,42 +114,6 @@ int pow2_at_least(int n) {
 int key_slots(int ef_pad) { return 2 * ef_pad + kBuf; }
 
 int table_entries(int w) { return w <= kByteTableMaxW ? w * 256 : w * 32; }
-
-// The table sum of code byte x at byte position b of the tables t.
-template <bool kNibble>
-__device__ __forceinline__ uint32_t table_lookup(const uint32_t* t, int b,
-                                                 uint32_t x) {
-  if (kNibble) return t[b * 32 + (x & 15u)] + t[b * 32 + 16 + (x >> 4)];
-  return t[b * 256 + x];
-}
-
-// S of one code row. On the vec16 path each 16-byte chunk's tables start at
-// a pointer of their own, so a lookup is one byte extraction (PRMT), one
-// address (LEA) and a load at a constant offset.
-template <bool kNibble>
-__device__ __forceinline__ uint32_t table_sum(const uint8_t* c,
-                                              const uint32_t* tab, int w,
-                                              int vec16) {
-  uint32_t s = 0;
-  if (vec16) {
-    for (int b = 0; b < w; b += 16) {
-      const uint4 v = *reinterpret_cast<const uint4*>(c + b);
-      const uint32_t word[4] = {v.x, v.y, v.z, v.w};
-      const uint32_t* t = tab + b * (kNibble ? 32 : 256);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s += table_lookup<kNibble>(t, 4 * k + i,
-                                     __byte_perm(word[k], 0, 0x4440 + i));
-        }
-      }
-    }
-  } else {
-    for (int b = 0; b < w; ++b) s += table_lookup<kNibble>(tab, b, c[b]);
-  }
-  return s;
-}
 
 // Lower bound: the number of keys in the sorted a[0, n) below x.
 __device__ __forceinline__ int count_below(const unsigned long long* a, int n,
@@ -295,18 +261,7 @@ cluster_scan_kernel(
     s_lut[i] = i < dim ? lut[lane * dpad + i] : 0;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) {
-    // byte route: entry (b, x) sums lut[8b + j]; nibble route: entry
-    // (h = 2b + half, x) sums lut[8b + 4 half + j], over the set bits j of x
-    const int x = kNibble ? (i & 15) : (i & 255);
-    const int32_t* l = s_lut + (kNibble ? 4 * (i >> 4) : 8 * (i >> 8));
-    uint32_t s = 0;
-#pragma unroll
-    for (int j = 0; j < (kNibble ? 4 : 8); ++j) {
-      if ((x >> j) & 1) s += static_cast<uint32_t>(l[j]);
-    }
-    tab[i] = s;
-  }
+  build_tables<kNibble>(tab, s_lut, w, threadIdx.x, blockDim.x);
   __syncthreads();
   unsigned long long* top = key;                   // the sorted top-EFp
   unsigned long long* spare = key + ef_pad;        // the next merge's output
@@ -388,9 +343,8 @@ cluster_scan_kernel(
 
 }  // namespace
 
-extern "C" int cluster_scan_max_ef() { return kMaxEf; }
-
 extern "C" int cluster_scan_max_dpad() { return kMaxDpad; }
+extern "C" int cluster_scan_max_smem() { return kMaxSmem; }
 
 // Dynamic shared memory of one block: the keys, the lane's tables and the
 // fill count (padded to 8 bytes).
@@ -407,7 +361,9 @@ extern "C" int cluster_scan_launch(
     void* stream) {
   const int ef_pad = pow2_at_least(ef);
   const int n_keys = key_slots(ef_pad);
-  const int smem = static_cast<int>(cluster_scan_smem(w, ef));
+  const long long smem_ll = cluster_scan_smem(w, ef);
+  if (smem_ll > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(smem_ll);
   const bool nibble = w > kByteTableMaxW;
   const void* fn = nibble
       ? reinterpret_cast<const void*>(cluster_scan_kernel<true>)

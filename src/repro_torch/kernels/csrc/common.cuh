@@ -1,6 +1,8 @@
 // Device helpers shared by the port's kernels: the O3 rank of one code row
-// (binary_ip.cu, cluster_scan.cu) and the 64-bit key sort in shared memory
-// (topk_select.cu, merge_topk.cu, cluster_scan.cu). Each .cu file includes
+// (binary_ip.cu bit by bit; cluster_scan.cu and beam_search.cu through
+// per-lane partial-sum tables, `build_tables` / `table_sum`; all three end
+// in `o3_rank`) and the 64-bit key sort in shared memory (topk_select.cu,
+// merge_topk.cu, cluster_scan.cu). Each .cu file includes
 // this header once; _build.py hashes it into every kernel's library name,
 // so an edit here rebuilds them all.
 
@@ -11,6 +13,10 @@
 #include <stdint.h>
 
 namespace {
+
+// The dynamic shared memory an H100 block may take (227 KB), the limit of
+// cluster_scan.cu's top-EF slots and of beam_search.cu's lanes a block.
+constexpr int kMaxSmem = 232448;
 
 // Order-preserving key of a float: -0.0 ties with +0.0 and every NaN sorts
 // after +inf, which is the order of a stable torch.sort.
@@ -74,6 +80,64 @@ __device__ __forceinline__ uint32_t code_lut_sum(const uint8_t* c,
         s += static_cast<uint32_t>(lt[8 * b + j]) & (0u - ((byte >> j) & 1u));
       }
     }
+  }
+  return s;
+}
+
+// Per-lane partial-sum tables of a LUT `lut` (8W int32, entries at or past
+// dim zeroed), built by the threads t, t + nt, ... of a block or a warp.
+// Byte tables: entry (b, x) at b * 256 + x sums lut[8b + j] over the set
+// bits j of x, W * 256 entries. Nibble tables: entry (h = 2b + half, x) at
+// h * 16 + x sums lut[8b + 4 half + j], W * 32 entries. Sums are uint32,
+// modulo 2^32, so a row's table sum equals its bit-by-bit sum bitwise.
+template <bool kNibble>
+__device__ __forceinline__ void build_tables(uint32_t* tab,
+                                             const int32_t* lut, int w,
+                                             int t, int nt) {
+  for (int i = t; i < (kNibble ? w * 32 : w * 256); i += nt) {
+    const int x = kNibble ? (i & 15) : (i & 255);
+    const int32_t* l = lut + (kNibble ? 4 * (i >> 4) : 8 * (i >> 8));
+    uint32_t s = 0;
+#pragma unroll
+    for (int j = 0; j < (kNibble ? 4 : 8); ++j) {
+      if ((x >> j) & 1) s += static_cast<uint32_t>(l[j]);
+    }
+    tab[i] = s;
+  }
+}
+
+// The table sum of code byte x at byte position b of the tables t.
+template <bool kNibble>
+__device__ __forceinline__ uint32_t table_lookup(const uint32_t* t, int b,
+                                                 uint32_t x) {
+  if (kNibble) return t[b * 32 + (x & 15u)] + t[b * 32 + 16 + (x >> 4)];
+  return t[b * 256 + x];
+}
+
+// S of one code row. On the vec16 path each 16-byte chunk's tables start at
+// a pointer of their own, so a lookup is one byte extraction (PRMT), one
+// address (LEA) and a load at a constant offset.
+template <bool kNibble>
+__device__ __forceinline__ uint32_t table_sum(const uint8_t* c,
+                                              const uint32_t* tab, int w,
+                                              int vec16) {
+  uint32_t s = 0;
+  if (vec16) {
+    for (int b = 0; b < w; b += 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(c + b);
+      const uint32_t word[4] = {v.x, v.y, v.z, v.w};
+      const uint32_t* t = tab + b * (kNibble ? 32 : 256);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s += table_lookup<kNibble>(t, 4 * k + i,
+                                     __byte_perm(word[k], 0, 0x4440 + i));
+        }
+      }
+    }
+  } else {
+    for (int b = 0; b < w; ++b) s += table_lookup<kNibble>(tab, b, c[b]);
   }
   return s;
 }

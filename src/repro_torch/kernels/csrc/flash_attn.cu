@@ -69,6 +69,11 @@
 // the K/V tiles, 2.7 GB of float32 a layer read from L2 by the 4,096 items;
 // the tensor cores run at ~15% of their rate (PERF.md).
 //
+// Head dim 160 (stablelm-12b) is the same kernel at D = 160: wgmma
+// m64n160k16 for P.V (80 float32 accumulators a thread, beside S's 32),
+// Q.K^T in 10 steps of 16, one float32 staging tile in flight instead of
+// two so that the block fits its shared memory (200 KB).
+//
 // The float32-q design (CUDA cores): one block of 256 threads
 // per (64 query rows, query head, batch row); the Q tile (scaled), K, V and
 // P tiles in float32 shared memory, float32 FMAs on CUDA cores.
@@ -255,13 +260,15 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kTcRows = 128;     // query rows per block, 64 a consumer
 constexpr int kTcKeys = 64;      // keys per KV tile
 constexpr int kTcThreads = 384;  // producer + two consumer warpgroups
-constexpr int kPre = 2;          // float32 K/V tiles in flight to staging
 
 // Stages of the bf16 K/V ring: 4 for bf16 K/V, which cp.async fills in
-// place; 2 for float32 K/V, converted from kPre float32 staging tiles that
-// cp.async fills (the most that fits at hd = 128: 224 KB).
+// place; 2 for float32 K/V, converted from kPreOf<D> float32 staging tiles
+// that cp.async fills: 2 up to hd = 128 (the most that fits there: 224 KB),
+// 1 at hd = 160 (200 KB; two would take 280 KB, more than a block may hold).
 template <typename TKV>
 constexpr int kStagesOf = sizeof(TKV) == 2 ? 4 : 2;
+template <int D>
+constexpr int kPreOf = D > 128 ? 1 : 2;
 
 // Row pitch (floats) of a float32 staging tile: hd / 4 16-byte units a row,
 // XOR-swizzled by row within groups of 8 units where hd / 4 is a multiple of
@@ -278,8 +285,9 @@ template <typename TKV, int D>
 constexpr size_t tc_smem_bytes() {
   return sizeof(__nv_bfloat16) *
              (kTcRows * D + 2 * kStagesOf<TKV> * kTcKeys * D) +
-         (sizeof(TKV) == 4 ? kPre * 2 * kTcKeys * kPitch<D> * sizeof(float)
-                           : 0) +
+         (sizeof(TKV) == 4
+              ? kPreOf<D> * 2 * kTcKeys * kPitch<D> * sizeof(float)
+              : 0) +
          2 * kStagesOf<TKV> * sizeof(uint64_t);
 }
 
@@ -612,13 +620,50 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 
 
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}"
+      ", {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&p)[4], uint64_t v) {
   if constexpr (D == 64) wgmma_rs_n64(o, p, v);
   else if constexpr (D == 80) wgmma_rs_n80(o, p, v);
   else if constexpr (D == 96) wgmma_rs_n96(o, p, v);
-  else wgmma_rs_n128(o, p, v);
+  else if constexpr (D == 128) wgmma_rs_n128(o, p, v);
+  else wgmma_rs_n160(o, p, v);
 }
 
 template <typename TKV, int D>
@@ -626,9 +671,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const TKV* __restrict__ k, const TKV* __restrict__ v,
                     __nv_bfloat16* __restrict__ o, Args a) {
-  static_assert(D % 16 == 0 && D <= 128, "head dim");
+  static_assert(D % 16 == 0 && D <= 160, "head dim");
   constexpr int kTile = kTcKeys * D;  // elements of one K or V stage
   constexpr int kS = kStagesOf<TKV>;
+  constexpr int kPre = kPreOf<D>;     // float32 K/V tiles in flight
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sK = sQ + kTcRows * D;
@@ -987,6 +1033,9 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int q_bf16,
     case 128:
       return q_bf16 ? launch_tc<TKV, 128>(q, k, v, o, b, a, stream)
                     : launch<float, TKV, 128>(q, k, v, o, b, a, stream);
+    case 160:
+      return q_bf16 ? launch_tc<TKV, 160>(q, k, v, o, b, a, stream)
+                    : launch<float, TKV, 160>(q, k, v, o, b, a, stream);
     default: return -1;
   }
 }
@@ -1001,8 +1050,8 @@ bool rows_aligned(const void* p, long long sb, long long ss, long long sh,
 }  // namespace
 
 // q_bf16 / kv_bf16: 1 for bf16, 0 for float32. bf16 q takes the tensor-core
-// kernel, float32 q the CUDA-core one. Head dims 64, 80, 96 and 128 with
-// dk == dv; anything else returns -1 without a launch. Returns the CUDA
+// kernel, float32 q the CUDA-core one. Head dims 64, 80, 96, 128 and 160
+// with dk == dv; anything else returns -1 without a launch. Returns the CUDA
 // error of the launch (0 on success).
 extern "C" int flash_attn_launch(
     const void* q, const void* k, const void* v, void* o, int q_bf16,

@@ -32,7 +32,7 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_fwd", "check_args",
            "HEAD_DIMS", "launches"]
 
-HEAD_DIMS = (64, 80, 96, 128)   # the kernel's instantiations (dk == dv)
+HEAD_DIMS = (64, 80, 96, 128, 160)  # the kernel's instantiations, dk == dv
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0   # kernel launches since the count was last set to 0
 
@@ -89,8 +89,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(B, Sq, Hq, dv) in q.dtype; semantics of ``ref.flash_attention_ref``.
 
     q bf16 or f32, k and v of one type (bf16 or f32), each read in its own
-    type: nothing is cast. Head dims 64, 80, 96, 128 with dk == dv; the last
-    dim of each input contiguous (any other strides are passed on)."""
+    type: nothing is cast. Head dims 64, 80, 96, 128, 160 with dk == dv;
+    the last dim of each input contiguous (any other strides are passed
+    on)."""
     global launches
     valid = check_args(q, k, v, causal=causal, window=window,
                        q_offset=q_offset, kv_valid_len=kv_valid_len)

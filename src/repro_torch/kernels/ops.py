@@ -4,7 +4,8 @@ A CUDA tensor goes to the hand-written kernel; a CPU tensor goes to the
 plain version in ``kernels/ref.py``. There is no size threshold, no
 environment switch and no fallback: a kernel that fails to build or launch
 raises. (The JAX package sends small problems to XLA even on a TPU; here
-one launch ranks all lanes of a beam hop, so the kernel carries every hop.)
+one launch runs the beam search of every lane, so the kernel carries every
+search.)
 The attention kernel's argument checks (``flash_attn.check_args``) run on
 both routes.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from . import beam_search as _beam
 from . import binary_ip as _binary_ip
 from . import cluster_scan as _scan
 from . import flash_attn as _flash
@@ -20,12 +22,13 @@ from . import merge_topk as _merge
 from . import ref as _ref
 from . import topk_select as _topk
 
-__all__ = ["binary_ip_rank", "cluster_scan", "topk_select", "merge_topk",
-           "flash_attention", "launch_counts", "reset_launch_counts"]
+__all__ = ["binary_ip_rank", "beam_search", "cluster_scan", "topk_select",
+           "merge_topk", "flash_attention", "launch_counts",
+           "reset_launch_counts"]
 
 _KERNELS = {"binary_ip_rank": _binary_ip, "topk_select": _topk,
             "merge_topk": _merge, "cluster_scan": _scan,
-            "flash_attention": _flash}
+            "flash_attention": _flash, "beam_search": _beam}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -46,6 +49,17 @@ def binary_ip_rank(codes, f_add, rows, lut, sumq, s1, s2, dim: int
     return _ref.binary_ip_rank_ref(codes, f_add, rows, lut, sumq, s1, s2, dim)
 
 
+def beam_search(codes, f_add, nbrs, base_rows, entry, lut, sumq, s1, s2,
+                active, dim: int, ef: int, max_iters: int, m: int):
+    """The whole mulfree beam search of every lane; see
+    ``ref.beam_search_ref`` for the exact semantics."""
+    if _on_cuda(codes):
+        return _beam.beam_search(codes, f_add, nbrs, base_rows, entry, lut,
+                                 sumq, s1, s2, active, dim, ef, max_iters, m)
+    return _ref.beam_search_ref(codes, f_add, nbrs, base_rows, entry, lut,
+                                sumq, s1, s2, active, dim, ef, max_iters, m)
+
+
 def cluster_scan(codes, f_add, base_rows, n_valid, lut, sumq, s1, s2, active,
                  dim: int, ef: int, m: int):
     """Whole-cluster O3 rank + top-EF of every lane; see
@@ -59,7 +73,11 @@ def cluster_scan(codes, f_add, base_rows, n_valid, lut, sumq, s1, s2, active,
 
 def topk_select(cand_ids, dists, *, k: int):
     """Fused dedup + top-k over (Q, C) candidate rows; see
-    ``ref.topk_select_ref`` for the exact semantics."""
+    ``ref.topk_select_ref`` for the exact semantics. On CUDA a row wider
+    than ``topk_select.MAX_C`` (4,096) columns is selected in chunked
+    passes, which hold those semantics only when every occurrence of an id
+    carries one distance and no id's distance is NaN or -inf (the rerank
+    meets both); such a row that breaks them raises ValueError there."""
     if _on_cuda(cand_ids):
         return _topk.topk_select(cand_ids, dists, k=k)
     return _ref.topk_select_ref(cand_ids, dists, k=k)

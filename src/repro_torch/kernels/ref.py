@@ -20,7 +20,8 @@ import math
 import torch
 
 __all__ = ["INT_MAX", "INT_MIN", "wrap_int32", "unpack_bits",
-           "binary_ip_rank_ref", "cluster_scan_ref", "topk_select_ref",
+           "binary_ip_rank_ref", "lockstep_beam_search",
+           "beam_search_ref", "cluster_scan_ref", "topk_select_ref",
            "merge_topk_ref", "NEG_INF", "FLASH_TILE", "LOG2E",
            "flash_attention_ref", "flash_attention_order_bound",
            "flash_attention_flip_bound", "flash_attention_rounding_bound"]
@@ -76,6 +77,117 @@ def binary_ip_rank_ref(codes: torch.Tensor, f_add: torch.Tensor,
     tp = wrap_int32(t + (t >> sh1) + third).long()
     out = wrap_int32(f_add[safe].long() - tp)
     return torch.where(rows >= 0, out, INT_MAX)
+
+
+def _update_visited(visited: torch.Tensor, nbrs: torch.Tensor) -> None:
+    """The reference's visited update, reproduced exactly and in place.
+
+    The reference scatters ``visited[clip(nbrs, 0)] |= nbrs >= 0``, so every
+    -1 slot also writes visited[0] with its OLD value, and XLA applies
+    duplicate scatters in order (last writer wins). So local node 0 ends
+    True only if it already was, or a real 0 is in the row with no -1 slot
+    after it; every real id > 0 ends True. Ids > 0 go through a scatter
+    whose duplicate writes all write True (order-free); -1 and 0 slots
+    write into a sink column M. visited (L, M + 1) bool, nbrs (L, R)."""
+    l, r = nbrs.shape
+    m = visited.shape[1] - 1
+    sink = torch.where(nbrs > 0, nbrs.clamp(max=m - 1), m).long()
+    visited.scatter_(1, sink, True)
+    pos = torch.arange(r, device=nbrs.device)
+    last = torch.where(nbrs <= 0, pos, -1).amax(-1)            # (L,)
+    last_is_zero = torch.gather(nbrs, 1, last.clamp(min=0)[:, None])[:, 0] == 0
+    visited[:, 0] |= (last >= 0) & last_is_zero
+
+
+def lockstep_beam_search(nbr_table: torch.Tensor, base_rows: torch.Tensor,
+                         entry: torch.Tensor, active: torch.Tensor, *, m: int,
+                         ef: int, max_iters: int, pad, rank_dtype, rank
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Greedy beam search of every lane over its cluster, all L lanes in
+    lock-step (the JAX package vmaps a per-lane ``lax.while_loop``).
+
+    Lane l's cluster is the rows base_rows[l] + [0, m) of the flattened
+    (T, R) neighbour table. ``rank(ids)`` ranks (L, R') local ids of each
+    lane's cluster, ``pad`` (which sorts after every real rank) where an id
+    is -1. Each hop updates the lanes that are still live (hop cap not
+    reached, an unexpanded beam entry ranking below ``pad``) and freezes
+    the rest: a lane that is not live does not change, so it is never live
+    again. A hop expands the best unexpanded entry, marks its neighbours
+    fresh against the visited bitmap as it was before the hop, updates the
+    bitmap (``_update_visited``), ranks the fresh ones, and merges the beam
+    and the neighbours stably into the best EF (ties keep the beam first,
+    the neighbours in column order). Inactive lanes rank their entry and
+    report 0 hops. -> (ids (L, EF) int32 local, -1 pad; ranks (L, EF);
+    hops (L,) int32)."""
+    n_lanes = entry.shape[0]
+    dev = entry.device
+    li = torch.arange(n_lanes, device=dev)
+    base = base_rows.long()
+    beam_ids = torch.full((n_lanes, ef), -1, dtype=torch.int32, device=dev)
+    beam_ids[:, 0] = entry
+    beam_rank = torch.full((n_lanes, ef), pad, dtype=rank_dtype, device=dev)
+    beam_rank[:, 0] = rank(entry[:, None])[:, 0]
+    expanded = torch.zeros((n_lanes, ef), dtype=torch.bool, device=dev)
+    visited = torch.zeros((n_lanes, m + 1), dtype=torch.bool, device=dev)
+    visited[li, entry.long()] = True
+    hops = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    no_exp = torch.zeros((n_lanes, nbr_table.shape[-1]), dtype=torch.bool,
+                         device=dev)
+
+    for _ in range(max_iters):
+        # pick the best unexpanded beam entry (argmin: first minimum)
+        frontier = torch.where(expanded, pad, beam_rank)
+        sel = frontier.argmin(-1)
+        live = active & (frontier[li, sel] < pad)
+        if not bool(live.any()):
+            break
+        node = beam_ids[li, sel]
+        nbrs = nbr_table[base + node.clamp(0, m - 1).long()]    # (L, R)
+        seen = torch.gather(visited, 1, nbrs.clamp(0, m - 1).long())
+        fresh = (nbrs >= 0) & ~seen & (node >= 0)[:, None] & live[:, None]
+        nbrs = torch.where(fresh, nbrs, -1)
+        _update_visited(visited, nbrs)
+        nrank = rank(nbrs)
+
+        # merge beam + neighbours, keep the best EF (stable: ties keep order)
+        exp_sel = expanded.clone()
+        exp_sel[li, sel] = True
+        all_ids = torch.cat([beam_ids, nbrs], dim=1)
+        all_rank = torch.cat([beam_rank, nrank], dim=1)
+        all_exp = torch.cat([exp_sel, no_exp], dim=1)
+        take = torch.sort(all_rank, dim=1, stable=True).indices[:, :ef]
+        keep = live[:, None]
+        beam_ids = torch.where(keep, torch.gather(all_ids, 1, take), beam_ids)
+        beam_rank = torch.where(keep, torch.gather(all_rank, 1, take),
+                                beam_rank)
+        expanded = torch.where(keep, torch.gather(all_exp, 1, take), expanded)
+        hops += live.to(torch.int32)
+    return beam_ids, beam_rank, hops
+
+
+def beam_search_ref(codes: torch.Tensor, f_add: torch.Tensor,
+                    nbrs: torch.Tensor, base_rows: torch.Tensor,
+                    entry: torch.Tensor, lut: torch.Tensor, sumq: torch.Tensor,
+                    s1: torch.Tensor, s2: torch.Tensor, active: torch.Tensor,
+                    dim: int, ef: int, max_iters: int, m: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The mulfree beam search of every lane: ``lockstep_beam_search``
+    ranking each hop's ids with ``binary_ip_rank_ref`` (rows base_rows[l] +
+    id, ids clipped into [0, m) for the gathers, -1 ids ranking INT_MAX).
+
+    codes (T, W) u8, f_add (T,) i32, nbrs (T, R) i32 local neighbour ids
+    (-1 pad), base_rows / entry / sumq / s1 / s2 (L,) i32, lut (L, 8W) i32,
+    active (L,) bool -> (ids (L, EF) i32, ranks (L, EF) i32, hops (L,)
+    i32)."""
+    base = base_rows[:, None]
+
+    def rank(ids):
+        rows = torch.where(ids >= 0, base + ids.clamp(0, m - 1), -1)
+        return binary_ip_rank_ref(codes, f_add, rows.to(torch.int32), lut,
+                                  sumq, s1, s2, dim)
+    return lockstep_beam_search(nbrs, base_rows, entry, active, m=m, ef=ef,
+                                max_iters=max_iters, pad=INT_MAX,
+                                rank_dtype=torch.int32, rank=rank)
 
 
 def cluster_scan_ref(codes: torch.Tensor, f_add: torch.Tensor,

@@ -7,12 +7,17 @@ held against the JAX package by the other tests/test_torch_*.py files on
 the CPU. The sweeps reach what the main path does not: code widths that
 take the kernel's byte loop (W not a multiple of 16), dim % 8 != 0,
 shift amounts at their edges, k == C, one-column and 4096-column rows,
-merges of 1 to 8 runs with ties and unanswered rows, cluster scans with
-INT_MIN / INT_MAX ranks, ranks falling or equal in row order, empty and
-short clusters, inactive lanes, EF at the kernel's limit, the nibble
-tables of W = 256, and attention over every head dim the kernel takes,
-GQA groups, ragged Sq and Sk, offsets, windows, cache lengths, both types
-and strided inputs.
+rows wider than one launch holds (C = 4,160 in passes, O k = 4,800 as a
+merge tree, EF = 1,500), merges of 1 to 8 runs with ties and unanswered
+rows, cluster scans with INT_MIN / INT_MAX ranks, ranks falling or equal
+in row order, empty and short clusters, inactive lanes, the nibble tables
+of W = 256, the fused beam search on the adversarial cases of
+``tests/test_torch_beam_design.py`` (duplicates, the visited quirk, ties,
+INT_MIN / INT_MAX ranks, EF from 1 to 100, R 16 to 48, W 4 to 64, the hop
+cap, inactive lanes, the cluster budget M = 17,089) and on lanes whose
+state outgrows shared memory, and attention over every head dim the
+kernel takes, GQA groups, ragged Sq and Sk, offsets, windows, cache
+lengths, both types and strided inputs.
 """
 
 import numpy as np
@@ -21,7 +26,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (  # noqa: E402
-    binary_ip, cluster_scan, flash_attn, merge_topk, ops, ref, topk_select)
+    beam_search, binary_ip, cluster_scan, flash_attn, merge_topk, ops, ref,
+    topk_select)
+from test_torch_beam_design import CASES, beam_case  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -110,11 +117,53 @@ def test_topk_select_kernel_bitwise(card, q, c, k):
         assert torch.equal(got, want)
 
 
-def test_topk_select_kernel_refuses_too_wide_rows(card):
-    ids = torch.zeros((2, topk_select.MAX_C + 1), dtype=torch.int32,
-                      device=card)
-    with pytest.raises(ValueError, match="at most"):
-        topk_select.topk_select(ids, ids.float(), k=4)
+@pytest.mark.parametrize("q,c,k", [(64, 4160, 10), (8, 9000, 100),
+                                   (4, 4097, 2048)])
+def test_topk_select_kernel_wide_rows_in_passes(card, q, c, k):
+    """Rows wider than MAX_C go through the kernel in chunks and once more
+    over the chunks' outputs (``chunked_select``), bitwise equal to one
+    call of the plain version when each id carries one distance, as the
+    rerank's do: C = nprobe ef = 4,160 at nprobe = 64, ef = 65."""
+    rng = np.random.default_rng(c)
+    ids = rng.integers(-1, c // 3, (q, c)).astype(np.int32)  # duplicates
+    table = (rng.integers(0, 500, c // 3) / 8).astype(np.float32)
+    d = np.where(ids >= 0, table[np.clip(ids, 0, None)], 0.0)
+    ids[0] = -1
+    ids, d = torch.from_numpy(ids).to(card), torch.from_numpy(d).to(card)
+    ops.reset_launch_counts()
+    got = topk_select.topk_select(ids, d, k=k)
+    want = ref.topk_select_ref(ids, d, k=k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert ops.launch_counts()["topk_select"] > 1
+    with pytest.raises(NotImplementedError, match="ROADMAP C3"):
+        topk_select.topk_select(ids, d, k=topk_select.MAX_C // 2 + 1)
+
+
+@pytest.mark.parametrize("fault", ["two distances", "nan", "-inf"])
+def test_topk_select_kernel_refuses_rows_the_passes_cannot_hold(card,
+                                                                fault):
+    """A row wider than MAX_C that breaks the passes' conditions raises
+    ValueError where the passes would differ from the plain version; the
+    same row at MAX_C columns takes one launch and agrees with it."""
+    c = topk_select.MAX_C + 1
+    ids = torch.arange(c, dtype=torch.int32, device=card)[None].clone()
+    d = torch.arange(c, dtype=torch.float32, device=card)[None] + 10
+    if fault == "two distances":
+        ids[0, c - 1] = 5
+        d[0, c - 1] = 0.0
+    else:
+        d[0, 7] = float(fault)
+    with pytest.raises(ValueError, match="one distance"):
+        topk_select.topk_select(ids, d, k=10)
+    if fault == "two distances":
+        ids, d = ids[:, 1:].contiguous(), d[:, 1:].contiguous()
+    else:
+        ids, d = ids[:, :-1].contiguous(), d[:, :-1].contiguous()
+    for got, want in zip(topk_select.topk_select(ids, d, k=10),
+                         ref.topk_select_ref(ids, d, k=10)):
+        assert torch.equal(got, want)
 
 
 def _runs(rng, q, o, run):
@@ -147,7 +196,8 @@ def test_merge_topk_kernel_bitwise(card, q, o, run, k):
 
 def test_merge_topk_kernel_unsorted_rows_and_refusals(card):
     """The kernel sorts the row, so unsorted runs still merge right; rows
-    wider than its shared memory and ragged runs are refused."""
+    wider than its shared memory (O k = 4,800) go through a tree of
+    launches, bitwise; ragged runs are refused."""
     rng = np.random.default_rng(5)
     d = torch.from_numpy(rng.random((9, 40)).astype(np.float32)).to(card)
     d[:, 5] = d[:, 30]                                 # a tie
@@ -155,10 +205,13 @@ def test_merge_topk_kernel_unsorted_rows_and_refusals(card):
     for got, want in zip(merge_topk.merge_topk(ids, d, k=10),
                          ref.merge_topk_ref(ids, d, k=10)):
         assert torch.equal(got, want)
-    wide = torch.zeros((2, merge_topk.MAX_W + 8), dtype=torch.int32,
-                       device=card)
-    with pytest.raises(ValueError, match="at most"):
-        merge_topk.merge_topk(wide, wide.float(), k=8)
+    wide_ids, wide_d = (torch.from_numpy(a).to(card)
+                        for a in _runs(rng, 16, 480, 10))
+    ops.reset_launch_counts()
+    for got, want in zip(merge_topk.merge_topk(wide_ids, wide_d, k=10),
+                         ref.merge_topk_ref(wide_ids, wide_d, k=10)):
+        assert torch.equal(got, want)
+    assert ops.launch_counts()["merge_topk"] > 1
     with pytest.raises(ValueError, match="whole number of runs"):
         merge_topk.merge_topk(ids, d, k=10, run=7)
 
@@ -233,13 +286,26 @@ def test_cluster_scan_kernel_bitwise(card, n_lanes, m, w, dim, ef, kind):
 
 
 def test_cluster_scan_kernel_refuses_what_it_cannot_hold(card):
+    """EF past PR 12's limit of 1,024 is served (EF = 1,500, and the
+    largest served, max_ef(16) = 8,192 at M = 17,089, bitwise); EF beyond a
+    cluster is refused, and EF beyond a block's shared memory raises
+    NotImplementedError naming ROADMAP C3."""
     rng = np.random.default_rng(3)
     args = [torch.from_numpy(a).to(card)
-            for a in _scan_inputs(rng, 4, 2000, 16)]
-    with pytest.raises(ValueError, match="ef = 1025"):
-        cluster_scan.cluster_scan(*args, 128, cluster_scan.MAX_EF + 1, 2000)
-    with pytest.raises(ValueError, match="ef = 41"):
-        cluster_scan.cluster_scan(*args, 128, 41, 40)
+            for a in _scan_inputs(rng, 5, 4000, 16)]
+    for got, want in zip(cluster_scan.cluster_scan(*args, 128, 1500, 4000),
+                         ref.cluster_scan_ref(*args, 128, 1500, 4000)):
+        assert torch.equal(got, want)
+    assert cluster_scan.max_ef(16) == 8192
+    with pytest.raises(ValueError, match="ef = 4001"):
+        cluster_scan.cluster_scan(*args, 128, 4001, 4000)
+    big = [torch.from_numpy(a).to(card)
+           for a in _scan_inputs(rng, 3, 17089, 16)]
+    for got, want in zip(cluster_scan.cluster_scan(*big, 128, 8192, 17089),
+                         ref.cluster_scan_ref(*big, 128, 8192, 17089)):
+        assert torch.equal(got, want)
+    with pytest.raises(NotImplementedError, match="ROADMAP C3"):
+        cluster_scan.cluster_scan(*big, 128, 8193, 17089)
 
 
 def test_ops_send_cuda_tensors_to_the_kernels(card):
@@ -257,9 +323,48 @@ def test_ops_send_cuda_tensors_to_the_kernels(card):
     q, k, v = _attn_inputs(card, 1, 70, 70, 4, 2, 64, torch.float32,
                            torch.float32)
     ops.flash_attention(q, k, v, causal=True)
+    ops.beam_search(*(t.to(card) for t in beam_case(1, 4, 60, 8, 16)),
+                    128, 10, 20, 60)
     assert ops.launch_counts() == {"binary_ip_rank": 1, "topk_select": 1,
                                    "merge_topk": 1, "cluster_scan": 1,
-                                   "flash_attention": 1}
+                                   "flash_attention": 1, "beam_search": 1}
+
+
+def _hold_beam(card, args, dim, ef, iters, m):
+    args = [t.to(card) for t in args]
+    got = beam_search.beam_search(*args, dim, ef, iters, m)
+    want = ref.beam_search_ref(*args, dim, ef, iters, m)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return want
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_beam_search_kernel_bitwise(card, name):
+    """The adversarial cases of the design mirror (phase 3 of the smoke
+    holds the same kinds at the main path's shapes): ids, ranks and hops
+    bitwise equal to the plain loop. Every M there but the quirk's is not a
+    multiple of 32."""
+    make, dim, ef, iters, m = CASES[name]
+    _hold_beam(card, make(), dim, ef, iters, m)
+
+
+@pytest.mark.parametrize("n_lanes,m,r,w,ef", [
+    (16384, 17089, 32, 16, 40),  # the main path's lanes and cluster budget
+    (300, 700, 32, 16, 40),    # more lanes than the card has SMs
+    (40, 1000, 32, 16, 5000),  # 90 KB a lane: two lanes a block
+    (3, 2_000_003, 8, 2, 20),  # the bitmap outgrows a block: scratch
+])
+def test_beam_search_kernel_large_state(card, n_lanes, m, r, w, ef):
+    """The main path's shape, and lanes whose state takes fewer lanes a
+    block, or global scratch."""
+    want = _hold_beam(card, beam_case(m + ef, n_lanes, m, r, w, 1), 8 * w,
+                      ef, 64, m)
+    assert int(want[2].max()) > 1
+    smem = beam_search.smem_bytes(ef, r, m, w)
+    scratch = beam_search.scratch_bytes(n_lanes, ef, r, m, w)
+    assert (smem == 0) == (scratch > 0) == (m > 1_000_000)
 
 
 def _attn_inputs(card, b, sq, sk, hq, hkv, d, q_dtype, kv_dtype, seed=0):
@@ -317,6 +422,11 @@ def _assert_bf16_kernel(got, q, k, v, kw):
     (1, 1100, 1100, 8, 2, 80, True, None, 0, None, "bf16", "f32"),  # 17 tiles
     (1, 1100, 1100, 32, 8, 80, True, None, 0, None, "bf16", "f32"),  # danube
     (1, 150, 300, 8, 2, 128, True, None, 150, None, "bf16", "bf16"),
+    # head dim 160 (stablelm-12b): causal, ragged, GQA group 4, bf16 q over
+    # float32 K/V; a window over bf16 K/V; the float32 route
+    (2, 150, 213, 8, 2, 160, True, None, 63, None, "bf16", "f32"),
+    (1, 200, 200, 4, 1, 160, True, 48, 0, None, "bf16", "bf16"),
+    (2, 70, 130, 4, 1, 160, True, None, 50, 125, "f32", "f32"),
 ])
 def test_flash_attention_kernel_matches_plain(card, b, sq, sk, hq, hkv, d,
                                               causal, window, q_off, valid,

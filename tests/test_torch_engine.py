@@ -101,11 +101,28 @@ def _jax_lanes(je, q, shard):
     return view, lane_cl, lanes
 
 
+@pytest.fixture
+def seam_calls(monkeypatch):
+    """Records each call of the kernel seam ``ops.beam_search`` (the CPU
+    route runs its plain version, ``ref.beam_search_ref``)."""
+    calls = []
+    real = tbackends.kernel_ops.beam_search
+
+    def recording(*args):
+        calls.append(args)
+        return real(*args)
+    monkeypatch.setattr(tbackends.kernel_ops, "beam_search", recording)
+    return calls
+
+
 @pytest.mark.parametrize("scan", ["beam", "gemv"])
 @pytest.mark.parametrize("shard", [0, 1])
-def test_lane_search_bitwise_given_jax_luts(built, corpus, scan, shard):
-    """Fed the JAX package's lane LUTs, the lock-step search of all lanes
-    gives the same ids, ranks and hops as the vmapped per-lane loop."""
+def test_lane_search_bitwise_given_jax_luts(built, corpus, scan, shard,
+                                            seam_calls):
+    """Fed the JAX package's lane LUTs, the search of all lanes gives the
+    same ids, ranks and hops as the vmapped per-lane loop: a mulfree beam
+    search through the kernel seam ``ops.beam_search`` (one call), and
+    the base class's plain lock-step loop, one ``rank_ids`` call a hop."""
     _, q, _ = corpus
     je, te = _engines(built, scan=scan)
     view, lane_cl, lanes = _jax_lanes(je, q, shard)
@@ -117,18 +134,26 @@ def test_lane_search_bitwise_given_jax_luts(built, corpus, scan, shard):
     tlanes = tbackends.MulFreeLanes(torch.from_numpy(np.array(lanes.lut)),
                                     torch.from_numpy(np.array(lanes.sumq)))
     fc = torch.from_numpy(lane_cl + shard * je.place.per_shard)
-    got = tfn(te.placed.flat(), fc, tlanes, backend=te.backend,
-              cfg=tbackends.LaneConfig(ef=SCFG["ef"], max_iters=64, dim=DIM))
-    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
-    np.testing.assert_array_equal(got.rank.numpy(), np.asarray(want.rank))
-    np.testing.assert_array_equal(got.hops.numpy(), np.asarray(want.hops))
+    tcfg = tbackends.LaneConfig(ef=SCFG["ef"], max_iters=64, dim=DIM)
+    got = tfn(te.placed.flat(), fc, tlanes, backend=te.backend, cfg=tcfg)
+    results = [tuple(got)]
+    assert len(seam_calls) == (scan == "beam")
+    if scan == "beam":
+        results.append(tbackends.RankingBackend.search_lanes(
+            te.backend, te.placed.flat(), fc.long(), tlanes, tcfg,
+            torch.ones(len(fc), dtype=torch.bool)))
+    for ids, rank, hops in results:
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(want.ids))
+        np.testing.assert_array_equal(rank.numpy(), np.asarray(want.rank))
+        np.testing.assert_array_equal(hops.numpy(), np.asarray(want.hops))
 
 
-def test_visited_scatter_quirk_reproduced():
+def test_visited_scatter_quirk_reproduced(seam_calls):
     """The reference marks visited with a scatter in which every -1 slot
     writes node 0's OLD flag after a real 0 wrote True, and the last writer
     wins: node 0 followed by a -1 in a row stays unvisited and can enter
-    the beam twice. The port reproduces that search exactly.
+    the beam twice. The port reproduces that search exactly, through the
+    kernel seam ``ops.beam_search``.
 
     Ranks are f_add (codes and LUT are zero): 1 (entry) < 0 < 2 < 3.
     Expanding 1 adds 0 (row [0, -1, -1]: stays unvisited); expanding 0 adds
@@ -164,6 +189,7 @@ def test_visited_scatter_quirk_reproduced():
                                torch.zeros(1, dtype=torch.int32)),
         backend=tbackends.MulFreeBackend(),
         cfg=tbackends.LaneConfig(ef=6, max_iters=10, dim=8))
+    assert len(seam_calls) == 1
     ids = np.asarray(want.ids)
     assert (ids == 0).sum() == 2, ids        # node 0 entered twice
     np.testing.assert_array_equal(got.ids.numpy()[0], ids)
@@ -235,7 +261,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.data.synthetic, repro_torch.core.topology, "
             "repro_torch.core.fleet, repro_torch.core.pipeline, "
             "repro_torch.core.execbackend, repro_torch.kernels.merge_topk, "
-            "repro_torch.kernels.cluster_scan; "
+            "repro_torch.kernels.cluster_scan, "
+            "repro_torch.kernels.beam_search; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']; "
             "assert not bad, bad")

@@ -17,7 +17,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import topk_select as jtopk  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    binary_ip, cluster_scan, flash_attn, merge_topk, ops, topk_select)
+    beam_search, binary_ip, cluster_scan, flash_attn, merge_topk, ops,
+    topk_select)
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 INT_MAX = 2**31 - 1
@@ -195,6 +196,24 @@ def test_cluster_scan_ref_bitwise_vs_jax(rng, n, w, ef, nv):
         np.testing.assert_array_equal(ranks[lane].numpy(), np.asarray(wr))
 
 
+def _beam_inputs(rng, n_lanes, m, r, w, n_clusters=3):
+    """A flattened (n_clusters * m) cluster table with neighbour rows of
+    local ids (-1 pads, duplicates), and n_lanes lanes over it."""
+    t = n_clusters * m
+    codes = rng.integers(0, 256, (t, w), dtype=np.uint8)
+    f_add = rng.integers(0, 1 << 10, (t,), dtype=np.int32)
+    nbrs = rng.integers(-1, m, (t, r)).astype(np.int32)
+    base = (rng.integers(0, n_clusters, n_lanes) * m).astype(np.int32)
+    entry = rng.integers(0, m, n_lanes).astype(np.int32)
+    lut = rng.integers(-64, 64, (n_lanes, w * 8)).astype(np.int32)
+    sumq = lut.sum(-1).astype(np.int32)
+    s1 = np.full(n_lanes, 2, np.int32)
+    s2 = np.full(n_lanes, 31, np.int32)
+    active = np.ones(n_lanes, bool)
+    active[-1] = False
+    return codes, f_add, nbrs, base, entry, lut, sumq, s1, s2, active
+
+
 def test_ops_dispatch_cpu_tensors_to_plain_versions(rng):
     """CPU tensors take the plain version and launch nothing."""
     ops.reset_launch_counts()
@@ -217,9 +236,13 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions(rng):
                for s in ((2, 9, 4, 16), (2, 9, 2, 16), (2, 9, 2, 16)))
     assert torch.equal(ops.flash_attention(q, k, v, causal=True),
                        tref.flash_attention_ref(q, k, v, causal=True))
+    beam = [torch.from_numpy(a) for a in _beam_inputs(rng, 4, 30, 5, 4)]
+    for a, b in zip(ops.beam_search(*beam, 32, 6, 9, 30),
+                    tref.beam_search_ref(*beam, 32, 6, 9, 30)):
+        assert torch.equal(a, b)
     assert ops.launch_counts() == dict.fromkeys(
         ("binary_ip_rank", "topk_select", "merge_topk", "cluster_scan",
-         "flash_attention"), 0)
+         "flash_attention", "beam_search"), 0)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors(rng):
@@ -239,9 +262,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
     q = torch.zeros((1, 4, 2, 64))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attn.flash_attention(q, q, q, causal=True)
+    beam = [torch.from_numpy(a) for a in _beam_inputs(rng, 2, 20, 4, 4)]
+    with pytest.raises(ValueError, match="CUDA"):
+        beam_search.beam_search(*beam, 32, 6, 9, 20)
     assert ops.launch_counts() == dict.fromkeys(
         ("binary_ip_rank", "topk_select", "merge_topk", "cluster_scan",
-         "flash_attention"), 0)
+         "flash_attention", "beam_search"), 0)
 
 
 def test_unpack_bits_matches_jax(rng):
