@@ -7,7 +7,9 @@ Phases (each failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch / CUDA versions and
      the TF32 flags, which are switched off;
   2. build every kernel from src/repro_torch/kernels/csrc/ (one nvcc per
-     source, all started together) into build/kernels/, and count the
+     source, all started together) into build/kernels/, log ptxas's
+     registers, shared memory and spills of each kernel and the dynamic
+     shared memory a block of each selection route takes, and count the
      tensor-core instructions (HGMMA / HMMA) in the flash library's SASS,
      which must not be zero;
   3. hold each kernel against its plain PyTorch version on the card at the
@@ -16,7 +18,11 @@ Phases (each failure exits non-zero and prints no result line):
      cluster_scan also on ranks falling, equal and late in row order (its
      running threshold's worst case and edges), the main path's cluster
      budget M = 17,089, LUT entries set past dim, and W = 256 (its nibble
-     tables); the rows ROADMAP C3 opened (topk_select at C = 4,160 in
+     tables); topk_select and merge_topk by both routes (warp and block) on
+     the same rows, from 1 to 4,096 columns across both route boundaries,
+     with NaN, +-inf, -0.0, duplicates and pads, float32 bit for bit, a
+     warp launch past the route's limits refused; the rows ROADMAP C3
+     opened (topk_select at C = 4,160 in
      passes, merge_topk at O k = 4,800 as a tree, cluster_scan at EF =
      1,500); beam_search bitwise in ids, ranks and hops on the adversarial
      cases named in ``phase_beam_synthetic`` (the visited quirk, ties,
@@ -46,7 +52,10 @@ Phases (each failure exits non-zero and prints no result line):
      beside its bound and the old path, the plain lock-step loop with one
      binary_ip_rank launch a hop; binary_ip_rank on one hop's lane LUTs
      and rows and on a gemv-shaped call over the cluster budget; the
-     rerank candidates), and time both there;
+     rerank candidates, by both topk_select routes), and time both there:
+     the two topk_select routes in turns, torch.topk(d, k, largest=False)
+     on the same rows as a yardstick of the selection alone, and the bound
+     beside the first design's count of its operations;
   8. search the same queries in GEMV mode (scan="gemv": one cluster_scan
      launch ranks every probed cluster whole), counted like phase 5;
   9. serve them through the sharded tier, TopologyConfig(shards=8).build:
@@ -54,9 +63,10 @@ Phases (each failure exits non-zero and prints no result line):
      merge through merge_topk; after one warm-up run, the first of five
      timed runs is counted and held against the single engine, and QPS,
      p50 and p99 are the median of the five;
- 10. hold merge_topk and cluster_scan bitwise against their plain versions
-     on those runs' real inputs (cluster_scan on the arguments of phase 8's
-     counted launch), and time both there; cluster_scan's shared memory per
+ 10. hold merge_topk (by both routes) and cluster_scan bitwise against their
+     plain versions on those runs' real inputs (cluster_scan on the
+     arguments of phase 8's counted launch), and time both there, the two
+     merge_topk routes in turns; cluster_scan's shared memory per
      block and phase 2's ptxas lines are logged, and its bound beside PR
      12's count of its operations;
  11. serve h2o-danube-1.8b at full width (24 x 2560, 32 / 8 heads of 80,
@@ -187,6 +197,20 @@ def log_top(kern, n: int) -> None:
         log(f"  {ms:8.3f} ms  x{count:<5d} {name[:90]}")
 
 
+def route_turns(torch, name, launch, iters):
+    """Log the device ms per call of launch(route) for the warp and the
+    block route on the same inputs, in turns (warp, block, block, warp)
+    (CUDA-event wall ms where the profiler recorded no whole set of
+    launches)."""
+    out = {"warp": [], "block": []}
+    for route in ("warp", "block", "block", "warp"):
+        ms, wall = times(torch, lambda: launch(route), iters)
+        out[route].append(ms if ms is not None else wall)
+    log(f"{name}: warp route {', '.join(f'{v:.5f}' for v in out['warp'])} "
+        f"ms, block route {', '.join(f'{v:.5f}' for v in out['block'])} ms "
+        f"on the device (turns warp, block, block, warp)")
+
+
 def timed_row(torch, name, kernel, plain, iters, bound):
     """Time a kernel and its plain version (device ms as the result, the
     event wall ms beside it) and log them with the bound."""
@@ -212,13 +236,16 @@ def max_abs_err(torch, got, want) -> float:
 
 
 def bitwise(torch, kernel, label, got, want) -> None:
-    """Exact equality (NaN-free inputs), else fail; records the measured
-    max |diff| under ``kernel`` in ERRS."""
+    """Exact equality, a float32 tensor bit for bit (so NaN and -0.0 are
+    held too), else fail; records the measured max |diff| under ``kernel``
+    in ERRS."""
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{kernel} {label}: kernel gives {got.dtype} "
              f"{tuple(got.shape)}, plain version {want.dtype} "
              f"{tuple(want.shape)}")
     err = max_abs_err(torch, got, want)
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
     if not torch.equal(got, want):
         fail(f"{kernel} {label}: kernel disagrees with its plain version "
              f"(max |diff| {err})")
@@ -344,11 +371,16 @@ def merge_bound(q, w, k):
 
 def topk_bound(q, c, k):
     """Bytes: ids and dists read, k of each written per row. Operations:
-    the compares of two C log C sorts per row, at the float32 rate."""
+    one keep-first table probe and one compare per slot, 2 Q C at the
+    float32 rate (as ``merge_bound``). Returns (ms, "bytes" or
+    "operations", ms by the first design's count): the last prices the
+    compares of two C log2 C sorts a row, that design's work rather than
+    the function's, and is logged beside the bound only."""
     nbytes = q * c * 8 + q * k * 8
-    ops = 2 * q * c * max(1, math.ceil(math.log2(c)))
-    tb, to = nbytes / H100_BYTES_PER_S, ops / H100_FP32_OPS
-    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+    tb, to = nbytes / H100_BYTES_PER_S, 2 * q * c / H100_FP32_OPS
+    old = 2 * q * c * max(1, math.ceil(math.log2(c))) / H100_FP32_OPS
+    return (1e3 * max(tb, to), "bytes" if tb >= to else "operations",
+            1e3 * max(tb, old))
 
 
 def flash_bound(q, k, v, causal, window, q_offset, kv_valid_len):
@@ -416,6 +448,17 @@ def phase_build_kernels():
     log(f"flash library SASS: {hgmma} HGMMA and {hmma} HMMA instructions")
     if hgmma + hmma == 0:
         fail("the flash library's SASS holds no tensor-core instruction")
+    from repro_torch.kernels import merge_topk, topk_select
+    log("selection routes' dynamic shared memory a block (bytes; a warp "
+        "route block takes 4 rows, a block route block one): topk_select "
+        "warp C=320 "
+        f"{topk_select.smem_bytes(320, 'warp')}, C=1024 "
+        f"{topk_select.smem_bytes(1024, 'warp')}; block C=320 "
+        f"{topk_select.smem_bytes(320, 'block')}, C=4096 "
+        f"{topk_select.smem_bytes(4096, 'block')}; merge_topk warp W=80 "
+        f"{merge_topk.smem_bytes(80, 'warp')}; block W=80 "
+        f"{merge_topk.smem_bytes(80, 'block')}, W=4096 "
+        f"{merge_topk.smem_bytes(4096, 'block')}")
 
 
 def synthetic_rank_inputs(torch, dev, n_lanes, n_rows, w, t_rows, seed):
@@ -452,6 +495,74 @@ def synthetic_topk_inputs(torch, dev, q, c, seed):
     d[:, 3:7] = 0.5                                   # ties across columns
     d[:, 100:140] = d[:, 10:50]
     return ids.contiguous(), d.contiguous()
+
+
+def synthetic_select_rows(torch, dev, q, c, seed):
+    """Rows for both selection kernels' routes: duplicate ids, pads, ties,
+    row 0 all pads, row 1 one id, row 2 a later duplicate with a smaller
+    distance than its first occurrence, row 3 and every eighth row NaN,
+    +inf, -inf, -0.0 and +0.0 sprinkled among the distances."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(-1, max(2, c // 2), (q, c), generator=g, device=dev,
+                        dtype=torch.int64).to(torch.int32)
+    d = torch.randint(0, 40, (q, c), generator=g, device=dev).float() / 8
+    ids[0] = -1
+    if q > 1:
+        ids[1] = 7
+    if q > 2 and c > 1:
+        ids[2] = torch.arange(c, dtype=torch.int32, device=dev)
+        ids[2, -1] = 0
+        d[2, -1] = -1.0
+    for i, v in enumerate((math.nan, math.inf, -math.inf, -0.0, 0.0)):
+        d[3::8, i::5] = v
+    return ids.contiguous(), d.contiguous()
+
+
+def phase_select_routes(torch, dev):
+    """topk_select and merge_topk by both routes on the same rows, bitwise
+    against the plain versions (float32 by their bits): each lane-slot
+    count of the warp route (C = 1 to 1,024), both route boundaries (C =
+    1,024 / 1,025 and k = 32 / 33), the main path's widths, the RAG
+    retrieval's Q = 8 and a ragged last block; a warp launch the route
+    cannot take must raise."""
+    from repro_torch.kernels import merge_topk, ref, topk_select
+    n = 0
+    for q, c, k in ((1024, 320, 10), (8, 320, 10), (1023, 80, 10), (5, 1, 1),
+                    (3, 31, 31), (7, 32, 32), (6, 33, 10), (4, 65, 20),
+                    (9, 129, 32), (2, 257, 7), (3, 513, 10), (5, 1000, 32),
+                    (4, 1024, 32), (4, 1025, 10), (3, 100, 33),
+                    (2, 4096, 10)):
+        ids, d = synthetic_select_rows(torch, dev, q, c, q + c + k)
+        md = torch.where(ids < 0, math.inf, d)
+        for route in topk_select.ROUTES:
+            label = f"Q={q} C={c} k={k} {route} route"
+            if route == "warp" and topk_select.route_for(c, k) != "warp":
+                for launch in (topk_select._launch, merge_topk._launch):
+                    try:
+                        launch(ids, d, k=k, route=route,
+                               **({"run": 1} if launch is merge_topk._launch
+                                  else {}))
+                    except ValueError:
+                        continue
+                    fail(f"{label}: a warp launch past the route's limits "
+                         f"did not raise")
+                continue
+            for name, a, b in zip(("ids", "dists"),
+                                  topk_select._launch(ids, d, k=k,
+                                                      route=route),
+                                  ref.topk_select_ref(ids, d, k=k)):
+                bitwise(torch, "topk_select", f"{label} {name}", a, b)
+            for name, a, b in zip(("ids", "dists"),
+                                  merge_topk._launch(ids, md, k=k, run=1,
+                                                     route=route),
+                                  ref.merge_topk_ref(ids, md, k=k, run=1)):
+                bitwise(torch, "merge_topk", f"{label} {name}", a, b)
+            n += 1
+    torch.cuda.synchronize()
+    log(f"selection routes: {n} (shape, route) cases of each kernel bitwise "
+        f"on rows with NaN, +-inf, -0.0, duplicates and pads; warp launches "
+        f"past C = {topk_select.WARP_MAX_C} or k = {topk_select.WARP_MAX_K} "
+        f"refused")
 
 
 def synthetic_merge_inputs(torch, dev, q, o, run, seed):
@@ -786,6 +897,7 @@ def phase_kernels_synthetic(torch, dev):
                 ref.cluster_scan_ref(*args, dim, ef, m)):
             bitwise(torch, "cluster_scan", f"L={n_lanes} M={m} EF={ef} "
                     f"dim={dim} W={w} {kind} {name}", a, b)
+    phase_select_routes(torch, dev)
     phase_wide_rows(torch, dev)
     phase_beam_synthetic(torch, dev)
     phase_flash_synthetic(torch, dev)
@@ -1070,14 +1182,35 @@ def phase_kernels_real(torch, eng, qt):
 
     _, cand, _ = eng._candidates(qt, qt.shape[0])
     d2 = rerank.exact_sqdist(qt, cand, eng.host.vectors).contiguous()
-    for x, y in zip(topk_select.topk_select(cand, d2, k=eng.scfg.k),
-                    ref.topk_select_ref(cand, d2, k=eng.scfg.k)):
+    k = eng.scfg.k
+    want = ref.topk_select_ref(cand, d2, k=k)
+    for x, y in zip(topk_select.topk_select(cand, d2, k=k), want):
         bitwise(torch, "topk_select", "real", x, y)
+    for route in topk_select.ROUTES:
+        for name, x, y in zip(("ids", "dists"),
+                              topk_select._launch(cand, d2, k=k, route=route),
+                              want):
+            bitwise(torch, "topk_select", f"real {route} route {name}", x, y)
+    q, c = cand.shape
+    bound = topk_bound(q, c, k)
     topk_row = timed_row(
-        torch, f"topk_select real rerank Q={cand.shape[0]} C={cand.shape[1]}",
-        lambda: topk_select.topk_select(cand, d2, k=eng.scfg.k),
-        lambda: ref.topk_select_ref(cand, d2, k=eng.scfg.k), 100,
-        topk_bound(cand.shape[0], cand.shape[1], eng.scfg.k))
+        torch, f"topk_select real rerank Q={q} C={c} k={k}",
+        lambda: topk_select.topk_select(cand, d2, k=k),
+        lambda: ref.topk_select_ref(cand, d2, k=k), 100, bound)
+    route_turns(torch, f"topk_select real rerank Q={q} C={c} k={k}",
+                lambda r: topk_select._launch(cand, d2, k=k, route=r), 100)
+    lib, lib_wall = times(torch, lambda: torch.topk(d2, k, largest=False),
+                          100)
+    route = topk_select.route_for(c, k)
+    log(f"topk_select real rerank: the main path takes the {route} route "
+        f"({topk_select.smem_bytes(c, route)} bytes of shared memory a "
+        f"block); "
+        f"bound {bound[0]:.5f} ms ({bound[1]}: a table probe and a compare a "
+        f"slot), {bound[2]:.5f} ms by the first design's count (two C log2 C "
+        f"sorts a row); torch.topk(d, k, largest=False) on the same rows "
+        f"{lib if lib is not None else lib_wall:.5f} ms on the device (no "
+        f"dedup, another tie order: a yardstick of the selection alone, not "
+        f"its library_ms)")
     return {"binary_ip_rank": rank_row, "topk_select": topk_row,
             "beam_search": beam_row}
 
@@ -1245,14 +1378,19 @@ def phase_new_kernels_real(torch, topo, rep, scan_call, qt):
     """Phase 10: merge_topk on the real gathered partials of phase 9 and
     cluster_scan on the arguments of phase 8's counted gemv search, each
     held bitwise against its plain version and timed beside it."""
-    from repro_torch.kernels import cluster_scan, merge_topk, ref
+    from repro_torch.kernels import cluster_scan, merge_topk, ref, topk_select
     k = topo.k
     ids, d = sink_partials(torch, topo, qt.cpu().numpy())
     got = merge_topk.merge_topk(ids, d, k=k)
-    for name, a, b in zip(("ids", "dists"), got,
-                          ref.merge_topk_ref(ids, d, k=k)):
+    want = ref.merge_topk_ref(ids, d, k=k)
+    for name, a, b in zip(("ids", "dists"), got, want):
         bitwise(torch, "merge_topk", f"real Q={ids.shape[0]} W={ids.shape[1]} "
                 f"{name}", a, b)
+    for route in topk_select.ROUTES:
+        for name, a, b in zip(("ids", "dists"),
+                              merge_topk._launch(ids, d, k=k, run=k,
+                                                 route=route), want):
+            bitwise(torch, "merge_topk", f"real {route} route {name}", a, b)
     if not (got[0].cpu().numpy() == rep.ids).all():
         fail("merge_topk on the rebuilt partials disagrees with the "
              "sharded run's output")
@@ -1261,10 +1399,15 @@ def phase_new_kernels_real(torch, topo, rep, scan_call, qt):
         lambda: merge_topk.merge_topk(ids, d, k=k),
         lambda: ref.merge_topk_ref(ids, d, k=k), 100,
         merge_bound(ids.shape[0], ids.shape[1], k))
+    route_turns(torch, f"merge_topk real Q={ids.shape[0]} W={ids.shape[1]} "
+                f"k={k}", lambda r: merge_topk._launch(ids, d, k=k, run=k,
+                                                       route=r), 100)
     lib, lib_wall = times(torch, lambda: torch.topk(d, k, largest=False),
                           100)
     merge_row["library_ms"] = lib if lib is not None else lib_wall
-    log(f"merge_topk library (torch.topk, another tie order): "
+    log(f"merge_topk real merge: the main path takes the "
+        f"{topk_select.route_for(ids.shape[1], k)} route; library "
+        f"(torch.topk, another tie order): "
         f"{merge_row['library_ms']:.5f} ms on the device")
 
     args, (dim, ef, m) = scan_call[:9], scan_call[9:]

@@ -104,12 +104,6 @@ __device__ __forceinline__ int32_t key_rank(uint32_t k) {
   return static_cast<int32_t>(k - 0x7FFFFFFFu);
 }
 
-int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
-
 // Keys a block keeps: the top-EFp, the merge's output and the buffer.
 int key_slots(int ef_pad) { return 2 * ef_pad + kBuf; }
 

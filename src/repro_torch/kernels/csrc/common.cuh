@@ -1,10 +1,12 @@
 // Device helpers shared by the port's kernels: the O3 rank of one code row
 // (binary_ip.cu bit by bit; cluster_scan.cu and beam_search.cu through
 // per-lane partial-sum tables, `build_tables` / `table_sum`; all three end
-// in `o3_rank`) and the 64-bit key sort in shared memory (topk_select.cu,
-// merge_topk.cu, cluster_scan.cu). Each .cu file includes
-// this header once; _build.py hashes it into every kernel's library name,
-// so an edit here rebuilds them all.
+// in `o3_rank`), the 64-bit key sort in shared memory (the block routes of
+// topk_select.cu and merge_topk.cu, cluster_scan.cu) and the one-warp row
+// selection of their warp routes (`lane_sort`, `warp_select`,
+// `write_selected`). Each .cu file includes this header once; _build.py
+// hashes it into every kernel's library name, so an edit here rebuilds them
+// all.
 
 #pragma once
 
@@ -26,6 +28,118 @@ __device__ __forceinline__ uint32_t float_key(float d) {
   const uint32_t u = __float_as_uint(d);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
+
+// The key of +inf: a pad, a later duplicate (masked to +inf) and a real +inf
+// all carry it, and all come out as (+inf, id -1).
+constexpr uint32_t kInfKey = 0xFF800000u;
+
+// The selection kernels' warp route: one warp a row, kSelectWarps rows a
+// block, each lane holding R <= 32 slots of the row (columns lane, lane +
+// 32, ...), so a row of up to kSelectWarpMaxC columns; k <= kSelectWarpMaxK
+// (one output slot a lane). Wider rows or a larger k take the block route.
+constexpr int kSelectWarps = 4;
+constexpr int kSelectWarpMaxC = 1024;
+constexpr int kSelectWarpMaxK = 32;
+
+// Ascending sort of one lane's R keys in registers: a bitonic network over
+// the next power of two P >= R, unrolled at compile time, the slots from R
+// on all ones. Those are constants, so every compare-exchange that meets
+// one folds away; no shared memory and no shuffle.
+template <int R>
+__device__ __forceinline__ void lane_sort(unsigned long long (&v)[R]) {
+  constexpr int P =
+      R <= 1 ? 1 : R <= 2 ? 2 : R <= 4 ? 4 : R <= 8 ? 8 : R <= 16 ? 16 : 32;
+  unsigned long long w[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) w[i] = i < R ? v[i] : ~0ull;
+#pragma unroll
+  for (int k = 2; k <= P; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const int l = i ^ j;
+        if (l > i) {
+          const unsigned long long a = w[i], b = w[l];
+          const bool swap = ((i & k) == 0) ? (a > b) : (a < b);
+          w[i] = swap ? b : a;
+          w[l] = swap ? a : b;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) v[i] = w[i];
+}
+
+// The k (<= 32) smallest of a warp's 32 R keys, each lane's R keys sorted
+// ascending: k rounds of a butterfly minimum over the lanes' heads (five
+// 64-bit shuffles); the lane whose head won drops it, shifting its keys
+// down. Real keys are unique (the column is their low word), so one lane
+// wins a round. Lane j < k returns the j-th smallest key, the others ~0.
+template <int R>
+__device__ __forceinline__ unsigned long long warp_select(
+    unsigned long long (&v)[R], int k) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long mine = ~0ull;
+  for (int j = 0; j < k; ++j) {
+    unsigned long long m = v[0];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const unsigned long long x = __shfl_xor_sync(0xFFFFFFFFu, m, o);
+      m = x < m ? x : m;
+    }
+    if (v[0] == m) {
+#pragma unroll
+      for (int r = 0; r + 1 < R; ++r) v[r] = v[r + 1];
+      v[R - 1] = ~0ull;
+    }
+    if (lane == j) mine = m;
+  }
+  return mine;
+}
+
+// One output slot from its selected key (the column is the key's low
+// word): a key at +inf writes (+inf, -1); any other writes the row's own
+// distance, and its id where that distance is finite (-1 beside -inf or
+// NaN), as the plain versions do.
+__device__ __forceinline__ void write_selected(unsigned long long key,
+                                               const int32_t* rid,
+                                               const float* rd, int32_t* oid,
+                                               float* od) {
+  if (static_cast<uint32_t>(key >> 32) == kInfKey) {
+    *od = INFINITY;
+    *oid = -1;
+    return;
+  }
+  const int col = static_cast<int>(key & 0xFFFFFFFFull);
+  const float d = rd[col];
+  *od = d;
+  *oid = isfinite(d) ? rid[col] : -1;
+}
+
+// The least power of two >= n (host code: launch sizes).
+inline int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// `return CALL(R);` with R the slots a lane holds on the warp route: the
+// least of 1, 2, 3, 4, 6, 8, 10, 12, 16, 24, 32 with 32 R >= c. CALL is a
+// macro of one argument; each R is one instantiation of a warp kernel.
+#define DISPATCH_LANE_SLOTS(c, CALL) \
+  if ((c) <= 32) return CALL(1);     \
+  if ((c) <= 64) return CALL(2);     \
+  if ((c) <= 96) return CALL(3);     \
+  if ((c) <= 128) return CALL(4);    \
+  if ((c) <= 192) return CALL(6);    \
+  if ((c) <= 256) return CALL(8);    \
+  if ((c) <= 320) return CALL(10);   \
+  if ((c) <= 384) return CALL(12);   \
+  if ((c) <= 512) return CALL(16);   \
+  if ((c) <= 768) return CALL(24);   \
+  return CALL(32);
 
 // Ascending bitonic sort of p (a power of two) keys in shared memory by all
 // threads of the block. Ends with a barrier.

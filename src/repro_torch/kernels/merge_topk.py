@@ -4,6 +4,12 @@ Counterpart of the Pallas kernel ``merge_topk`` in
 ``repro/kernels/topk_select.py``. The wrapper takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to the plain version in
 ``kernels/ref.py``.
+
+Two routes of one launch, chosen from the row width W and k alone
+(``topk_select.route_for``, the same limits): the warp route (one warp a
+row, a register top-k) and the block route (a bitonic sort of the row in
+shared memory) up to MAX_W slots. Neither gives way to the other or to the
+plain version.
 """
 
 from __future__ import annotations
@@ -13,19 +19,31 @@ import ctypes
 import torch
 
 from . import _build
+from .topk_select import ROUTES, route_for
 
-__all__ = ["merge_topk", "merge_tree", "MAX_W", "launches"]
+__all__ = ["merge_topk", "merge_tree", "smem_bytes", "MAX_W", "launches"]
 
-MAX_W = 4096   # the kernel's shared-memory row limit (kMaxW in the source)
+MAX_W = 4096   # the block route's row limit (kMaxW in the source)
 launches = 0   # kernel launches since the count was last set to 0
 
 
+def _lib():
+    return _build.library("merge_topk")
+
+
 def _fn():
-    fn = _build.library("merge_topk").merge_topk_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    fn = _lib().merge_topk_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(w: int, route: str) -> int:
+    """Dynamic shared memory of one block of ``route`` at row width w."""
+    fn = _lib().merge_topk_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return fn(w, ROUTES.index(route))
 
 
 def merge_tree(merge, part_ids: torch.Tensor, part_dists: torch.Tensor, *,
@@ -96,11 +114,18 @@ def merge_topk(part_ids: torch.Tensor, part_dists: torch.Tensor, *, k: int,
 
 
 def _launch(part_ids: torch.Tensor, part_dists: torch.Tensor, *, k: int,
-            run: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """One kernel launch over rows of at most MAX_W slots."""
+            run: int, route: str | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch over rows of at most MAX_W slots, by ``route``
+    (``route_for(W, k)`` when None; tests name one to hold both routes on
+    the same rows). ``run`` is not read: the kernel takes any slot order."""
     global launches
     dev = part_ids.device
     q, w = part_ids.shape
+    route = route_for(w, k) if route is None else route
+    if route not in ROUTES or (route == "warp" and route_for(w, k) != "warp"):
+        raise ValueError(f"merge_topk: route {route!r} cannot take W = {w}, "
+                         f"k = {k}")
     out_ids = torch.empty((q, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
     if q == 0:
@@ -108,8 +133,10 @@ def _launch(part_ids: torch.Tensor, part_dists: torch.Tensor, *, k: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _fn()(part_ids.data_ptr(), part_dists.data_ptr(),
-                    out_ids.data_ptr(), out_d.data_ptr(), q, w, k, stream)
+                    out_ids.data_ptr(), out_d.data_ptr(), q, w, k,
+                    ROUTES.index(route), stream)
     if err != 0:
-        raise RuntimeError(f"merge_topk launch failed: CUDA error {err}")
+        raise RuntimeError(f"merge_topk launch ({route} route) failed: CUDA "
+                           f"error {err}")
     launches += 1
     return out_ids, out_d

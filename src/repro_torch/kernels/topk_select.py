@@ -3,6 +3,12 @@
 Counterpart of the Pallas kernel in ``repro/kernels/topk_select.py``. The
 wrapper takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to
 the plain version in ``kernels/ref.py``.
+
+Two routes of one launch, chosen from the row width C and k alone
+(``route_for``): the warp route (one warp a row: a keep-first table in
+shared memory, a register top-k) takes C <= WARP_MAX_C and k <= WARP_MAX_K,
+the block route (two bitonic sorts of the row in shared memory) the rest up
+to MAX_C columns. Neither gives way to the other or to the plain version.
 """
 
 from __future__ import annotations
@@ -13,19 +19,41 @@ import torch
 
 from . import _build
 
-__all__ = ["topk_select", "chunked_select", "check_chunkable", "MAX_C",
+__all__ = ["topk_select", "chunked_select", "check_chunkable", "route_for",
+           "smem_bytes", "MAX_C", "WARP_MAX_C", "WARP_MAX_K", "ROUTES",
            "launches"]
 
-MAX_C = 4096   # the kernel's shared-memory row limit (kMaxC in the source)
+MAX_C = 4096        # the block route's row limit (kMaxC in the source)
+WARP_MAX_C = 1024   # the warp route's: 32 lanes x 32 slots (kSelectWarpMaxC)
+WARP_MAX_K = 32     # one output slot a lane (kSelectWarpMaxK, common.cuh)
+ROUTES = ("warp", "block")   # their numbers in the C launch function
 launches = 0   # kernel launches since the count was last set to 0
 
 
+def route_for(c: int, k: int) -> str:
+    """The route a row of c columns and k outputs takes: "warp" up to
+    WARP_MAX_C columns and WARP_MAX_K outputs, else "block". Shared with
+    ``merge_topk``, whose warp route has the same limits."""
+    return "warp" if c <= WARP_MAX_C and k <= WARP_MAX_K else "block"
+
+
+def _lib():
+    return _build.library("topk_select")
+
+
 def _fn():
-    fn = _build.library("topk_select").topk_select_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    fn = _lib().topk_select_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(c: int, route: str) -> int:
+    """Dynamic shared memory of one block of ``route`` at row width c."""
+    fn = _lib().topk_select_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return fn(c, ROUTES.index(route))
 
 
 def chunked_select(select, cand_ids: torch.Tensor, dists: torch.Tensor, *,
@@ -122,12 +150,18 @@ def topk_select(cand_ids: torch.Tensor, dists: torch.Tensor, *, k: int
     return chunked_select(_launch, cand_ids, dists, k=k, max_c=MAX_C)
 
 
-def _launch(cand_ids: torch.Tensor, dists: torch.Tensor, *, k: int
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One kernel launch over rows of at most MAX_C columns."""
+def _launch(cand_ids: torch.Tensor, dists: torch.Tensor, *, k: int,
+            route: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch over rows of at most MAX_C columns, by ``route``
+    (``route_for(C, k)`` when None; tests name one to hold both routes on
+    the same rows)."""
     global launches
     dev = cand_ids.device
     q, c = cand_ids.shape
+    route = route_for(c, k) if route is None else route
+    if route not in ROUTES or (route == "warp" and route_for(c, k) != "warp"):
+        raise ValueError(f"topk_select: route {route!r} cannot take C = {c},"
+                         f" k = {k}")
     out_ids = torch.empty((q, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
     if q == 0:
@@ -135,8 +169,9 @@ def _launch(cand_ids: torch.Tensor, dists: torch.Tensor, *, k: int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _fn()(cand_ids.data_ptr(), dists.data_ptr(), out_ids.data_ptr(),
-                    out_d.data_ptr(), q, c, k, stream)
+                    out_d.data_ptr(), q, c, k, ROUTES.index(route), stream)
     if err != 0:
-        raise RuntimeError(f"topk_select launch failed: CUDA error {err}")
+        raise RuntimeError(f"topk_select launch ({route} route) failed: CUDA "
+                           f"error {err}")
     launches += 1
     return out_ids, out_d

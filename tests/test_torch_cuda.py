@@ -17,7 +17,10 @@ INT_MIN / INT_MAX ranks, EF from 1 to 100, R 16 to 48, W 4 to 64, the hop
 cap, inactive lanes, the cluster budget M = 17,089) and on lanes whose
 state outgrows shared memory, and attention over every head dim the
 kernel takes, GQA groups, ragged Sq and Sk, offsets, windows, cache
-lengths, both types and strided inputs.
+lengths, both types and strided inputs. The selection kernels' two routes
+(warp and block) run on the same rows, from one lane slot to 32, across
+both route boundaries, and on the rows of
+``tests/test_torch_select_design.py`` (NaN, +-inf, -0.0), bitwise.
 """
 
 import numpy as np
@@ -29,6 +32,8 @@ from repro_torch.kernels import (  # noqa: E402
     beam_search, binary_ip, cluster_scan, flash_attn, merge_topk, ops, ref,
     topk_select)
 from test_torch_beam_design import CASES, beam_case  # noqa: E402
+from test_torch_select_design import (  # noqa: E402
+    MERGE_CASES, TOPK_CASES, merge_case, same_bits, topk_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -214,6 +219,78 @@ def test_merge_topk_kernel_unsorted_rows_and_refusals(card):
     assert ops.launch_counts()["merge_topk"] > 1
     with pytest.raises(ValueError, match="whole number of runs"):
         merge_topk.merge_topk(ids, d, k=10, run=7)
+
+
+def _on_route(launch, ids, d, k, route, **kw):
+    """One launch of ``route``; a warp launch on a row it cannot take must
+    raise ValueError (and then the call returns None)."""
+    if route == "warp" and topk_select.route_for(ids.shape[1], k) != "warp":
+        with pytest.raises(ValueError, match="cannot take"):
+            launch(ids, d, k=k, route=route, **kw)
+        return None
+    return launch(ids, d, k=k, route=route, **kw)
+
+
+def test_select_kernels_report_the_route_limits(card):
+    lib = topk_select._lib()
+    assert lib.topk_select_warp_max_c() == topk_select.WARP_MAX_C
+    assert lib.topk_select_warp_max_k() == topk_select.WARP_MAX_K
+    assert lib.topk_select_max_c() == topk_select.MAX_C
+    assert merge_topk._lib().merge_topk_max_w() == merge_topk.MAX_W
+    assert topk_select.smem_bytes(320, "warp") == 4 * 4 * 1024
+    assert topk_select.smem_bytes(4096, "block") == 8 * 4096 + 4096
+    assert merge_topk.smem_bytes(80, "warp") == 0
+
+
+@pytest.mark.parametrize("route", topk_select.ROUTES)
+@pytest.mark.parametrize("name", TOPK_CASES)
+def test_topk_select_routes_on_the_design_rows(card, name, route):
+    """Both routes on the rows of ``tests/test_torch_select_design.py``
+    (NaN, +-inf, -0.0, duplicates, pads, the route boundaries), bitwise
+    in ids and in the bits of the distances."""
+    ids, d, k = topk_case(name)
+    ids, d = torch.from_numpy(ids).to(card), torch.from_numpy(d).to(card)
+    got = _on_route(topk_select._launch, ids, d, k, route)
+    torch.cuda.synchronize()
+    if got is not None:
+        assert same_bits(got, ref.topk_select_ref(ids, d, k=k))
+
+
+@pytest.mark.parametrize("route", topk_select.ROUTES)
+@pytest.mark.parametrize("name", MERGE_CASES)
+def test_merge_topk_routes_on_the_design_rows(card, name, route):
+    ids, d, k, run = merge_case(name)
+    ids, d = torch.from_numpy(ids).to(card), torch.from_numpy(d).to(card)
+    got = _on_route(merge_topk._launch, ids, d, k, route, run=run)
+    torch.cuda.synchronize()
+    if got is not None:
+        assert same_bits(got, ref.merge_topk_ref(ids, d, k=k, run=run))
+
+
+@pytest.mark.parametrize("route", topk_select.ROUTES)
+@pytest.mark.parametrize("q,c,k", [
+    (1024, 320, 10),   # the rerank's launch
+    (8, 320, 10),      # the RAG retrieval's
+    (1023, 80, 10),    # the origin merge's width; a ragged last block
+    (5, 1, 1), (3, 31, 31), (7, 32, 32), (6, 33, 10), (4, 65, 20),
+    (9, 129, 32), (2, 257, 7), (3, 513, 10), (5, 1000, 32),
+    (4, 1024, 32),     # the warp route's last width and k
+    (4, 1025, 10), (3, 100, 33), (2, 4096, 10),       # the block route's
+])
+def test_select_kernel_routes_bitwise(card, q, c, k, route):
+    """Each lane-slot count R (1 to 32) of the warp route and the block
+    route on the same rows, for both kernels (merge_topk with runs of one
+    slot): duplicates, pads, ties."""
+    rng = np.random.default_rng(q * 131 + c + k)
+    ids, d = (torch.from_numpy(a).to(card) for a in _cand_set(rng, q, c))
+    got = _on_route(topk_select._launch, ids, d, k, route)
+    if got is not None:
+        assert same_bits(got, ref.topk_select_ref(ids, d, k=k))
+    d[ids < 0] = float("inf")
+    got = _on_route(merge_topk._launch, ids, d, k, route, run=1)
+    torch.cuda.synchronize()
+    if got is not None:
+        assert same_bits(got, ref.merge_topk_ref(ids, d, k=k, run=1))
 
 
 def _scan_inputs(rng, n_lanes, m, w, n_clusters=5, kind="random"):
