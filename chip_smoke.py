@@ -27,7 +27,9 @@ Phases (each failure exits non-zero and prints no result line):
      1,500); beam_search bitwise in ids, ranks and hops on the adversarial
      cases named in ``phase_beam_synthetic`` (the visited quirk, ties,
      INT_MIN / INT_MAX, EF 1 to 100, R 16 to 48, the hop cap, inactive
-     lanes, M = 17,089 at 16,384 lanes, W 16 and 64);
+     lanes, M = 17,089 at 16,384 lanes, W 16 and 64), and its hamming and
+     exact policies and cluster_scan's at the main path's shape, with NaN,
+     +-inf, tied and pad ranks (``phase_ranked_synthetic``);
      flash_attention over GQA groups 1 and 4, head dims 64 / 80 / 96 / 128
      / 160,
      ragged Sq and Sk, q_offset, a window that bites, kv_valid_len < Sk and
@@ -58,11 +60,24 @@ Phases (each failure exits non-zero and prints no result line):
      beside the first design's count of its operations;
   8. search the same queries in GEMV mode (scan="gemv": one cluster_scan
      launch ranks every probed cluster whole), counted like phase 5;
+     8b. the exact and hamming backends, each a view of the same engine
+     (only its own arrays placed anew), search the same queries by beam
+     and by GEMV, counted like phases 5 and 8, each recall@10 held to a
+     floor taken from the JAX package (RECALL_FLOORS), and the kernels'
+     rank policies (beam_search/exact, beam_search/hamming,
+     cluster_scan/exact, cluster_scan/hamming) held bitwise (float32 ranks
+     by their bits) against their plain versions on the counted searches'
+     own arguments and timed there beside their bounds;
   9. serve them through the sharded tier, TopologyConfig(shards=8).build:
      8 disjoint partition engines, scatter, search_probed, and the origin
      merge through merge_topk; after one warm-up run, the first of five
      timed runs is counted and held against the single engine, and QPS,
      p50 and p99 are the median of the five;
+     9b. a mixed tier over views of the same 8 partition engines, their
+     backends cycling mulfree, exact, hamming: the queries unrestricted and
+     with backend= None / "exact" alternating; every partial equal to its
+     engine's own search_probed, the ids to merge_topk_ref of the partials,
+     the restricted rows' ids all from exact partitions;
  10. hold merge_topk (by both routes) and cluster_scan bitwise against their
      plain versions on those runs' real inputs (cluster_scan on the
      arguments of phase 8's counted launch), and time both there, the two
@@ -113,6 +128,15 @@ H100_FP32_OPS = 132 * 128 * 1.98e9
 H100_INT32_OPS = 132 * 64 * 1.98e9
 H100_BF16_FLOPS = 989e12     # dense tensor-core bf16, H100 SXM data sheet
 INT_MAX = 2**31 - 1
+MIXED = ("mulfree", "exact", "hamming")   # phase 9b's backends, by shard
+# recall@10 floors of phase 8b: the JAX package's recall on a 100k-point,
+# 40-cluster version of the corpus (scripts/backend_recall.py, CPU), less
+# the margin the mulfree floor of 0.5 keeps below its JAX recall there
+# (floor = JAX(mode, scan) - (JAX(mulfree, scan) - 0.5), rounded down: JAX
+# gives mulfree 0.6394 / 0.6642, exact 0.6404 / 0.6508, hamming 0.4088 /
+# 0.3362, beam / gemv)
+RECALL_FLOORS = {"exact/beam": 0.50, "exact/gemv": 0.48,
+                 "hamming/beam": 0.26, "hamming/gemv": 0.17}
 ERRS: dict[str, float] = {}  # kernel name -> max |kernel - plain| seen
 PTXAS: dict[str, list] = {}  # kernel name -> phase 2's ptxas resource lines
 T0 = time.perf_counter()
@@ -228,6 +252,30 @@ def timed_row(torch, name, kernel, plain, iters, bound):
     return row
 
 
+def recording(module, name, fn):
+    """fn() with ``module.name`` recording its calls' arguments: (fn's
+    result, [args of each call])."""
+    calls, real = [], getattr(module, name)
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+    setattr(module, name, record)
+    try:
+        return fn(), calls
+    finally:
+        setattr(module, name, real)
+
+
+def lane_subset(args, idx):
+    """Ranked scan arguments (codes, rank, base_rows, n_valid, active) of
+    the lanes ``idx`` (an index tensor or a slice)."""
+    from repro_torch.kernels import ranks
+    codes, rank, *per_lane = args
+    return (codes, ranks.select_lanes(rank, idx),
+            *(t[idx].contiguous() for t in per_lane))
+
+
 def max_abs_err(torch, got, want) -> float:
     """max |got - want| over the entries finite in both (0.0 if none)."""
     g, w = got.double(), want.double()
@@ -336,26 +384,31 @@ def rank_bound(torch, rows, lut, w, dim):
     return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
 
 
-def scan_bound(torch, base_rows, n_valid, active, lut, w, dim, ef):
-    """Bytes: each distinct probed cluster's valid rows (code + f_add) once,
-    the LUT and five scalars of each live lane, the (L, EF) ids and ranks
-    written. Operations: one table lookup and one add per code byte of
-    every valid row a live lane scans, 2 W per row, at the int32 rate. A
-    lane's LUT is fixed for its scan, so S = sum over the code bytes b of
-    T[b][code[b]], with T[b][x] the LUT summed over the set bits of x: W
-    lookups and W adds are the least a row's rank takes (the tables' ~8 x
-    256 W adds a lane and the O3 epilogue's few operations a row are left
-    out). Returns (ms, "bytes" or "operations", ms by the bit count): the
-    last prices a mask and an add per code bit, 2 dim operations a row, as
-    the bound of a kernel that ranks bit by bit."""
+def scan_bound(torch, args, dim, ef):
+    """Bytes: each distinct probed cluster's valid rows (code and per-row
+    factors, ``rank_bytes``) once, the rank operands and two scalars of
+    each live lane, the (L, EF) ids and ranks written. Operations:
+    ``slot_ops`` per valid row of every live lane (O3: one table lookup and
+    one add per code byte, 2 W a row: a lane's LUT is fixed for its scan,
+    so S = sum over the code bytes b of T[b][code[b]], with T[b][x] the LUT
+    summed over the set bits of x, the least a row's rank takes; the
+    tables' ~8 x 256 W adds a lane and the epilogue's few operations a row
+    are left out). ``args`` are the ranked arguments (codes, rank,
+    base_rows, n_valid, active). Returns (ms, "bytes" or "operations", ms
+    by the bit count): the last prices a mask and an add per code bit, 2
+    dim operations a row, as the bound of a kernel that ranks bit by
+    bit."""
+    codes, rank, base_rows, n_valid, active = args
+    w = codes.shape[1]
     nv = n_valid[active].long()
     clusters = torch.unique(torch.stack([base_rows[active].long(), nv], 1),
                             dim=0)
     n_live = int(active.sum())
-    nbytes = (int(clusters[:, 1].sum()) * (w + 4)
-              + n_live * (lut.shape[1] + 5) * 4 + active.numel() * ef * 8)
-    ops = 2 * int(nv.sum()) * w
-    tb, to = nbytes / H100_BYTES_PER_S, ops / H100_INT32_OPS
+    row_extra, lane_bytes = rank_bytes(rank, w)
+    nbytes = (int(clusters[:, 1].sum()) * (w + row_extra)
+              + n_live * (lane_bytes + 2 * 4) + active.numel() * ef * 8)
+    per_slot, rate = slot_ops(rank, w)
+    tb, to = nbytes / H100_BYTES_PER_S, per_slot * int(nv.sum()) / rate
     old = max(tb, 2 * int(nv.sum()) * dim / H100_INT32_OPS)
     return (1e3 * max(tb, to), "bytes" if tb >= to else "operations",
             1e3 * old)
@@ -435,7 +488,8 @@ def phase_build_kernels():
         f"({', '.join(_build.SOURCES)})")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "Function properties" in line:
                 log(f"  ptxas {name}: {line.strip()}")
                 PTXAS.setdefault(name, []).append(line.strip())
     cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
@@ -668,6 +722,68 @@ def synthetic_beam_inputs(torch, dev, n_lanes, m, r, w, n_clusters, seed):
             entry.contiguous(), lut, sumq, s1, s2, active)
 
 
+def synthetic_rank(torch, dev, kind, t, n_lanes, w, dim, seed):
+    """A rank tuple of ``kind`` ("hamming" or "exact") over t rows and
+    n_lanes lanes. Hamming: random qcodes, every other lane all zero.
+    Exact: zero residual norms, cos_theta 0 and under the 1e-6 floor, NaN
+    and +inf residual norms (ranks NaN and +-inf), query_norm 0 in every
+    other lane (ranks rn * rn: ties), LUT entries past dim set."""
+    from repro_torch.kernels import ranks
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "hamming":
+        q = torch.randint(0, 256, (n_lanes, w), generator=g, device=dev,
+                          dtype=torch.int64).to(torch.uint8)
+        q[1::2] = 0
+        return ranks.HammingRank(q)
+    rn = torch.rand(t, generator=g, device=dev) * 4
+    rn[::9] = 0
+    rn[::1001] = float("nan")
+    rn[7::1003] = float("inf")
+    cos = torch.rand(t, generator=g, device=dev)
+    cos[::11] = 0
+    cos[5::13] = 1e-7
+    lut = torch.randn((n_lanes, 8 * w), generator=g, device=dev) / dim ** 0.5
+    sum_lut = lut[:, :dim].sum(1)
+    qn = torch.rand(n_lanes, generator=g, device=dev) * 3
+    qn[1::2] = 0
+    return ranks.ExactRank(rn, cos, lut, sum_lut, qn)
+
+
+def phase_ranked_synthetic(torch, dev):
+    """The hamming and exact policies of beam_search and cluster_scan at
+    the main path's shape (16,384 lanes, M = 17,089, W = 16, EF = 40) on
+    ``synthetic_rank``'s ranks, over ``synthetic_beam_inputs``' graph and
+    ``synthetic_scan_inputs``' clusters (empty and short ones, pad rows,
+    inactive lanes), bitwise against their plain versions."""
+    from repro_torch.kernels import beam_search, cluster_scan, ref
+    n_lanes, m, r, w, dim, ef = 16384, 17089, 32, 16, 128, 40
+    bargs = synthetic_beam_inputs(torch, dev, n_lanes, m, r, w, 64, 77)
+    sargs = synthetic_scan_inputs(torch, dev, 512, m, w, 64, 78)
+    for kind in ("hamming", "exact"):
+        rank = synthetic_rank(torch, dev, kind, bargs[0].shape[0], n_lanes,
+                              w, dim, 79)
+        args = (bargs[0], rank, bargs[2], bargs[3], bargs[4], bargs[9])
+        for name, a, b in zip(
+                ("ids", "ranks", "hops"),
+                beam_search.ranked_beam_search(*args, dim, ef, 64, m),
+                ref.ranked_beam_search_ref(*args, dim, ef, 64, m)):
+            bitwise(torch, f"beam_search/{kind}",
+                    f"L={n_lanes} M={m} {name}", a, b)
+        rank = synthetic_rank(torch, dev, kind, sargs[0].shape[0], 512, w,
+                              dim, 80)
+        args = (sargs[0], rank, sargs[2], sargs[3], sargs[8])
+        for name, a, b in zip(
+                ("ids", "ranks"),
+                cluster_scan.ranked_cluster_scan(*args, dim, ef, m),
+                ref.ranked_cluster_scan_ref(*args, dim, ef, m)):
+            bitwise(torch, f"cluster_scan/{kind}", f"L=512 M={m} {name}", a,
+                    b)
+        log(f"beam_search/{kind} and cluster_scan/{kind} at the main path's "
+            f"shape: bitwise (shared memory a block: beam "
+            f"{beam_search.smem_bytes(ef, r, m, w, kind)}, scan "
+            f"{cluster_scan.smem_bytes(w, ef, kind)} bytes)")
+
+
 @dataclasses.dataclass(frozen=True)
 class BeamReads:
     """What one beam search read: real (lane, row) slots ranked, distinct
@@ -678,14 +794,16 @@ class BeamReads:
 
 
 def plain_beam_counted(torch, args, dim, ef, iters, m):
-    """beam_search's plain version, ``ref.beam_search_ref``, also counting
-    what its search reads: the real (lane, row) slots it ranks (entries and
-    fresh neighbours, through its ``binary_ip_rank_ref`` calls), the
-    distinct rows among them, and the distinct neighbour-table rows it
-    expands (its gathers of the table, a lane's counted while the lane is
-    live: at hop t while its hops exceed t). -> (result, BeamReads)."""
+    """beam_search's plain version, ``ref.ranked_beam_search_ref`` on the
+    ranked arguments ``args`` (codes, rank, nbrs, base_rows, entry,
+    active), also counting what its search reads: the real (lane, row)
+    slots it ranks (entries and fresh neighbours, through the loop's rank
+    calls), the distinct rows among them, and the distinct neighbour-table
+    rows it expands (its gathers of the table, a lane's counted while the
+    lane is live: at hop t while its hops exceed t). -> (result,
+    BeamReads)."""
     from repro_torch.kernels import ref
-    real_rank, real_loop = ref.binary_ip_rank_ref, ref.lockstep_beam_search
+    real_loop = ref.lockstep_beam_search
     slots, ranked, gathers = [0], [], []
 
     class Table(torch.Tensor):          # records each gather of its rows
@@ -693,19 +811,19 @@ def plain_beam_counted(torch, args, dim, ef, iters, m):
             gathers.append(idx)
             return super().__getitem__(idx).as_subclass(torch.Tensor)
 
-    def counting(codes, f_add, rows, *rest):
-        real = rows[rows >= 0]
-        slots[0] += int(real.numel())
-        ranked.append(torch.unique(real))
-        return real_rank(codes, f_add, rows, *rest)
-
-    def loop(nbr_table, *rest, **kw):
-        return real_loop(nbr_table.as_subclass(Table), *rest, **kw)
-    ref.binary_ip_rank_ref, ref.lockstep_beam_search = counting, loop
+    def loop(nbr_table, base_rows, entry, active, *, rank, **kw):
+        def counting(ids):
+            real = (base_rows[:, None].long() + ids.long())[ids >= 0]
+            slots[0] += int(real.numel())
+            ranked.append(torch.unique(real))
+            return rank(ids)
+        return real_loop(nbr_table.as_subclass(Table), base_rows, entry,
+                         active, rank=counting, **kw)
+    ref.lockstep_beam_search = loop
     try:
-        out = ref.beam_search_ref(*args, dim, ef, iters, m)
+        out = ref.ranked_beam_search_ref(*args, dim, ef, iters, m)
     finally:
-        ref.binary_ip_rank_ref, ref.lockstep_beam_search = real_rank, real_loop
+        ref.lockstep_beam_search = real_loop
     hops = out[2]
     expanded = torch.cat([idx[hops > t] for t, idx in enumerate(gathers)]
                          + [hops.new_empty(0, dtype=torch.long)])
@@ -714,27 +832,54 @@ def plain_beam_counted(torch, args, dim, ef, iters, m):
                           int(torch.unique(expanded).numel()))
 
 
+def rank_bytes(rank, w):
+    """(bytes a ranked row reads beside its W code bytes, bytes of a lane's
+    rank operands): O3 f_add and the int32 LUT, sumq, s1, s2; Hamming
+    nothing and the W-byte qcode; Exact residual_norm and cos_theta and the
+    float LUT, sum_lut, query_norm."""
+    if rank.kind == "hamming":
+        return 0, w
+    if rank.kind == "exact":
+        return 8, (8 * w + 2) * 4
+    return 4, (8 * w + 3) * 4
+
+
+def slot_ops(rank, w):
+    """(operations ranking one (lane, row) slot takes at least, the rate's
+    name): a table lookup and an add per code byte (O3, 2 W), per half
+    byte in float32 plus the estimator's ten (Exact, 4 W + 10), an XOR, a
+    popcount and an add per 32-bit word (Hamming, 3 W / 4)."""
+    if rank.kind == "hamming":
+        return 3 * w / 4, H100_INT32_OPS
+    if rank.kind == "exact":
+        return 4 * w + 10, H100_FP32_OPS
+    return 2 * w, H100_INT32_OPS
+
+
 def beam_bound(args, ef, dim, reads):
     """Bytes: each distinct neighbour-table row expanded (4 R) and each
-    distinct row ranked (code and f_add, W + 4) once, since lanes that probe
-    one cluster start from its entry and share rows (as ``rank_bound``
-    counts them); the LUT of each lane with an entry (every such lane ranks
-    it), each lane's five int32 scalars and its active flag, the (L, EF)
-    ids and ranks and the (L,) hops written. Operations: one table lookup
-    and one add per code byte of each ranked (lane, row) slot, 2 W, at the
-    int32 rate, the least a row's rank takes (``scan_bound``). ``reads`` is
-    this run's (``plain_beam_counted``). Returns (ms, "bytes" or
-    "operations", ms by the bit count, ms by the kernel's nibble tables):
-    the last two price 2 dim and 4 W operations a slot against the same
-    bytes, and are logged beside the bound only."""
-    codes, nbrs, entry, lut = args[0], args[2], args[4], args[5]
+    distinct row ranked (its code and per-row factors, ``rank_bytes``)
+    once, since lanes that probe one cluster start from its entry and share
+    rows (as ``rank_bound`` counts them); the rank operands of each lane
+    with an entry (every such lane ranks it), each lane's two int32 scalars
+    and its active flag, the (L, EF) ids and ranks and the (L,) hops
+    written. Operations: ``slot_ops`` per ranked (lane, row) slot, the
+    least a row's rank takes. ``args`` are the ranked arguments (codes,
+    rank, nbrs, base_rows, entry, active); ``reads`` is this run's
+    (``plain_beam_counted``). Returns (ms, "bytes" or "operations", ms by
+    the bit count, ms by the kernel's nibble tables): the last two price
+    2 dim and 4 W operations an O3 slot against the same bytes, and are
+    logged beside the bound only."""
+    codes, rank, nbrs, entry = args[0], args[1], args[2], args[4]
     w, r = codes.shape[1], nbrs.shape[1]
     n_lanes = entry.numel()
-    nbytes = (reads.expanded * 4 * r + reads.rows * (w + 4)
-              + int((entry >= 0).sum()) * lut.shape[1] * 4
-              + n_lanes * (5 * 4 + 1) + n_lanes * (ef * 8 + 4))
+    row_extra, lane_bytes = rank_bytes(rank, w)
+    nbytes = (reads.expanded * 4 * r + reads.rows * (w + row_extra)
+              + int((entry >= 0).sum()) * lane_bytes
+              + n_lanes * (2 * 4 + 1) + n_lanes * (ef * 8 + 4))
     tb = nbytes / H100_BYTES_PER_S
-    to = 2 * reads.slots * w / H100_INT32_OPS
+    per_slot, rate = slot_ops(rank, w)
+    to = reads.slots * per_slot / rate
 
     def by(ops):
         return 1e3 * max(tb, ops / H100_INT32_OPS)
@@ -900,6 +1045,7 @@ def phase_kernels_synthetic(torch, dev):
     phase_select_routes(torch, dev)
     phase_wide_rows(torch, dev)
     phase_beam_synthetic(torch, dev)
+    phase_ranked_synthetic(torch, dev)
     phase_flash_synthetic(torch, dev)
 
 
@@ -1112,19 +1258,12 @@ def phase_kernels_real(torch, eng, qt):
     cfg = eng.scfg
     lane_cfg = backends.LaneConfig(ef=cfg.ef, max_iters=cfg.max_iters,
                                    dim=dim)
-    calls = []
-    real_search = beam_search.beam_search
-
-    def recording(*args):
-        calls.append(args)
-        return real_search(*args)
-    beam_search.beam_search = recording
-    try:
-        eng.backend.search_lanes(shard, fc, lanes, lane_cfg, live)
-    finally:
-        beam_search.beam_search = real_search
-    b_args = calls[0][:10]
-    got = beam_search.beam_search(*b_args, dim, cfg.ef, cfg.max_iters, m)
+    _, calls = recording(beam_search, "ranked_beam_search", lambda:
+                         eng.backend.search_lanes(shard, fc, lanes, lane_cfg,
+                                                  live))
+    b_args = calls[0][:6]
+    got = beam_search.ranked_beam_search(*b_args, dim, cfg.ef, cfg.max_iters,
+                                         m)
     want, reads = plain_beam_counted(torch, b_args, dim, cfg.ef,
                                      cfg.max_iters, m)
     for name, x, y in zip(("ids", "ranks", "hops"), got, want):
@@ -1136,8 +1275,8 @@ def phase_kernels_real(torch, eng, qt):
         torch, f"beam_search real search L={live.numel()} ({int(live.sum())}"
         f" live) M={m} R={shard.neighbors.shape[-1]} EF={cfg.ef}, plain = "
         f"the old path",
-        lambda: beam_search.beam_search(*b_args, dim, cfg.ef, cfg.max_iters,
-                                        m),
+        lambda: beam_search.ranked_beam_search(*b_args, dim, cfg.ef,
+                                               cfg.max_iters, m),
         lambda: old(eng.backend, shard, fc, lanes, lane_cfg, live), 30,
         bound)
     beam_row["library_ms"] = None
@@ -1232,21 +1371,12 @@ def phase_gemv(torch, eng, qt, beam_recall):
     geng.scfg = dataclasses.replace(eng.scfg, scan="gemv")
     geng.search(qt)                                   # warm
     torch.cuda.synchronize()
-    scan_calls = []
-    real_scan = ops.cluster_scan
-
-    def recording_scan(*args):
-        scan_calls.append(args)
-        return real_scan(*args)
-    ops.cluster_scan = recording_scan
     ops.reset_launch_counts()
-    try:
-        t = time.perf_counter()
-        res, stats = geng.search(qt)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-    finally:
-        ops.cluster_scan = real_scan
+    t = time.perf_counter()
+    (res, stats), scan_calls = recording(ops, "ranked_cluster_scan",
+                                         lambda: geng.search(qt))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
     counts = ops.launch_counts()
     qps = [qt.shape[0] / dt]
     for _ in range(3):
@@ -1273,6 +1403,197 @@ def phase_gemv(torch, eng, qt, beam_recall):
         log(f"gemv recall {recall:.4f} is below the beam's {beam_recall:.4f}"
             f" within the same probed clusters")
     return scan_calls[0], counts, recall, qps
+
+
+def backend_view(eng, mode, scan="beam"):
+    """The engine under another ranking backend: copy.copy shares every
+    placed tensor (codes, the 9 GB neighbour table, ...); only the
+    backend's own arrays are placed anew (exact: residual_norm and
+    cos_theta, 2 x 4096 x 17,089 float32 = 0.56 GB at 10M; hamming:
+    none)."""
+    from repro_torch.core import backends, engine
+    v = copy.copy(eng)
+    v.scfg = dataclasses.replace(eng.scfg, mode=mode, scan=scan)
+    v.backend = backends.get_backend(mode)
+    v.placed = dataclasses.replace(eng.placed, arrays=engine.place_arrays(
+        v.backend.index_arrays(eng.index), eng.place))
+    return v
+
+
+def phase_backends(torch, eng, qt, recalls):
+    """Phase 8b: the exact and hamming backends, each as a view of the 10M
+    engine, search the same queries by beam and by GEMV, counted like
+    phases 5 and 8 (one beam_search or one cluster_scan launch, one
+    topk_select, no binary_ip_rank) and held to the recall floors taken
+    from the JAX package (RECALL_FLOORS); the kernel of each search, on the
+    counted search's own arguments, is held bitwise against its plain
+    version (the plain loop; the plain scan over all lanes) and timed
+    beside it and its bound."""
+    from repro_torch.kernels import beam_search, ops, ref
+    dim, cfg = eng.icfg.dim, eng.scfg
+    rows = {}
+    for mode in ("exact", "hamming"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        views = {"beam": backend_view(eng, mode)}
+        views["gemv"] = copy.copy(views["beam"])
+        views["gemv"].scfg = dataclasses.replace(views["beam"].scfg,
+                                                 scan="gemv")
+        log(f"{mode} view of the 10M engine: "
+            f"{(torch.cuda.memory_allocated() - before) / 2**30:.3f} GiB "
+            f"placed for its arrays")
+        for scan, view in views.items():
+            seam = "ranked_beam_search" if scan == "beam" \
+                else "ranked_cluster_scan"
+            kernel = ("beam_search" if scan == "beam" else "cluster_scan")
+            view.search(qt)                           # warm
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            (res, _), calls = recording(ops, seam, lambda: view.search(qt))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            counts = ops.launch_counts()
+            if res.ids.shape != (qt.shape[0], cfg.k) or not torch.isfinite(
+                    res.dists[res.ids >= 0]).all():
+                fail(f"{mode} {scan} search output malformed: ids "
+                     f"{tuple(res.ids.shape)}")
+            recall = recall_at(torch, eng, qt, res.ids)
+            recalls[f"{mode}/{scan}"] = recall
+            print(f"kernels {mode} {scan} " + json.dumps(counts), flush=True)
+            want = {kernel: 1, "topk_select": 1, "binary_ip_rank": 0}
+            if any(counts[k] != v for k, v in want.items()) \
+                    or len(calls) != 1:
+                fail(f"the {mode} {scan} search launched {counts} "
+                     f"({len(calls)} recorded {seam} calls), expected "
+                     f"{want}")
+            floor = RECALL_FLOORS[f"{mode}/{scan}"]
+            log(f"{mode} {scan} search of {qt.shape[0]} queries: "
+                f"{dt * 1e3:.2f} ms (QPS {qt.shape[0] / dt:.1f}); recall@10 "
+                f"{recall:.4f} (mulfree {recalls['mulfree/' + scan]:.4f}; "
+                f"floor {floor})")
+            if recall < floor:
+                fail(f"{mode} {scan} recall@10 {recall:.4f} < {floor}")
+            name = f"{kernel}/{mode}"
+            if scan == "gemv":
+                row = hold_scan(torch, calls[0], name, f"{mode} gemv search")
+            else:
+                args = calls[0][:6]
+                got = beam_search.ranked_beam_search(*args, dim, cfg.ef,
+                                                     cfg.max_iters, eng_m(eng))
+                want_out, reads = plain_beam_counted(
+                    torch, args, dim, cfg.ef, cfg.max_iters, eng_m(eng))
+                for part, x, y in zip(("ids", "ranks", "hops"), got,
+                                      want_out):
+                    bitwise(torch, name, f"{mode} search {part}", x, y)
+                bound = beam_bound(args, cfg.ef, dim, reads)
+                row = timed_row(
+                    torch, f"{name} {mode} search L={args[4].numel()} "
+                    f"({int(args[5].sum())} live) EF={cfg.ef}",
+                    lambda: beam_search.ranked_beam_search(
+                        *args, dim, cfg.ef, cfg.max_iters, eng_m(eng)),
+                    lambda: ref.ranked_beam_search_ref(
+                        *args, dim, cfg.ef, cfg.max_iters, eng_m(eng)),
+                    30, bound)
+                hops = want_out[2]
+                smem = beam_search.smem_bytes(cfg.ef, args[2].shape[1],
+                                              eng_m(eng), args[0].shape[1],
+                                              mode)
+                log(f"{name}: {int(hops.sum())} hops (at most "
+                    f"{int(hops.max())}), {reads.slots} (lane, row) slots "
+                    f"ranked, {reads.rows} distinct rows, {reads.expanded} "
+                    f"expanded; bound {bound[0]:.5f} ms ({bound[1]}); "
+                    f"{smem} bytes of shared memory a block")
+                row["library_ms"] = None
+            row["launches"] = counts[kernel]
+            rows[name] = row
+        del views
+    return rows
+
+
+def eng_m(eng) -> int:
+    """The engine's cluster budget M (rows a cluster holds)."""
+    return eng.placed.codes.shape[-2]
+
+
+def phase_mixed_tier(torch, topo, qt):
+    """Phase 9b: a second tier over views of phase 9's 8 partition engines,
+    their backends cycling mulfree, exact, hamming (no second
+    partitioning). The queries run unrestricted, then with backend= None
+    and "exact" alternating; in each counted run every partial a partition
+    engine flushed equals that engine's own search_probed of the same rows
+    (bitwise, ids and dists), the tier's ids equal merge_topk_ref of the
+    partials, and the restricted rows' ids all come from exact
+    partitions."""
+    from repro_torch.core import topology
+    from repro_torch.kernels import ops, ref
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    modes = [MIXED[o % len(MIXED)] for o in range(len(topo.groups))]
+    views = [backend_view(g[0], mode) for g, mode in zip(topo.groups, modes)]
+    mixed = topology.ServingTopology(
+        [[v] for v in views], part_of=topo.part_of, local_cid=topo.local_cid,
+        centroids=topo.centroids, buckets=topo.buckets)
+    mixed.warm()
+    q = qt.cpu().numpy()
+    exact_nodes = torch.cat([v.index.node_ids.reshape(-1)
+                             for v, mode in zip(views, modes)
+                             if mode == "exact"])
+    alternate = [None if i % 2 else "exact" for i in range(len(q))]
+    for label, backend in (("unrestricted", None),
+                           ("alternating None / exact", alternate)):
+        mixed.run(q, backend=backend)                 # warm
+        torch.cuda.synchronize()
+        flushed = []
+        real_finish = topology.ShardWorker._finish
+
+        def finish(worker, idxs, res, t_dispatch):
+            flushed.append((worker.shard, np.array(idxs), res.ids.clone(),
+                            res.dists.clone()))
+            return real_finish(worker, idxs, res, t_dispatch)
+        ops.reset_launch_counts()
+        topology.ShardWorker._finish = finish
+        try:
+            t = time.perf_counter()
+            rep = mixed.run(q, backend=backend)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        finally:
+            topology.ShardWorker._finish = real_finish
+        counts = ops.launch_counts()
+        tables, touches, _, _ = mixed._route_probes(q, backend)
+        slots = np.cumsum(touches, axis=1) - 1
+        k = mixed.k
+        part_ids = np.full((len(q), mixed.fanout * k), -1, np.int32)
+        part_d = np.full((len(q), mixed.fanout * k), np.inf, np.float32)
+        for o, idxs, ids, dists in flushed:
+            res, _ = views[o].search_probed(q[idxs], tables[o][idxs])
+            bitwise(torch, "mixed tier", f"{label} shard {o} ({modes[o]}) "
+                    f"partial ids", ids, res.ids)
+            bitwise(torch, "mixed tier", f"{label} shard {o} partial dists",
+                    dists, res.dists)
+            cols = slots[idxs, o][:, None] * k + np.arange(k)
+            part_ids[idxs[:, None], cols] = ids.cpu().numpy()
+            part_d[idxs[:, None], cols] = dists.cpu().numpy()
+        want, _ = ref.merge_topk_ref(torch.from_numpy(part_ids),
+                                     torch.from_numpy(part_d), k=k)
+        if not (want.numpy() == rep.ids).all():
+            fail(f"mixed tier {label}: the tier's ids differ from "
+                 f"merge_topk_ref of its partials")
+        if backend is not None:
+            got = torch.from_numpy(rep.ids[0::2]).to(qt.device).reshape(-1)
+            got = got[got >= 0]
+            if not torch.isin(got, exact_nodes).all():
+                fail(f"mixed tier {label}: a row restricted to exact holds "
+                     f"ids of another backend's partition")
+        log(f"mixed tier ({', '.join(modes)}) {label}: {dt * 1e3:.2f} ms "
+            f"(QPS {rep.qps:.1f}); {len(flushed)} partials held against "
+            f"their engines' search_probed; ids equal merge_topk_ref of them; "
+            f"n_unrouted {rep.n_unrouted}, fanout_mean "
+            f"{rep.fanout_mean:.3f}, queries per shard "
+            f"{[d['queries'] for d in rep.per_engine]}; launches {counts}")
+    log(f"mixed tier peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
 def phase_sharded(torch, eng, qt, single, beam_recall):
@@ -1364,13 +1685,12 @@ def sink_partials(torch, topo, q):
 
 
 def plain_scan(torch, ref, args, dim, ef, m, chunk=128):
-    """cluster_scan's plain version over every lane, ``chunk`` lanes at a
-    time: one call over all lanes would hold an (L, M, dim) int64 table."""
-    codes, f_add, per_lane = args[0], args[1], args[2:]
-    outs = [ref.cluster_scan_ref(codes, f_add,
-                                 *(t[i:i + chunk] for t in per_lane),
-                                 dim, ef, m)
-            for i in range(0, per_lane[0].shape[0], chunk)]
+    """cluster_scan's plain version over every lane of the ranked arguments
+    ``args``, ``chunk`` lanes at a time: one call over all lanes would hold
+    an (L, M, dim) table."""
+    outs = [ref.ranked_cluster_scan_ref(
+        *lane_subset(args, slice(i, i + chunk)), dim, ef, m)
+        for i in range(0, args[2].shape[0], chunk)]
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
 
 
@@ -1378,7 +1698,7 @@ def phase_new_kernels_real(torch, topo, rep, scan_call, qt):
     """Phase 10: merge_topk on the real gathered partials of phase 9 and
     cluster_scan on the arguments of phase 8's counted gemv search, each
     held bitwise against its plain version and timed beside it."""
-    from repro_torch.kernels import cluster_scan, merge_topk, ref, topk_select
+    from repro_torch.kernels import merge_topk, ref, topk_select
     k = topo.k
     ids, d = sink_partials(torch, topo, qt.cpu().numpy())
     got = merge_topk.merge_topk(ids, d, k=k)
@@ -1410,42 +1730,51 @@ def phase_new_kernels_real(torch, topo, rep, scan_call, qt):
         f"(torch.topk, another tie order): "
         f"{merge_row['library_ms']:.5f} ms on the device")
 
-    args, (dim, ef, m) = scan_call[:9], scan_call[9:]
-    live = args[8]
-    w = args[0].shape[1]
-    log(f"cluster_scan at W={w} EF={ef}: {cluster_scan.smem_bytes(w, ef)} "
-        f"bytes of dynamic shared memory per block; ptxas: "
-        f"{'; '.join(PTXAS.get('cluster_scan', ['not built here']))}")
-    sel = torch.nonzero(live)[:64, 0]
-    sub = (*args[:2], *(t[sel].contiguous() for t in args[2:]))
-    for name, x, y in zip(("ids", "ranks"),
-                          cluster_scan.cluster_scan(*sub, dim, ef, m),
-                          ref.cluster_scan_ref(*sub, dim, ef, m)):
-        bitwise(torch, "cluster_scan", f"real 64 lanes {name}", x, y)
-    bound = scan_bound(torch, sub[2], sub[3], sub[8], sub[4], w, dim, ef)
-    timed_row(torch, f"cluster_scan real 64 live lanes M={m} EF={ef}",
-              lambda: cluster_scan.cluster_scan(*sub, dim, ef, m),
-              lambda: ref.cluster_scan_ref(*sub, dim, ef, m), 30, bound)
-    log(f"cluster_scan 64 live lanes: bound {bound[0]:.5f} ms (a lookup and "
-        f"an add per code byte), {bound[2]:.5f} ms by the bit count (a mask "
-        f"and an add per code bit)")
-    for name, x, y in zip(("ids", "ranks"),
-                          cluster_scan.cluster_scan(*args, dim, ef, m),
-                          plain_scan(torch, ref, args, dim, ef, m)):
-        bitwise(torch, "cluster_scan", f"real all {live.numel()} lanes "
-                f"{name}", x, y)
-    bound = scan_bound(torch, args[2], args[3], args[8], args[4], w, dim, ef)
-    scan_row = timed_row(
-        torch, f"cluster_scan real gemv search L={live.numel()} "
-        f"({int(live.sum())} live) M={m} EF={ef}",
-        lambda: cluster_scan.cluster_scan(*args, dim, ef, m),
-        lambda: plain_scan(torch, ref, args, dim, ef, m), 30, bound)
-    log(f"cluster_scan all lanes: bound {bound[0]:.5f} ms (a lookup and an "
-        f"add per code byte), {bound[2]:.5f} ms by the bit count (a mask and "
-        f"an add per code bit); {int(args[3][live].clamp(0, m).sum())} valid "
-        f"rows scanned by the live lanes")
+    scan_row = hold_scan(torch, scan_call, "cluster_scan", "real gemv search")
     scan_row["library_ms"] = None
     return {"merge_topk": merge_row, "cluster_scan": scan_row}
+
+
+def hold_scan(torch, call, kernel, label):
+    """cluster_scan on a recorded call's ranked arguments (codes, rank,
+    base_rows, n_valid, active, dim, ef, m), held bitwise against its plain
+    version on 64 live lanes and on all lanes, and timed there beside its
+    bound (``scan_bound``); ``kernel`` names the kernels-line entry."""
+    from repro_torch.kernels import cluster_scan, ref
+    args, (dim, ef, m) = call[:5], call[5:]
+    rank, live = args[1], args[4]
+    w = args[0].shape[1]
+    log(f"{kernel} at W={w} EF={ef}: "
+        f"{cluster_scan.smem_bytes(w, ef, rank.kind)} bytes of dynamic "
+        f"shared memory per block; ptxas: "
+        f"{'; '.join(PTXAS.get('cluster_scan', ['not built here']))}")
+    sub = lane_subset(args, torch.nonzero(live)[:64, 0])
+    for name, x, y in zip(("ids", "ranks"),
+                          cluster_scan.ranked_cluster_scan(*sub, dim, ef, m),
+                          ref.ranked_cluster_scan_ref(*sub, dim, ef, m)):
+        bitwise(torch, kernel, f"{label} 64 lanes {name}", x, y)
+    bound = scan_bound(torch, sub, dim, ef)
+    timed_row(torch, f"{kernel} {label} 64 live lanes M={m} EF={ef}",
+              lambda: cluster_scan.ranked_cluster_scan(*sub, dim, ef, m),
+              lambda: ref.ranked_cluster_scan_ref(*sub, dim, ef, m), 30,
+              bound)
+    for name, x, y in zip(("ids", "ranks"),
+                          cluster_scan.ranked_cluster_scan(*args, dim, ef, m),
+                          plain_scan(torch, ref, args, dim, ef, m)):
+        bitwise(torch, kernel, f"{label} all {live.numel()} lanes {name}",
+                x, y)
+    bound = scan_bound(torch, args, dim, ef)
+    row = timed_row(
+        torch, f"{kernel} {label} L={live.numel()} ({int(live.sum())} live) "
+        f"M={m} EF={ef}",
+        lambda: cluster_scan.ranked_cluster_scan(*args, dim, ef, m),
+        lambda: plain_scan(torch, ref, args, dim, ef, m), 30, bound)
+    log(f"{kernel} {label}: bound {bound[0]:.5f} ms ({bound[1]}), "
+        f"{bound[2]:.5f} ms by the bit count (a mask and an add per code "
+        f"bit); {int(args[3][live].clamp(0, m).sum())} valid rows scanned by "
+        f"the live lanes")
+    row["library_ms"] = None
+    return row
 
 
 def leaves(tree):
@@ -1664,8 +1993,11 @@ def main() -> None:
     timing = phase_kernels_real(torch, eng, qt)
     scan_call, gemv_counts, gemv_recall, gemv_qps = phase_gemv(
         torch, eng, qt, recall)
+    recalls = {"mulfree/beam": recall, "mulfree/gemv": gemv_recall}
+    ranked = phase_backends(torch, eng, qt, recalls)
     topo, sharded_counts, rep, med = phase_sharded(torch, eng, qt, single,
                                                    recall)
+    phase_mixed_tier(torch, topo, qt)
     timing.update(phase_new_kernels_real(torch, topo, rep, scan_call, qt))
     del topo
     lm_counts, timing["flash_attention"] = phase_lm(torch, dev, eng)
@@ -1700,6 +2032,17 @@ def main() -> None:
                     bound_by=timing[name]["bound_by"],
                     library_ms=timing[name].get("library_ms"))
                for name in src]
+    # each rank policy of beam_search and cluster_scan (phase 8b): its own
+    # launches, times and errors, on the search of its own backend
+    for name, row in ranked.items():
+        kernel = name.split("/")[0]
+        kernels.append(dict(
+            name=name, route="cuda", source=src[kernel][0],
+            replaces=src[kernel][1], launches=row["launches"],
+            max_abs_err=ERRS[name], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"]))
+    log(f"recall@10 by backend: {json.dumps(recalls)}")
     log(f"card {card}; n={N}; build {build_s:.1f} s; recall@10 "
         f"{recall:.4f} beam, {gemv_recall:.4f} gemv, sharded equal to beam; "
         f"QPS {qps[0]:.1f} beam, {gemv_qps[0]:.1f} gemv, {med['qps']:.1f} "

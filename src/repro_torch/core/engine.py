@@ -27,7 +27,7 @@ from . import beam_search, compact_index, ivf, placement as placement_mod
 from . import rerank as rerank_mod
 
 __all__ = ["SearchConfig", "PlacedIndex", "PIMCQGEngine", "SearchStats",
-           "route_lanes"]
+           "place_arrays", "route_lanes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,19 +93,25 @@ class SearchStats(NamedTuple):
     dropped_lanes: torch.Tensor  # () i32 lanes lost to buffer overflow
 
 
+def _shard_major(a: torch.Tensor, pl: placement_mod.Placement):
+    order = torch.as_tensor(pl.order, dtype=torch.int64, device=a.device)
+    return a[order].reshape(pl.n_shards, pl.per_shard, *a.shape[1:])
+
+
+def place_arrays(arrays, pl: placement_mod.Placement):
+    """A backend's (C, ...) cluster-major arrays (``index_arrays``) in the
+    placement's shard-major (S, Cl, ...) layout. Engines that share a
+    placed index and differ in backend place only this."""
+    return type(arrays)(*(_shard_major(a, pl) for a in arrays))
+
+
 def _place(idx: compact_index.CompactIndex, pl: placement_mod.Placement,
            backend: backends_mod.RankingBackend) -> PlacedIndex:
-    order = torch.as_tensor(pl.order, dtype=torch.int64,
-                            device=idx.codes.device)
-
-    def rs(a):
-        return a[order].reshape(pl.n_shards, pl.per_shard, *a.shape[1:])
-    arrays = backend.index_arrays(idx)
     return PlacedIndex(
-        centroids=rs(idx.centroids), codes=rs(idx.codes),
-        neighbors=rs(idx.neighbors), entry=rs(idx.entry),
-        n_valid=rs(idx.n_valid), node_ids=rs(idx.node_ids),
-        arrays=type(arrays)(*(rs(a) for a in arrays)))
+        *(_shard_major(a, pl) for a in (idx.centroids, idx.codes,
+                                        idx.neighbors, idx.entry,
+                                        idx.n_valid, idx.node_ids)),
+        arrays=place_arrays(backend.index_arrays(idx), pl))
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,7 @@ def resolve_exec_backend(spec) -> ExecutionBackend:
         if spec == "mesh":
             raise NotImplementedError(
                 "exec='mesh' (one device per shard, NCCL all_gather) is not "
-                "ported yet: ROADMAP A8")
+                "ported yet: ROADMAP A4 (the mesh execution backend)")
         try:
             return EXEC_BACKENDS[spec]()
         except KeyError:

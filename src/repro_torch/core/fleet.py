@@ -128,7 +128,8 @@ def partition_engine(eng, n_parts: int, *, mem_budget: int | None = None,
     wrap them in a ``ShardedFleet`` (see ``core.topology.partition_index``
     for the slicing semantics: disjoint cluster slices via
     ``placement.greedy_place``, ~1/N memory per engine, optional strict
-    ``mem_budget``; ``modes`` and ``heat`` are not ported yet).
+    ``mem_budget``, per-partition backends ``modes``; ``heat`` is not
+    ported yet).
 
     Extra keyword args flow to the ShardedFleet stream parameters
     (buckets, fill_threshold, wait_limit_s, fifo_depth, ...). For the same
@@ -189,9 +190,9 @@ class ShardedFleet:
     cannot, and candidate sets then legitimately differ — size
     ``lane_capacity_factor`` for zero drops when parity matters.
 
-    Heterogeneity-aware routing (``run(..., backend=...)`` over shards of
-    different ``modes``) is not ported yet and raises
-    ``NotImplementedError``."""
+    Heterogeneity-aware routing: shards may declare different backends
+    (``partition_engine(modes=...)``), and ``run(..., backend=...)`` sends
+    each query only to shards declaring the backend it asks for."""
 
     def __init__(self, engines, part_of, local_cid, centroids, *,
                  buckets=None, costs: StageCosts | None = None,
@@ -224,8 +225,9 @@ class ShardedFleet:
     def run(self, queries, arrival_times=None, backend=None) -> ShardedReport:
         """Replay a (possibly timed) stream through the sharded fleet; see
         StreamingScheduler.run for the arrival-replay semantics. ``backend``
-        (per-query backend routing) is not ported yet and raises
-        ``NotImplementedError``."""
+        (None | registry key | per-query sequence of keys / None) restricts
+        each query to the shards declaring a matching backend
+        (``ServingTopology.run``)."""
         r = self._topo.run(queries, arrival_times, backend=backend)
         per_engine = [{"engine": d["shard"], "backend": d["backend"],
                        "flushes": d["flushes"], "queries": d["queries"],

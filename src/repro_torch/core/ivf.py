@@ -142,7 +142,8 @@ def split_probes_by_owner(probe_cids: np.ndarray, owner_of: np.ndarray,
     if owner_of.ndim == 2:
         raise NotImplementedError(
             "multi-owner routing (choose_owners) comes with hot-cluster "
-            "replication: ROADMAP queue A, replication and day-2 operations")
+            "replication: ROADMAP A2 (replication, tenancy, hedging and "
+            "day-2 operations)")
     probe_cids = np.asarray(probe_cids)
     hole = probe_cids < 0
     safe = np.where(hole, 0, probe_cids)                   # avoid -1 wrap

@@ -14,7 +14,8 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["RabitQCodes", "QueryLUT", "random_rotation", "encode",
-           "prepare_query", "pack_codes", "unpack_codes"]
+           "prepare_query", "sign_code", "pack_codes", "unpack_codes",
+           "binary_dot", "estimate_inner", "estimate_sqdist"]
 
 
 class RabitQCodes(NamedTuple):
@@ -81,3 +82,49 @@ def prepare_query(q: torch.Tensor, centroid: torch.Tensor,
     qnorm = torch.linalg.vector_norm(resid, dim=-1)
     g = (resid / qnorm.clamp(min=1e-12)[..., None]) @ rotation
     return QueryLUT(g, g.sum(-1), qnorm)
+
+
+def sign_code(q: torch.Tensor, centroid: torch.Tensor,
+              rotation: torch.Tensor, *, dim: int) -> torch.Tensor:
+    """Packed sign code of the rotated unit query residual, batched: q,
+    centroid (..., D) -> (..., Dpad // 8) uint8. The query encoded as the
+    nodes are (``encode`` without its factors), the whole lane payload of
+    the hamming backend; padded bits are zero, as in the node codes, so
+    they XOR to 0."""
+    resid = q - centroid
+    norm = torch.linalg.vector_norm(resid, dim=-1)
+    g = (resid / norm.clamp(min=1e-12)[..., None]) @ rotation
+    bits = g > 0
+    pad = (-dim) % 8
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    return pack_codes(bits)
+
+
+def binary_dot(packed: torch.Tensor, lut: torch.Tensor, dim: int
+               ) -> torch.Tensor:
+    """S: the sum of lut over each code's set bits, batched: packed
+    (..., N, W), lut (..., Dpad) -> (..., N), as one float32 matrix
+    product (the kernels' order of adds is ``ref.exact_rank_ref``'s)."""
+    bits = unpack_codes(packed, dim).to(lut.dtype)
+    return (bits @ lut[..., :dim, None])[..., 0]
+
+
+def estimate_inner(codes: RabitQCodes, q: QueryLUT) -> torch.Tensor:
+    """<o, q_hat> of every node: (2 S - sum(g)) / (sqrt(D) cos_theta),
+    cos_theta floored at 1e-6; codes (..., N, ...), q (...) -> (..., N)."""
+    s = binary_dot(codes.packed, q.lut, codes.dim)
+    sd = torch.tensor(codes.dim, dtype=torch.float32,
+                      device=s.device).sqrt()
+    obar = (2.0 * s - q.sum_lut[..., None]) / sd
+    floor = torch.tensor(1e-6, dtype=torch.float32, device=s.device)
+    return obar / torch.maximum(codes.cos_theta, floor)
+
+
+def estimate_sqdist(codes: RabitQCodes, q: QueryLUT) -> torch.Tensor:
+    """||x - q||^2 of every node from the residual decomposition
+    ||x-c||^2 + ||q-c||^2 - 2 ||x-c|| ||q-c|| <o, q_hat>, with the node's
+    own cos_theta (the exact backend's estimator)."""
+    est = estimate_inner(codes, q)
+    rn, qn = codes.residual_norm, q.query_norm[..., None]
+    return (rn * rn + qn * qn) - ((2.0 * rn) * qn) * est

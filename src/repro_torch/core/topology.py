@@ -24,11 +24,15 @@ partitioning keeps the cluster slices disjoint, and each shard's partial
 top-k already carries exact distances, so the origin merge is selection
 alone over disjoint runs.
 
+Shards may serve different ranking backends (``modes``: a mixed tier), and
+``run(backend=...)`` restricts each query to the shards that declare the
+backend it asks for.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: per-shard backends (``modes``), tenants, hedged dispatch,
-mutable indexes, autoscaling, rebalancing, hot-cluster replication,
-heat-aware placement, a prebuilt placement, the deprecated kwarg form of
-``topology()``, and the mesh execution backend.
+ROADMAP item: tenants, hedged dispatch, mutable indexes, autoscaling,
+rebalancing, hot-cluster replication, heat-aware placement, a prebuilt
+placement and the deprecated kwarg form of ``topology()`` (A2), and the
+mesh execution backend (A4).
 """
 
 from __future__ import annotations
@@ -59,15 +63,14 @@ __all__ = ["AdmissionController", "ReplicaGroup", "ShardGroup",
 ROUTE_POLICIES = ("round-robin", "least-in-flight")
 SHED_POLICIES = ("drop-new", "drop-old")
 
-# ROADMAP items that the refused options wait for
-MODES_ITEM = "A2 (the exact and hamming backends, with heterogeneous modes)"
-DAY2_ITEM = ("A7 (replication, tenancy, hedging and day-2 operations: "
+# the ROADMAP item that the refused options wait for
+DAY2_ITEM = ("A2 (replication, tenancy, hedging and day-2 operations: "
              "choose_owners, rebalance, replicate_hot, straggler, autoscale, "
              "mutable_index)")
 
 
-def _not_ported(what: str, item: str = DAY2_ITEM):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {DAY2_ITEM}")
 
 
 # ---------------------------------------------------------------------------
@@ -111,15 +114,18 @@ def partition_index(eng, n_parts: int, *, mem_budget: int | None = None,
     intra-engine shard count. The host store (raw rerank vectors, global-id
     addressed) is shared. Returns (engines, placement);
     ``placement.shard_of`` / ``local_slot`` are the owner map and the
-    per-owner local cluster ids the scatter router consumes.
+    per-owner local cluster ids the scatter router consumes. ``modes``
+    optionally gives each partition its own ranking backend (registry
+    key): a mixed tier.
 
-    ``modes``, ``mutable``, ``heat``, ``replicate_hot``, a
-    ``replica_factor`` other than its default and ``placement`` are not
-    ported yet and raise ``NotImplementedError``."""
+    ``mutable``, ``heat``, ``replicate_hot``, a ``replica_factor`` other
+    than its default and ``placement`` are not ported yet and raise
+    ``NotImplementedError``."""
     if n_parts < 1:
         raise ValueError(f"need at least one partition, got {n_parts}")
-    if modes is not None:
-        _not_ported("per-partition backends (modes)", MODES_ITEM)
+    if modes is not None and len(modes) != n_parts:
+        raise ValueError(f"modes has {len(modes)} entries for {n_parts} "
+                         f"partitions")
     if mutable:
         _not_ported("mutable partitioning (mutable=True)")
     if heat is not None:
@@ -144,8 +150,10 @@ def partition_index(eng, n_parts: int, *, mem_budget: int | None = None,
         members = pl.resident(o)
         sub_pl = placement_mod.greedy_place(sizes[members], bpc[members],
                                             inner_shards)
+        scfg = dataclasses.replace(eng.scfg, mode=modes[o]) \
+            if modes is not None else eng.scfg
         engines.append(engine_mod.PIMCQGEngine(
-            _slice_index(idx, members), eng.host, sub_pl, icfg, eng.scfg,
+            _slice_index(idx, members), eng.host, sub_pl, icfg, scfg,
             buckets=eng.buckets, device=eng.device))
     return engines, pl
 
@@ -821,13 +829,36 @@ class ServingTopology:
         _not_ported("placement swaps (apply_placement)")
 
     # -- scatter routing ------------------------------------------------------
-    def _route_probes(self, q: np.ndarray):
+    def _backend_live(self, probe: np.ndarray, backend) -> np.ndarray:
+        """The backend match filter: (N, P) bool, True where a probe's
+        owning shard declares the backend its query asks for (``backend``:
+        a registry key for every query, or one key or None a query; None
+        matches every shard)."""
+        req = np.full(len(probe), backend, object) \
+            if isinstance(backend, str) \
+            else np.asarray(list(backend), object)
+        if len(req) != len(probe):
+            raise ValueError(
+                f"backend list length {len(req)} != {len(probe)} queries")
+        known = set(self.modes)
+        missing = {b for b in req.tolist() if b is not None} - known
+        if missing:
+            raise ValueError(
+                f"no shard serves backend(s) {sorted(missing)}; this "
+                f"fleet serves {sorted(known)}")
+        modes = np.asarray(self.modes, object)
+        match_all = np.asarray([b is None for b in req.tolist()])
+        return (modes[self.part_of[np.maximum(probe, 0)]] == req[:, None]) \
+            | match_all[:, None]
+
+    def _route_probes(self, q: np.ndarray, backend=None):
         """(1) IVF top-probe selection at the origin, on the engines'
         device (with adaptive early termination: easy queries keep fewer
-        probes and fan out to fewer shards), (2) the per-owner scatter
-        split. Returns (tables (O, N, P), touches (N, O), served (N, P),
-        owner_sel (N, P)): ``served`` is the global probe table with every
-        dropped slot -1 (the per-cluster heat source), ``owner_sel`` the
+        probes and fan out to fewer shards), (2) the backend match filter
+        (``_backend_live``), (3) the per-owner scatter split. Returns
+        (tables (O, N, P), touches (N, O), served (N, P), owner_sel (N,
+        P)): ``served`` is the global probe table with every dropped or
+        filtered slot -1 (the per-cluster heat source), ``owner_sel`` the
         shard each served probe went to."""
         probe, pdist = ivf_mod.cluster_filter(
             torch.from_numpy(q).to(self.device), self.centroids,
@@ -838,16 +869,19 @@ class ServingTopology:
                 min_probes=self.adaptive_min_probes,
                 ladder=self.adaptive_ladder)
             probe = torch.where(keep, probe, -1)
+        probe_np = probe.cpu().numpy()
+        live = np.ones(probe_np.shape, bool) if backend is None \
+            else self._backend_live(probe_np, backend)
         tables, touches = ivf_mod.owner_split_op(
             probe, torch.from_numpy(self.part_of).to(self.device),
             torch.from_numpy(self.local_cid).to(self.device),
-            torch.ones(probe.shape, dtype=torch.bool, device=self.device),
+            torch.from_numpy(live).to(self.device),
             n_owners=len(self.groups))
-        probe_np = probe.cpu().numpy()
-        owner_sel = np.where(probe_np >= 0,
-                             self.part_of[np.maximum(probe_np, 0)],
+        served = np.where(live, probe_np, -1)
+        owner_sel = np.where(served >= 0,
+                             self.part_of[np.maximum(served, 0)],
                              -1).astype(np.int32)
-        return (tables.cpu().numpy(), touches.cpu().numpy(), probe_np,
+        return (tables.cpu().numpy(), touches.cpu().numpy(), served,
                 owner_sel)
 
     # -- origin gather/merge --------------------------------------------------
@@ -904,24 +938,26 @@ class ServingTopology:
 
         ``arrival_times`` (N,) seconds from the stream's start (None = all
         at t = 0); the run sleeps to honour future arrivals. ``backend``
-        (per-query backend routing) waits for heterogeneous ``modes`` and
-        raises ``NotImplementedError``; ``tenant`` needs a tenant registry,
-        which is not ported yet. ``ticker`` (callable, receives the stream
-        clock) is called once per scheduler iteration."""
+        (None, a registry key, or one key or None a query) restricts each
+        query to the shards that declare a matching backend (sharded
+        topologies only); a query left with no probe completes unrouted
+        (ids -1, dists inf) and is counted in ``n_unrouted``. ``tenant``
+        needs a tenant registry, which is not ported yet. ``ticker``
+        (callable, receives the stream clock) is called once per scheduler
+        iteration."""
         q = np.asarray(queries, np.float32)
         n = len(q)
         arr = np.zeros(n) if arrival_times is None \
             else np.asarray(arrival_times, np.float64)
         order = np.argsort(arr, kind="stable")
-        if backend is not None:
-            _not_ported("per-query backend routing (backend=)", MODES_ITEM)
         if tenant is not None:
             raise ValueError("tenant-tagged streams need a TenantSpec "
                              "registry (ServingTopology(tenants=[...]))")
         specs, tenant_of = [TenantSpec("default")], np.zeros(n, np.int32)
         served = owner_sel = None
         if self.sharded:
-            tables, touches, served, owner_sel = self._route_probes(q)
+            tables, touches, served, owner_sel = self._route_probes(q,
+                                                                    backend)
             slots = np.cumsum(touches, axis=1) - 1
             pending = touches.sum(axis=1).astype(np.int32)
             sink = ShardedSink(q, arr, self.k, self.fanout)
@@ -929,6 +965,10 @@ class ServingTopology:
             root = ShardGroup(self._build_tree(sink, tables, slots), touches,
                               pending, sink, self.k, self.backpressure)
         else:
+            if backend is not None:
+                raise ValueError("backend routing needs a sharded topology "
+                                 "(shards >= 2); a replicated tier serves "
+                                 "one backend everywhere")
             pending = None
             sink = StreamSink(q, arr, self.k)
             root = self._build_tree(sink, None, None)
@@ -1106,11 +1146,12 @@ class TopologyConfig:
     (``admission_depth`` / ``shed_deadline_s`` / ``backpressure``) and
     execution (``exec``). Build with ``cfg.build(eng)`` (or
     ``topology(eng, config=cfg)``); derive variants with
-    ``dataclasses.replace``. ``modes``, ``hedge``, ``tenants``, ``mutable``,
+    ``dataclasses.replace``. ``modes`` gives each shard its own ranking
+    backend (needs shards >= 2). ``hedge``, ``tenants``, ``mutable``,
     ``autoscale``, ``replicate_hot``, ``replica_factor`` and ``rebalance``
     are the reference's fields that are not ported yet: set to anything
-    but their defaults
-    they raise ``NotImplementedError``, as ``exec="mesh"`` does."""
+    but their defaults they raise ``NotImplementedError``, as
+    ``exec="mesh"`` does."""
 
     # -- shape ---------------------------------------------------------------
     shards: int = 1
@@ -1148,14 +1189,14 @@ class TopologyConfig:
                 f"need at least one replica, got {self.replicas}")
         if self.shards < 1:
             raise ValueError(f"need at least one shard, got {self.shards}")
+        if self.modes is not None and self.shards == 1:
+            raise ValueError("modes (per-shard backends) needs shards >= 2")
         if self.route not in ROUTE_POLICIES:
             raise ValueError(f"route must be one of {ROUTE_POLICIES}, "
                              f"got {self.route!r}")
         if self.inner_shards < 1:
             raise ValueError(
                 f"need at least one inner shard, got {self.inner_shards}")
-        if self.modes is not None:
-            _not_ported("per-shard backends (modes)", MODES_ITEM)
         for name, on in (("hedged dispatch (hedge)", self.hedge is not None),
                          ("tenants", self.tenants is not None),
                          ("a mutable topology (mutable)", self.mutable),
@@ -1192,7 +1233,7 @@ class TopologyConfig:
                 [replicate_engine(eng, self.replicas)], **serve_kw)
         parts, pl = partition_index(
             eng, self.shards, mem_budget=self.mem_budget, strict=self.strict,
-            inner_shards=self.inner_shards, freq=freq)
+            modes=self.modes, inner_shards=self.inner_shards, freq=freq)
         groups = [replicate_engine(p, self.replicas) for p in parts]
         return ServingTopology(groups, part_of=pl.shard_of,
                                local_cid=pl.local_slot,

@@ -1,16 +1,18 @@
 """Wrapper of the CUDA ``cluster_scan`` kernel (``csrc/cluster_scan.cu``).
 
 Counterpart of the Pallas kernel ``cluster_scan`` in
-``repro/kernels/binary_ip.py``. One block per lane builds the lane's
-partial-sum tables in shared memory (T[b][x], the LUT summed over the set
-bits of byte value x at code byte b; nibble tables above W = 64), ranks each
-row with W lookups, and keeps a running top-EF: a row's 64-bit key (rank
-order, row) enters a candidate buffer only if it is below the EF-th best
-key so far, and the buffer is merged into the top-EF by a bitonic sort
-before it could overflow. The source note in ``csrc/cluster_scan.cu`` gives
-the layout and the filter's worst case. The wrapper takes CUDA tensors
-only; ``kernels/ops.py`` sends CPU tensors to the plain version in
-``kernels/ref.py``.
+``repro/kernels/binary_ip.py``. One block per lane builds the lane's rank
+state in shared memory and ranks each row of its cluster by the rank
+tuple's policy (``kernels/ranks.py``): the O3 rank through partial-sum
+tables (T[b][x], the LUT summed over the set bits of byte value x at code
+byte b; nibble tables above W = 64), the popcount of code XOR qcode, or the
+float32 estimator through float nibble tables. It keeps a running top-EF: a
+row's 64-bit key (rank order, row) enters a candidate buffer only if it is
+below the EF-th best key so far, and the buffer is merged into the top-EF
+by a bitonic sort before it could overflow. The source note in
+``csrc/cluster_scan.cu`` gives the layout and the filter's worst case. The
+wrapper takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to
+the plain version in ``kernels/ref.py``.
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, ranks
+from .ranks import O3Rank
 
-__all__ = ["cluster_scan", "smem_bytes", "max_smem", "max_ef", "MAX_DPAD",
-           "launches"]
+__all__ = ["ranked_cluster_scan", "cluster_scan", "smem_bytes", "max_smem",
+           "max_ef", "MAX_DPAD", "launches"]
 
 MAX_DPAD = 2048   # kMaxDpad: the widest LUT (W = 256, nibble tables)
 launches = 0      # kernel launches since the count was last set to 0
@@ -39,19 +42,20 @@ def _check(name, t, dtype, shape, device):
 
 def _fn():
     fn = _build.library("cluster_scan").cluster_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [
+        ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                             ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(w: int, ef: int) -> int:
-    """Dynamic shared memory of one block (keys and tables) at code width
-    W and EF, as the launch sizes it."""
+def smem_bytes(w: int, ef: int, kind: str = "mulfree") -> int:
+    """Dynamic shared memory of one block (keys and the lane's rank state)
+    at code width W and EF, as the launch sizes it."""
     fn = _build.library("cluster_scan").cluster_scan_smem
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
-    return int(fn(w, ef))
+    return int(fn(ranks.KIND_IDS[kind], w, ef))
 
 
 def max_smem() -> int:
@@ -63,29 +67,33 @@ def max_smem() -> int:
     return int(fn())
 
 
-def max_ef(w: int) -> int:
+def max_ef(w: int, kind: str = "mulfree") -> int:
     """The largest EF whose block fits ``max_smem()`` at code width W: the
     top-EF slots are EF rounded up to a power of two (8,192 for every W up
     to 256)."""
     ef, limit = 1, max_smem()
-    while smem_bytes(w, 2 * ef) <= limit:
+    while smem_bytes(w, 2 * ef, kind) <= limit:
         ef *= 2
     return ef
 
 
-def cluster_scan(codes: torch.Tensor, f_add: torch.Tensor,
-                 base_rows: torch.Tensor, n_valid: torch.Tensor,
-                 lut: torch.Tensor, sumq: torch.Tensor, s1: torch.Tensor,
-                 s2: torch.Tensor, active: torch.Tensor, dim: int, ef: int,
-                 m: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(ids (L, EF) int32, ranks (L, EF) int32); semantics of
-    ``ref.cluster_scan_ref``."""
+def ranked_cluster_scan(codes: torch.Tensor, rank, base_rows: torch.Tensor,
+                        n_valid: torch.Tensor, active: torch.Tensor,
+                        dim: int, ef: int, m: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ids (L, EF) int32, ranks (L, EF) of the rank's type); semantics of
+    ``ref.ranked_cluster_scan_ref``."""
     global launches
     dev = codes.device
     if dev.type != "cuda":
         raise ValueError(f"cluster_scan kernel needs CUDA tensors, got {dev}")
     t, w = codes.shape
     n_lanes = base_rows.shape[0]
+    kind = getattr(rank, "kind", None)
+    if kind not in ranks.KIND_IDS:
+        raise ValueError(f"cluster_scan: rank must be an O3Rank, "
+                         f"HammingRank or ExactRank, got "
+                         f"{type(rank).__name__}")
     if not 0 < dim <= 8 * w:
         raise ValueError(f"dim {dim} outside (0, {8 * w}] for W = {w}")
     if 8 * w > MAX_DPAD:
@@ -94,33 +102,44 @@ def cluster_scan(codes: torch.Tensor, f_add: torch.Tensor,
     if not 0 < ef <= m:
         raise ValueError(f"ef = {ef} outside (0, {m}]: a cluster has {m} "
                          f"rows")
-    if smem_bytes(w, ef) > max_smem():
+    if smem_bytes(w, ef, kind) > max_smem():
         raise NotImplementedError(
             f"cluster_scan of ef = {ef} at W = {w} needs "
-            f"{smem_bytes(w, ef)} bytes of shared memory a block, more than "
-            f"{max_smem()}; the kernel serves EF <= {max_ef(w)} (ROADMAP C3)")
+            f"{smem_bytes(w, ef, kind)} bytes of shared memory a block, "
+            f"more than {max_smem()}; the kernel serves EF <= "
+            f"{max_ef(w, kind)} (ROADMAP C3)")
     if t >= 2**31:
         raise ValueError(f"code table of {t} rows exceeds int32 row ids")
     _check("codes", codes, torch.uint8, (t, w), dev)
-    _check("f_add", f_add, torch.int32, (t,), dev)
-    _check("lut", lut, torch.int32, (n_lanes, 8 * w), dev)
-    for name, v in (("base_rows", base_rows), ("n_valid", n_valid),
-                    ("sumq", sumq), ("s1", s1), ("s2", s2)):
+    for name, v in (("base_rows", base_rows), ("n_valid", n_valid)):
         _check(name, v, torch.int32, (n_lanes,), dev)
     _check("active", active, torch.bool, (n_lanes,), dev)
+    ranks.check("cluster_scan", rank, t, w, n_lanes, dev)
     out_ids = torch.empty((n_lanes, ef), dtype=torch.int32, device=dev)
-    out_ranks = torch.empty((n_lanes, ef), dtype=torch.int32, device=dev)
+    out_ranks = torch.empty((n_lanes, ef), dtype=ranks.dtype_of(rank),
+                            device=dev)
     if n_lanes == 0:
         return out_ids, out_ranks
     vec16 = int(w % 16 == 0 and codes.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn()(codes.data_ptr(), f_add.data_ptr(), base_rows.data_ptr(),
-                    n_valid.data_ptr(), lut.data_ptr(), sumq.data_ptr(),
-                    s1.data_ptr(), s2.data_ptr(), active.data_ptr(),
-                    out_ids.data_ptr(), out_ranks.data_ptr(), n_lanes, w, dim,
-                    ef, m, t, vec16, stream)
+        err = _fn()(ranks.KIND_IDS[kind], codes.data_ptr(),
+                    *ranks.pointers(rank), base_rows.data_ptr(),
+                    n_valid.data_ptr(), active.data_ptr(),
+                    out_ids.data_ptr(), out_ranks.data_ptr(), n_lanes, w,
+                    dim, ef, m, t, vec16, ranks.sqrt_dim(dim), stream)
     if err != 0:
         raise RuntimeError(f"cluster_scan launch failed: CUDA error {err}")
     launches += 1
     return out_ids, out_ranks
+
+
+def cluster_scan(codes: torch.Tensor, f_add: torch.Tensor,
+                 base_rows: torch.Tensor, n_valid: torch.Tensor,
+                 lut: torch.Tensor, sumq: torch.Tensor, s1: torch.Tensor,
+                 s2: torch.Tensor, active: torch.Tensor, dim: int, ef: int,
+                 m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mulfree scan: ``ranked_cluster_scan`` with ``O3Rank(f_add, lut,
+    sumq, s1, s2)``; semantics of ``ref.cluster_scan_ref``."""
+    return ranked_cluster_scan(codes, O3Rank(f_add, lut, sumq, s1, s2),
+                               base_rows, n_valid, active, dim, ef, m)

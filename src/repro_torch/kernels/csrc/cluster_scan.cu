@@ -1,18 +1,23 @@
-// cluster_scan: the GEMV-mode scan, a fused whole-cluster O3 rank plus a
-// running top-EF, for every lane of a search in one launch.
+// cluster_scan: the GEMV-mode scan, a fused whole-cluster rank plus a
+// running top-EF, for every lane of a search in one launch, by one of three
+// rank policies (common.cuh): O3 (mulfree), Hamming and Exact.
 //
 // Replaces the Pallas TPU kernel `cluster_scan` (repro/kernels/binary_ip.py,
-// `cluster_scan` / `_cluster_scan_kernel`), which scans ONE cluster per call.
-// Semantics: repro_torch/kernels/ref.py `cluster_scan_ref`, which is the
-// order of the path it serves (repro/core/beam_search.py `full_scan_lane`,
-// `lax.top_k` over the wrapped negated ranks): lane l ranks the rows
-// [0, n_valid[l]) of its cluster, rows base_rows[l] + i of the flattened
-// code table, exactly as binary_ip_rank does (uint32 sums, uint32
-// epilogue, the s2 >= 31 guard); rows at n_valid or beyond rank INT_MAX
-// without being read. Out come the EF best local row ids and their ranks
-// in ascending rank, ties to the lower row, a rank of INT_MIN after
-// INT_MAX (its negation wraps to itself). An inactive lane reads nothing
-// and writes ids -1, ranks INT_MAX.
+// `cluster_scan` / `_cluster_scan_kernel`), which scans ONE cluster per call
+// by the O3 rank; the JAX package scans the exact and hamming backends in
+// plain jnp (`full_scan_lane` over `rank_cluster`), and this kernel carries
+// them too. Semantics: repro_torch/kernels/ref.py `ranked_cluster_scan_ref`,
+// which is the order of the path it serves (repro/core/beam_search.py
+// `full_scan_lane`, `lax.top_k` over the negated ranks): lane l ranks the
+// rows [0, n_valid[l]) of its cluster, rows base_rows[l] + i of the
+// flattened code table, by its policy (O3 exactly as binary_ip_rank does:
+// uint32 sums, uint32 epilogue, the s2 >= 31 guard); rows at n_valid or
+// beyond rank the pad (INT_MAX, or F32_MAX for the exact rank) without
+// being read. Out come the EF best local row ids and their ranks in
+// ascending rank, ties to the lower row; an int32 rank of INT_MIN after
+// INT_MAX (its negation wraps to itself), a float32 rank in total order
+// (common.cuh `rank_order_key`: -0.0 first, NaN canonicalised and last).
+// An inactive lane reads nothing and writes ids -1, ranks the pad.
 //
 // What bounds it on an H100. Each valid row costs its W code bytes and its
 // f_add (20 bytes at D = 128). Ranked a mask and an add per code bit, that
@@ -50,6 +55,13 @@
 //    than a block may hold, so the kernel uses nibble tables there: T[h][x]
 //    for each 4-bit half h of the code and x < 16, 2W * 16 entries (32 KB at
 //    W = 256), 2W lookups a row.
+//    The other policies: the exact rank takes float nibble tables at every
+//    W, so that one order of float sums (ref.exact_rank_ref's, ascending
+//    half bytes) serves this kernel, beam_search.cu and the plain version;
+//    the Hamming rank takes no table, only the lane's W-byte qcode, and
+//    ranks a row by W / 4 popcounts. Each row of the exact rank also reads
+//    its residual_norm and cos_theta (8 bytes), a row of Hamming only its
+//    code.
 // 2. Select through a running threshold. Row r's key is the unique 64-bit
 //    (rank_key(rank) << 32) | r. The block keeps its best EFp keys sorted
 //    (EFp = EF rounded up to a power of two) and tau, the EF-th best key so
@@ -94,20 +106,36 @@ constexpr int kByteTableMaxW = 64;                 // byte tables up to 64 KB
 constexpr int kBuf = 1024;        // candidate slots: >= kThreads, a power
                                    // of two, and room for the LUT (8 KB)
 
-// The path's rank order as a uint32: INT_MIN + 1 -> 0, ..., INT_MAX ->
-// 0xFFFFFFFE, INT_MIN -> 0xFFFFFFFF.
+// The path's rank order as a uint32: int32 INT_MIN + 1 -> 0, ..., INT_MAX
+// -> 0xFFFFFFFE, INT_MIN -> 0xFFFFFFFF; float32 by `rank_order_key`.
 __device__ __forceinline__ uint32_t rank_key(int32_t r) {
   return static_cast<uint32_t>(r) + 0x7FFFFFFFu;
 }
+__device__ __forceinline__ uint32_t rank_key(float r) {
+  return rank_order_key(r);
+}
 
-__device__ __forceinline__ int32_t key_rank(uint32_t k) {
+template <class Rank>
+__device__ __forceinline__ Rank key_rank(uint32_t k);
+template <>
+__device__ __forceinline__ int32_t key_rank<int32_t>(uint32_t k) {
   return static_cast<int32_t>(k - 0x7FFFFFFFu);
+}
+template <>
+__device__ __forceinline__ float key_rank<float>(uint32_t k) {
+  return rank_of_key(k);
 }
 
 // Keys a block keeps: the top-EFp, the merge's output and the buffer.
 int key_slots(int ef_pad) { return 2 * ef_pad + kBuf; }
 
-int table_entries(int w) { return w <= kByteTableMaxW ? w * 256 : w * 32; }
+// Bytes of a lane's rank table (a multiple of 16), by the policy.
+long long table_bytes(int kind, int w) {
+  if (kind == kHamming) return HammingPolicy::table_bytes(w);
+  if (kind == kExact) return ExactPolicy::table_bytes(w);
+  return w <= kByteTableMaxW ? O3Policy<false>::table_bytes(w)
+                             : O3Policy<true>::table_bytes(w);
+}
 
 // Lower bound: the number of keys in the sorted a[0, n) below x.
 __device__ __forceinline__ int count_below(const unsigned long long* a, int n,
@@ -218,45 +246,40 @@ __device__ void merge_buffer(const unsigned long long* top,
   __syncthreads();
 }
 
-template <bool kNibble>
+template <class P>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 cluster_scan_kernel(
-    const uint8_t* __restrict__ codes, const int32_t* __restrict__ f_add,
+    const uint8_t* __restrict__ codes, RankArgs ra,
     const int32_t* __restrict__ base_rows, const int32_t* __restrict__ n_valid,
-    const int32_t* __restrict__ lut, const int32_t* __restrict__ sumq,
-    const int32_t* __restrict__ s1, const int32_t* __restrict__ s2,
     const uint8_t* __restrict__ active, int32_t* __restrict__ out_ids,
-    int32_t* __restrict__ out_ranks, int w, int dim, int ef, int ef_pad,
-    int n_keys, int m, long long n_table, int vec16) {
-  // the tables first (at a fixed shared address, so a lookup's address is
-  // its index and a constant), then n_keys keys, then the buffer's fill
-  // count; no static shared memory, so the launch's 48 KB test is exact
-  extern __shared__ unsigned long long smem[];
-  uint32_t* tab = reinterpret_cast<uint32_t*>(smem);
-  const int n_tab = kNibble ? w * 32 : w * 256;
-  unsigned long long* key = smem + n_tab / 2;
+    typename P::Rank* __restrict__ out_ranks, int w, int dim, int ef,
+    int ef_pad, int n_keys, int m, long long n_table, int vec16) {
+  // the lane's table first (at a fixed shared address, so a lookup's
+  // address is its index and a constant), then n_keys keys, then the
+  // buffer's fill count; no static shared memory, so the launch's 48 KB
+  // test is exact
+  extern __shared__ __align__(16) unsigned long long smem[];
+  unsigned char* tab = reinterpret_cast<unsigned char*>(smem);
+  unsigned long long* key = smem + P::table_bytes(w) / 8;
   int& s_count = *reinterpret_cast<int*>(key + n_keys);
   const size_t lane = blockIdx.x;
   int32_t* oid = out_ids + lane * ef;
-  int32_t* ork = out_ranks + lane * ef;
+  typename P::Rank* ork = out_ranks + lane * ef;
   if (!active[lane]) {
     for (int j = threadIdx.x; j < ef; j += blockDim.x) {
       oid[j] = -1;
-      ork[j] = INT32_MAX;
+      ork[j] = P::pad();
     }
     return;
   }
 
   // the LUT, staged in the key slots (kBuf >= kMaxDpad / 2), then the
-  // lane's tables
-  const int dpad = w * 8;
-  int32_t* s_lut = reinterpret_cast<int32_t*>(key);
-  for (int i = threadIdx.x; i < dpad; i += blockDim.x) {
-    s_lut[i] = i < dim ? lut[lane * dpad + i] : 0;
-  }
+  // lane's table
+  P::stage(ra, lane, w, dim, key, tab, threadIdx.x, blockDim.x);
   __syncthreads();
-  build_tables<kNibble>(tab, s_lut, w, threadIdx.x, blockDim.x);
+  P::build(tab, key, w, threadIdx.x, blockDim.x);
   __syncthreads();
+  const P pol(ra, lane, tab);
   unsigned long long* top = key;                   // the sorted top-EFp
   unsigned long long* spare = key + ef_pad;        // the next merge's output
   unsigned long long* buf = key + 2 * ef_pad;      // kBuf candidate slots
@@ -267,7 +290,6 @@ cluster_scan_kernel(
   const int nv = min(max(n_valid[lane], 0), m);
   const int n_end = min(m, nv + ef);
   const long long base = base_rows[lane];
-  const int32_t sq = sumq[lane], a1 = s1[lane], a2 = s2[lane];
   unsigned long long tau = ~0ull;
   const unsigned lane_id = threadIdx.x & 31u;
   const unsigned below = (1u << lane_id) - 1u;
@@ -298,13 +320,11 @@ cluster_scan_kernel(
     const int row = r0 + threadIdx.x;
     unsigned long long k = ~0ull;
     if (row < min(n_end, r0 + step)) {
-      int32_t r = INT32_MAX;
+      typename P::Rank r = P::pad();
       if (row < nv) {
         long long g = base + row;
         g = g < 0 ? 0 : (g < n_table ? g : n_table - 1);
-        const uint32_t s = table_sum<kNibble>(
-            codes + static_cast<size_t>(g) * w, tab, w, vec16);
-        r = o3_rank(s, f_add[g], sq, a1, a2);
+        r = pol.rank(codes + static_cast<size_t>(g) * w, g, w, vec16);
       }
       k = (static_cast<unsigned long long>(rank_key(r)) << 32) |
           static_cast<uint32_t>(row);
@@ -331,8 +351,32 @@ cluster_scan_kernel(
   for (int j = threadIdx.x; j < ef; j += blockDim.x) {
     const unsigned long long kk = top[j];
     oid[j] = static_cast<int32_t>(kk & 0xFFFFFFFFull);
-    ork[j] = key_rank(static_cast<uint32_t>(kk >> 32));
+    ork[j] = key_rank<typename P::Rank>(static_cast<uint32_t>(kk >> 32));
   }
+}
+
+template <class P>
+int launch(const void* codes, const RankArgs& ra, const void* base_rows,
+           const void* n_valid, const void* active, void* out_ids,
+           void* out_ranks, int n_lanes, int w, int dim, int ef, int m,
+           long long n_table, int vec16, int smem, void* stream) {
+  const int ef_pad = pow2_at_least(ef);
+  const void* fn = reinterpret_cast<const void*>(cluster_scan_kernel<P>);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cluster_scan_kernel<P>
+      <<<n_lanes, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(codes), ra,
+          static_cast<const int32_t*>(base_rows),
+          static_cast<const int32_t*>(n_valid),
+          static_cast<const uint8_t*>(active),
+          static_cast<int32_t*>(out_ids),
+          static_cast<typename P::Rank*>(out_ranks), w, dim, ef, ef_pad,
+          key_slots(ef_pad), m, n_table, vec16);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -340,42 +384,41 @@ cluster_scan_kernel(
 extern "C" int cluster_scan_max_dpad() { return kMaxDpad; }
 extern "C" int cluster_scan_max_smem() { return kMaxSmem; }
 
-// Dynamic shared memory of one block: the keys, the lane's tables and the
+// Dynamic shared memory of one block: the keys, the lane's table and the
 // fill count (padded to 8 bytes).
-extern "C" long long cluster_scan_smem(int w, int ef) {
+extern "C" long long cluster_scan_smem(int kind, int w, int ef) {
   const int n_keys = key_slots(pow2_at_least(ef));
-  return static_cast<long long>(n_keys) * 8 + table_entries(w) * 4LL + 8;
+  return static_cast<long long>(n_keys) * 8 + table_bytes(kind, w) + 8;
 }
 
 extern "C" int cluster_scan_launch(
-    const void* codes, const void* f_add, const void* base_rows,
-    const void* n_valid, const void* lut, const void* sumq, const void* s1,
-    const void* s2, const void* active, void* out_ids, void* out_ranks,
-    int n_lanes, int w, int dim, int ef, int m, long long n_table, int vec16,
-    void* stream) {
-  const int ef_pad = pow2_at_least(ef);
-  const int n_keys = key_slots(ef_pad);
-  const long long smem_ll = cluster_scan_smem(w, ef);
-  if (smem_ll > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(smem_ll);
-  const bool nibble = w > kByteTableMaxW;
-  const void* fn = nibble
-      ? reinterpret_cast<const void*>(cluster_scan_kernel<true>)
-      : reinterpret_cast<const void*>(cluster_scan_kernel<false>);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    int kind, const void* codes, const void* node0, const void* node1,
+    const void* lut, const void* lane0, const void* lane1, const void* lane2,
+    const void* base_rows, const void* n_valid, const void* active,
+    void* out_ids, void* out_ranks, int n_lanes, int w, int dim, int ef,
+    int m, long long n_table, int vec16, float sqrt_dim, void* stream) {
+  const long long smem = cluster_scan_smem(kind, w, ef);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const RankArgs ra{node0, node1, lut, lane0, lane1, lane2, sqrt_dim};
+  const int s = static_cast<int>(smem);
+  switch (kind) {
+    case kO3:
+      if (w > kByteTableMaxW) {
+        return launch<O3Policy<true>>(codes, ra, base_rows, n_valid, active,
+                                      out_ids, out_ranks, n_lanes, w, dim,
+                                      ef, m, n_table, vec16, s, stream);
+      }
+      return launch<O3Policy<false>>(codes, ra, base_rows, n_valid, active,
+                                     out_ids, out_ranks, n_lanes, w, dim, ef,
+                                     m, n_table, vec16, s, stream);
+    case kHamming:
+      return launch<HammingPolicy>(codes, ra, base_rows, n_valid, active,
+                                   out_ids, out_ranks, n_lanes, w, dim, ef,
+                                   m, n_table, vec16, s, stream);
+    case kExact:
+      return launch<ExactPolicy>(codes, ra, base_rows, n_valid, active,
+                                 out_ids, out_ranks, n_lanes, w, dim, ef, m,
+                                 n_table, vec16, s, stream);
   }
-  auto* kernel = nibble ? cluster_scan_kernel<true>
-                        : cluster_scan_kernel<false>;
-  kernel<<<n_lanes, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(f_add),
-      static_cast<const int32_t*>(base_rows),
-      static_cast<const int32_t*>(n_valid), static_cast<const int32_t*>(lut),
-      static_cast<const int32_t*>(sumq), static_cast<const int32_t*>(s1),
-      static_cast<const int32_t*>(s2), static_cast<const uint8_t*>(active),
-      static_cast<int32_t*>(out_ids), static_cast<int32_t*>(out_ranks), w, dim,
-      ef, ef_pad, n_keys, m, n_table, vec16);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

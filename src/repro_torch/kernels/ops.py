@@ -21,8 +21,10 @@ from . import flash_attn as _flash
 from . import merge_topk as _merge
 from . import ref as _ref
 from . import topk_select as _topk
+from .ranks import O3Rank
 
-__all__ = ["binary_ip_rank", "beam_search", "cluster_scan", "topk_select",
+__all__ = ["binary_ip_rank", "ranked_beam_search", "beam_search",
+           "ranked_cluster_scan", "cluster_scan", "topk_select",
            "merge_topk", "flash_attention", "launch_counts",
            "reset_launch_counts"]
 
@@ -49,26 +51,44 @@ def binary_ip_rank(codes, f_add, rows, lut, sumq, s1, s2, dim: int
     return _ref.binary_ip_rank_ref(codes, f_add, rows, lut, sumq, s1, s2, dim)
 
 
+def ranked_beam_search(codes, rank, nbrs, base_rows, entry, active,
+                       dim: int, ef: int, max_iters: int, m: int):
+    """The whole beam search of every lane, each hop ranked by the rank
+    tuple ``rank`` (``kernels/ranks.py``: mulfree, hamming or exact); see
+    ``ref.ranked_beam_search_ref`` for the exact semantics."""
+    if _on_cuda(codes):
+        return _beam.ranked_beam_search(codes, rank, nbrs, base_rows, entry,
+                                        active, dim, ef, max_iters, m)
+    return _ref.ranked_beam_search_ref(codes, rank, nbrs, base_rows, entry,
+                                       active, dim, ef, max_iters, m)
+
+
 def beam_search(codes, f_add, nbrs, base_rows, entry, lut, sumq, s1, s2,
                 active, dim: int, ef: int, max_iters: int, m: int):
-    """The whole mulfree beam search of every lane; see
-    ``ref.beam_search_ref`` for the exact semantics."""
+    """The whole mulfree beam search of every lane: ``ranked_beam_search``
+    with ``O3Rank(f_add, lut, sumq, s1, s2)``."""
+    return ranked_beam_search(codes, O3Rank(f_add, lut, sumq, s1, s2), nbrs,
+                              base_rows, entry, active, dim, ef, max_iters, m)
+
+
+def ranked_cluster_scan(codes, rank, base_rows, n_valid, active, dim: int,
+                        ef: int, m: int):
+    """Whole-cluster rank + top-EF of every lane by the rank tuple
+    ``rank``; see ``ref.ranked_cluster_scan_ref`` for the exact
+    semantics."""
     if _on_cuda(codes):
-        return _beam.beam_search(codes, f_add, nbrs, base_rows, entry, lut,
-                                 sumq, s1, s2, active, dim, ef, max_iters, m)
-    return _ref.beam_search_ref(codes, f_add, nbrs, base_rows, entry, lut,
-                                sumq, s1, s2, active, dim, ef, max_iters, m)
+        return _scan.ranked_cluster_scan(codes, rank, base_rows, n_valid,
+                                         active, dim, ef, m)
+    return _ref.ranked_cluster_scan_ref(codes, rank, base_rows, n_valid,
+                                        active, dim, ef, m)
 
 
 def cluster_scan(codes, f_add, base_rows, n_valid, lut, sumq, s1, s2, active,
                  dim: int, ef: int, m: int):
-    """Whole-cluster O3 rank + top-EF of every lane; see
-    ``ref.cluster_scan_ref`` for the exact semantics."""
-    if _on_cuda(codes):
-        return _scan.cluster_scan(codes, f_add, base_rows, n_valid, lut,
-                                  sumq, s1, s2, active, dim, ef, m)
-    return _ref.cluster_scan_ref(codes, f_add, base_rows, n_valid, lut, sumq,
-                                 s1, s2, active, dim, ef, m)
+    """Whole-cluster O3 rank + top-EF of every lane: ``ranked_cluster_scan``
+    with ``O3Rank(f_add, lut, sumq, s1, s2)``."""
+    return ranked_cluster_scan(codes, O3Rank(f_add, lut, sumq, s1, s2),
+                               base_rows, n_valid, active, dim, ef, m)
 
 
 def topk_select(cand_ids, dists, *, k: int):

@@ -3,8 +3,10 @@
 
 Each function has the signature of its kernel's wrapper and defines the
 semantics the CUDA kernel must reproduce: bitwise for the integer and
-selection kernels, to a stated tolerance for ``flash_attention_ref``, whose
-float32 sums the kernel takes in another order. The wrappers in
+selection kernels and for the float32 ``exact`` rank (whose order of sums
+``exact_rank_ref`` fixes), to a stated tolerance for
+``flash_attention_ref``, whose float32 sums the kernel takes in another
+order. The wrappers in
 ``kernels/ops.py`` run these for CPU tensors; ``chip_smoke.py`` holds each
 kernel against its plain version on the card.
 
@@ -19,15 +21,22 @@ import math
 
 import torch
 
-__all__ = ["INT_MAX", "INT_MIN", "wrap_int32", "unpack_bits",
-           "binary_ip_rank_ref", "lockstep_beam_search",
-           "beam_search_ref", "cluster_scan_ref", "topk_select_ref",
+from .ranks import (F32_MAX, ExactRank, HammingRank, O3Rank, dtype_of, pad_of,
+                    sqrt_dim)
+
+__all__ = ["INT_MAX", "INT_MIN", "NAN_BITS", "wrap_int32", "unpack_bits",
+           "binary_ip_rank_ref", "hamming_rank_ref", "exact_tables",
+           "exact_rank_ref", "row_ranker", "float_order_key", "scan_order",
+           "lockstep_beam_search", "ranked_beam_search_ref",
+           "ranked_cluster_scan_ref", "beam_search_ref", "cluster_scan_ref",
+           "topk_select_ref",
            "merge_topk_ref", "NEG_INF", "FLASH_TILE", "LOG2E",
            "flash_attention_ref", "flash_attention_order_bound",
            "flash_attention_flip_bound", "flash_attention_rounding_bound"]
 
 INT_MAX = 2**31 - 1
 INT_MIN = -2**31
+NAN_BITS = 0x7FC00000   # the positive quiet NaN: every NaN rank comes out so
 NEG_INF = -1e30      # the attention mask's fill (repro/models/attention.py)
 FLASH_TILE = 64      # keys per block of the scan: the CUDA kernels' KV tile
 LOG2E = 1.4426950408889634   # the kernel's literal: the same float64
@@ -77,6 +86,140 @@ def binary_ip_rank_ref(codes: torch.Tensor, f_add: torch.Tensor,
     tp = wrap_int32(t + (t >> sh1) + third).long()
     out = wrap_int32(f_add[safe].long() - tp)
     return torch.where(rows >= 0, out, INT_MAX)
+
+
+# popcount of each byte value (torch has no popcount)
+_POPCOUNT = torch.tensor([bin(x).count("1") for x in range(256)],
+                         dtype=torch.int32)
+
+
+def hamming_rank_ref(codes: torch.Tensor, rows: torch.Tensor,
+                     qcode: torch.Tensor) -> torch.Tensor:
+    """Sign-only rank, lane-batched in gather form: the popcount of
+    codes[rows[l, r]] XOR qcode[l], summed in int32 (padded code bits are
+    zero in both, so they never count), INT_MAX where rows < 0.
+
+    codes (T, W) u8, rows (L, R) i32 flat row ids (-1 pad; clipped into
+    [0, T) for the gather), qcode (L, W) u8 -> (L, R) i32."""
+    safe = rows.long().clamp(0, codes.shape[0] - 1)
+    x = torch.bitwise_xor(codes[safe], qcode[:, None, :])
+    pc = _POPCOUNT.to(codes.device)[x.long()].sum(-1, dtype=torch.int32)
+    return torch.where(rows >= 0, pc, INT_MAX)
+
+
+def exact_tables(lut: torch.Tensor, dim: int) -> torch.Tensor:
+    """The float nibble tables of a float LUT (L, 8W), entries at or past
+    dim taken as 0: T[l, h, x] (L, 2W, 16) is the sum of lut[l, 4h + i] over
+    the set bits i of x, added in ascending bit order from +0.0, so T[x] =
+    T[x without its top bit] + lut[4h + top]. The kernels build the same
+    tables with the same adds."""
+    n_lanes, dpad = lut.shape
+    lut = torch.where(torch.arange(dpad, device=lut.device) < dim, lut,
+                      0.0).reshape(n_lanes, dpad // 4, 4)
+    tab = torch.zeros((n_lanes, dpad // 4, 16), dtype=torch.float32,
+                      device=lut.device)
+    for x in range(1, 16):
+        top = x.bit_length() - 1
+        tab[..., x] = tab[..., x ^ (1 << top)] + lut[..., top]
+    return tab
+
+
+def _exact_from_tables(codes, residual_norm, cos_theta, rows, tab, sum_lut,
+                       query_norm, dim):
+    safe = rows.long().clamp(0, codes.shape[0] - 1)
+    c = codes[safe].long()                                   # (L, R, W)
+    nib = torch.stack([c & 15, c >> 4], -1).flatten(-2)      # (L, R, 2W)
+    h = torch.arange(nib.shape[-1], device=codes.device)
+    n_lanes, n_rows = rows.shape
+    vals = torch.gather(tab.reshape(n_lanes, 1, -1).expand(n_lanes, n_rows,
+                                                           -1),
+                        2, h * 16 + nib)                      # (L, R, 2W)
+    s = torch.zeros((n_lanes, n_rows), dtype=torch.float32,
+                    device=codes.device)
+    for b in range(nib.shape[-1]):                            # ascending
+        s = s + vals[..., b]
+    sd = torch.tensor(sqrt_dim(dim), dtype=torch.float32, device=codes.device)
+    floor = torch.tensor(1e-6, dtype=torch.float32, device=codes.device)
+    obar = (2.0 * s - sum_lut[:, None]) / sd
+    est = obar / torch.maximum(cos_theta[safe], floor)
+    rn, qn = residual_norm[safe], query_norm[:, None]
+    r = (rn * rn + qn * qn) - ((2.0 * rn) * qn) * est
+    r = torch.where(torch.isnan(r), _nan(codes.device), r)
+    return torch.where(rows >= 0, r, F32_MAX)
+
+
+def _nan(device) -> torch.Tensor:
+    return torch.tensor(NAN_BITS, dtype=torch.int32,
+                        device=device).view(torch.float32)
+
+
+def exact_rank_ref(codes: torch.Tensor, residual_norm: torch.Tensor,
+                   cos_theta: torch.Tensor, rows: torch.Tensor,
+                   lut: torch.Tensor, sum_lut: torch.Tensor,
+                   query_norm: torch.Tensor, dim: int) -> torch.Tensor:
+    """The exact (SymphonyQG) estimator, lane-batched in gather form, with
+    the order of its float32 sums fixed, so that the kernels equal it
+    bitwise:
+
+        S    = sum over the half bytes h = 0 .. 2W-1, ascending, of
+               T[h][nibble h of the row] (``exact_tables``), from +0.0
+        obar = (2 S - sum_lut[l]) / sqrt(float32(D))
+        est  = obar / max(cos_theta, 1e-6)
+        rank = (rn rn + qn qn) - ((2 rn) qn) est
+
+    rn = residual_norm of the row, qn = query_norm[l]; the epilogue is the
+    JAX package's ``rabitq.estimate_sqdist`` in its order of operations,
+    each rounded to float32 (no fused multiply-add); its S is a matrix
+    product summed in another order, so the two agree to a tolerance. A
+    NaN rank comes out as the positive quiet NaN (``NAN_BITS``), F32_MAX
+    where rows < 0. The rank is never -0.0: rn rn + qn qn is +0.0 or more,
+    and a difference of equal values rounds to +0.0.
+
+    codes (T, W) u8, residual_norm / cos_theta (T,) f32, rows (L, R) i32
+    flat row ids (-1 pad; clipped into [0, T) for the gathers), lut (L, 8W)
+    f32, sum_lut / query_norm (L,) f32 -> (L, R) f32."""
+    return _exact_from_tables(codes, residual_norm, cos_theta, rows,
+                              exact_tables(lut, dim), sum_lut, query_norm,
+                              dim)
+
+
+def row_ranker(codes: torch.Tensor, rank, dim: int):
+    """rows (L, R) -> (L, R) ranks of the lanes' rows by the rank tuple
+    ``rank`` (``kernels/ranks.py``), pad_of(rank) where rows < 0; the exact
+    rank's tables are built once, here."""
+    if isinstance(rank, O3Rank):
+        return lambda rows: binary_ip_rank_ref(
+            codes, rank.f_add, rows, rank.lut, rank.sumq, rank.s1, rank.s2,
+            dim)
+    if isinstance(rank, HammingRank):
+        return lambda rows: hamming_rank_ref(codes, rows, rank.qcode)
+    if isinstance(rank, ExactRank):
+        tab = exact_tables(rank.lut, dim)
+        return lambda rows: _exact_from_tables(
+            codes, rank.residual_norm, rank.cos_theta, rows, tab,
+            rank.sum_lut, rank.query_norm, dim)
+    raise ValueError(f"rank must be an O3Rank, HammingRank or ExactRank, "
+                     f"got {type(rank).__name__}")
+
+
+def float_order_key(r: torch.Tensor) -> torch.Tensor:
+    """float32 ranks -> int64 keys in [0, 2^32) in ascending total order:
+    -0.0 before +0.0, every NaN as the positive quiet NaN, after +inf.
+    The kernels' ``rank_order_key`` bit for bit."""
+    u = torch.where(torch.isnan(r), NAN_BITS,
+                    r.view(torch.int32)).long() & 0xFFFFFFFF
+    return torch.where(u >= 2**31, u ^ 0xFFFFFFFF, u ^ 0x80000000)
+
+
+def scan_order(r: torch.Tensor) -> torch.Tensor:
+    """int64 keys of the GEMV path's order (``full_scan_lane``: ``lax.top_k``
+    over the negated ranks, ties to the lower node): int32 ranks ascending
+    with INT_MIN last (its negation wraps to itself), float32 ranks in the
+    total order of ``float_order_key`` (the negation of -0.0 is +0.0, so
+    -0.0 comes first; NaN last)."""
+    if r.dtype == torch.float32:
+        return float_order_key(r)
+    return torch.where(r == INT_MIN, 2**31, r.long())
 
 
 def _update_visited(visited: torch.Tensor, nbrs: torch.Tensor) -> None:
@@ -165,29 +308,78 @@ def lockstep_beam_search(nbr_table: torch.Tensor, base_rows: torch.Tensor,
     return beam_ids, beam_rank, hops
 
 
+def ranked_beam_search_ref(codes: torch.Tensor, rank, nbrs: torch.Tensor,
+                           base_rows: torch.Tensor, entry: torch.Tensor,
+                           active: torch.Tensor, dim: int, ef: int,
+                           max_iters: int, m: int
+                           ) -> tuple[torch.Tensor, ...]:
+    """The beam search of every lane: ``lockstep_beam_search`` ranking each
+    hop's ids with the rank tuple ``rank`` (``row_ranker``: rows
+    base_rows[l] + id, ids clipped into [0, m) for the gathers, -1 ids
+    ranking pad_of(rank)).
+
+    codes (T, W) u8, rank an O3Rank, HammingRank or ExactRank over the T
+    rows and L lanes, nbrs (T, R) i32 local neighbour ids (-1 pad),
+    base_rows / entry (L,) i32, active (L,) bool -> (ids (L, EF) i32,
+    ranks (L, EF) of the rank's type, hops (L,) i32)."""
+    base = base_rows[:, None]
+    ranker = row_ranker(codes, rank, dim)
+
+    def rank_ids(ids):
+        rows = torch.where(ids >= 0, base + ids.clamp(0, m - 1), -1)
+        return ranker(rows.to(torch.int32))
+    return lockstep_beam_search(nbrs, base_rows, entry, active, m=m, ef=ef,
+                                max_iters=max_iters, pad=pad_of(rank),
+                                rank_dtype=dtype_of(rank), rank=rank_ids)
+
+
 def beam_search_ref(codes: torch.Tensor, f_add: torch.Tensor,
                     nbrs: torch.Tensor, base_rows: torch.Tensor,
                     entry: torch.Tensor, lut: torch.Tensor, sumq: torch.Tensor,
                     s1: torch.Tensor, s2: torch.Tensor, active: torch.Tensor,
                     dim: int, ef: int, max_iters: int, m: int
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The mulfree beam search of every lane: ``lockstep_beam_search``
-    ranking each hop's ids with ``binary_ip_rank_ref`` (rows base_rows[l] +
-    id, ids clipped into [0, m) for the gathers, -1 ids ranking INT_MAX).
+    """The mulfree beam search of every lane: ``ranked_beam_search_ref``
+    with ``O3Rank(f_add, lut, sumq, s1, s2)``, each hop ranked by
+    ``binary_ip_rank_ref``.
 
     codes (T, W) u8, f_add (T,) i32, nbrs (T, R) i32 local neighbour ids
     (-1 pad), base_rows / entry / sumq / s1 / s2 (L,) i32, lut (L, 8W) i32,
     active (L,) bool -> (ids (L, EF) i32, ranks (L, EF) i32, hops (L,)
     i32)."""
-    base = base_rows[:, None]
+    return ranked_beam_search_ref(codes, O3Rank(f_add, lut, sumq, s1, s2),
+                                  nbrs, base_rows, entry, active, dim, ef,
+                                  max_iters, m)
 
-    def rank(ids):
-        rows = torch.where(ids >= 0, base + ids.clamp(0, m - 1), -1)
-        return binary_ip_rank_ref(codes, f_add, rows.to(torch.int32), lut,
-                                  sumq, s1, s2, dim)
-    return lockstep_beam_search(nbrs, base_rows, entry, active, m=m, ef=ef,
-                                max_iters=max_iters, pad=INT_MAX,
-                                rank_dtype=torch.int32, rank=rank)
+
+def ranked_cluster_scan_ref(codes: torch.Tensor, rank,
+                            base_rows: torch.Tensor, n_valid: torch.Tensor,
+                            active: torch.Tensor, dim: int, ef: int, m: int
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused whole-cluster rank + top-EF of every lane, gather form.
+
+    Lane l's cluster is the rows base_rows[l] + [0, m) of the flattened
+    code table (ids clipped into [0, T) for the gather); each row ranks by
+    ``rank`` (``row_ranker``), and rows at n_valid[l] or beyond rank
+    pad_of(rank). The EF best come out in the order of the GEMV path
+    (``scan_order``): ascending rank, ties to the lower row; an int32 rank
+    of INT_MIN after INT_MAX, a float32 NaN after +inf. An inactive lane
+    gives ids -1 and ranks pad_of(rank).
+
+    codes (T, W) u8, rank over the T rows and L lanes, base_rows / n_valid
+    (L,) i32, active (L,) bool -> (ids (L, EF) i32 local row ids, ranks
+    (L, EF) of the rank's type)."""
+    if not 0 < ef <= m:
+        raise ValueError(f"ef = {ef} outside (0, {m}]")
+    i = torch.arange(m, device=codes.device)
+    rows = (base_rows.long()[:, None] + i).clamp(0, codes.shape[0] - 1)
+    pad = pad_of(rank)
+    r = row_ranker(codes, rank, dim)(rows.to(torch.int32))
+    r = torch.where(i < n_valid[:, None], r, pad)
+    ids = torch.sort(scan_order(r), dim=1, stable=True).indices[:, :ef]
+    ranks = torch.gather(r, 1, ids)
+    return (torch.where(active[:, None], ids, -1).to(torch.int32),
+            torch.where(active[:, None], ranks, pad))
 
 
 def cluster_scan_ref(codes: torch.Tensor, f_add: torch.Tensor,
@@ -195,34 +387,20 @@ def cluster_scan_ref(codes: torch.Tensor, f_add: torch.Tensor,
                      lut: torch.Tensor, sumq: torch.Tensor, s1: torch.Tensor,
                      s2: torch.Tensor, active: torch.Tensor, dim: int,
                      ef: int, m: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused whole-cluster O3 rank + top-EF of every lane, gather form.
-
-    Lane l's cluster is the rows base_rows[l] + [0, m) of the flattened
-    code table (ids clipped into [0, T) for the gather); each row ranks as
-    in ``binary_ip_rank_ref``, and rows at n_valid[l] or beyond rank
-    INT_MAX. The EF best come out in the order of the GEMV path
-    (``full_scan_lane``: ``lax.top_k`` over the wrapped negated ranks):
-    ascending rank, ties to the lower row, a rank of INT_MIN after INT_MAX
-    (its negation wraps to itself). Equal to ``repro``'s
-    ``cluster_scan_ref`` on every input without an INT_MIN rank. An
-    inactive lane gives ids -1 and ranks INT_MAX.
+    """Fused whole-cluster O3 rank + top-EF of every lane:
+    ``ranked_cluster_scan_ref`` with ``O3Rank(f_add, lut, sumq, s1, s2)``.
+    Each row ranks as in ``binary_ip_rank_ref``; the order is the GEMV
+    path's (ascending rank, ties to the lower row, a rank of INT_MIN after
+    INT_MAX), equal to ``repro``'s ``cluster_scan_ref`` on every input
+    without an INT_MIN rank. An inactive lane gives ids -1 and ranks
+    INT_MAX.
 
     codes (T, W) u8, f_add (T,) i32, base_rows / n_valid / sumq / s1 / s2
     (L,) i32, lut (L, Dpad) i32, active (L,) bool -> (ids (L, EF) i32 local
     row ids, ranks (L, EF) i32).
     """
-    if not 0 < ef <= m:
-        raise ValueError(f"ef = {ef} outside (0, {m}]")
-    i = torch.arange(m, device=codes.device)
-    rows = (base_rows.long()[:, None] + i).clamp(0, codes.shape[0] - 1)
-    r = binary_ip_rank_ref(codes, f_add, rows.to(torch.int32), lut, sumq, s1,
-                           s2, dim)
-    r = torch.where(i < n_valid[:, None], r, INT_MAX)
-    order = torch.where(r == INT_MIN, 2**31, r.long())
-    ids = torch.sort(order, dim=1, stable=True).indices[:, :ef]
-    ranks = torch.gather(r, 1, ids)
-    return (torch.where(active[:, None], ids, -1).to(torch.int32),
-            torch.where(active[:, None], ranks, INT_MAX))
+    return ranked_cluster_scan_ref(codes, O3Rank(f_add, lut, sumq, s1, s2),
+                                   base_rows, n_valid, active, dim, ef, m)
 
 
 def topk_select_ref(cand_ids: torch.Tensor, dists: torch.Tensor, *, k: int

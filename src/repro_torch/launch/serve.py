@@ -15,9 +15,10 @@ batch that streams into the engine through
   * ``TopologyConfig(shards=N, replicas=R).build`` with --fleet N --sharded
     (the index partitioned across N engines, scatter / gather / merge).
 
-Not ported yet, each raising NotImplementedError after the flag checks:
---tenants and --churn (ROADMAP A7), --zipf (``zipf_query_set`` is not
-copied yet; ROADMAP A9) and --exec mesh (ROADMAP A8).
+Not ported yet, each raising NotImplementedError after the flag checks and
+naming ROADMAP A5 (the rest of the launch surface): --tenants and --churn
+(they need A2, tenancy and day-2 operations), --zipf (``zipf_query_set``,
+also A2) and --exec mesh (it needs A4, the mesh execution backend).
 
 --sharded / --replicas without --fleet >= 2 is an argument ERROR, not a
 silent single-engine run.
@@ -231,17 +232,21 @@ def check_flags(rag: bool, fleet: int, sharded: bool, replicas: int,
                 f"{len(tenant_backends)} tenant backends "
                 f"{tenant_backends} need --fleet >= {len(tenant_backends)} "
                 f"shards to serve them (got --fleet {fleet})")
-        raise NotImplementedError("--tenants is not ported yet: ROADMAP A7 "
-                                  "(tenant registries in the topology)")
+        raise NotImplementedError(
+            "--tenants is not ported yet: ROADMAP A5 (the rest of the "
+            "launch surface; it needs A2's tenant registries)")
     if churn > 0:
-        raise NotImplementedError("--churn is not ported yet: ROADMAP A7 "
-                                  "(MutableIndex and day-2 operations)")
+        raise NotImplementedError(
+            "--churn is not ported yet: ROADMAP A5 (the rest of the launch "
+            "surface; it needs A2's MutableIndex and day-2 operations)")
     if zipf is not None:
-        raise NotImplementedError("--zipf is not ported yet: ROADMAP A9 "
-                                  "(data/synthetic.zipf_query_set)")
+        raise NotImplementedError(
+            "--zipf is not ported yet: ROADMAP A5 (the rest of the launch "
+            "surface; it needs A2's data/synthetic.zipf_query_set)")
     if exec == "mesh":
-        raise NotImplementedError("--exec mesh is not ported yet: ROADMAP "
-                                  "A8 (the mesh execution backend)")
+        raise NotImplementedError(
+            "--exec mesh is not ported yet: ROADMAP A5 (the rest of the "
+            "launch surface; it needs A4, the mesh execution backend)")
 
 
 

@@ -8,7 +8,7 @@ version ``kernels/ref.py`` ``flash_attention_ref`` on the CPU), so the
 ``attend_onepass`` (scores are (B, H, 1, S)): plain PyTorch, as in the JAX
 package, which has no kernel there.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A10): MLA,
+Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A6): MLA,
 cross-attention (``kv_override``, enc-dec), attention softcap, and the
 backward pass (the JAX package's custom VJP; this slice serves, it does not
 train).
@@ -33,7 +33,7 @@ __all__ = ["attend", "attend_ref", "attend_onepass", "KVCache", "gqa_init",
            "gqa_apply", "gqa_empty_cache", "mla_init", "mla_apply",
            "mla_empty_cache"]
 
-_A10 = "ROADMAP A10 (the rest of the LM stack)"
+_A6 = "ROADMAP A6 (the rest of the LM stack)"
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -49,7 +49,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The JAX package's ``kv_block`` only orders its float sums; the kernel
     scans keys in tiles of ``ref.FLASH_TILE``."""
     if softcap:
-        raise NotImplementedError(f"attention softcap is not ported: {_A10}")
+        raise NotImplementedError(f"attention softcap is not ported: {_A6}")
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset, kv_valid_len=kv_valid_len)
 
@@ -140,7 +140,7 @@ def gqa_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     KVCache with the advanced pos."""
     if kv_override is not None:
         raise NotImplementedError(f"cross-attention (kv_override, enc-dec) "
-                                  f"is not ported: {_A10}")
+                                  f"is not ported: {_A6}")
     b, sq, _ = x.shape
     q = _proj_heads(x, p["wq"])
     k = _proj_heads(x, p["wk"])
@@ -207,12 +207,12 @@ def gqa_empty_cache(cfg, batch: int, max_len: int, dtype, *,
 # ---------------------------------------------------------------------------
 
 def mla_init(gen, cfg, **_):
-    raise NotImplementedError(f"MLA attention is not ported: {_A10}")
+    raise NotImplementedError(f"MLA attention is not ported: {_A6}")
 
 
 def mla_apply(p, x, cfg, *, positions, cache=None):
-    raise NotImplementedError(f"MLA attention is not ported: {_A10}")
+    raise NotImplementedError(f"MLA attention is not ported: {_A6}")
 
 
 def mla_empty_cache(cfg, batch, max_len, dtype, **_):
-    raise NotImplementedError(f"MLA attention is not ported: {_A10}")
+    raise NotImplementedError(f"MLA attention is not ported: {_A6}")

@@ -9,7 +9,7 @@
 
 ``init`` returns the param tree alone (the JAX package pairs it with
 sharding specs). ``loss`` and ``make_train_step`` come with the training
-slice (ROADMAP A10); enc-dec and vlm inputs raise NotImplementedError there
+slice (ROADMAP A6); enc-dec and vlm inputs raise NotImplementedError there
 too.
 """
 

@@ -15,7 +15,7 @@ with (n_groups, B, S, Hkv, hd) tensors per pattern slot], "tail": [...]}.
 
 Ported mixers: attn, swa and lattn (GQA), with dense MLPs. MoE, Mamba,
 RG-LRU, MLA, patches (vlm) and encoder layers raise NotImplementedError
-naming ROADMAP A10.
+naming ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ __all__ = ["block_init", "block_apply", "block_empty_cache", "decoder_init",
            "decoder_empty_cache", "decoder_forward"]
 
 GQA_KINDS = ("attn", "swa", "lattn")
-_A10 = "ROADMAP A10 (the rest of the LM stack)"
+_A6 = "ROADMAP A6 (the rest of the LM stack)"
 
 
 def _check(cfg: ModelConfig) -> None:
@@ -38,16 +38,16 @@ def _check(cfg: ModelConfig) -> None:
     for i in range(cfg.n_layers):
         if cfg.mixer_of(i) not in GQA_KINDS:
             raise NotImplementedError(
-                f"{cfg.name}: mixer {cfg.mixer_of(i)!r} is not ported: {_A10}")
+                f"{cfg.name}: mixer {cfg.mixer_of(i)!r} is not ported: {_A6}")
         if cfg.mlp_of(i) != "dense":
             raise NotImplementedError(
-                f"{cfg.name}: MLP {cfg.mlp_of(i)!r} is not ported: {_A10}")
+                f"{cfg.name}: MLP {cfg.mlp_of(i)!r} is not ported: {_A6}")
     if cfg.attn_kind != "gqa":
         raise NotImplementedError(f"{cfg.name}: attention {cfg.attn_kind!r} "
-                                  f"is not ported: {_A10}")
+                                  f"is not ported: {_A6}")
     if cfg.n_patches or cfg.enc_layers:
         raise NotImplementedError(f"{cfg.name}: vlm patches and encoder "
-                                  f"layers are not ported: {_A10}")
+                                  f"layers are not ported: {_A6}")
 
 
 # ---------------------------------------------------------------------------
@@ -58,7 +58,7 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, mlp: str,
                *, stack: tuple = ()) -> dict:
     if mixer not in GQA_KINDS or mlp != "dense":
         raise NotImplementedError(f"block ({mixer!r}, {mlp!r}) is not "
-                                  f"ported: {_A10}")
+                                  f"ported: {_A6}")
     dev = gen.device
     return {"norm1": L.norm_init(cfg.d_model, cfg.norm, stack=stack,
                                  device=dev),
@@ -74,7 +74,7 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, mlp: str,
     """Returns (x, new_cache, aux_loss); aux_loss is 0 (no MoE)."""
     if mixer not in GQA_KINDS or mlp != "dense":
         raise NotImplementedError(f"block ({mixer!r}, {mlp!r}) is not "
-                                  f"ported: {_A10}")
+                                  f"ported: {_A6}")
     h = L.norm_apply(p["norm1"], x, cfg.norm)
     win = cfg.window if mixer in ("swa", "lattn") else None
     y, cache = A.gqa_apply(p["mixer"], h, cfg, positions=positions,
@@ -89,7 +89,7 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, mlp: str,
 def block_empty_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
                       dtype, *, stack: tuple = (), device="cuda"):
     if mixer not in GQA_KINDS:
-        raise NotImplementedError(f"mixer {mixer!r} is not ported: {_A10}")
+        raise NotImplementedError(f"mixer {mixer!r} is not ported: {_A6}")
     # window-bounded mixers only ever read the trailing `window` slots
     ln = max_len if cfg.window is None or mixer == "attn" \
         else min(max_len, cfg.window)

@@ -220,13 +220,13 @@ def test_rolling_prefill_then_decode_matches_jax():
 def test_unported_attention_raises():
     _, tcfg = _mini_cfgs()
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 8, 8, 2, 2, 8, 8))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A6"):
         TA.attend(q, k, v, causal=True, softcap=5.0)
     gen = torch.Generator().manual_seed(0)
     p = TA.gqa_init(gen, tcfg)
     x = torch.zeros((1, 4, 32))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A6"):
         TA.gqa_apply(p, x, tcfg, positions=torch.arange(4)[None],
                      kv_override=(k, v))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A6"):
         TA.mla_init(gen, tcfg)

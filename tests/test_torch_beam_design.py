@@ -23,7 +23,12 @@ lane at a time, in the kernel's order and form:
 (a) the mirror equals ``ref.beam_search_ref`` (the plain loop, the kernel's
     plain version) in ids, ranks and hops, on random lanes and on the
     adversarial cases that phase 3 of ``chip_smoke.py`` gives the kernel;
-(b) three faults planted in the mirror each make (a) fail.
+(b) three faults planted in the mirror each make (a) fail;
+(c) the stop test of the float (exact) policy, on beams of float rank keys:
+    stop where the first unexpanded entry's key is at or above the pad's,
+    or where a NaN is in the beam's last slot, equals the plain loop's
+    argmin test on the same beams (NaN, +inf, the F32_MAX pad, entries that
+    outrank the pad); a planted fault (no NaN test) makes it fail.
 
 The kernel itself is held against ``beam_search_ref`` on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``; the plain loop is held
@@ -37,6 +42,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.ranks import ExactRank, HammingRank  # noqa: E402
 from test_torch_scan_design import (  # noqa: E402
     lane_tables, o3_epilogue, table_sums)
 
@@ -213,6 +219,49 @@ def beam_case(seed, n_lanes, m, r, w, n_clusters=3):
         codes, f_add, nbrs, base, entry, lut, sumq, s1, s2, active))
 
 
+def rank_operands(kind, seed, t, n_lanes, w, dim, tie_rows=0):
+    """A rank tuple of ``kind`` ("hamming" or "exact") over t rows and
+    n_lanes lanes, adversarial as ``beam_case``'s O3 operands are. Hamming:
+    random qcodes, odd lanes all zero (a row ranks by its own popcount:
+    many ties); the first ``tie_rows`` codes all zero. Exact: odd lanes have
+    query_norm 0, so a row ranks rn * rn, and the first ``tie_rows`` rows
+    take 8 residual norms only (equal ranks across the beam and the
+    neighbours); zero residual norms, cos_theta 0 and below the 1e-6 floor,
+    LUT entries past dim that must not count."""
+    rng = np.random.default_rng(seed)
+    if kind == "hamming":
+        q = rng.integers(0, 256, (n_lanes, w), dtype=np.uint8)
+        q[1::2] = 0
+        return HammingRank(torch.from_numpy(q))
+    rn = (rng.random(t) * 4).astype(np.float32)
+    rn[:tie_rows] = rng.integers(0, 8, tie_rows) / 4
+    rn[::9] = 0
+    cos = rng.random(t).astype(np.float32)
+    cos[::11] = 0
+    cos[5::13] = 1e-7
+    lut = (rng.standard_normal((n_lanes, 8 * w)) / np.sqrt(dim)).astype(
+        np.float32)
+    sum_lut = lut[:, :dim].sum(1, dtype=np.float32)
+    lut[:, dim:] = rng.standard_normal((n_lanes, 8 * w - dim))  # not counted
+    qn = (rng.random(n_lanes) * 3).astype(np.float32)
+    qn[1::2] = 0
+    return ExactRank(*(torch.from_numpy(np.ascontiguousarray(a))
+                       for a in (rn, cos, lut, sum_lut, qn)))
+
+
+def ranked_case(kind, seed, n_lanes, m, r, w, dim, n_clusters=3, tied=False):
+    """``beam_case``'s lanes, graph and entries ranked by ``kind``: (codes,
+    rank, nbrs, base_rows, entry, active). ``tied``: every code all zero,
+    so each hamming lane ranks every row alike."""
+    codes, _, nbrs, base, entry, _, _, _, _, active = beam_case(
+        seed, n_lanes, m, r, w, n_clusters)
+    if tied:
+        codes = torch.zeros_like(codes)
+    rank = rank_operands(kind, seed, codes.shape[0], n_lanes, w, dim,
+                         tie_rows=m)
+    return codes, rank, nbrs, base, entry, active
+
+
 def quirk_case():
     """The minimal search of ROADMAP C1: node 0 enters the beam twice."""
     nbrs = np.array([[2, -1, -1], [0, -1, -1], [0, 3, -1], [-1, -1, -1]],
@@ -291,3 +340,70 @@ def test_planted_fault_fails(plain, fault):
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             caught.append(name)
     assert caught, f"planted fault {fault} went unnoticed"
+
+
+# ---------------------------------------------------------------------------
+# (c) the stop test of the float policy
+# ---------------------------------------------------------------------------
+
+F32_MAX = float(np.finfo(np.float32).max)
+NAN_KEY = 0xFFC00000
+
+
+def float_key(r):
+    return int(ref.float_order_key(torch.tensor([r], dtype=torch.float32)))
+
+
+def kernel_stops(ranks, expanded, fault=None):
+    """beam_search.cu's stop test on a beam held as keys: the first
+    unexpanded entry (the ballot), its key against the pad's, and (float
+    policy) a NaN in the last slot."""
+    keys = [float_key(r) for r in ranks]
+    open_ = [i for i, e in enumerate(expanded) if not e]
+    if not open_ or keys[open_[0]] >= float_key(F32_MAX):
+        return True
+    return fault != "no_nan_test" and keys[-1] == NAN_KEY
+
+
+def plain_stops(ranks, expanded):
+    """lockstep_beam_search's test: argmin of the frontier (expanded entries
+    at the pad), live while it ranks below the pad."""
+    r = torch.tensor(ranks, dtype=torch.float32)
+    frontier = torch.where(torch.tensor(expanded), F32_MAX, r)
+    return not bool(frontier[frontier.argmin()] < F32_MAX)
+
+
+def float_beams(seed, n=400, ef=6):
+    """Beams the kernel can hold: the first beam (the entry's rank, which
+    may outrank the pad, then pads) and merged beams, sorted by key, in
+    which only entries below the pad are ever expanded."""
+    rng = np.random.default_rng(seed)
+    special = [float("nan"), float("inf"), F32_MAX, 0.0, -1.5]
+    beams = [([e] + [F32_MAX] * (ef - 1), [False] * ef) for e in special]
+    for _ in range(n):
+        vals = [float(v) for v in rng.standard_normal(ef)]
+        for i in range(ef):
+            if rng.random() < 0.2:
+                vals[i] = special[rng.integers(0, 3)]
+        vals.sort(key=float_key)
+        exp = [bool(rng.random() < 0.5) and float_key(v) < float_key(F32_MAX)
+               for v in vals]
+        beams.append((vals, exp))
+    return beams
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_float_stop_test_equals_plain_loop(seed):
+    beams = float_beams(seed)
+    assert any(plain_stops(*b) for b in beams)
+    assert not all(plain_stops(*b) for b in beams)
+    for ranks, expanded in beams:
+        assert kernel_stops(ranks, expanded) == plain_stops(ranks, expanded)
+
+
+def test_planted_fault_no_nan_test_fails():
+    """Without the NaN test the kernel would expand past a NaN that the
+    plain loop's argmin stops at."""
+    beams = float_beams(0)
+    assert any(kernel_stops(r, e, fault="no_nan_test") != plain_stops(r, e)
+               for r, e in beams)

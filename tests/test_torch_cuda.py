@@ -17,7 +17,11 @@ INT_MIN / INT_MAX ranks, EF from 1 to 100, R 16 to 48, W 4 to 64, the hop
 cap, inactive lanes, the cluster budget M = 17,089) and on lanes whose
 state outgrows shared memory, and attention over every head dim the
 kernel takes, GQA groups, ragged Sq and Sk, offsets, windows, cache
-lengths, both types and strided inputs. The selection kernels' two routes
+lengths, both types and strided inputs. The hamming and exact rank
+policies of ``beam_search`` and ``cluster_scan`` run on their edge shapes:
+W % 4 != 0, dim % 8 != 0, the scratch route, EF > 128, empty clusters,
+pad rows, all-tied ranks, and (exact) NaN and inf ranks, float32 ranks
+held bit for bit. The selection kernels' two routes
 (warp and block) run on the same rows, from one lane slot to 32, across
 both route boundaries, and on the rows of
 ``tests/test_torch_select_design.py`` (NaN, +-inf, -0.0), bitwise.
@@ -31,7 +35,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import (  # noqa: E402
     beam_search, binary_ip, cluster_scan, flash_attn, merge_topk, ops, ref,
     topk_select)
-from test_torch_beam_design import CASES, beam_case  # noqa: E402
+from test_torch_beam_design import (  # noqa: E402
+    CASES, beam_case, rank_operands, ranked_case)
 from test_torch_select_design import (  # noqa: E402
     MERGE_CASES, TOPK_CASES, merge_case, same_bits, topk_case)
 
@@ -442,6 +447,141 @@ def test_beam_search_kernel_large_state(card, n_lanes, m, r, w, ef):
     smem = beam_search.smem_bytes(ef, r, m, w)
     scratch = beam_search.scratch_bytes(n_lanes, ef, r, m, w)
     assert (smem == 0) == (scratch > 0) == (m > 1_000_000)
+
+
+def _on_card(rank, card):
+    return type(rank)(*(t.to(card) for t in rank))
+
+
+def _equal_bits(a, b):
+    """Equal dtype and values, a float32 tensor bit for bit."""
+    if a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _nan_inf_rows(rank):
+    """An exact rank whose residual norms hold NaN and +inf: ranks NaN
+    (inf - inf, inf * 0) and +inf."""
+    rn = rank.residual_norm.clone()
+    rn[::17] = float("nan")
+    rn[3::19] = float("inf")
+    return rank._replace(residual_norm=rn)
+
+
+def _all_tied(rank):
+    """Every rank of every lane equal: hamming over all-zero codes (the
+    case's job), exact with zero residual and query norms (every rank
+    +0.0)."""
+    if rank.kind == "hamming":
+        return rank
+    return rank._replace(residual_norm=torch.zeros_like(rank.residual_norm),
+                         query_norm=torch.zeros_like(rank.query_norm))
+
+
+RANKED_BEAM = {  # name: (lanes, M, R, W, dim, EF, max_iters, clusters)
+    "random_w16": (12, 300, 32, 16, 128, 40, 64, 3),
+    "w5_dim37": (8, 200, 32, 5, 37, 40, 64, 3),      # W % 4, D % 8 != 0
+    "w4_dim29": (8, 100, 32, 4, 29, 12, 64, 3),      # EF < R
+    "ef200_r48": (6, 400, 48, 16, 128, 200, 64, 3),  # EF > 128, RP = 64
+    "max_iters_cap": (8, 300, 32, 16, 128, 40, 5, 3),
+    "tied": (8, 300, 32, 16, 128, 40, 64, 3),
+    "nan_inf": (12, 300, 32, 16, 128, 40, 64, 3),
+    "budget_m17089": (3, 17089, 32, 16, 128, 40, 64, 1),
+    "scratch": (3, 2_000_003, 8, 2, 16, 20, 64, 1),  # the bitmap outgrows
+}
+
+
+def _ranked_params(table):
+    return [pytest.param(kind, name, id=f"{kind}-{name}")
+            for name in table for kind in ("hamming", "exact")
+            if not (name == "nan_inf" and kind == "hamming")]
+
+
+@pytest.mark.parametrize("kind,name", _ranked_params(RANKED_BEAM))
+def test_ranked_beam_search_kernel_bitwise(card, kind, name):
+    """The hamming and exact policies of the beam kernel against the plain
+    loop: ids, ranks (float32 bit for bit) and hops."""
+    n_lanes, m, r, w, dim, ef, iters, ncl = RANKED_BEAM[name]
+    codes, rank, nbrs, base, entry, active = ranked_case(
+        kind, m + w, n_lanes, m, r, w, dim, ncl, tied=name == "tied")
+    if name == "tied":
+        rank = _all_tied(rank)
+    if name == "nan_inf":
+        rank = _nan_inf_rows(rank)
+    args = [t.to(card) for t in (codes, nbrs, base, entry, active)]
+    rank = _on_card(rank, card)
+    kw = dict(dim=dim, ef=ef, max_iters=iters, m=m)
+    got = beam_search.ranked_beam_search(args[0], rank, *args[1:], **kw)
+    want = ref.ranked_beam_search_ref(args[0], rank, *args[1:], **kw)
+    torch.cuda.synchronize()
+    for g, wnt in zip(got, want):
+        assert _equal_bits(g, wnt)
+    assert int(want[2].max()) > (0 if name == "nan_inf" else 1)
+    if name == "scratch":
+        assert beam_search.scratch_bytes(n_lanes, ef, r, m, w, kind) > 0
+        assert beam_search.smem_bytes(ef, r, m, w, kind) == 0
+
+
+RANKED_SCAN = {  # name: (lanes, M, W, dim, EF)
+    "random_w16": (64, 700, 16, 128, 40),
+    "w5_dim37": (7, 300, 5, 37, 40),       # W % 4, D % 8 != 0
+    "ef_eq_m": (7, 40, 4, 29, 40),
+    "ef300_w32": (3, 9000, 32, 256, 300),  # EF > 128
+    "ef1500": (5, 4000, 16, 128, 1500),
+    "tied": (6, 3000, 16, 128, 40),
+    "nan_inf": (9, 3000, 16, 128, 40),
+    "budget_m17089": (4, 17089, 16, 128, 40),
+    "w256": (3, 2000, 256, 2045, 40),
+}
+
+
+@pytest.mark.parametrize("kind,name", _ranked_params(RANKED_SCAN))
+def test_ranked_cluster_scan_kernel_bitwise(card, kind, name):
+    """The hamming and exact policies of the scan kernel against the plain
+    version, with empty clusters (n_valid 0), pad rows, inactive lanes and
+    EF up to M: ids and ranks (float32 bit for bit)."""
+    n_lanes, m, w, dim, ef = RANKED_SCAN[name]
+    rng = np.random.default_rng(n_lanes * 100 + w)
+    codes, _, base, nv, _, _, _, _, active = _scan_inputs(rng, n_lanes, m, w)
+    if name == "tied":
+        codes[:] = 0
+    rank = rank_operands(kind, m + w, codes.shape[0], n_lanes, w, dim,
+                         tie_rows=m)
+    if name == "tied":
+        rank = _all_tied(rank)
+    if name == "nan_inf":
+        rank = _nan_inf_rows(rank)
+    args = [torch.from_numpy(a).to(card) for a in (codes, base, nv, active)]
+    rank = _on_card(rank, card)
+    got = cluster_scan.ranked_cluster_scan(args[0], rank, *args[1:], dim,
+                                           ef, m)
+    want = ref.ranked_cluster_scan_ref(args[0], rank, *args[1:], dim, ef, m)
+    torch.cuda.synchronize()
+    for g, wnt in zip(got, want):
+        assert _equal_bits(g, wnt)
+    assert int(nv[0]) == 0                    # lane 0's cluster is empty
+
+
+def test_ranked_kernels_count_one_launch_each(card):
+    """One beam_search and one cluster_scan launch, whatever the rank."""
+    codes, rank, nbrs, base, entry, active = (
+        t.to(card) if isinstance(t, torch.Tensor) else _on_card(t, card)
+        for t in ranked_case("exact", 3, 4, 60, 8, 16, 128))
+    ops.reset_launch_counts()
+    ops.ranked_beam_search(codes, rank, nbrs, base, entry, active, 128, 10,
+                           20, 60)
+    nv = torch.full((4,), 60, dtype=torch.int32, device=card)
+    ops.ranked_cluster_scan(codes, rank, base, nv, active, 128, 10, 60)
+    hamming = _on_card(rank_operands("hamming", 3, codes.shape[0], 4, 16,
+                                     128), card)
+    ops.ranked_beam_search(codes, hamming, nbrs, base, entry, active, 128,
+                           10, 20, 60)
+    ops.ranked_cluster_scan(codes, hamming, base, nv, active, 128, 10, 60)
+    counts = ops.launch_counts()
+    assert counts["beam_search"] == 2 and counts["cluster_scan"] == 2
 
 
 def _attn_inputs(card, b, sq, sk, hq, hkv, d, q_dtype, kv_dtype, seed=0):

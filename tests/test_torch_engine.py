@@ -103,15 +103,16 @@ def _jax_lanes(je, q, shard):
 
 @pytest.fixture
 def seam_calls(monkeypatch):
-    """Records each call of the kernel seam ``ops.beam_search`` (the CPU
-    route runs its plain version, ``ref.beam_search_ref``)."""
+    """Records each call of the kernel seam ``ops.ranked_beam_search`` (the
+    CPU route runs its plain version, ``ref.ranked_beam_search_ref``)."""
     calls = []
-    real = tbackends.kernel_ops.beam_search
+    real = tbackends.kernel_ops.ranked_beam_search
 
     def recording(*args):
         calls.append(args)
         return real(*args)
-    monkeypatch.setattr(tbackends.kernel_ops, "beam_search", recording)
+    monkeypatch.setattr(tbackends.kernel_ops, "ranked_beam_search",
+                        recording)
     return calls
 
 
@@ -121,7 +122,7 @@ def test_lane_search_bitwise_given_jax_luts(built, corpus, scan, shard,
                                             seam_calls):
     """Fed the JAX package's lane LUTs, the search of all lanes gives the
     same ids, ranks and hops as the vmapped per-lane loop: a mulfree beam
-    search through the kernel seam ``ops.beam_search`` (one call), and
+    search through the kernel seam ``ops.ranked_beam_search`` (one call), and
     the base class's plain lock-step loop, one ``rank_ids`` call a hop."""
     _, q, _ = corpus
     je, te = _engines(built, scan=scan)
@@ -153,7 +154,7 @@ def test_visited_scatter_quirk_reproduced(seam_calls):
     writes node 0's OLD flag after a real 0 wrote True, and the last writer
     wins: node 0 followed by a -1 in a row stays unvisited and can enter
     the beam twice. The port reproduces that search exactly, through the
-    kernel seam ``ops.beam_search``.
+    kernel seam ``ops.ranked_beam_search``.
 
     Ranks are f_add (codes and LUT are zero): 1 (entry) < 0 < 2 < 3.
     Expanding 1 adds 0 (row [0, -1, -1]: stays unvisited); expanding 0 adds

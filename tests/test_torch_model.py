@@ -23,7 +23,7 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     build_model as tbuild, make_prefill_step, make_serve_step)
 
-# the dense GQA archs this slice serves; the others wait for ROADMAP A10
+# the dense GQA archs this slice serves; the others wait for ROADMAP A6
 DENSE = ("h2o-danube-1.8b", "phi3-mini-3.8b", "mistral-large-123b",
          "stablelm-12b")
 NOT_PORTED = ("mamba2-1.3b", "grok-1-314b", "deepseek-v2-lite-16b",
@@ -183,7 +183,7 @@ def test_configs_match_jax(arch):
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_unported_archs_raise(arch):
     tm = tbuild(tconfigs.get_smoke(arch))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A6"):
         tm.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A6"):
         tm.init_cache(1, 4, device="cpu")

@@ -13,7 +13,13 @@ the buffer's size and the rows per iteration as parameters:
   (b) the whole mirror equals ``cluster_scan_ref`` bitwise for small
       buffers, on rising, falling and equal ranks in row order, INT_MIN and
       INT_MAX ranks, n_valid of 0, below EF and M, EF = M and EF = 1024;
-  (c) three faults planted in the mirror make (b) fail.
+  (c) three faults planted in the mirror make (b) fail;
+  (d) the float rank order key of the exact policy (common.cuh
+      ``rank_order_key``), mirrored bit by bit: it equals
+      ``ref.float_order_key``, orders NaN of either sign last (after +inf,
+      after the F32_MAX pad), inverts, and a planted fault (a negative NaN
+      keyed as it is, not canonicalised) breaks the order; the exact rank
+      never gives -0.0, shown on rows built to cancel exactly.
 
 The kernel itself is held against ``cluster_scan_ref`` on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -296,3 +302,120 @@ def test_planted_faults_fail_the_filter_check(fault, name, buf):
     # the same case passes without the fault
     (ids, ranks), _ = run_case(name, buf)
     assert torch.equal(ids, want_ids) and torch.equal(ranks, want_ranks)
+
+
+# ---------------------------------------------------------------------------
+# (d) the float rank order key
+# ---------------------------------------------------------------------------
+
+F32_MAX_BITS = 0x7F7FFFFF
+
+
+def rank_order_key(bits, canonical=True):
+    """common.cuh's ``rank_order_key`` on a float32 bit pattern: a NaN
+    becomes the positive quiet NaN (unless the planted fault drops that),
+    then the sign decides the flip."""
+    if canonical and (bits & 0x7F800000) == 0x7F800000 and bits & 0x7FFFFF:
+        bits = 0x7FC00000
+    return bits ^ (0xFFFFFFFF if bits & 0x80000000 else 0x80000000)
+
+
+def rank_of_key(key):
+    """common.cuh's ``rank_of_key``."""
+    return key ^ (0x80000000 if key & 0x80000000 else 0xFFFFFFFF)
+
+
+# float32 bit patterns in ascending order of the GEMV path (lax.top_k of
+# the negated ranks: -0.0 first of the zeros); the NaNs, last, keep their
+# order among themselves (ties to the lower row)
+ORDERED = [0xFF800000,            # -inf
+           0xFF7FFFFF,            # -F32_MAX
+           0xBF800000,            # -1.0
+           0x80000001,            # the smallest negative subnormal
+           0x80000000,            # -0.0
+           0x00000000,            # +0.0
+           0x00000001,            # the smallest subnormal
+           0x3F000000,            # 0.5
+           F32_MAX_BITS,          # F32_MAX, the pad
+           0x7F800000,            # +inf
+           0x7FC00000,            # the quiet NaN
+           0xFFC00000,            # a negative NaN
+           0x7F800001,            # a signalling NaN
+           0xFFFFFFFF]            # a negative NaN with every payload bit
+
+
+def _shuffled(seed):
+    order = np.random.default_rng(seed).permutation(len(ORDERED))
+    return [ORDERED[i] for i in order], order
+
+
+def _sorted_by(key_fn, bits):
+    return sorted(range(len(bits)), key=lambda i: (key_fn(bits[i]), i))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_float_order_key_mirror_equals_plain_and_orders(seed):
+    bits, _ = _shuffled(seed)
+    r = torch.tensor(np.array(bits, np.uint32).view(np.int32)).view(
+        torch.float32)
+    plain = ref.float_order_key(r).tolist()
+    assert plain == [rank_order_key(b) for b in bits]
+    got = [bits[i] for i in _sorted_by(rank_order_key, bits)]
+    nan = [b for b in bits if (b & 0x7F800000) == 0x7F800000 and b & 0x7FFFFF]
+    assert got == ORDERED[:10] + nan           # NaN of either sign last
+    assert rank_order_key(F32_MAX_BITS) < rank_order_key(0x7F800000) \
+        < rank_order_key(0xFFC00000)            # pad < inf < NaN
+    for b in ORDERED[:10]:                      # the key inverts
+        assert rank_of_key(rank_order_key(b)) == b
+    assert rank_of_key(rank_order_key(0xFFC00000)) == 0x7FC00000
+    # the scan's order equals ref.scan_order's on the same ranks
+    want = torch.sort(ref.scan_order(r), stable=True).indices.tolist()
+    assert want == _sorted_by(rank_order_key, bits)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_planted_fault_uncanonicalised_nan_fails(seed):
+    """Keyed as it is, a negative NaN's flipped bits sort it first."""
+    bits, _ = _shuffled(seed)
+    got = [bits[i] for i in _sorted_by(
+        lambda b: rank_order_key(b, canonical=False), bits)]
+    assert got[0] in (0xFFC00000, 0xFFFFFFFF)
+    nan = [b for b in bits if (b & 0x7F800000) == 0x7F800000 and b & 0x7FFFFF]
+    assert got != ORDERED[:10] + nan
+
+
+def _exact_ranks(rn, qn, codes, lut, sum_lut, cos, dim):
+    """ref.exact_rank_ref over one lane's rows."""
+    n = len(rn)
+    f = torch.float32
+    return ref.exact_rank_ref(
+        torch.tensor(codes, dtype=torch.uint8)[:, None],
+        torch.tensor(rn, dtype=f), torch.tensor(cos, dtype=f),
+        torch.arange(n, dtype=torch.int32)[None],
+        torch.tensor(lut, dtype=f)[None], torch.tensor([sum_lut], dtype=f),
+        torch.tensor([qn], dtype=f), dim)[0]
+
+
+def test_exact_rank_cancels_to_positive_zero():
+    """Rows built so that rn^2 + qn^2 equals 2 rn qn est exactly (dim 4,
+    so sqrt(D) = 2: code 1 gives S = 0.5 and obar = 0.5, over cos 0.5 est =
+    1; rn = qn = 3 gives 18 - 18), and zero norms with est = 1 and -1:
+    every rank is +0.0, never -0.0, so the kernels' total-order key (-0.0
+    before +0.0) and the plain beam's stable sort (-0.0 ties +0.0) never
+    meet on a rank."""
+    lut = [0.5, 0, 0, 0, 0, 0, 0, 0]
+    for rn, qn, code in ((3.0, 3.0, 1), (0.0, 0.0, 1), (0.0, 0.0, 0),
+                         (2.0, 2.0, 1)):
+        sum_lut = 0.0 if code else 1.0           # code 0: obar = -0.5
+        r = _exact_ranks([rn] * 3, qn, [code] * 3, lut, sum_lut,
+                         [0.5] * 3, 4)
+        assert (r.view(torch.int32) == 0).all(), (rn, qn, code, r)
+    # and on random rows with every sign of est, no rank is -0.0
+    rng = np.random.default_rng(5)
+    rn = np.abs(rng.standard_normal(4000)).astype(np.float32)
+    rn[::3] = 0
+    codes = rng.integers(0, 256, 4000)
+    for qn in (0.0, 1.5):
+        r = _exact_ranks(rn, qn, codes, rng.standard_normal(8), 0.3,
+                         rng.random(4000), 8)
+        assert not (r.view(torch.int32) == -2**31).any()

@@ -353,7 +353,6 @@ def test_tier_stays_on_the_engines_device(engines, monkeypatch):
 
 
 @pytest.mark.parametrize("build", [
-    lambda te: topology.TopologyConfig(shards=2, modes=("mulfree",) * 2),
     lambda te: topology.TopologyConfig(shards=2, hedge=object()),
     lambda te: topology.TopologyConfig(shards=2, tenants=()),
     lambda te: topology.TopologyConfig(shards=2, mutable=True),
@@ -369,26 +368,190 @@ def test_tier_stays_on_the_engines_device(engines, monkeypatch):
     lambda te: topology.partition_index(te, 2, mutable=True),
     lambda te: topology.ServingTopology([[te]], tenants=[object()]),
     lambda te: topology.ServingTopology([[te]], placement=object()),
-    lambda te: fleet.partition_engine(te, 2, modes=("mulfree",) * 2),
     lambda te: execbackend.resolve_exec_backend("mesh"),
     lambda te: topology.TopologyConfig(shards=2, replica_factor=3),
     lambda te: topology.partition_index(te, 2, replica_factor=3),
-    lambda te: topology.TopologyConfig(shards=2, buckets=(8,)).build(
-        te).run(np.zeros((1, 32), np.float32), backend="mulfree"),
-    lambda te: topology.TopologyConfig(buckets=(8,)).build(te).run(
-        np.zeros((1, 32), np.float32), backend=["mulfree"]),
-    lambda te: fleet.partition_engine(te, 2, buckets=(8,)).run(
-        np.zeros((1, 32), np.float32), backend="mulfree"),
-], ids=["modes", "hedge", "tenants", "mutable", "autoscale",
-        "replicate_hot", "rebalance", "mesh", "heat", "kwarg_form",
-        "no_config", "placement", "mutable_partition", "tenant_registry",
-        "topology_placement", "fleet_modes", "exec_mesh", "replica_factor",
-        "partition_replica_factor", "backend_routing",
-        "replicated_backend_routing", "fleet_backend_routing"])
+], ids=["hedge", "tenants", "mutable", "autoscale", "replicate_hot",
+        "rebalance", "mesh", "heat", "kwarg_form", "no_config", "placement",
+        "mutable_partition", "tenant_registry", "topology_placement",
+        "exec_mesh", "replica_factor", "partition_replica_factor"])
 def test_options_not_ported_raise(engines, build):
     _, te, _ = engines
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A[24] "):
         build(te)
+
+
+# ---------------------------------------------------------------------------
+# mixed tiers: per-shard backends and per-query backend routing
+# (tests/test_sharded.py:225-300 and the JAX package's mixed tier)
+# ---------------------------------------------------------------------------
+
+MIXED = ("mulfree", "exact", "hamming", "mulfree")   # 4 shards of 2 clusters
+
+
+@pytest.fixture(scope="module")
+def het_fleet(engines):
+    _, te, _ = engines
+    return partition_engine_het(te)
+
+
+def partition_engine_het(te):
+    return fleet.partition_engine(te, 2, modes=["mulfree", "exact"],
+                                  buckets=(8, 16, 64), fill_threshold=64,
+                                  wait_limit_s=1e-3)
+
+
+def _node_set(eng):
+    return set(eng.index.node_ids.numpy().ravel().tolist()) - {-1}
+
+
+def test_partition_modes_give_each_engine_its_backend(engines):
+    """partition_index(modes=) gives partition o the backend modes[o] over
+    the same cluster slice as without modes; a modes list of the wrong
+    length and modes on one shard raise the JAX package's ValueErrors."""
+    je, te, _ = engines
+    parts, pl = topology.partition_index(te, 4, modes=MIXED)
+    plain, _ = topology.partition_index(te, 4)
+    jparts, jpl = jtopology.partition_index(je, 4, modes=MIXED)
+    np.testing.assert_array_equal(pl.shard_of, jpl.shard_of)
+    for p, q, j, mode in zip(parts, plain, jparts, MIXED):
+        assert p.scfg.mode == p.backend.name == j.scfg.mode == mode
+        assert torch.equal(p.index.codes, q.index.codes)
+    with pytest.raises(ValueError, match="modes has 2 entries for 4"):
+        topology.partition_index(te, 4, modes=MIXED[:2])
+    with pytest.raises(ValueError, match="needs shards >= 2"):
+        topology.TopologyConfig(modes=("exact",))
+    topo = topology.TopologyConfig(shards=4, modes=MIXED,
+                                   buckets=(8, 16)).build(te)
+    assert topo.modes == list(MIXED)
+
+
+def test_heterogeneous_fleet_routes_by_backend(het_fleet, engines):
+    """A query asking for a backend reaches only the shards declaring it;
+    the returned ids all live in clusters of matching shards."""
+    _, _, q = engines
+    rep = het_fleet.run(q, backend="exact")
+    assert rep.backends == ["mulfree", "exact"]
+    assert rep.per_engine[0]["queries"] == 0          # mulfree shard idle
+    got = set(rep.ids[rep.ids >= 0].ravel().tolist())
+    assert got and got <= _node_set(het_fleet.engines[1])
+
+
+def test_heterogeneous_fleet_per_query_backends(het_fleet, engines):
+    """None rows scatter to every owning shard, each answering with its
+    backend; "exact" rows touch only exact-shard clusters."""
+    _, te, q = engines
+    reqs = [None if i % 2 else "exact" for i in range(len(q))]
+    rep = het_fleet.run(q, backend=reqs)
+    none_rows = np.asarray([r is None for r in reqs])
+    assert (rep.ids[none_rows] >= 0).any(axis=1).all()
+    restricted = rep.ids[~none_rows]
+    got = set(restricted[restricted >= 0].ravel().tolist())
+    assert got and got <= _node_set(het_fleet.engines[1])
+    assert rep.fanout_mean <= te.scfg.nprobe
+
+
+def test_heterogeneous_fleet_unknown_backend_raises(het_fleet, engines):
+    _, _, q = engines
+    with pytest.raises(ValueError, match="no shard serves"):
+        het_fleet.run(q, backend="nope")
+    with pytest.raises(ValueError, match="backend list length"):
+        het_fleet.run(q, backend=["exact"])
+
+
+def test_replicated_tier_refuses_backend_routing(engines):
+    _, te, q = engines
+    topo = topology.TopologyConfig(replicas=2, buckets=(8, 16)).build(te)
+    with pytest.raises(ValueError, match="needs a sharded topology"):
+        topo.run(q, backend="mulfree")
+
+
+def test_unrouted_query_completes_with_sentinels():
+    """nprobe = 1 and a backend filter that removes the probed cluster's
+    owner: the query completes unrouted (ids -1, dists inf, finite
+    latency), on the JAX package's setup (tests/test_sharded.py:279)."""
+    x, _ = clustered_vectors(5, 1200, 32, 8)
+    q = query_set(5, x, 16)
+    icfg = JIndexConfig(dim=32, n_clusters=8, degree=8, knn_k=16)
+    je = jengine.PIMCQGEngine.build(
+        jax.random.PRNGKey(1), x, icfg,
+        jengine.SearchConfig(nprobe=1, ef=16, k=4), n_shards=1)
+    te = _bridged_engine(je, dict(nprobe=1, ef=16, k=4))
+    sf = fleet.partition_engine(te, 2, modes=["mulfree", "exact"],
+                                buckets=(16,), fill_threshold=16,
+                                wait_limit_s=1e-3)
+    probe = _probes(te, q)[:, 0]
+    unrouted = sf.part_of[probe] == 0                  # mulfree-owned
+    rep = sf.run(q, backend="exact")
+    assert rep.n_unrouted == int(unrouted.sum()) > 0
+    assert (rep.ids[unrouted] == -1).all()
+    assert np.isinf(rep.dists[unrouted]).all()
+    assert np.isfinite(rep.latency_s[unrouted]).all()
+    assert (rep.ids[~unrouted] >= 0).all()
+
+
+def _bridged_engine(je, scfg):
+    pl = je.place
+    return tengine.PIMCQGEngine(
+        bridge.compact_index_from_numpy(
+            {f: getattr(je.index, f) for f in je.index._fields},
+            device="cpu"),
+        bridge.host_store_from_numpy(je.host.vectors, je.host.centroids,
+                                     device="cpu"),
+        bridge.placement_from_numpy(pl.order, pl.shard_of, pl.local_slot,
+                                    pl.n_shards, pl.per_shard, pl.load,
+                                    pl.mem),
+        tci.IndexConfig(dim=je.icfg.dim, n_clusters=je.icfg.n_clusters,
+                        degree=je.icfg.degree, knn_k=je.icfg.knn_k),
+        tengine.SearchConfig(**scfg), device="cpu")
+
+
+@pytest.mark.parametrize("reqs", ["all", "alternate"])
+def test_mixed_tier_close_to_jax_tier(engines, reqs):
+    """A tier of mulfree, exact and hamming shards against the JAX
+    package's, over the bridged index: ids in >= 99% of slots, the same
+    fanout, unrouted count and per-shard probe counts; unrestricted, and
+    with every other query restricted to the exact shard."""
+    je, te, q = engines
+    backend = None if reqs == "all" else \
+        [None if i % 2 else "exact" for i in range(len(q))]
+    cfg = dict(shards=4, modes=MIXED, buckets=(8, 16))
+    jrep = jtopology.TopologyConfig(**cfg).build(je).run(q, backend=backend)
+    trep = topology.TopologyConfig(**cfg).build(te).run(q, backend=backend)
+    assert trep.backends == jrep.backends == list(MIXED)
+    assert (trep.ids == jrep.ids).mean() >= 0.99
+    assert trep.fanout_mean == jrep.fanout_mean
+    assert trep.n_unrouted == jrep.n_unrouted
+    np.testing.assert_array_equal(trep.shard_probes, jrep.shard_probes)
+    np.testing.assert_array_equal(trep.cluster_hits, jrep.cluster_hits)
+
+
+def test_mixed_tier_partials_are_each_engines_own(engines):
+    """Each partition answers by its own backend: the tier's ids equal the
+    merge of every partition engine's own search_probed of its probes."""
+    _, te, q = engines
+    topo = topology.TopologyConfig(shards=4, modes=MIXED,
+                                   buckets=(8, 16)).build(te)
+    backend = [None if i % 2 else "exact" for i in range(len(q))]
+    rep = topo.run(q, backend=backend)
+    tables, touches, _, _ = topo._route_probes(q, backend)
+    slots = np.cumsum(touches, axis=1) - 1
+    k = topo.k
+    part_ids = np.full((len(q), topo.fanout * k), -1, np.int32)
+    part_d = np.full((len(q), topo.fanout * k), np.inf, np.float32)
+    for o, grp in enumerate(topo.groups):
+        rows = np.nonzero(touches[:, o])[0]
+        if len(rows):
+            res, _ = grp[0].search_probed(q[rows], tables[o][rows])
+            cols = slots[rows, o][:, None] * k + np.arange(k)
+            part_ids[rows[:, None], cols] = res.ids.numpy()
+            part_d[rows[:, None], cols] = res.dists.numpy()
+    want, _ = ops.merge_topk(torch.from_numpy(part_ids),
+                             torch.from_numpy(part_d), k=k)
+    np.testing.assert_array_equal(rep.ids, want.numpy())
+    exact_rows = rep.ids[0::2]                  # backend[i] = "exact", i even
+    got = set(exact_rows[exact_rows >= 0].ravel().tolist())
+    assert got and got <= _node_set(topo.groups[1][0])
 
 
 def test_day2_operations_not_ported_raise(engines):
