@@ -78,6 +78,19 @@ Phases (each failure exits non-zero and prints no result line):
      with backend= None / "exact" alternating; every partial equal to its
      engine's own search_probed, the ids to merge_topk_ref of the partials,
      the restricted rows' ids all from exact partitions;
+     9c. the skew-aware tier on the same engine (after phase 10, once
+     phase 9's tier is released): 4,096 Zipf(1.0) queries over a hot blob
+     of clusters (the index build's own row -> cluster assignment) on the
+     size-prior 8-shard tier, then on TopologyConfig(replicate_hot=64,
+     replica_factor=4).build(eng, heat=cluster_hits), counted like phase 9
+     and held against engine.search in every slot (distances bit for bit,
+     ids outside exact distance ties); three rounds of
+     drifting Zipf(1.4) traffic through a Rebalancer whose placement swaps
+     apply_placement re-slices on the card (it must fire; ids hold after
+     every swap; allocated memory within 1 GiB); two tenants (a latency
+     tenant cut to nprobe 4), each tenant's rows equal to its queries
+     served alone; hedged dispatch over two replicas a shard and
+     scale_replicas, ids unchanged;
  10. hold merge_topk (by both routes) and cluster_scan bitwise against their
      plain versions on those runs' real inputs (cluster_scan on the
      arguments of phase 8's counted launch), and time both there, the two
@@ -1663,6 +1676,263 @@ def phase_sharded(torch, eng, qt, single, beam_recall):
     return topo, counts, rep, med
 
 
+def zipf_workload(torch, eng):
+    """Phase 9c's traffic law over the 10M corpus: the row -> cluster
+    assignment is the index build's own (row node_ids[c, s] belongs to
+    cluster c), and popularity ranks run outward from the most central
+    centroid (a spatial hot blob, as the JAX package's
+    benchmarks/placement.py orders them). Returns (x on the host,
+    assignment, hot_order, rows in no cluster)."""
+    dev = eng.device
+    nid = eng.index.node_ids
+    n_rows = eng.host.vectors.shape[0]
+    cl = torch.arange(nid.shape[0], device=dev,
+                      dtype=torch.int32)[:, None].expand_as(nid)
+    live = nid >= 0
+    assign = torch.full((n_rows,), -1, dtype=torch.int32, device=dev)
+    assign[nid[live].long()] = cl[live]
+    assign = assign.cpu().numpy()
+    x = eng.host.vectors.cpu().numpy()
+    cents = eng.index.centroids.cpu().numpy()
+    seed = int(np.argmin(((cents - cents.mean(0)) ** 2).sum(-1)))
+    hot_order = np.argsort(((cents - cents[seed]) ** 2).sum(-1),
+                           kind="stable")
+    return x, assign, hot_order, int((assign < 0).sum())
+
+
+def hold_ids(label, got, want) -> None:
+    """A tier's top-k against a reference in every slot: the distances the
+    same bits, and the ids equal wherever no other candidate lies at
+    exactly the slot's distance. topk_select and merge_topk order exactly
+    tied candidates by their column in the row (the JAX kernels' (dist,
+    column) order), and a tier's merged columns are slot-major by shard
+    where a single engine's are probe-major, so tied ids may come in
+    another order or, at a row's last distance, be another pick of the
+    tie. ``got`` / ``want``: (ids, dists) numpy pairs."""
+    (gi, gd), (wi, wd) = got, want
+    if gi.shape != wi.shape or not (gd.view(np.int32)
+                                    == wd.view(np.int32)).all():
+        fail(f"{label}: distances differ from the reference's in "
+             f"{int((gd.view(np.int32) != wd.view(np.int32)).sum())} of "
+             f"{wd.size} slots")
+    diff = gi != wi
+    for i in np.nonzero(diff.any(1))[0]:
+        for v in np.unique(wd[i][diff[i]]):
+            sel = wd[i] == v
+            if v != wd[i, -1] and sorted(gi[i][sel]) != sorted(wi[i][sel]):
+                fail(f"{label}: row {i} holds ids {gi[i].tolist()} where the "
+                     f"reference holds {wi[i].tolist()} (distances "
+                     f"{wd[i].tolist()})")
+    log(f"{label}: distances equal in every slot; ids equal in "
+        f"{int((~diff).sum())} of {diff.size} slots, the other "
+        f"{int(diff.sum())} among exactly tied distances")
+
+
+def pair(rep, rows=slice(None)):
+    """(ids, dists) of a report or a search result as numpy, ``rows`` of
+    them."""
+    ids, dists = rep.ids, rep.dists
+    if not isinstance(ids, np.ndarray):
+        ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
+    return ids[rows], dists[rows]
+
+
+def skew_of(rep) -> tuple[float, float]:
+    """(hottest shard's share of routed probes, that share over 1/S)."""
+    sp = rep.shard_probes.astype(np.float64)
+    share = float(sp.max() / sp.sum())
+    return share, share * len(sp)
+
+
+def phase_skewed_tier(torch, eng):
+    """Phase 9c: the skew-aware tier on the 10M engine. (a) 4,096 Zipf(1.0)
+    queries on the size-prior 8-shard tier, then on a heat-aware tier
+    built from that run's cluster_hits with the 64 hottest clusters
+    resident on 4 shards (choose_owners routes each probe of a replicated
+    cluster to one owner); (b) 3 rounds of drifting Zipf(1.4) traffic, each
+    concentrated on one current shard, through a Rebalancer whose swaps
+    apply_placement re-slices on the card; (c) two tenants (DWRR, a
+    latency tenant cut to nprobe 4); (d) hedged dispatch over two
+    replicas a shard, and replica scaling. Every tier is held against
+    eng.search or its own reference in every slot (``hold_ids``)."""
+    from repro_torch.core import autoscale, ivf, topology
+    from repro_torch.data import synthetic
+    from repro_torch.distributed.straggler import HedgeConfig
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    x, assign, hot_order, unassigned = zipf_workload(torch, eng)
+    n_clusters = len(hot_order)
+    q, target = synthetic.zipf_query_set(7, x, assign, 4096, s=1.0,
+                                         hot_order=hot_order,
+                                         n_clusters=n_clusters)
+    hist = np.bincount(target, minlength=n_clusters)
+    log(f"9c: Zipf(1.0) workload of {len(q)} queries made on the host in "
+        f"{time.perf_counter() - t:.1f} s ({unassigned} rows in no "
+        f"cluster); the 64 hottest target clusters draw "
+        f"{np.sort(hist)[::-1][:64].sum() / len(q):.3f} of the queries")
+    res, stats = eng.search(q)
+    want = (res.ids.cpu().numpy(), res.dists.cpu().numpy())
+    if int(stats.dropped_lanes):
+        fail(f"9c: eng.search dropped {int(stats.dropped_lanes)} lanes")
+
+    # (a) size prior, then heat-aware placement with hot replicas
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = topology.TopologyConfig(shards=8, buckets=(256, 1024))
+    base = cfg.build(eng)
+    base.warm()
+    base.run(q)
+    rep_b = base.run(q)
+    share_b, skew_b = skew_of(rep_b)
+    heat = rep_b.cluster_hits
+    hold_ids("9c size-prior tier vs eng.search", pair(rep_b), want)
+    log(f"9c size-prior tier: QPS {rep_b.qps:.1f}, p50 {rep_b.p50_ms:.2f} "
+        f"ms, p99 {rep_b.p99_ms:.2f} ms, fanout {rep_b.fanout_mean:.3f}, "
+        f"hottest shard's share of shard_probes {share_b:.4f} (skew "
+        f"{skew_b:.3f}), shard_probes {rep_b.shard_probes.tolist()}")
+    del base
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    topo = dataclasses.replace(cfg, replicate_hot=64,
+                               replica_factor=4).build(eng, heat=heat)
+    torch.cuda.synchronize()
+    pl = topo.placement
+    cap = pl.resident_table.shape[1] - pl.per_shard
+    log(f"9c replicated tier built in {time.perf_counter() - t:.1f} s: "
+        f"{int((pl.owners_of[:, 1:] >= 0).any(1).sum())} clusters with "
+        f"{int((pl.owners_of[:, 1:] >= 0).sum())} copies, {cap} replica "
+        f"slots a shard ({pl.per_shard} primaries); device memory "
+        f"{base_mem / 2**30:.2f} GiB before the tiers, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB now, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    topo.warm()
+    topo.run(q)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rep = topo.run(q)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print("kernels skewed " + json.dumps(counts), flush=True)
+    if any(counts[k] == 0 for k in ("beam_search", "topk_select",
+                                    "merge_topk")):
+        fail(f"the replicated tier's run missed a kernel: {counts}")
+    runs = [rep] + [topo.run(q) for _ in range(2)]
+    med = {key: float(np.median([getattr(r, key) for r in runs]))
+           for key in ("qps", "p50_ms", "p99_ms")}
+    share_r, skew_r = skew_of(rep)
+    hold_ids("9c replicated tier vs eng.search", pair(rep), want)
+    hold_ids("9c replicated tier vs the size-prior tier", pair(rep),
+             pair(rep_b))
+    probe = ivf.cluster_filter(torch.from_numpy(q).to(eng.device),
+                               topo.centroids, nprobe=topo.nprobe)[0]
+    probe = probe.cpu().numpy()
+    t = time.perf_counter()
+    ivf.choose_owners(probe, pl.owners_of, pl.locals_of,
+                      n_owners=len(topo.groups))
+    route_ms = 1e3 * (time.perf_counter() - t)
+    log(f"9c replicated tier (the first run counted, median of 3): QPS "
+        f"{', '.join(f'{r.qps:.1f}' for r in runs)} (median "
+        f"{med['qps']:.1f}), p50 {med['p50_ms']:.2f} ms, p99 "
+        f"{med['p99_ms']:.2f} ms, fanout {rep.fanout_mean:.3f} (size prior "
+        f"{rep_b.fanout_mean:.3f}); hottest shard's share of shard_probes "
+        f"{share_b:.4f} -> {share_r:.4f} (x{share_b / share_r:.3f} cut), "
+        f"shard_probes {rep.shard_probes.tolist()}; choose_owners on the "
+        f"host {route_ms:.1f} ms for {probe.shape[0]} x {probe.shape[1]} "
+        f"probes; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # (b) drift: the Rebalancer re-places clusters on the live tier
+    pol = autoscale.RebalancePolicy(skew_high=1.3, patience=1,
+                                    move_penalty=0.0)
+    reb = autoscale.Rebalancer(topo, pol)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    fired = 0
+    for r in range(3):
+        part = topo.part_of.copy()
+        hot_shard = r % len(topo.groups)
+        order_r = np.concatenate([np.flatnonzero(part == hot_shard),
+                                  np.flatnonzero(part != hot_shard)])
+        qr, _ = synthetic.zipf_query_set(101 + r, x, assign, 1024, s=1.4,
+                                         hot_order=order_r,
+                                         n_clusters=n_clusters)
+        rep_r = topo.run(qr)
+        skew = skew_of(rep_r)[1]
+        t = time.perf_counter()
+        act = reb.step(rep_r)
+        torch.cuda.synchronize()
+        swap_s = time.perf_counter() - t
+        if act is None:
+            log(f"9c drift round {r}: skew {skew:.3f}, no rebalance")
+            continue
+        fired += 1
+        rep2 = topo.run(qr)
+        hold_ids(f"9c drift round {r} after apply_placement vs eng.search",
+                 pair(rep2), pair(eng.search(qr)[0]))
+        log(f"9c drift round {r}: skew {skew:.3f} -> "
+            f"{skew_of(rep2)[1]:.3f} after a rebalance of {act.n_moved} "
+            f"primaries ({act.replicated} clusters replicated) in "
+            f"{swap_s:.2f} s (rebalance + replicate_hot + apply_placement)")
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    log(f"9c drift: the Rebalancer fired {fired} of 3 rounds; allocated "
+        f"device memory {mem0 / 2**30:.3f} GiB before the swaps, "
+        f"{mem1 / 2**30:.3f} GiB after")
+    if fired == 0:
+        fail("9c drift: the Rebalancer never fired")
+    if abs(mem1 - mem0) > 2**30:
+        fail(f"9c drift: allocated memory moved by "
+             f"{(mem1 - mem0) / 2**30:.3f} GiB across the swaps")
+
+    # (c) two tenants on the same engines
+    specs = [topology.TenantSpec("latency", weight=4, nprobe=4),
+             topology.TenantSpec("recall", weight=1)]
+    tier_kw = dict(part_of=topo.part_of, local_cid=topo.local_cid,
+                   centroids=topo.centroids, placement=topo.placement,
+                   source=eng, buckets=topo.buckets)
+    tenanted = topology.ServingTopology(topo.groups, tenants=specs,
+                                        **tier_kw)
+    labels = [("latency", "recall")[i % 2] for i in range(len(q))]
+    lat = np.arange(len(q)) % 2 == 0
+    rep_t = tenanted.run(q, tenant=labels)
+    hold_ids("9c tenant latency (nprobe 4) vs alone", pair(rep_t, lat),
+             pair(tenanted.run(q[lat], tenant="latency")))
+    hold_ids("9c tenant recall vs alone", pair(rep_t, ~lat),
+             pair(tenanted.run(q[~lat], tenant="recall")))
+    hold_ids("9c tenant recall vs eng.search", pair(rep_t, ~lat),
+             (want[0][~lat], want[1][~lat]))
+    for name, st in rep_t.tenants.items():
+        log(f"9c tenant {name}: weight {st['weight']}, admitted "
+            f"{st['n_admitted']}, p50 {st['p50_ms']:.2f} ms, p99 "
+            f"{st['p99_ms']:.2f} ms, probes {int(st['cluster_hits'].sum())}")
+
+    # (d) hedged dispatch over two replicas a shard, and replica scaling
+    for o in range(len(topo.groups)):
+        topo.scale_replicas(o, 2)
+    plain = topo.run(q)
+    hedged = topology.ServingTopology(topo.groups, hedge=HedgeConfig(),
+                                      **tier_kw)
+    rep_h = hedged.run(q)
+    hold_ids("9c hedged tier vs the unhedged one", pair(rep_h), pair(plain))
+    hold_ids("9c hedged tier vs eng.search", pair(rep_h), want)
+    for n_rep in (3, 1):
+        hedged.scale_replicas(0, n_rep)
+        hold_ids(f"9c hedged tier with shard 0 at {n_rep} replicas",
+                 pair(hedged.run(q)), pair(plain))
+    log(f"9c hedged tier: n_reissued {rep_h.n_reissued}, n_duplicate_drops "
+        f"{rep_h.n_duplicate_drops}, shard EWMA ms "
+        f"{[round(v, 3) for v in rep_h.shard_ewma_ms]}, QPS {rep_h.qps:.1f} "
+        f"(unhedged {plain.qps:.1f}), p99 {rep_h.p99_ms:.2f} ms (unhedged "
+        f"{plain.p99_ms:.2f})")
+    del hedged, tenanted, topo
+    torch.cuda.empty_cache()
+    log(f"9c done in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def sink_partials(torch, topo, q):
     """The origin merge's real input: every shard's search_probed partial
     top-k of q, gathered in ShardedSink's slot layout, (N, fanout * k)."""
@@ -2000,6 +2270,7 @@ def main() -> None:
     phase_mixed_tier(torch, topo, qt)
     timing.update(phase_new_kernels_real(torch, topo, rep, scan_call, qt))
     del topo
+    phase_skewed_tier(torch, eng)
     lm_counts, timing["flash_attention"] = phase_lm(torch, dev, eng)
 
     src = {"binary_ip_rank": ("src/repro_torch/kernels/csrc/binary_ip.cu",

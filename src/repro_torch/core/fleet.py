@@ -128,8 +128,8 @@ def partition_engine(eng, n_parts: int, *, mem_budget: int | None = None,
     wrap them in a ``ShardedFleet`` (see ``core.topology.partition_index``
     for the slicing semantics: disjoint cluster slices via
     ``placement.greedy_place``, ~1/N memory per engine, optional strict
-    ``mem_budget``, per-partition backends ``modes``; ``heat`` is not
-    ported yet).
+    ``mem_budget``, per-partition backends ``modes``; ``heat`` places by
+    measured ``cluster_hits`` in place of the size prior).
 
     Extra keyword args flow to the ShardedFleet stream parameters
     (buckets, fill_threshold, wait_limit_s, fifo_depth, ...). For the same

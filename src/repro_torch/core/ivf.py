@@ -14,7 +14,7 @@ import torch
 
 __all__ = ["KMeansResult", "kmeans", "assign", "cluster_filter",
            "adaptive_keep_mask", "owner_split_op", "split_probes_by_owner",
-           "owner_tables"]
+           "choose_owners", "owner_tables"]
 
 _CHUNK = 1 << 16   # rows per distance block in assign / Lloyd
 
@@ -137,13 +137,15 @@ def split_probes_by_owner(probe_cids: np.ndarray, owner_of: np.ndarray,
     belongs to another owner (each engine's ``search_probed`` payload), and
     touches (Q, O) bool, the owners each query scatters to. ``live`` (Q, P)
     bool masks probes out. The multi-owner (C, R) maps of a replicated
-    placement route through ``choose_owners``, which is not ported yet."""
+    placement (``Placement.owners_of`` / ``locals_of``) route each probe to
+    ONE owning shard through :func:`choose_owners`, so per-query probe sets
+    stay disjoint; single-column maps give the 1-D path's tables."""
     owner_of = np.asarray(owner_of)
     if owner_of.ndim == 2:
-        raise NotImplementedError(
-            "multi-owner routing (choose_owners) comes with hot-cluster "
-            "replication: ROADMAP A2 (replication, tenancy, hedging and "
-            "day-2 operations)")
+        own, local, _ = choose_owners(probe_cids, owner_of,
+                                      np.asarray(local_cid),
+                                      n_owners=n_owners, live=live)
+        return owner_tables(own, local, n_owners)
     probe_cids = np.asarray(probe_cids)
     hole = probe_cids < 0
     safe = np.where(hole, 0, probe_cids)                   # avoid -1 wrap
@@ -152,6 +154,79 @@ def split_probes_by_owner(probe_cids: np.ndarray, owner_of: np.ndarray,
         own = np.where(live, own, -1)
     local = np.where(own >= 0, np.asarray(local_cid)[safe], -1)
     return owner_tables(own, local, n_owners)
+
+
+def choose_owners(probe_cids: np.ndarray, owners_of: np.ndarray,
+                  locals_of: np.ndarray, *, n_owners: int,
+                  live: np.ndarray | None = None,
+                  load: np.ndarray | None = None
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pick ONE owning shard per probe over a multi-owner (replicated)
+    cluster map — the origin-scatter half of hot-cluster replication.
+
+    ``owners_of``/``locals_of`` are (C, R): column 0 the primary owner,
+    later columns replica owners (-1 = fewer owners). Deterministic greedy,
+    query-major, two goals in order:
+
+      1. collapse fanout — each query repeatedly routes the largest group
+         of its still-unassigned probes that some single owner can serve
+         (a fully-replicated hot probe set lands on ONE shard instead of
+         scattering);
+      2. balance load — ties pick the owner with the fewest routed
+         queries so far (then the lowest shard id), and the counter
+         updates as it assigns, spreading successive hot queries across
+         the replica owners.
+
+    A probe whose cluster has a single owner always routes to it, so with
+    no replicated clusters the choice is bit-identical to
+    ``owner_of[cid]`` routing. ``live`` (Q, P) masks probes out; ``load``
+    (O,) optionally seeds the per-owner routed-query counters (updated in
+    place if given). Returns (own (Q, P), local (Q, P), load (O,)); holes
+    and masked probes are -1 in both outputs."""
+    probe_cids = np.asarray(probe_cids)
+    owners_of = np.asarray(owners_of)
+    locals_of = np.asarray(locals_of)
+    q_n, p_n = probe_cids.shape
+    r_n = owners_of.shape[1]
+    if load is None:
+        load = np.zeros(n_owners, np.int64)
+    hole = probe_cids < 0
+    if live is not None:
+        hole = hole | ~np.asarray(live, bool)
+    safe = np.where(probe_cids < 0, 0, probe_cids)
+    opts = np.where(hole[:, :, None], -1, owners_of[safe])   # (Q, P, R)
+    locs = np.where(hole[:, :, None], -1, locals_of[safe])
+    own = np.full((q_n, p_n), -1, np.int32)
+    local = np.full((q_n, p_n), -1, np.int32)
+    for i in range(q_n):
+        todo = [j for j in range(p_n) if not hole[i, j]]
+        while todo:
+            # coverage: how many unassigned probes each owner could serve
+            cover = np.zeros(n_owners, np.int64)
+            for j in todo:
+                for r in range(r_n):
+                    o = opts[i, j, r]
+                    if o >= 0:
+                        cover[o] += 1
+            best = max(range(n_owners),
+                       key=lambda o: (cover[o], -load[o], -o))
+            if cover[best] == 0:
+                break                                      # defensive
+            took = False
+            rest = []
+            for j in todo:
+                r = next((r for r in range(r_n)
+                          if opts[i, j, r] == best), None)
+                if r is None:
+                    rest.append(j)
+                    continue
+                own[i, j] = best
+                local[i, j] = locs[i, j, r]
+                took = True
+            if took:
+                load[best] += 1        # one more query routed to ``best``
+            todo = rest
+    return own, local, load
 
 
 def owner_tables(own: np.ndarray, local: np.ndarray, n_owners: int

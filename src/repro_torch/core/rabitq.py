@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import fixed_order
+
 __all__ = ["RabitQCodes", "QueryLUT", "random_rotation", "encode",
            "prepare_query", "sign_code", "pack_codes", "unpack_codes",
            "binary_dot", "estimate_inner", "estimate_sqdist"]
@@ -77,11 +79,13 @@ def encode(x: torch.Tensor, centroid: torch.Tensor, rotation: torch.Tensor,
 
 def prepare_query(q: torch.Tensor, centroid: torch.Tensor,
                   rotation: torch.Tensor) -> QueryLUT:
-    """Per-(query, cluster) lane prep, batched: q, centroid (..., D)."""
+    """Per-(query, cluster) lane prep, batched: q, centroid (..., D). A
+    lane's LUT is the same bits in any batch (``fixed_order``)."""
     resid = q - centroid
-    qnorm = torch.linalg.vector_norm(resid, dim=-1)
-    g = (resid / qnorm.clamp(min=1e-12)[..., None]) @ rotation
-    return QueryLUT(g, g.sum(-1), qnorm)
+    qnorm = fixed_order.row_norm(resid)
+    g = fixed_order.blocked_matmul(resid / qnorm.clamp(min=1e-12)[..., None],
+                                   rotation)
+    return QueryLUT(g, fixed_order.fixed_order_sum(g), qnorm)
 
 
 def sign_code(q: torch.Tensor, centroid: torch.Tensor,
@@ -92,8 +96,9 @@ def sign_code(q: torch.Tensor, centroid: torch.Tensor,
     the hamming backend; padded bits are zero, as in the node codes, so
     they XOR to 0."""
     resid = q - centroid
-    norm = torch.linalg.vector_norm(resid, dim=-1)
-    g = (resid / norm.clamp(min=1e-12)[..., None]) @ rotation
+    norm = fixed_order.row_norm(resid)
+    g = fixed_order.blocked_matmul(resid / norm.clamp(min=1e-12)[..., None],
+                                   rotation)
     bits = g > 0
     pad = (-dim) % 8
     if pad:

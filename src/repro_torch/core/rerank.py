@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import fixed_order
 from ..kernels import ops as kernel_ops
 
 __all__ = ["RerankResult", "exact_sqdist", "rerank"]
@@ -23,13 +24,15 @@ class RerankResult(NamedTuple):
 
 def exact_sqdist(queries: torch.Tensor, cand_ids: torch.Tensor,
                  vectors: torch.Tensor) -> torch.Tensor:
-    """(Q, D) queries, (Q, C) global ids (-1 pad) -> (Q, C) f32
-    q2 + c2 - 2 q.c, in the reference's form (pads read row 0)."""
-    q2 = (queries * queries).sum(-1, keepdim=True)
+    """(Q, D) queries, (Q, C) global ids (-1 pad: reads row 0) -> (Q, C)
+    f32 squared distances, the sum of (q - c)^2 in one fixed order
+    (``fixed_order.fixed_order_sum``), so a query's distances are the same
+    bits in any batch: the sharded tier's partial rerank of a query equals
+    the single engine's. The JAX package sums q2 + c2 - 2 q.c; the two
+    agree within that form's cancellation error, a few ulps of q2 + c2."""
     cand = vectors[cand_ids.clamp(0, vectors.shape[0] - 1).long()]
-    c2 = (cand * cand).sum(-1)
-    dots = torch.einsum("qd,qcd->qc", queries, cand)
-    return q2 + c2 - 2.0 * dots
+    diff = queries[:, None, :] - cand
+    return fixed_order.fixed_order_sum(diff * diff)
 
 
 def rerank(queries: torch.Tensor, cand_ids: torch.Tensor,

@@ -28,11 +28,21 @@ Shards may serve different ranking backends (``modes``: a mixed tier), and
 ``run(backend=...)`` restricts each query to the shards that declare the
 backend it asks for.
 
+Skewed traffic: ``build(eng, heat=report.cluster_hits)`` places clusters
+by measured heat, and ``replicate_hot=H`` gives the H hottest clusters
+``replica_factor - 1`` copies on other shards; the origin then routes each
+probe of a replicated cluster to ONE owner (``ivf.choose_owners``), so
+per-query probe sets stay disjoint and the merge is unchanged.
+``apply_placement`` swaps a rebalanced placement in between streams
+(``autoscale.Rebalancer``), ``scale_replicas`` resizes a shard group
+(``autoscale.Autoscaler``), ``tenants=`` puts a DWRR admission controller
+with per-tenant queues, deadlines, credits, backends and effort in front,
+and ``hedge=`` re-runs an overdue flush on another replica of its shard
+(first response wins).
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: tenants, hedged dispatch, mutable indexes, autoscaling,
-rebalancing, hot-cluster replication, heat-aware placement, a prebuilt
-placement and the deprecated kwarg form of ``topology()`` (A2), and the
-mesh execution backend (A4).
+ROADMAP item: the mutable index and its live swaps (A2b) and the mesh
+execution backend (A4).
 """
 
 from __future__ import annotations
@@ -41,32 +51,36 @@ import copy
 import dataclasses
 import math
 import time
+import warnings
 from collections import deque
 
 import numpy as np
 import torch
 
+from . import autoscale as autoscale_mod
 from . import compact_index as compact_index_mod
 from . import engine as engine_mod
 from . import execbackend as execbackend_mod
 from . import ivf as ivf_mod
 from . import placement as placement_mod
 from ..kernels import ops as kernel_ops
-from .pipeline import (EngineWorker, StageCosts, StreamSink, percentile_ms,
-                       resolve_stream_params)
+from .pipeline import (EngineWorker, StageCosts, StreamSink, _host,
+                       percentile_ms, resolve_stream_params)
+from ..distributed.straggler import (DeadlineReissue, EwmaTracker,
+                                     HedgeConfig)
 
 __all__ = ["AdmissionController", "ReplicaGroup", "ShardGroup",
            "ShardWorker", "ShardedSink", "ServingTopology", "TopologyReport",
-           "TopologyConfig", "TenantSpec", "replicate_engine",
+           "TopologyConfig", "ShardHedge", "TenantSpec", "replicate_engine",
            "partition_index", "topology"]
 
 ROUTE_POLICIES = ("round-robin", "least-in-flight")
 SHED_POLICIES = ("drop-new", "drop-old")
 
 # the ROADMAP item that the refused options wait for
-DAY2_ITEM = ("A2 (replication, tenancy, hedging and day-2 operations: "
-             "choose_owners, rebalance, replicate_hot, straggler, autoscale, "
-             "mutable_index)")
+DAY2_ITEM = ("A2b (the mutable half of A2: mutable_index, "
+             "engine.refresh(host=), ServingTopology.apply, mutable=True, "
+             "--churn)")
 
 
 def _not_ported(what: str):
@@ -112,39 +126,69 @@ def partition_index(eng, n_parts: int, *, mem_budget: int | None = None,
     (compact-index bytes) caps each partition; with ``strict=True`` an
     infeasible partitioning raises. ``inner_shards`` is each partition's
     intra-engine shard count. The host store (raw rerank vectors, global-id
-    addressed) is shared. Returns (engines, placement);
-    ``placement.shard_of`` / ``local_slot`` are the owner map and the
-    per-owner local cluster ids the scatter router consumes. ``modes``
-    optionally gives each partition its own ranking backend (registry
-    key): a mixed tier.
+    addressed) is shared. ``modes`` optionally gives each partition its own
+    ranking backend (registry key): a mixed tier.
 
-    ``mutable``, ``heat``, ``replicate_hot``, a ``replica_factor`` other
-    than its default and ``placement`` are not ported yet and raise
-    ``NotImplementedError``."""
+    ``heat`` is MEASURED per-cluster scatter heat (a report's
+    ``cluster_hits``), balanced in place of the size prior (exclusive with
+    ``freq``, an estimate). ``replicate_hot=H`` gives the H hottest
+    clusters copies on ``replica_factor - 1`` other shards
+    (``placement.replicate_hot``): each engine then holds its primary slice
+    plus the copies and pads, and the router picks one owner per probe.
+    ``placement`` skips the placer and slices a prebuilt Placement.
+    ``mutable`` (spoken-for byte accounting of a mutable index) is not
+    ported yet and raises ``NotImplementedError``.
+
+    Returns (engines, placement); ``placement.shard_of`` / ``local_slot``
+    are the owner map and the per-owner local cluster ids the scatter
+    router consumes (``owners_of`` / ``locals_of`` the multi-owner
+    forms)."""
     if n_parts < 1:
         raise ValueError(f"need at least one partition, got {n_parts}")
     if modes is not None and len(modes) != n_parts:
         raise ValueError(f"modes has {len(modes)} entries for {n_parts} "
                          f"partitions")
+    if heat is not None and freq is not None:
+        raise ValueError("pass EITHER heat= (measured cluster_hits) OR "
+                         "freq= (estimated frequency), not both")
+    if replicate_hot < 0:
+        raise ValueError(f"replicate_hot must be >= 0, got {replicate_hot}")
+    if replicate_hot:
+        if n_parts < 2:
+            raise ValueError("replicate_hot needs n_parts >= 2 (a copy "
+                             "must land on a DIFFERENT shard)")
+        if not 2 <= replica_factor <= n_parts:
+            raise ValueError(f"replica_factor must be in 2..{n_parts} "
+                             f"(owners per hot cluster), "
+                             f"got {replica_factor}")
+        if inner_shards != 1:
+            raise ValueError("replicate_hot with inner_shards > 1 is not "
+                             "supported (replica slots break the equal "
+                             "inner-shard split)")
     if mutable:
         _not_ported("mutable partitioning (mutable=True)")
-    if heat is not None:
-        _not_ported("heat-aware placement (heat=)")
-    if replicate_hot:
-        _not_ported("hot-cluster replication (replicate_hot)")
-    if replica_factor != 2:
-        _not_ported("a hot-cluster replica factor (replica_factor)")
-    if placement is not None:
-        _not_ported("a prebuilt placement (placement=)")
     idx, icfg = eng.index, eng.icfg
     sizes = idx.n_valid.cpu().numpy().astype(np.float64)
     bpc = sizes * compact_index_mod.compact_bytes_per_node(icfg.dim,
                                                            icfg.degree)
+    if heat is not None:
+        freq = np.asarray(heat, np.float64)
     if freq is None:
         freq = sizes                      # popularity ~ size as prior
-    pl = placement_mod.greedy_place(np.asarray(freq, np.float64), bpc,
-                                    n_parts, mem_budget=mem_budget,
-                                    strict=strict)
+    if placement is not None:
+        pl = placement
+        if pl.n_shards != n_parts:
+            raise ValueError(f"placement has {pl.n_shards} shards for "
+                             f"{n_parts} partitions")
+    else:
+        pl = placement_mod.greedy_place(np.asarray(freq, np.float64), bpc,
+                                        n_parts, mem_budget=mem_budget,
+                                        strict=strict)
+        if replicate_hot:
+            pl = placement_mod.replicate_hot(
+                pl, np.asarray(freq, np.float64), bpc,
+                top_h=replicate_hot, copies=replica_factor - 1,
+                mem_budget=mem_budget)
     engines = []
     for o in range(n_parts):
         members = pl.resident(o)
@@ -496,27 +540,110 @@ class ReplicaGroup:
         yield from self.children
 
 
+class ShardHedge:
+    """Per-run hedged-dispatch state of a sharded tier: one
+    ``DeadlineReissue`` per shard (flush latency is a property of the
+    shard's data slice, so each shard tracks its own EWMA), the registry of
+    a flush's batch id to its shard and queries, and of a result object to
+    its batch id, so the FIRST result to complete, original or duplicate,
+    wins and the loser is dropped before it touches the gather slots."""
+
+    def __init__(self, cfg: HedgeConfig, n_shards: int, clock):
+        self.cfg = cfg
+        self.per_shard = [
+            DeadlineReissue(k=cfg.k, max_reissue=cfg.max_reissue,
+                            clock=clock,
+                            tracker=EwmaTracker(alpha=cfg.alpha))
+            for _ in range(n_shards)]
+        self.flights: dict = {}           # bid -> (shard, query idxs, origin)
+        self._by_res: dict = {}           # id(result) -> bid
+        self._next_bid = 0
+
+    def register(self, shard: int, idxs, res, origin=None) -> int:
+        """Record a primary flush; returns its batch id. ``origin`` (the
+        dispatching worker) is never picked as the reissue target."""
+        bid = self._next_bid
+        self._next_bid += 1
+        self.flights[bid] = (shard, np.asarray(idxs), origin)
+        self.per_shard[shard].dispatch(bid)
+        self._by_res[id(res)] = bid
+        return bid
+
+    def bind(self, res, bid: int):
+        """Associate a speculative duplicate's result with the flush."""
+        self._by_res[id(res)] = bid
+
+    def complete(self, res, shard: int) -> bool:
+        """First completion wins; False = duplicate, drop the deposit."""
+        bid = self._by_res.pop(id(res), None)
+        if bid is None:
+            return True                   # unhedged flush (defensive)
+        first = self.per_shard[shard].complete(bid)
+        if first:
+            self.flights.pop(bid, None)
+        return first
+
+    # -- accounting (TopologyReport) ----------------------------------------
+    @property
+    def n_reissued(self) -> int:
+        return sum(dr.reissued_total for dr in self.per_shard)
+
+    @property
+    def n_duplicate_drops(self) -> int:
+        return sum(dr.duplicate_results for dr in self.per_shard)
+
+    @property
+    def shard_ewma_ms(self) -> list:
+        return [float("nan") if dr.tracker.value is None
+                else dr.tracker.value * 1e3 for dr in self.per_shard]
+
+
 class ShardWorker(EngineWorker):
     """EngineWorker over one PARTITION of the index. A flush carries the
     per-query probe rows for this engine's clusters (the scatter payload,
     consumed by ``engine.search_probed``), and a harvest deposits PARTIAL
-    top-k into the ShardedSink's gather slots instead of final results."""
+    top-k into the ShardedSink's gather slots instead of final results.
+
+    With ``hedge`` (a per-run ShardHedge) every primary flush is registered
+    for deadline tracking, ``hedge_dispatch`` re-runs an overdue flush on
+    this replica, and ``_finish`` drops the loser of each race. On one
+    card every replica queues on the same stream, so a duplicate runs
+    after its primary; the first result the readiness test sees wins."""
 
     def __init__(self, engine, sink: "ShardedSink", *, probes: np.ndarray,
-                 slot: np.ndarray, shard: int = 0, **kw):
+                 slot: np.ndarray, shard: int = 0,
+                 hedge: ShardHedge | None = None, **kw):
         super().__init__(engine, sink, **kw)
         self.probes = probes              # (N, P) local cluster ids, -1 hole
         self.slot = slot                  # (N,) this shard's gather slot
         self.shard = shard
+        self.hedge = hedge
 
     def _dispatch(self, take):
-        return self.exec.search_probed(
+        out = self.exec.search_probed(
             self.engine, self.sink.q[take], self.probes[take],
             pad_to=self._bucket_for(len(take)))
+        if self.hedge is not None:
+            self.hedge.register(self.shard, take, out[0], origin=self)
+        return out
+
+    def hedge_dispatch(self, idxs: np.ndarray, bid: int, t: float):
+        """Re-run an overdue flush on THIS replica. It enters the in-flight
+        FIFO directly (no buffer, no credit check: its queries were already
+        admitted and dealt; ``max_reissue`` bounds the duplicate work)."""
+        res, _ = self.exec.search_probed(
+            self.engine, self.sink.q[idxs], self.probes[idxs],
+            pad_to=self._bucket_for(len(idxs)))
+        self.hedge.bind(res, bid)
+        self.inflight.append((np.asarray(idxs), res, t, self._event()))
+        self.max_in_flight = max(self.max_in_flight, len(self.inflight))
 
     def _finish(self, idxs, res, _t_dispatch):
-        self.sink.finish_partial(idxs, self.slot[idxs], res.ids.cpu().numpy(),
-                                 res.dists.cpu().numpy())
+        if self.hedge is not None \
+                and not self.hedge.complete(res, self.shard):
+            return                        # lost the race: drop, don't deposit
+        self.sink.finish_partial(idxs, self.slot[idxs], _host(res.ids),
+                                 _host(res.dists))
 
 
 class ShardedSink(StreamSink):
@@ -556,14 +683,34 @@ class ShardGroup:
 
     def __init__(self, children: list, touches: np.ndarray,
                  pending: np.ndarray, sink: ShardedSink, k: int,
-                 backpressure: bool):
+                 backpressure: bool, hedge: ShardHedge | None = None):
         self.children = list(children)
         self.touches = touches            # (N, O) bool
         self.pending = pending            # (N,) owners still outstanding
         self.sink = sink
         self.backpressure = backpressure
+        self.hedge = hedge
         self._none_ids = np.full((1, k), -1, np.int32)
         self._none_d = np.full((1, k), np.inf, np.float32)
+
+    def hedge_poll(self, t: float) -> bool:
+        """Reissue overdue flushes: each shard's DeadlineReissue nominates
+        batches past k x EWMA, and each is re-dispatched on the
+        LEAST-LOADED other replica of that shard."""
+        if self.hedge is None:
+            return False
+        did = False
+        for dr in self.hedge.per_shard:
+            for bid in dr.poll():
+                shard, idxs, origin = self.hedge.flights[bid]
+                alts = [c for c in self.children[shard].children
+                        if c is not origin]
+                if not alts:
+                    continue              # single replica: nowhere to hedge
+                w = min(alts, key=lambda c: (c.in_flight, len(c.buf)))
+                w.hedge_dispatch(idxs, bid, t)
+                did = True
+        return did
 
     def deal(self, admission: AdmissionController, quantum: int):
         while len(admission):
@@ -584,7 +731,7 @@ class ShardGroup:
                 self.children[int(o)].submit(idx)
 
     def pump(self, t: float, drain: bool) -> bool:
-        progress = False
+        progress = self.hedge_poll(t)
         for c in self.children:
             progress |= c.pump(t, drain)
         return progress
@@ -602,8 +749,19 @@ class ShardGroup:
         return False
 
     def next_deadline(self) -> float:
-        return min((c.next_deadline() for c in self.children),
-                   default=math.inf)
+        nxt = min((c.next_deadline() for c in self.children),
+                  default=math.inf)
+        if self.hedge is not None:
+            # a pending reissue is a deadline too: wake AT it instead of
+            # blocking on the straggler it would rescue
+            nxt = min([nxt] + [dr.next_deadline()
+                               for dr in self.hedge.per_shard])
+            if self.hedge.flights:
+                # first-response-wins cannot be had by blocking on one
+                # child: while a tracked flush is out, keep polling (0.0 is
+                # always past, so the loop naps instead of blocking)
+                nxt = min(nxt, 0.0)
+        return nxt
 
     def idle(self) -> bool:
         return all(c.idle() for c in self.children)
@@ -649,6 +807,9 @@ class TopologyReport:
     replicas: list           # replica count per shard group
     backends: list           # per-shard declared backend (scfg.mode)
     exec: str = "inproc"     # execution backend the tier ran on
+    n_reissued: int = 0      # hedged (speculative duplicate) flushes
+    n_duplicate_drops: int = 0   # race losers dropped before deposit
+    shard_ewma_ms: list = dataclasses.field(default_factory=list)
     tenants: dict = dataclasses.field(default_factory=dict)
     # name -> per-tenant accounting: n_queries/n_admitted/n_shed/
     # shed_fraction/qps/p50_ms/p99_ms/dealt/max_in_service/weight/...
@@ -677,9 +838,16 @@ class ServingTopology:
     Admission control, credit-based backpressure and deadline shedding
     apply at the root, whatever the tree shape. ``backpressure=False``
     reproduces the ShardedFleet eager scatter. ``exec`` selects how the
-    tree runs; only ``"inproc"`` is ported. ``hedge``, ``tenants``,
-    ``placement``, ``mutable``, ``autoscale`` and ``rebalance`` are not
-    ported yet and raise ``NotImplementedError``."""
+    tree runs; only ``"inproc"`` is ported.
+
+    ``placement`` (the cluster Placement, multi-owner when replicated) and
+    ``source`` (the unpartitioned engine) let ``apply_placement`` re-slice
+    the shards; ``tenants`` is a TenantSpec registry; ``hedge`` (a
+    ``HedgeConfig``) re-runs overdue shard flushes on other replicas;
+    ``autoscale`` (an ``AutoscalePolicy``) and ``rebalance`` (a
+    ``RebalancePolicy``) attach an ``Autoscaler`` / ``Rebalancer`` that
+    act between streams. ``mutable=True`` is not ported yet and raises
+    ``NotImplementedError``."""
 
     def __init__(self, groups, *, part_of=None, local_cid=None,
                  centroids=None, route: str = "least-in-flight",
@@ -690,16 +858,12 @@ class ServingTopology:
                  admission_depth: int | str | None = "auto",
                  shed_deadline_s: float | None = None,
                  backpressure: bool = True, exec: str = "inproc",
-                 hedge=None, tenants=None, placement=None,
-                 mutable: bool = False, autoscale=None, rebalance=None):
-        for name, value in (("hedged dispatch (hedge=)", hedge),
-                            ("tenants (tenants=)", tenants),
-                            ("a cluster placement (placement=)", placement),
-                            ("a mutable topology (mutable=True)", mutable),
-                            ("autoscaling (autoscale=)", autoscale),
-                            ("rebalancing (rebalance=)", rebalance)):
-            if value is not None and value is not False:
-                _not_ported(name)
+                 hedge: HedgeConfig | None = None, tenants=None,
+                 placement=None, mutable: bool = False, autoscale=None,
+                 source=None, mem_budget: int | None = None,
+                 rebalance=None):
+        if mutable:
+            _not_ported("a mutable topology (mutable=True)")
         self.groups = [list(g) for g in groups]
         if not self.groups or any(not g for g in self.groups):
             raise ValueError("ServingTopology needs at least one engine in "
@@ -756,12 +920,16 @@ class ServingTopology:
                     == self.centroids.shape[0]):
                 raise ValueError("part_of/local_cid/centroids disagree on "
                                  "the cluster count")
+            self.replicated = placement is not None \
+                and getattr(placement, "replicated", False)
             counts = np.bincount(self.part_of, minlength=len(self.groups))
             for o, g in enumerate(self.groups):
-                if counts[o] != g[0].index.n_clusters:
+                expect = len(placement.resident(o)) if self.replicated \
+                    else counts[o]
+                if expect != g[0].index.n_clusters:
                     raise ValueError(
                         f"engine {o} holds {g[0].index.n_clusters} clusters "
-                        f"but part_of assigns it {counts[o]}")
+                        f"but part_of assigns it {expect}")
                 reps = {e.scfg.mode for e in g}
                 if len(reps) != 1:
                     raise ValueError(f"replicas within shard {o} disagree "
@@ -772,8 +940,9 @@ class ServingTopology:
                                      f"on the cluster slice")
             self.vectors = engines[0].host.vectors
             self.fanout = max(1, min(self.nprobe, len(self.groups)))
-            ad = {(e.scfg.adaptive_tau, e.scfg.adaptive_min_probes,
-                   e.scfg.adaptive_ladder) for e in engines}
+            ad = {(getattr(e.scfg, "adaptive_tau", 0.0),
+                   getattr(e.scfg, "adaptive_min_probes", 1),
+                   getattr(e.scfg, "adaptive_ladder", ())) for e in engines}
             if len(ad) != 1:
                 raise ValueError(
                     f"engines disagree on adaptive termination: {sorted(ad)}")
@@ -785,8 +954,90 @@ class ServingTopology:
                                  "(part_of/local_cid/centroids)")
             self.part_of = self.local_cid = self.centroids = None
             self.fanout = 1
+            self.replicated = False
         self.modes = [g[0].scfg.mode for g in self.groups]
         self._exec = execbackend_mod.resolve_exec_backend(exec)
+        self.hedge_cfg = hedge
+        if hedge is not None and not self.sharded:
+            raise ValueError("hedged dispatch re-runs SHARD flushes on "
+                             "replicas; a replicated tier has no scatter "
+                             "stage to hedge (needs shards >= 2)")
+        self.tenants = self._resolve_tenants(tenants)
+
+        # -- day-2 operations: placement swaps + replica autoscaling --------
+        self.placement = placement
+        self.mem_budget = mem_budget
+        # the UNPARTITIONED source index apply_placement re-slices
+        self._src_index = getattr(source, "index", None)
+        if autoscale is not None and not isinstance(
+                autoscale, autoscale_mod.AutoscalePolicy):
+            raise ValueError(f"autoscale must be an AutoscalePolicy, "
+                             f"got {type(autoscale).__name__}")
+        self.autoscaler = autoscale_mod.Autoscaler(self, autoscale) \
+            if autoscale is not None else None
+        if rebalance is not None:
+            if not isinstance(rebalance, autoscale_mod.RebalancePolicy):
+                raise ValueError(
+                    f"rebalance must be a RebalancePolicy, "
+                    f"got {type(rebalance).__name__}")
+            if not self.sharded:
+                raise ValueError("heat-driven rebalancing moves clusters "
+                                 "between shards (needs shards >= 2)")
+            if self.placement is None or self._src_index is None:
+                raise ValueError(
+                    "rebalancing needs the cluster Placement and the "
+                    "unpartitioned source index (placement=/source=...); "
+                    "TopologyConfig.build wires both automatically")
+        self.rebalancer = autoscale_mod.Rebalancer(self, rebalance) \
+            if rebalance is not None else None
+        self._active = None        # (root, sink) of the in-progress run
+
+    def _resolve_tenants(self, tenants) -> list[TenantSpec] | None:
+        """Validate the tenant registry against this topology's shape;
+        None = untenanted (run() makes a single default tenant)."""
+        if tenants is None:
+            return None
+        specs = list(tenants.values()) if isinstance(tenants, dict) \
+            else list(tenants)
+        if not specs:
+            raise ValueError("tenants must hold at least one TenantSpec "
+                             "(or be None)")
+        for s in specs:
+            if not isinstance(s, TenantSpec):
+                raise ValueError(f"tenants entries must be TenantSpec, "
+                                 f"got {type(s).__name__}")
+        names = [s.name for s in specs]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate tenant names: {sorted(names)}")
+        for s in specs:
+            if s.backend is not None:
+                if not self.sharded:
+                    raise ValueError(
+                        f"tenant {s.name!r}: preferred-backend routing "
+                        f"needs a sharded topology (shards >= 2); a "
+                        f"replicated tier serves one backend everywhere")
+                if s.backend not in self.modes:
+                    raise ValueError(
+                        f"tenant {s.name!r} prefers backend {s.backend!r} "
+                        f"but no shard serves it; this fleet serves "
+                        f"{sorted(set(self.modes))}")
+            if s.k is not None and s.k > self.k:
+                raise ValueError(f"tenant {s.name!r}: k={s.k} exceeds the "
+                                 f"engines' k={self.k}")
+            if s.nprobe is not None:
+                if not self.sharded:
+                    raise ValueError(
+                        f"tenant {s.name!r}: per-tenant nprobe is applied "
+                        f"at the sharded origin scatter (shards >= 2)")
+                if s.nprobe > self.nprobe:
+                    raise ValueError(
+                        f"tenant {s.name!r}: nprobe={s.nprobe} exceeds the "
+                        f"engines' nprobe={self.nprobe}")
+            if s.adaptive_tau is not None and not self.sharded:
+                raise ValueError(
+                    f"tenant {s.name!r}: per-tenant adaptive_tau is applied "
+                    f"at the sharded origin scatter (shards >= 2)")
+        return specs
 
     # -- warmup ---------------------------------------------------------------
     def warm(self) -> int:
@@ -818,22 +1069,86 @@ class ServingTopology:
                                device=self.device), k=self.k)
         return 0
 
-    # -- day-2 operations: not ported yet -------------------------------------
+    # -- day-2 operations: replica scaling and placement swaps --------------
     def scale_replicas(self, group: int, n: int) -> int:
-        _not_ported("replica scaling (scale_replicas)")
+        """Resize shard ``group`` to ``n`` replicas. New replicas are
+        ``copy.copy`` views sharing the group's placed index: scaling adds
+        schedulable capacity, not device memory. Worker trees are built per
+        ``run()``, so a resize takes effect at the next stream. Returns the
+        group's new replica count."""
+        if not 0 <= group < len(self.groups):
+            raise ValueError(f"group {group} outside "
+                             f"0..{len(self.groups) - 1}")
+        if n < 1:
+            raise ValueError(f"need at least one replica, got {n}")
+        g = self.groups[group]
+        while len(g) < n:
+            g.append(copy.copy(g[0]))
+        while len(g) > n:
+            g.pop()
+        return len(g)
 
     def apply(self, mut) -> None:
         _not_ported("live mutation swaps (apply)")
 
-    def apply_placement(self, pl) -> None:
-        _not_ported("placement swaps (apply_placement)")
+    def apply_placement(self, pl: placement_mod.Placement) -> None:
+        """Swap a new cluster -> shard assignment into the live topology,
+        between streams (the ``Rebalancer``'s path).
+
+        The unpartitioned source index (``source=``, wired by
+        ``TopologyConfig.build``) is re-sliced by the new placement's
+        resident lists and swapped under each shard's engines with
+        ``engine.refresh``, one group at a time: the group's old placed
+        tensors are released before its new ones are made, and replicas
+        share their leader's. Every engine keeps its cluster count, so the
+        swap needs a shape-preserving placement (swaps, fixed replica
+        capacity). Routing reads the new ``part_of`` / ``local_cid`` /
+        multi-owner maps at the next ``run()``."""
+        if not self.sharded:
+            raise ValueError("apply_placement moves clusters between "
+                             "shards; a replicated tier has one group")
+        if self._active is not None:
+            raise ValueError("apply_placement is a between-streams swap — "
+                             "the in-flight run's probe tables were routed "
+                             "against the old placement")
+        if self._src_index is None:
+            raise ValueError(
+                "apply_placement needs the unpartitioned source index "
+                "(ServingTopology(source=...); TopologyConfig.build wires "
+                "it automatically)")
+        if pl.n_shards != len(self.groups):
+            raise ValueError(f"placement has {pl.n_shards} shards for "
+                             f"{len(self.groups)} groups")
+        idx = self._src_index
+        for o, g in enumerate(self.groups):
+            res = pl.resident(o)
+            if len(res) != g[0].index.n_clusters:
+                raise ValueError(
+                    f"shard {o}: new placement holds {len(res)} resident "
+                    f"clusters but the engine was built with "
+                    f"{g[0].index.n_clusters} — rebalance must be "
+                    f"shape-preserving (swaps + fixed replica capacity)")
+        for o, g in enumerate(self.groups):
+            leader = g[0]
+            for e in g:                   # release the old tensors first
+                e.placed = None
+            for e in g[1:]:
+                e.index = None
+            leader.refresh(_slice_index(idx, pl.resident(o)))
+            for e in g[1:]:
+                e.index, e.placed, e.host = \
+                    leader.index, leader.placed, leader.host
+        self.placement = pl
+        self.part_of = np.asarray(pl.shard_of, np.int32)
+        self.local_cid = np.asarray(pl.local_slot, np.int32)
+        self.replicated = pl.replicated
 
     # -- scatter routing ------------------------------------------------------
     def _backend_live(self, probe: np.ndarray, backend) -> np.ndarray:
         """The backend match filter: (N, P) bool, True where a probe's
-        owning shard declares the backend its query asks for (``backend``:
-        a registry key for every query, or one key or None a query; None
-        matches every shard)."""
+        (primary) owning shard declares the backend its query asks for
+        (``backend``: a registry key for every query, or one key or None a
+        query; None matches every shard)."""
         req = np.full(len(probe), backend, object) \
             if isinstance(backend, str) \
             else np.asarray(list(backend), object)
@@ -851,15 +1166,20 @@ class ServingTopology:
         return (modes[self.part_of[np.maximum(probe, 0)]] == req[:, None]) \
             | match_all[:, None]
 
-    def _route_probes(self, q: np.ndarray, backend=None):
+    def _route_probes(self, q: np.ndarray, backend=None, specs=None,
+                      tenant_of=None):
         """(1) IVF top-probe selection at the origin, on the engines'
         device (with adaptive early termination: easy queries keep fewer
-        probes and fan out to fewer shards), (2) the backend match filter
-        (``_backend_live``), (3) the per-owner scatter split. Returns
-        (tables (O, N, P), touches (N, O), served (N, P), owner_sel (N,
-        P)): ``served`` is the global probe table with every dropped or
-        filtered slot -1 (the per-cluster heat source), ``owner_sel`` the
-        shard each served probe went to."""
+        probes and fan out to fewer shards), (2) per-tenant effort: a
+        tenant's ``nprobe`` / ``adaptive_tau`` prune its rows
+        (``cluster_filter`` sorts probes by distance, so a prefix cut IS
+        the lower-nprobe result), (3) the backend match filter
+        (``_backend_live``), (4) the per-owner scatter split; on a
+        replicated placement through ``ivf.choose_owners`` on the host, one
+        owning shard a probe. Returns (tables (O, N, P), touches (N, O),
+        served (N, P), owner_sel (N, P)): ``served`` is the global probe
+        table with every dropped or filtered slot -1 (the per-cluster heat
+        source), ``owner_sel`` the shard each served probe went to."""
         probe, pdist = ivf_mod.cluster_filter(
             torch.from_numpy(q).to(self.device), self.centroids,
             nprobe=self.nprobe)
@@ -870,8 +1190,33 @@ class ServingTopology:
                 ladder=self.adaptive_ladder)
             probe = torch.where(keep, probe, -1)
         probe_np = probe.cpu().numpy()
+        if specs is not None and any(
+                s.nprobe is not None or s.adaptive_tau is not None
+                for s in specs):
+            for t, s in enumerate(specs):
+                rows = tenant_of == t
+                if not rows.any():
+                    continue
+                if s.nprobe is not None and s.nprobe < probe_np.shape[1]:
+                    probe_np[rows, s.nprobe:] = -1
+                if s.adaptive_tau is not None and s.adaptive_tau > 0:
+                    keep = ivf_mod.adaptive_keep_mask(
+                        pdist[torch.from_numpy(rows).to(pdist.device)],
+                        tau=float(s.adaptive_tau),
+                        min_probes=int(s.adaptive_min_probes),
+                        ladder=self.adaptive_ladder).cpu().numpy()
+                    probe_np[rows] = np.where(keep, probe_np[rows], -1)
+            probe = torch.from_numpy(probe_np).to(self.device)
         live = np.ones(probe_np.shape, bool) if backend is None \
             else self._backend_live(probe_np, backend)
+        if self.replicated:
+            own, local, _ = ivf_mod.choose_owners(
+                probe_np, self.placement.owners_of,
+                self.placement.locals_of, n_owners=len(self.groups),
+                live=live)
+            tables, touches = ivf_mod.owner_tables(own, local,
+                                                   len(self.groups))
+            return tables, touches, np.where(own >= 0, probe_np, -1), own
         tables, touches = ivf_mod.owner_split_op(
             probe, torch.from_numpy(self.part_of).to(self.device),
             torch.from_numpy(self.local_cid).to(self.device),
@@ -916,7 +1261,7 @@ class ServingTopology:
         return True
 
     # -- per-run tree construction --------------------------------------------
-    def _build_tree(self, sink, tables, slots):
+    def _build_tree(self, sink, tables, slots, hedge=None):
         stream_kw = dict(buckets=self.buckets,
                          fill_threshold=self.fill_threshold,
                          wait_limit_s=self.wait_limit_s,
@@ -927,7 +1272,7 @@ class ServingTopology:
                                  for e in self.groups[0]], self.route)
         return [ReplicaGroup([ShardWorker(e, sink, probes=tables[o],
                                           slot=slots[:, o], shard=o,
-                                          **stream_kw)
+                                          hedge=hedge, **stream_kw)
                               for e in grp], self.route)
                 for o, grp in enumerate(self.groups)]
 
@@ -942,28 +1287,36 @@ class ServingTopology:
         query to the shards that declare a matching backend (sharded
         topologies only); a query left with no probe completes unrouted
         (ids -1, dists inf) and is counted in ``n_unrouted``. ``tenant``
-        needs a tenant registry, which is not ported yet. ``ticker``
-        (callable, receives the stream clock) is called once per scheduler
-        iteration."""
+        (None, a tenant name, or one name a query) tags each query with a
+        registered TenantSpec: admission becomes DWRR across the tenants,
+        their deadlines, depths, credits and shed policies apply, a
+        tenant's backend fills any query ``backend`` left unrestricted, and
+        its k / nprobe / adaptive_tau override the engines' effort for its
+        rows. ``ticker`` (callable, receives the stream clock) is called
+        once per scheduler iteration."""
         q = np.asarray(queries, np.float32)
         n = len(q)
         arr = np.zeros(n) if arrival_times is None \
             else np.asarray(arrival_times, np.float64)
         order = np.argsort(arr, kind="stable")
-        if tenant is not None:
-            raise ValueError("tenant-tagged streams need a TenantSpec "
-                             "registry (ServingTopology(tenants=[...]))")
-        specs, tenant_of = [TenantSpec("default")], np.zeros(n, np.int32)
+        specs, tenant_of = self._resolve_stream_tenants(tenant, n)
+        if backend is None and any(s.backend is not None for s in specs):
+            backend = [specs[t].backend for t in tenant_of]
+        hedge_rt = None
         served = owner_sel = None
         if self.sharded:
-            tables, touches, served, owner_sel = self._route_probes(q,
-                                                                    backend)
+            tables, touches, served, owner_sel = self._route_probes(
+                q, backend, specs, tenant_of)
             slots = np.cumsum(touches, axis=1) - 1
             pending = touches.sum(axis=1).astype(np.int32)
             sink = ShardedSink(q, arr, self.k, self.fanout)
             sink.pending[:] = pending
-            root = ShardGroup(self._build_tree(sink, tables, slots), touches,
-                              pending, sink, self.k, self.backpressure)
+            if self.hedge_cfg is not None:
+                hedge_rt = ShardHedge(self.hedge_cfg, len(self.groups),
+                                      sink.now)
+            root = ShardGroup(self._build_tree(sink, tables, slots, hedge_rt),
+                              touches, pending, sink, self.k,
+                              self.backpressure, hedge_rt)
         else:
             if backend is not None:
                 raise ValueError("backend routing needs a sharded topology "
@@ -974,6 +1327,10 @@ class ServingTopology:
             root = self._build_tree(sink, None, None)
         adm = AdmissionController(self.admission_depth, self.shed_deadline_s,
                                   arr, tenants=specs, tenant_of=tenant_of)
+        if any(s.credits is not None for s in specs):
+            # completions return in-service credits, so DWRR can skip and
+            # unskip capped tenants; untenanted runs skip the hook
+            sink.on_finish = adm.release
         shed = np.zeros(n, bool)
         shed_wait = np.full(n, np.nan)
         quantum = max(1, min(self.fill_threshold, self.buckets[-1]))
@@ -983,13 +1340,24 @@ class ServingTopology:
             shed[idx] = True
             shed_wait[idx] = wait
 
-        self._run_loop(root, sink, adm, arr, order, n, shed_one, quantum,
-                       merge_sizes, ticker)
+        self._active = (root, sink)
+        try:
+            self._run_loop(root, sink, adm, arr, order, n, shed_one,
+                           quantum, merge_sizes, ticker)
+        finally:
+            self._active = None
         makespan = sink.now()
+        # per-tenant k: the prefix of the full-k row (the merge output is
+        # sorted)
+        for t, s in enumerate(specs):
+            if s.k is not None and s.k < self.k:
+                rows = (tenant_of == t) & ~shed
+                sink.out_ids[rows, s.k:] = -1
+                sink.out_d[rows, s.k:] = np.inf
         run_groups = [list(c.children) for c in root.children] \
             if self.sharded else [list(root.children)]
         return self._report(sink, shed, shed_wait, pending, merge_sizes,
-                            makespan, n, run_groups, specs=specs,
+                            makespan, n, run_groups, hedge_rt, specs=specs,
                             tenant_of=tenant_of, adm=adm, served=served,
                             owner_sel=owner_sel)
 
@@ -1044,11 +1412,37 @@ class ServingTopology:
             dt = nxt - sink.now()
             time.sleep(min(max(dt, 5e-5), 5e-4))
 
+    def _resolve_stream_tenants(self, tenant, n: int):
+        """Map run(tenant=...) onto the registry: (specs, tenant_of)."""
+        if tenant is not None and self.tenants is None:
+            raise ValueError("tenant-tagged streams need a TenantSpec "
+                             "registry (ServingTopology(tenants=[...]))")
+        if self.tenants is None:
+            return [TenantSpec("default")], np.zeros(n, np.int32)
+        specs = self.tenants
+        name_to = {s.name: t for t, s in enumerate(specs)}
+        if tenant is None:
+            return specs, np.zeros(n, np.int32)
+        if isinstance(tenant, str):
+            if tenant not in name_to:
+                raise ValueError(f"unknown tenant {tenant!r}; registered: "
+                                 f"{sorted(name_to)}")
+            return specs, np.full(n, name_to[tenant], np.int32)
+        labels = list(tenant)
+        if len(labels) != n:
+            raise ValueError(f"tenant list length {len(labels)} != {n} "
+                             f"queries")
+        missing = sorted(set(labels) - set(name_to))
+        if missing:
+            raise ValueError(f"unknown tenant(s) {missing}; registered: "
+                             f"{sorted(name_to)}")
+        return specs, np.asarray([name_to[l] for l in labels], np.int32)
+
     def _tenant_stats(self, sink, shed, makespan, specs, tenant_of, adm,
                       served=None) -> dict:
-        """Per-tenant goodput/latency/shed accounting for the report (one
-        default tenant until tenancy is ported). On sharded runs each
-        tenant also gets its own ``cluster_hits`` slice of the heat."""
+        """Per-tenant goodput/latency/shed accounting for the report. On
+        sharded runs each tenant also gets its own ``cluster_hits`` slice
+        of the heat (``autoscale.tenant_fair_heat`` reweights them)."""
         out = {}
         for t, s in enumerate(specs):
             rows = tenant_of == t
@@ -1079,9 +1473,9 @@ class ServingTopology:
         return out
 
     def _report(self, sink, shed, shed_wait, pending, merge_sizes,
-                makespan: float, n: int, run_groups: list, *, specs,
-                tenant_of, adm, served=None,
-                owner_sel=None) -> TopologyReport:
+                makespan: float, n: int, run_groups: list,
+                hedge_rt: ShardHedge | None = None, *, specs, tenant_of, adm,
+                served=None, owner_sel=None) -> TopologyReport:
         n_shed = int(shed.sum())
         n_admitted = n - n_shed
         flush_sizes = [s for grp in run_groups for w in grp
@@ -1133,6 +1527,9 @@ class ServingTopology:
             replicas=[len(g) for g in self.groups],
             backends=list(self.modes),
             exec=self._exec.name,
+            n_reissued=hedge_rt.n_reissued if hedge_rt else 0,
+            n_duplicate_drops=hedge_rt.n_duplicate_drops if hedge_rt else 0,
+            shard_ewma_ms=hedge_rt.shard_ewma_ms if hedge_rt else [],
             tenants=self._tenant_stats(sink, shed, makespan, specs,
                                        tenant_of, adm, served),
             cluster_hits=cluster_hits,
@@ -1142,16 +1539,19 @@ class ServingTopology:
 @dataclasses.dataclass(frozen=True)
 class TopologyConfig:
     """The typed serving-tier spec: shape (``shards`` / ``replicas`` /
-    ``inner_shards``), streaming (``buckets`` ... ``max_batch``), overload
-    (``admission_depth`` / ``shed_deadline_s`` / ``backpressure``) and
-    execution (``exec``). Build with ``cfg.build(eng)`` (or
-    ``topology(eng, config=cfg)``); derive variants with
-    ``dataclasses.replace``. ``modes`` gives each shard its own ranking
-    backend (needs shards >= 2). ``hedge``, ``tenants``, ``mutable``,
-    ``autoscale``, ``replicate_hot``, ``replica_factor`` and ``rebalance``
-    are the reference's fields that are not ported yet: set to anything
-    but their defaults they raise ``NotImplementedError``, as
-    ``exec="mesh"`` does."""
+    ``modes`` / ``inner_shards``), streaming (``buckets`` ... ``max_batch``),
+    overload (``admission_depth`` / ``shed_deadline_s`` / ``backpressure``),
+    execution (``exec`` / ``hedge``), tenancy (``tenants``), day-2
+    operations (``autoscale``) and heat-aware placement
+    (``replicate_hot`` / ``replica_factor`` / ``rebalance``). Build with
+    ``cfg.build(eng)`` (or ``topology(eng, config=cfg)``); derive variants
+    with ``dataclasses.replace``. ``modes`` gives each shard its own ranking
+    backend (needs shards >= 2).
+
+    ``share_executables`` is the JAX package's field and has no effect
+    here: the port builds no executables, so replicas share nothing but
+    their placed index either way. ``mutable=True`` is not ported yet and
+    raises ``NotImplementedError``, as ``exec="mesh"`` does."""
 
     # -- shape ---------------------------------------------------------------
     shards: int = 1
@@ -1160,6 +1560,7 @@ class TopologyConfig:
     strict: bool = False
     modes: tuple | None = None
     inner_shards: int = 1
+    share_executables: bool = True
     # -- streaming -----------------------------------------------------------
     route: str = "least-in-flight"
     buckets: tuple | None = None
@@ -1174,14 +1575,16 @@ class TopologyConfig:
     backpressure: bool = True
     # -- execution -----------------------------------------------------------
     exec: str | object = "inproc"
-    hedge: object | None = None
-    # -- not ported yet ------------------------------------------------------
+    hedge: HedgeConfig | None = None
+    # -- tenancy -------------------------------------------------------------
     tenants: tuple | None = None
+    # -- day-2 operations ----------------------------------------------------
     mutable: bool = False
-    autoscale: object | None = None
+    autoscale: autoscale_mod.AutoscalePolicy | None = None
+    # -- heat-aware placement ------------------------------------------------
     replicate_hot: int = 0
     replica_factor: int = 2
-    rebalance: object | None = None
+    rebalance: autoscale_mod.RebalancePolicy | None = None
 
     def __post_init__(self):
         if self.replicas < 1:
@@ -1197,47 +1600,68 @@ class TopologyConfig:
         if self.inner_shards < 1:
             raise ValueError(
                 f"need at least one inner shard, got {self.inner_shards}")
-        for name, on in (("hedged dispatch (hedge)", self.hedge is not None),
-                         ("tenants", self.tenants is not None),
-                         ("a mutable topology (mutable)", self.mutable),
-                         ("autoscaling (autoscale)",
-                          self.autoscale is not None),
-                         ("hot-cluster replication (replicate_hot)",
-                          self.replicate_hot != 0),
-                         ("a hot-cluster replica factor (replica_factor)",
-                          self.replica_factor != 2),
-                         ("rebalancing (rebalance)",
-                          self.rebalance is not None)):
-            if on:
-                _not_ported(name)
+        if self.autoscale is not None and not isinstance(
+                self.autoscale, autoscale_mod.AutoscalePolicy):
+            raise ValueError(f"autoscale must be an AutoscalePolicy, "
+                             f"got {type(self.autoscale).__name__}")
+        if self.replicate_hot < 0:
+            raise ValueError(f"replicate_hot must be >= 0, "
+                             f"got {self.replicate_hot}")
+        if self.replicate_hot and self.shards < 2:
+            raise ValueError("replicate_hot (hot-cluster replication) "
+                             "needs shards >= 2")
+        if self.replicate_hot and not 2 <= self.replica_factor <= self.shards:
+            raise ValueError(f"replica_factor must be in 2..{self.shards}, "
+                             f"got {self.replica_factor}")
+        if self.replicate_hot and self.inner_shards != 1:
+            raise ValueError("replicate_hot with inner_shards > 1 is not "
+                             "supported (replica slots break the equal "
+                             "inner-shard split)")
+        if self.rebalance is not None:
+            if not isinstance(self.rebalance, autoscale_mod.RebalancePolicy):
+                raise ValueError(f"rebalance must be a RebalancePolicy, "
+                                 f"got {type(self.rebalance).__name__}")
+            if self.shards < 2:
+                raise ValueError("heat-driven rebalancing moves clusters "
+                                 "between shards (needs shards >= 2)")
+        if self.mutable:
+            _not_ported("a mutable topology (mutable)")
         if self.exec == "mesh":
             execbackend_mod.resolve_exec_backend(self.exec)   # raises
 
     def build(self, eng, *, freq: np.ndarray | None = None,
               heat: np.ndarray | None = None) -> ServingTopology:
-        """Materialize this config over one built engine. ``freq`` is the
-        estimated per-cluster frequency the placer balances (the cluster
-        sizes by default); ``heat`` (measured cluster hits) is not ported
-        yet."""
-        if heat is not None:
-            _not_ported("heat-aware placement (heat=)")
+        """Materialize this config over one built engine. ``heat`` is a
+        measured ``TopologyReport.cluster_hits`` vector for the placer (and
+        the ``replicate_hot`` hot set); ``freq`` keeps its estimated
+        meaning (the cluster sizes by default). Pass one or the other."""
         serve_kw = dict(
             route=self.route, buckets=self.buckets, costs=self.costs,
             fill_threshold=self.fill_threshold,
             wait_limit_s=self.wait_limit_s, fifo_depth=self.fifo_depth,
             max_batch=self.max_batch, admission_depth=self.admission_depth,
             shed_deadline_s=self.shed_deadline_s,
-            backpressure=self.backpressure, exec=self.exec)
+            backpressure=self.backpressure, exec=self.exec,
+            hedge=self.hedge, tenants=self.tenants,
+            autoscale=self.autoscale)
         if self.shards == 1:
+            if heat is not None:
+                raise ValueError("heat-aware placement needs shards >= 2 "
+                                 "(one shard holds every cluster)")
             return ServingTopology(
                 [replicate_engine(eng, self.replicas)], **serve_kw)
         parts, pl = partition_index(
             eng, self.shards, mem_budget=self.mem_budget, strict=self.strict,
-            modes=self.modes, inner_shards=self.inner_shards, freq=freq)
+            modes=self.modes, inner_shards=self.inner_shards, freq=freq,
+            heat=heat, replicate_hot=self.replicate_hot,
+            replica_factor=self.replica_factor)
         groups = [replicate_engine(p, self.replicas) for p in parts]
         return ServingTopology(groups, part_of=pl.shard_of,
                                local_cid=pl.local_slot,
-                               centroids=eng.index.centroids, **serve_kw)
+                               centroids=eng.index.centroids,
+                               placement=pl, source=eng,
+                               mem_budget=self.mem_budget,
+                               rebalance=self.rebalance, **serve_kw)
 
 
 def topology(eng, *, config: TopologyConfig | None = None,
@@ -1245,13 +1669,24 @@ def topology(eng, *, config: TopologyConfig | None = None,
              heat: np.ndarray | None = None, **kw) -> ServingTopology:
     """Build a serving topology over one built engine:
     ``topology(eng, config=TopologyConfig(...))``, the same as
-    ``config.build(eng)``. The reference's deprecated kwarg form
-    (``topology(eng, shards=2, ...)``) is not ported."""
-    if kw or config is None:
-        _not_ported(f"the deprecated kwarg form topology(eng, "
-                    f"{', '.join(sorted(kw))}); use "
-                    f"TopologyConfig(...).build(eng)")
-    if not isinstance(config, TopologyConfig):
-        raise ValueError(f"config must be a TopologyConfig, "
-                         f"got {type(config).__name__}")
-    return config.build(eng, freq=freq, heat=heat)
+    ``config.build(eng)``. The deprecated kwarg form (``topology(eng,
+    shards=2, ...)``) folds the kwargs into a ``TopologyConfig`` and emits
+    a ``DeprecationWarning``, as the JAX package's does."""
+    if config is not None:
+        if kw:
+            raise ValueError(
+                f"pass EITHER config= OR legacy kwargs, not both "
+                f"(got config plus {sorted(kw)})")
+        if not isinstance(config, TopologyConfig):
+            raise ValueError(f"config must be a TopologyConfig, "
+                             f"got {type(config).__name__}")
+        return config.build(eng, freq=freq, heat=heat)
+    warnings.warn(
+        "topology(eng, shards=..., ...) kwargs are deprecated; build a "
+        "TopologyConfig and call topology(eng, config=cfg) or cfg.build(eng)",
+        DeprecationWarning, stacklevel=2)
+    try:
+        cfg = TopologyConfig(**kw)
+    except TypeError as e:
+        raise TypeError(f"topology() got unknown keyword(s): {e}") from None
+    return cfg.build(eng, freq=freq, heat=heat)

@@ -1,9 +1,10 @@
 """Deterministic synthetic ANNS data (counterpart of
 ``repro/data/synthetic.py``).
 
-``clustered_vectors`` and ``query_set`` are numpy and draw the same bits as
-the JAX package's generators from the same seed, so both packages index the
-same corpus. ``ground_truth`` takes numpy arrays (the numpy path) or torch
+``clustered_vectors``, ``query_set``, ``zipf_query_set`` and
+``drifting_hotspot_stream`` are numpy and draw the same bits as the JAX
+package's generators from the same seed, so both packages index the same
+corpus and serve the same traffic. ``ground_truth`` takes numpy arrays (the numpy path) or torch
 tensors (the torch path, which runs wherever the tensors lie — on the card
 for a corpus too large for the host's patience).
 """
@@ -13,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["clustered_vectors", "query_set", "ground_truth"]
+__all__ = ["clustered_vectors", "query_set", "zipf_query_set",
+           "drifting_hotspot_stream", "ground_truth"]
 
 
 def clustered_vectors(seed: int, n: int, d: int, n_clusters: int,
@@ -39,6 +41,76 @@ def query_set(seed: int, x: np.ndarray, q: int, noise: float = 0.05
     rng = np.random.default_rng(seed + 1)
     base = x[rng.choice(len(x), q)]
     return (base + rng.normal(0, noise, base.shape)).astype(np.float32)
+
+
+def _cluster_members(assignment: np.ndarray, c: int) -> list:
+    """The ascending row ids of each cluster 0..c-1: one stable argsort of
+    the assignment, the same lists as one ``flatnonzero(assignment == cid)``
+    a cluster in O(N log N) instead of O(C N)."""
+    assignment = np.asarray(assignment)
+    order = np.argsort(assignment, kind="stable")
+    bounds = np.searchsorted(assignment[order], np.arange(c + 1),
+                             side="left")
+    return [order[bounds[cid]:bounds[cid + 1]] for cid in range(c)]
+
+
+def zipf_query_set(seed: int, x: np.ndarray, assignment: np.ndarray,
+                   n_queries: int, *, s: float = 1.0,
+                   hot_order: np.ndarray | None = None,
+                   n_clusters: int | None = None, noise: float = 0.05
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Zipf-skewed query workload over an ANN corpus.
+
+    Draws each query's TARGET CLUSTER from a Zipf(``s``) law over cluster
+    popularity ranks, then perturbs a random member of that cluster.
+    ``assignment`` maps each corpus row to its cluster; ``hot_order[r]`` is
+    the cluster holding popularity rank r (default: cluster id == rank).
+
+    Returns (queries (Q, D) f32, target (Q,) int32 cluster of each draw);
+    the draws are the JAX package's bit for bit."""
+    if s <= 0:
+        raise ValueError(f"zipf exponent s must be > 0, got {s}")
+    c = int(n_clusters) if n_clusters is not None \
+        else int(np.asarray(assignment).max()) + 1
+    if hot_order is None:
+        hot_order = np.arange(c)
+    hot_order = np.asarray(hot_order)
+    if len(hot_order) != c or len(np.unique(hot_order)) != c:
+        raise ValueError(f"hot_order must be a permutation of the {c} "
+                         f"cluster ids")
+    rng = np.random.default_rng(seed + 1)
+    p = 1.0 / np.power(np.arange(1, c + 1, dtype=np.float64), s)
+    p /= p.sum()
+    target = hot_order[rng.choice(c, n_queries, p=p)].astype(np.int32)
+    # a member row of each target cluster (any row for an empty cluster)
+    members = _cluster_members(assignment, c)
+    rows = np.array([members[cid][rng.integers(len(members[cid]))]
+                     if len(members[cid]) else rng.integers(len(x))
+                     for cid in target])
+    q = x[rows] + rng.normal(0, noise, (n_queries, x.shape[1]))
+    return q.astype(np.float32), target
+
+
+def drifting_hotspot_stream(seed: int, x: np.ndarray,
+                            assignment: np.ndarray, n_queries: int,
+                            n_rounds: int, *, s: float = 1.0,
+                            hot_order: np.ndarray | None = None,
+                            n_clusters: int | None = None,
+                            shift_frac: float = 0.25,
+                            noise: float = 0.05) -> list:
+    """``n_rounds`` Zipf query sets whose hotspot DRIFTS: each round rotates
+    ``hot_order`` by ``shift_frac`` of the cluster count. Returns a list of
+    (queries, target) tuples, one per round."""
+    if not 1 <= n_rounds:
+        raise ValueError(f"need n_rounds >= 1, got {n_rounds}")
+    c = int(n_clusters) if n_clusters is not None \
+        else int(np.asarray(assignment).max()) + 1
+    order = np.arange(c) if hot_order is None else np.asarray(hot_order)
+    shift = max(1, int(round(shift_frac * c)))
+    return [zipf_query_set(seed + 1000 * r, x, assignment, n_queries, s=s,
+                           hot_order=np.roll(order, -shift * r),
+                           n_clusters=c, noise=noise)
+            for r in range(n_rounds)]
 
 
 def ground_truth(x, queries, k: int, chunk: int = 512):

@@ -15,10 +15,16 @@ batch that streams into the engine through
   * ``TopologyConfig(shards=N, replicas=R).build`` with --fleet N --sharded
     (the index partitioned across N engines, scatter / gather / merge).
 
+--tenants "name:weight[:backend],..." tags the retrieval stream with
+tenants (round-robin over the decode batch) behind the tier's DWRR
+admission; tenant backends become the shard partitions' modes,
+round-robin. --zipf S replaces the encoded queries with a Zipf(S)-skewed
+workload over the corpus clusters (``data/synthetic.zipf_query_set``).
+
 Not ported yet, each raising NotImplementedError after the flag checks and
-naming ROADMAP A5 (the rest of the launch surface): --tenants and --churn
-(they need A2, tenancy and day-2 operations), --zipf (``zipf_query_set``,
-also A2) and --exec mesh (it needs A4, the mesh execution backend).
+naming ROADMAP A5 (the rest of the launch surface): --churn (it needs A2b,
+the mutable index) and --exec mesh (it needs A4, the mesh execution
+backend).
 
 --sharded / --replicas without --fleet >= 2 is an argument ERROR, not a
 silent single-engine run.
@@ -39,7 +45,7 @@ from ..core.backends import available_backends
 from ..core.fleet import FleetScheduler, TenantSpec, TopologyConfig, \
     replicate_engine
 from ..core.pipeline import StreamingScheduler, bucket_ladder
-from ..data.synthetic import clustered_vectors
+from ..data.synthetic import clustered_vectors, zipf_query_set
 from ..models.model import Model, build_model
 
 __all__ = ["QueryEncoder", "mean_pool_encoder", "logit_slice_encoder",
@@ -94,8 +100,7 @@ ENCODERS: dict[str, Callable[..., QueryEncoder]] = {
 
 def parse_tenants(spec: str) -> list[TenantSpec]:
     """Parse --tenants "name:weight[:backend],..." into TenantSpecs; every
-    malformed entry raises ValueError with the offending text. (Serving
-    tenants is not ported yet: ``run`` refuses them after this check.)"""
+    malformed entry raises ValueError with the offending text."""
     out = []
     for entry in spec.split(","):
         entry = entry.strip()
@@ -137,13 +142,14 @@ class Generation(NamedTuple):
 
 
 def generate(model: Model, params, tokens: torch.Tensor, gen: int, cache, *,
-             scheduler=None, encoder: QueryEncoder | None = None
-             ) -> Generation:
+             scheduler=None, encoder: QueryEncoder | None = None,
+             tenant=None) -> Generation:
     """Prefill ``tokens`` (B, S) into ``cache``, then greedy-decode until
     ``gen`` tokens are out. With a scheduler, the encoder turns the first
     decode step's logits into queries and the scheduler serves them (the
-    RAG hook of the JAX package's loop). On a card the steps are timed on
-    the host clock, each phase ended by a synchronise."""
+    RAG hook of the JAX package's loop), tagged with ``tenant`` (one name
+    a query) when given. On a card the steps are timed on the host clock,
+    each phase ended by a synchronise."""
     if (scheduler is None) != (encoder is None):
         raise ValueError("retrieval needs both a scheduler and an encoder")
     cuda = tokens.device.type == "cuda"
@@ -165,7 +171,8 @@ def generate(model: Model, params, tokens: torch.Tensor, gen: int, cache, *,
         if scheduler is not None and i == 0:
             tr = now()
             queries = encoder(logits)
-            report = scheduler.run(queries)
+            report = scheduler.run(queries) if tenant is None \
+                else scheduler.run(queries, tenant=tenant)
             retrieve_s = now() - tr
     t2 = now()
     return Generation(torch.cat(out, dim=1), logits, report, queries,
@@ -232,17 +239,10 @@ def check_flags(rag: bool, fleet: int, sharded: bool, replicas: int,
                 f"{len(tenant_backends)} tenant backends "
                 f"{tenant_backends} need --fleet >= {len(tenant_backends)} "
                 f"shards to serve them (got --fleet {fleet})")
-        raise NotImplementedError(
-            "--tenants is not ported yet: ROADMAP A5 (the rest of the "
-            "launch surface; it needs A2's tenant registries)")
     if churn > 0:
         raise NotImplementedError(
             "--churn is not ported yet: ROADMAP A5 (the rest of the launch "
-            "surface; it needs A2's MutableIndex and day-2 operations)")
-    if zipf is not None:
-        raise NotImplementedError(
-            "--zipf is not ported yet: ROADMAP A5 (the rest of the launch "
-            "surface; it needs A2's data/synthetic.zipf_query_set)")
+            "surface; it needs A2b, the mutable index and its live swaps)")
     if exec == "mesh":
         raise NotImplementedError(
             "--exec mesh is not ported yet: ROADMAP A5 (the rest of the "
@@ -260,6 +260,10 @@ def run(arch: str, requests: int, prompt_len: int, gen: int,
     random weights from ``seed``; returns (tokens (B, gen) numpy, retrieved
     ids or None)."""
     check_flags(rag, fleet, sharded, replicas, exec, tenants, churn, zipf)
+    specs = None
+    if tenants is not None:
+        specs = parse_tenants(tenants) if isinstance(tenants, str) \
+            else list(tenants)
     device = torch.device(device)
     cfg = get_smoke(arch)
     model = build_model(cfg)
@@ -277,18 +281,36 @@ def run(arch: str, requests: int, prompt_len: int, gen: int,
         stream = dict(buckets=bucket_ladder(max(requests, 1)),
                       fill_threshold=max(requests // 2, 1),
                       wait_limit_s=5e-3)
+        modes = None
+        if specs is not None:
+            tenant_backends = sorted({t.backend for t in specs
+                                      if t.backend is not None})
+            if tenant_backends:
+                # spread the tenants' backends across the partitions
+                modes = [tenant_backends[o % len(tenant_backends)]
+                         for o in range(fleet)]
         if fleet > 1 and sharded:
             scheduler = TopologyConfig(shards=fleet, replicas=replicas,
+                                       modes=modes, tenants=specs,
                                        **stream).build(eng)
         elif fleet > 1:
             scheduler = FleetScheduler(replicate_engine(eng, fleet),
-                                       **stream)
+                                       tenants=specs, **stream)
         else:
             scheduler = StreamingScheduler(eng, **stream)
         if query_encoder is None:
             query_encoder = "mean-pool"
         encoder = ENCODERS[query_encoder](params, icfg.dim) \
             if isinstance(query_encoder, str) else query_encoder
+        if zipf is not None:
+            # a Zipf(S) workload over the corpus clusters in place of the
+            # encoded queries (a workload knob, not the model's)
+            cents = eng.index.centroids.cpu().numpy()
+            assign = np.argmin(((x[:, None, :] - cents[None, :, :]) ** 2)
+                               .sum(-1), axis=1).astype(np.int32)
+            zq, zipf_targets = zipf_query_set(seed, x, assign, requests,
+                                              s=zipf)
+            encoder = lambda logits: zq          # noqa: E731
 
     B = requests
     tokens = torch.randint(0, cfg.vocab_size, (B, prompt_len),
@@ -296,8 +318,10 @@ def run(arch: str, requests: int, prompt_len: int, gen: int,
     cache = model.init_cache(B, prompt_len + gen, dtype=torch.float32,
                              device=device)
     t0 = time.perf_counter()
+    labels = None if specs is None or scheduler is None else \
+        [specs[j % len(specs)].name for j in range(B)]
     out = generate(model, params, tokens, gen, cache, scheduler=scheduler,
-                   encoder=encoder)
+                   encoder=encoder, tenant=labels)
     dt = time.perf_counter() - t0
     rep = out.report
     retrieved = None if rep is None else rep.ids
@@ -307,6 +331,13 @@ def run(arch: str, requests: int, prompt_len: int, gen: int,
         if retrieved is not None:
             print(f"[serve] rag: retrieved neighbor ids (first 4 reqs): "
                   f"{retrieved[:4, :4].tolist()}")
+            if zipf is not None:
+                hist = np.bincount(zipf_targets)
+                hot = np.argsort(-hist, kind="stable")[:3]
+                print(f"[serve] rag: zipf(s={zipf:g}) workload — hottest "
+                      f"clusters {hot.tolist()} hold "
+                      f"{hist[hot].sum() / max(hist.sum(), 1):.0%} of "
+                      f"{len(zipf_targets)} queries")
             if fleet > 1 and sharded:
                 shares = [d["queries"] for d in rep.per_engine]
                 sizes = [d["clusters"] for d in rep.per_engine]
@@ -328,6 +359,12 @@ def run(arch: str, requests: int, prompt_len: int, gen: int,
                 print(f"[serve] rag: scheduler buckets={scheduler.buckets} "
                       f"flushes={rep.n_flushes} compiles={rep.compiles} "
                       f"p50={rep.p50_ms:.1f}ms")
+            if specs is not None and getattr(rep, "tenants", None):
+                for name, st in rep.tenants.items():
+                    print(f"[serve] rag: tenant {name!r} w={st['weight']:g} "
+                          f"backend={st['backend'] or 'any'} "
+                          f"queries={st['n_queries']} shed={st['n_shed']} "
+                          f"p50={st['p50_ms']:.1f}ms")
     return out.tokens.cpu().numpy(), retrieved
 
 
@@ -355,9 +392,11 @@ def main():
                     help="with --fleet N --sharded: execution backend "
                          "('mesh' is not ported yet)")
     ap.add_argument("--tenants", default=None,
-                    help="name:weight[:backend],... (not ported yet)")
+                    help="with --rag --fleet >= 2: tag the retrieval stream "
+                         "with tenants, name:weight[:backend],...")
     ap.add_argument("--zipf", type=float, default=None, metavar="S",
-                    help="Zipf(S) retrieval queries (not ported yet)")
+                    help="with --rag: Zipf(S)-skewed retrieval queries over "
+                         "the corpus clusters in place of the encoded ones")
     ap.add_argument("--churn", type=float, default=0.0,
                     help="day-2 churn fraction (not ported yet)")
     args = ap.parse_args()

@@ -584,6 +584,79 @@ def test_ranked_kernels_count_one_launch_each(card):
     assert counts["beam_search"] == 2 and counts["cluster_scan"] == 2
 
 
+def test_query_path_arithmetic_is_batch_invariant_on_the_card(card):
+    """On the card a library product or reduction of 256 rows differs in
+    its last bits from the same rows of a 4,096-row one. The lane LUTs
+    (``rabitq.prepare_query``, ``sign_code``) and the rerank distances
+    sum through ``fixed_order``, so every row is the same bits in any
+    batch: the sharded tier's partials equal the single engine's."""
+    from repro_torch.core import rabitq, rerank
+    g = torch.Generator(device=card).manual_seed(5)
+    vec = torch.randn((200_000, 128), generator=g, device=card) * 3
+    q = torch.randn((4096, 128), generator=g, device=card) * 3
+    cand = torch.randint(-1, 200_000, (4096, 320), generator=g,
+                         device=card, dtype=torch.int32)
+    cent = torch.randn((4096, 128), generator=g, device=card) * 3
+    rot = rabitq.random_rotation(g, 128, device=card)
+    full = rerank.exact_sqdist(q, cand, vec)
+    lut = rabitq.prepare_query(q, cent, rot)
+    code = rabitq.sign_code(q, cent, rot, dim=128)
+    for a, b in ((0, 1), (0, 100), (0, 256), (1000, 2024), (4000, 4096)):
+        assert torch.equal(rerank.exact_sqdist(q[a:b], cand[a:b], vec),
+                           full[a:b]), (a, b)
+        part = rabitq.prepare_query(q[a:b], cent[a:b], rot)
+        for got, want in zip(part, lut):
+            assert torch.equal(got, want[a:b]), (a, b)
+        assert torch.equal(rabitq.sign_code(q[a:b], cent[a:b], rot,
+                                            dim=128), code[a:b])
+
+
+def test_replicated_tier_and_placement_swap_on_the_card(card):
+    """A heat-aware tier with hot clusters replicated (multi-owner routing
+    through choose_owners) on the card: its ids equal the engine's own
+    search bitwise, through the beam_search, topk_select and merge_topk
+    kernels; after a rebalanced placement is swapped in (apply_placement
+    re-slices the shards on the card) the ids are unchanged; hedged
+    dispatch over two replicas a shard gives the same ids."""
+    from repro_torch.core import compact_index, engine, placement, topology
+    from repro_torch.data import synthetic
+    from repro_torch.distributed.straggler import HedgeConfig
+    x, _ = synthetic.clustered_vectors(11, 4000, 32, 16)
+    q = synthetic.query_set(11, x, 96)
+    icfg = compact_index.IndexConfig(dim=32, n_clusters=16, degree=8,
+                                     knn_k=16)
+    eng = engine.PIMCQGEngine.build(0, x, icfg,
+                                    engine.SearchConfig(nprobe=4, ef=16,
+                                                        k=5), device=card)
+    want = eng.search(q)[0].ids.cpu().numpy()
+    heat = np.ones(16)
+    heat[[2, 5, 11]] = 40.0
+    topo = topology.TopologyConfig(shards=4, buckets=(32, 96),
+                                   replicate_hot=3,
+                                   replica_factor=3).build(eng, heat=heat)
+    assert topo.replicated
+    ops.reset_launch_counts()
+    rep = topo.run(q)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("beam_search", "topk_select",
+                                       "merge_topk")), counts
+    np.testing.assert_array_equal(rep.ids, want)
+    bpc = eng.index.n_valid.cpu().numpy().astype(np.float64)
+    heat2 = np.ones(16)
+    heat2[[0, 7, 9]] = 40.0
+    old = topo.placement
+    new = placement.replicate_hot(
+        placement.rebalance(old, heat2, bpc, move_penalty=0.0), heat2, bpc,
+        top_h=3, copies=2, cap=old.resident_table.shape[1] - old.per_shard)
+    topo.apply_placement(new)
+    assert all(g[0].placed.codes.device == card for g in topo.groups)
+    np.testing.assert_array_equal(topo.run(q).ids, want)
+    hedged = topology.TopologyConfig(shards=4, replicas=2, buckets=(32, 96),
+                                     hedge=HedgeConfig()).build(eng)
+    np.testing.assert_array_equal(hedged.run(q).ids, want)
+
+
 def _attn_inputs(card, b, sq, sk, hq, hkv, d, q_dtype, kv_dtype, seed=0):
     g = torch.Generator(device=card).manual_seed(seed)
     q = torch.randn((b, sq, hq, d), generator=g, device=card).to(q_dtype)

@@ -219,6 +219,42 @@ def test_engine_search_close_to_jax(built, corpus, tau):
                                atol=1e-6 * scale)
 
 
+@pytest.mark.parametrize("dim", [32, 30])
+def test_rerank_distances_are_batch_invariant_and_close_to_jax(dim):
+    """A query's rerank distances and lane LUTs are the same bits in any
+    batch (summed through ``fixed_order``, so the sharded tier's partials
+    equal the single engine's); the distances are within a few ulps of
+    q2 + c2 of the JAX package's rerank, which picks the same ids."""
+    from repro.core import rerank as jrerank
+    from repro_torch.core import rabitq as trabitq
+    from repro_torch.core import rerank as trerank
+    rng = np.random.default_rng(dim)
+    lanes = torch.from_numpy(rng.standard_normal((5000, dim)).astype(
+        np.float32))
+    rot = trabitq.random_rotation(torch.Generator().manual_seed(dim), dim)
+    lut = trabitq.prepare_query(lanes, lanes.flip(0), rot)
+    for a, b in ((0, 1), (10, 4106), (4000, 5000)):
+        part = trabitq.prepare_query(lanes[a:b], lanes.flip(0)[a:b], rot)
+        for got, want in zip(part, lut):
+            assert torch.equal(got, want[a:b])
+    vec = (rng.standard_normal((3000, dim)) * 3).astype(np.float32)
+    q = (rng.standard_normal((300, dim)) * 3).astype(np.float32)
+    cand = rng.integers(-1, 3000, (300, 64)).astype(np.int32)
+    full = trerank.exact_sqdist(*map(torch.from_numpy, (q, cand, vec)))
+    for a, b in ((0, 1), (7, 263), (299, 300)):
+        part = trerank.exact_sqdist(torch.from_numpy(q[a:b]),
+                                    torch.from_numpy(cand[a:b]),
+                                    torch.from_numpy(vec))
+        assert torch.equal(part, full[a:b])
+    got = trerank.rerank(*map(torch.from_numpy, (q, cand, vec)), k=10)
+    want = jrerank.rerank(jnp.asarray(q), jnp.asarray(cand),
+                          jnp.asarray(vec), k=10)
+    assert (got.ids.numpy() == np.asarray(want.ids)).mean() >= 0.99
+    scale = float(np.max(np.sum(q ** 2, -1))) * 4
+    np.testing.assert_allclose(got.dists.numpy(), np.asarray(want.dists),
+                               rtol=1e-5, atol=1e-6 * scale)
+
+
 @pytest.mark.parametrize("scan", ["beam", "gemv"])
 def test_padded_search_bitwise_equals_unpadded(built, corpus, scan):
     _, q, _ = corpus

@@ -116,12 +116,6 @@ def test_owner_split_matches_jax(seed):
         np.testing.assert_array_equal(g, w)
 
 
-def test_multi_owner_routing_waits_for_replication():
-    probe, owner, local, _, o = _owner_case(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ivf.split_probes_by_owner(probe, owner[:, None], local[:, None], o)
-
-
 def _bridged(pl):
     return bridge.placement_from_numpy(
         pl.order, pl.shard_of, pl.local_slot, pl.n_shards, pl.per_shard,
@@ -353,31 +347,19 @@ def test_tier_stays_on_the_engines_device(engines, monkeypatch):
 
 
 @pytest.mark.parametrize("build", [
-    lambda te: topology.TopologyConfig(shards=2, hedge=object()),
-    lambda te: topology.TopologyConfig(shards=2, tenants=()),
     lambda te: topology.TopologyConfig(shards=2, mutable=True),
-    lambda te: topology.TopologyConfig(shards=2, autoscale=object()),
-    lambda te: topology.TopologyConfig(shards=2, replicate_hot=1),
-    lambda te: topology.TopologyConfig(shards=2, rebalance=object()),
     lambda te: topology.TopologyConfig(shards=2, exec="mesh"),
-    lambda te: topology.TopologyConfig(shards=2).build(
-        te, heat=np.ones(8)),
-    lambda te: topology.topology(te, shards=2),
-    lambda te: topology.topology(te),
-    lambda te: topology.partition_index(te, 2, placement=object()),
     lambda te: topology.partition_index(te, 2, mutable=True),
-    lambda te: topology.ServingTopology([[te]], tenants=[object()]),
-    lambda te: topology.ServingTopology([[te]], placement=object()),
+    lambda te: topology.ServingTopology([[te]], mutable=True),
+    lambda te: te.refresh(te.index, te.host),
     lambda te: execbackend.resolve_exec_backend("mesh"),
-    lambda te: topology.TopologyConfig(shards=2, replica_factor=3),
-    lambda te: topology.partition_index(te, 2, replica_factor=3),
-], ids=["hedge", "tenants", "mutable", "autoscale", "replicate_hot",
-        "rebalance", "mesh", "heat", "kwarg_form", "no_config", "placement",
-        "mutable_partition", "tenant_registry", "topology_placement",
-        "exec_mesh", "replica_factor", "partition_replica_factor"])
+], ids=["mutable", "mesh", "mutable_partition", "topology_mutable",
+        "refresh_host", "exec_mesh"])
 def test_options_not_ported_raise(engines, build):
+    """The mutable half of A2 (A2b) and the mesh backend (A4) still
+    refuse, naming their ROADMAP items."""
     _, te, _ = engines
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A[24] "):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A(2b|4) "):
         build(te)
 
 
@@ -555,13 +537,13 @@ def test_mixed_tier_partials_are_each_engines_own(engines):
 
 
 def test_day2_operations_not_ported_raise(engines):
+    """Of the day-2 operations only the mutable index's live swap is left
+    unported (A2b); a tenant-tagged run without a registry is refused with
+    the JAX package's ValueError."""
     _, te, _ = engines
     topo = topology.TopologyConfig(shards=2, buckets=(8, 16)).build(te)
-    for call in (lambda: topo.scale_replicas(0, 2),
-                 lambda: topo.apply(None),
-                 lambda: topo.apply_placement(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP A2b "):
+        topo.apply(None)
     with pytest.raises(ValueError, match="TenantSpec registry"):
         topo.run(np.zeros((1, 32), np.float32), tenant="a")
 
