@@ -87,7 +87,8 @@ Phases (each failure exits non-zero and prints no result line):
      ids outside exact distance ties); three rounds of
      drifting Zipf(1.4) traffic through a Rebalancer whose placement swaps
      apply_placement re-slices on the card (it must fire; ids hold after
-     every swap; allocated memory within 1 GiB); two tenants (a latency
+     every swap, against eng.search with room for every lane; allocated
+     memory within 1 GiB); two tenants (a latency
      tenant cut to nprobe 4), each tenant's rows equal to its queries
      served alone; hedged dispatch over two replicas a shard and
      scale_replicas, ids unchanged;
@@ -111,7 +112,27 @@ Phases (each failure exits non-zero and prints no result line):
      scaled_dot_product_attention's max and 99.9th-percentile |error|
      against a float64 computation (the kernel's percentile within 1.25x
      of SDPA's), and timed there beside its bound, its twin, the float32
-     plain version and scaled_dot_product_attention.
+     plain version and scaled_dot_product_attention;
+ 12. the mutable index at 10M x 128 (after phase 11, phase 4's engine
+     dropped, its index and vectors kept): MutableIndex(slab=S) with S from
+     the churn draw (the fullest cluster's inserts under frozen-centroid
+     assign, rounded up to 32, at least 64); its snapshot held bitwise
+     against rebuild() in all 13 CompactIndex fields and the vectors; the
+     1024 queries through TopologyConfig(shards=8, mutable=True) over
+     mut.to_engine(n_shards=8), counted, QPS / p50 / p99 the median of
+     five runs; the JAX package's update churn (benchmarks/churn.py): 1%,
+     the 100,000 lowest live ids deleted and re-inserted as vectors[drop]
+     + 0.05 N(0, 1) (default_rng(0)) under ids from N up, the first 256
+     inserts linked in rounds and held bitwise against graph.link_new on
+     copies of their clusters; topo.apply(mut) from the ticker of a run
+     (no deleted id served, every admitted row k live ids, allocated
+     memory within 1 GiB across the swap, tombstones billed reclaimable);
+     recall@10 over the live corpus at SearchConfig() and at ef 64 (a view
+     of the mutable engine); compact(), apply, the snapshot against
+     rebuild() again, the tier against the refreshed engine (distances
+     bitwise, ids outside exact ties), reclaimable bytes 0, and the recall
+     drift at ef 64 within 0.01 (benchmarks/churn.py's DRIFT_BOUND); each
+     step's seconds and peak allocated memory logged.
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1700,6 +1721,16 @@ def zipf_workload(torch, eng):
     return x, assign, hot_order, int((assign < 0).sum())
 
 
+def room_for_every_lane(eng):
+    """The engine with lane_capacity_factor = its shard count: every lane
+    of a batch fits on any one shard, so no skew of the traffic drops one
+    (a view: copy.copy shares every placed tensor)."""
+    v = copy.copy(eng)
+    v.scfg = dataclasses.replace(
+        eng.scfg, lane_capacity_factor=float(eng.place.n_shards))
+    return v
+
+
 def hold_ids(label, got, want) -> None:
     """A tier's top-k against a reference in every slot: the distances the
     same bits, and the ids equal wherever no other candidate lies at
@@ -1870,8 +1901,16 @@ def phase_skewed_tier(torch, eng):
             continue
         fired += 1
         rep2 = topo.run(qr)
-        hold_ids(f"9c drift round {r} after apply_placement vs eng.search",
-                 pair(rep2), pair(eng.search(qr)[0]))
+        # eng's 8 inner shards take 2 / 8 of a batch's lanes each; a round
+        # hot on a few clusters can overflow one, and the reference must
+        # not drop what the tier serves
+        dropped = int(eng.search(qr)[1].dropped_lanes)
+        ref, stats = room_for_every_lane(eng).search(qr)
+        if int(stats.dropped_lanes):
+            fail(f"9c drift round {r}: the reference dropped lanes")
+        hold_ids(f"9c drift round {r} after apply_placement vs eng.search "
+                 f"with room for every lane (at its own capacity it drops "
+                 f"{dropped} lanes)", pair(rep2), pair(ref))
         log(f"9c drift round {r}: skew {skew:.3f} -> "
             f"{skew_of(rep2)[1]:.3f} after a rebalance of {act.n_moved} "
             f"primaries ({act.replicated} clusters replicated) in "
@@ -2239,6 +2278,292 @@ def phase_lm(torch, dev, eng):
     return counts, row
 
 
+# the 13 CompactIndex tensors phase 12 holds bitwise against rebuild()
+INDEX_FIELDS = ("codes", "f_add", "neighbors", "entry", "n_valid",
+                "node_ids", "centroids", "alpha", "rho", "shift1", "shift2",
+                "residual_norm", "cos_theta")
+DRIFT_BOUND = 0.01           # benchmarks/churn.py's recall drift bound
+
+
+def same_index(torch, label, got, want) -> None:
+    """Two (CompactIndex, HostStore) pairs equal bit for bit, field by
+    field; a failure names every field that differs."""
+    (gi, gh), (wi, wh) = got, want
+    bad = [f for f in INDEX_FIELDS
+           if not torch.equal(getattr(gi, f), getattr(wi, f))]
+    if not torch.equal(gh.vectors, wh.vectors):
+        bad.append("host vectors")
+    if bad:
+        fail(f"{label}: snapshot differs from rebuild() in {bad}")
+    log(f"{label}: snapshot equals rebuild() bit for bit in all "
+        f"{len(INDEX_FIELDS)} CompactIndex fields and the host vectors")
+
+
+def live_ground_truth(torch, vectors, live, q, k: int = 10,
+                      chunk: int = 1 << 18):
+    """Exact top-k ids over the rows of ``vectors`` that ``live`` marks
+    (synthetic.ground_truth with every other row at inf), on the card."""
+    best_d = torch.full((q.shape[0], 0), float("inf"), device=q.device)
+    best_i = torch.zeros((q.shape[0], 0), dtype=torch.int64,
+                         device=q.device)
+    for s in range(0, vectors.shape[0], chunk):
+        xc = vectors[s:s + chunk]
+        d2 = (xc * xc).sum(-1)[None, :] - 2.0 * (q @ xc.T)
+        d2 = d2.masked_fill(~live[s:s + chunk][None, :], float("inf"))
+        d_top, i_top = torch.sort(d2, dim=1, stable=True)
+        cat_d = torch.cat([best_d, d_top[:, :k]], dim=1)
+        cat_i = torch.cat([best_i, i_top[:, :k] + s], dim=1)
+        d_sorted, pos = torch.sort(cat_d, dim=1, stable=True)
+        best_d, best_i = d_sorted[:, :k], torch.gather(cat_i, 1, pos[:, :k])
+    return best_i
+
+
+def recall_vs(torch, ids, gt) -> float:
+    """recall@k of ids (numpy or a tensor) against gt on its device."""
+    ids = torch.as_tensor(ids).to(gt.device).long()
+    hit = (ids[:, :, None] == gt[:, None, :]).any(-1).sum()
+    return float(hit) / gt.numel()
+
+
+def phase_mutable(torch, parts, icfg, qt):
+    """Phase 12: the mutable index at 10M x 128 (module docstring). ``parts``
+    holds phase 4's (index, host) and is emptied, so they go once the
+    mutable index has its mirrors. Returns a dict of the phase's
+    numbers."""
+    from repro_torch.core import engine, graph, ivf, topology
+    from repro_torch.core.mutable_index import MutableIndex
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    out = {}
+
+    def now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def gib():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() / 2**30
+
+    def step(name, t0):
+        """Seconds since t0 into out[name], and the step's peak allocated
+        memory (GiB) beside them."""
+        out[name] = now() - t0
+        out[name[:-2] + "_peak_gib"] = \
+            torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        return out[name]
+
+    index, host = parts
+    parts.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = qt.device
+    n = host.vectors.shape[0]
+    # the churn law (benchmarks/churn.py's update churn, 1% of the corpus):
+    # the lowest live ids come back perturbed under new ids from N up
+    n_churn = n // 100
+    drop = np.arange(n_churn)
+    new_ids = np.arange(n, n + n_churn)
+    noise = np.random.default_rng(0).standard_normal((n_churn, icfg.dim))
+    vecs = host.vectors[:n_churn] + 0.05 * torch.from_numpy(
+        noise.astype(np.float32)).to(dev)
+    need = torch.bincount(ivf.assign(vecs, index.centroids).long(),
+                          minlength=index.n_clusters)
+    slab = max(64, -(-int(need.max()) // 32) * 32)
+    out["slab"] = slab
+    log(f"12: churn of {n_churn} rows (1%); the fullest cluster draws "
+        f"{int(need.max())} inserts under frozen-centroid assign, "
+        f"{int((need > 0).sum())} clusters draw any: slab {slab} "
+        f"(budget {index.budget} -> {index.budget + slab}, "
+        f"+{slab / index.budget:.2%})")
+
+    # 1. construction, then the unmutated snapshot against rebuild()
+    t = now()
+    mut = MutableIndex(index, host, icfg, slab=slab, mem_bytes=2 << 30)
+    log(f"12 construct: {step('construct_s', t):.2f} s; {mut!r}"[:200])
+    del index, host
+    torch.cuda.empty_cache()
+    log(f"12: mirrors on the card, {gib():.2f} GiB allocated")
+    t = now()
+    rebuilt = mut.rebuild()
+    log(f"12 rebuild (unmutated): {step('rebuild0_s', t):.2f} s")
+    same_index(torch, "12 unmutated", mut.snapshot(), rebuilt)
+    del rebuilt
+    torch.cuda.empty_cache()
+
+    # 2. serve through the mutable 8-shard tier before any mutation
+    scfg = engine.SearchConfig()
+    q = qt.cpu().numpy()
+    t = now()
+    mut_eng = mut.to_engine(scfg, n_shards=8)
+    topo = topology.TopologyConfig(shards=8, mutable=True,
+                                   buckets=(256, 1024)).build(mut_eng)
+    log(f"12: mutable engine and 8-shard tier in {now() - t:.2f} s, "
+        f"{gib():.2f} GiB allocated")
+    topo.warm()
+    topo.run(q)
+    ops.reset_launch_counts()
+    rep = topo.run(q)
+    counts = ops.launch_counts()
+    runs = [rep] + [topo.run(q) for _ in range(4)]
+    med = {key: float(np.median([getattr(r, key) for r in runs]))
+           for key in ("qps", "p50_ms", "p99_ms")}
+    out.update(tier_qps=med["qps"], tier_p50=med["p50_ms"],
+               tier_p99=med["p99_ms"])
+    print("kernels mutable " + json.dumps(counts), flush=True)
+    if any(counts[k] == 0 for k in ("beam_search", "topk_select",
+                                    "merge_topk")):
+        fail(f"12: the mutable tier's run launched {counts}")
+    hold_ids("12 mutable tier (unmutated) vs its engine", pair(rep),
+             pair(mut_eng.search(qt)[0]))
+    log(f"12 mutable tier, unmutated: QPS "
+        f"{', '.join(f'{r.qps:.1f}' for r in runs)}; median QPS "
+        f"{med['qps']:.1f}, p50 {med['p50_ms']:.2f} ms, p99 "
+        f"{med['p99_ms']:.2f} ms")
+
+    # 3. the link on the card: rounds against link_new, one after another
+    b0 = 256
+    first = torch.as_tensor(new_ids[:b0])
+    touched = torch.unique(ivf.assign(vecs[:b0], mut.centroids))
+    before = mut.neighbors[touched].clone()
+    base = mut.n_valid[touched].clone()
+    t = now()
+    mut.insert(first, vecs[:b0])
+    rounds_s = step("link_rounds_s", t)
+    want = before
+    t = now()
+    for j, c in enumerate(touched.tolist()):
+        occ, sl = int(mut.n_valid[c]), mut.slot_gid[c]
+        xs = torch.zeros((mut.budget, mut.dim), device=dev)
+        xs[sl >= 0] = mut.vectors[sl[sl >= 0].long()]
+        graph.link_new(want[j], xs, occ, range(int(base[j]), occ),
+                       r=icfg.degree, knn_k=icfg.knn_k,
+                       prune_alpha=icfg.prune_alpha)
+    plain_s = step("link_new_s", t)
+    diff = (mut.neighbors[touched] != want).any(-1)
+    if diff.any():
+        fail(f"12 link: {int(diff.sum())} rows of {diff.numel()} in "
+             f"{len(touched)} clusters differ from link_new")
+    log(f"12 link of {b0} inserts into {len(touched)} clusters: rounds "
+        f"{rounds_s:.2f} s (with the encode and writes), link_new "
+        f"{plain_s:.2f} s; every row of the touched clusters equal bit for "
+        f"bit")
+    del want, before
+
+    # 4. delete and insert the rest of the 1%, then apply mid-stream
+    torch.cuda.empty_cache()
+    t = now()
+    mut.delete(drop)
+    step("delete_s", t)
+    t = now()
+    mut.insert(new_ids[b0:], vecs[b0:])
+    step("insert_s", t)
+    fp = mut.footprint()
+    log(f"12 delete of {n_churn}: {out['delete_s']:.2f} s; insert of "
+        f"{n_churn - b0} ({int(need.max())} rounds at most): "
+        f"{out['insert_s']:.2f} s; footprint {json.dumps(fp)}")
+    if not fp["reclaimable_bytes"] > 0:
+        fail("12: tombstones are not billed as reclaimable")
+    mem0 = gib()
+    swapped = []
+
+    def ticker(t_stream):
+        if not swapped:
+            t0 = now()
+            topo.apply(mut)
+            swapped.append(now() - t0)
+    ops.reset_launch_counts()
+    rep4 = topo.run(q, ticker=ticker)
+    counts4 = ops.launch_counts()
+    mem1 = gib()
+    out["apply_mid_s"] = swapped[0] if swapped else float("nan")
+    log(f"12 apply from the run's ticker: {out['apply_mid_s']:.2f} s; "
+        f"allocated {mem0:.3f} -> {mem1:.3f} GiB; launches {counts4}")
+    if not swapped or abs(mem1 - mem0) > 1.0:
+        fail(f"12: mid-stream apply ran {len(swapped)} times, memory "
+             f"{mem0:.3f} -> {mem1:.3f} GiB")
+    if any(counts4[k] == 0 for k in ("beam_search", "topk_select",
+                                     "merge_topk")):
+        fail(f"12: the run with the mid-stream apply launched {counts4}")
+    ids4 = rep4.ids
+    if np.isin(ids4, drop).any():
+        fail(f"12: {int(np.isin(ids4, drop).sum())} deleted ids served "
+             f"after apply")
+    admitted = ~rep4.shed
+    live_of = mut.loc[:, 0].cpu().numpy()
+    rows = ids4[admitted]
+    if not ((rows >= 0).all() and (live_of[np.maximum(rows, 0)] >= 0).all()):
+        fail("12: an admitted row carries fewer than k live ids")
+    log(f"12: {int(admitted.sum())} admitted rows, each of "
+        f"{rows.shape[1]} live ids; no deleted id served")
+    t = now()
+    mut_eng.refresh(*mut.snapshot())
+    log(f"12 engine refresh {now() - t:.2f} s, {gib():.2f} GiB allocated")
+
+    # 5. recall of the mutated, uncompacted index over the live corpus
+    gt = live_ground_truth(torch, mut.vectors, mut.loc[:, 0] >= 0, qt)
+    out["recall_mut"] = recall_vs(torch, ids4, gt)
+    view64 = copy.copy(mut_eng)
+    view64.scfg = dataclasses.replace(scfg, ef=64)
+    out["recall_mut64"] = recall_vs(torch, view64.search(qt)[0].ids, gt)
+    del view64                   # it holds this state's placed tensors
+    log(f"12 recall@10 of the mutated, uncompacted index: tier "
+        f"{out['recall_mut']:.4f} at SearchConfig(); "
+        f"{out['recall_mut64']:.4f} at ef 64 (a view of its engine)")
+
+    # 6. compact, apply, and the snapshot against rebuild()
+    torch.cuda.empty_cache()
+    t = now()
+    compacted = mut.compact()
+    log(f"12 compact of {len(compacted)} dirty clusters: "
+        f"{step('compact_s', t):.2f} s")
+    mem0 = gib()
+    t = now()
+    topo.apply(mut)
+    out["apply_s"] = now() - t
+    mem1 = gib()
+    log(f"12 apply after compact: {out['apply_s']:.2f} s; allocated "
+        f"{mem0:.3f} -> {mem1:.3f} GiB")
+    if abs(mem1 - mem0) > 1.0:
+        fail(f"12: apply moved allocated memory {mem0:.3f} -> {mem1:.3f}")
+    mut_eng.refresh(*mut.snapshot())
+    if mut.footprint()["reclaimable_bytes"] != 0:
+        fail("12: compaction left reclaimable bytes billed")
+    torch.cuda.empty_cache()
+    t = now()
+    rebuilt = mut.rebuild()
+    log(f"12 rebuild (compacted): {step('rebuild1_s', t):.2f} s")
+    same_index(torch, "12 compacted", mut.snapshot(), rebuilt)
+    del rebuilt
+    torch.cuda.empty_cache()
+    rep6 = topo.run(q)
+    hold_ids("12 compacted tier vs the refreshed engine", pair(rep6),
+             pair(mut_eng.search(qt)[0]))
+    out["recall_compact"] = recall_vs(torch, rep6.ids, gt)
+    view64 = copy.copy(mut_eng)
+    view64.scfg = dataclasses.replace(scfg, ef=64)
+    out["recall_compact64"] = recall_vs(torch, view64.search(qt)[0].ids, gt)
+    del view64
+    drift = abs(out["recall_mut64"] - out["recall_compact64"])
+    log(f"12 recall@10 compacted: tier {out['recall_compact']:.4f}; ef 64 "
+        f"{out['recall_compact64']:.4f}; drift at ef 64 {drift:.4f} "
+        f"(bound {DRIFT_BOUND})")
+    if drift > DRIFT_BOUND:
+        fail(f"12: recall drift {drift:.4f} at ef 64 exceeds {DRIFT_BOUND}")
+    out["peak_gib"] = max([torch.cuda.max_memory_allocated() / 2**30] + [
+        v for k, v in out.items() if k.endswith("_peak_gib")])
+    del topo, mut_eng, mut
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"12 done in {out['phase_s']:.1f} s; peak device memory "
+        f"{out['peak_gib']:.2f} GiB; steps (s) " + json.dumps(
+            {k: round(v, 3) for k, v in out.items() if k.endswith("_s")})
+        + "; peak allocated by step (GiB) " + json.dumps(
+            {k: round(v, 2) for k, v in out.items()
+             if k.endswith("_peak_gib")}))
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2269,9 +2594,12 @@ def main() -> None:
                                                    recall)
     phase_mixed_tier(torch, topo, qt)
     timing.update(phase_new_kernels_real(torch, topo, rep, scan_call, qt))
-    del topo
+    del topo, scan_call
     phase_skewed_tier(torch, eng)
     lm_counts, timing["flash_attention"] = phase_lm(torch, dev, eng)
+    parts, icfg = [eng.index, eng.host], eng.icfg
+    del eng
+    mutable = phase_mutable(torch, parts, icfg, qt)
 
     src = {"binary_ip_rank": ("src/repro_torch/kernels/csrc/binary_ip.cu",
                               "src/repro/kernels/binary_ip.py:79"),
@@ -2317,7 +2645,10 @@ def main() -> None:
     log(f"card {card}; n={N}; build {build_s:.1f} s; recall@10 "
         f"{recall:.4f} beam, {gemv_recall:.4f} gemv, sharded equal to beam; "
         f"QPS {qps[0]:.1f} beam, {gemv_qps[0]:.1f} gemv, {med['qps']:.1f} "
-        f"sharded (median of 5); no single PyTorch call computes binary_ip_rank, "
+        f"sharded (median of 5); mutable tier QPS {mutable['tier_qps']:.1f}, "
+        f"recall drift at ef 64 "
+        f"{abs(mutable['recall_mut64'] - mutable['recall_compact64']):.4f}; "
+        f"no single PyTorch call computes binary_ip_rank, "
         f"topk_select (a dedup first), cluster_scan (a rank and a "
         f"selection) or beam_search (a graph search), so their library_ms "
         f"is null")

@@ -20,10 +20,13 @@ from . import graph as graph_mod
 from . import ivf, mulfree, rabitq
 
 __all__ = ["CompactIndex", "HostStore", "IndexConfig", "build_compact_index",
-           "symphonyqg_bytes_per_node", "compact_bytes_per_node",
-           "footprint_report"]
+           "encode_clusters", "CLUSTER_FIELDS", "symphonyqg_bytes_per_node",
+           "compact_bytes_per_node", "footprint_report"]
 
 INT_MAX = 2**31 - 1
+# the per-cluster CompactIndex fields that ``encode_clusters`` produces
+CLUSTER_FIELDS = ("codes", "f_add", "residual_norm", "cos_theta", "alpha",
+                  "rho", "shift1", "shift2", "neighbors", "entry", "n_valid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +93,7 @@ def _gather(x, node_ids):
                        0.0), valid
 
 
-def _encode_clusters(vecs, valid, centroids, rotation, cfg: IndexConfig):
+def _encode_codes(vecs, valid, centroids, rotation, cfg: IndexConfig):
     """B clusters at once: canonical codes and O3 constants."""
     codes = rabitq.encode(vecs, centroids, rotation, dim=cfg.dim)
     consts = mulfree.calibrate_alpha(codes.cos_theta, codes.residual_norm,
@@ -105,31 +108,37 @@ def _encode_clusters(vecs, valid, centroids, rotation, cfg: IndexConfig):
 
 
 def _graph_batch(rows: int, cfg: IndexConfig, mem_bytes: int) -> int:
-    """Clusters of ``rows`` padded rows per graph call, so that its largest
-    temporaries (the (rows, rows) kNN distances and their sort, the
-    (rows, C, C) pruning distances and the (rows, C, D) candidate vectors)
-    stay near ``mem_bytes``."""
+    """Clusters of ``rows`` padded rows per graph call, so that the call's
+    tensors (the gathered vectors, the candidate lists and the (rows, C, C)
+    occlusion table) stay near ``mem_bytes``; one block's kNN temporaries
+    (``graph.KNN_BLOCK`` x rows distances and their sort) come on top."""
     c = cfg.knn_k
-    per = 4 * rows * (5 * rows + c * c + c * cfg.dim + 4 * c)
+    per = rows * (4 * cfg.dim + c * c + 16 * c)
     return max(1, mem_bytes // per)
 
 
 def _build_graphs(x, node_ids, sizes: np.ndarray, cfg: IndexConfig,
-                  mem_bytes: int):
-    """Cluster graphs, in batches of clusters of similar size padded only to
-    the batch's largest member (at least knn_k + 1 rows), so the O(n^2) kNN
-    costs the clusters' own sizes and not the budget's. The rows a cluster
-    gains or loses against the budget's padding are pads, which the kNN
-    masks to inf and the pruning never keeps, so each graph is the one the
+                  mem_bytes: int, out: dict | None = None,
+                  at: torch.Tensor | None = None):
+    """Cluster graphs (neighbors, entry, n_valid), written into ``out``'s
+    tensors at rows ``at`` (new tensors by default), in batches of clusters
+    of similar size padded only to the batch's largest member (at least
+    knn_k + 1 rows), so the O(n^2) kNN costs the clusters' own sizes and
+    not the budget's. A graph does not depend on the padding or on the
+    batch (``graph.build_cluster_graph``), so each is the one the
     budget-padded build gives."""
     c, budget = node_ids.shape
     knn_k = min(cfg.knn_k, max(budget - 1, 1))
-    # a budget below degree + 1 leaves fewer candidates than R, and then
-    # the adjacency is as narrow as the candidate list (as in the reference)
-    neighbors = torch.full((c, budget, min(cfg.degree, knn_k)), -1,
-                           dtype=torch.int32, device=x.device)
-    entry = torch.zeros(c, dtype=torch.int32, device=x.device)
-    n_valid = torch.zeros(c, dtype=torch.int32, device=x.device)
+    if out is None:
+        # a budget below degree + 1 leaves fewer candidates than R, and
+        # then the adjacency is as narrow as the candidate list (as in the
+        # reference)
+        out = dict(neighbors=torch.empty((c, budget, min(cfg.degree, knn_k)),
+                                         dtype=torch.int32, device=x.device),
+                   entry=torch.empty(c, dtype=torch.int32, device=x.device),
+                   n_valid=torch.empty(c, dtype=torch.int32,
+                                       device=x.device))
+        at = torch.arange(c, device=x.device)
     by_size = np.argsort(sizes, kind="stable")
     floor = min(budget, knn_k + 1)
 
@@ -148,10 +157,60 @@ def _build_graphs(x, node_ids, sizes: np.ndarray, cfg: IndexConfig,
         g = graph_mod.build_cluster_graph(vecs, valid, r=cfg.degree,
                                           knn_k=knn_k,
                                           prune_alpha=cfg.prune_alpha)
-        neighbors[cids, :n_rows] = g.neighbors
-        entry[cids], n_valid[cids] = g.entry, g.n_valid
+        dest = at[cids]
+        out["neighbors"][dest, :n_rows] = g.neighbors
+        out["neighbors"][dest, n_rows:] = -1
+        out["entry"][dest], out["n_valid"][dest] = g.entry, g.n_valid
         i += step
-    return neighbors, entry, n_valid
+    return out["neighbors"], out["entry"], out["n_valid"]
+
+
+def encode_clusters(x: torch.Tensor, node_ids: torch.Tensor,
+                    centroids: torch.Tensor, rotation: torch.Tensor,
+                    cfg: IndexConfig, *, mem_bytes: int = 8 << 30,
+                    out: dict | None = None,
+                    at: torch.Tensor | None = None) -> dict:
+    """The one producer of cluster arrays: the index build, and the mutable
+    index's construction, ``compact()`` and ``rebuild()``.
+
+    node_ids (B, M) global ids into x's rows, each cluster's members first
+    and -1 after them; centroids (B, D). Produces the ``CLUSTER_FIELDS`` of
+    a CompactIndex at budget M: codes, f_add and cos_theta (INT_MAX / 1 on
+    pad rows), residual_norm, the O3 constants, and the graph (neighbors,
+    entry, n_valid), into new (B, ...) tensors, or written batch by batch
+    into ``out``'s tensors at rows ``at`` (the mutable index's mirrors, so
+    no second copy of them is made). Returns the dict written. A cluster's
+    arrays are the same bits whichever other clusters share the call: its
+    sums run in one fixed order and its graph's products one cluster at a
+    time."""
+    b, budget = node_ids.shape
+    dev = x.device
+    if out is None:
+        w = cfg.dim_padded // 8
+        r = min(cfg.degree, cfg.knn_k, max(budget - 1, 1))
+
+        def new(*shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device=dev)
+        out = dict(codes=new(b, budget, w, dtype=torch.uint8),
+                   f_add=new(b, budget),
+                   residual_norm=new(b, budget, dtype=torch.float32),
+                   cos_theta=new(b, budget, dtype=torch.float32),
+                   alpha=new(b, dtype=torch.float32),
+                   rho=new(b, dtype=torch.float32), shift1=new(b),
+                   shift2=new(b), neighbors=new(b, budget, r), entry=new(b),
+                   n_valid=new(b))
+    if at is None:
+        at = torch.arange(b, device=dev)
+    step = max(1, mem_bytes // (16 * budget * cfg.dim))
+    for c0 in range(0, b, step):
+        vecs, valid = _gather(x, node_ids[c0:c0 + step])
+        part = _encode_codes(vecs, valid, centroids[c0:c0 + step], rotation,
+                             cfg)
+        for k, v in part.items():
+            out[k][at[c0:c0 + step]] = v
+    sizes = (node_ids >= 0).sum(1).cpu().numpy()
+    _build_graphs(x, node_ids, sizes, cfg, mem_bytes, out, at)
+    return out
 
 
 def build_compact_index(generator: torch.Generator, x: torch.Tensor,
@@ -191,23 +250,10 @@ def build_compact_index(generator: torch.Generator, x: torch.Tensor,
                           device=dev)
     node_ids[cl[keep], pos[keep]] = order[keep].to(torch.int32)
 
-    step = max(1, mem_bytes // (16 * budget * cfg.dim))
-    parts = []
-    for c0 in range(0, cfg.n_clusters, step):
-        vecs, valid = _gather(x, node_ids[c0:c0 + step])
-        parts.append(_encode_clusters(vecs, valid,
-                                      km.centroids[c0:c0 + step], rotation,
-                                      cfg))
-    stack = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
-    neighbors, entry, n_valid = _build_graphs(
-        x, node_ids, np.minimum(sizes, budget), cfg, mem_bytes)
-    idx = CompactIndex(
-        codes=stack["codes"], f_add=stack["f_add"], neighbors=neighbors,
-        entry=entry, n_valid=n_valid, node_ids=node_ids,
-        centroids=km.centroids, alpha=stack["alpha"], rho=stack["rho"],
-        shift1=stack["shift1"], shift2=stack["shift2"],
-        residual_norm=stack["residual_norm"], cos_theta=stack["cos_theta"],
-        rotation=rotation, dim=cfg.dim)
+    out = encode_clusters(x, node_ids, km.centroids, rotation, cfg,
+                          mem_bytes=mem_bytes)
+    idx = CompactIndex(node_ids=node_ids, centroids=km.centroids,
+                       rotation=rotation, dim=cfg.dim, **out)
     return idx, HostStore(vectors=x, centroids=km.centroids)
 
 

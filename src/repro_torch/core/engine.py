@@ -363,25 +363,31 @@ class PIMCQGEngine:
     def refresh(self, index: compact_index.CompactIndex,
                 host: compact_index.HostStore | None = None
                 ) -> "PIMCQGEngine":
-        """Swap a same-shape index under the live engine and place it anew
-        through this engine's placement: the next search reads the new
-        tensors (``ServingTopology.apply_placement`` re-slices its shards
-        this way). The old placed tensors are dropped before the new ones
-        are made, so a swap holds one placed copy at a time. ``host`` (the
-        mutable index's grown host store) is not ported yet."""
-        if host is not None:
-            raise NotImplementedError(
-                "refresh(host=...) swaps a mutable index's host store, which "
-                "is not ported yet: ROADMAP A2b (the mutable half of A2: "
-                "mutable_index, engine.refresh(host=), ServingTopology.apply,"
-                " mutable=True, --churn)")
+        """Swap a same-shape index (and, for a mutable index, its host
+        store) under the live engine and place it anew through this
+        engine's placement: the next search reads the new tensors
+        (``ServingTopology.apply`` and ``apply_placement`` re-slice their
+        shards this way). Shapes must match: ``MutableIndex`` pre-allocates
+        its slabs and its vector capacity for exactly this. The old placed
+        tensors are dropped before the new ones are made, so a swap holds
+        one placed copy at a time."""
         if index.n_clusters != self.index.n_clusters \
                 or index.budget != self.index.budget:
             raise ValueError(
                 f"refresh needs matching shapes: "
                 f"{index.n_clusters}x{index.budget} vs this engine's "
                 f"{self.index.n_clusters}x{self.index.budget}")
+        if host is not None:
+            old, new = tuple(self.host.vectors.shape), \
+                tuple(host.vectors.shape)
+            if new != old:
+                raise ValueError(
+                    f"host store grew {old} -> {new}; pre-allocate capacity "
+                    f"(MutableIndex(capacity=...)) so swaps keep every "
+                    f"shape")
         self.placed = None
+        if host is not None:
+            self.host = host.to(self.device)
         self.index = index.to(self.device)
         self.placed = _place(self.index, self.place, self.backend)
         return self

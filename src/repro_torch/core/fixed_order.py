@@ -51,6 +51,8 @@ def blocked_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lead, k = x.shape[:-1], x.shape[-1]
     flat = x.reshape(-1, k)
     n = flat.shape[0]
+    if n == 0:
+        return x.new_zeros((*lead, w.shape[-1]))
     pad = (-n) % ROW_BLOCK
     if pad:
         flat = torch.nn.functional.pad(flat, (0, 0, 0, pad))

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from . import rabitq
+from .fixed_order import fixed_order_sum
 from ..kernels.ref import wrap_int32
 
 __all__ = ["AlphaShifts", "ClusterConstants", "calibrate_alpha",
@@ -40,14 +41,16 @@ class ClusterConstants(NamedTuple):
 
 def calibrate_alpha(cos_theta: torch.Tensor, residual_norm: torch.Tensor,
                     valid: torch.Tensor | None = None) -> ClusterConstants:
-    """Per-cluster calibration over the last axis (batched over the rest)."""
+    """Per-cluster calibration over the last axis (batched over the rest),
+    its means summed in one fixed order (the same bits in any batch and at
+    any zero padding)."""
     if valid is None:
         valid = torch.ones(cos_theta.shape, dtype=torch.bool,
                            device=cos_theta.device)
     w = valid.to(torch.float32)
-    denom = w.sum(-1).clamp(min=1.0)
-    alpha = (cos_theta * w).sum(-1) / denom
-    rho = (residual_norm * w).sum(-1) / denom
+    denom = fixed_order_sum(w).clamp(min=1.0)
+    alpha = fixed_order_sum(cos_theta * w) / denom
+    rho = fixed_order_sum(residual_norm * w) / denom
     inv = 1.0 / alpha.clamp(min=1e-6)
 
     # pick s1, s2 minimizing |inv - (1 + 2^-s1 + 2^-s2)| over a small grid;

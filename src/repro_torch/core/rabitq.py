@@ -63,14 +63,16 @@ def unpack_codes(packed: torch.Tensor, dim: int) -> torch.Tensor:
 
 def encode(x: torch.Tensor, centroid: torch.Tensor, rotation: torch.Tensor,
            *, dim: int | None = None) -> RabitQCodes:
-    """Encode points x (..., N, D) against centroids (..., D)."""
+    """Encode points x (..., N, D) against centroids (..., D). A point's
+    code and factors are the same bits in any batch (``fixed_order``), so an
+    appended node encodes as its cluster's rebuild does."""
     dim = dim or x.shape[-1]
     resid = x - centroid[..., None, :]
-    norm = torch.linalg.vector_norm(resid, dim=-1)
+    norm = fixed_order.row_norm(resid)
     o = resid / norm.clamp(min=1e-12)[..., None]
-    z = o @ rotation
+    z = fixed_order.blocked_matmul(o, rotation)
     bits = z > 0
-    cos_theta = z.abs().sum(-1) / math.sqrt(dim)
+    cos_theta = fixed_order.fixed_order_sum(z.abs()) / math.sqrt(dim)
     pad = (-dim) % 8
     if pad:
         bits = torch.nn.functional.pad(bits, (0, pad))

@@ -34,15 +34,15 @@ by measured heat, and ``replicate_hot=H`` gives the H hottest clusters
 probe of a replicated cluster to ONE owner (``ivf.choose_owners``), so
 per-query probe sets stay disjoint and the merge is unchanged.
 ``apply_placement`` swaps a rebalanced placement in between streams
-(``autoscale.Rebalancer``), ``scale_replicas`` resizes a shard group
+(``autoscale.Rebalancer``), ``apply`` swaps a ``MutableIndex``'s state in,
+mid-stream too (``mutable=True``), ``scale_replicas`` resizes a shard group
 (``autoscale.Autoscaler``), ``tenants=`` puts a DWRR admission controller
 with per-tenant queues, deadlines, credits, backends and effort in front,
 and ``hedge=`` re-runs an overdue flush on another replica of its shard
 (first response wins).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the mutable index and its live swaps (A2b) and the mesh
-execution backend (A4).
+ROADMAP item: the mesh execution backend (A4).
 """
 
 from __future__ import annotations
@@ -76,16 +76,6 @@ __all__ = ["AdmissionController", "ReplicaGroup", "ShardGroup",
 
 ROUTE_POLICIES = ("round-robin", "least-in-flight")
 SHED_POLICIES = ("drop-new", "drop-old")
-
-# the ROADMAP item that the refused options wait for
-DAY2_ITEM = ("A2b (the mutable half of A2: mutable_index, "
-             "engine.refresh(host=), ServingTopology.apply, mutable=True, "
-             "--churn)")
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {DAY2_ITEM}")
-
 
 # ---------------------------------------------------------------------------
 # engine multiplication: replicas (one index copy) and partitions (slices)
@@ -136,8 +126,9 @@ def partition_index(eng, n_parts: int, *, mem_budget: int | None = None,
     (``placement.replicate_hot``): each engine then holds its primary slice
     plus the copies and pads, and the router picks one owner per probe.
     ``placement`` skips the placer and slices a prebuilt Placement.
-    ``mutable`` (spoken-for byte accounting of a mutable index) is not
-    ported yet and raises ``NotImplementedError``.
+    ``mutable=True`` bills spoken-for rows: a churning index keeps every
+    padded row resident, so each cluster costs its full budget, and the
+    tombstoned rows are reported as ``placement.mem_reclaimable``.
 
     Returns (engines, placement); ``placement.shard_of`` / ``local_slot``
     are the owner map and the per-owner local cluster ids the scatter
@@ -165,12 +156,18 @@ def partition_index(eng, n_parts: int, *, mem_budget: int | None = None,
             raise ValueError("replicate_hot with inner_shards > 1 is not "
                              "supported (replica slots break the equal "
                              "inner-shard split)")
-    if mutable:
-        _not_ported("mutable partitioning (mutable=True)")
     idx, icfg = eng.index, eng.icfg
     sizes = idx.n_valid.cpu().numpy().astype(np.float64)
-    bpc = sizes * compact_index_mod.compact_bytes_per_node(icfg.dim,
-                                                           icfg.degree)
+    bpn = compact_index_mod.compact_bytes_per_node(icfg.dim, icfg.degree)
+    reclaimable = None
+    if mutable:
+        # live + tombstones + append-slab headroom all hold memory: bill
+        # the full budget, report the tombstones as reclaimable
+        bpc = np.full(len(sizes), float(idx.budget) * bpn)
+        live = (idx.node_ids >= 0).sum(1).cpu().numpy().astype(np.float64)
+        reclaimable = (sizes - live) * bpn
+    else:
+        bpc = sizes * bpn
     if heat is not None:
         freq = np.asarray(heat, np.float64)
     if freq is None:
@@ -183,7 +180,8 @@ def partition_index(eng, n_parts: int, *, mem_budget: int | None = None,
     else:
         pl = placement_mod.greedy_place(np.asarray(freq, np.float64), bpc,
                                         n_parts, mem_budget=mem_budget,
-                                        strict=strict)
+                                        strict=strict,
+                                        reclaimable=reclaimable)
         if replicate_hot:
             pl = placement_mod.replicate_hot(
                 pl, np.asarray(freq, np.float64), bpc,
@@ -846,8 +844,9 @@ class ServingTopology:
     ``HedgeConfig``) re-runs overdue shard flushes on other replicas;
     ``autoscale`` (an ``AutoscalePolicy``) and ``rebalance`` (a
     ``RebalancePolicy``) attach an ``Autoscaler`` / ``Rebalancer`` that
-    act between streams. ``mutable=True`` is not ported yet and raises
-    ``NotImplementedError``."""
+    act between streams. ``mutable=True`` lets ``apply`` swap a
+    ``MutableIndex``'s state in; a sharded mutable tier needs the
+    placement to re-slice."""
 
     def __init__(self, groups, *, part_of=None, local_cid=None,
                  centroids=None, route: str = "least-in-flight",
@@ -862,8 +861,6 @@ class ServingTopology:
                  placement=None, mutable: bool = False, autoscale=None,
                  source=None, mem_budget: int | None = None,
                  rebalance=None):
-        if mutable:
-            _not_ported("a mutable topology (mutable=True)")
         self.groups = [list(g) for g in groups]
         if not self.groups or any(not g for g in self.groups):
             raise ValueError("ServingTopology needs at least one engine in "
@@ -964,11 +961,18 @@ class ServingTopology:
                              "stage to hedge (needs shards >= 2)")
         self.tenants = self._resolve_tenants(tenants)
 
-        # -- day-2 operations: placement swaps + replica autoscaling --------
+        # -- day-2 operations: live swaps + replica autoscaling ------------
         self.placement = placement
+        self.mutable = bool(mutable)
         self.mem_budget = mem_budget
-        # the UNPARTITIONED source index apply_placement re-slices
+        # the UNPARTITIONED source apply_placement re-slices; kept current
+        # by apply() so a rebalance after churn sees the live corpus
         self._src_index = getattr(source, "index", None)
+        if self.mutable and self.sharded and placement is None:
+            raise ValueError(
+                "a mutable SHARDED topology needs the cluster Placement "
+                "(placement=...) so apply() can re-slice partitions; "
+                "topology()/TopologyConfig.build pass it automatically")
         if autoscale is not None and not isinstance(
                 autoscale, autoscale_mod.AutoscalePolicy):
             raise ValueError(f"autoscale must be an AutoscalePolicy, "
@@ -1089,7 +1093,53 @@ class ServingTopology:
         return len(g)
 
     def apply(self, mut) -> None:
-        _not_ported("live mutation swaps (apply)")
+        """Swap a ``MutableIndex``'s current state into the live topology
+        without dropping queries.
+
+        Every engine reads its ``placed`` / ``host`` tensors when a flush
+        dispatches, so the swap takes effect at flush granularity. Called
+        mid-run (from a ``run(ticker=...)`` callback) it first drains the
+        flushes in flight, so no stream mixes index versions across its
+        merge; queries still queued dispatch against the new state. Shapes
+        are stable by the ``MutableIndex`` contract, so each group's leader
+        is refreshed in place (its old tensors released first) and its
+        replicas share the leader's."""
+        if not self.mutable:
+            raise ValueError("apply() needs a mutable topology "
+                             "(TopologyConfig(mutable=True) or "
+                             "ServingTopology(mutable=True, ...))")
+        idx, host = mut.snapshot()
+        if self._active is not None:
+            # finish every flush dispatched against the old tensors
+            root, _sink = self._active
+            while root.block_harvest_one():
+                pass
+            root.harvest()
+        if self.sharded and idx.n_clusters != len(self.part_of):
+            raise ValueError(
+                f"index has {idx.n_clusters} clusters but this topology "
+                f"partitions {len(self.part_of)} — the mutable tier never "
+                f"changes the cluster count")
+        for o, g in enumerate(self.groups):
+            sub = _slice_index(idx, self.placement.resident(o)) \
+                if self.sharded else idx
+            self._swap_group(g, sub, host)
+        if self.sharded:
+            self.vectors = host.vectors
+            self._src_index = idx
+
+    def _swap_group(self, g, index, host=None) -> None:
+        """Refresh a group's leader with ``index`` (and ``host``), its old
+        tensors released first, and let its replicas share the leader's."""
+        leader = g[0]
+        for e in g:
+            e.placed = None
+        for e in g[1:]:
+            e.index = None
+        leader.refresh(index, host)
+        for e in g[1:]:
+            e.index, e.placed, e.host = \
+                leader.index, leader.placed, leader.host
 
     def apply_placement(self, pl: placement_mod.Placement) -> None:
         """Swap a new cluster -> shard assignment into the live topology,
@@ -1129,15 +1179,7 @@ class ServingTopology:
                     f"{g[0].index.n_clusters} — rebalance must be "
                     f"shape-preserving (swaps + fixed replica capacity)")
         for o, g in enumerate(self.groups):
-            leader = g[0]
-            for e in g:                   # release the old tensors first
-                e.placed = None
-            for e in g[1:]:
-                e.index = None
-            leader.refresh(_slice_index(idx, pl.resident(o)))
-            for e in g[1:]:
-                e.index, e.placed, e.host = \
-                    leader.index, leader.placed, leader.host
+            self._swap_group(g, _slice_index(idx, pl.resident(o)))
         self.placement = pl
         self.part_of = np.asarray(pl.shard_of, np.int32)
         self.local_cid = np.asarray(pl.local_slot, np.int32)
@@ -1542,7 +1584,7 @@ class TopologyConfig:
     ``modes`` / ``inner_shards``), streaming (``buckets`` ... ``max_batch``),
     overload (``admission_depth`` / ``shed_deadline_s`` / ``backpressure``),
     execution (``exec`` / ``hedge``), tenancy (``tenants``), day-2
-    operations (``autoscale``) and heat-aware placement
+    operations (``mutable`` / ``autoscale``) and heat-aware placement
     (``replicate_hot`` / ``replica_factor`` / ``rebalance``). Build with
     ``cfg.build(eng)`` (or ``topology(eng, config=cfg)``); derive variants
     with ``dataclasses.replace``. ``modes`` gives each shard its own ranking
@@ -1550,8 +1592,10 @@ class TopologyConfig:
 
     ``share_executables`` is the JAX package's field and has no effect
     here: the port builds no executables, so replicas share nothing but
-    their placed index either way. ``mutable=True`` is not ported yet and
-    raises ``NotImplementedError``, as ``exec="mesh"`` does."""
+    their placed index either way. ``mutable=True`` serves a
+    ``MutableIndex`` (``mut.to_engine(...)``) and accepts ``apply(mut)``
+    swaps. ``exec="mesh"`` is not ported yet and raises
+    ``NotImplementedError``."""
 
     # -- shape ---------------------------------------------------------------
     shards: int = 1
@@ -1624,14 +1668,13 @@ class TopologyConfig:
             if self.shards < 2:
                 raise ValueError("heat-driven rebalancing moves clusters "
                                  "between shards (needs shards >= 2)")
-        if self.mutable:
-            _not_ported("a mutable topology (mutable)")
         if self.exec == "mesh":
             execbackend_mod.resolve_exec_backend(self.exec)   # raises
 
     def build(self, eng, *, freq: np.ndarray | None = None,
               heat: np.ndarray | None = None) -> ServingTopology:
-        """Materialize this config over one built engine. ``heat`` is a
+        """Materialize this config over one built engine (or a
+        ``MutableIndex``'s, ``mut.to_engine(...)``). ``heat`` is a
         measured ``TopologyReport.cluster_hits`` vector for the placer (and
         the ``replicate_hot`` hot set); ``freq`` keeps its estimated
         meaning (the cluster sizes by default). Pass one or the other."""
@@ -1643,7 +1686,7 @@ class TopologyConfig:
             shed_deadline_s=self.shed_deadline_s,
             backpressure=self.backpressure, exec=self.exec,
             hedge=self.hedge, tenants=self.tenants,
-            autoscale=self.autoscale)
+            mutable=self.mutable, autoscale=self.autoscale)
         if self.shards == 1:
             if heat is not None:
                 raise ValueError("heat-aware placement needs shards >= 2 "
@@ -1653,7 +1696,8 @@ class TopologyConfig:
         parts, pl = partition_index(
             eng, self.shards, mem_budget=self.mem_budget, strict=self.strict,
             modes=self.modes, inner_shards=self.inner_shards, freq=freq,
-            heat=heat, replicate_hot=self.replicate_hot,
+            mutable=self.mutable, heat=heat,
+            replicate_hot=self.replicate_hot,
             replica_factor=self.replica_factor)
         groups = [replicate_engine(p, self.replicas) for p in parts]
         return ServingTopology(groups, part_of=pl.shard_of,

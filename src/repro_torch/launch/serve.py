@@ -21,10 +21,17 @@ admission; tenant backends become the shard partitions' modes,
 round-robin. --zipf S replaces the encoded queries with a Zipf(S)-skewed
 workload over the corpus clusters (``data/synthetic.zipf_query_set``).
 
-Not ported yet, each raising NotImplementedError after the flag checks and
-naming ROADMAP A5 (the rest of the launch surface): --churn (it needs A2b,
-the mutable index) and --exec mesh (it needs A4, the mesh execution
-backend).
+--churn F runs one day-2 mutation round before retrieval (``churn_round``):
+the corpus is indexed through a ``MutableIndex`` (bounded append slabs and
+tombstones), an F fraction of it is deleted and as many new vectors are
+inserted, the dirty clusters are compacted, and the result is swapped into
+the live scheduler (``ServingTopology.apply`` on the sharded tier,
+``engine.refresh`` on one engine). With --fleet > 1 it needs --sharded: the
+replicated FleetScheduler carries no mutation path.
+
+Not ported yet, raising NotImplementedError after the flag checks and
+naming ROADMAP A5 (the rest of the launch surface): --exec mesh (it needs
+A4, the mesh execution backend).
 
 --sharded / --replicas without --fleet >= 2 is an argument ERROR, not a
 silent single-engine run.
@@ -44,13 +51,15 @@ from ..core import compact_index, engine
 from ..core.backends import available_backends
 from ..core.fleet import FleetScheduler, TenantSpec, TopologyConfig, \
     replicate_engine
+from ..core.mutable_index import MutableIndex
 from ..core.pipeline import StreamingScheduler, bucket_ladder
+from ..core.topology import ServingTopology
 from ..data.synthetic import clustered_vectors, zipf_query_set
 from ..models.model import Model, build_model
 
 __all__ = ["QueryEncoder", "mean_pool_encoder", "logit_slice_encoder",
            "ENCODERS", "parse_tenants", "check_flags", "Generation",
-           "generate", "run", "main"]
+           "generate", "churn_round", "run", "main"]
 
 
 class QueryEncoder(Protocol):
@@ -239,15 +248,30 @@ def check_flags(rag: bool, fleet: int, sharded: bool, replicas: int,
                 f"{len(tenant_backends)} tenant backends "
                 f"{tenant_backends} need --fleet >= {len(tenant_backends)} "
                 f"shards to serve them (got --fleet {fleet})")
-    if churn > 0:
-        raise NotImplementedError(
-            "--churn is not ported yet: ROADMAP A5 (the rest of the launch "
-            "surface; it needs A2b, the mutable index and its live swaps)")
     if exec == "mesh":
         raise NotImplementedError(
             "--exec mesh is not ported yet: ROADMAP A5 (the rest of the "
             "launch surface; it needs A4, the mesh execution backend)")
 
+
+def churn_round(mut: MutableIndex, churn: float, seed: int, first_id: int,
+                scheduler, eng) -> tuple[int, list[int]]:
+    """One --churn round: delete the first ``churn`` fraction of the live
+    ids, insert as many ``default_rng(seed + 1)`` normal vectors under ids
+    from ``first_id`` up, compact the dirty clusters and swap the result
+    into the live scheduler (``apply`` on a topology, else
+    ``eng.refresh``). Returns (rows churned, clusters compacted)."""
+    n_churn = max(1, int(round(churn * mut.n_live)))
+    mut.delete(mut.live_ids()[:n_churn])
+    rng = np.random.default_rng(seed + 1)
+    mut.insert(np.arange(first_id, first_id + n_churn),
+               rng.standard_normal((n_churn, mut.dim)).astype(np.float32))
+    compacted = mut.compact()
+    if isinstance(scheduler, ServingTopology):
+        scheduler.apply(mut)
+    else:
+        eng.refresh(*mut.snapshot())
+    return n_churn, compacted
 
 
 def run(arch: str, requests: int, prompt_len: int, gen: int,
@@ -276,8 +300,16 @@ def run(arch: str, requests: int, prompt_len: int, gen: int,
         icfg = compact_index.IndexConfig(dim=32, n_clusters=8, degree=8,
                                          knn_k=16)
         scfg = engine.SearchConfig(nprobe=2, ef=16, k=4)
-        eng = engine.PIMCQGEngine.build(seed, x, icfg, scfg, n_shards=2,
-                                        device=device)
+        if churn > 0:
+            # a mutable corpus with slab room for one churn round even if
+            # every insert routes to one cluster
+            n_churn = max(1, int(round(churn * len(x))))
+            mut = MutableIndex.build(seed, x, icfg, slab=max(16, n_churn),
+                                     device=device)
+            eng = mut.to_engine(scfg, n_shards=2)
+        else:
+            eng = engine.PIMCQGEngine.build(seed, x, icfg, scfg, n_shards=2,
+                                            device=device)
         stream = dict(buckets=bucket_ladder(max(requests, 1)),
                       fill_threshold=max(requests // 2, 1),
                       wait_limit_s=5e-3)
@@ -292,6 +324,7 @@ def run(arch: str, requests: int, prompt_len: int, gen: int,
         if fleet > 1 and sharded:
             scheduler = TopologyConfig(shards=fleet, replicas=replicas,
                                        modes=modes, tenants=specs,
+                                       mutable=churn > 0,
                                        **stream).build(eng)
         elif fleet > 1:
             scheduler = FleetScheduler(replicate_engine(eng, fleet),
@@ -311,6 +344,13 @@ def run(arch: str, requests: int, prompt_len: int, gen: int,
             zq, zipf_targets = zipf_query_set(seed, x, assign, requests,
                                               s=zipf)
             encoder = lambda logits: zq          # noqa: E731
+        if churn > 0:
+            n_churn, compacted = churn_round(mut, churn, seed, len(x),
+                                             scheduler, eng)
+            if verbose:
+                print(f"[serve] rag: churned {n_churn} deletes + "
+                      f"{n_churn} inserts ({churn:.1%}), compacted "
+                      f"{len(compacted)} clusters, swapped live")
 
     B = requests
     tokens = torch.randint(0, cfg.vocab_size, (B, prompt_len),
@@ -398,7 +438,11 @@ def main():
                     help="with --rag: Zipf(S)-skewed retrieval queries over "
                          "the corpus clusters in place of the encoded ones")
     ap.add_argument("--churn", type=float, default=0.0,
-                    help="day-2 churn fraction (not ported yet)")
+                    help="with --rag: delete+insert this fraction of the "
+                         "retrieval corpus through the streaming mutation "
+                         "tier (MutableIndex), compact, and swap the result "
+                         "into the live scheduler before retrieval "
+                         "(needs --sharded when --fleet > 1)")
     args = ap.parse_args()
     try:
         check_flags(args.rag, args.fleet, args.sharded, args.replicas,

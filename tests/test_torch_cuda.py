@@ -24,7 +24,10 @@ pad rows, all-tied ranks, and (exact) NaN and inf ranks, float32 ranks
 held bit for bit. The selection kernels' two routes
 (warp and block) run on the same rows, from one lane slot to 32, across
 both route boundaries, and on the rows of
-``tests/test_torch_select_design.py`` (NaN, +-inf, -0.0), bitwise.
+``tests/test_torch_select_design.py`` (NaN, +-inf, -0.0), bitwise. The
+mutable index runs on the card: its link in rounds against ``link_new``,
+``compact(subset)`` against ``rebuild()``, and a mutable tier swapped in
+mid-run.
 """
 
 import numpy as np
@@ -655,6 +658,119 @@ def test_replicated_tier_and_placement_swap_on_the_card(card):
     hedged = topology.TopologyConfig(shards=4, replicas=2, buckets=(32, 96),
                                      hedge=HedgeConfig()).build(eng)
     np.testing.assert_array_equal(hedged.run(q).ids, want)
+
+
+def _card_mutable(card, seed=0, n=20_000, dim=128, clusters=16, slab=128,
+                  **kw):
+    """A MutableIndex built on the card over a clustered corpus."""
+    from repro_torch.core import compact_index
+    from repro_torch.core.mutable_index import MutableIndex
+    from repro_torch.data import synthetic
+    x, _ = synthetic.clustered_vectors(seed, n, dim, clusters)
+    icfg = compact_index.IndexConfig(dim=dim, n_clusters=clusters,
+                                     degree=kw.pop("degree", 32),
+                                     knn_k=kw.pop("knn_k", 64))
+    return MutableIndex.build(0, x, icfg, slab=slab, device=card, **kw), x
+
+
+def _churn_on_card(mut, rng, n_del, n_ins, first):
+    """Delete n_del live rows, insert n_ins perturbed copies of live rows
+    (the JAX package's update churn), on the card."""
+    live = mut.live_ids().cpu().numpy()
+    drop = rng.choice(live, n_del, replace=False)
+    mut.delete(drop)
+    src = rng.choice(mut.live_ids().cpu().numpy(), n_ins)
+    vecs = mut.vectors[torch.as_tensor(src, device=mut.device)] + 0.05 * \
+        torch.as_tensor(rng.standard_normal((n_ins, mut.dim)),
+                        dtype=torch.float32, device=mut.device)
+    mut.insert(np.arange(first, first + n_ins), vecs)
+    return drop
+
+
+def test_link_rounds_equal_link_new_on_the_card(card):
+    """The mutable index's insert links in rounds across clusters; on the
+    card it equals graph.link_new, one node after another on copies of the
+    clusters, bit for bit (all its sums run in the fixed order)."""
+    from repro_torch.core import graph
+    mut, x = _card_mutable(card)
+    rng = np.random.default_rng(1)
+    mut.delete(rng.choice(mut.live_ids().cpu().numpy(), 300,
+                          replace=False))
+    before, base = mut.neighbors.clone(), mut.n_valid.clone()
+    src = torch.as_tensor(rng.choice(len(x), 400), device=card)
+    mut.insert(np.arange(len(x), len(x) + 400), mut.vectors[src] + 0.05)
+    want = before.clone()
+    for c in torch.nonzero(mut.n_valid != base).flatten().tolist():
+        occ, sl = int(mut.n_valid[c]), mut.slot_gid[c]
+        xs = torch.zeros((mut.budget, mut.dim), device=card)
+        xs[sl >= 0] = mut.vectors[sl[sl >= 0].long()]
+        graph.link_new(want[c], xs, occ, range(int(base[c]), occ),
+                       r=mut.icfg.degree, knn_k=mut.icfg.knn_k,
+                       prune_alpha=mut.icfg.prune_alpha)
+    assert torch.equal(mut.neighbors, want)
+
+
+def test_compact_subset_equals_rebuild_on_the_card(card):
+    """compact(subset), each cluster encoded alone, equals rebuild()'s
+    clusters, all encoded together, bit for bit on the card; so does the
+    encoder over any grouping (a cluster's products run at its own shape,
+    its sums in the fixed order)."""
+    from repro_torch.core import compact_index
+    mut, x = _card_mutable(card, seed=2)
+    _churn_on_card(mut, np.random.default_rng(3), 500, 400, len(x))
+    subset = sorted(mut.dirty)[1::3]
+    mut.mem_bytes = 1
+    mut.compact(clusters=subset)
+    mut.mem_bytes = 8 << 30
+    ridx, _ = mut.rebuild()
+    for f in ("codes", "f_add", "neighbors", "entry", "n_valid", "node_ids",
+              "alpha", "rho", "shift1", "shift2", "residual_norm",
+              "cos_theta"):
+        assert torch.equal(getattr(mut, f)[subset],
+                           getattr(ridx, f)[subset]), f
+    whole = compact_index.encode_clusters(mut.vectors, ridx.node_ids,
+                                          mut.centroids, mut.rotation,
+                                          mut.icfg)
+    for group in ([0, 7, 3], [15], list(range(8, 15))):
+        part = compact_index.encode_clusters(
+            mut.vectors, ridx.node_ids[group], mut.centroids[group],
+            mut.rotation, mut.icfg, mem_bytes=1)
+        for k, v in part.items():
+            assert torch.equal(v, whole[k][group]), (k, group)
+
+
+def test_mutable_tier_apply_mid_run_on_the_card(card):
+    """A 4-shard mutable tier on the card, churned, swapped in by apply
+    from a run's ticker: no deleted id is served, the ids equal a single
+    engine's over the same snapshot, and again after compact()."""
+    from repro_torch.core import engine, topology
+    from repro_torch.data import synthetic
+    mut, x = _card_mutable(card, seed=4)
+    q = synthetic.query_set(4, x, 128)
+    scfg = engine.SearchConfig(nprobe=4, ef=32, k=10)
+    topo = topology.TopologyConfig(shards=4, mutable=True,
+                                   buckets=(32, 128)).build(
+        mut.to_engine(scfg, n_shards=4))
+    drop = _churn_on_card(mut, np.random.default_rng(5), 1000, 800, len(x))
+    ticks = []
+
+    def ticker(t):
+        if not ticks:
+            topo.apply(mut)
+        ticks.append(t)
+    ops.reset_launch_counts()
+    rep = topo.run(q, ticker=ticker)
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("beam_search", "topk_select",
+                                       "merge_topk")), counts
+    assert not np.isin(rep.ids, drop).any()
+    single = mut.to_engine(scfg)
+    np.testing.assert_array_equal(rep.ids, single.search(q)[0].ids.cpu())
+    mut.compact()
+    topo.apply(mut)
+    single.refresh(*mut.snapshot())
+    np.testing.assert_array_equal(topo.run(q).ids,
+                                  single.search(q)[0].ids.cpu())
 
 
 def _attn_inputs(card, b, sq, sk, hq, hkv, d, q_dtype, kv_dtype, seed=0):

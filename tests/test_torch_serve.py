@@ -26,6 +26,7 @@ from repro.core import engine as jengine  # noqa: E402
 from repro.core import fleet as jfleet  # noqa: E402
 from repro.core import pipeline as jpipeline  # noqa: E402
 from repro.core.compact_index import IndexConfig as JIndexConfig  # noqa: E402
+from repro.core.mutable_index import MutableIndex as JMutableIndex  # noqa: E402
 from repro.data.synthetic import clustered_vectors  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro.models.model import build_model as jbuild  # noqa: E402
@@ -34,6 +35,7 @@ from repro_torch.configs import get_smoke as tsmoke  # noqa: E402
 from repro_torch.core import compact_index as tci  # noqa: E402
 from repro_torch.core import engine as tengine  # noqa: E402
 from repro_torch.core import fleet as tfleet  # noqa: E402
+from repro_torch.core.mutable_index import MutableIndex  # noqa: E402
 from repro_torch.core import pipeline as tpipeline  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models.model import build_model as tbuild  # noqa: E402
@@ -127,6 +129,59 @@ def test_generate_matches_jax_loop(stack, mode):
     assert min(out.prefill_s, out.decode_s, out.retrieve_s) >= 0.0
 
 
+@pytest.mark.parametrize("mode", ["stream", "sharded"])
+def test_generate_after_churn_matches_jax_loop(stack, mode):
+    """--churn's path from one built state: each package's MutableIndex over
+    serve.py's index (the JAX one bridged in), the JAX package's churn
+    round (run() in launch/serve.py) against the port's ``churn_round``
+    (10%: 200 deletes, 200 inserts, compaction, then ``apply`` on the tier
+    or ``refresh`` on the engine), then the decode loop's retrieval: ids
+    in >= 99% of slots, as test_generate_matches_jax_loop holds them."""
+    je, te, jm, jp, tm, tp = stack
+    icfg = ICFG
+    slab = max(16, round(0.1 * 2000))
+    jmut = JMutableIndex(je.index, je.host, JIndexConfig(**icfg), slab=slab)
+    tmut = MutableIndex(te.index, te.host, tci.IndexConfig(**icfg),
+                        slab=slab)
+    jeng = jmut.to_engine(jengine.SearchConfig(**SCFG), n_shards=2)
+    teng = tmut.to_engine(tengine.SearchConfig(**SCFG), n_shards=2)
+    stream = dict(buckets=jpipeline.bucket_ladder(B), fill_threshold=B // 2,
+                  wait_limit_s=5e-3)
+    if mode == "stream":
+        jsched = jpipeline.StreamingScheduler(jeng, **stream)
+        tsched = tpipeline.StreamingScheduler(teng, **stream)
+    else:
+        jsched = jfleet.TopologyConfig(shards=2, mutable=True,
+                                       **stream).build(jeng)
+        tsched = tfleet.TopologyConfig(shards=2, mutable=True,
+                                       **stream).build(teng)
+    n_churn = max(1, int(round(0.1 * jmut.n_live)))
+    jmut.delete(jmut.live_ids()[:n_churn])
+    jmut.insert(np.arange(2000, 2000 + n_churn),
+                np.random.default_rng(1).standard_normal(
+                    (n_churn, 32)).astype(np.float32))
+    compacted = jmut.compact()
+    if mode == "stream":
+        jeng.refresh(*jmut.snapshot())
+    else:
+        jsched.apply(jmut)
+    assert tserve.churn_round(tmut, 0.1, 0, 2000, tsched, teng) == \
+        (n_churn, compacted)
+    np.testing.assert_array_equal(tmut.node_ids.numpy(), jmut.node_ids)
+    tokens = np.random.default_rng(7).integers(
+        0, jm.cfg.vocab_size, (B, PROMPT)).astype(np.int32)
+    _, _, jrep, _ = _jax_loop(jm, jp, tokens, jsched,
+                              jserve.mean_pool_encoder(jp, 32))
+    out = tserve.generate(
+        tm, tp, torch.from_numpy(tokens), GEN,
+        tm.init_cache(B, PROMPT + GEN, dtype=torch.float32, device="cpu"),
+        scheduler=tsched, encoder=tserve.mean_pool_encoder(tp, 32))
+    assert (out.report.ids == jrep.ids).mean() >= 0.99
+    deleted = np.asarray(je.index.node_ids)
+    deleted = np.sort(deleted[deleted >= 0])[:n_churn]
+    assert not np.isin(out.report.ids, deleted).any()
+
+
 def test_generate_without_retrieval_and_encoders(stack):
     _, _, jm, jp, tm, tp = stack
     tokens = torch.zeros((2, 5), dtype=torch.int64)
@@ -153,12 +208,14 @@ def test_generate_without_retrieval_and_encoders(stack):
     dict(), dict(fleet=2), dict(fleet=2, sharded=True),
     dict(fleet=2, tenants="a:2,b:1"),
     dict(fleet=2, sharded=True, tenants="latency:4:hamming,recall:1:exact"),
-    dict(zipf=1.0), dict(fleet=2, sharded=True, zipf=1.2)],
+    dict(zipf=1.0), dict(fleet=2, sharded=True, zipf=1.2),
+    dict(churn=0.1), dict(fleet=2, sharded=True, churn=0.1)],
     ids=["stream", "fleet", "sharded", "fleet_tenants", "sharded_tenants",
-         "zipf", "sharded_zipf"])
+         "zipf", "sharded_zipf", "churn", "sharded_churn"])
 def test_run_serves_rag(kw, capsys):
-    """Every --rag way of serving, --tenants and --zipf included, runs and
-    reports; tenants get their report lines, zipf its heat line."""
+    """Every --rag way of serving, --tenants, --zipf and --churn included,
+    runs and reports; tenants get their report lines, zipf its heat line,
+    churn its swap line."""
     toks, retrieved = tserve.run(ARCH, requests=2, prompt_len=16, gen=4,
                                  rag=True, device="cpu", **kw)
     assert toks.shape == (2, 4)
@@ -169,6 +226,8 @@ def test_run_serves_rag(kw, capsys):
         assert out.count("[serve] rag: tenant ") == 2
     if "zipf" in kw:
         assert "zipf(s=" in out
+    if "churn" in kw:
+        assert "[serve] rag: churned 200 deletes + 200 inserts" in out
 
 
 def test_generate_with_tenants_matches_jax_loop(stack):
@@ -264,8 +323,18 @@ def test_serve_rejects_tenant_flag_misuse():
         tserve.run(ARCH, 2, 16, 4, rag=True, fleet=2, tenants="a:0,b:1")
 
 
+@pytest.mark.parametrize("kw,match", [
+    (dict(churn=0.1), "needs --rag"),
+    (dict(rag=True, churn=1.0), r"--churn must be in \[0, 1\)"),
+    (dict(rag=True, fleet=2, churn=0.1), "no day-2 mutation path"),
+], ids=["no_rag", "out_of_range", "replicated_fleet"])
+def test_churn_flag_misuse_raises(kw, match):
+    """--churn's flag checks, the JAX package's ValueErrors."""
+    with pytest.raises(ValueError, match=match):
+        tserve.run(ARCH, 2, 16, 4, device="cpu", **kw)
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(churn=0.1), "A5 .*A2b"),
     (dict(fleet=2, sharded=True, exec="mesh"), "A5 .*A4"),
 ])
 def test_unported_flags_raise(kw, item):

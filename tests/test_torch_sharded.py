@@ -347,19 +347,39 @@ def test_tier_stays_on_the_engines_device(engines, monkeypatch):
 
 
 @pytest.mark.parametrize("build", [
-    lambda te: topology.TopologyConfig(shards=2, mutable=True),
     lambda te: topology.TopologyConfig(shards=2, exec="mesh"),
-    lambda te: topology.partition_index(te, 2, mutable=True),
-    lambda te: topology.ServingTopology([[te]], mutable=True),
-    lambda te: te.refresh(te.index, te.host),
     lambda te: execbackend.resolve_exec_backend("mesh"),
-], ids=["mutable", "mesh", "mutable_partition", "topology_mutable",
-        "refresh_host", "exec_mesh"])
+], ids=["mesh", "exec_mesh"])
 def test_options_not_ported_raise(engines, build):
-    """The mutable half of A2 (A2b) and the mesh backend (A4) still
-    refuse, naming their ROADMAP items."""
+    """The mesh backend (A4) still refuses, naming its ROADMAP item."""
     _, te, _ = engines
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A(2b|4) "):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A4 "):
+        build(te)
+
+
+def _sharded_mutable_without_placement(te):
+    parts, pl = topology.partition_index(te, 2)
+    topology.ServingTopology([[p] for p in parts], part_of=pl.shard_of,
+                             local_cid=pl.local_slot,
+                             centroids=te.index.centroids, mutable=True)
+
+
+def _grown_host(te):
+    v = te.host.vectors
+    te.refresh(te.index, tci.HostStore(
+        torch.cat([v, v[:1]]), te.host.centroids))
+
+
+@pytest.mark.parametrize("build,match", [
+    (_sharded_mutable_without_placement, "needs the cluster Placement"),
+    (lambda te: topology.TopologyConfig(shards=2, buckets=(8, 16))
+     .build(te).apply(None), r"apply\(\) needs a mutable topology"),
+    (_grown_host, "pre-allocate capacity"),
+], ids=["sharded_mutable_no_placement", "apply_frozen", "refresh_grown"])
+def test_day2_misuse_raises(engines, build, match):
+    """The mutable tier's misuse raises the JAX package's ValueErrors."""
+    _, te, _ = engines
+    with pytest.raises(ValueError, match=match):
         build(te)
 
 
@@ -537,13 +557,15 @@ def test_mixed_tier_partials_are_each_engines_own(engines):
 
 
 def test_day2_operations_not_ported_raise(engines):
-    """Of the day-2 operations only the mutable index's live swap is left
-    unported (A2b); a tenant-tagged run without a registry is refused with
-    the JAX package's ValueError."""
-    _, te, _ = engines
+    """Every day-2 operation is ported: apply() on a frozen tier and a
+    tenant-tagged run without a registry are refused with the JAX
+    package's ValueErrors, as its tier refuses them."""
+    je, te, _ = engines
     topo = topology.TopologyConfig(shards=2, buckets=(8, 16)).build(te)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2b "):
-        topo.apply(None)
+    jtopo = jtopology.TopologyConfig(shards=2, buckets=(8, 16)).build(je)
+    for tier in (topo, jtopo):
+        with pytest.raises(ValueError, match="needs a mutable topology"):
+            tier.apply(None)
     with pytest.raises(ValueError, match="TenantSpec registry"):
         topo.run(np.zeros((1, 32), np.float32), tenant="a")
 
