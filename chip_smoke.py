@@ -42,7 +42,11 @@ Phases (each failure exits non-zero and prints no result line):
      timed beside scaled_dot_product_attention;
   4. build the index of a 10M x 128 clustered corpus (big-ann-benchmarks'
      10M BIGANN/SIFT subset scale, SIFT's width) on the card, 4096 clusters
-     on 8 shards;
+     on 8 shards; run the build's k-means twice more from its seed and
+     hold both runs' centroids, assignment and sizes bitwise against each
+     other and the build's centroids (ROADMAP C5), and print a digest of
+     the built index (every CompactIndex tensor and the vectors), which
+     two runs of the smoke must share;
   5. search 1024 queries through PIMCQGEngine.search with the launch counts
      set to 0 just before and read just after (one beam_search, one
      topk_select, no binary_ip_rank); recall@10 against brute-force
@@ -98,6 +102,21 @@ Phases (each failure exits non-zero and prints no result line):
      merge_topk routes in turns; cluster_scan's shared memory per
      block and phase 2's ptxas lines are logged, and its bound beside PR
      12's count of its operations;
+ 13. the mesh execution backend (after phase 10, once phase 9's tier is
+     released): seven follower ranks spawned (launch.mesh.follower_main)
+     and this process, the origin, in one 8-rank gloo group (all ranks
+     share the card, so NCCL cannot run) through a file store under build/;
+     TopologyConfig(shards=8, buckets=(256, 1024), exec=MeshBackend(mesh))
+     .build(engine) places each partition on its rank; the 1024 queries at
+     t = 0, one warm-up and five runs, the first counted on every rank
+     (beam_search and topk_select on each, merge_topk at the origin), each
+     held against phase 9's tier (distances bit for bit, ids outside exact
+     ties), rank 0's beam_search, topk_select and merge_topk calls held
+     bitwise against their plain versions; QPS / p50 / p99 (median of 5)
+     beside phase 9's, the all_gather's ms, a refresh of every partition
+     (results unchanged), each rank's peak memory; then a gemv mesh tier
+     (cluster_scan on every rank, rank 0's held against the plain
+     version) against the in-process tier over its partitions;
  11. serve h2o-danube-1.8b at full width (24 x 2560, 32 / 8 heads of 80,
      seeded random bf16 weights) through repro_torch.launch.serve.generate:
      8 requests of 2048 prompt tokens, 32 generated, float32 KV cache, the
@@ -141,8 +160,10 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -163,6 +184,8 @@ H100_INT32_OPS = 132 * 64 * 1.98e9
 H100_BF16_FLOPS = 989e12     # dense tensor-core bf16, H100 SXM data sheet
 INT_MAX = 2**31 - 1
 MIXED = ("mulfree", "exact", "hamming")   # phase 9b's backends, by shard
+MESH_RANKS = 8               # phase 13: one process a shard, phase 9's 8
+MESH_TIMEOUT_S = 300.0       # a mesh collective that waits longer fails
 # recall@10 floors of phase 8b: the JAX package's recall on a 100k-point,
 # 40-cluster version of the corpus (scripts/backend_recall.py, CPU), less
 # the margin the mulfree floor of 0.5 keeps below its JAX recall there
@@ -1185,7 +1208,68 @@ def phase_build_index(torch, dev):
         f"{eng.index.budget} rows/cluster; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"footprint {json.dumps(eng.footprint())}")
+    hold_kmeans_reproducible(torch, eng, icfg)
+    t = time.perf_counter()
+    digest = index_digest(torch, eng)
+    log(f"index digest (SHA-256 over the shapes, types and card-side "
+        f"fingerprints of the 14 CompactIndex tensors and the vectors): "
+        f"{digest} ({time.perf_counter() - t:.1f} s)")
     return eng, torch.from_numpy(q).to(dev), build_s
+
+
+def hold_kmeans_reproducible(torch, eng, icfg) -> None:
+    """ROADMAP C5: the build's k-means, run twice more from the build's
+    seed on the same 10M rows (its 262,144-row sample drawn from the same
+    generator), gives the same centroids and assignment bit for bit, and
+    the centroids the build made."""
+    from repro_torch.core import ivf
+    t = time.perf_counter()
+    runs = [ivf.kmeans(torch.Generator(device=eng.device).manual_seed(0),
+                       eng.host.vectors, icfg.n_clusters,
+                       iters=icfg.kmeans_iters, sample=icfg.kmeans_sample)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name in ("centroids", "assignment", "sizes"):
+        a, b = getattr(runs[0], name), getattr(runs[1], name)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            fail(f"C5: two k-means runs of seed 0 differ in {name} in "
+                 f"{int((a != b).sum())} entries")
+    if not torch.equal(runs[0].centroids.view(torch.int32),
+                       eng.index.centroids.view(torch.int32)):
+        fail("C5: k-means of seed 0 differs from the build's centroids")
+    log(f"C5: two k-means runs of seed 0 ({icfg.kmeans_sample:,} sampled "
+        f"rows, {icfg.n_clusters} clusters, {icfg.kmeans_iters} Lloyd "
+        f"steps, the assignment of all {eng.host.vectors.shape[0]:,} rows) "
+        f"equal each other and the build's centroids bit for bit "
+        f"({(time.perf_counter() - t) / 2:.1f} s a run)")
+
+
+def index_digest(torch, eng) -> str:
+    """SHA-256 over each CompactIndex tensor's and the vectors' shape,
+    type and a 64-bit fingerprint of its bytes taken on the card: the sum,
+    mod 2^64, of each 32-bit word times an odd weight fixed by its
+    position. An integer sum is exact in any order, so the fingerprint is
+    the same whenever the bytes are; a random change of the bytes changes
+    it but with odds of 2^-64. Equal digests in two runs mean the same
+    index."""
+    h = hashlib.sha256()
+    tensors = [f for f in eng.index if isinstance(f, torch.Tensor)]
+    step = 1 << 26
+    for t in tensors + [eng.host.vectors]:
+        raw = t.contiguous().reshape(-1).view(torch.uint8)
+        if raw.numel() % 4:
+            raw = torch.cat([raw, raw.new_zeros(4 - raw.numel() % 4)])
+        words = raw.view(torch.int32)
+        fp = torch.zeros((), dtype=torch.int64, device=t.device)
+        for s in range(0, words.numel(), step):
+            w = words[s:s + step].long()
+            pos = torch.arange(s, s + w.numel(), dtype=torch.int64,
+                               device=t.device)
+            fp += (w * ((pos * -7046029254386353131) | 1)).sum()
+        h.update(f"{tuple(t.shape)} {t.dtype} {int(fp)};".encode())
+    return h.hexdigest()
 
 
 def phase_search(torch, eng, qt):
@@ -1773,6 +1857,247 @@ def skew_of(rep) -> tuple[float, float]:
     sp = rep.shard_probes.astype(np.float64)
     share = float(sp.max() / sp.sum())
     return share, share * len(sp)
+
+
+def recording_calls(targets, fn):
+    """fn() with each (module, name) of ``targets`` recording the
+    (args, kwargs) of its calls: (fn's result, {name: [calls]})."""
+    calls = {name: [] for _, name in targets}
+    real = {name: getattr(mod, name) for mod, name in targets}
+
+    def recorder(name):
+        def record(*args, **kw):
+            calls[name].append((args, kw))
+            return real[name](*args, **kw)
+        return record
+    for mod, name in targets:
+        setattr(mod, name, recorder(name))
+    try:
+        return fn(), calls
+    finally:
+        for mod, name in targets:
+            setattr(mod, name, real[name])
+
+
+def rank_line(stats, key, scale=1.0, fmt="{:.2f}") -> str:
+    return ", ".join(fmt.format(s[key] * scale) for s in stats)
+
+
+def check_mesh_launches(label, stats, kernels) -> dict:
+    """Every rank launched each of ``kernels`` in the run (merge_topk at
+    the origin only); returns the launches summed over the ranks."""
+    for s in stats:
+        need = [k for k in kernels if k != "merge_topk" or s["rank"] == 0]
+        if any(s["launches"][k] == 0 for k in need):
+            fail(f"{label}: rank {s['rank']} launched {s['launches']}, "
+                 f"none of some of {need}")
+    total = {k: sum(s["launches"][k] for s in stats)
+             for k in stats[0]["launches"]}
+    print(f"kernels {label} " + json.dumps(total), flush=True)
+    log(f"{label}: launches by rank " + json.dumps(
+        [s["launches"] for s in stats]))
+    return total
+
+
+def hold_rank0_kernels(torch, calls, label) -> None:
+    """Each kernel call rank 0 made in a recorded mesh run, held bitwise
+    against its plain version on the same arguments (the first call of
+    each; the lanes of a scan 64 live ones and then all)."""
+    from repro_torch.kernels import (beam_search, cluster_scan, merge_topk,
+                                     ref, topk_select)
+    plain = {"ranked_beam_search": (beam_search.ranked_beam_search,
+                                    ref.ranked_beam_search_ref,
+                                    "beam_search", ("ids", "ranks", "hops")),
+             "topk_select": (topk_select.topk_select, ref.topk_select_ref,
+                             "topk_select", ("ids", "dists")),
+             "merge_topk": (merge_topk.merge_topk, ref.merge_topk_ref,
+                            "merge_topk", ("ids", "dists"))}
+    for name, recorded in calls.items():
+        if not recorded:
+            fail(f"{label}: rank 0 never called {name}")
+        args, kw = recorded[0]
+        if name == "ranked_cluster_scan":
+            scan_args, rest = args[:5], args[5:]
+            live = scan_args[4]
+            for sub, what in ((lane_subset(scan_args, torch.nonzero(
+                    live)[:64, 0]), "64 live lanes"), (scan_args,
+                                                      "all lanes")):
+                for field, x, y in zip(
+                        ("ids", "ranks"),
+                        cluster_scan.ranked_cluster_scan(*sub, *rest),
+                        plain_scan(torch, ref, sub, *rest)):
+                    bitwise(torch, "cluster_scan",
+                            f"{label} rank 0 {what} {field}", x, y)
+            continue
+        kernel, want_fn, key, fields = plain[name]
+        for field, x, y in zip(fields, kernel(*args, **kw),
+                               want_fn(*args, **kw)):
+            bitwise(torch, key, f"{label} rank 0 {field}", x, y)
+    log(f"{label}: rank 0's {', '.join(calls)} held bitwise against their "
+        f"plain versions on the run's own arguments")
+
+
+def mesh_tiers(torch, eng, q, mesh, rep9, med9) -> dict:
+    """Phase 13's work on the origin, the follower ranks serving: the
+    beam tier (placement, warm-up, five runs, the counted one held against
+    phase 9's tier and its kernels against their plain versions, the
+    all_gather, a refresh), then a gemv tier."""
+    from repro_torch.core import execbackend, topology
+    from repro_torch.kernels import (beam_search, cluster_scan, merge_topk,
+                                     topk_select)
+    out = {}
+    mb = execbackend.MeshBackend(mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    topo = topology.TopologyConfig(shards=MESH_RANKS, buckets=(256, 1024),
+                                   exec=mb).build(eng)
+    out["build_s"] = time.perf_counter() - t
+    placed = mb.rank_stats(reset=True)
+    log(f"13 mesh tier built in {out['build_s']:.1f} s (8 partitions cut on "
+        f"the origin, then each placed on its rank: stacked on the host, "
+        f"scattered over {mesh.device_type} collectives, copied to the "
+        f"card); peak GiB by rank through placement "
+        f"[{rank_line(placed, 'peak_bytes', 2**-30)}]")
+    topo.warm()
+    t = time.perf_counter()
+    topo.run(q)
+    log(f"13 warm-up run {1e3 * (time.perf_counter() - t):.2f} ms")
+    mb.rank_stats(reset=True)                    # every count to 0
+    rep, calls = recording_calls(
+        [(beam_search, "ranked_beam_search"), (topk_select, "topk_select"),
+         (merge_topk, "merge_topk")], lambda: topo.run(q))
+    stats = mb.rank_stats()
+    out["launches"] = check_mesh_launches(
+        "mesh", stats, ("beam_search", "topk_select", "merge_topk"))
+    runs = [rep] + [topo.run(q) for _ in range(4)]
+    med = {key: float(np.median([getattr(r, key) for r in runs]))
+           for key in ("qps", "p50_ms", "p99_ms")}
+    out.update(med=med, stats=stats)
+    log(f"13 mesh runs of {rep.n_queries} queries (the first counted): QPS "
+        f"{', '.join(f'{r.qps:.1f}' for r in runs)}; p50 ms "
+        f"{', '.join(f'{r.p50_ms:.2f}' for r in runs)}; p99 ms "
+        f"{', '.join(f'{r.p99_ms:.2f}' for r in runs)}; median QPS "
+        f"{med['qps']:.1f}, p50 {med['p50_ms']:.2f} ms, p99 "
+        f"{med['p99_ms']:.2f} ms; phase 9's in-process tier in this call: "
+        f"QPS {med9['qps']:.1f}, p50 {med9['p50_ms']:.2f} ms, p99 "
+        f"{med9['p99_ms']:.2f} ms")
+    log(f"13 counted run: {rep.n_flushes} flushes (sizes "
+        f"{rep.flush_sizes}), {rep.n_merges} merges, fanout_mean "
+        f"{rep.fanout_mean:.3f}, queries per shard "
+        f"{[d['queries'] for d in rep.per_engine]}; by rank: search s "
+        f"[{rank_line(stats, 'search_s', fmt='{:.4f}')}], host <-> card "
+        f"copy s [{rank_line(stats, 'stage_s', fmt='{:.4f}')}], peak GiB "
+        f"[{rank_line(stats, 'peak_bytes', 2**-30)}]")
+    for i, r in enumerate(runs):
+        hold_ids(f"13 mesh run {i} vs phase 9's in-process tier", pair(r),
+                 pair(rep9))
+    hold_rank0_kernels(torch, calls, "13 mesh beam")
+    out["gather_ms"] = {b: mb.time_gather(b, 50) for b in (256, 1024)}
+    log(f"13 all_gather of one flush's partials ({MESH_RANKS} ranks x B "
+        f"rows x 2k int32, {mesh.device_type}): "
+        + ", ".join(f"B={b}: {ms:.3f} ms" for b, ms in
+                    out["gather_ms"].items()))
+    t = time.perf_counter()
+    mb.refresh(topo)
+    out["refresh_s"] = time.perf_counter() - t
+    again = topo.run(q)
+    if not (np.array_equal(again.ids, rep.ids)
+            and np.array_equal(again.dists.view(np.int32),
+                               rep.dists.view(np.int32))):
+        fail("13: the mesh tier's results changed across a refresh")
+    log(f"13 refresh of every partition in {out['refresh_s']:.2f} s; "
+        f"results unchanged bit for bit")
+    del topo, mb, runs, again
+    torch.cuda.empty_cache()
+
+    view = backend_view(eng, "mulfree", scan="gemv")
+    gb = execbackend.MeshBackend(mesh=mesh)
+    gtopo = topology.TopologyConfig(shards=MESH_RANKS, buckets=(256, 1024),
+                                    exec=gb).build(view)
+    inproc = topology.ServingTopology(
+        gtopo.groups, part_of=gtopo.part_of, local_cid=gtopo.local_cid,
+        centroids=gtopo.centroids, buckets=gtopo.buckets)
+    gtopo.warm()
+    gtopo.run(q)
+    gb.rank_stats(reset=True)
+    grep, gcalls = recording_calls(
+        [(cluster_scan, "ranked_cluster_scan")], lambda: gtopo.run(q))
+    gstats = gb.rank_stats()
+    out["gemv_launches"] = check_mesh_launches(
+        "mesh gemv", gstats, ("cluster_scan", "topk_select", "merge_topk"))
+    hold_ids("13 mesh gemv vs the in-process tier over its partitions",
+             pair(grep), pair(inproc.run(q)))
+    hold_rank0_kernels(torch, gcalls, "13 mesh gemv")
+    out["gemv_qps"] = grep.qps
+    log(f"13 mesh gemv run: QPS {grep.qps:.1f}, p50 {grep.p50_ms:.2f} ms, "
+        f"p99 {grep.p99_ms:.2f} ms")
+    del gtopo, gb, inproc, view
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(torch, eng, qt, rep9, med9) -> dict:
+    """Phase 13: the mesh execution backend at 10M on the card. Seven
+    follower ranks are spawned (``launch.mesh.follower_main``); with this
+    process, the origin, they form an 8-rank gloo group (every rank shares
+    this card, so NCCL cannot run) through a file store under build/.
+    ``mesh_tiers`` then serves the tiers; the followers are stopped and
+    joined whatever happens, and a follower that exits non-zero fails the
+    smoke."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.core import execbackend
+    from repro_torch.launch import mesh as lmesh
+    t_phase = time.perf_counter()
+    store = ROOT / "build" / f"mesh-store-{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    if store.exists():
+        store.unlink()
+    init = f"file://{store}"
+    # one host: gloo's sockets stay on the loopback interface
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()         # the ranks' memory comes off the card
+    ctx = mp.get_context("spawn")
+    t = time.perf_counter()
+    procs = [ctx.Process(target=lmesh.follower_main,
+                         args=(r, MESH_RANKS, init, "cuda", MESH_TIMEOUT_S))
+             for r in range(1, MESH_RANKS)]
+    for p in procs:
+        p.start()
+    mesh = None
+    try:
+        lmesh.init_shard_group(0, MESH_RANKS, init_method=init,
+                               device=eng.device, timeout_s=MESH_TIMEOUT_S)
+        mesh = lmesh.make_shard_mesh(MESH_RANKS, device=eng.device)
+        start_s = time.perf_counter() - t
+        log(f"13 {MESH_RANKS} ranks up in {start_s:.1f} s (7 spawned): "
+            f"{dist.get_backend()} collectives on a {mesh.device_type} mesh "
+            f"of world size {dist.get_world_size()}, every rank on "
+            f"{eng.device} ({lmesh.collective_backend(MESH_RANKS, 'cuda')} "
+            f"by the rule: {torch.cuda.device_count()} card(s) for "
+            f"{MESH_RANKS} ranks)")
+        out = mesh_tiers(torch, eng, qt.cpu().numpy(), mesh, rep9, med9)
+        out["start_s"] = start_s
+    finally:
+        if mesh is not None:
+            execbackend.MeshBackend(mesh=mesh).close()
+        for p in procs:
+            p.join(60)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if store.exists():
+            store.unlink()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * len(procs):
+        fail(f"13: follower ranks exited with {codes}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"13 done in {out['phase_s']:.1f} s; followers exited 0")
+    return out
 
 
 def phase_skewed_tier(torch, eng):
@@ -2595,6 +2920,7 @@ def main() -> None:
     phase_mixed_tier(torch, topo, qt)
     timing.update(phase_new_kernels_real(torch, topo, rep, scan_call, qt))
     del topo, scan_call
+    mesh = phase_mesh(torch, eng, qt, rep, med)
     phase_skewed_tier(torch, eng)
     lm_counts, timing["flash_attention"] = phase_lm(torch, dev, eng)
     parts, icfg = [eng.index, eng.host], eng.icfg
@@ -2645,7 +2971,9 @@ def main() -> None:
     log(f"card {card}; n={N}; build {build_s:.1f} s; recall@10 "
         f"{recall:.4f} beam, {gemv_recall:.4f} gemv, sharded equal to beam; "
         f"QPS {qps[0]:.1f} beam, {gemv_qps[0]:.1f} gemv, {med['qps']:.1f} "
-        f"sharded (median of 5); mutable tier QPS {mutable['tier_qps']:.1f}, "
+        f"sharded (median of 5), {mesh['med']['qps']:.1f} on the "
+        f"{MESH_RANKS}-rank mesh (median of 5); mutable tier QPS "
+        f"{mutable['tier_qps']:.1f}, "
         f"recall drift at ef 64 "
         f"{abs(mutable['recall_mut64'] - mutable['recall_compact64']):.4f}; "
         f"no single PyTorch call computes binary_ip_rank, "

@@ -12,6 +12,11 @@ kernels are ``beam_search`` (every lane's whole beam search, one launch)
 or, with ``scan="gemv"``, ``cluster_scan``, and ``topk_select`` (the
 rerank). Entry points run on the card unless the caller passes
 ``device="cpu"``.
+
+The search of a batch over an explicit probe table, from lane routing to
+the exact rerank, is one function, ``probed_block``, over the tensors a
+partition's search reads (``ShardState``): the engine runs it, and so does
+each rank of the mesh execution backend over the partition it holds.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from . import beam_search, compact_index, ivf, placement as placement_mod
 from . import rerank as rerank_mod
 
 __all__ = ["SearchConfig", "PlacedIndex", "PIMCQGEngine", "SearchStats",
-           "place_arrays", "route_lanes"]
+           "ShardState", "probed_block", "place_arrays", "route_lanes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +96,17 @@ class PlacedIndex:
 class SearchStats(NamedTuple):
     hops: torch.Tensor           # (S, capacity) i32 per-lane expansions
     dropped_lanes: torch.Tensor  # () i32 lanes lost to buffer overflow
+
+
+class ShardState(NamedTuple):
+    """The tensors a probed search of one engine's clusters reads: its
+    placed index, its cluster -> (inner shard, slot) maps, the rotation,
+    and the vectors the rerank reads, addressed by ``placed.node_ids``."""
+    placed: PlacedIndex
+    shard_of: torch.Tensor    # (C,) i32 inner shard of each cluster
+    local_slot: torch.Tensor  # (C,) i32 slot within that shard
+    rotation: torch.Tensor    # (D, D) f32
+    vectors: torch.Tensor     # (N, D) f32
 
 
 def _shard_major(a: torch.Tensor, pl: placement_mod.Placement):
@@ -175,6 +191,79 @@ def route_lanes(probe_cids: torch.Tensor, shard_of: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The probed search of one partition: route, search, gather, rerank
+# ---------------------------------------------------------------------------
+
+def _route(st: ShardState, scfg: SearchConfig, probe: torch.Tensor,
+           nq: int):
+    """Lane routing of a batch whose first nq rows are real, over the
+    (B, P) probe table of this partition's cluster ids (-1 = hole). Lane
+    capacity is reckoned over P and the partition's inner shards."""
+    s = st.placed.codes.shape[0]
+    b, p = probe.shape
+    valid = torch.arange(b, device=probe.device) < nq
+    capacity = _lane_capacity(b, p, s, scfg.lane_capacity_factor)
+    cap_valid = _lane_capacity(nq, p, s, scfg.lane_capacity_factor)
+    lane_q, lane_cl, inv, dropped = route_lanes(
+        probe, st.shard_of, st.local_slot, valid, cap_valid,
+        n_shards=s, capacity=capacity)
+    return valid, lane_q, lane_cl, inv, dropped
+
+
+def _lanes(st: ShardState, backend, queries, lane_q, lane_cl):
+    """Flat lane table -> (flat shard view, flat cluster id per lane,
+    the backend's lane LUTs, live mask)."""
+    shard = st.placed.flat()
+    s, cap = lane_q.shape
+    per_shard = st.placed.codes.shape[1]
+    lane_q, lane_cl = lane_q.reshape(-1), lane_cl.reshape(-1)
+    fc = torch.arange(s, device=lane_q.device).repeat_interleave(cap) \
+        * per_shard + lane_cl.clamp(min=0)
+    lanes = backend.prepare_lanes(
+        queries[lane_q.clamp(min=0).long()], shard.centroids[fc],
+        st.rotation, shard.arrays, fc, st.rotation.shape[0])
+    return shard, fc, lanes, lane_cl >= 0
+
+
+def _candidates(st: ShardState, scfg: SearchConfig, queries, nq: int,
+                probe):
+    """Route, search every lane, and gather each query's candidates:
+    -> (valid (B,), cand (B, P*ef) ids, SearchStats)."""
+    backend = backends_mod.get_backend(scfg.mode)
+    valid, lane_q, lane_cl, inv, dropped = _route(st, scfg, probe, nq)
+    shard, fc, lanes, live = _lanes(st, backend, queries, lane_q, lane_cl)
+    scan = beam_search.full_scan_lane if scfg.scan == "gemv" \
+        else beam_search.beam_search_lane
+    lane_cfg = backends_mod.LaneConfig(ef=scfg.ef, max_iters=scfg.max_iters,
+                                       dim=st.rotation.shape[0])
+    res = scan(shard, fc, lanes, backend=backend, cfg=lane_cfg, active=live)
+    gids = shard.node_ids[fc[:, None], res.ids.clamp(min=0).long()]
+    gids = torch.where((res.ids >= 0) & live[:, None], gids, -1)
+    hops = torch.where(live, res.hops, 0).reshape(lane_q.shape)
+    cand = gids[inv.clamp(min=0).long()]                  # (B, P, EF)
+    cand = torch.where((inv >= 0)[..., None], cand, -1)
+    cand = cand.reshape(queries.shape[0], inv.shape[1] * scfg.ef)
+    return valid, cand.contiguous(), SearchStats(hops, dropped)
+
+
+def probed_block(st: ShardState, scfg: SearchConfig, queries: torch.Tensor,
+                 nq: int, probe: torch.Tensor
+                 ) -> tuple[rerank_mod.RerankResult, SearchStats]:
+    """The search of a (B, D) batch, its first nq rows real, over a (B, P)
+    table of this partition's cluster ids (-1 = hole): lane routing, the
+    beam (or gemv) search of every lane, the candidates' gather and the
+    exact rerank. Returns the top-k of all B rows (ids -1 / dists inf on
+    the pad rows and on rows with no probe) and the search stats.
+    ``PIMCQGEngine.search`` / ``search_probed`` run it on the engine's own
+    state; a mesh rank runs it on the partition it holds."""
+    valid, cand, stats = _candidates(st, scfg, queries, nq, probe)
+    out = rerank_mod.rerank(queries, cand, st.vectors, k=scfg.k)
+    ids = torch.where(valid[:, None], out.ids, -1)
+    dists = torch.where(valid[:, None], out.dists, float("inf"))
+    return rerank_mod.RerankResult(ids, dists), stats
+
+
+# ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
 
@@ -237,58 +326,27 @@ class PIMCQGEngine:
             probe = torch.where(keep, probe, -1)
         return probe
 
+    def state(self) -> ShardState:
+        """The tensors this engine's probed search reads."""
+        return ShardState(self.placed, self.shard_of, self.local_slot,
+                          self.index.rotation, self.host.vectors)
+
     def _route(self, queries: torch.Tensor, nq: int,
                probe: torch.Tensor | None = None):
         """Lane routing of a batch whose first nq rows are real, over the
-        (B, P) probe table of this engine's cluster ids (-1 = hole); the
-        cluster filter's probes unless ``probe`` is given. Lane capacity is
-        reckoned over P and this engine's inner shards."""
-        cfg, s = self.scfg, self.place.n_shards
+        cluster filter's probes unless ``probe`` is given."""
         if probe is None:
             probe = self._probes(queries)
-        b, p = probe.shape
-        valid = torch.arange(b, device=self.device) < nq
-        capacity = _lane_capacity(b, p, s, cfg.lane_capacity_factor)
-        cap_valid = _lane_capacity(nq, p, s, cfg.lane_capacity_factor)
-        lane_q, lane_cl, inv, dropped = route_lanes(
-            probe, self.shard_of, self.local_slot, valid, cap_valid,
-            n_shards=s, capacity=capacity)
-        return valid, lane_q, lane_cl, inv, dropped
+        return _route(self.state(), self.scfg, probe, nq)
 
     def _lanes(self, queries, lane_q, lane_cl):
-        """Flat lane table -> (flat shard view, flat cluster id per lane,
-        the backend's lane LUTs, live mask)."""
-        shard = self.placed.flat()
-        s, cap = lane_q.shape
-        lane_q, lane_cl = lane_q.reshape(-1), lane_cl.reshape(-1)
-        fc = torch.arange(s, device=self.device).repeat_interleave(cap) \
-            * self.place.per_shard + lane_cl.clamp(min=0)
-        lanes = self.backend.prepare_lanes(
-            queries[lane_q.clamp(min=0).long()], shard.centroids[fc],
-            self.index.rotation, shard.arrays, fc, self.icfg.dim)
-        return shard, fc, lanes, lane_cl >= 0
+        return _lanes(self.state(), self.backend, queries, lane_q, lane_cl)
 
     def _candidates(self, queries: torch.Tensor, nq: int,
                     probe: torch.Tensor | None = None):
-        """Route, search every lane, and gather each query's candidates:
-        -> (valid (B,), cand (B, P*ef) global ids, SearchStats)."""
-        cfg = self.scfg
-        valid, lane_q, lane_cl, inv, dropped = self._route(queries, nq,
-                                                           probe)
-        shard, fc, lanes, live = self._lanes(queries, lane_q, lane_cl)
-        scan = beam_search.full_scan_lane if cfg.scan == "gemv" \
-            else beam_search.beam_search_lane
-        lane_cfg = backends_mod.LaneConfig(ef=cfg.ef, max_iters=cfg.max_iters,
-                                           dim=self.icfg.dim)
-        res = scan(shard, fc, lanes, backend=self.backend, cfg=lane_cfg,
-                   active=live)
-        gids = shard.node_ids[fc[:, None], res.ids.clamp(min=0).long()]
-        gids = torch.where((res.ids >= 0) & live[:, None], gids, -1)
-        hops = torch.where(live, res.hops, 0).reshape(lane_q.shape)
-        cand = gids[inv.clamp(min=0).long()]                  # (B, P, EF)
-        cand = torch.where((inv >= 0)[..., None], cand, -1)
-        cand = cand.reshape(queries.shape[0], inv.shape[1] * cfg.ef)
-        return valid, cand.contiguous(), SearchStats(hops, dropped)
+        if probe is None:
+            probe = self._probes(queries)
+        return _candidates(self.state(), self.scfg, queries, nq, probe)
 
     def _padded(self, queries, pad_to: int | None):
         """(queries on the device zero-padded to pad_to rows, real rows)."""
@@ -303,12 +361,13 @@ class PIMCQGEngine:
                 (b - nq, queries.shape[1]))])
         return queries, nq
 
-    def _finish(self, queries, nq: int, valid, cand, stats):
-        out = rerank_mod.rerank(queries, cand, self.host.vectors,
-                                k=self.scfg.k)
-        ids = torch.where(valid[:, None], out.ids, -1)
-        dists = torch.where(valid[:, None], out.dists, float("inf"))
-        return rerank_mod.RerankResult(ids[:nq], dists[:nq]), stats
+    def _block(self, queries, nq: int, probe=None):
+        """``probed_block`` on this engine, the real rows kept."""
+        if probe is None:
+            probe = self._probes(queries)
+        res, stats = probed_block(self.state(), self.scfg, queries, nq,
+                                  probe)
+        return rerank_mod.RerankResult(res.ids[:nq], res.dists[:nq]), stats
 
     def search(self, queries, *, pad_to: int | None = None
                ) -> tuple[rerank_mod.RerankResult, SearchStats]:
@@ -316,7 +375,7 @@ class PIMCQGEngine:
         B rows, and the results of the real queries are those of an
         unpadded search."""
         queries, nq = self._padded(queries, pad_to)
-        return self._finish(queries, nq, *self._candidates(queries, nq))
+        return self._block(queries, nq)
 
     def search_probed(self, queries, probe, *, pad_to: int | None = None
                       ) -> tuple[rerank_mod.RerankResult, SearchStats]:
@@ -343,8 +402,7 @@ class PIMCQGEngine:
         queries, nq = self._padded(queries, pad_to)
         probe = torch.cat([probe, probe.new_full(
             (queries.shape[0] - nq, probe.shape[1]), -1)]).to(self.device)
-        return self._finish(queries, nq,
-                            *self._candidates(queries, nq, probe))
+        return self._block(queries, nq, probe)
 
     def search_bucketed(self, queries
                         ) -> tuple[rerank_mod.RerankResult, SearchStats]:

@@ -2,7 +2,9 @@
 
 k-means++ seeding and Lloyd iterations run on the tensors' device, chunked
 so the (N, K) distance matrix never exists whole. Every float32 matmul here
-runs at full precision: the caller keeps TF32 off.
+runs at full precision: the caller keeps TF32 off. A Lloyd step sums each
+cluster's members in one fixed order (``fixed_order.segment_sum``), so a
+seed builds the same centroids, bit for bit, on every run on the card.
 """
 
 from __future__ import annotations
@@ -12,9 +14,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .fixed_order import segment_sum
+
 __all__ = ["KMeansResult", "kmeans", "assign", "cluster_filter",
            "adaptive_keep_mask", "owner_split_op", "split_probes_by_owner",
-           "choose_owners", "owner_tables"]
+           "choose_owners", "owner_tables", "owner_tables_op"]
 
 _CHUNK = 1 << 16   # rows per distance block in assign / Lloyd
 
@@ -68,9 +72,9 @@ def kmeans(generator: torch.Generator, x: torch.Tensor, k: int, *,
         train = x[perm[:sample].to(x.device)]
     cents = _kmeanspp_init(generator, train, k)
     for _ in range(iters):
-        a = assign(train, cents).long()
-        sums = torch.zeros_like(cents).index_add_(0, a, train)
-        cnts = torch.bincount(a, minlength=k).to(torch.float32)
+        a = assign(train, cents)
+        sums = segment_sum(train, a, k)
+        cnts = torch.bincount(a.long(), minlength=k).to(torch.float32)
         new = sums / cnts.clamp(min=1.0)[:, None]
         cents = torch.where((cnts > 0)[:, None], new, cents)  # keep empties
     a = assign(x, cents)
@@ -236,4 +240,18 @@ def owner_tables(own: np.ndarray, local: np.ndarray, n_owners: int
     tables = np.stack([np.where(own == o, local, -1).astype(np.int32)
                        for o in range(n_owners)])
     touches = (tables >= 0).any(axis=2).T                  # (Q, O)
+    return tables, touches
+
+
+def owner_tables_op(own: torch.Tensor, local: torch.Tensor, *,
+                    n_owners: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tensor twin of :func:`owner_tables`, on the tensors' device: the
+    broadcast compare of :func:`owner_split_op` over PRE-CHOSEN owners
+    (own, local (Q, P), -1 where a probe has none). Returns (tables
+    (O, Q, P) int32, touches (Q, O) bool)."""
+    owners = torch.arange(n_owners, dtype=own.dtype,
+                          device=own.device)[:, None, None]
+    tables = torch.where(own[None] == owners, local[None], -1).to(
+        torch.int32)
+    touches = (tables >= 0).any(dim=2).T                   # (Q, O)
     return tables, touches

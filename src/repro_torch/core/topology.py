@@ -41,8 +41,10 @@ with per-tenant queues, deadlines, credits, backends and effort in front,
 and ``hedge=`` re-runs an overdue flush on another replica of its shard
 (first response wins).
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the mesh execution backend (A4).
+``exec="mesh"`` runs the sharded tier over a mesh of processes, one rank a
+shard (``execbackend.MeshBackend``): one ``MeshShardWorker`` scatters each
+flush to every rank and harvests every owner's partial top-k at once, under
+a ``MeshShardGroup`` root with the ``ShardGroup``'s deal semantics.
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ from ..distributed.straggler import (DeadlineReissue, EwmaTracker,
                                      HedgeConfig)
 
 __all__ = ["AdmissionController", "ReplicaGroup", "ShardGroup",
-           "ShardWorker", "ShardedSink", "ServingTopology", "TopologyReport",
+           "ShardWorker", "ShardedSink", "MeshShardWorker", "MeshShardGroup",
+           "ServingTopology", "TopologyReport",
            "TopologyConfig", "ShardHedge", "TenantSpec", "replicate_engine",
            "partition_index", "topology"]
 
@@ -769,6 +772,107 @@ class ShardGroup:
             yield from c.workers()
 
 
+class MeshShardWorker(EngineWorker):
+    """ONE worker driving the whole shard set on a mesh of ranks: a flush
+    scatters the batch's per-owner probe tables to every rank through the
+    ``MeshBackend`` (each rank searches its own partition), and a single
+    harvest deposits EVERY owner's partial top-k at once, the all_gather
+    having brought them to the origin. The flush / credit / FIFO machinery
+    is inherited unchanged, so admission control and backpressure behave
+    exactly as in process.
+
+    ``engine`` is the MeshBackend itself: it exposes ``compile_count`` (the
+    worker report's only engine touchpoint on this path), and
+    ``_dispatch`` goes through ``search_scattered``. A flush is ready when
+    its all_gather has completed (``MeshResult.query``), where an
+    in-process flush asks a CUDA event."""
+
+    def __init__(self, backend, sink: "ShardedSink", *, tables: np.ndarray,
+                 touches: np.ndarray, slots: np.ndarray, **kw):
+        super().__init__(backend, sink, **kw)
+        self.tables = tables              # (O, N, P) per-owner local cids
+        self.touches = touches            # (N, O) bool
+        self.slots = slots                # (N, O) gather slot per owner
+        self.n_owners = tables.shape[0]
+        self.queries_per_shard = np.zeros(self.n_owners, np.int64)
+        self._last = None
+
+    def _dispatch(self, take):
+        t = np.asarray(take)
+        self._last = self.engine.search_scattered(
+            self.sink.q[t], self.tables[:, t, :],
+            pad_to=self._bucket_for(len(t)))
+        return self._last, None
+
+    def _event(self):
+        return self._last
+
+    def _finish(self, idxs, res, _t_dispatch):
+        nq = len(idxs)
+        ids = res.ids[:, :nq]             # (O, nq, k)
+        ds = res.dists[:, :nq]
+        for o in range(self.n_owners):
+            m = self.touches[idxs, o]
+            if m.any():
+                sel = idxs[m]
+                self.sink.finish_partial(sel, self.slots[sel, o],
+                                         ids[o][m], ds[o][m])
+                self.queries_per_shard[o] += int(m.sum())
+
+
+class MeshShardGroup:
+    """Tree root for the mesh execution backend: the ShardGroup's deal
+    semantics (unrouted queries complete immediately; head-of-line
+    backpressure on the worker's credits) over a SINGLE MeshShardWorker;
+    the per-owner fan-out happens inside the collective, not in the
+    tree."""
+
+    def __init__(self, worker: MeshShardWorker, pending: np.ndarray,
+                 sink: ShardedSink, k: int, backpressure: bool):
+        self.worker = worker
+        self.pending = pending
+        self.sink = sink
+        self.backpressure = backpressure
+        self._none_ids = np.full((1, k), -1, np.int32)
+        self._none_d = np.full((1, k), np.inf, np.float32)
+
+    def deal(self, admission: AdmissionController, quantum: int):
+        while len(admission):
+            idx = admission.peek()
+            if idx is None:
+                return                    # waiting tenants all credit-capped
+            if self.pending[idx] == 0:    # unrouted: completes immediately
+                admission.pop()
+                self.sink.finish(np.asarray([idx]), self._none_ids,
+                                 self._none_d)
+                continue
+            if self.backpressure and self.worker.room() <= 0:
+                return                    # head waits; deadline may shed it
+            admission.pop()
+            self.worker.submit(idx)
+
+    def pump(self, t: float, drain: bool) -> bool:
+        return self.worker.pump(t, drain=drain, block_when_full=False)
+
+    def harvest(self) -> bool:
+        return self.worker.harvest(block=False)
+
+    def block_harvest_one(self) -> bool:
+        if self.worker.inflight:
+            self.worker.harvest(block=True)
+            return True
+        return False
+
+    def next_deadline(self) -> float:
+        return self.worker.next_deadline()
+
+    def idle(self) -> bool:
+        return self.worker.idle()
+
+    def workers(self):
+        yield self.worker
+
+
 # ---------------------------------------------------------------------------
 # the unified topology
 # ---------------------------------------------------------------------------
@@ -836,7 +940,9 @@ class ServingTopology:
     Admission control, credit-based backpressure and deadline shedding
     apply at the root, whatever the tree shape. ``backpressure=False``
     reproduces the ShardedFleet eager scatter. ``exec`` selects how the
-    tree runs; only ``"inproc"`` is ported.
+    tree runs: ``"inproc"`` in this process, ``"mesh"`` (or a
+    ``MeshBackend`` instance) over a mesh of ranks, one a shard, from rank
+    0; ``close()`` then stops the other ranks.
 
     ``placement`` (the cluster Placement, multi-owner when replicated) and
     ``source`` (the unpartitioned engine) let ``apply_placement`` re-slice
@@ -959,6 +1065,31 @@ class ServingTopology:
             raise ValueError("hedged dispatch re-runs SHARD flushes on "
                              "replicas; a replicated tier has no scatter "
                              "stage to hedge (needs shards >= 2)")
+        if self._exec.name == "mesh":
+            if not self.sharded:
+                raise ValueError("the mesh execution backend lays shard "
+                                 "partitions along a mesh axis; a "
+                                 "replicated tier has nothing to scatter "
+                                 "(use exec='inproc')")
+            if self.replicated:
+                raise ValueError(
+                    "hot-cluster replication routes probes through a "
+                    "host-side multi-owner choice the mesh backend's "
+                    "scatter step does not take (use exec='inproc')")
+            if any(len(g) != 1 for g in self.groups):
+                raise ValueError(
+                    "exec='mesh' drives one rank per shard group; "
+                    "replication is the mesh's job (launch more processes),"
+                    " so each group must hold exactly one engine")
+            if hedge is not None:
+                raise ValueError("hedging needs in-process replicas to "
+                                 "reissue onto; exec='mesh' has one rank "
+                                 "per shard (use exec='inproc')")
+            if autoscale is not None:
+                raise ValueError(
+                    "autoscaling resizes in-process replica groups; "
+                    "exec='mesh' pins one rank per shard group (scale by "
+                    "launching processes, or use exec='inproc')")
         self.tenants = self._resolve_tenants(tenants)
 
         # -- day-2 operations: live swaps + replica autoscaling ------------
@@ -995,6 +1126,15 @@ class ServingTopology:
         self.rebalancer = autoscale_mod.Rebalancer(self, rebalance) \
             if rebalance is not None else None
         self._active = None        # (root, sink) of the in-progress run
+        if self._exec.name == "mesh":
+            self._exec.prepare(self)
+
+    def close(self) -> None:
+        """Release the execution backend: on a mesh, the origin tells the
+        other ranks to stop. A no-op in process."""
+        close = getattr(self._exec, "close", None)
+        if close is not None:
+            close()
 
     def _resolve_tenants(self, tenants) -> list[TenantSpec] | None:
         """Validate the tenant registry against this topology's shape;
@@ -1050,7 +1190,11 @@ class ServingTopology:
         topologies, so every kernel library is built and loaded before a
         timed stream. Replicas share one placed index and warm once.
         Returns the number of executables built: 0 (the port builds
-        none)."""
+        none). On a mesh, one flush per bucket runs on every rank."""
+        if self._exec.name == "mesh":
+            self._exec.warm(self.buckets, self.nprobe)
+            self._warm_merge()
+            return 0
         seen: set[int] = set()
         for e in (e for g in self.groups for e in g):
             if id(e.placed) in seen:
@@ -1065,13 +1209,16 @@ class ServingTopology:
                 else:
                     e.search(q1, pad_to=int(b))
         if self.sharded:
-            for b in self.buckets:
-                kernel_ops.merge_topk(
-                    torch.full((b, self.fanout * self.k), -1,
-                               dtype=torch.int32, device=self.device),
-                    torch.full((b, self.fanout * self.k), float("inf"),
-                               device=self.device), k=self.k)
+            self._warm_merge()
         return 0
+
+    def _warm_merge(self) -> None:
+        for b in self.buckets:
+            kernel_ops.merge_topk(
+                torch.full((b, self.fanout * self.k), -1, dtype=torch.int32,
+                           device=self.device),
+                torch.full((b, self.fanout * self.k), float("inf"),
+                           device=self.device), k=self.k)
 
     # -- day-2 operations: replica scaling and placement swaps --------------
     def scale_replicas(self, group: int, n: int) -> int:
@@ -1080,6 +1227,11 @@ class ServingTopology:
         schedulable capacity, not device memory. Worker trees are built per
         ``run()``, so a resize takes effect at the next stream. Returns the
         group's new replica count."""
+        if self._exec.name == "mesh":
+            raise ValueError(
+                "exec='mesh' pins one rank per shard group; replica "
+                "scaling there means launching processes, not copying "
+                "engines (use exec='inproc')")
         if not 0 <= group < len(self.groups):
             raise ValueError(f"group {group} outside "
                              f"0..{len(self.groups) - 1}")
@@ -1103,7 +1255,8 @@ class ServingTopology:
         merge; queries still queued dispatch against the new state. Shapes
         are stable by the ``MutableIndex`` contract, so each group's leader
         is refreshed in place (its old tensors released first) and its
-        replicas share the leader's."""
+        replicas share the leader's. On a mesh, every rank's partition is
+        then placed anew (``MeshBackend.refresh``)."""
         if not self.mutable:
             raise ValueError("apply() needs a mutable topology "
                              "(TopologyConfig(mutable=True) or "
@@ -1127,6 +1280,8 @@ class ServingTopology:
         if self.sharded:
             self.vectors = host.vectors
             self._src_index = idx
+        if self._exec.name == "mesh":
+            self._exec.refresh(self)
 
     def _swap_group(self, g, index, host=None) -> None:
         """Refresh a group's leader with ``index`` (and ``host``), its old
@@ -1184,6 +1339,8 @@ class ServingTopology:
         self.part_of = np.asarray(pl.shard_of, np.int32)
         self.local_cid = np.asarray(pl.local_slot, np.int32)
         self.replicated = pl.replicated
+        if self._exec.name == "mesh":
+            self._exec.refresh(self)
 
     # -- scatter routing ------------------------------------------------------
     def _backend_live(self, probe: np.ndarray, backend) -> np.ndarray:
@@ -1353,12 +1510,23 @@ class ServingTopology:
             pending = touches.sum(axis=1).astype(np.int32)
             sink = ShardedSink(q, arr, self.k, self.fanout)
             sink.pending[:] = pending
-            if self.hedge_cfg is not None:
-                hedge_rt = ShardHedge(self.hedge_cfg, len(self.groups),
-                                      sink.now)
-            root = ShardGroup(self._build_tree(sink, tables, slots, hedge_rt),
-                              touches, pending, sink, self.k,
-                              self.backpressure, hedge_rt)
+            if self._exec.name == "mesh":
+                w = MeshShardWorker(
+                    self._exec, sink, tables=tables, touches=touches,
+                    slots=slots, buckets=self.buckets,
+                    fill_threshold=self.fill_threshold,
+                    wait_limit_s=self.wait_limit_s,
+                    fifo_depth=self.fifo_depth)
+                root = MeshShardGroup(w, pending, sink, self.k,
+                                      self.backpressure)
+            else:
+                if self.hedge_cfg is not None:
+                    hedge_rt = ShardHedge(self.hedge_cfg, len(self.groups),
+                                          sink.now)
+                root = ShardGroup(
+                    self._build_tree(sink, tables, slots, hedge_rt),
+                    touches, pending, sink, self.k, self.backpressure,
+                    hedge_rt)
         else:
             if backend is not None:
                 raise ValueError("backend routing needs a sharded topology "
@@ -1396,8 +1564,12 @@ class ServingTopology:
                 rows = (tenant_of == t) & ~shed
                 sink.out_ids[rows, s.k:] = -1
                 sink.out_d[rows, s.k:] = np.inf
-        run_groups = [list(c.children) for c in root.children] \
-            if self.sharded else [list(root.children)]
+        if isinstance(root, MeshShardGroup):
+            run_groups = [[root.worker]]  # one worker drives every shard
+        elif self.sharded:
+            run_groups = [list(c.children) for c in root.children]
+        else:
+            run_groups = [list(root.children)]
         return self._report(sink, shed, shed_wait, pending, merge_sizes,
                             makespan, n, run_groups, hedge_rt, specs=specs,
                             tenant_of=tenant_of, adm=adm, served=served,
@@ -1523,6 +1695,20 @@ class ServingTopology:
         flush_sizes = [s for grp in run_groups for w in grp
                        for s in w.flush_sizes]
         per_engine = []
+        if run_groups and isinstance(run_groups[0][0], MeshShardWorker):
+            # one worker drove the whole mesh: report per SHARD (rank),
+            # the worker's flushes attributed once, to shard 0
+            w = run_groups[0][0]
+            per_engine = [
+                {"engine": o, "shard": o, "replica": 0,
+                 "backend": self.modes[o],
+                 "flushes": len(w.flush_sizes) if o == 0 else 0,
+                 "queries": int(w.queries_per_shard[o]),
+                 "max_in_flight": w.max_in_flight if o == 0 else 0,
+                 "compiles": w.compiles if o == 0 else 0,
+                 "clusters": int(self.groups[o][0].index.n_clusters)}
+                for o in range(len(self.groups))]
+            run_groups = []
         for o, grp_workers in enumerate(run_groups):
             for r, w in enumerate(grp_workers):
                 per_engine.append({
@@ -1594,8 +1780,10 @@ class TopologyConfig:
     here: the port builds no executables, so replicas share nothing but
     their placed index either way. ``mutable=True`` serves a
     ``MutableIndex`` (``mut.to_engine(...)``) and accepts ``apply(mut)``
-    swaps. ``exec="mesh"`` is not ported yet and raises
-    ``NotImplementedError``."""
+    swaps. ``exec="mesh"`` serves the partitions from a mesh of ranks, one
+    a shard (``execbackend.MeshBackend``), built on rank 0 while the others
+    follow; it refuses replicas, hedging, hot-cluster replication,
+    autoscaling and mixed backends."""
 
     # -- shape ---------------------------------------------------------------
     shards: int = 1
@@ -1668,8 +1856,6 @@ class TopologyConfig:
             if self.shards < 2:
                 raise ValueError("heat-driven rebalancing moves clusters "
                                  "between shards (needs shards >= 2)")
-        if self.exec == "mesh":
-            execbackend_mod.resolve_exec_backend(self.exec)   # raises
 
     def build(self, eng, *, freq: np.ndarray | None = None,
               heat: np.ndarray | None = None) -> ServingTopology:

@@ -29,9 +29,16 @@ the live scheduler (``ServingTopology.apply`` on the sharded tier,
 ``engine.refresh`` on one engine). With --fleet > 1 it needs --sharded: the
 replicated FleetScheduler carries no mutation path.
 
-Not ported yet, raising NotImplementedError after the flag checks and
-naming ROADMAP A5 (the rest of the launch surface): --exec mesh (it needs
-A4, the mesh execution backend).
+--exec mesh serves the sharded tier from a mesh of processes, one rank a
+shard, launched by torchrun with one process per --fleet shard:
+
+    torchrun --nproc-per-node=2 -m repro_torch.launch.serve \
+        --arch h2o-danube-1.8b --rag --fleet 2 --sharded --exec mesh
+
+Rank 0 builds the model and the index and serves; the other ranks hold
+their partitions and follow it (``execbackend.MeshBackend``). Without a
+process group of --fleet ranks, ``launch.mesh.make_shard_mesh`` raises.
+--device cpu runs every rank on the CPU (gloo).
 
 --sharded / --replicas without --fleet >= 2 is an argument ERROR, not a
 silent single-engine run.
@@ -45,6 +52,7 @@ from typing import Any, Callable, NamedTuple, Protocol
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import get_smoke
 from ..core import compact_index, engine
@@ -52,10 +60,12 @@ from ..core.backends import available_backends
 from ..core.fleet import FleetScheduler, TenantSpec, TopologyConfig, \
     replicate_engine
 from ..core.mutable_index import MutableIndex
+from ..core.execbackend import MeshBackend
 from ..core.pipeline import StreamingScheduler, bucket_ladder
 from ..core.topology import ServingTopology
 from ..data.synthetic import clustered_vectors, zipf_query_set
 from ..models.model import Model, build_model
+from . import mesh as mesh_mod
 
 __all__ = ["QueryEncoder", "mean_pool_encoder", "logit_slice_encoder",
            "ENCODERS", "parse_tenants", "check_flags", "Generation",
@@ -190,8 +200,7 @@ def generate(model: Model, params, tokens: torch.Tensor, gen: int, cache, *,
 
 def check_flags(rag: bool, fleet: int, sharded: bool, replicas: int,
                 exec: str, tenants, churn: float, zipf: float | None) -> None:
-    """The JAX package's flag checks, with its messages (ValueError), then
-    NotImplementedError for the flags this port does not serve yet."""
+    """The JAX package's flag checks, with its messages (ValueError)."""
     if sharded and fleet < 2:
         raise ValueError(
             f"--sharded partitions the index across the fleet and needs "
@@ -248,10 +257,6 @@ def check_flags(rag: bool, fleet: int, sharded: bool, replicas: int,
                 f"{len(tenant_backends)} tenant backends "
                 f"{tenant_backends} need --fleet >= {len(tenant_backends)} "
                 f"shards to serve them (got --fleet {fleet})")
-    if exec == "mesh":
-        raise NotImplementedError(
-            "--exec mesh is not ported yet: ROADMAP A5 (the rest of the "
-            "launch surface; it needs A4, the mesh execution backend)")
 
 
 def churn_round(mut: MutableIndex, churn: float, seed: int, first_id: int,
@@ -282,8 +287,30 @@ def run(arch: str, requests: int, prompt_len: int, gen: int,
         zipf: float | None = None, device="cuda"):
     """The JAX package's ``run`` on the port: the arch's smoke config with
     random weights from ``seed``; returns (tokens (B, gen) numpy, retrieved
-    ids or None)."""
+    ids or None). With ``exec="mesh"`` it runs on every rank of a process
+    group of ``fleet`` ranks: rank 0 serves, the others follow it and
+    return (None, None)."""
     check_flags(rag, fleet, sharded, replicas, exec, tenants, churn, zipf)
+    if exec == "mesh":
+        mesh = mesh_mod.make_shard_mesh(fleet, device=device)
+        if dist.get_rank() != 0:
+            MeshBackend.follow(mesh, mesh_mod.rank_device(dist.get_rank(),
+                                                          device))
+            return None, None
+        exec = MeshBackend(mesh=mesh)
+        try:
+            return _run(arch, requests, prompt_len, gen, rag, seed, verbose,
+                        query_encoder, fleet, sharded, replicas, exec,
+                        tenants, churn, zipf, device)
+        finally:
+            exec.close()
+    return _run(arch, requests, prompt_len, gen, rag, seed, verbose,
+                query_encoder, fleet, sharded, replicas, exec, tenants,
+                churn, zipf, device)
+
+
+def _run(arch, requests, prompt_len, gen, rag, seed, verbose, query_encoder,
+         fleet, sharded, replicas, exec, tenants, churn, zipf, device):
     specs = None
     if tenants is not None:
         specs = parse_tenants(tenants) if isinstance(tenants, str) \
@@ -324,7 +351,7 @@ def run(arch: str, requests: int, prompt_len: int, gen: int,
         if fleet > 1 and sharded:
             scheduler = TopologyConfig(shards=fleet, replicas=replicas,
                                        modes=modes, tenants=specs,
-                                       mutable=churn > 0,
+                                       mutable=churn > 0, exec=exec,
                                        **stream).build(eng)
         elif fleet > 1:
             scheduler = FleetScheduler(replicate_engine(eng, fleet),
@@ -382,7 +409,7 @@ def run(arch: str, requests: int, prompt_len: int, gen: int,
                 shares = [d["queries"] for d in rep.per_engine]
                 sizes = [d["clusters"] for d in rep.per_engine]
                 print(f"[serve] rag: sharded fleet={fleet}x{replicas} "
-                      f"clusters/engine={sizes} "
+                      f"exec={rep.exec} clusters/engine={sizes} "
                       f"fanout={rep.fanout_mean:.2f} "
                       f"scatter flushes={rep.n_flushes} "
                       f"merges={rep.n_merges} "
@@ -430,7 +457,8 @@ def main():
                          "partition this many ways (default 1)")
     ap.add_argument("--exec", default="inproc", choices=["inproc", "mesh"],
                     help="with --fleet N --sharded: execution backend "
-                         "('mesh' is not ported yet)")
+                         "('mesh': one process a shard, under torchrun "
+                         "--nproc-per-node=N)")
     ap.add_argument("--tenants", default=None,
                     help="with --rag --fleet >= 2: tag the retrieval stream "
                          "with tenants, name:weight[:backend],...")
@@ -443,16 +471,26 @@ def main():
                          "tier (MutableIndex), compact, and swap the result "
                          "into the live scheduler before retrieval "
                          "(needs --sharded when --fleet > 1)")
+    ap.add_argument("--device", default="cuda",
+                    help="where to serve (default the card; 'cpu' runs "
+                         "the plain versions of the kernels)")
     args = ap.parse_args()
     try:
         check_flags(args.rag, args.fleet, args.sharded, args.replicas,
                     args.exec, args.tenants, args.churn, args.zipf)
     except ValueError as e:    # flag misuse: exit 2 with usage
         ap.error(str(e))
-    run(args.arch, args.requests, args.prompt_len, args.gen, args.rag,
-        query_encoder=args.encoder, fleet=args.fleet, sharded=args.sharded,
-        replicas=args.replicas, exec=args.exec, tenants=args.tenants,
-        churn=args.churn, zipf=args.zipf)
+    if args.exec == "mesh":
+        mesh_mod.init_from_env(args.device)
+    try:
+        run(args.arch, args.requests, args.prompt_len, args.gen, args.rag,
+            query_encoder=args.encoder, fleet=args.fleet,
+            sharded=args.sharded, replicas=args.replicas, exec=args.exec,
+            tenants=args.tenants, churn=args.churn, zipf=args.zipf,
+            device=args.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

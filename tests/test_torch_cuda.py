@@ -27,7 +27,9 @@ both route boundaries, and on the rows of
 ``tests/test_torch_select_design.py`` (NaN, +-inf, -0.0), bitwise. The
 mutable index runs on the card: its link in rounds against ``link_new``,
 ``compact(subset)`` against ``rebuild()``, and a mutable tier swapped in
-mid-run.
+mid-run. Two builds of one seed are the same bits (ROADMAP C5), and a
+two-rank mesh tier (``exec="mesh"``, gloo, both ranks on one card) equals
+the in-process tier.
 """
 
 import numpy as np
@@ -771,6 +773,158 @@ def test_mutable_tier_apply_mid_run_on_the_card(card):
     single.refresh(*mut.snapshot())
     np.testing.assert_array_equal(topo.run(q).ids,
                                   single.search(q)[0].ids.cpu())
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, types and bits (floats compared as their bits)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(
+            torch.int32)
+    return torch.equal(a, b)
+
+
+def test_two_builds_of_one_seed_are_the_same_bits_on_the_card(card):
+    """ROADMAP C5: k-means summed each cluster's members with index_add_,
+    whose float order the card does not fix, so a seed built another index
+    on every run. The members are now summed in fixed_order's order: two
+    builds of one seed agree in every CompactIndex and HostStore field,
+    bit for bit, and so do two k-means runs on the build's sample."""
+    from repro_torch.core import compact_index, ivf
+    from repro_torch.data import synthetic
+    x, _ = synthetic.clustered_vectors(6, 60_000, 128, 64)
+    xt = torch.from_numpy(x).to(card)
+    icfg = compact_index.IndexConfig(dim=128, n_clusters=64, degree=32,
+                                     knn_k=64, kmeans_sample=16_384)
+    km = [ivf.kmeans(torch.Generator(device=card).manual_seed(0), xt, 64,
+                     iters=12, sample=16_384) for _ in range(2)]
+    for f in km[0]._fields:
+        assert _same_bits(getattr(km[0], f), getattr(km[1], f)), f
+    builds = [compact_index.build_compact_index(
+        torch.Generator(device=card).manual_seed(0), xt, icfg)
+        for _ in range(2)]
+    (ia, ha), (ib, hb) = builds
+    for f in ia._fields:
+        a, b = getattr(ia, f), getattr(ib, f)
+        assert a == b if f == "dim" else _same_bits(a, b), f
+    for f in ha._fields:
+        assert _same_bits(getattr(ha, f), getattr(hb, f)), f
+
+
+def _hold_tier(got, want) -> None:
+    """A tier's top-k against a reference (ROADMAP C4's rule): distances
+    the same bits in every slot, ids equal wherever no other candidate
+    lies at exactly the slot's distance."""
+    (gi, gd), (wi, wd) = got, want
+    assert gi.shape == wi.shape
+    np.testing.assert_array_equal(gd.view(np.int32), wd.view(np.int32))
+    diff = gi != wi
+    for i in np.nonzero(diff.any(1))[0]:
+        for v in np.unique(wd[i][diff[i]]):
+            sel = wd[i] == v
+            assert v == wd[i, -1] or sorted(gi[i][sel]) == sorted(
+                wi[i][sel]), (i, gi[i], wi[i])
+
+
+def _card_mesh_rank(rank: int, world: int, init: str, out: str) -> None:
+    """One rank of a 2-rank gloo mesh on the card: rank 0 serves mesh
+    tiers beside their in-process twins and saves both, rank 1 follows."""
+    import pathlib
+    import torch.distributed as dist
+    from repro_torch.core import compact_index, engine, execbackend, topology
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as lmesh
+    dev = lmesh.init_shard_group(rank, world, init_method=init,
+                                 device="cuda", timeout_s=120)
+    try:
+        mesh = lmesh.make_shard_mesh(world, device="cuda")
+        if rank != 0:
+            execbackend.MeshBackend.follow(mesh, dev)
+            return
+        stopper = execbackend.MeshBackend(mesh=mesh)
+        try:
+            x, _ = synthetic.clustered_vectors(12, 8000, 32, 16)
+            q = synthetic.query_set(12, x, 37)
+            icfg = compact_index.IndexConfig(dim=32, n_clusters=16,
+                                             degree=8, knn_k=16)
+            res = {}
+            for scan in ("beam", "gemv"):
+                eng = engine.PIMCQGEngine.build(
+                    0, x, icfg, engine.SearchConfig(nprobe=3, ef=16, k=5,
+                                                    scan=scan),
+                    device=dev)
+                cfg = topology.TopologyConfig(
+                    shards=world, buckets=(8, 64), fill_threshold=64,
+                    wait_limit_s=1e-3)
+                inproc = cfg.build(eng)
+                # queries whose probes all fall on shard 0: owner 1 sees no
+                # probe in their flush
+                tables, touches, _, _ = inproc._route_probes(q)
+                only0 = q[touches[:, 0] & ~touches[:, 1]][:8]
+                mb = execbackend.MeshBackend(mesh=mesh)
+                tier = topology.TopologyConfig(
+                    shards=world, buckets=(8, 64), fill_threshold=64,
+                    wait_limit_s=1e-3, exec=mb).build(eng)
+                tier.warm()
+                mb.rank_stats(reset=True)
+                for name, qq in (("all", q), ("only0", only0)):
+                    for label, t in (("mesh", tier), ("inproc", inproc)):
+                        rep = t.run(qq)
+                        res[f"{scan}.{name}.{label}.ids"] = rep.ids
+                        res[f"{scan}.{name}.{label}.dists"] = rep.dists
+                    res[f"{scan}.{name}.n"] = np.asarray(len(qq))
+                stats = mb.rank_stats()
+                for s in stats:
+                    res[f"{scan}.launches.{s['rank']}"] = np.asarray(
+                        [s["launches"]["topk_select"],
+                         s["launches"]["beam_search"],
+                         s["launches"]["cluster_scan"]])
+            np.savez(pathlib.Path(out) / "card_mesh.npz", **res)
+        finally:
+            stopper.close()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_rank_mesh_on_the_card_equals_inproc_tier(card, tmp_path,
+                                                     monkeypatch):
+    """exec="mesh" on the card: two ranks over gloo share one card (each a
+    process of its own), bitwise against the in-process tier under C4's
+    rule: every query of a 37-query stream (flushes of fewer rows than
+    their bucket), and a stream whose probes all fall on shard 0 (owner 1
+    searches nothing), by beam and by gemv; every rank launched its
+    kernels. The libraries are built here first, so the ranks only load
+    them."""
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import _build
+    _build.build_all()
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")   # one host: loopback
+    ctx = mp.get_context("spawn")
+    init = f"file://{tmp_path / 'store'}"
+    procs = [ctx.Process(target=_card_mesh_rank,
+                         args=(r, 2, init, str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    assert [p.exitcode for p in procs] == [0, 0]
+    r = np.load(tmp_path / "card_mesh.npz")
+    for scan in ("beam", "gemv"):
+        for name in ("all", "only0"):
+            key = f"{scan}.{name}."
+            assert len(r[key + "mesh.ids"]) == int(r[key + "n"]) > 0
+            _hold_tier((r[key + "mesh.ids"], r[key + "mesh.dists"]),
+                       (r[key + "inproc.ids"], r[key + "inproc.dists"]))
+        kernel = 1 if scan == "beam" else 2
+        for rank in range(2):
+            launches = r[f"{scan}.launches.{rank}"]
+            assert launches[0] > 0 and launches[kernel] > 0, launches
 
 
 def _attn_inputs(card, b, sq, sk, hq, hkv, d, q_dtype, kv_dtype, seed=0):

@@ -194,6 +194,38 @@ def test_kmeans_partitions_the_corpus():
         km.assignment.numpy(), tivf.assign(T(x), km.centroids).numpy())
 
 
+@pytest.mark.parametrize("mem_bytes", [1 << 30, 1 << 12])
+def test_kmeans_update_is_fixed_order_and_close_to_jax(rng, mem_bytes):
+    """The Lloyd update (ROADMAP C5): each cluster's members summed in one
+    fixed order (``fixed_order.segment_sum``), against the JAX package's
+    ``one_hot.T @ train`` (src/repro/core/ivf.py's lloyd) on the same
+    assignment: within rtol 1e-5 plus 1e-6 of the largest |sum| (both are
+    float32 sums of the same terms in other orders). A cluster's sum is
+    the same bits whatever the other clusters hold and however many
+    clusters share a pass (``mem_bytes``), and empty clusters sum to 0."""
+    from repro_torch.core import fixed_order
+    train = rng.standard_normal((900, 16)).astype(np.float32) * 4
+    a = rng.integers(0, 12, 900).astype(np.int32)
+    a[a == 5] = 6                                   # cluster 5 is empty
+    got = fixed_order.segment_sum(torch.from_numpy(train),
+                                  torch.from_numpy(a), 12,
+                                  mem_bytes=mem_bytes)
+    want = np.asarray(jax.nn.one_hot(jnp.asarray(a), 12,
+                                     dtype=jnp.float32).T
+                      @ jnp.asarray(train))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-6 * float(np.abs(want).max()))
+    assert not got[5].any()
+    for c in (0, 7, 11):
+        alone = fixed_order.segment_sum(torch.from_numpy(train[a == c]),
+                                        torch.zeros(int((a == c).sum()),
+                                                    dtype=torch.int32), 1)
+        assert torch.equal(alone[0], got[c])
+    big = fixed_order.segment_sum(torch.from_numpy(train),
+                                  torch.from_numpy(a), 12)
+    assert torch.equal(big, got)
+
+
 def test_build_cluster_graph_close_to_jax(clusters):
     vecs, valid, _, _ = clusters
     got = tgraph.build_cluster_graph(T(vecs), T(valid), r=12, knn_k=24)

@@ -335,10 +335,13 @@ def test_churn_flag_misuse_raises(kw, match):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(fleet=2, sharded=True, exec="mesh"), "A5 .*A4"),
-])
+    (dict(fleet=2, sharded=True, exec="mesh"), "torchrun --nproc-per-node=2"),
+], ids=["exec_mesh"])
 def test_unported_flags_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """--exec mesh is served (ROADMAP A4): without a process group of
+    --fleet ranks, run() raises make_shard_mesh's ValueError, which names
+    the launch."""
+    with pytest.raises(ValueError, match=item):
         tserve.run(ARCH, 2, 16, 4, rag=True, device="cpu", **kw)
 
 

@@ -347,14 +347,24 @@ def test_tier_stays_on_the_engines_device(engines, monkeypatch):
 
 
 @pytest.mark.parametrize("build", [
-    lambda te: topology.TopologyConfig(shards=2, exec="mesh"),
-    lambda te: execbackend.resolve_exec_backend("mesh"),
+    lambda te: topology.TopologyConfig(shards=2, exec="mesh").exec,
+    lambda te: "mesh",
 ], ids=["mesh", "exec_mesh"])
 def test_options_not_ported_raise(engines, build):
-    """The mesh backend (A4) still refuses, naming its ROADMAP item."""
+    """The mesh backend (ROADMAP A4) is ported: "mesh", from a config or as
+    a key, resolves to a NEW MeshBackend each time (prepare binds state),
+    an instance passes through, and "inproc" stays the shared default
+    (tests/test_execbackend.py's registry check)."""
     _, te, _ = engines
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A4 "):
-        build(te)
+    key = build(te)
+    m = execbackend.resolve_exec_backend(key)
+    assert isinstance(m, execbackend.MeshBackend) and m.name == "mesh"
+    assert execbackend.resolve_exec_backend(key) is not m
+    assert execbackend.resolve_exec_backend(m) is m
+    assert execbackend.resolve_exec_backend("inproc") is execbackend.INPROC
+    assert execbackend.resolve_exec_backend(
+        execbackend.InProcBackend()) is not execbackend.INPROC
+    assert set(execbackend.EXEC_BACKENDS) >= {"inproc", "mesh"}
 
 
 def _sharded_mutable_without_placement(te):
