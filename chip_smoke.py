@@ -39,7 +39,11 @@ Phases (each failure exits non-zero and prints no result line):
      flip term, of its twin (``operands=torch.bfloat16``), and within the
      derived ``flash_attention_rounding_bound`` of the float32 plain
      version, as the twin is; and head dim 160 at stablelm-12b's shape,
-     timed beside scaled_dot_product_attention;
+     timed beside scaled_dot_product_attention; the smoke configs' head
+     dims 8, 12 and 16 and the deepseek smoke's MLA pair (dk 40, dv 32),
+     zero-padded in the kernel (ROADMAP C6), and the latent-attention
+     instantiation (dk 576, dv 512, g 16) with v a view of k's rows or a
+     tensor of its own, held the same way;
   4. build the index of a 10M x 128 clustered corpus (big-ann-benchmarks'
      10M BIGANN/SIFT subset scale, SIFT's width) on the card, 4096 clusters
      on 8 shards; run the build's k-means twice more from its seed and
@@ -152,6 +156,23 @@ Phases (each failure exits non-zero and prints no result line):
      bitwise, ids outside exact ties), reclaimable bytes 0, and the recall
      drift at ef 64 within 0.01 (benchmarks/churn.py's DRIFT_BOUND); each
      step's seconds and peak allocated memory logged.
+ 14. serve deepseek-v2-lite-16b at full width and depth (27 x 2048, MLA
+     kv_lora 512 + rope 64, 64 routed experts top-6 + 2 shared, the first
+     layer dense, vocab 102,400, seeded bf16 weights; after phase 11,
+     whose weights are released) through repro_torch.launch.serve.generate:
+     8 requests of 2048 prompt tokens, 32 generated, a bf16 latent cache,
+     the first decode step's queries through a StreamingScheduler over the
+     10M engine; 27 flash_attention launches in the counted prefill (the
+     MLA instantiation, dk 576 / dv 512), the ids held against
+     engine.search; the last decode step held against the same step with
+     its attention through the kernel and its routing forced to decode's
+     (5% of the largest |logit|, the same greedy token); the served prefill
+     of the same tokens against decode, its dropped copies and the flipped
+     top-6 choices logged; the kernel on layer 0's real q_all / latent
+     cache / its view held as in phase 3 and timed beside its bound, its
+     twin, the float32 plain version and scaled_dot_product_attention (the
+     first backend that takes dk != dv); a profiled prefill and decode
+     step.
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -396,28 +417,29 @@ def attn_bound(torch, want):
     return ref.flash_attention_order_bound(want)
 
 
-def hold_bf16_attention(torch, label, got, q, k, v, kw) -> None:
+def hold_bf16_attention(torch, label, got, q, k, v, kw,
+                        kernel="flash_attention") -> None:
     """The tensor-core kernel's output ``got`` (bf16 q) held twice: against
     its twin within ``attn_bound`` plus ``ref.flash_attention_flip_bound``
     (a weight that the kernel's ex2 and torch.exp2, or S summed in another
     order, round to other bf16 neighbours moves its row by up to 2^-7 of
     the row's largest p_j |v_j| / l; the elements that needed the term are
     counted), and against the float32 plain version within
-    ``ref.flash_attention_rounding_bound``, as the twin itself is."""
+    ``ref.flash_attention_rounding_bound``, as the twin itself is. The
+    error against the twin is recorded under ``kernel``."""
     from repro_torch.kernels import ref
     twin = ref.flash_attention_ref(q, k, v, operands=torch.bfloat16, **kw)
     base = attn_bound(torch, twin)
     flip = ref.flash_attention_flip_bound(q, k, v, **kw)
     needed = int(((got.double() - twin.double()).abs() > base).sum())
-    close(torch, "flash_attention", f"{label} vs twin", got, twin,
-          base + flip)
-    log(f"flash_attention {label}: {needed} of {got.numel()} elements "
+    close(torch, kernel, f"{label} vs twin", got, twin, base + flip)
+    log(f"{kernel} {label}: {needed} of {got.numel()} elements "
         f"needed the bf16 flip term")
     plain = ref.flash_attention_ref(q, k, v, **kw)
     bound = ref.flash_attention_rounding_bound(q, k, v, **kw)
-    close(torch, "flash_attention", f"{label} vs float32 plain", got, plain,
+    close(torch, kernel, f"{label} vs float32 plain", got, plain,
           bound, record=False)
-    close(torch, "flash_attention", f"{label} twin vs float32 plain", twin,
+    close(torch, kernel, f"{label} twin vs float32 plain", twin,
           plain, bound, record=False)
 
 
@@ -494,22 +516,25 @@ def topk_bound(q, c, k):
 
 
 def flash_bound(q, k, v, causal, window, q_offset, kv_valid_len):
-    """Operations: two multiply-adds (QK^T and PV) per (query row, head,
-    head-dim column, valid key), 4 * B * Hq * hd * (valid keys summed over
-    the rows), at the dense bf16 tensor-core rate. Bytes: q once, the K and
-    V rows some query can see once, the output (q's type) once."""
-    b, sq, hq, d = q.shape
-    sk = k.shape[1]
+    """Operations: a multiply-add per (query row, head, dk column, valid
+    key) for QK^T and one per dv column for PV, 2 * B * Hq * (dk + dv) *
+    (valid keys summed over the rows), at the dense bf16 tensor-core rate.
+    Bytes: q once, the K rows some query can see once and the V rows once
+    (not again when v is a view of k's own rows, as MLA's latent cache),
+    the output (q's type, dv wide) once."""
+    b, sq, hq, dk = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     valid = sk if kv_valid_len is None else kv_valid_len
     pos = q_offset + np.arange(sq)
     hi = np.minimum(valid, pos + 1) if causal else np.full(sq, valid)
     lo = np.maximum(0, pos - window + 1) if window else np.zeros(sq)
     keys = int(np.maximum(hi - lo, 0).sum())
     reach = int(hi.max())
-    nbytes = (2 * q.numel() * q.element_size()
-              + b * reach * k.shape[2] * d * (k.element_size()
-                                              + v.element_size()))
-    ops = 4 * b * hq * d * keys
+    alias = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+    kv_row = dk * k.element_size() + (0 if alias else dv * v.element_size())
+    nbytes = (q.numel() * q.element_size() + b * sq * hq * dv
+              * q.element_size() + b * reach * hkv * kv_row)
+    ops = 2 * b * hq * (dk + dv) * keys
     tb, to = nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
     return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
 
@@ -1151,6 +1176,38 @@ def phase_flash_synthetic(torch, dev):
             want = ref.flash_attention_ref(q, k, v, **kw)
             close(torch, "flash_attention", label, got, want,
                   attn_bound(torch, want))
+    # the smoke configs' head dims (ROADMAP C6: zero-padded into the 64
+    # instantiation) and the MLA pairs, dk != dv, v a view of k's rows
+    # (the latent cache) or a tensor of its own; causal throughout
+    cases = [  # b, sq, sk, hq, hkv, dk, dv, q_off, valid, qt, kvt, alias
+        (2, 70, 150, 4, 2, 8, 8, 60, 140, bf, f32, False),
+        (2, 70, 150, 4, 2, 12, 12, 60, 140, f32, f32, False),
+        (2, 70, 150, 4, 2, 16, 16, 60, 140, bf, bf, False),
+        (2, 70, 150, 4, 1, 40, 32, 60, 140, bf, f32, True),
+        (2, 300, 300, 16, 1, 576, 512, 0, None, bf, bf, True),
+        (1, 100, 700, 16, 1, 576, 512, 590, 690, bf, bf, True),
+        (1, 100, 300, 16, 1, 576, 512, 150, None, bf, f32, False),
+    ]
+    for b, sq, sk, hq, hkv, dk, dv, q_off, valid, qt, kvt, alias in cases:
+        g = torch.Generator(device=dev).manual_seed(dk * 1000 + sk)
+        q = torch.randn((b, sq, hq, dk), generator=g, device=dev).to(qt)
+        k = torch.randn((b, sk, hkv, dk), generator=g, device=dev).to(kvt)
+        v = k[..., :dv] if alias else torch.randn(
+            (b, sk, hkv, dv), generator=g, device=dev).to(kvt)
+        kw = dict(causal=True, window=None, q_offset=q_off,
+                  kv_valid_len=valid)
+        name = "flash_attention/mla" if (dk, dv) == flash_attn.MLA_DIMS \
+            else "flash_attention"
+        label = (f"B={b} Sq={sq} Sk={sk} g={hq // hkv} dk={dk} dv={dv} "
+                 f"q_offset={q_off} kv_valid_len={valid} v "
+                 f"{'a view of k' if alias else 'its own'} "
+                 f"{str(qt)[6:]}/{str(kvt)[6:]}")
+        got = flash_attn.flash_attention(q, k, v, **kw)
+        if qt == bf:
+            hold_bf16_attention(torch, label, got, q, k, v, kw, name)
+        else:
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            close(torch, name, label, got, want, attn_bound(torch, want))
     time_hd160(torch, dev)
 
 
@@ -2603,6 +2660,308 @@ def phase_lm(torch, dev, eng):
     return counts, row
 
 
+def rewind(cache, pos: int) -> dict:
+    """The LM cache with every slot's pos set to ``pos`` (the same tensors):
+    the next step writes slot ``pos`` again and attends to the slots
+    before it."""
+    from repro_torch.models.attention import KVCache
+
+    def one(c):
+        return None if c is None else KVCache(c.k, c.v, pos)
+    return {part: [one(c) for c in cache[part]]
+            for part in ("prefix", "groups", "tail")}
+
+
+def moe_routes(torch, fn, force=None):
+    """fn() with the MoE router and dispatch recording, layer by layer:
+    each layer's experts for the last position, (B, 1, k), and the copies
+    it drops past capacity. With ``force`` (one (B, 1, k) tensor a layer,
+    in order) the last position's experts are taken from it and their
+    gates renormalised from the router's own probabilities there. Returns
+    (fn's result, [the layers' own last-position experts], copies dropped,
+    of which the last position's, copies routed)."""
+    from repro_torch.models import moe
+    real_route, real_rows = moe.route, moe.route_rows
+    own, drops = [], [0, 0, 0]
+
+    def route(p, x, cfg):
+        probs, top_p, top_i = real_route(p, x, cfg)
+        own.append(top_i[:, -1:].clone())
+        if force is not None:
+            top_i = top_i.clone()
+            top_i[:, -1:] = force[len(own) - 1]
+            gate = torch.gather(probs, -1, top_i)
+            top_p = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        return probs, top_p, top_i
+
+    def route_rows(top_i, cap, e):
+        dest = real_rows(top_i, cap, e)
+        sink = dest == e * cap
+        drops[0] += int(sink.sum())
+        drops[1] += int(sink[:, -top_i.shape[-1]:].sum())
+        drops[2] += dest.numel()
+        return dest
+    moe.route, moe.route_rows = route, route_rows
+    try:
+        return (fn(), own, *drops)
+    finally:
+        moe.route, moe.route_rows = real_route, real_rows
+
+
+def through_kernel(torch, fn):
+    """fn() with the decode step's plain one-pass attention sent through
+    ``attend``, the kernel on a card: (fn's result, flash_attention
+    launches in it)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    real = attention.attend_onepass
+    attention.attend_onepass = attention.attend
+    ops.reset_launch_counts()
+    try:
+        return fn(), ops.launch_counts()["flash_attention"]
+    finally:
+        attention.attend_onepass = real
+
+
+def flipped(torch, own, want) -> int:
+    """(layer, row) pairs whose top-k expert sets differ."""
+    return sum(int((torch.sort(a, -1).values != torch.sort(b, -1).values)
+                   .any(-1).sum()) for a, b in zip(own, want))
+
+
+def sdpa_row(torch, q, k, v, n):
+    """Time one scaled_dot_product_attention call on the kernel's work
+    (causal over the n valid keys, GQA, bf16 K/V), by the first backend
+    that takes dk != dv; (ms or None, backend name or the refusals)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    bf = torch.bfloat16
+    qs = q.transpose(1, 2).contiguous()
+    ks = k[:, :n].to(bf).transpose(1, 2).contiguous()
+    vs = v[:, :n].to(bf).transpose(1, 2).contiguous()
+    refused = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, enable_gqa=True)
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            refused.append(f"{backend.name}: "
+                           f"{' '.join(str(e).split())[:160]}")
+            continue
+        ms, wall = times(torch, call, 3)
+        return (ms if ms is not None else wall), backend.name, refused
+    return None, None, refused
+
+
+def phase_mla(torch, dev, eng):
+    """Phase 14: deepseek-v2-lite-16b at full width (MLA and MoE) through
+    launch.serve.generate, with retrieval into the 10M engine. Returns
+    (the flash_attention launches of the counted run, the
+    flash_attention/mla timing row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import StreamingScheduler, bucket_ladder
+    from repro_torch.kernels import flash_attn, ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    cfg = get_config("deepseek-v2-lite-16b")
+    b, prompt, n_gen = 8, 2048, 32
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers x d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, MLA kv_lora {cfg.kv_lora_rank} + rope "
+        f"{cfg.qk_rope_dim} (attention at dk "
+        f"{cfg.kv_lora_rank + cfg.qk_rope_dim}, dv {cfg.kv_lora_rank}), "
+        f"{cfg.n_experts} experts top-{cfg.n_experts_active} of d_ff "
+        f"{cfg.moe_d_ff} + {cfg.n_shared_experts} shared, "
+        f"{cfg.first_k_dense} dense layer of d_ff {cfg.d_ff}, layer plan "
+        f"{cfg.layer_plan()}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} "
+        f"B params ({cfg.param_count() / 1e9:.3f} B by the config's count, "
+        f"norms left out) drawn on the card in "
+        f"{time.perf_counter() - t:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                           device=dev)
+    sched = StreamingScheduler(eng, buckets=bucket_ladder(b),
+                               fill_threshold=max(b // 2, 1),
+                               wait_limit_s=5e-3)
+    enc = serve.mean_pool_encoder(params, eng.icfg.dim)
+
+    def cache(m=model, rows=b):
+        return m.init_cache(rows, prompt + n_gen, dtype=torch.bfloat16,
+                            device=dev)
+    serve.generate(model, params, tokens, 2, cache())     # warm-up
+    calls = []
+    real = ops.flash_attention
+
+    def recording(q, k, v, **kw):
+        if not calls:                 # layer 0 of the counted prefill
+            kc = k.clone()
+            calls.append((q.clone(), kc, kc[..., :v.shape[-1]]
+                          if v.data_ptr() == k.data_ptr() else v.clone(),
+                          kw))
+        return real(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c = cache()
+    ops.flash_attention = recording
+    ops.reset_launch_counts()
+    try:
+        out = serve.generate(model, params, tokens, n_gen, c,
+                             scheduler=sched, encoder=enc)
+    finally:
+        ops.flash_attention = real
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    total = out.prefill_s + out.decode_s + out.retrieve_s
+    log(f"generate B={b} prompt={prompt} gen={n_gen}, bf16 latent cache: "
+        f"prefill {out.prefill_s * 1e3:.2f} ms, decode "
+        f"{out.decode_s * 1e3 / (n_gen - 1):.3f} ms per step ({n_gen - 1} "
+        f"steps), retrieval {out.retrieve_s * 1e3:.2f} ms; "
+        f"{b * n_gen / total:.1f} generated tokens/s "
+        f"({b * (prompt + n_gen) / total:.1f} tokens/s with the prompt); "
+        f"peak device memory {peak:.2f} GiB")
+    print("kernels mla " + json.dumps(counts), flush=True)
+    if counts["flash_attention"] != cfg.n_layers:
+        fail(f"the prefill launched flash_attention {counts['flash_attention']}"
+             f" times, expected one a layer ({cfg.n_layers})")
+    toks = out.tokens
+    if toks.shape != (b, n_gen) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"generated tokens malformed: {tuple(toks.shape)}")
+    if not torch.isfinite(out.logits).all():
+        fail("the last decode step's logits are not finite")
+    ids = out.report.ids
+    res, _ = eng.search(torch.from_numpy(out.queries).to(dev))
+    same = ids == res.ids.cpu().numpy()
+    log(f"retrieved ids equal engine.search of the same queries in "
+        f"{int(same.sum())} of {same.size} slots")
+    if not same.all():
+        fail("the RAG loop's retrieved ids differ from engine.search")
+
+    # the last decode step again (the cache rewound to its position: it
+    # writes its slot with the same bits), recording its routes
+    pos = prompt + n_gen - 2
+    (dec_logits, _), dec_top, d_drop, _, _ = moe_routes(
+        torch, lambda: model.decode(params, toks[:, -2:-1], rewind(c, pos)))
+    log(f"the last decode step run again: logits bitwise the served ones: "
+        f"{torch.equal(dec_logits, out.logits)}; copies dropped {d_drop}")
+    if d_drop:
+        fail(f"a decode step dropped {d_drop} routed copies (capacity 1, "
+             f"{cfg.n_experts_active} distinct experts: it cannot)")
+    full = torch.cat([tokens, toks[:, :-1].long()], dim=1)
+    v = slice(0, cfg.vocab_size)
+    # the served config's prefill of the same tokens: logged, not held
+    (srv, cp), srv_top, drop, drop_last, routed = moe_routes(
+        torch, lambda: model.prefill(params, full, cache()))
+    e_srv = float((dec_logits[:, -1, v].float() - srv[:, -1, v].float())
+                  .abs().max())
+    agree = int((dec_logits[:, -1, v].argmax(-1)
+                 == srv[:, -1, v].argmax(-1)).sum())
+    log(f"served prefill of {full.shape[1]} tokens (capacity "
+        f"{moe.capacity(cfg, full.shape[1])} a row): {drop} of {routed} "
+        f"routed copies dropped ({drop / routed:.4f}), {drop_last} of the "
+        f"compared tokens' {b * cfg.n_experts_active * len(srv_top)}; "
+        f"flipped top-{cfg.n_experts_active} choices of the compared token "
+        f"vs decode {flipped(torch, srv_top, dec_top)} of "
+        f"{b * len(srv_top)} (layer, row) pairs; decode vs it: max |diff| "
+        f"{e_srv:.4f} of max |logit| "
+        f"{float(srv[:, -1, v].float().abs().max()):.4f}, greedy token "
+        f"equal in {agree} of {b} rows (logged, not held)")
+    # held: the same decode step, its attention through the kernel (the MLA
+    # instantiation at Sq = 1 over the same cache) and each MoE layer's
+    # experts taken from decode's: the context and the routing are decode's,
+    # so only the attention's rounding differs
+    ((want, _), k_launches), k_top, _, _, _ = moe_routes(
+        torch, lambda: through_kernel(
+            torch, lambda: model.decode(params, toks[:, -2:-1],
+                                        rewind(c, pos))),
+        force=dec_top)
+    if k_launches != cfg.n_layers:
+        fail(f"the decode step through the kernel launched it {k_launches} "
+             f"times, expected {cfg.n_layers}")
+    got, want = dec_logits[:, -1, v].float(), want[:, -1, v].float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    arg_d, arg_p = got.argmax(-1), want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    log(f"decode (plain one-pass attention) vs the same step through the "
+        f"kernel at position {pos} (routing forced to decode's; its own "
+        f"choice flipped in {flipped(torch, k_top, dec_top)} of "
+        f"{b * len(k_top)} (layer, row) pairs): max |diff| {err:.4f}, max "
+        f"|logit| {scale:.4f} (ratio {err / scale:.4f}); argmax agrees in "
+        f"{int((arg_d == arg_p).sum())} of {b} rows; top-2 margins "
+        f"{[round(x, 4) for x in (top2[:, 0] - top2[:, 1]).tolist()]}")
+    if err > 0.05 * scale:
+        fail(f"decode logits differ from the kernel's by {err:.4f} > 5% of "
+             f"their largest magnitude {scale:.4f}")
+    if not torch.equal(arg_d, arg_p):
+        fail("decode's greedy token differs from the kernel run's")
+    del want, got, srv
+
+    q0, k0, v0, kw0 = calls[0]
+    alias = v0.data_ptr() == k0.data_ptr()
+    label = (f"real layer 0 q_all {tuple(q0.shape)} "
+             f"{str(q0.dtype)[6:]}, latent cache {tuple(k0.shape)} "
+             f"{str(k0.dtype)[6:]}, v {'a view of it' if alias else 'apart'}"
+             f" {tuple(v0.shape)}, {kw0}")
+    if not alias:
+        fail("the MLA prefill's v is not a view of its cache")
+    got0 = flash_attn.flash_attention(q0, k0, v0, **kw0)
+    hold_bf16_attention(torch, label, got0, q0, k0, v0, kw0,
+                        "flash_attention/mla")
+    bf = torch.bfloat16
+    row = timed_row(
+        torch, f"flash_attention/mla real layer 0 B={b} Sq={q0.shape[1]} "
+        f"Sk={k0.shape[1]} (valid {kw0['kv_valid_len']}), plain = the twin",
+        lambda: flash_attn.flash_attention(q0, k0, v0, **kw0),
+        lambda: ref.flash_attention_ref(q0, k0, v0, operands=bf, **kw0), 10,
+        flash_bound(q0, k0, v0, kw0["causal"], kw0["window"],
+                    kw0["q_offset"], kw0["kv_valid_len"]))
+    f32_ms, f32_wall = times(
+        torch, lambda: ref.flash_attention_ref(q0, k0, v0, **kw0), 3)
+    log(f"flash_attention/mla float32 plain version: "
+        f"{f32_ms if f32_ms is not None else f32_wall:.5f} ms on the device")
+    lib, backend, refused = sdpa_row(torch, q0, k0, v0, q0.shape[1])
+    for line in refused:
+        log(f"scaled_dot_product_attention at dk 576 / dv 512 refused by "
+            f"{line}")
+    row["library_ms"] = lib
+    if lib is None:
+        log("no scaled_dot_product_attention backend takes dk 576 != dv "
+            "512 with enable_gqa: library_ms is null")
+    else:
+        log(f"flash_attention/mla library (scaled_dot_product_attention, "
+            f"backend {backend}, causal, GQA over one latent head, bf16 K/V "
+            f"of the {q0.shape[1]} valid keys): {lib:.5f} ms on the device; "
+            f"kernel {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms")
+
+    # where a prefill's and a decode step's time goes (the decode step at
+    # the last slot of the cache)
+    nxt = toks[:, -1:]
+    for name, step in (("prefill", lambda: model.prefill(params, tokens,
+                                                         cache())),
+                       ("decode step", lambda: model.decode(params, nxt,
+                                                            cp))):
+        wall, kern = profiled(torch, step)
+        busy = sum(ms for _, _, ms in kern)
+        log(f"profiled {name}: {wall:.2f} ms wall, device busy {busy:.2f} ms "
+            f"in {sum(n for _, n, _ in kern)} kernel launches (idle share "
+            f"{1 - busy / wall:.3f})")
+        log_top(kern, 8)
+    log(f"14 done in {time.perf_counter() - t_phase:.1f} s")
+    return counts["flash_attention"], row
+
+
 # the 13 CompactIndex tensors phase 12 holds bitwise against rebuild()
 INDEX_FIELDS = ("codes", "f_add", "neighbors", "entry", "n_valid",
                 "node_ids", "centroids", "alpha", "rho", "shift1", "shift2",
@@ -2923,6 +3282,7 @@ def main() -> None:
     mesh = phase_mesh(torch, eng, qt, rep, med)
     phase_skewed_tier(torch, eng)
     lm_counts, timing["flash_attention"] = phase_lm(torch, dev, eng)
+    mla_launches, mla = phase_mla(torch, dev, eng)
     parts, icfg = [eng.index, eng.host], eng.icfg
     del eng
     mutable = phase_mutable(torch, parts, icfg, qt)
@@ -2957,6 +3317,13 @@ def main() -> None:
                     bound_by=timing[name]["bound_by"],
                     library_ms=timing[name].get("library_ms"))
                for name in src]
+    # the latent-attention instantiation (dk 576, dv 512) of phase 14
+    kernels.append(dict(
+        name="flash_attention/mla", route="cuda",
+        source=src["flash_attention"][0], replaces=src["flash_attention"][1],
+        launches=mla_launches, max_abs_err=ERRS["flash_attention/mla"],
+        ms=mla["ms"], plain_ms=mla["plain_ms"], bound_ms=mla["bound_ms"],
+        bound_by=mla["bound_by"], library_ms=mla["library_ms"]))
     # each rank policy of beam_search and cluster_scan (phase 8b): its own
     # launches, times and errors, on the search of its own backend
     for name, row in ranked.items():

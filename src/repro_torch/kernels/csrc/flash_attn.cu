@@ -77,6 +77,22 @@
 // The float32-q design (CUDA cores): one block of 256 threads
 // per (64 query rows, query head, batch row); the Q tile (scaled), K, V and
 // P tiles in float32 shared memory, float32 FMAs on CUDA cores.
+//
+// Head dims: both routes run any dk, dv up to 160 in the smallest
+// instantiation (64, 80, 96, 128, 160) that holds both; the extra columns
+// are staged as zeros (element loads with a column limit), which add exact
+// zeros to Q.K^T, and the output is written at its real dv. The smoke
+// configs of the LM stack (head dims 8, 12, 16; MLA's 40 / 32) take it.
+//
+// (dk, dv) = (576, 512), MLA's absorbed attention (deepseek-v2-lite: q_all
+// of 16 heads against one latent head, V the latent cache's first 512
+// columns), has a tensor-core kernel of its own, `flash_mla_kernel` (its
+// design is beside it). What bounds it on an H100, at the prefill of the
+// serving path (B = 8, S = 2048, causal): the operations, 2 B Hq (dk + dv)
+// x 2,098,176 valid keys = 584 GFLOP a layer, 0.59 ms at 989 TFLOP/s; the
+// bytes (q, the latent cache once, the output) 0.59 GB, 0.18 ms. It runs in
+// 3.19 ms (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 14): warpgroup
+// 1 waits while warpgroup 0 computes S and the softmax (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,6 +110,8 @@ struct Args {
   float sqrt_dk;
   float scale_log2;  // log2(e) / sqrt(dk), rounded once to float32
   int q_vec, kv_vec;  // rows start on 16-byte boundaries
+  int dk, dv;         // the real head dims (the instantiation may be wider)
+  int v_alias;        // v is the first dv columns of k's own rows
 };
 
 // ---------------------------------------------------------------------------
@@ -138,8 +156,9 @@ __global__ void __launch_bounds__(kThreads)
   const TQ* qb = q + b * a.q_sb + h * a.q_sh;
   for (int i = tid; i < kBQ * DK; i += kThreads) {
     const int r = i / DK, d = i - r * DK;
-    sQ[r * (DK + 1) + d] =
-        q0 + r < a.sq ? to_float(qb[(q0 + r) * a.q_ss + d]) / a.sqrt_dk : 0.f;
+    sQ[r * (DK + 1) + d] = q0 + r < a.sq && d < a.dk
+                               ? to_float(qb[(q0 + r) * a.q_ss + d]) / a.sqrt_dk
+                               : 0.f;
   }
 
   // the KV tiles some row of this block can see
@@ -164,13 +183,15 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous tile's readers are done (and sQ written)
     for (int i = tid; i < kBK * DK; i += kThreads) {
       const int c = i / DK, d = i - c * DK;
-      sK[c * (DK + 1) + d] =
-          kv0 + c < a.sk ? to_float(kb[(kv0 + c) * a.k_ss + d]) : 0.f;
+      sK[c * (DK + 1) + d] = kv0 + c < a.sk && d < a.dk
+                                 ? to_float(kb[(kv0 + c) * a.k_ss + d])
+                                 : 0.f;
     }
     for (int i = tid; i < kBK * DV; i += kThreads) {
       const int c = i / DV, d = i - c * DV;
-      sV[c * DV + d] =
-          kv0 + c < a.sk ? to_float(vb[(kv0 + c) * a.v_ss + d]) : 0.f;
+      sV[c * DV + d] = kv0 + c < a.sk && d < a.dv
+                           ? to_float(vb[(kv0 + c) * a.v_ss + d])
+                           : 0.f;
     }
     __syncthreads();
 
@@ -246,9 +267,10 @@ __global__ void __launch_bounds__(kThreads)
     const int r = q0 + ty + 16 * i;
     if (r >= a.sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    TQ* orow = o + ((static_cast<long long>(b) * a.sq + r) * a.hq + h) * DV;
+    TQ* orow = o + ((static_cast<long long>(b) * a.sq + r) * a.hq + h) * a.dv;
 #pragma unroll
-    for (int n = 0; n < kCols; ++n) store(orow + tx + 16 * n, acc[i][n] / den);
+    for (int n = 0; n < kCols; ++n)
+      if (tx + 16 * n < a.dv) store(orow + tx + 16 * n, acc[i][n] / den);
   }
 }
 
@@ -375,35 +397,41 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// 8 consecutive elements as bf16; vec: p is 16-byte aligned
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, bool vec) {
-  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+// The first n of 8 consecutive elements as bf16 by element loads, the
+// others (all of them when n <= 0) zeros: the columns past a head dim that
+// is padded to the instantiation's. float32 is rounded to nearest even.
+__device__ __forceinline__ uint4 load8n(const __nv_bfloat16* p, int n) {
   const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
   uint32_t w[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    w[i] = static_cast<uint32_t>(s[2 * i]) |
-           (static_cast<uint32_t>(s[2 * i + 1]) << 16);
+    w[i] = (2 * i < n ? static_cast<uint32_t>(s[2 * i]) : 0u) |
+           (2 * i + 1 < n ? static_cast<uint32_t>(s[2 * i + 1]) << 16 : 0u);
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
-// 8 consecutive float32 elements, rounded to bf16 (nearest even)
-__device__ __forceinline__ uint4 load8(const float* p, bool) {
+__device__ __forceinline__ uint4 load8n(const float* p, int n) {
   float f[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) f[i] = p[i];
+  for (int i = 0; i < 8; ++i) f[i] = i < n ? p[i] : 0.f;
   return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
                     pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
 }
+// 8 consecutive elements as bf16; vec: p is 16-byte aligned
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  return load8n(p, 8);
+}
 
 // Rows row0 .. row0 + 63 of a K or V whose rows do not start on 16-byte
-// boundaries (rows at or past `lim` are zeros) into a bf16 core-matrix
-// tile, element loads through registers, by the 128 threads of a
-// warpgroup, t = 0..127. The row index is fastest across threads, so a
-// quarter warp's 16-byte stores hit eight distinct bank groups.
+// boundaries, or are narrower than D (`cols` real columns, the rest
+// zeros), into a bf16 core-matrix tile (rows at or past `lim` are zeros),
+// element loads through registers, by the 128 threads of a warpgroup,
+// t = 0..127. The row index is fastest across threads, so a quarter warp's
+// 16-byte stores hit eight distinct bank groups.
 template <int D, typename T>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const T* src,
                                            long long ss, int row0, int lim,
-                                           int t) {
+                                           int cols, int t) {
   constexpr int kPer = kTcKeys * D / 8 / 128;
   uint4 x[kPer];
 #pragma unroll
@@ -411,7 +439,7 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const T* src,
     const int u = t + 128 * i;
     const int r = (u & 7) + 8 * (u / D);  // D chunk slots per 8 rows
     const int c = ((u >> 3) % (D / 8)) * 8;
-    x[i] = row0 + r < lim ? load8(src + (row0 + r) * ss + c, false)
+    x[i] = row0 + r < lim ? load8n(src + (row0 + r) * ss + c, cols - c)
                           : make_uint4(0u, 0u, 0u, 0u);
   }
 #pragma unroll
@@ -656,6 +684,57 @@ __device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
         "r"(1));
 }
 
+// O += P V over 256 output columns with P read from shared memory (K-major)
+// and V in its transposed (MN-major) form: the latent attention's P.V, half
+// of dv a warpgroup
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}"
+      ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&p)[4], uint64_t v) {
@@ -734,8 +813,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const int s = it % kS;
         if (it >= kS) mbar_wait(&empty[s], (it / kS - 1) & 1);
         const int kv0 = first + it * kTcKeys;
-        stage_rows<D>(sK + s * kTile, kb, a.k_ss, kv0, kv_lim, tid);
-        stage_rows<D>(sV + s * kTile, vb, a.v_ss, kv0, kv_lim, tid);
+        stage_rows<D>(sK + s * kTile, kb, a.k_ss, kv0, kv_lim, a.dk, tid);
+        stage_rows<D>(sV + s * kTile, vb, a.v_ss, kv0, kv_lim, a.dv, tid);
         fence_async_smem();
         mbar_arrive(&full[s]);
       }
@@ -806,11 +885,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int c = ((u >> 3) % (D / 8)) * 8;
     const int br = 64 * w + r;
     const int p = q0 + br % rows_h;
+    const __nv_bfloat16* qr =
+        q + b * a.q_sb + (h0 + br / rows_h) * a.q_sh + p * a.q_ss + c;
     *reinterpret_cast<uint4*>(sQw + cm_off<D>(r, c)) =
-        p < a.sq ? load8(q + b * a.q_sb + (h0 + br / rows_h) * a.q_sh +
-                             p * a.q_ss + c,
-                         a.q_vec)
-                 : make_uint4(0u, 0u, 0u, 0u);
+        p >= a.sq  ? make_uint4(0u, 0u, 0u, 0u)
+        : a.q_vec ? load8(qr, true)
+                  : load8n(qr, a.dk - c);
   }
   fence_async_smem();
   warpgroup_sync(1 + w);
@@ -978,13 +1058,306 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const float den = fmaxf(l[i], 1e-30f);
     __nv_bfloat16* orow =
         o + ((static_cast<long long>(b) * a.sq + p) * a.hq + h0 + r / rows_h) *
-                D +
+                a.dv +
         col;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < D / 8; ++n) {
+      const float x0 = acc[4 * n + 2 * i] / den;
+      const float x1 = acc[4 * n + 2 * i + 1] / den;
+      if (a.dv == D) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {  // a padded dv: only its real columns, one at a time
+        if (8 * n + col < a.dv) orow[8 * n] = __float2bfloat16_rn(x0);
+        if (8 * n + col + 1 < a.dv) orow[8 * n + 1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16 q at (dk, dv) = (576, 512): the latent (absorbed) attention of MLA
+// ---------------------------------------------------------------------------
+
+constexpr int kMlaDK = 576;       // kv_lora + rope: q_all and the cache row
+constexpr int kMlaDV = 512;       // kv_lora: V is the cache row's head
+constexpr int kMlaThreads = 256;  // two warpgroups, each half of dv
+constexpr int kMlaTile = kTcKeys * kMlaDK;  // elements of one K tile
+
+constexpr size_t mla_smem_bytes() {
+  return sizeof(__nv_bfloat16) *
+             (kTcKeys * kMlaDK + 2 * kMlaTile + kTcKeys * kTcKeys) +
+         2 * kTcKeys * sizeof(float);
+}
+
+// Rows row0 .. row0 + 63 of K or V (`cols` columns, a multiple of 16; rows
+// at or past lim zeros) into a core-matrix tile of row pitch kMlaDK, by the
+// block's 256 threads: cp.async for aligned bf16 rows, else element loads
+// through registers (float32 rounded to bf16). Lanes 2k and 2k + 1 copy the
+// two halves of one 32-byte sector of a row.
+template <typename T>
+__device__ __forceinline__ void mla_stage(__nv_bfloat16* dst, const T* src,
+                                          long long ss, int row0, int lim,
+                                          int cols, bool vec, int t) {
+  for (int u = t; u < kTcKeys * cols / 8; u += kMlaThreads) {
+    const int rest = u >> 4;
+    const int r = (rest / (cols / 16)) * 8 + ((u >> 1) & 7);
+    const int c = (2 * (rest % (cols / 16)) + (u & 1)) * 8;
+    const bool in = row0 + r < lim;
+    __nv_bfloat16* d = dst + cm_off<kMlaDK>(r, c);
+    if constexpr (sizeof(T) == 2) {
+      if (vec) {
+        cp_async16(d, in ? src + (row0 + r) * ss + c : src, in ? 16 : 0);
+        continue;
+      }
+    }
+    *reinterpret_cast<uint4*>(d) = in ? load8n(src + (row0 + r) * ss + c, 8)
+                                      : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// One block of two warpgroups a work item of 64 query rows: gh query heads
+// of one KV head (16, 8, 4, 2 or 1, the largest that divides the group) at
+// 64 / gh positions each, so a K tile is staged once for gh heads; at
+// deepseek-v2-lite's g = 16, all 16 heads at 4 positions. The O accumulator
+// of 64 rows x 512 columns is 256 float32 registers a thread in one
+// warpgroup, so dv is split: warpgroup w owns columns 256 w .. 256 w + 255
+// (128 registers). Warpgroup 0 alone computes S = Q.K^T (36 wgmma m64n64k16
+// steps over dk = 576) and the online softmax, and writes P (bf16, the A
+// operand's core-matrix layout) and the rows' rescale factors to shared
+// memory; then both run O += P.V by wgmma m64n256k16 from shared memory.
+// When v aliases k (MLA's one-tensor cache, v = k[..., :512]) a tile is
+// staged once and its first 512 columns are V; two such tiles fit beside Q
+// (73,728 bytes each), so the next tile's cp.async runs during this one's
+// products. A separate V takes the second tile, loaded with K, one stage.
+// Shared memory: 229,888 bytes (Q, two tiles, P, two row vectors).
+template <typename TKV>
+__global__ void __launch_bounds__(kMlaThreads, 1)
+    flash_mla_kernel(const __nv_bfloat16* __restrict__ q,
+                     const TKV* __restrict__ k, const TKV* __restrict__ v,
+                     __nv_bfloat16* __restrict__ o, Args a) {
+  constexpr int DK = kMlaDK, DV = kMlaDV;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ring = sQ + kTcKeys * DK;   // two tiles of pitch DK
+  __nv_bfloat16* sP = ring + 2 * kMlaTile;   // 64 x 64, pitch 64
+  float* sCorr = reinterpret_cast<float*>(sP + kTcKeys * kTcKeys);
+  float* sL = sCorr + kTcKeys;
+
+  const int g = a.hq / a.hkv;
+  const int gh = g % 16 == 0 ? 16 : g % 8 == 0 ? 8 : g % 4 == 0 ? 4
+               : g % 2 == 0 ? 2 : 1;
+  const int rows_h = kTcKeys / gh;
+  const int n_qb = (a.sq + rows_h - 1) / rows_h;
+  int x = blockIdx.x;
+  const int h_set = x % (g / gh);
+  x /= g / gh;
+  const int q0 = (n_qb - 1 - x % n_qb) * rows_h;
+  x /= n_qb;
+  const int hk = x % a.hkv;
+  const int b = x / a.hkv;
+  const int h0 = hk * g + h_set * gh;
+  const int tid = threadIdx.x;
+  const int w = tid / 128;
+  const int lane = tid & 31;
+
+  const int qp_lo = a.q_offset + q0;
+  const int qp_hi = a.q_offset + min(q0 + rows_h, a.sq) - 1;
+  const int kv_lim = min(a.sk, a.kv_valid);
+  const int kv_end = a.causal ? min(kv_lim, qp_hi + 1) : kv_lim;
+  const int first =
+      (a.window > 0 ? max(0, qp_lo - a.window + 1) : 0) / kTcKeys * kTcKeys;
+  const int n_tiles = (kv_end - first + kTcKeys - 1) / kTcKeys;
+
+  // this thread's two accumulator rows r_in + 8 i of the 64 (both
+  // warpgroups hold the same rows), their positions, its column pair
+  const int r_in = 16 * ((tid & 127) >> 5) + (lane >> 2);
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    qpos[i] = a.q_offset + q0 + (r_in + 8 * i) % rows_h;
+  const int col = 2 * (lane & 3);
+
+  // Q (positions past Sq as zeros), by the whole block
+  for (int u = tid; u < kTcKeys * DK / 8; u += kMlaThreads) {
+    const int r = (u & 7) + 8 * (u / DK);
+    const int c = ((u >> 3) % (DK / 8)) * 8;
+    const int p = q0 + r % rows_h;
+    const __nv_bfloat16* qr =
+        q + b * a.q_sb + (h0 + r / rows_h) * a.q_sh + p * a.q_ss + c;
+    *reinterpret_cast<uint4*>(sQ + cm_off<DK>(r, c)) =
+        p < a.sq ? load8(qr, a.q_vec) : make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  const TKV* kb = k + b * a.k_sb + hk * a.k_sh;
+  const TKV* vb = v + b * a.v_sb + hk * a.v_sh;
+  const bool alias = a.v_alias;
+  auto k_tile = [&](int it) { return ring + (alias ? (it & 1) : 0) * kMlaTile; };
+  auto v_tile = [&](int it) { return alias ? k_tile(it) : ring + kMlaTile; };
+  auto load = [&](int it) {
+    const int kv0 = first + it * kTcKeys;
+    mla_stage(k_tile(it), kb, a.k_ss, kv0, kv_lim, DK, a.kv_vec, tid);
+    if (!alias)
+      mla_stage(v_tile(it), vb, a.v_ss, kv0, kv_lim, DV, a.kv_vec, tid);
+    cp_async_commit();
+  };
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float sc[32];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+
+  if (alias) load(0);
+  for (int it = 0; it < n_tiles; ++it) {
+    if (alias) {
+      // the other tile held it - 1, released at the end of that iteration
+      if (it + 1 < n_tiles) load(it + 1);
+      else cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      load(it);
+      cp_async_wait<0>();
+    }
+    fence_async_smem();  // this thread's tile (and Q) stores, to wgmma
+    __syncthreads();
+    const __nv_bfloat16* kt = k_tile(it);
+    if (w == 0) {
+      // S = Q K^T (64 x 64), then the online softmax: as flash_tc_kernel's
+      reg_fence(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DK / 16; ++kk)
+        wgmma_ss_n64(sc, gmma_desc(sQ + 128 * kk, 128, 16 * DK),
+                     gmma_desc(kt + 128 * kk, 128, 16 * DK), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(sc);
+      const int kv0 = first + it * kTcKeys;
+      const bool whole = kv0 + kTcKeys <= kv_lim &&
+                         (!a.causal || kv0 + kTcKeys - 1 <= qp_lo) &&
+                         (a.window <= 0 || qp_hi - kv0 < a.window);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float t = __fmul_rn(sc[4 * n + 2 * i + j], a.scale_log2);
+            if (!whole) {
+              const int kp = kv0 + 8 * n + col + j;
+              const bool ok = kp < kv_lim && (!a.causal || kp <= qpos[i]) &&
+                              (a.window <= 0 || qpos[i] - kp < a.window);
+              if (!ok) t = -INFINITY;
+            }
+            sc[4 * n + 2 * i + j] = t;
+            mx[i] = fmaxf(mx[i], t);
+          }
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = exp2_ftz(m[i] - m_new);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float p0 = exp2_ftz(sc[4 * n + 2 * i] - m[i]);
+          const float p1 = exp2_ftz(sc[4 * n + 2 * i + 1] - m[i]);
+          psum[i] += p0;
+          psum[i] += p1;
+          *reinterpret_cast<uint32_t*>(
+              sP + cm_off<kTcKeys>(r_in + 8 * i, 8 * n) + col) =
+              pack_bf16(p0, p1);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
+      if ((lane & 3) == 0) {
+        sCorr[r_in] = corr[0];
+        sCorr[r_in + 8] = corr[1];
+      }
+      fence_async_smem();  // P, to wgmma
+    }
+    __syncthreads();  // P and the rescale factors are written
+    if (w == 1) {
+      corr[0] = sCorr[r_in];
+      corr[1] = sCorr[r_in + 8];
+    }
+    reg_fence(acc);
+#pragma unroll
+    for (int n = 0; n < 32; ++n) {
+      acc[4 * n] *= corr[0];
+      acc[4 * n + 1] *= corr[0];
+      acc[4 * n + 2] *= corr[1];
+      acc[4 * n + 3] *= corr[1];
+    }
+    reg_fence(acc);
+    wgmma_fence();
+    const __nv_bfloat16* vt = v_tile(it) + 256 / 8 * 64 * w;
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk)
+      wgmma_ss_n256(acc, gmma_desc(sP + 128 * kk, 128, 16 * kTcKeys),
+                    gmma_desc(vt + 16 * DK * kk, 16 * DK, 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    __syncthreads();  // P, the factors and this tile may be overwritten
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  if (w == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
+    if ((lane & 3) == 0) {
+      sL[r_in] = l[0];
+      sL[r_in + 8] = l[1];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_in + 8 * i;
+    const int p = q0 + r % rows_h;
+    if (p >= a.sq) continue;
+    const float den = fmaxf(sL[r], 1e-30f);
+    __nv_bfloat16* orow =
+        o + ((static_cast<long long>(b) * a.sq + p) * a.hq + h0 + r / rows_h) *
+                DV +
+        256 * w + col;
+#pragma unroll
+    for (int n = 0; n < 32; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
           acc[4 * n + 2 * i] / den, acc[4 * n + 2 * i + 1] / den);
   }
+}
+
+template <typename TKV>
+int launch_mla(const void* q, const void* k, const void* v, void* o, int b,
+               const Args& a, cudaStream_t stream) {
+  auto kernel = flash_mla_kernel<TKV>;
+  constexpr size_t smem = mla_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int g = a.hq / a.hkv;
+  const int gh = g % 16 == 0 ? 16 : g % 8 == 0 ? 8 : g % 4 == 0 ? 4
+               : g % 2 == 0 ? 2 : 1;
+  const int rows_h = kTcKeys / gh;
+  const unsigned blocks = static_cast<unsigned>(b) * a.hq / gh *
+                          ((a.sq + rows_h - 1) / rows_h);
+  kernel<<<blocks, kMlaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), static_cast<__nv_bfloat16*>(o), a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TQ, typename TKV, int D>
@@ -1047,27 +1420,50 @@ bool rows_aligned(const void* p, long long sb, long long ss, long long sh,
          ss * elem % 16 == 0 && sh * elem % 16 == 0;
 }
 
+// the instantiation that holds a head of max(dk, dv) columns (0: none)
+int padded_dim(int dk, int dv) {
+  static const int dims[] = {64, 80, 96, 128, 160};
+  const int need = dk > dv ? dk : dv;
+  for (int d : dims)
+    if (need <= d) return d;
+  return 0;
+}
+
 }  // namespace
 
 // q_bf16 / kv_bf16: 1 for bf16, 0 for float32. bf16 q takes the tensor-core
-// kernel, float32 q the CUDA-core one. Head dims 64, 80, 96, 128 and 160
-// with dk == dv; anything else returns -1 without a launch. Returns the CUDA
-// error of the launch (0 on success).
+// kernels, float32 q the CUDA-core one. (dk, dv) = (576, 512) takes the
+// latent-attention kernel (bf16 q only); any other dk, dv up to 160 takes
+// the instantiation of the smallest head dim of 64, 80, 96, 128 and 160
+// that holds both, its extra columns staged as zeros (through the element
+// loads) and never written out. Anything else returns -1 without a launch.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attn_launch(
     const void* q, const void* k, const void* v, void* o, int q_bf16,
-    int kv_bf16, int b, int sq, int sk, int hq, int hkv, int d,
+    int kv_bf16, int b, int sq, int sk, int hq, int hkv, int dk, int dv,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, int causal, int window, int q_offset, int kv_valid,
     float sqrt_dk, void* stream) {
   const int kv_elem = kv_bf16 ? 2 : 4;
+  const bool mla = dk == kMlaDK && dv == kMlaDV;
+  const int d = mla ? 0 : padded_dim(dk, dv);
+  if (!mla && d == 0) return -1;
+  if (mla && !q_bf16) return -1;
+  const bool exact = mla || (dk == d && dv == d);
+  const bool alias = k == v && k_sb == v_sb && k_ss == v_ss && k_sh == v_sh &&
+                     dv <= dk;
   const Args a{sq, sk, hq, hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                v_ss, v_sh, causal, window, q_offset, kv_valid, sqrt_dk,
-               static_cast<float>(1.4426950408889634 / sqrt((double)d)),
-               rows_aligned(q, q_sb, q_ss, q_sh, q_bf16 ? 2 : 4),
-               rows_aligned(k, k_sb, k_ss, k_sh, kv_elem) &&
-                   rows_aligned(v, v_sb, v_ss, v_sh, kv_elem)};
+               static_cast<float>(1.4426950408889634 / sqrt((double)dk)),
+               exact && rows_aligned(q, q_sb, q_ss, q_sh, q_bf16 ? 2 : 4),
+               exact && rows_aligned(k, k_sb, k_ss, k_sh, kv_elem) &&
+                   rows_aligned(v, v_sb, v_ss, v_sh, kv_elem),
+               dk, dv, alias};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mla)
+    return kv_bf16 ? launch_mla<__nv_bfloat16>(q, k, v, o, b, a, s)
+                   : launch_mla<float>(q, k, v, o, b, a, s);
   if (kv_bf16) return launch_d<__nv_bfloat16>(q, k, v, o, q_bf16, b, d, a, s);
   return launch_d<float>(q, k, v, o, q_bf16, b, d, a, s);
 }

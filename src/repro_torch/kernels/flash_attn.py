@@ -17,6 +17,15 @@ One launch, two kernels, chosen by q's type inside ``flash_attn_launch``:
 * float32 q: the CUDA-core kernel, float32 throughout; its plain version is
   ``ref.flash_attention_ref`` with the default operands.
 
+Head dims (``instantiation``): dk and dv up to 160 run in the instantiation
+of the smallest of ``HEAD_DIMS`` that holds both, the extra columns staged
+as zeros inside the kernel (the smoke configs' 8, 12 and 16, and the
+deepseek smoke's MLA pair (40, 32)); (dk, dv) = ``MLA_DIMS`` = (576, 512),
+the absorbed MLA attention of deepseek-v2-lite (q_all against the latent
+cache, V the cache's first 512 columns), has a kernel of its own on the
+tensor-core route, which stages a tile once when v is a view of k's rows;
+the float32 route refuses it.
+
 Neither route falls back on the other: a launch that fails raises.
 """
 
@@ -30,20 +39,30 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "check_args",
-           "HEAD_DIMS", "launches"]
+           "instantiation", "HEAD_DIMS", "MLA_DIMS", "launches"]
 
 HEAD_DIMS = (64, 80, 96, 128, 160)  # the kernel's instantiations, dk == dv
+MLA_DIMS = (576, 512)               # the latent-attention kernel's (dk, dv)
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0   # kernel launches since the count was last set to 0
 
 
 def _fn():
     fn = _build.library("flash_attn").flash_attn_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def instantiation(dk: int, dv: int) -> tuple[int, int] | None:
+    """The (dk, dv) instantiation a call of head dims dk and dv runs in, or
+    None where the kernel takes no such call."""
+    if (dk, dv) == MLA_DIMS:
+        return MLA_DIMS
+    d = next((h for h in HEAD_DIMS if h >= max(dk, dv)), None)
+    return None if d is None else (d, d)
 
 
 def check_args(q, k, v, *, causal: bool, window: int | None, q_offset: int,
@@ -89,9 +108,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(B, Sq, Hq, dv) in q.dtype; semantics of ``ref.flash_attention_ref``.
 
     q bf16 or f32, k and v of one type (bf16 or f32), each read in its own
-    type: nothing is cast. Head dims 64, 80, 96, 128, 160 with dk == dv;
-    the last dim of each input contiguous (any other strides are passed
-    on)."""
+    type: nothing is cast. Head dims as ``instantiation`` takes them
+    ((576, 512) with bf16 q only); the last dim of each input contiguous
+    (any other strides are passed on; v may be a view of k's rows)."""
     global launches
     valid = check_args(q, k, v, causal=causal, window=window,
                        q_offset=q_offset, kv_valid_len=kv_valid_len)
@@ -105,9 +124,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f" {v.dtype}")
     b, sq, hq, dk = q.shape
     sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    if dk != dv or dk not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dims "
-                         f"{HEAD_DIMS} with dk == dv, got dk {dk}, dv {dv}")
+    inst = instantiation(dk, dv)
+    if inst is None:
+        raise ValueError(f"flash_attention kernel takes head dims dk, dv up "
+                         f"to {HEAD_DIMS[-1]} (run in the smallest of "
+                         f"{HEAD_DIMS} that holds both) or (dk, dv) = "
+                         f"{MLA_DIMS}, got dk {dk}, dv {dv}")
+    if inst == MLA_DIMS and q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention's float32 route does not take "
+                         f"(dk, dv) = {MLA_DIMS}: its float32 tiles would "
+                         f"need ~443 KB of shared memory a block; q in bf16 "
+                         f"takes the tensor-core route")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention kernel needs the head dim of q, k "
                          "and v contiguous")
@@ -117,7 +144,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    _TYPES[q.dtype], _TYPES[k.dtype], b, sq, sk, hq, hkv, dk,
+                    _TYPES[q.dtype], _TYPES[k.dtype], b, sq, sk, hq, hkv,
+                    dk, dv,
                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                     int(causal), 0 if window is None else int(window),
                     int(q_offset), valid, math.sqrt(dk), stream)

@@ -1,5 +1,6 @@
-"""Attention family, GQA half (counterpart of ``repro/models/attention.py``):
-full / sliding-window attention with a KV cache.
+"""Attention family (counterpart of ``repro/models/attention.py``): GQA
+(full / sliding-window) and MLA (DeepSeek-V2's latent attention), with a KV
+cache.
 
 Every prefill attends through ``attend``, which is the CUDA kernel
 ``flash_attention`` on a card (``kernels/csrc/flash_attn.cu``; its plain
@@ -8,9 +9,14 @@ version ``kernels/ref.py`` ``flash_attention_ref`` on the CPU), so the
 ``attend_onepass`` (scores are (B, H, 1, S)): plain PyTorch, as in the JAX
 package, which has no kernel there.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A6): MLA,
+MLA is the absorbed ("latent") form, as in the JAX package: q is taken
+into latent space, the cache holds one KV head of width kv_lora + rope, and
+V is a view of that cache; the prefill runs the kernel at dk 576 / dv 512
+(deepseek-v2-lite).
+
+Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A6):
 cross-attention (``kv_override``, enc-dec), attention softcap, and the
-backward pass (the JAX package's custom VJP; this slice serves, it does not
+backward pass (the JAX package's custom VJP; the port serves, it does not
 train).
 
 Layout: (B, S, H, d) at every public function, as in the JAX package.
@@ -203,16 +209,86 @@ def gqa_empty_cache(cfg, batch: int, max_len: int, dtype, *,
 
 
 # ---------------------------------------------------------------------------
-# MLA block (DeepSeek-V2 family): not ported yet
+# MLA block (DeepSeek-V2 family), latent-space (absorbed) formulation
 # ---------------------------------------------------------------------------
 
-def mla_init(gen, cfg, **_):
-    raise NotImplementedError(f"MLA attention is not ported: {_A6}")
+def mla_init(gen: torch.Generator, cfg, *, stack: tuple = ()) -> dict:
+    """The JAX package's tree, its 2-D projections: wq (d, H (nope +
+    rope)), wdkv (d, lora + rope), kv_norm, wuk (lora, H nope), wuv (lora,
+    H vd), wo (H vd, d); ``stack`` prepends the n_groups axis."""
+    d, hq = cfg.d_model, cfg.n_heads
+    nope = cfg.head_dim or 128
+    rope, lora, vd = cfg.qk_rope_dim, cfg.kv_lora_rank, cfg.mla_v_dim
+
+    def dense(d_in, d_out, scale=None):
+        return L.dense_init(gen, d_in, d_out, cfg.dtype, scale=scale,
+                            stack=stack)
+
+    return {"wq": dense(d, hq * (nope + rope)),
+            "wdkv": dense(d, lora + rope),
+            "kv_norm": L.norm_init(lora, "rmsnorm", stack=stack,
+                                   device=gen.device),
+            "wuk": dense(lora, hq * nope),
+            "wuv": dense(lora, hq * vd),
+            "wo": dense(hq * vd, d, 1.0 / math.sqrt(hq * vd))}
 
 
-def mla_apply(p, x, cfg, *, positions, cache=None):
-    raise NotImplementedError(f"MLA attention is not ported: {_A6}")
+def mla_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+              cache: KVCache | None = None):
+    """x (B, S, d). Queries are absorbed into latent space (q_nope @ W_uk),
+    so attention runs with ONE KV head of width kv_lora + rope: dk 576, dv
+    512 at deepseek-v2-lite's width. K is the normalised latent with the
+    decoupled rope key, V its first kv_lora columns, up-projected by W_uv
+    after the weighted sum.
+
+    The cache is one tensor (B, Smax, 1, kv_lora + rope), as the JAX
+    package's KVCache(kc, kc, pos): written in place, read as k and, through
+    the view kc[..., :kv_lora], as v. A prefill attends through ``attend``
+    (the kernel on a card), a decode step (S == 1) through the plain
+    ``attend_onepass``, as in the JAX package."""
+    hq = cfg.n_heads
+    nope = cfg.head_dim or 128
+    rope, lora, vd = cfg.qk_rope_dim, cfg.kv_lora_rank, cfg.mla_v_dim
+    b, sq, _ = x.shape
+
+    q = (x @ p["wq"]).view(b, sq, hq, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    wuk = p["wuk"].view(lora, hq, nope)
+    q_lat = torch.einsum("bshn,lhn->bshl", q_nope.float(),
+                         wuk.float()).to(x.dtype)
+    q_all = torch.cat([q_lat, q_rope], dim=-1)        # (B, S, H, lora+rope)
+
+    ckv = x @ p["wdkv"]                               # (B, S, lora+rope)
+    lat = L.norm_apply(p["kv_norm"], ckv[..., :lora], "rmsnorm")
+    k_rope = L.apply_rope(ckv[..., None, lora:], positions, cfg.rope_theta)
+    kv = torch.cat([lat[..., None, :], k_rope], dim=-1)   # (B, S, 1, l+r)
+    # score scale: MLA normalizes by sqrt(nope + rope), not the latent width
+    kv = kv * torch.tensor(math.sqrt((lora + rope) / (nope + rope)),
+                           dtype=x.dtype, device=x.device)
+
+    if cache is None:
+        out = attend(q_all, kv, kv[..., :lora], causal=True)
+    else:
+        pos, kc = cache.pos, cache.k
+        if pos + sq > kc.shape[1]:
+            raise ValueError(f"MLA cache of {kc.shape[1]} slots holds {pos} "
+                             f"tokens and cannot take {sq} more")
+        kc[:, pos:pos + sq] = kv
+        cache = KVCache(kc, kc, pos + sq)
+        fn = attend_onepass if sq == 1 else attend
+        out = fn(q_all, kc, kc[..., :lora], causal=True, q_offset=pos,
+                 kv_valid_len=pos + sq)
+    wuv = p["wuv"].view(lora, hq, vd)
+    o = torch.einsum("bshl,lhv->bshv", out.float(), wuv.float()).to(x.dtype)
+    return o.reshape(b, sq, hq * vd) @ p["wo"], cache
 
 
-def mla_empty_cache(cfg, batch, max_len, dtype, **_):
-    raise NotImplementedError(f"MLA attention is not ported: {_A6}")
+def mla_empty_cache(cfg, batch: int, max_len: int, dtype, *,
+                    stack: tuple = (), device="cuda") -> KVCache:
+    """One zero tensor (*stack, B, max_len, 1, kv_lora + rope), held as
+    both k and v."""
+    z = torch.zeros((*stack, batch, max_len, 1,
+                     cfg.kv_lora_rank + cfg.qk_rope_dim), dtype=dtype,
+                    device=device)
+    return KVCache(z, z, 0)

@@ -31,13 +31,21 @@ __all__ = ["trunc_normal", "dense_init", "embed_init", "norm_init",
 def trunc_normal(gen: torch.Generator, shape, scale: float, dtype
                  ) -> torch.Tensor:
     """N(0, 1) truncated to [-2, 2], times ``scale``, drawn in float32 on
-    the generator's device by the inverse CDF, then cast to ``dtype``."""
+    the generator's device by the inverse CDF, then cast to ``dtype``.
+    A tensor of more than 2^30 elements is drawn one slice of its leading
+    axis at a time (deepseek-v2-lite's 26 stacked layers of 64 experts
+    would take 19 GB of float32 at once)."""
+    if len(shape) > 1 and math.prod(shape) > 2**30:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        for i in range(shape[0]):
+            out[i] = trunc_normal(gen, shape[1:], scale, dtype)
+        return out
     lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, \
         (1 + math.erf(2 / math.sqrt(2))) / 2
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     w.uniform_(2 * lo - 1, 2 * hi - 1, generator=gen)
     w.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, *,

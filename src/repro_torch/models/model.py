@@ -8,9 +8,11 @@
     logits, cache = model.decode(params, tokens1, cache)
 
 ``init`` returns the param tree alone (the JAX package pairs it with
-sharding specs). ``loss`` and ``make_train_step`` come with the training
-slice (ROADMAP A6); enc-dec and vlm inputs raise NotImplementedError there
-too.
+sharding specs). Served: the dense GQA archs, grok-1 (GQA with MoE and the
+logit softcap) and deepseek-v2-lite (MLA with MoE and shared experts).
+``forward`` returns the summed MoE aux loss beside the logits. Mamba,
+RG-LRU, enc-dec and vlm configs raise NotImplementedError naming ROADMAP A6,
+and ``loss`` and ``make_train_step`` come with the training slice there.
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ class Model:
     # -- forward -------------------------------------------------------------
     @torch.no_grad()
     def forward(self, params, batch: dict):
-        """Full-sequence logits (the training forward, without a cache)."""
+        """Full-sequence logits (the training forward, without a cache) and
+        the aux loss: the MoE layers' Switch losses summed, a 0-d float32
+        tensor (0 for a model without MoE)."""
         logits, _, aux = transformer.decoder_forward(params, self.cfg,
                                                      batch["tokens"])
         return logits, aux

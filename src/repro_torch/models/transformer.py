@@ -11,11 +11,16 @@ params, the port loops over the stacked slices in Python. Its ``remat``
 have no meaning for a forward pass on one card and are dropped.
 
 Caches mirror the param structure: {"prefix": [...], "groups": [KVCache
-with (n_groups, B, S, Hkv, hd) tensors per pattern slot], "tail": [...]}.
+with (n_groups, B, S, Hkv, hd) tensors per pattern slot], "tail": [...]};
+an MLA slot's KVCache holds one (n_groups, B, S, 1, kv_lora + rope) tensor
+as both k and v.
 
-Ported mixers: attn, swa and lattn (GQA), with dense MLPs. MoE, Mamba,
-RG-LRU, MLA, patches (vlm) and encoder layers raise NotImplementedError
-naming ROADMAP A6.
+Ported mixers: attn, swa and lattn (GQA) and mla (latent attention); MLPs:
+dense and moe (top-k routed experts with capacity, plus shared experts; the
+first_k_dense prefix layers dense), whose Switch aux losses are summed over
+the layers. Mamba, RG-LRU, patches (vlm), encoder layers (enc-dec,
+cross-attention) and the attention softcap raise NotImplementedError naming
+ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -24,30 +29,38 @@ import torch
 
 from . import attention as A
 from . import layers as L
+from . import moe as M
 from .config import ModelConfig
 
 __all__ = ["block_init", "block_apply", "block_empty_cache", "decoder_init",
            "decoder_empty_cache", "decoder_forward"]
 
 GQA_KINDS = ("attn", "swa", "lattn")
+MIXERS = (*GQA_KINDS, "mla")
+MLPS = ("dense", "moe")
 _A6 = "ROADMAP A6 (the rest of the LM stack)"
 
 
 def _check(cfg: ModelConfig) -> None:
-    """Refuse what this slice does not port, before any work is done."""
+    """Refuse what the port does not serve yet (SSM, RG-LRU, enc-dec, vlm,
+    cross-attention), before any work is done."""
     for i in range(cfg.n_layers):
-        if cfg.mixer_of(i) not in GQA_KINDS:
+        if cfg.mixer_of(i) not in MIXERS:
             raise NotImplementedError(
                 f"{cfg.name}: mixer {cfg.mixer_of(i)!r} is not ported: {_A6}")
-        if cfg.mlp_of(i) != "dense":
+        if cfg.mlp_of(i) not in MLPS:
             raise NotImplementedError(
                 f"{cfg.name}: MLP {cfg.mlp_of(i)!r} is not ported: {_A6}")
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"{cfg.name}: attention {cfg.attn_kind!r} "
-                                  f"is not ported: {_A6}")
     if cfg.n_patches or cfg.enc_layers:
         raise NotImplementedError(f"{cfg.name}: vlm patches and encoder "
-                                  f"layers are not ported: {_A6}")
+                                  f"layers (cross-attention) are not ported: "
+                                  f"{_A6}")
+
+
+def _refuse(mixer: str, mlp: str) -> None:
+    if mixer not in MIXERS or mlp not in MLPS:
+        raise NotImplementedError(f"block ({mixer!r}, {mlp!r}) is not "
+                                  f"ported: {_A6}")
 
 
 # ---------------------------------------------------------------------------
@@ -56,38 +69,50 @@ def _check(cfg: ModelConfig) -> None:
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, mlp: str,
                *, stack: tuple = ()) -> dict:
-    if mixer not in GQA_KINDS or mlp != "dense":
-        raise NotImplementedError(f"block ({mixer!r}, {mlp!r}) is not "
-                                  f"ported: {_A6}")
+    _refuse(mixer, mlp)
     dev = gen.device
-    return {"norm1": L.norm_init(cfg.d_model, cfg.norm, stack=stack,
-                                 device=dev),
-            "mixer": A.gqa_init(gen, cfg, stack=stack),
-            "norm2": L.norm_init(cfg.d_model, cfg.norm, stack=stack,
-                                 device=dev),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
-                              cfg.mlp_kind, stack=stack)}
+    p = {"norm1": L.norm_init(cfg.d_model, cfg.norm, stack=stack,
+                              device=dev),
+         "mixer": A.mla_init(gen, cfg, stack=stack) if mixer == "mla"
+         else A.gqa_init(gen, cfg, stack=stack),
+         "norm2": L.norm_init(cfg.d_model, cfg.norm, stack=stack,
+                              device=dev)}
+    if mlp == "moe":
+        p["moe"] = M.moe_init(gen, cfg, stack=stack)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
+                              cfg.mlp_kind, stack=stack)
+    return p
 
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, mlp: str,
                 *, positions: torch.Tensor, cache=None):
-    """Returns (x, new_cache, aux_loss); aux_loss is 0 (no MoE)."""
-    if mixer not in GQA_KINDS or mlp != "dense":
-        raise NotImplementedError(f"block ({mixer!r}, {mlp!r}) is not "
-                                  f"ported: {_A6}")
+    """Returns (x, new_cache, aux_loss); aux_loss is the MoE's Switch loss,
+    a 0-d float32 tensor (0 for a dense MLP)."""
+    _refuse(mixer, mlp)
     h = L.norm_apply(p["norm1"], x, cfg.norm)
-    win = cfg.window if mixer in ("swa", "lattn") else None
-    y, cache = A.gqa_apply(p["mixer"], h, cfg, positions=positions,
-                           cache=cache, window=win)
+    if mixer == "mla":
+        y, cache = A.mla_apply(p["mixer"], h, cfg, positions=positions,
+                               cache=cache)
+    else:
+        win = cfg.window if mixer in ("swa", "lattn") else None
+        y, cache = A.gqa_apply(p["mixer"], h, cfg, positions=positions,
+                               cache=cache, window=win)
     x = x + y
     h = L.norm_apply(p["norm2"], x, cfg.norm)
+    if mlp == "moe":
+        y, aux = M.moe_apply(p["moe"], h, cfg)
+        return x + y, cache, aux
     act = "silu" if cfg.mlp_kind == "swiglu" else "gelu"
     x = x + L.mlp_apply(p["mlp"], h, cfg.mlp_kind, act)
-    return x, cache, 0.0
+    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_empty_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
                       dtype, *, stack: tuple = (), device="cuda"):
+    if mixer == "mla":
+        return A.mla_empty_cache(cfg, batch, max_len, dtype, stack=stack,
+                                 device=device)
     if mixer not in GQA_KINDS:
         raise NotImplementedError(f"mixer {mixer!r} is not ported: {_A6}")
     # window-bounded mixers only ever read the trailing `window` slots
@@ -164,7 +189,8 @@ def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """tokens (B, S) int. cache=None -> full-sequence forward (all logits).
     With cache -> prefill/decode; logits for the last `logits_slice` tokens.
 
-    Returns (logits, new_cache, aux_loss_sum); aux is 0 (no MoE)."""
+    Returns (logits, new_cache, aux_loss_sum): the sum over the layers of
+    the MoE layers' Switch losses, a 0-d float32 tensor (0 without MoE)."""
     _check(cfg)
     n_pre, n_groups, n_tail = cfg.layer_plan()
     plen = len(cfg.pattern)
@@ -174,10 +200,14 @@ def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = (pos0 + torch.arange(seq, device=x.device))[None, :]
     new_cache = {"prefix": [], "groups": [], "tail": []} \
         if cache is not None else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def run_block(p, xx, li, c):
-        xx, c2, _ = block_apply(p, xx, cfg, cfg.mixer_of(li), cfg.mlp_of(li),
-                                positions=positions, cache=c)
+        nonlocal aux_total
+        xx, c2, aux = block_apply(p, xx, cfg, cfg.mixer_of(li),
+                                  cfg.mlp_of(li), positions=positions,
+                                  cache=c)
+        aux_total = aux_total + aux
         return xx, c2
 
     for i in range(n_pre):
@@ -211,7 +241,7 @@ def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = L.logits_softcap(x @ head, cfg.logit_softcap)
     logits = logits + _vocab_mask(cfg, x.device).to(logits.dtype)
-    return logits, new_cache, 0.0
+    return logits, new_cache, aux_total
 
 
 def _cache_pos(cache) -> int:

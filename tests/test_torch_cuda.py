@@ -1055,6 +1055,162 @@ def test_flash_attention_kernel_refuses_rows_without_keys(card):
     with pytest.raises(ValueError, match="no valid key"):
         flash_attn.flash_attention(q, k, v, causal=False, window=4,
                                    q_offset=40)
+    # past the widest instantiation (160), and not the MLA pair
+    wide = _attn_inputs(card, 1, 16, 32, 4, 2, 176, torch.float32,
+                        torch.float32)
     with pytest.raises(ValueError, match="head dims"):
-        flash_attn.flash_attention(q[..., :48], k[..., :48], v[..., :48],
-                                   causal=True)
+        flash_attn.flash_attention(*wide, causal=True)
+
+
+# The C6 repair: the smoke configs' head dims (8 mistral, 12 phi3, 16
+# danube / stablelm / grok) and the deepseek smoke's MLA pair (dk 40, dv
+# 32) run in the instantiation that holds them, zero-padded in the kernel.
+@pytest.mark.parametrize("dk,dv", [(8, 8), (12, 12), (16, 16), (40, 32)])
+@pytest.mark.parametrize("qt,kvt", [("bf16", "f32"), ("bf16", "bf16"),
+                                    ("f32", "f32")])
+def test_flash_attention_kernel_padded_head_dims(card, dk, dv, qt, kvt):
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = torch.Generator(device=card).manual_seed(dk * 100 + dv)
+    b, sq, sk, hq, hkv = 2, 70, 150, 4, 2
+    q = torch.randn((b, sq, hq, dk), generator=g, device=card).to(types[qt])
+    k = torch.randn((b, sk, hkv, dk), generator=g, device=card).to(types[kvt])
+    v = torch.randn((b, sk, hkv, dv), generator=g, device=card).to(types[kvt])
+    for kw in (dict(causal=True, q_offset=60, kv_valid_len=140),
+               dict(causal=True, window=16, q_offset=80)):
+        ops.reset_launch_counts()
+        got = flash_attn.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == 1
+        assert got.shape == (b, sq, hq, dv) and got.dtype == q.dtype
+        if q.dtype == torch.bfloat16:
+            _assert_bf16_kernel(got, q, k, v, kw)
+        else:
+            _assert_attn_close(got, ref.flash_attention_ref(q, k, v, **kw))
+
+
+def _mla_inputs(card, b, sq, sk, hq, hkv, kvt, alias, seed):
+    """q_all (B, Sq, Hq, 576) bf16 and a latent cache (B, Sk, Hkv, 576):
+    v is the view cache[..., :512] when ``alias``, else a tensor of its
+    own."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, sq, hq, 576), generator=g, device=card).bfloat16()
+    kc = torch.randn((b, sk, hkv, 576), generator=g, device=card).to(kvt)
+    v = kc[..., :512] if alias else torch.randn(
+        (b, sk, hkv, 512), generator=g, device=card).to(kvt)
+    return q, kc, v
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,causal,q_off,valid,alias,kvt", [
+    (1, 100, 100, 16, 1, True, 0, None, True, "bf16"),    # deepseek prefill
+    (3, 70, 200, 16, 1, True, 120, 190, True, "bf16"),    # cache prefill
+    (1, 130, 130, 1, 1, True, 0, None, False, "bf16"),    # g 1, own V
+    (3, 33, 100, 16, 1, True, 60, 93, False, "bf16"),     # g 16, own V
+    (2, 65, 65, 16, 1, True, 0, None, True, "f32"),       # float32 cache
+    (1, 40, 140, 16, 1, True, 100, None, False, "f32"),
+    (1, 50, 300, 16, 1, False, 0, 280, True, "bf16"),     # not causal
+    (2, 40, 90, 32, 2, True, 50, None, True, "bf16"),     # two KV heads
+    (1, 300, 300, 8, 1, True, 0, None, True, "bf16"),     # g 8, 5 tiles
+])
+def test_flash_attention_mla_kernel(card, b, sq, sk, hq, hkv, causal, q_off,
+                                    valid, alias, kvt):
+    """The latent-attention instantiation (dk 576, dv 512) against its twin
+    and the float32 plain version, by the bf16 rule of the other head
+    dims; v a view of the cache's rows or a tensor of its own."""
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    q, k, v = _mla_inputs(card, b, sq, sk, hq, hkv, types[kvt], alias,
+                          seed=sq + sk)
+    assert (v.data_ptr() == k.data_ptr()) == alias
+    kw = dict(causal=causal, q_offset=q_off, kv_valid_len=valid)
+    ops.reset_launch_counts()
+    got = flash_attn.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.shape == (b, sq, hq, 512) and got.dtype == torch.bfloat16
+    _assert_bf16_kernel(got, q, k, v, kw)
+
+
+def test_flash_attention_float32_route_refuses_the_mla_pair(card):
+    q, k, v = _mla_inputs(card, 1, 8, 8, 16, 1, torch.float32, True, 0)
+    with pytest.raises(ValueError, match=r"float32 route does not take"):
+        flash_attn.flash_attention(q.float(), k, v, causal=True)
+
+
+def _ported_archs():
+    from repro_torch.configs import all_arch_ids, get_smoke
+    from repro_torch.models import transformer
+    out = []
+    for arch in all_arch_ids():
+        try:
+            transformer._check(get_smoke(arch))
+        except NotImplementedError:
+            continue
+        out.append(arch)
+    return out
+
+
+@pytest.mark.parametrize("arch", _ported_archs())
+def test_serve_runs_on_the_card(card, arch):
+    """ROADMAP C6: ``serve.run(arch, rag=True)`` on the card for every
+    ported arch (smoke head dims 8, 12, 16 and the MLA pair 40 / 32 go
+    through the kernel, zero-padded), and the card's prefill logits held
+    against the plain route on the CPU with the same params.
+
+    Tolerance: each layer's attention is the tensor-core kernel (bf16 q) on
+    the card, within its twin's bound (one bf16 flip, 2^-7 of an element)
+    of the bf16 twin, which is within ``flash_attention_rounding_bound`` of
+    the float32 plain version the CPU runs; the bf16 matmuls around it
+    round on both sides (2^-8 relative each) in other orders. Carried over
+    the smoke's 2-3 layers that is a few percent of the logits: 5% of the
+    largest |logit|, the bound of the bf16 JAX-parity tests and of the
+    smoke's decode-vs-prefill check."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    ops.reset_launch_counts()
+    toks, ids = serve.run(arch, requests=2, prompt_len=16, gen=4, rag=True,
+                          verbose=False, device="cuda")
+    assert toks.shape == (2, 4) and ids.shape == (2, 4)
+    cfg = get_smoke(arch)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(3))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 19),
+                           generator=torch.Generator().manual_seed(3))
+    got, _ = model.prefill(params, tokens.to(card), model.init_cache(
+        2, 24, dtype=torch.float32, device=card))
+    cpu = _to(params, "cpu")
+    want, _ = model.prefill(cpu, tokens, model.init_cache(
+        2, 24, dtype=torch.float32, device="cpu"))
+    got, want = got.float().cpu(), want.float()
+    real = slice(0, cfg.vocab_size)
+    assert torch.isfinite(got[..., real]).all()
+    scale = float(want[..., real].abs().max())
+    assert float((got - want)[..., real].abs().max()) <= 0.05 * scale
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return None if tree is None else tree.to(device)
+
+
+def test_moe_layer_makes_no_host_sync_on_the_card(card):
+    """The MoE layer's shapes are static: moe_apply on the card runs with
+    CUDA's sync debug mode set to raise on any host synchronisation, and
+    gives the bits of a run without the mode."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import moe
+    cfg = get_smoke("deepseek-v2-lite-16b")
+    p = moe.moe_init(torch.Generator(device=card).manual_seed(0), cfg)
+    x = torch.randn((2, 40, cfg.d_model), device=card).to(cfg.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe.moe_apply(p, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    again, aux2 = moe.moe_apply(p, x, cfg)
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
+    assert torch.equal(out, again) and torch.equal(aux, aux2)

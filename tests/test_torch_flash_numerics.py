@@ -114,6 +114,72 @@ def test_twin_within_rounding_bound_of_jax_attend(b, sq, sk, hq, hkv, d,
     assert ((twin.double() - jax_out.double()).abs() <= bound).all()
 
 
+# the MLA shapes, dk != dv with v the first dv columns of k's rows (the
+# latent cache): the deepseek smoke's (40, 32) and deepseek-v2-lite's
+# (576, 512) at g 16, one KV head
+MLA_CASES = [  # b, sq, sk, hq, dk, dv, causal, q_offset, kv_valid_len
+    (2, 150, 150, 4, 40, 32, True, 0, None),
+    (1, 70, 200, 16, 40, 32, True, 120, 190),
+    (1, 40, 130, 16, 576, 512, True, 90, None),
+    (2, 20, 100, 16, 576, 512, False, 0, 77),
+]
+
+
+def _mla_qkv(seed, b, sq, sk, hq, dk, dv, exact):
+    """q bf16; a latent cache (B, Sk, 1, dk) in float32 (bf16-exact when
+    ``exact``) and v its view [..., :dv]."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, sq, hq, dk),
+                                             dtype=np.float32)).to(BF16)
+    kc = torch.from_numpy(rng.standard_normal((b, sk, 1, dk),
+                                              dtype=np.float32))
+    if exact:
+        kc = kc.to(BF16).float()
+    return q, kc, kc[..., :dv]
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("b,sq,sk,hq,dk,dv,causal,q_off,valid", MLA_CASES)
+def test_twin_within_rounding_bound_at_dk_ne_dv(b, sq, sk, hq, dk, dv,
+                                                causal, q_off, valid, exact):
+    """The bound at dk != dv: scores over dk columns, the output and its
+    bound over dv; the twin within it of the float32 plain version, and on
+    bf16-exact inputs the bound is P's term and the order term alone."""
+    q, k, v = _mla_qkv(sq + dk, b, sq, sk, hq, dk, dv, exact)
+    kw = dict(causal=causal, q_offset=q_off, kv_valid_len=valid)
+    twin = ref.flash_attention_ref(q, k, v, operands=BF16, **kw)
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    bound = ref.flash_attention_rounding_bound(q, k, v, **kw)
+    assert twin.shape == plain.shape == bound.shape == (b, sq, hq, dv)
+    assert ((twin.double() - plain.double()).abs() <= bound).all()
+    if exact:
+        a = ref.flash_attention_ref(q.float(), k, v.abs(), **kw)
+        assert torch.equal(bound, 2.0 ** -8 * a
+                           + ref.flash_attention_order_bound(plain))
+        assert torch.equal(twin, ref.flash_attention_ref(
+            q, k.to(BF16), k.to(BF16)[..., :dv], operands=BF16, **kw))
+    flip = ref.flash_attention_flip_bound(q, k, v, **kw)
+    assert flip.shape == (b, sq, hq, 1) and (flip > 0).all()
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,dk,dv,causal,q_off,valid",
+                         MLA_CASES[1:3])
+def test_twin_within_rounding_bound_of_jax_attend_at_dk_ne_dv(
+        b, sq, sk, hq, dk, dv, causal, q_off, valid):
+    """JAX's attend at the MLA shapes (as mla_apply calls it: the cache and
+    its first kv_lora columns) in float32 on the CPU, within the bound of
+    the twin."""
+    q, k, v = _mla_qkv(3 * sq + dk, b, sq, sk, hq, dk, dv, exact=True)
+    kw = dict(causal=causal, q_offset=q_off, kv_valid_len=valid)
+    twin = ref.flash_attention_ref(q, k, v, operands=BF16, **kw)
+    jq = jnp.asarray(q.float().numpy()).astype(jnp.bfloat16)
+    jk = jnp.asarray(k.numpy())
+    got = JA.attend(jq, jk, jk[..., :dv], **kw)
+    jax_out = torch.from_numpy(np.asarray(got, np.float32))
+    bound = ref.flash_attention_rounding_bound(q, k, v, **kw)
+    assert ((twin.double() - jax_out.double()).abs() <= bound).all()
+
+
 def _twin_copy(q, k, v, fault=None, block=128):
     """A copy of the twin (causal, no window, every key valid) with one of
     three faults a blockwise kernel can make: "last_tile" (every query

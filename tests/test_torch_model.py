@@ -23,11 +23,14 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     build_model as tbuild, make_prefill_step, make_serve_step)
 
-# the dense GQA archs this slice serves; the others wait for ROADMAP A6
+# the dense GQA archs; the MoE archs (grok-1: GQA + MoE + the logit
+# softcap; deepseek-v2-lite: MLA + MoE with shared experts and a dense first
+# layer); the others wait for ROADMAP A6
 DENSE = ("h2o-danube-1.8b", "phi3-mini-3.8b", "mistral-large-123b",
          "stablelm-12b")
-NOT_PORTED = ("mamba2-1.3b", "grok-1-314b", "deepseek-v2-lite-16b",
-              "internvl2-1b", "whisper-large-v3", "recurrentgemma-9b")
+MOE = ("grok-1-314b", "deepseek-v2-lite-16b")
+NOT_PORTED = ("mamba2-1.3b", "internvl2-1b", "whisper-large-v3",
+              "recurrentgemma-9b")
 
 
 def _pair(arch, seed=0, **over):
@@ -63,11 +66,14 @@ def _serve_both(jm, jp, tm, tp, b, prompt, gen, seed, teacher=False):
         tl, tc = tm.decode(tp, torch.from_numpy(jt) if teacher else tt, tc)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_prefill_decode_match_jax_f32(arch):
     """float32 params: logits to 1e-4 and equal greedy tokens at every
     step. The prompt (20) is longer than danube's smoke window (16), so its
-    cache rolls; phi3 and mistral use the full cache, stablelm layernorm."""
+    cache rolls; phi3 and mistral use the full cache, stablelm layernorm;
+    grok and deepseek route through MoE (the prefill at capacity
+    ceil(20 k / E * 1.25), which drops copies, a decode step at 1), and
+    deepseek attends in latent space (MLA, dk 40 / dv 32)."""
     jm, jp, tm, tp = _pair(arch, param_dtype="float32")
     steps = 0
     for jl, tl, jt, tt in _serve_both(jm, jp, tm, tp, 2, 20, 6, seed=1):
@@ -187,3 +193,62 @@ def test_unported_archs_raise(arch):
         tm.init(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="A6"):
         tm.init_cache(1, 4, device="cpu")
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_prefill_decode_match_jax_bf16(arch):
+    """bf16 params, the port fed the JAX package's tokens: as the dense
+    bf16 test, 5% of the largest |logit| at every step. MoE adds the
+    router: XLA and torch sum its float32 product of bf16 inputs in other
+    orders, which can flip a near-tied top-k choice; this seed's inputs
+    flip none within the bound."""
+    jm, jp, tm, tp = _pair(arch, seed=6)
+    for jl, tl, _, _ in _serve_both(jm, jp, tm, tp, 2, 20, 6, seed=6,
+                                    teacher=True):
+        scale = np.abs(jl).max()
+        assert np.abs(tl - jl).max() <= 0.05 * scale
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_forward_returns_the_moe_aux_loss(arch):
+    """The full-sequence forward's logits to 1e-4 of JAX's and its aux
+    loss (the Switch losses of the MoE layers, summed) to 1e-5; the
+    first_k_dense prefix layer adds none."""
+    jm, jp, tm, tp = _pair(arch, seed=7, param_dtype="float32")
+    toks = np.random.default_rng(7).integers(0, 256, (2, 12)).astype(np.int32)
+    jl, jaux = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    tl, aux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    assert aux.shape == () and aux.dtype == torch.float32
+    assert float(aux) > 0
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_and_mla_trees_carry_over_leaf_for_leaf(arch):
+    """``bridge.lm_params_from_numpy`` walks the MoE / MLA trees as it walks
+    any: the JAX tree's structure, shapes, dtypes and bits, leaf for leaf,
+    equal to the port's own init in structure, shapes and dtypes, down to
+    the first_k_dense prefix (deepseek: one dense layer of d_ff 10944 at
+    full width, the rest stacked MoE groups)."""
+    jm, jp, tm, tp = _pair(arch)
+    mine = tm.init(torch.Generator().manual_seed(0))
+    assert jax.tree.structure(jax.tree.map(lambda _: 0, jp)) == \
+        jax.tree.structure(jax.tree.map(lambda _: 0, tp)) == \
+        jax.tree.structure(jax.tree.map(lambda _: 0, mine))
+    for (path, a), b, c in zip(jax.tree_util.tree_flatten_with_path(jp)[0],
+                               jax.tree.leaves(tp), jax.tree.leaves(mine)):
+        assert tuple(a.shape) == tuple(b.shape) == tuple(c.shape), path
+        assert str(a.dtype) == str(b.dtype).removeprefix("torch.") == \
+            str(c.dtype).removeprefix("torch."), path
+        bits = b.view(torch.int16) if b.dtype == torch.bfloat16 else b
+        np.testing.assert_array_equal(
+            bits.numpy(), np.asarray(a).view(bits.numpy().dtype))
+    n_pre, n_groups, _ = tm.cfg.layer_plan()
+    if arch == "deepseek-v2-lite-16b":
+        assert (n_pre, n_groups) == (1, 2)
+        assert "mlp" in tp["prefix"][0] and "moe" in tp["groups"][0]
+        assert tp["groups"][0]["moe"]["wi"].shape[:2] == (n_groups, 8)
+        assert tconfigs.get_config(arch).layer_plan() == (1, 26, 0)
+    else:
+        assert n_pre == 0 and "moe" in tp["groups"][0]

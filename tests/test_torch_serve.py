@@ -74,6 +74,23 @@ def stack():
     return je, te, jm, jp, tm, tp
 
 
+@pytest.fixture(scope="module", params=["grok-1-314b",
+                                        "deepseek-v2-lite-16b"])
+def moe_stack(request, stack):
+    """The MoE archs' smoke models (float32 params) beside serve.py's
+    engine: grok-1 (GQA, MoE top-2 of 4, the logit softcap) and
+    deepseek-v2-lite (MLA, MoE top-2 of 8 with a shared expert, a dense
+    first layer)."""
+    je, te = stack[:2]
+    jm = jbuild(dataclasses.replace(jsmoke(request.param),
+                                    param_dtype="float32"))
+    tm = tbuild(dataclasses.replace(tsmoke(request.param),
+                                    param_dtype="float32"))
+    jp, _ = jm.init(jax.random.PRNGKey(1))
+    tp = bridge.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return je, te, jm, jp, tm, tp
+
+
 def _schedulers(mode, je, te):
     stream = dict(buckets=jpipeline.bucket_ladder(B), fill_threshold=B // 2,
                   wait_limit_s=5e-3)
@@ -104,12 +121,8 @@ def _jax_loop(jm, jp, tokens, sched, encoder):
     return np.asarray(jnp.concatenate(out, 1)), q, rep, logits
 
 
-@pytest.mark.parametrize("mode", ["stream", "fleet", "sharded"])
-def test_generate_matches_jax_loop(stack, mode):
-    """Tokens equal in every position; the encoded queries to 1e-5; the
-    retrieved ids in >= 99% of slots (the int LUT rounds a float, so an
-    entry may differ by one, as in slice 1's contract)."""
-    je, te, jm, jp, tm, tp = stack
+def _hold_generate(stacked, mode):
+    je, te, jm, jp, tm, tp = stacked
     tokens = np.random.default_rng(7).integers(
         0, jm.cfg.vocab_size, (B, PROMPT)).astype(np.int32)
     jsched, tsched = _schedulers(mode, je, te)
@@ -127,6 +140,22 @@ def test_generate_matches_jax_loop(stack, mode):
     assert out.report.ids.shape == jrep.ids.shape == (B, SCFG["k"])
     assert (out.report.ids == jrep.ids).mean() >= 0.99
     assert min(out.prefill_s, out.decode_s, out.retrieve_s) >= 0.0
+
+
+@pytest.mark.parametrize("mode", ["stream", "fleet", "sharded"])
+def test_generate_matches_jax_loop(stack, mode):
+    """Tokens equal in every position; the encoded queries to 1e-5; the
+    last step's logits to 1e-4; the retrieved ids in >= 99% of slots (the
+    int LUT rounds a float, so an entry may differ by one, as in slice 1's
+    contract)."""
+    _hold_generate(stack, mode)
+
+
+@pytest.mark.parametrize("mode", ["stream", "fleet", "sharded"])
+def test_moe_generate_matches_jax_loop(moe_stack, mode):
+    """The MoE archs' smoke models through the same loop and the same
+    holds as test_generate_matches_jax_loop, in each --rag mode."""
+    _hold_generate(moe_stack, mode)
 
 
 @pytest.mark.parametrize("mode", ["stream", "sharded"])
@@ -202,6 +231,17 @@ def test_generate_without_retrieval_and_encoders(stack):
     with pytest.raises(ValueError, match="< engine dim"):
         tserve.mean_pool_encoder(tp, 65)
     assert set(tserve.ENCODERS) == set(jserve.ENCODERS)
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v2-lite-16b"])
+def test_run_serves_the_moe_archs(arch, capsys):
+    """--arch grok-1-314b and --arch deepseek-v2-lite-16b serve their smoke
+    configs with --rag (one engine, and the sharded tier with tenants)."""
+    for kw in (dict(), dict(fleet=2, sharded=True, tenants="a:2,b:1")):
+        toks, retrieved = tserve.run(arch, requests=2, prompt_len=16, gen=4,
+                                     rag=True, device="cpu", **kw)
+        assert toks.shape == (2, 4) and retrieved.shape == (2, 4)
+    assert capsys.readouterr().out.count("[serve] rag:") >= 2
 
 
 @pytest.mark.parametrize("kw", [

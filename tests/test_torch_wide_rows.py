@@ -18,7 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import all_arch_ids, get_config  # noqa: E402
+from repro_torch.configs import all_arch_ids, get_config, get_smoke  # noqa: E402,E501
 from repro_torch.kernels import flash_attn, ref  # noqa: E402
 from repro_torch.kernels.merge_topk import merge_tree  # noqa: E402
 from repro_torch.kernels.topk_select import (  # noqa: E402
@@ -178,15 +178,27 @@ def test_merge_tree_refuses_k_over_half_the_limit():
 
 
 def test_ported_lm_configs_have_kernel_head_dims():
-    """Every config that the LM stack accepts as ported has a head dim that
-    the attention kernel takes, so its prefill runs on the card."""
+    """Every config that the LM stack accepts as ported, at full width and
+    as its smoke, has an attention shape that the kernel takes, so its
+    prefill runs on the card: (hd, hd) for GQA, (kv_lora + rope, kv_lora)
+    for MLA (the absorbed form: q_all against the latent cache)."""
     ported = []
     for name in all_arch_ids():
-        cfg = get_config(name)
-        try:
-            transformer._check(cfg)
-        except NotImplementedError:
-            continue
-        ported.append(name)
-        assert cfg.hd in flash_attn.HEAD_DIMS, (name, cfg.hd)
-    assert "stablelm-12b" in ported
+        for get in (get_config, get_smoke):
+            cfg = get(name)
+            try:
+                transformer._check(cfg)
+            except NotImplementedError:
+                continue
+            ported.append(cfg.name)
+            mla = cfg.attn_kind == "mla"
+            dk = cfg.kv_lora_rank + cfg.qk_rope_dim if mla else cfg.hd
+            dv = cfg.kv_lora_rank if mla else cfg.hd
+            assert flash_attn.instantiation(dk, dv) is not None, \
+                (cfg.name, dk, dv)
+            if get is get_config:
+                assert flash_attn.instantiation(dk, dv) == \
+                    (flash_attn.MLA_DIMS if mla else (dk, dv)), cfg.name
+    assert {"stablelm-12b", "deepseek-v2-lite-16b", "grok-1-314b",
+            "deepseek-smoke"} <= set(ported)
+    assert get_config("deepseek-v2-lite-16b").attn_kind == "mla"
