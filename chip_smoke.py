@@ -8,7 +8,9 @@ Phases (each failure exits non-zero and prints no result line):
      the TF32 flags, which are switched off;
   2. build every kernel from src/repro_torch/kernels/csrc/ (one nvcc per
      source, all started together) into build/kernels/, log ptxas's
-     registers, shared memory and spills of each kernel and the dynamic
+     registers, shared memory and spills of each kernel (the four head-dim
+     256 instantiations of the attention kernel must not spill) and the
+     dynamic
      shared memory a block of each selection route takes, and count the
      tensor-core instructions (HGMMA / HMMA) in the flash library's SASS,
      which must not be zero;
@@ -43,7 +45,11 @@ Phases (each failure exits non-zero and prints no result line):
      dims 8, 12 and 16 and the deepseek smoke's MLA pair (dk 40, dv 32),
      zero-padded in the kernel (ROADMAP C6), and the latent-attention
      instantiation (dk 576, dv 512, g 16) with v a view of k's rows or a
-     tensor of its own, held the same way;
+     tensor of its own, held the same way; head dim 256 (recurrentgemma's
+     local attention) over GQA groups 16, 4 and 1, ragged Sq and Sk,
+     q_offset, kv_valid_len < Sk, windows that bite, bf16 q over bf16 and
+     float32 K/V and float32 q, and the padded heads (200, 176) and 192 in
+     the 256 instantiation;
   4. build the index of a 10M x 128 clustered corpus (big-ann-benchmarks'
      10M BIGANN/SIFT subset scale, SIFT's width) on the card, 4096 clusters
      on 8 shards; run the build's k-means twice more from its seed and
@@ -173,6 +179,33 @@ Phases (each failure exits non-zero and prints no result line):
      twin, the float32 plain version and scaled_dot_product_attention (the
      first backend that takes dk != dv); a profiled prefill and decode
      step.
+ 15. serve mamba2-1.3b at full width and depth (48 SSD blocks of d_inner
+     4,096, 64 heads of 64, state 128, chunk 256, vocab 50,280, seeded bf16
+     weights; after phase 14, whose weights are released) through
+     repro_torch.launch.serve.generate: 8 requests of 2,000 prompt tokens
+     (not a multiple of the chunk: the last chunk is padded), 32
+     generated, a float32 cache, retrieval as in phase 11 (ids held against
+     engine.search); no flash_attention launch; the last decode step (the
+     recurrence) held against a prefill of the same 2,031 tokens into an
+     empty cache (the chunked form) by phase 11's rule, and that prefill's
+     pos held to the padded 2,048 (ROADMAP C7); the SSD stages' device
+     times (conv, intra-chunk, chunk states, the inter-chunk loop) on one
+     layer's real inputs, a profiled prefill and decode step.
+ 16. serve recurrentgemma-9b at full width and depth (38 layers: 12 groups
+     of (rglru, rglru, lattn) + 2 rglru; d 4,096, 16 heads over 1 KV head
+     of 256, window 2,048, RNN width 4,096, GeGLU d_ff 12,288, vocab
+     256,000, logit softcap 30, seeded bf16 weights) the same way: 8
+     requests of 3,072 prompt tokens (past the window), 32 generated, a
+     bf16 rolling cache of 2,048 slots; 12 flash_attention launches in the
+     counted prefill, all in the hd-256 instantiation; ids held against
+     engine.search; the last decode step (the rolling cache through the
+     plain one-pass attention, the RG-LRU recurrence) against a prefill of
+     the 3,103 tokens (the kernel with its window, the log-depth scan) by
+     phase 11's rule; the kernel on layer 2's real q / k / v held as in
+     phase 3 and timed beside its bound, its twin, the float32 plain
+     version and scaled_dot_product_attention (the window as a boolean
+     mask, GQA, the first backend that takes it); the RG-LRU stages' device
+     times (conv, gates, the scan), a profiled prefill and decode step.
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -574,6 +607,7 @@ def phase_build_kernels():
                     or "Function properties" in line:
                 log(f"  ptxas {name}: {line.strip()}")
                 PTXAS.setdefault(name, []).append(line.strip())
+    hold_hd256_spills(reports.get("flash_attn", ""))
     cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(_build._target("flash_attn"))],
@@ -595,6 +629,29 @@ def phase_build_kernels():
         f"{merge_topk.smem_bytes(80, 'warp')}; block W=80 "
         f"{merge_topk.smem_bytes(80, 'block')}, W=4096 "
         f"{merge_topk.smem_bytes(4096, 'block')}")
+
+
+def hold_hd256_spills(report: str) -> None:
+    """The head-dim-256 instantiations in ptxas's report of the flash
+    library (the split-dv kernel for bf16 q, the CUDA-core kernel for
+    float32 q, each over bf16 and float32 K/V): logged, and none may spill
+    (a spill would put O's registers through local memory)."""
+    fn, seen = None, 0
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "Li256ELi256E" in fn and "spill" in line:
+            kind = "split-dv" if "flash_mla_kernel" in fn else "CUDA-core"
+            kv = "float32" if "kernelIfLi" in fn or "kernelIffLi" in fn \
+                else "bf16"
+            log(f"  ptxas flash_attention/hd256 ({kind}, {kv} K/V): "
+                f"{line.strip()}")
+            seen += 1
+            if " 0 bytes spill stores, 0 bytes spill loads" not in \
+                    f" {line.strip()}":
+                fail(f"the hd-256 instantiation {fn} spills: {line.strip()}")
+    if report and seen != 4:
+        fail(f"ptxas reported {seen} head-dim-256 instantiations, expected 4")
 
 
 def synthetic_rank_inputs(torch, dev, n_lanes, n_rows, w, t_rows, seed):
@@ -1158,6 +1215,16 @@ def phase_flash_synthetic(torch, dev):
         (2, 257, 330, 8, 2, 160, True, None, 0, 300, bf, f32),
         (1, 200, 200, 4, 1, 160, True, 48, 0, None, bf, bf),
         (2, 129, 200, 4, 1, 160, True, None, 71, None, f32, f32),
+        # head dim 256 (recurrentgemma-9b's local attention, the split-dv
+        # kernel for bf16 q): GQA groups 16, 4 and 1, ragged Sq / Sk,
+        # q_offset, kv_valid_len < Sk, windows that bite, bf16 q over bf16
+        # and float32 K/V; the float32 route
+        (2, 300, 330, 16, 1, 256, True, 100, 20, 325, bf, bf),
+        (1, 257, 400, 16, 1, 256, True, 64, 130, 390, bf, f32),
+        (2, 150, 200, 16, 4, 256, True, None, 40, 195, bf, f32),
+        (1, 129, 129, 4, 4, 256, True, 48, 0, None, bf, bf),
+        (2, 100, 230, 16, 1, 256, True, 70, 120, 225, f32, f32),
+        (1, 77, 200, 8, 2, 256, False, 90, 100, 190, f32, bf),
     ]
     for b, sq, sk, hq, hkv, d, causal, window, q_off, valid, qt, kvt in cases:
         g = torch.Generator(device=dev).manual_seed(sq * 1000 + sk)
@@ -1170,20 +1237,23 @@ def phase_flash_synthetic(torch, dev):
                  f"causal={causal} window={window} q_offset={q_off} "
                  f"kv_valid_len={valid} {str(qt)[6:]}/{str(kvt)[6:]}")
         got = flash_attn.flash_attention(q, k, v, **kw)
+        name = flash_name(flash_attn, d, d)
         if qt == bf:
-            hold_bf16_attention(torch, label, got, q, k, v, kw)
+            hold_bf16_attention(torch, label, got, q, k, v, kw, name)
         else:
             want = ref.flash_attention_ref(q, k, v, **kw)
-            close(torch, "flash_attention", label, got, want,
-                  attn_bound(torch, want))
+            close(torch, name, label, got, want, attn_bound(torch, want))
     # the smoke configs' head dims (ROADMAP C6: zero-padded into the 64
-    # instantiation) and the MLA pairs, dk != dv, v a view of k's rows
-    # (the latent cache) or a tensor of its own; causal throughout
+    # instantiation), heads in (160, 256) zero-padded into 256, and the MLA
+    # pairs, dk != dv, v a view of k's rows (the latent cache) or a tensor
+    # of its own; causal throughout
     cases = [  # b, sq, sk, hq, hkv, dk, dv, q_off, valid, qt, kvt, alias
         (2, 70, 150, 4, 2, 8, 8, 60, 140, bf, f32, False),
         (2, 70, 150, 4, 2, 12, 12, 60, 140, f32, f32, False),
         (2, 70, 150, 4, 2, 16, 16, 60, 140, bf, bf, False),
         (2, 70, 150, 4, 1, 40, 32, 60, 140, bf, f32, True),
+        (2, 150, 220, 16, 1, 200, 176, 60, 210, bf, f32, False),
+        (1, 90, 200, 4, 2, 192, 192, 100, None, f32, bf, False),
         (2, 300, 300, 16, 1, 576, 512, 0, None, bf, bf, True),
         (1, 100, 700, 16, 1, 576, 512, 590, 690, bf, bf, True),
         (1, 100, 300, 16, 1, 576, 512, 150, None, bf, f32, False),
@@ -1196,8 +1266,7 @@ def phase_flash_synthetic(torch, dev):
             (b, sk, hkv, dv), generator=g, device=dev).to(kvt)
         kw = dict(causal=True, window=None, q_offset=q_off,
                   kv_valid_len=valid)
-        name = "flash_attention/mla" if (dk, dv) == flash_attn.MLA_DIMS \
-            else "flash_attention"
+        name = flash_name(flash_attn, dk, dv)
         label = (f"B={b} Sq={sq} Sk={sk} g={hq // hkv} dk={dk} dv={dv} "
                  f"q_offset={q_off} kv_valid_len={valid} v "
                  f"{'a view of k' if alias else 'its own'} "
@@ -1209,6 +1278,13 @@ def phase_flash_synthetic(torch, dev):
             want = ref.flash_attention_ref(q, k, v, **kw)
             close(torch, name, label, got, want, attn_bound(torch, want))
     time_hd160(torch, dev)
+
+
+def flash_name(flash_attn, dk, dv) -> str:
+    """The kernels line's name of the instantiation that runs (dk, dv)."""
+    inst = flash_attn.instantiation(dk, dv)
+    return {flash_attn.MLA_DIMS: "flash_attention/mla",
+            (256, 256): "flash_attention/hd256"}.get(inst, "flash_attention")
 
 
 def time_hd160(torch, dev):
@@ -1916,15 +1992,18 @@ def skew_of(rep) -> tuple[float, float]:
     return share, share * len(sp)
 
 
-def recording_calls(targets, fn):
+def recording_calls(targets, fn, keep=None):
     """fn() with each (module, name) of ``targets`` recording the
-    (args, kwargs) of its calls: (fn's result, {name: [calls]})."""
+    (args, kwargs) of its calls, the first ``keep`` of them if given (a
+    full-width layer's arguments take GBs): (fn's result, {name:
+    [calls]})."""
     calls = {name: [] for _, name in targets}
     real = {name: getattr(mod, name) for mod, name in targets}
 
     def recorder(name):
         def record(*args, **kw):
-            calls[name].append((args, kw))
+            if keep is None or len(calls[name]) < keep:
+                calls[name].append((args, kw))
             return real[name](*args, **kw)
         return record
     for mod, name in targets:
@@ -2481,107 +2560,28 @@ def phase_lm(torch, dev, eng):
     retrieval into the 10M engine. Returns (launches of the counted run,
     the flash_attention timing row)."""
     from repro_torch.configs import get_config
-    from repro_torch.core.pipeline import StreamingScheduler, bucket_ladder
-    from repro_torch.kernels import flash_attn, ops, ref
-    from repro_torch.launch import serve
-    from repro_torch.models.model import build_model
+    from repro_torch.kernels import flash_attn, ref
     cfg = get_config("h2o-danube-1.8b")
-    b, prompt, n_gen = 8, 2048, 32
-    model = build_model(cfg)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    t = time.perf_counter()
-    params = model.init(gen)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in leaves(params))
-    log(f"{cfg.name}: {cfg.n_layers} layers x d_model {cfg.d_model}, "
-        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.window}; "
-        f"{n_params / 1e9:.3f} B params ({cfg.param_count() / 1e9:.3f} B by "
-        f"the config's count) drawn on the card in "
-        f"{time.perf_counter() - t:.1f} s")
-    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
-                           device=dev)
-    sched = StreamingScheduler(eng, buckets=bucket_ladder(b),
-                               fill_threshold=max(b // 2, 1),
-                               wait_limit_s=5e-3)
-    enc = serve.mean_pool_encoder(params, eng.icfg.dim)
-
-    def cache():
-        return model.init_cache(b, prompt + n_gen, dtype=torch.float32,
-                                device=dev)
-    serve.generate(model, params, tokens, 2, cache())     # warm-up
+    log(f"{cfg.name}: {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, window {cfg.window}")
     calls = []
-    real = ops.flash_attention
 
-    def recording(q, k, v, **kw):
+    def record(q, k, v, **kw):
         if not calls:                 # layer 0 of the counted prefill
             calls.append((q.clone(), k.clone(), v.clone(), kw))
-        return real(q, k, v, **kw)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    c = cache()
-    ops.flash_attention = recording
-    ops.reset_launch_counts()
-    try:
-        out = serve.generate(model, params, tokens, n_gen, c,
-                             scheduler=sched, encoder=enc)
-    finally:
-        ops.flash_attention = real
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    total = out.prefill_s + out.decode_s + out.retrieve_s
-    log(f"generate B={b} prompt={prompt} gen={n_gen}: prefill "
-        f"{out.prefill_s * 1e3:.2f} ms, decode {out.decode_s * 1e3 / (n_gen - 1):.3f}"
-        f" ms per step ({n_gen - 1} steps), retrieval "
-        f"{out.retrieve_s * 1e3:.2f} ms; {b * n_gen / total:.1f} generated "
-        f"tokens/s ({b * (prompt + n_gen) / total:.1f} tokens/s with the "
-        f"prompt); peak device memory {peak:.2f} GiB")
+    model, params, tokens, out, counts, cache, _ = serve_counted(
+        torch, dev, eng, cfg, 8, 2048, 32, torch.float32, record)
+    b = tokens.shape[0]
     print("kernels lm " + json.dumps(counts), flush=True)
     if counts["flash_attention"] != cfg.n_layers:
         fail(f"the prefill launched flash_attention {counts['flash_attention']}"
              f" times, expected one a layer ({cfg.n_layers})")
-    toks = out.tokens
-    if toks.shape != (b, n_gen) or not (
-            (toks >= 0) & (toks < cfg.vocab_size)).all():
-        fail(f"generated tokens malformed: {tuple(toks.shape)}")
-    if not torch.isfinite(out.logits).all():
-        fail("the last decode step's logits are not finite")
-    ids = out.report.ids
-    log(f"retrieved ids (k={ids.shape[1]}) of the {b} requests: "
-        f"{ids.tolist()}")
-    res, _ = eng.search(torch.from_numpy(out.queries).to(dev))
-    same = ids == res.ids.cpu().numpy()
-    log(f"retrieved ids equal engine.search of the same queries in "
-        f"{int(same.sum())} of {same.size} slots")
-    if not same.all():
-        fail("the RAG loop's retrieved ids differ from engine.search")
-
+    log(f"retrieved ids (k={out.report.ids.shape[1]}) of the {b} requests: "
+        f"{out.report.ids.tolist()}")
     # the last decode step (plain one-pass attention over the cache) against
-    # a prefill of the same tokens (the kernel), at that step's position
-    full = torch.cat([tokens, toks[:, :-1].long()], dim=1)
-    logits_p, cp = model.prefill(params, full, cache())
-    got, want = out.logits[:, -1].float(), logits_p[:, -1].float()
-    scale = float(want.abs().max())
-    err = float((got - want).abs().max())
-    arg_d, arg_p = got.argmax(-1), want.argmax(-1)
-    top2 = want.topk(2, dim=-1).values
-    margin = (top2[:, 0] - top2[:, 1]).tolist()
-    log(f"decode vs prefill logits at position {full.shape[1] - 1}: max "
-        f"|diff| {err:.4f}, max |logit| {scale:.4f} (ratio "
-        f"{err / scale:.4f}), median |logit| "
-        f"{float(want.abs().median()):.4f}; argmax agrees in "
-        f"{int((arg_d == arg_p).sum())} of {b} rows; the prefill's top-2 "
-        f"margins {[round(x, 4) for x in margin]}")
-    # both run 24 bf16 layers; the two attentions sum in another order and
-    # the matmuls run at other batch shapes, so bf16 roundings (2^-8
-    # relative) differ and compound over the layers. The greedy token must
-    # not change in any row: it is what decode serves.
-    if err > 0.05 * scale:
-        fail(f"decode logits differ from the prefill's by {err:.4f} > 5% of "
-             f"their largest magnitude {scale:.4f}")
-    if not torch.equal(arg_d, arg_p):
-        fail(f"decode's greedy token differs from the prefill's in "
-             f"{int((arg_d != arg_p).sum())} of {b} rows")
+    # a prefill of the same tokens (the kernel)
+    cp = hold_decode_vs_prefill(torch, cfg, model, params, tokens, out,
+                                cache, "plain one-pass attention")
 
     q0, k0, v0, kw0 = calls[0]
     bf = torch.bfloat16
@@ -2646,17 +2646,8 @@ def phase_lm(torch, dev, eng):
 
     # where a prefill's and a decode step's time goes (the decode step at
     # position prompt + n_gen - 1, the last slot of the cache)
-    nxt = toks[:, -1:]
-    for name, step in (("prefill", lambda: model.prefill(params, tokens,
-                                                         cache())),
-                       ("decode step", lambda: model.decode(params, nxt,
-                                                            cp))):
-        wall, kern = profiled(torch, step)
-        busy = sum(ms for _, _, ms in kern)
-        log(f"profiled {name}: {wall:.2f} ms wall, device busy {busy:.2f} ms "
-            f"in {sum(n for _, n, _ in kern)} kernel launches (idle share "
-            f"{1 - busy / wall:.3f})")
-        log_top(kern, 6)
+    profile_steps(torch, model, params, tokens, out.tokens[:, -1:], cache,
+                  cp, 6)
     return counts, row
 
 
@@ -2763,90 +2754,32 @@ def phase_mla(torch, dev, eng):
     (the flash_attention launches of the counted run, the
     flash_attention/mla timing row)."""
     from repro_torch.configs import get_config
-    from repro_torch.core.pipeline import StreamingScheduler, bucket_ladder
-    from repro_torch.kernels import flash_attn, ops, ref
-    from repro_torch.launch import serve
+    from repro_torch.kernels import flash_attn, ref
     from repro_torch.models import moe
-    from repro_torch.models.model import build_model
     t_phase = time.perf_counter()
     cfg = get_config("deepseek-v2-lite-16b")
     b, prompt, n_gen = 8, 2048, 32
-    model = build_model(cfg)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    t = time.perf_counter()
-    params = model.init(gen)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in leaves(params))
-    log(f"{cfg.name}: {cfg.n_layers} layers x d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads, MLA kv_lora {cfg.kv_lora_rank} + rope "
-        f"{cfg.qk_rope_dim} (attention at dk "
+    log(f"{cfg.name}: {cfg.n_heads} heads, MLA kv_lora {cfg.kv_lora_rank} "
+        f"+ rope {cfg.qk_rope_dim} (attention at dk "
         f"{cfg.kv_lora_rank + cfg.qk_rope_dim}, dv {cfg.kv_lora_rank}), "
         f"{cfg.n_experts} experts top-{cfg.n_experts_active} of d_ff "
         f"{cfg.moe_d_ff} + {cfg.n_shared_experts} shared, "
-        f"{cfg.first_k_dense} dense layer of d_ff {cfg.d_ff}, layer plan "
-        f"{cfg.layer_plan()}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} "
-        f"B params ({cfg.param_count() / 1e9:.3f} B by the config's count, "
-        f"norms left out) drawn on the card in "
-        f"{time.perf_counter() - t:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
-                           device=dev)
-    sched = StreamingScheduler(eng, buckets=bucket_ladder(b),
-                               fill_threshold=max(b // 2, 1),
-                               wait_limit_s=5e-3)
-    enc = serve.mean_pool_encoder(params, eng.icfg.dim)
-
-    def cache(m=model, rows=b):
-        return m.init_cache(rows, prompt + n_gen, dtype=torch.bfloat16,
-                            device=dev)
-    serve.generate(model, params, tokens, 2, cache())     # warm-up
+        f"{cfg.first_k_dense} dense layer of d_ff {cfg.d_ff}")
     calls = []
-    real = ops.flash_attention
 
-    def recording(q, k, v, **kw):
+    def record(q, k, v, **kw):
         if not calls:                 # layer 0 of the counted prefill
             kc = k.clone()
             calls.append((q.clone(), kc, kc[..., :v.shape[-1]]
                           if v.data_ptr() == k.data_ptr() else v.clone(),
                           kw))
-        return real(q, k, v, **kw)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    c = cache()
-    ops.flash_attention = recording
-    ops.reset_launch_counts()
-    try:
-        out = serve.generate(model, params, tokens, n_gen, c,
-                             scheduler=sched, encoder=enc)
-    finally:
-        ops.flash_attention = real
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    total = out.prefill_s + out.decode_s + out.retrieve_s
-    log(f"generate B={b} prompt={prompt} gen={n_gen}, bf16 latent cache: "
-        f"prefill {out.prefill_s * 1e3:.2f} ms, decode "
-        f"{out.decode_s * 1e3 / (n_gen - 1):.3f} ms per step ({n_gen - 1} "
-        f"steps), retrieval {out.retrieve_s * 1e3:.2f} ms; "
-        f"{b * n_gen / total:.1f} generated tokens/s "
-        f"({b * (prompt + n_gen) / total:.1f} tokens/s with the prompt); "
-        f"peak device memory {peak:.2f} GiB")
+    model, params, tokens, out, counts, cache, c = serve_counted(
+        torch, dev, eng, cfg, b, prompt, n_gen, torch.bfloat16, record)
     print("kernels mla " + json.dumps(counts), flush=True)
     if counts["flash_attention"] != cfg.n_layers:
         fail(f"the prefill launched flash_attention {counts['flash_attention']}"
              f" times, expected one a layer ({cfg.n_layers})")
     toks = out.tokens
-    if toks.shape != (b, n_gen) or not (
-            (toks >= 0) & (toks < cfg.vocab_size)).all():
-        fail(f"generated tokens malformed: {tuple(toks.shape)}")
-    if not torch.isfinite(out.logits).all():
-        fail("the last decode step's logits are not finite")
-    ids = out.report.ids
-    res, _ = eng.search(torch.from_numpy(out.queries).to(dev))
-    same = ids == res.ids.cpu().numpy()
-    log(f"retrieved ids equal engine.search of the same queries in "
-        f"{int(same.sum())} of {same.size} slots")
-    if not same.all():
-        fail("the RAG loop's retrieved ids differ from engine.search")
 
     # the last decode step again (the cache rewound to its position: it
     # writes its slot with the same bits), recording its routes
@@ -2947,7 +2880,146 @@ def phase_mla(torch, dev, eng):
 
     # where a prefill's and a decode step's time goes (the decode step at
     # the last slot of the cache)
-    nxt = toks[:, -1:]
+    profile_steps(torch, model, params, tokens, toks[:, -1:], cache, cp, 8)
+    log(f"14 done in {time.perf_counter() - t_phase:.1f} s")
+    return counts["flash_attention"], row
+
+
+def stage_times(torch, label, module, calls, per_prefill) -> dict:
+    """Device ms of each stage's first recorded call (``recording_calls``)
+    run again on its own arguments, and that times the calls a prefill
+    makes (one a layer); CUDA-event wall ms where the profiler kept no
+    whole set."""
+    out = {}
+    for name, ((a, kw),) in calls.items():
+        fn = getattr(module, name)
+        ms, wall = times(torch, lambda: fn(*a, **kw), 3)
+        out[name] = ms if ms is not None else wall
+        log(f"{label} stage {name}: {out[name]:.5f} ms on the device a call"
+            f"{'' if ms is not None else ' (CUDA-event wall)'}, x"
+            f"{per_prefill} layers = {out[name] * per_prefill:.3f} ms a "
+            f"prefill")
+    return out
+
+
+def serve_counted(torch, dev, eng, cfg, b, prompt, n_gen, cache_dtype,
+                  record=None):
+    """One arch at full width and depth through launch.serve.generate,
+    with retrieval into the 10M engine: seeded params drawn on the card, a
+    warm-up generate of 2 tokens, then the counted one (launch counts set
+    to 0 just before and read just after). ``record(q, k, v, **kw)``, if
+    given, sees every flash_attention call of the counted run. Returns
+    (model, params, tokens, the Generation, launch counts, a fresh-cache
+    factory, the counted run's cache, written in place)."""
+    from repro_torch.core.pipeline import StreamingScheduler, bucket_ladder
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers (pattern {cfg.pattern}, layer "
+        f"plan {cfg.layer_plan()}) x d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}; {n_params / 1e9:.3f} B params "
+        f"({cfg.param_count() / 1e9:.3f} B by the config's count, norms "
+        f"left out) drawn on the card in {time.perf_counter() - t:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                           device=dev)
+    sched = StreamingScheduler(eng, buckets=bucket_ladder(b),
+                               fill_threshold=max(b // 2, 1),
+                               wait_limit_s=5e-3)
+    enc = serve.mean_pool_encoder(params, eng.icfg.dim)
+
+    def cache():
+        return model.init_cache(b, prompt + n_gen, dtype=cache_dtype,
+                                device=dev)
+    serve.generate(model, params, tokens, 2, cache())     # warm-up
+    real = ops.flash_attention
+
+    def recording(q, k, v, **kw):
+        record(q, k, v, **kw)
+        return real(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c = cache()
+    if record is not None:
+        ops.flash_attention = recording
+    ops.reset_launch_counts()
+    try:
+        out = serve.generate(model, params, tokens, n_gen, c,
+                             scheduler=sched, encoder=enc)
+    finally:
+        ops.flash_attention = real
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    total = out.prefill_s + out.decode_s + out.retrieve_s
+    log(f"generate B={b} prompt={prompt} gen={n_gen}, {str(cache_dtype)[6:]}"
+        f" cache: prefill {out.prefill_s * 1e3:.2f} ms, decode "
+        f"{out.decode_s * 1e3 / (n_gen - 1):.3f} ms per step ({n_gen - 1} "
+        f"steps), retrieval {out.retrieve_s * 1e3:.2f} ms; "
+        f"{b * n_gen / total:.1f} generated tokens/s "
+        f"({b * (prompt + n_gen) / total:.1f} tokens/s with the prompt); "
+        f"peak device memory {peak:.2f} GiB")
+    toks = out.tokens
+    if toks.shape != (b, n_gen) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"generated tokens malformed: {tuple(toks.shape)}")
+    if not torch.isfinite(out.logits[..., :cfg.vocab_size].float()).all():
+        fail("the last decode step's logits are not finite")
+    ids = out.report.ids
+    res, _ = eng.search(torch.from_numpy(out.queries).to(dev))
+    same = ids == res.ids.cpu().numpy()
+    log(f"retrieved ids equal engine.search of the same queries in "
+        f"{int(same.sum())} of {same.size} slots")
+    if not same.all():
+        fail("the RAG loop's retrieved ids differ from engine.search")
+    return model, params, tokens, out, counts, cache, c
+
+
+def hold_decode_vs_prefill(torch, cfg, model, params, tokens, out, cache,
+                           what: str):
+    """Phase 11's rule: the last decode step's logits (``what`` says how
+    it reads the cache) against a prefill of the prompt and the generated
+    tokens into an empty cache, at the last position: max |diff| within 5%
+    of the largest |logit| and the same greedy token in every row, over the
+    real vocabulary. Both run every bf16 layer; the attention sums (and a
+    recurrence against its chunked form or scan) run in other orders and
+    the matmuls at other batch shapes, so bf16 roundings (2^-8 relative)
+    differ and compound over the layers. The greedy token must not change
+    in any row: it is what decode serves. Returns the prefill's cache."""
+    full = torch.cat([tokens, out.tokens[:, :-1].long()], dim=1)
+    logits_p, cp = model.prefill(params, full, cache())
+    v = slice(0, cfg.vocab_size)
+    got, want = out.logits[:, -1, v].float(), logits_p[:, -1, v].float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    arg_d, arg_p = got.argmax(-1), want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    log(f"decode ({what}) vs a prefill of the same {full.shape[1]} tokens "
+        f"at position {full.shape[1] - 1}: max |diff| {err:.4f}, max |logit| "
+        f"{scale:.4f} (ratio {err / scale:.4f}), median |logit| "
+        f"{float(want.abs().median()):.4f}; argmax agrees in "
+        f"{int((arg_d == arg_p).sum())} of {arg_d.numel()} rows; the "
+        f"prefill's top-2 margins "
+        f"{[round(x, 4) for x in (top2[:, 0] - top2[:, 1]).tolist()]}")
+    if err > 0.05 * scale:
+        fail(f"decode logits differ from the prefill's by {err:.4f} > 5% of "
+             f"their largest magnitude {scale:.4f}")
+    if not torch.equal(arg_d, arg_p):
+        fail(f"decode's greedy token differs from the prefill's in "
+             f"{int((arg_d != arg_p).sum())} of {arg_d.numel()} rows")
+    return cp
+
+
+def profile_steps(torch, model, params, tokens, nxt, cache, cp, n_top):
+    """A profiled prefill of ``tokens`` into a fresh cache and a profiled
+    decode step of ``nxt`` over ``cp``: wall, device busy, launches, idle
+    share, the top kernels. Returns {name: (wall ms, busy ms)}."""
+    out = {}
     for name, step in (("prefill", lambda: model.prefill(params, tokens,
                                                          cache())),
                        ("decode step", lambda: model.decode(params, nxt,
@@ -2957,8 +3029,178 @@ def phase_mla(torch, dev, eng):
         log(f"profiled {name}: {wall:.2f} ms wall, device busy {busy:.2f} ms "
             f"in {sum(n for _, n, _ in kern)} kernel launches (idle share "
             f"{1 - busy / wall:.3f})")
-        log_top(kern, 8)
-    log(f"14 done in {time.perf_counter() - t_phase:.1f} s")
+        log_top(kern, n_top)
+        out[name] = (wall, busy)
+    return out
+
+
+def phase_ssm(torch, dev, eng):
+    """Phase 15: mamba2-1.3b at full width and depth (48 SSD blocks, no
+    attention) through launch.serve.generate, with retrieval into the 10M
+    engine. Returns the launch counts of the counted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    t_phase = time.perf_counter()
+    cfg = get_config("mamba2-1.3b")
+    d_inner = cfg.ssm_expand * cfg.d_model
+    log(f"{cfg.name}: SSD d_inner {d_inner}, {d_inner // cfg.ssm_head_dim} "
+        f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+        f"{cfg.chunk}, conv width {cfg.conv_width}")
+    b, prompt, n_gen = 8, 2000, 32
+    model, params, tokens, out, counts, cache, _ = serve_counted(
+        torch, dev, eng, cfg, b, prompt, n_gen, torch.float32)
+    print("kernels ssm " + json.dumps(counts), flush=True)
+    if counts["flash_attention"] != 0:
+        fail(f"mamba2 has no attention, yet flash_attention launched "
+             f"{counts['flash_attention']} times")
+    cp = hold_decode_vs_prefill(
+        torch, cfg, model, params, tokens, out, cache,
+        "the SSD recurrence from the prefill's state")
+    # ROADMAP C7: a prefill's pos counts the padded length
+    seen = prompt + n_gen - 1
+    padded = -(-seen // cfg.chunk) * cfg.chunk
+    pos = cp["groups"][0].pos
+    log(f"C7: the prefill of {seen} tokens leaves pos {pos} (the padded "
+        f"{padded}, as the reference's)")
+    if pos != padded:
+        fail(f"the SSM cache's pos after {seen} tokens is {pos}, the "
+             f"reference's is {padded}")
+    _, calls = recording_calls(
+        [(ssm, n) for n in ("_causal_conv", "_intra_chunk", "_chunk_states",
+                            "_inter_chunk")],
+        lambda: model.prefill(params, tokens, cache()), keep=1)
+    stage_times(torch, "SSD", ssm, calls, cfg.n_layers)
+    profile_steps(torch, model, params, tokens, out.tokens[:, -1:], cache,
+                  cp, 8)
+    log(f"15 done in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def sdpa_window_row(torch, q, k, v, window):
+    """Time one scaled_dot_product_attention call on the kernel's work at
+    a prefill from position 0 (causal, the window as a boolean mask, GQA,
+    bf16 K/V), by the first backend that takes it; (ms or None, backend
+    name or None, the refusals)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    bf = torch.bfloat16
+    qs = q.transpose(1, 2).contiguous()
+    ks = k.to(bf).transpose(1, 2).contiguous()
+    vs = v.to(bf).transpose(1, 2).contiguous()
+    n = q.shape[1]
+    i = torch.arange(n, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    refused = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            refused.append(f"{backend.name}: "
+                           f"{' '.join(str(e).split())[:160]}")
+            continue
+        ms, wall = times(torch, call, 3)
+        return (ms if ms is not None else wall), backend.name, refused
+    return None, None, refused
+
+
+def phase_rglru(torch, dev, eng):
+    """Phase 16: recurrentgemma-9b at full width and depth (26 RG-LRU
+    blocks, 12 local-attention blocks at head dim 256) through
+    launch.serve.generate, with retrieval into the 10M engine. Returns
+    (the flash_attention launches of the counted run, the
+    flash_attention/hd256 timing row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn, ref
+    from repro_torch.models import rglru
+    t_phase = time.perf_counter()
+    cfg = get_config("recurrentgemma-9b")
+    n_attn = sum(cfg.mixer_of(i) == "lattn" for i in range(cfg.n_layers))
+    log(f"{cfg.name}: {cfg.n_heads} query heads over {cfg.n_kv_heads} KV "
+        f"head of {cfg.hd}, window {cfg.window}, RNN width {cfg.rnn_width}, "
+        f"{cfg.mlp_kind} d_ff {cfg.d_ff}, logit softcap {cfg.logit_softcap};"
+        f" {n_attn} local-attention layers")
+    b, prompt, n_gen = 8, 3072, 32
+    calls, shapes = [], []
+
+    def record(q, k, v, **kw):
+        shapes.append((q.shape[-1], v.shape[-1], q.dtype, k.dtype, kw))
+        if not calls:                 # layer 2, the first lattn layer
+            calls.append((q.clone(), k.clone(), v.clone(), kw))
+    model, params, tokens, out, counts, cache, _ = serve_counted(
+        torch, dev, eng, cfg, b, prompt, n_gen, torch.bfloat16, record)
+    print("kernels rglru " + json.dumps(counts), flush=True)
+    if counts["flash_attention"] != n_attn:
+        fail(f"the prefill launched flash_attention "
+             f"{counts['flash_attention']} times, expected one a local-"
+             f"attention layer ({n_attn})")
+    insts = {flash_attn.instantiation(dk, dv) for dk, dv, *_ in shapes}
+    log(f"the counted prefill's {len(shapes)} attention calls: head dims "
+        f"{sorted({(dk, dv) for dk, dv, *_ in shapes})}, instantiations "
+        f"{sorted(insts)}, q / K/V {shapes[0][2]} / {shapes[0][3]}, "
+        f"{shapes[0][4]}")
+    if insts != {(256, 256)}:
+        fail(f"the prefill's attention ran in {insts}, not the hd-256 "
+             f"instantiation alone")
+    cp = hold_decode_vs_prefill(
+        torch, cfg, model, params, tokens, out, cache,
+        "the rolling cache through attend_onepass, the RG-LRU recurrence")
+    slot = [c for c in cp["groups"] if hasattr(c, "k")][0]
+    log(f"local-attention cache: k {tuple(slot.k.shape)} "
+        f"{str(slot.k.dtype)[6:]} (a rolling window of {slot.k.shape[2]} "
+        f"slots), pos {slot.pos}")
+
+    q0, k0, v0, kw0 = calls[0]
+    label = (f"real layer 2 q {tuple(q0.shape)} {str(q0.dtype)[6:]}, k/v "
+             f"{tuple(k0.shape)} {str(k0.dtype)[6:]}, {kw0}")
+    got0 = flash_attn.flash_attention(q0, k0, v0, **kw0)
+    hold_bf16_attention(torch, label, got0, q0, k0, v0, kw0,
+                        "flash_attention/hd256")
+    bf = torch.bfloat16
+    row = timed_row(
+        torch, f"flash_attention/hd256 real layer 2 B={b} Sq={q0.shape[1]} "
+        f"Sk={k0.shape[1]} window {kw0['window']}, plain = the twin",
+        lambda: flash_attn.flash_attention(q0, k0, v0, **kw0),
+        lambda: ref.flash_attention_ref(q0, k0, v0, operands=bf, **kw0), 10,
+        flash_bound(q0, k0, v0, kw0["causal"], kw0["window"],
+                    kw0["q_offset"], kw0["kv_valid_len"]))
+    f32_ms, f32_wall = times(
+        torch, lambda: ref.flash_attention_ref(q0, k0, v0, **kw0), 3)
+    log(f"flash_attention/hd256 float32 plain version: "
+        f"{f32_ms if f32_ms is not None else f32_wall:.5f} ms on the device")
+    if kw0["q_offset"] != 0 or kw0["kv_valid_len"] is not None:
+        fail(f"the SDPA yardstick assumes a prefill from position 0 over "
+             f"every key, got {kw0}")
+    lib, backend, refused = sdpa_window_row(torch, q0, k0, v0,
+                                            kw0["window"])
+    for line in refused:
+        log(f"scaled_dot_product_attention with the window's mask refused "
+            f"by {line}")
+    row["library_ms"] = lib
+    if lib is None:
+        log("no scaled_dot_product_attention backend takes the windowed "
+            "mask with enable_gqa: library_ms is null")
+    else:
+        log(f"flash_attention/hd256 library (scaled_dot_product_attention, "
+            f"backend {backend}, causal and the window {kw0['window']} as a "
+            f"boolean mask, GQA over one KV head, bf16 K/V): {lib:.5f} ms on "
+            f"the device; kernel {row['ms']:.5f} ms, bound "
+            f"{row['bound_ms']:.5f} ms")
+    del got0
+
+    _, stage_calls = recording_calls(
+        [(rglru, n) for n in ("_conv", "_gates", "_scan")],
+        lambda: model.prefill(params, tokens, cache()), keep=1)
+    stage_times(torch, "RG-LRU", rglru, stage_calls,
+                cfg.n_layers - n_attn)
+    del stage_calls
+    profile_steps(torch, model, params, tokens, out.tokens[:, -1:], cache,
+                  cp, 8)
+    log(f"16 done in {time.perf_counter() - t_phase:.1f} s")
     return counts["flash_attention"], row
 
 
@@ -3283,6 +3525,8 @@ def main() -> None:
     phase_skewed_tier(torch, eng)
     lm_counts, timing["flash_attention"] = phase_lm(torch, dev, eng)
     mla_launches, mla = phase_mla(torch, dev, eng)
+    phase_ssm(torch, dev, eng)
+    hd256_launches, hd256 = phase_rglru(torch, dev, eng)
     parts, icfg = [eng.index, eng.host], eng.icfg
     del eng
     mutable = phase_mutable(torch, parts, icfg, qt)
@@ -3324,6 +3568,14 @@ def main() -> None:
         launches=mla_launches, max_abs_err=ERRS["flash_attention/mla"],
         ms=mla["ms"], plain_ms=mla["plain_ms"], bound_ms=mla["bound_ms"],
         bound_by=mla["bound_by"], library_ms=mla["library_ms"]))
+    # the head-dim-256 instantiation (the split-dv kernel) of phase 16
+    kernels.append(dict(
+        name="flash_attention/hd256", route="cuda",
+        source=src["flash_attention"][0], replaces=src["flash_attention"][1],
+        launches=hd256_launches, max_abs_err=ERRS["flash_attention/hd256"],
+        ms=hd256["ms"], plain_ms=hd256["plain_ms"],
+        bound_ms=hd256["bound_ms"], bound_by=hd256["bound_by"],
+        library_ms=hd256["library_ms"]))
     # each rank policy of beam_search and cluster_scan (phase 8b): its own
     # launches, times and errors, on the search of its own backend
     for name, row in ranked.items():

@@ -78,11 +78,27 @@
 // per (64 query rows, query head, batch row); the Q tile (scaled), K, V and
 // P tiles in float32 shared memory, float32 FMAs on CUDA cores.
 //
-// Head dims: both routes run any dk, dv up to 160 in the smallest
-// instantiation (64, 80, 96, 128, 160) that holds both; the extra columns
-// are staged as zeros (element loads with a column limit), which add exact
-// zeros to Q.K^T, and the output is written at its real dv. The smoke
-// configs of the LM stack (head dims 8, 12, 16; MLA's 40 / 32) take it.
+// Head dims: both routes run any dk, dv up to 256 in the smallest
+// instantiation (64, 80, 96, 128, 160, 256) that holds both; the extra
+// columns are staged as zeros (element loads with a column limit), which
+// add exact zeros to Q.K^T, and the output is written at its real dv. The
+// smoke configs of the LM stack (head dims 8, 12, 16; MLA's 40 / 32) take
+// it.
+//
+// Head dim 256 (recurrentgemma-9b's local attention: 16 query heads over one
+// KV head, a window of 2,048) runs on the tensor cores in the split-dv
+// kernel that MLA's pair uses (`flash_mla_kernel<TKV, 256, 256>`): one
+// consumer of `flash_tc_kernel` would hold a 64 x 256 float32 O, 128
+// registers a thread, beside S's 32, over the 168 that
+// __launch_bounds__(384, 1) leaves a thread. Its g = 16 heads share each
+// K/V tile in one block, as MLA's do. What bounds it at the serving path's
+// prefill (B = 8, S = 3,072, window 2,048): the operations, 4 B Hq hd x
+// 4,195,328 windowed causal keys = 550 GFLOP, 0.556 ms at 989 TFLOP/s; the
+// bytes (q, K, V once, the output) 0.13 ms. It runs in 4.71 ms (NVIDIA
+// H100 80GB HBM3, 700 W, chip_smoke.py phase 16): warpgroup 1 waits while
+// warpgroup 0 computes S, and 6,144 blocks re-read the K/V tiles from L2
+// (PERF.md). The float32 route runs hd 256 on the CUDA cores (213,760
+// bytes of shared memory a block).
 //
 // (dk, dv) = (576, 512), MLA's absorbed attention (deepseek-v2-lite: q_all
 // of 16 heads against one latent head, V the latent cache's first 512
@@ -1077,71 +1093,131 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 
 // ---------------------------------------------------------------------------
-// bf16 q at (dk, dv) = (576, 512): the latent (absorbed) attention of MLA
+// bf16 q at (dk, dv) = (576, 512), MLA's latent (absorbed) attention, and at
+// head dim 256 (recurrentgemma's local attention): the split-dv kernel
 // ---------------------------------------------------------------------------
 
 constexpr int kMlaDK = 576;       // kv_lora + rope: q_all and the cache row
 constexpr int kMlaDV = 512;       // kv_lora: V is the cache row's head
+constexpr int kWideD = 256;       // the widest dk == dv instantiation
 constexpr int kMlaThreads = 256;  // two warpgroups, each half of dv
-constexpr int kMlaTile = kTcKeys * kMlaDK;  // elements of one K tile
 
+// K/V tiles of kTcKeys x DK in the ring: two at MLA's width (73,728 bytes
+// each), four at DK = 256 (32,768 each)
+template <int DK>
+constexpr int kRingOf = DK > kWideD ? 2 : 4;
+
+template <int DK>
 constexpr size_t mla_smem_bytes() {
-  return sizeof(__nv_bfloat16) *
-             (kTcKeys * kMlaDK + 2 * kMlaTile + kTcKeys * kTcKeys) +
+  return sizeof(__nv_bfloat16) * (kTcKeys * DK + kRingOf<DK> * kTcKeys * DK +
+                                  kTcKeys * kTcKeys) +
          2 * kTcKeys * sizeof(float);
 }
 
-// Rows row0 .. row0 + 63 of K or V (`cols` columns, a multiple of 16; rows
-// at or past lim zeros) into a core-matrix tile of row pitch kMlaDK, by the
-// block's 256 threads: cp.async for aligned bf16 rows, else element loads
-// through registers (float32 rounded to bf16). Lanes 2k and 2k + 1 copy the
-// two halves of one 32-byte sector of a row.
-template <typename T>
+// Rows row0 .. row0 + 63 of K or V (`cols` columns, a multiple of 16, of
+// which the first `real` are read and the rest are zeros; rows at or past
+// lim zeros) into a core-matrix tile of row pitch DK, by the block's 256
+// threads: cp.async for aligned bf16 rows of the real width, else element
+// loads through registers (float32 rounded to bf16). Lanes 2k and 2k + 1
+// copy the two halves of one 32-byte sector of a row.
+template <int DK, typename T>
 __device__ __forceinline__ void mla_stage(__nv_bfloat16* dst, const T* src,
                                           long long ss, int row0, int lim,
-                                          int cols, bool vec, int t) {
+                                          int cols, int real, bool vec,
+                                          int t) {
   for (int u = t; u < kTcKeys * cols / 8; u += kMlaThreads) {
     const int rest = u >> 4;
     const int r = (rest / (cols / 16)) * 8 + ((u >> 1) & 7);
     const int c = (2 * (rest % (cols / 16)) + (u & 1)) * 8;
     const bool in = row0 + r < lim;
-    __nv_bfloat16* d = dst + cm_off<kMlaDK>(r, c);
+    __nv_bfloat16* d = dst + cm_off<DK>(r, c);
     if constexpr (sizeof(T) == 2) {
       if (vec) {
         cp_async16(d, in ? src + (row0 + r) * ss + c : src, in ? 16 : 0);
         continue;
       }
     }
-    *reinterpret_cast<uint4*>(d) = in ? load8n(src + (row0 + r) * ss + c, 8)
-                                      : make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(d) =
+        in ? load8n(src + (row0 + r) * ss + c, real - c)
+           : make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+// O += P V over N = 128 output columns, P from shared memory (K-major), V
+// MN-major: half of dv = 256 a warpgroup
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}"
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss_pv(float (&o)[N / 2], uint64_t p,
+                                            uint64_t v) {
+  if constexpr (N == 256) wgmma_ss_n256(o, p, v);
+  else wgmma_ss_n128(o, p, v);
 }
 
 // One block of two warpgroups a work item of 64 query rows: gh query heads
 // of one KV head (16, 8, 4, 2 or 1, the largest that divides the group) at
-// 64 / gh positions each, so a K tile is staged once for gh heads; at
-// deepseek-v2-lite's g = 16, all 16 heads at 4 positions. The O accumulator
-// of 64 rows x 512 columns is 256 float32 registers a thread in one
-// warpgroup, so dv is split: warpgroup w owns columns 256 w .. 256 w + 255
-// (128 registers). Warpgroup 0 alone computes S = Q.K^T (36 wgmma m64n64k16
-// steps over dk = 576) and the online softmax, and writes P (bf16, the A
-// operand's core-matrix layout) and the rows' rescale factors to shared
-// memory; then both run O += P.V by wgmma m64n256k16 from shared memory.
-// When v aliases k (MLA's one-tensor cache, v = k[..., :512]) a tile is
-// staged once and its first 512 columns are V; two such tiles fit beside Q
-// (73,728 bytes each), so the next tile's cp.async runs during this one's
-// products. A separate V takes the second tile, loaded with K, one stage.
-// Shared memory: 229,888 bytes (Q, two tiles, P, two row vectors).
-template <typename TKV>
+// 64 / gh positions each, so a K/V tile is staged once for gh heads; at
+// deepseek-v2-lite's and recurrentgemma-9b's g = 16, all 16 heads at 4
+// positions. At MLA's width the O accumulator of 64 rows x 512 columns is
+// 256 float32 registers a thread in one warpgroup, so dv is split:
+// warpgroup w owns columns DV / 2 w .. DV / 2 (w + 1) - 1 (128 registers at
+// DV = 512, 64 at DV = 256, where one consumer of the three-warpgroup
+// kernel would hold all 128 beside S and spill under its 168-register
+// ceiling). Warpgroup 0 alone computes S = Q.K^T (DK / 16 wgmma m64n64k16
+// steps) and the online softmax, and writes P (bf16, the A operand's
+// core-matrix layout) and the rows' rescale factors to shared memory; then
+// both run O += P.V by wgmma m64n{DV / 2}k16 from shared memory.
+// Tiles: when v aliases k (MLA's one-tensor cache, v = k[..., :512]) a tile
+// is staged once and its first DV columns are V. Two stages: the next
+// tile's cp.async (or element loads) run during this one's products, one
+// tile each when v aliases k, a K and a V tile each otherwise, except at
+// MLA's width, where a separate V takes the second of its two tiles, loaded
+// with K, one stage. Shared memory: 229,888 bytes at (576, 512) (Q, two
+// tiles, P, two row vectors), 172,544 at (256, 256) (Q, four tiles, P, the
+// vectors). Head dims in (160, 256) run at 256 with zeros past their real
+// columns (element loads with a column limit); the output is written at
+// its real dv.
+template <typename TKV, int DK, int DV>
 __global__ void __launch_bounds__(kMlaThreads, 1)
     flash_mla_kernel(const __nv_bfloat16* __restrict__ q,
                      const TKV* __restrict__ k, const TKV* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, Args a) {
-  constexpr int DK = kMlaDK, DV = kMlaDV;
+  static_assert(DV <= DK && DK % 16 == 0 && (DV == 256 || DV == 512),
+                "split-dv head dims");
+  constexpr int kTile = kTcKeys * DK;     // elements of one K or V tile
+  constexpr int kRing = kRingOf<DK>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ring = sQ + kTcKeys * DK;   // two tiles of pitch DK
-  __nv_bfloat16* sP = ring + 2 * kMlaTile;   // 64 x 64, pitch 64
+  __nv_bfloat16* ring = sQ + kTcKeys * DK;   // kRing tiles of pitch DK
+  __nv_bfloat16* sP = ring + kRing * kTile;  // 64 x 64, pitch 64
   float* sCorr = reinterpret_cast<float*>(sP + kTcKeys * kTcKeys);
   float* sL = sCorr + kTcKeys;
 
@@ -1179,7 +1255,7 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
     qpos[i] = a.q_offset + q0 + (r_in + 8 * i) % rows_h;
   const int col = 2 * (lane & 3);
 
-  // Q (positions past Sq as zeros), by the whole block
+  // Q (positions past Sq as zeros, columns past dk as zeros), by the block
   for (int u = tid; u < kTcKeys * DK / 8; u += kMlaThreads) {
     const int r = (u & 7) + 8 * (u / DK);
     const int c = ((u >> 3) % (DK / 8)) * 8;
@@ -1187,32 +1263,39 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
     const __nv_bfloat16* qr =
         q + b * a.q_sb + (h0 + r / rows_h) * a.q_sh + p * a.q_ss + c;
     *reinterpret_cast<uint4*>(sQ + cm_off<DK>(r, c)) =
-        p < a.sq ? load8(qr, a.q_vec) : make_uint4(0u, 0u, 0u, 0u);
+        p >= a.sq  ? make_uint4(0u, 0u, 0u, 0u)
+        : a.q_vec ? load8(qr, true)
+                  : load8n(qr, a.dk - c);
   }
 
   const TKV* kb = k + b * a.k_sb + hk * a.k_sh;
   const TKV* vb = v + b * a.v_sb + hk * a.v_sh;
   const bool alias = a.v_alias;
-  auto k_tile = [&](int it) { return ring + (alias ? (it & 1) : 0) * kMlaTile; };
-  auto v_tile = [&](int it) { return alias ? k_tile(it) : ring + kMlaTile; };
+  const int stages = alias ? 2 : kRing / 2;
+  auto k_tile = [&](int it) {
+    return ring + (alias ? it % 2 : 2 * (it % stages)) * kTile;
+  };
+  auto v_tile = [&](int it) { return alias ? k_tile(it) : k_tile(it) + kTile; };
   auto load = [&](int it) {
     const int kv0 = first + it * kTcKeys;
-    mla_stage(k_tile(it), kb, a.k_ss, kv0, kv_lim, DK, a.kv_vec, tid);
+    mla_stage<DK>(k_tile(it), kb, a.k_ss, kv0, kv_lim, DK, a.dk, a.kv_vec,
+                  tid);
     if (!alias)
-      mla_stage(v_tile(it), vb, a.v_ss, kv0, kv_lim, DV, a.kv_vec, tid);
+      mla_stage<DK>(v_tile(it), vb, a.v_ss, kv0, kv_lim, DV, a.dv, a.kv_vec,
+                    tid);
     cp_async_commit();
   };
 
-  float acc[128];
+  float acc[DV / 4];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 4; ++i) acc[i] = 0.f;
   float sc[32];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
 
-  if (alias) load(0);
+  if (stages == 2) load(0);
   for (int it = 0; it < n_tiles; ++it) {
-    if (alias) {
-      // the other tile held it - 1, released at the end of that iteration
+    if (stages == 2) {
+      // the other stage held it - 1, released at the end of that iteration
       if (it + 1 < n_tiles) load(it + 1);
       else cp_async_commit();
       cp_async_wait<1>();
@@ -1291,7 +1374,7 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
     }
     reg_fence(acc);
 #pragma unroll
-    for (int n = 0; n < 32; ++n) {
+    for (int n = 0; n < DV / 16; ++n) {
       acc[4 * n] *= corr[0];
       acc[4 * n + 1] *= corr[0];
       acc[4 * n + 2] *= corr[1];
@@ -1299,11 +1382,11 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
     }
     reg_fence(acc);
     wgmma_fence();
-    const __nv_bfloat16* vt = v_tile(it) + 256 / 8 * 64 * w;
+    const __nv_bfloat16* vt = v_tile(it) + DV / 2 / 8 * 64 * w;
 #pragma unroll
     for (int kk = 0; kk < kTcKeys / 16; ++kk)
-      wgmma_ss_n256(acc, gmma_desc(sP + 128 * kk, 128, 16 * kTcKeys),
-                    gmma_desc(vt + 16 * DK * kk, 16 * DK, 128));
+      wgmma_ss_pv<DV / 2>(acc, gmma_desc(sP + 128 * kk, 128, 16 * kTcKeys),
+                          gmma_desc(vt + 16 * DK * kk, 16 * DK, 128));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
@@ -1329,22 +1412,31 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
     const int p = q0 + r % rows_h;
     if (p >= a.sq) continue;
     const float den = fmaxf(sL[r], 1e-30f);
+    const int c0 = DV / 2 * w + col;  // this thread's first column
     __nv_bfloat16* orow =
         o + ((static_cast<long long>(b) * a.sq + p) * a.hq + h0 + r / rows_h) *
-                DV +
-        256 * w + col;
+                a.dv +
+        c0;
 #pragma unroll
-    for (int n = 0; n < 32; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
-          acc[4 * n + 2 * i] / den, acc[4 * n + 2 * i + 1] / den);
+    for (int n = 0; n < DV / 16; ++n) {
+      const float x0 = acc[4 * n + 2 * i] / den;
+      const float x1 = acc[4 * n + 2 * i + 1] / den;
+      if (a.dv == DV) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {  // a padded dv: only its real columns, one at a time
+        if (c0 + 8 * n < a.dv) orow[8 * n] = __float2bfloat16_rn(x0);
+        if (c0 + 8 * n + 1 < a.dv) orow[8 * n + 1] = __float2bfloat16_rn(x1);
+      }
+    }
   }
 }
 
-template <typename TKV>
+template <typename TKV, int DK, int DV>
 int launch_mla(const void* q, const void* k, const void* v, void* o, int b,
                const Args& a, cudaStream_t stream) {
-  auto kernel = flash_mla_kernel<TKV>;
-  constexpr size_t smem = mla_smem_bytes();
+  auto kernel = flash_mla_kernel<TKV, DK, DV>;
+  constexpr size_t smem = mla_smem_bytes<DK>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1409,6 +1501,10 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int q_bf16,
     case 160:
       return q_bf16 ? launch_tc<TKV, 160>(q, k, v, o, b, a, stream)
                     : launch<float, TKV, 160>(q, k, v, o, b, a, stream);
+    case kWideD:
+      return q_bf16
+                 ? launch_mla<TKV, kWideD, kWideD>(q, k, v, o, b, a, stream)
+                 : launch<float, TKV, kWideD>(q, k, v, o, b, a, stream);
     default: return -1;
   }
 }
@@ -1422,7 +1518,7 @@ bool rows_aligned(const void* p, long long sb, long long ss, long long sh,
 
 // the instantiation that holds a head of max(dk, dv) columns (0: none)
 int padded_dim(int dk, int dv) {
-  static const int dims[] = {64, 80, 96, 128, 160};
+  static const int dims[] = {64, 80, 96, 128, 160, kWideD};
   const int need = dk > dv ? dk : dv;
   for (int d : dims)
     if (need <= d) return d;
@@ -1433,10 +1529,11 @@ int padded_dim(int dk, int dv) {
 
 // q_bf16 / kv_bf16: 1 for bf16, 0 for float32. bf16 q takes the tensor-core
 // kernels, float32 q the CUDA-core one. (dk, dv) = (576, 512) takes the
-// latent-attention kernel (bf16 q only); any other dk, dv up to 160 takes
-// the instantiation of the smallest head dim of 64, 80, 96, 128 and 160
-// that holds both, its extra columns staged as zeros (through the element
-// loads) and never written out. Anything else returns -1 without a launch.
+// latent-attention kernel (bf16 q only); any other dk, dv up to 256 takes
+// the instantiation of the smallest head dim of 64, 80, 96, 128, 160 and 256
+// that holds both (256: the split-dv kernel for bf16 q), its extra columns
+// staged as zeros (through the element loads) and never written out.
+// Anything else returns -1 without a launch.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attn_launch(
     const void* q, const void* k, const void* v, void* o, int q_bf16,
@@ -1462,8 +1559,9 @@ extern "C" int flash_attn_launch(
                dk, dv, alias};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mla)
-    return kv_bf16 ? launch_mla<__nv_bfloat16>(q, k, v, o, b, a, s)
-                   : launch_mla<float>(q, k, v, o, b, a, s);
+    return kv_bf16
+               ? launch_mla<__nv_bfloat16, kMlaDK, kMlaDV>(q, k, v, o, b, a, s)
+               : launch_mla<float, kMlaDK, kMlaDV>(q, k, v, o, b, a, s);
   if (kv_bf16) return launch_d<__nv_bfloat16>(q, k, v, o, q_bf16, b, d, a, s);
   return launch_d<float>(q, k, v, o, q_bf16, b, d, a, s);
 }

@@ -17,14 +17,16 @@ One launch, two kernels, chosen by q's type inside ``flash_attn_launch``:
 * float32 q: the CUDA-core kernel, float32 throughout; its plain version is
   ``ref.flash_attention_ref`` with the default operands.
 
-Head dims (``instantiation``): dk and dv up to 160 run in the instantiation
+Head dims (``instantiation``): dk and dv up to 256 run in the instantiation
 of the smallest of ``HEAD_DIMS`` that holds both, the extra columns staged
-as zeros inside the kernel (the smoke configs' 8, 12 and 16, and the
-deepseek smoke's MLA pair (40, 32)); (dk, dv) = ``MLA_DIMS`` = (576, 512),
-the absorbed MLA attention of deepseek-v2-lite (q_all against the latent
-cache, V the cache's first 512 columns), has a kernel of its own on the
-tensor-core route, which stages a tile once when v is a view of k's rows;
-the float32 route refuses it.
+as zeros inside the kernel (the smoke configs' 8, 12 and 16, the deepseek
+smoke's MLA pair (40, 32), and any head in (160, 256) at 256); (dk, dv) =
+``MLA_DIMS`` = (576, 512), the absorbed MLA attention of deepseek-v2-lite
+(q_all against the latent cache, V the cache's first 512 columns), has an
+instantiation of its own on the tensor-core route, which stages a tile once
+when v is a view of k's rows; the float32 route refuses it. On the
+tensor-core route, 256 (recurrentgemma-9b's local attention, 16 query heads
+over one KV head) runs in the same split-dv kernel as the MLA pair.
 
 Neither route falls back on the other: a launch that fails raises.
 """
@@ -41,7 +43,7 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_fwd", "check_args",
            "instantiation", "HEAD_DIMS", "MLA_DIMS", "launches"]
 
-HEAD_DIMS = (64, 80, 96, 128, 160)  # the kernel's instantiations, dk == dv
+HEAD_DIMS = (64, 80, 96, 128, 160, 256)  # instantiations, dk == dv
 MLA_DIMS = (576, 512)               # the latent-attention kernel's (dk, dv)
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0   # kernel launches since the count was last set to 0

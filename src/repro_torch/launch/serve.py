@@ -6,12 +6,14 @@ in the loop (counterpart of ``repro/launch/serve.py``).
 ``run`` serves the arch's smoke config with random weights drawn from
 ``--seed``, as the JAX package does; ``generate`` is the loop itself
 (prefill -> decode -> retrieval) and serves any model, full width included.
-Served archs (on the card by default, every prefill through the attention
-kernel): h2o-danube-1.8b, phi3-mini-3.8b, mistral-large-123b, stablelm-12b
-(dense GQA), grok-1-314b (GQA + MoE, logit softcap) and
-deepseek-v2-lite-16b (MLA + MoE with shared experts). mamba2-1.3b,
-recurrentgemma-9b, whisper-large-v3 and internvl2-1b raise
-NotImplementedError naming ROADMAP A6.
+Served archs (on the card by default, every attention layer's prefill
+through the attention kernel): h2o-danube-1.8b, phi3-mini-3.8b,
+mistral-large-123b, stablelm-12b (dense GQA), grok-1-314b (GQA + MoE,
+logit softcap), deepseek-v2-lite-16b (MLA + MoE with shared experts),
+mamba2-1.3b (Mamba2's SSD blocks, no attention) and recurrentgemma-9b
+(RG-LRU + local attention at head dim 256 over a rolling cache, logit
+softcap). whisper-large-v3 and internvl2-1b raise NotImplementedError
+naming ROADMAP A6.
 --rag wires the engine into the decode loop through a pluggable QUERY
 ENCODER: after the first decode step, its logits become a (B, dim) query
 batch that streams into the engine through
@@ -446,9 +448,10 @@ def main():
     ap.add_argument("--arch", required=True,
                     help="served: h2o-danube-1.8b, phi3-mini-3.8b, "
                          "mistral-large-123b, stablelm-12b, grok-1-314b, "
-                         "deepseek-v2-lite-16b (its smoke config); the SSM, "
-                         "RG-LRU, enc-dec and vlm archs raise "
-                         "NotImplementedError (ROADMAP A6)")
+                         "deepseek-v2-lite-16b, mamba2-1.3b, "
+                         "recurrentgemma-9b (its smoke config); the enc-dec "
+                         "and vlm archs raise NotImplementedError (ROADMAP "
+                         "A6)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

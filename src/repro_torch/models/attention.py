@@ -12,7 +12,10 @@ package, which has no kernel there.
 MLA is the absorbed ("latent") form, as in the JAX package: q is taken
 into latent space, the cache holds one KV head of width kv_lora + rope, and
 V is a view of that cache; the prefill runs the kernel at dk 576 / dv 512
-(deepseek-v2-lite).
+(deepseek-v2-lite). recurrentgemma's local attention ("lattn": 16 query
+heads over one KV head at head dim 256, a window of 2,048) prefills over
+its in-pass K/V through the kernel at hd 256 and stashes the window's tail
+in a rolling cache of ``window`` slots, which decode reads.
 
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A6):
 cross-attention (``kv_override``, enc-dec), attention softcap, and the

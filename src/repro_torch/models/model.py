@@ -9,10 +9,11 @@
 
 ``init`` returns the param tree alone (the JAX package pairs it with
 sharding specs). Served: the dense GQA archs, grok-1 (GQA with MoE and the
-logit softcap) and deepseek-v2-lite (MLA with MoE and shared experts).
-``forward`` returns the summed MoE aux loss beside the logits. Mamba,
-RG-LRU, enc-dec and vlm configs raise NotImplementedError naming ROADMAP A6,
-and ``loss`` and ``make_train_step`` come with the training slice there.
+logit softcap), deepseek-v2-lite (MLA with MoE and shared experts), mamba2
+(SSD blocks) and recurrentgemma (RG-LRU with local attention). ``forward``
+returns the summed MoE aux loss beside the logits. Enc-dec and vlm configs
+raise NotImplementedError naming ROADMAP A6, and ``loss`` and
+``make_train_step`` come with the training slice there.
 """
 
 from __future__ import annotations
@@ -56,7 +57,9 @@ class Model:
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, cache: dict):
         """Fill the cache with tokens (B, S); logits (B, 1, Vpad) of the
-        last position. The cache's tensors are written in place."""
+        last position. The cache's tensors are written in place (an SSM
+        cache's pos counts the chunk padding, as the JAX package's: ROADMAP
+        C7)."""
         logits, cache, _ = transformer.decoder_forward(
             params, self.cfg, tokens, cache=cache, logits_slice=1)
         return logits, cache

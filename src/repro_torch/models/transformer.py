@@ -10,17 +10,21 @@ params, the port loops over the stacked slices in Python. Its ``remat``
 (recompute in the backward pass) and ``constrain`` (sharding annotations)
 have no meaning for a forward pass on one card and are dropped.
 
-Caches mirror the param structure: {"prefix": [...], "groups": [KVCache
-with (n_groups, B, S, Hkv, hd) tensors per pattern slot], "tail": [...]};
-an MLA slot's KVCache holds one (n_groups, B, S, 1, kv_lora + rope) tensor
-as both k and v.
+Caches mirror the param structure: {"prefix": [...], "groups": [one
+cache per pattern slot, its tensors stacked on a leading n_groups axis],
+"tail": [...]}: a KVCache (k, v), an MLA KVCache (one (n_groups, B, S, 1,
+kv_lora + rope) tensor as both k and v), an SSMCache (state, conv) or an
+RGLRUCache (h, conv), each with a Python int pos. A forward writes every
+cache tensor in place (a block that returns new tensors has them copied
+into its layer's slice) and returns the caches with the blocks' new pos.
 
-Ported mixers: attn, swa and lattn (GQA) and mla (latent attention); MLPs:
-dense and moe (top-k routed experts with capacity, plus shared experts; the
-first_k_dense prefix layers dense), whose Switch aux losses are summed over
-the layers. Mamba, RG-LRU, patches (vlm), encoder layers (enc-dec,
-cross-attention) and the attention softcap raise NotImplementedError naming
-ROADMAP A6.
+Ported mixers: attn, swa and lattn (GQA), mla (latent attention), mamba
+(Mamba2's SSD, ``ssm.py``) and rglru (RecurrentGemma's RG-LRU,
+``rglru.py``); MLPs: dense, moe (top-k routed experts with capacity, plus
+shared experts; the first_k_dense prefix layers dense), whose Switch aux
+losses are summed over the layers, and none (the ssm family: the block is
+its mixer). Patches (vlm), encoder layers (enc-dec, cross-attention) and
+the attention softcap raise NotImplementedError naming ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -30,34 +34,30 @@ import torch
 from . import attention as A
 from . import layers as L
 from . import moe as M
+from . import rglru as R
+from . import ssm as S
 from .config import ModelConfig
 
 __all__ = ["block_init", "block_apply", "block_empty_cache", "decoder_init",
            "decoder_empty_cache", "decoder_forward"]
 
 GQA_KINDS = ("attn", "swa", "lattn")
-MIXERS = (*GQA_KINDS, "mla")
-MLPS = ("dense", "moe")
+MIXERS = (*GQA_KINDS, "mla", "mamba", "rglru")
+MLPS = ("dense", "moe", "none")
 _A6 = "ROADMAP A6 (the rest of the LM stack)"
 
 
 def _check(cfg: ModelConfig) -> None:
-    """Refuse what the port does not serve yet (SSM, RG-LRU, enc-dec, vlm,
-    cross-attention), before any work is done."""
-    for i in range(cfg.n_layers):
-        if cfg.mixer_of(i) not in MIXERS:
-            raise NotImplementedError(
-                f"{cfg.name}: mixer {cfg.mixer_of(i)!r} is not ported: {_A6}")
-        if cfg.mlp_of(i) not in MLPS:
-            raise NotImplementedError(
-                f"{cfg.name}: MLP {cfg.mlp_of(i)!r} is not ported: {_A6}")
+    """Refuse what the port does not serve yet (enc-dec, vlm,
+    cross-attention), before any work is done. Every mixer and MLP of the
+    JAX package's configs is ported; ``_refuse`` names any other."""
     if cfg.n_patches or cfg.enc_layers:
         raise NotImplementedError(f"{cfg.name}: vlm patches and encoder "
                                   f"layers (cross-attention) are not ported: "
                                   f"{_A6}")
 
 
-def _refuse(mixer: str, mlp: str) -> None:
+def _refuse(mixer: str, mlp: str = "none") -> None:
     if mixer not in MIXERS or mlp not in MLPS:
         raise NotImplementedError(f"block ({mixer!r}, {mlp!r}) is not "
                                   f"ported: {_A6}")
@@ -69,14 +69,24 @@ def _refuse(mixer: str, mlp: str) -> None:
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, mlp: str,
                *, stack: tuple = ()) -> dict:
+    """The JAX package's block tree: norm1 and the mixer, then norm2 and
+    the MLP (dense or moe) unless the block has none (the ssm family)."""
     _refuse(mixer, mlp)
     dev = gen.device
+    if mixer == "mla":
+        mix = A.mla_init(gen, cfg, stack=stack)
+    elif mixer in GQA_KINDS:
+        mix = A.gqa_init(gen, cfg, stack=stack)
+    elif mixer == "mamba":
+        mix = S.ssd_init(gen, cfg, stack=stack)
+    else:
+        mix = R.rglru_init(gen, cfg, stack=stack)
     p = {"norm1": L.norm_init(cfg.d_model, cfg.norm, stack=stack,
                               device=dev),
-         "mixer": A.mla_init(gen, cfg, stack=stack) if mixer == "mla"
-         else A.gqa_init(gen, cfg, stack=stack),
-         "norm2": L.norm_init(cfg.d_model, cfg.norm, stack=stack,
-                              device=dev)}
+         "mixer": mix}
+    if mlp == "none":
+        return p
+    p["norm2"] = L.norm_init(cfg.d_model, cfg.norm, stack=stack, device=dev)
     if mlp == "moe":
         p["moe"] = M.moe_init(gen, cfg, stack=stack)
     else:
@@ -88,33 +98,44 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, mlp: str,
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, mlp: str,
                 *, positions: torch.Tensor, cache=None):
     """Returns (x, new_cache, aux_loss); aux_loss is the MoE's Switch loss,
-    a 0-d float32 tensor (0 for a dense MLP)."""
+    a 0-d float32 tensor (0 for a dense MLP or none)."""
     _refuse(mixer, mlp)
     h = L.norm_apply(p["norm1"], x, cfg.norm)
     if mixer == "mla":
         y, cache = A.mla_apply(p["mixer"], h, cfg, positions=positions,
                                cache=cache)
-    else:
+    elif mixer in GQA_KINDS:
         win = cfg.window if mixer in ("swa", "lattn") else None
         y, cache = A.gqa_apply(p["mixer"], h, cfg, positions=positions,
                                cache=cache, window=win)
+    elif mixer == "mamba":
+        y, cache = S.ssd_apply(p["mixer"], h, cfg, cache=cache)
+    else:
+        y, cache = R.rglru_apply(p["mixer"], h, cfg, cache=cache)
     x = x + y
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mlp == "none":
+        return x, cache, zero
     h = L.norm_apply(p["norm2"], x, cfg.norm)
     if mlp == "moe":
         y, aux = M.moe_apply(p["moe"], h, cfg)
         return x + y, cache, aux
     act = "silu" if cfg.mlp_kind == "swiglu" else "gelu"
-    x = x + L.mlp_apply(p["mlp"], h, cfg.mlp_kind, act)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + L.mlp_apply(p["mlp"], h, cfg.mlp_kind, act), cache, zero
 
 
 def block_empty_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
                       dtype, *, stack: tuple = (), device="cuda"):
+    _refuse(mixer)
     if mixer == "mla":
         return A.mla_empty_cache(cfg, batch, max_len, dtype, stack=stack,
                                  device=device)
-    if mixer not in GQA_KINDS:
-        raise NotImplementedError(f"mixer {mixer!r} is not ported: {_A6}")
+    if mixer == "mamba":
+        return S.ssm_empty_cache(cfg, batch, dtype, stack=stack,
+                                 device=device)
+    if mixer == "rglru":
+        return R.rglru_empty_cache(cfg, batch, dtype, stack=stack,
+                                   device=device)
     # window-bounded mixers only ever read the trailing `window` slots
     ln = max_len if cfg.window is None or mixer == "attn" \
         else min(max_len, cfg.window)
@@ -184,6 +205,27 @@ def _slice(tree, g: int):
             for k, v in tree.items()}
 
 
+def _layer(c, g: int):
+    """Layer g of a stacked cache: every tensor field sliced at g (views,
+    so a block's in-place write lands in the stack)."""
+    return c._replace(**{f: getattr(c, f)[g] for f in c._fields
+                         if f != "pos"})
+
+
+def _store(dst, new):
+    """A block's returned cache ``new`` written into ``dst``'s tensors: a
+    field that is already dst's memory (the attention blocks write their
+    caches in place) is left as it is, a new tensor (the recurrent blocks
+    return new state) is copied in. Returns dst with new's pos."""
+    for f in dst._fields:
+        if f == "pos":
+            continue
+        d, n = getattr(dst, f), getattr(new, f)
+        if n.data_ptr() != d.data_ptr() or n.stride() != d.stride():
+            d.copy_(n)
+    return dst._replace(pos=new.pos)
+
+
 def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                     cache=None, logits_slice: int | None = None):
     """tokens (B, S) int. cache=None -> full-sequence forward (all logits).
@@ -211,29 +253,31 @@ def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         return xx, c2
 
     for i in range(n_pre):
-        x, c2 = run_block(params["prefix"][i], x, i,
-                          None if cache is None else cache["prefix"][i])
+        c = None if cache is None else cache["prefix"][i]
+        x, c2 = run_block(params["prefix"][i], x, i, c)
         if cache is not None:
-            new_cache["prefix"].append(c2)
+            new_cache["prefix"].append(_store(c, c2))
 
     if n_groups:
         slots = None if cache is None else cache["groups"]
+        pos = [None] * plen
         for gi in range(n_groups):          # the JAX package's lax.scan
             for j in range(plen):           # layer n_pre + gi * plen + j
-                c = None if slots is None else \
-                    A.KVCache(slots[j].k[gi], slots[j].v[gi], slots[j].pos)
+                c = None if slots is None else _layer(slots[j], gi)
                 x, c2 = run_block(_slice(params["groups"][j], gi), x,
                                   n_pre + j, c)
+                if c is not None:
+                    pos[j] = _store(c, c2).pos
         if cache is not None:
-            new_cache["groups"] = [A.KVCache(s.k, s.v, s.pos + seq)
-                                   for s in slots]
+            new_cache["groups"] = [s._replace(pos=p)
+                                   for s, p in zip(slots, pos)]
 
     first_tail = n_pre + n_groups * plen
     for t in range(n_tail):
-        x, c2 = run_block(params["tail"][t], x, first_tail + t,
-                          None if cache is None else cache["tail"][t])
+        c = None if cache is None else cache["tail"][t]
+        x, c2 = run_block(params["tail"][t], x, first_tail + t, c)
         if cache is not None:
-            new_cache["tail"].append(c2)
+            new_cache["tail"].append(_store(c, c2))
 
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     if logits_slice is not None:

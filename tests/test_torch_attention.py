@@ -53,6 +53,9 @@ def _qkv(seed, b, sq, sk, hq, hkv, dk, dv):
         (2, 9, 40, 2, 2, 8, 8, False, None, 0, 25),
         (1, 33, 100, 6, 3, 16, 16, True, 20, 60, 93),
         (2, 70, 130, 8, 2, 80, 80, True, 50, 60, 130),
+        # recurrentgemma-9b's local attention: hd 256, 16 query heads over
+        # one KV head, a window that bites
+        (1, 70, 150, 16, 1, 256, 256, True, 48, 70, 140),
     ])
 def test_attend_matches_jax(b, sq, sk, hq, hkv, dk, dv, causal, win, q_off,
                             valid):

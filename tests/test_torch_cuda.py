@@ -27,9 +27,10 @@ both route boundaries, and on the rows of
 ``tests/test_torch_select_design.py`` (NaN, +-inf, -0.0), bitwise. The
 mutable index runs on the card: its link in rounds against ``link_new``,
 ``compact(subset)`` against ``rebuild()``, and a mutable tier swapped in
-mid-run. Two builds of one seed are the same bits (ROADMAP C5), and a
+mid-run. Two builds of one seed are the same bits (ROADMAP C5), a
 two-rank mesh tier (``exec="mesh"``, gloo, both ranks on one card) equals
-the in-process tier.
+the in-process tier, and the recurrent blocks (Mamba2's SSD, the RG-LRU)
+equal their CPU runs.
 """
 
 import numpy as np
@@ -987,6 +988,17 @@ def _assert_bf16_kernel(got, q, k, v, kw):
     (2, 150, 213, 8, 2, 160, True, None, 63, None, "bf16", "f32"),
     (1, 200, 200, 4, 1, 160, True, 48, 0, None, "bf16", "bf16"),
     (2, 70, 130, 4, 1, 160, True, None, 50, 125, "f32", "f32"),
+    # head dim 256 (recurrentgemma-9b: 16 query heads over one KV head, a
+    # window): the split-dv kernel for bf16 q, GQA groups 16, 4 and 1,
+    # ragged Sq / Sk, q_offset, kv_valid_len < Sk, a window that bites,
+    # bf16 and float32 K/V; the float32 route
+    (2, 300, 300, 16, 1, 256, True, 100, 0, None, "bf16", "bf16"),
+    (1, 150, 400, 16, 1, 256, True, 130, 230, 390, "bf16", "f32"),
+    (2, 77, 200, 8, 2, 256, True, None, 100, 190, "bf16", "bf16"),
+    (1, 129, 129, 4, 4, 256, True, 64, 0, None, "bf16", "f32"),
+    (1, 33, 300, 2, 1, 256, False, 80, 250, 290, "bf16", "bf16"),
+    (2, 70, 130, 16, 1, 256, True, 50, 50, 125, "f32", "f32"),
+    (1, 65, 65, 4, 2, 256, True, None, 0, None, "f32", "bf16"),
 ])
 def test_flash_attention_kernel_matches_plain(card, b, sq, sk, hq, hkv, d,
                                               causal, window, q_off, valid,
@@ -1055,8 +1067,8 @@ def test_flash_attention_kernel_refuses_rows_without_keys(card):
     with pytest.raises(ValueError, match="no valid key"):
         flash_attn.flash_attention(q, k, v, causal=False, window=4,
                                    q_offset=40)
-    # past the widest instantiation (160), and not the MLA pair
-    wide = _attn_inputs(card, 1, 16, 32, 4, 2, 176, torch.float32,
+    # past the widest instantiation (256), and not the MLA pair
+    wide = _attn_inputs(card, 1, 16, 32, 4, 2, 264, torch.float32,
                         torch.float32)
     with pytest.raises(ValueError, match="head dims"):
         flash_attn.flash_attention(*wide, causal=True)
@@ -1064,8 +1076,10 @@ def test_flash_attention_kernel_refuses_rows_without_keys(card):
 
 # The C6 repair: the smoke configs' head dims (8 mistral, 12 phi3, 16
 # danube / stablelm / grok) and the deepseek smoke's MLA pair (dk 40, dv
-# 32) run in the instantiation that holds them, zero-padded in the kernel.
-@pytest.mark.parametrize("dk,dv", [(8, 8), (12, 12), (16, 16), (40, 32)])
+# 32) run in the instantiation that holds them, zero-padded in the kernel;
+# heads in (160, 256) run in the 256 instantiation the same way.
+@pytest.mark.parametrize("dk,dv", [(8, 8), (12, 12), (16, 16), (40, 32),
+                                   (192, 192), (200, 176)])
 @pytest.mark.parametrize("qt,kvt", [("bf16", "f32"), ("bf16", "bf16"),
                                     ("f32", "f32")])
 def test_flash_attention_kernel_padded_head_dims(card, dk, dv, qt, kvt):
@@ -1171,7 +1185,9 @@ def test_serve_runs_on_the_card(card, arch):
                           verbose=False, device="cuda")
     assert toks.shape == (2, 4) and ids.shape == (2, 4)
     cfg = get_smoke(arch)
-    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    attention = sum(cfg.mixer_of(i) in ("attn", "swa", "lattn", "mla")
+                    for i in range(cfg.n_layers))   # mamba2: none
+    assert ops.launch_counts()["flash_attention"] == attention
     model = build_model(cfg)
     params = model.init(torch.Generator(device=card).manual_seed(3))
     tokens = torch.randint(0, cfg.vocab_size, (2, 19),
@@ -1194,6 +1210,48 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return None if tree is None else tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_recurrent_blocks_on_the_card_match_the_cpu(card, arch):
+    """Mamba2's SSD (``ssm.ssd_apply``: the chunked form with a padded last
+    chunk, then decode steps) and the RG-LRU (``rglru.rglru_apply``: the
+    log-depth scan, then decode steps) on the card against the same calls
+    on the CPU with the same float32 params and inputs. Both sides run
+    float32 (TF32 is off for matmuls by default); the card's reductions and
+    exp / softplus differ in their last bits, which the recurrence carries:
+    1e-4 of the largest |output|."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import rglru, ssm
+    import dataclasses
+    cfg = dataclasses.replace(get_smoke(arch), param_dtype="float32")
+    mamba = arch.startswith("mamba")
+    init, apply, empty = (ssm.ssd_init, ssm.ssd_apply, ssm.ssm_empty_cache) \
+        if mamba else (rglru.rglru_init, rglru.rglru_apply,
+                       rglru.rglru_empty_cache)
+    p = init(torch.Generator().manual_seed(5), cfg)
+    x = torch.randn((2, 27, cfg.d_model),
+                    generator=torch.Generator().manual_seed(6)) * 0.5
+    outs = {}
+    for dev in ("cpu", card):
+        pd = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.to(dev))
+              for k, v in p.items()}
+        cache = empty(cfg, 2, torch.float32, device=dev)
+        y, cache = apply(pd, x[:, :24].to(dev), cfg, cache=cache)
+        ys = [y]
+        for t in range(24, 27):
+            y, cache = apply(pd, x[:, t:t + 1].to(dev), cfg, cache=cache)
+            ys.append(y)
+        outs[str(dev)] = (torch.cat(ys, 1).cpu(), cache)
+    got, cg = outs[str(card)]
+    want, cw = outs["cpu"]
+    assert cg.pos == cw.pos == (32 + 3 if mamba else 27)   # C7's padded pos
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    for a, b in zip(cg[:-1], cw[:-1]):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-4 * max(1.0, float(b.abs().max()))
 
 
 def test_moe_layer_makes_no_host_sync_on_the_card(card):

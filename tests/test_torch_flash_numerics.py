@@ -52,6 +52,9 @@ CASES = [  # b, sq, sk, hq, hkv, d, causal, window, q_offset, kv_valid_len
     (1, 77, 200, 4, 1, 128, False, None, 0, 150),
     (1, 100, 300, 8, 2, 128, True, 37, 200, None),
     (3, 1, 65, 4, 1, 64, True, None, 64, None),
+    # hd 256 (recurrentgemma-9b): 16 query heads over one KV head, a window
+    # that bites
+    (1, 150, 200, 16, 1, 256, True, 64, 40, 195),
 ]
 
 
@@ -96,7 +99,7 @@ def test_bf16_exact_inputs_round_only_p(b, sq, sk, hq, hkv, d, causal,
 
 
 @pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,window,q_off,valid", [
-    CASES[0], CASES[1], CASES[3],
+    CASES[0], CASES[1], CASES[3], CASES[7],
 ])
 def test_twin_within_rounding_bound_of_jax_attend(b, sq, sk, hq, hkv, d,
                                                   causal, window, q_off,

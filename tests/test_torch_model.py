@@ -25,12 +25,14 @@ from repro_torch.models.model import (  # noqa: E402
 
 # the dense GQA archs; the MoE archs (grok-1: GQA + MoE + the logit
 # softcap; deepseek-v2-lite: MLA + MoE with shared experts and a dense first
-# layer); the others wait for ROADMAP A6
+# layer); the recurrent archs (mamba2: SSD blocks, no MLP; recurrentgemma:
+# RG-LRU + local attention, GeGLU, the logit softcap); the others wait for
+# ROADMAP A6
 DENSE = ("h2o-danube-1.8b", "phi3-mini-3.8b", "mistral-large-123b",
          "stablelm-12b")
 MOE = ("grok-1-314b", "deepseek-v2-lite-16b")
-NOT_PORTED = ("mamba2-1.3b", "internvl2-1b", "whisper-large-v3",
-              "recurrentgemma-9b")
+RECURRENT = ("mamba2-1.3b", "recurrentgemma-9b")
+NOT_PORTED = ("internvl2-1b", "whisper-large-v3")
 
 
 def _pair(arch, seed=0, **over):
@@ -66,14 +68,17 @@ def _serve_both(jm, jp, tm, tp, b, prompt, gen, seed, teacher=False):
         tl, tc = tm.decode(tp, torch.from_numpy(jt) if teacher else tt, tc)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_prefill_decode_match_jax_f32(arch):
     """float32 params: logits to 1e-4 and equal greedy tokens at every
     step. The prompt (20) is longer than danube's smoke window (16), so its
     cache rolls; phi3 and mistral use the full cache, stablelm layernorm;
     grok and deepseek route through MoE (the prefill at capacity
     ceil(20 k / E * 1.25), which drops copies, a decode step at 1), and
-    deepseek attends in latent space (MLA, dk 40 / dv 32)."""
+    deepseek attends in latent space (MLA, dk 40 / dv 32); mamba2 runs the
+    chunked SSD (20 tokens over chunks of 16: a padded last chunk) then
+    its recurrence, recurrentgemma the RG-LRU scan and its rolling local
+    attention (window 16)."""
     jm, jp, tm, tp = _pair(arch, param_dtype="float32")
     steps = 0
     for jl, tl, jt, tt in _serve_both(jm, jp, tm, tp, 2, 20, 6, seed=1):
@@ -252,3 +257,81 @@ def test_moe_and_mla_trees_carry_over_leaf_for_leaf(arch):
         assert tconfigs.get_config(arch).layer_plan() == (1, 26, 0)
     else:
         assert n_pre == 0 and "moe" in tp["groups"][0]
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_prefill_decode_match_jax_bf16(arch):
+    """bf16 params, the port fed the JAX package's tokens: 5% of the
+    largest |logit| at every step, as the dense bf16 test (bf16 rounds at
+    other places in XLA's CPU ops and torch's; the recurrences carry it)."""
+    jm, jp, tm, tp = _pair(arch, seed=8)
+    assert tp["embed"].dtype == torch.bfloat16
+    steps = 0
+    for jl, tl, _, _ in _serve_both(jm, jp, tm, tp, 2, 20, 6, seed=8,
+                                    teacher=True):
+        scale = np.abs(jl).max()
+        assert np.abs(tl - jl).max() <= 0.05 * scale
+        steps += 1
+    assert steps == 6
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_trees_carry_over_leaf_for_leaf(arch):
+    """``bridge.lm_params_from_numpy`` walks the SSD and RG-LRU trees as it
+    walks any: the JAX tree's structure, shapes, dtypes and bits, leaf for
+    leaf, equal to the port's own init in structure, shapes and dtypes. A
+    mamba2 block has no norm2 and no MLP (the ssm family); recurrentgemma's
+    pattern slots are (rglru, rglru, lattn) with two rglru tail layers."""
+    jm, jp, tm, tp = _pair(arch)
+    mine = tm.init(torch.Generator().manual_seed(0))
+    assert jax.tree.structure(jax.tree.map(lambda _: 0, jp)) == \
+        jax.tree.structure(jax.tree.map(lambda _: 0, tp)) == \
+        jax.tree.structure(jax.tree.map(lambda _: 0, mine))
+    for (path, a), b, c in zip(jax.tree_util.tree_flatten_with_path(jp)[0],
+                               jax.tree.leaves(tp), jax.tree.leaves(mine)):
+        assert tuple(a.shape) == tuple(b.shape) == tuple(c.shape), path
+        assert str(a.dtype) == str(b.dtype).removeprefix("torch.") == \
+            str(c.dtype).removeprefix("torch."), path
+        bits = b.view(torch.int16) if b.dtype == torch.bfloat16 else b
+        np.testing.assert_array_equal(
+            bits.numpy(), np.asarray(a).view(bits.numpy().dtype))
+    n_pre, n_groups, n_tail = tm.cfg.layer_plan()
+    if arch == "mamba2-1.3b":
+        assert (n_pre, n_groups, n_tail) == (0, 4, 0)
+        assert set(tp["groups"][0]) == {"norm1", "mixer"}
+        assert tp["groups"][0]["mixer"]["A_log"].shape == (4, 8)
+    else:
+        assert (n_pre, n_groups, n_tail) == (0, 1, 2)
+        assert set(tp["tail"][0]) == {"norm1", "mixer", "norm2", "mlp"}
+        assert "lam" in tp["groups"][0]["mixer"]
+        assert tp["groups"][2]["mixer"]["wq"].shape == (1, 64, 4, 16)
+        assert tconfigs.get_config(arch).layer_plan() == (0, 12, 2)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_cache_is_written_in_place(arch):
+    """The recurrent archs' caches: mamba2's SSMCache (state float32, conv
+    in the cache dtype) and recurrentgemma's RGLRUCache plus a rolling
+    window-slot KVCache, each stacked on the group axis; a prefill writes
+    the tensors the caller holds (the blocks return new state, copied into
+    the layer's slice) and returns their pos (mamba2's counts the padding:
+    ROADMAP C7)."""
+    tm = tbuild(tconfigs.get_smoke(arch))
+    tp = tm.init(torch.Generator().manual_seed(0))
+    cache = tm.init_cache(2, 30, dtype=torch.float32, device="cpu")
+    held = [t for part in ("groups", "tail") for c in cache[part]
+            for t in c[:-1]]
+    assert all(not t.any() for t in held)
+    _, out = tm.prefill(tp, torch.ones((2, 20), dtype=torch.int64), cache)
+    assert all(t.any() for t in held)
+    for part in ("groups", "tail"):
+        for c, o in zip(cache[part], out[part]):
+            assert all(a is b for a, b in zip(c[:-1], o[:-1]))
+    if arch == "mamba2-1.3b":
+        g = out["groups"][0]
+        assert g.state.shape == (4, 2, 8, 16, 16) and g.pos == 32
+        assert g.state.dtype == torch.float32
+    else:
+        assert out["groups"][2].k.shape == (1, 2, 16, 1, 16)
+        assert out["tail"][0].h.shape == (2, 64)
+        assert [c.pos for c in out["groups"]] == [20, 20, 20]

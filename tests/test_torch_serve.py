@@ -91,6 +91,21 @@ def moe_stack(request, stack):
     return je, te, jm, jp, tm, tp
 
 
+@pytest.fixture(scope="module", params=["mamba2-1.3b", "recurrentgemma-9b"])
+def recurrent_stack(request, stack):
+    """The recurrent archs' smoke models (float32 params) beside serve.py's
+    engine: mamba2 (SSD blocks, no attention) and recurrentgemma (RG-LRU
+    and local attention over a rolling cache, the logit softcap)."""
+    je, te = stack[:2]
+    jm = jbuild(dataclasses.replace(jsmoke(request.param),
+                                    param_dtype="float32"))
+    tm = tbuild(dataclasses.replace(tsmoke(request.param),
+                                    param_dtype="float32"))
+    jp, _ = jm.init(jax.random.PRNGKey(2))
+    tp = bridge.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return je, te, jm, jp, tm, tp
+
+
 def _schedulers(mode, je, te):
     stream = dict(buckets=jpipeline.bucket_ladder(B), fill_threshold=B // 2,
                   wait_limit_s=5e-3)
@@ -156,6 +171,14 @@ def test_moe_generate_matches_jax_loop(moe_stack, mode):
     """The MoE archs' smoke models through the same loop and the same
     holds as test_generate_matches_jax_loop, in each --rag mode."""
     _hold_generate(moe_stack, mode)
+
+
+@pytest.mark.parametrize("mode", ["stream", "sharded"])
+def test_recurrent_generate_matches_jax_loop(recurrent_stack, mode):
+    """The recurrent archs' smoke models through the same loop and the
+    same holds as test_generate_matches_jax_loop, on one engine and on the
+    sharded tier."""
+    _hold_generate(recurrent_stack, mode)
 
 
 @pytest.mark.parametrize("mode", ["stream", "sharded"])
@@ -242,6 +265,19 @@ def test_run_serves_the_moe_archs(arch, capsys):
                                      rag=True, device="cpu", **kw)
         assert toks.shape == (2, 4) and retrieved.shape == (2, 4)
     assert capsys.readouterr().out.count("[serve] rag:") >= 2
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_run_serves_the_recurrent_archs(arch, capsys):
+    """--arch mamba2-1.3b and --arch recurrentgemma-9b serve their smoke
+    configs with --rag: one engine, the sharded tier with tenants, and
+    --churn and --zipf, as danube does."""
+    for kw in (dict(), dict(fleet=2, sharded=True, tenants="a:2,b:1"),
+               dict(churn=0.1), dict(zipf=1.0)):
+        toks, retrieved = tserve.run(arch, requests=2, prompt_len=16, gen=4,
+                                     rag=True, device="cpu", **kw)
+        assert toks.shape == (2, 4) and retrieved.shape == (2, 4)
+    assert capsys.readouterr().out.count("[serve] rag:") >= 4
 
 
 @pytest.mark.parametrize("kw", [
