@@ -49,7 +49,10 @@ Phases (each failure exits non-zero and prints no result line):
      local attention) over GQA groups 16, 4 and 1, ragged Sq and Sk,
      q_offset, kv_valid_len < Sk, windows that bite, bf16 q over bf16 and
      float32 K/V and float32 q, and the padded heads (200, 176) and 192 in
-     the 256 instantiation;
+     the 256 instantiation; the tensor-core kernel (bf16 q) without the
+     causal mask, as whisper calls it: GQA groups 1 and 7, Sq != Sk over
+     1,500 keys (ragged tiles), Sq = 1 over float32 K/V, kv_valid_len < Sk
+     and the smoke head dims 16 and 8;
   4. build the index of a 10M x 128 clustered corpus (big-ann-benchmarks'
      10M BIGANN/SIFT subset scale, SIFT's width) on the card, 4096 clusters
      on 8 shards; run the build's k-means twice more from its seed and
@@ -206,6 +209,27 @@ Phases (each failure exits non-zero and prints no result line):
      version and scaled_dot_product_attention (the window as a boolean
      mask, GQA, the first backend that takes it); the RG-LRU stages' device
      times (conv, gates, the scan), a profiled prefill and decode step.
+ 17. serve whisper-large-v3 at full width and depth (32 encoder + 32
+     decoder layers, d 1,280, 20 heads of 64, d_ff 5,120, vocab 51,866,
+     seeded bf16 weights) the same way: 8 requests of 416 prompt tokens +
+     32 generated (Whisper's 448-token decoder context), 1,500 stub frames
+     a request (30 s of audio) drawn from a seed, a float32 cache; exactly
+     96 flash_attention launches a prefill (32 encoder, 32 decoder self, 32
+     cross) and 32 a decode step (cross only), 1,088 in the counted run,
+     all but the decoder prefill's 32 non-causal; ids held against
+     engine.search; the last decode step held against a prefill of the
+     same tokens and frames by phase 11's rule; the prefill split by CUDA
+     events into the encoder, the cross K/V projection and the decoder;
+     layer 0's encoder call and its cross calls (prefill and decode) on
+     their real inputs held as in phase 3 and timed beside their bounds,
+     the twin, the float32 plain version and SDPA's flash backend; a
+     profiled prefill and decode step.
+ 18. serve internvl2-1b at full width and depth (24 layers, d 896, 14 / 2
+     heads of 64, vocab 151,655, seeded bf16 weights) the same way: 256
+     stub patches + 1,792 prompt tokens = 2,048, 32 generated, a float32
+     cache; 24 launches a prefill, none a decode step; ids, decode vs
+     prefill (patches and tokens), the prefill's pos, layer 0's call (g 7)
+     held and timed as in 17, a profiled prefill and decode step.
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1277,6 +1301,33 @@ def phase_flash_synthetic(torch, dev):
         else:
             want = ref.flash_attention_ref(q, k, v, **kw)
             close(torch, name, label, got, want, attn_bound(torch, want))
+    # the tensor-core kernel (bf16 q) without the causal mask, as whisper's
+    # encoder and cross-attention call it: GQA groups 1 (MHA) and 7
+    # (internvl2's, a head set of one), Sq != Sk with ragged tiles (1,500
+    # keys: 23 tiles and 28), Sq = 1 over float32 K/V (a decode step's
+    # cross-attention), kv_valid_len < Sk, and the smoke head dims 16 and 8
+    # zero-padded into 64
+    cases = [  # b, sq, sk, hq, hkv, d, valid, kvt
+        (2, 300, 1500, 20, 20, 64, None, bf),
+        (2, 1500, 1500, 20, 20, 64, None, bf),
+        (2, 300, 1500, 14, 2, 64, None, f32),
+        (8, 1, 1500, 20, 20, 64, None, f32),
+        (3, 1, 200, 14, 2, 64, 150, f32),
+        (1, 129, 1500, 14, 2, 64, 1400, bf),
+        (2, 70, 150, 4, 4, 16, None, f32),
+        (2, 9, 12, 7, 1, 8, None, bf),
+    ]
+    for b, sq, sk, hq, hkv, d, valid, kvt in cases:
+        g = torch.Generator(device=dev).manual_seed(7 * sq + sk)
+        q = torch.randn((b, sq, hq, d), generator=g, device=dev).to(bf)
+        k = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(kvt)
+        v = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(kvt)
+        kw = dict(causal=False, window=None, q_offset=0, kv_valid_len=valid)
+        label = (f"B={b} Sq={sq} Sk={sk} g={hq // hkv} hd={d} causal=False "
+                 f"kv_valid_len={valid} bfloat16/{str(kvt)[6:]}")
+        got = flash_attn.flash_attention(q, k, v, **kw)
+        hold_bf16_attention(torch, label, got, q, k, v, kw,
+                            "flash_attention/noncausal")
     time_hd160(torch, dev)
 
 
@@ -2903,14 +2954,15 @@ def stage_times(torch, label, module, calls, per_prefill) -> dict:
 
 
 def serve_counted(torch, dev, eng, cfg, b, prompt, n_gen, cache_dtype,
-                  record=None):
+                  record=None, stub=None):
     """One arch at full width and depth through launch.serve.generate,
     with retrieval into the 10M engine: seeded params drawn on the card, a
     warm-up generate of 2 tokens, then the counted one (launch counts set
     to 0 just before and read just after). ``record(q, k, v, **kw)``, if
-    given, sees every flash_attention call of the counted run. Returns
-    (model, params, tokens, the Generation, launch counts, a fresh-cache
-    factory, the counted run's cache, written in place)."""
+    given, sees every flash_attention call of the counted run; ``stub``
+    (frames or patches) goes to every prefill. Returns (model, params,
+    tokens, the Generation, launch counts, a fresh-cache factory, the
+    counted run's cache, written in place)."""
     from repro_torch.core.pipeline import StreamingScheduler, bucket_ladder
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -2937,7 +2989,8 @@ def serve_counted(torch, dev, eng, cfg, b, prompt, n_gen, cache_dtype,
     def cache():
         return model.init_cache(b, prompt + n_gen, dtype=cache_dtype,
                                 device=dev)
-    serve.generate(model, params, tokens, 2, cache())     # warm-up
+    stub = stub or {}
+    serve.generate(model, params, tokens, 2, cache(), **stub)   # warm-up
     real = ops.flash_attention
 
     def recording(q, k, v, **kw):
@@ -2951,7 +3004,7 @@ def serve_counted(torch, dev, eng, cfg, b, prompt, n_gen, cache_dtype,
     ops.reset_launch_counts()
     try:
         out = serve.generate(model, params, tokens, n_gen, c,
-                             scheduler=sched, encoder=enc)
+                             scheduler=sched, encoder=enc, **stub)
     finally:
         ops.flash_attention = real
     counts = ops.launch_counts()
@@ -2981,18 +3034,22 @@ def serve_counted(torch, dev, eng, cfg, b, prompt, n_gen, cache_dtype,
 
 
 def hold_decode_vs_prefill(torch, cfg, model, params, tokens, out, cache,
-                           what: str):
+                           what: str, stub=None):
     """Phase 11's rule: the last decode step's logits (``what`` says how
     it reads the cache) against a prefill of the prompt and the generated
     tokens into an empty cache, at the last position: max |diff| within 5%
     of the largest |logit| and the same greedy token in every row, over the
-    real vocabulary. Both run every bf16 layer; the attention sums (and a
-    recurrence against its chunked form or scan) run in other orders and
-    the matmuls at other batch shapes, so bf16 roundings (2^-8 relative)
-    differ and compound over the layers. The greedy token must not change
-    in any row: it is what decode serves. Returns the prefill's cache."""
+    real vocabulary (in a row where two of the prefill's bf16 logits tie
+    exactly at its maximum, decode's token is one of them). Both run every
+    bf16 layer; the attention sums (and a recurrence against its chunked
+    form or scan) run in other orders and the matmuls at other batch
+    shapes, so bf16 roundings (2^-8 relative) differ and compound over the
+    layers. The greedy token must not change in any row: it is what decode
+    serves. ``stub`` (frames or patches)
+    goes to the prefill as it went to the served one. Returns the
+    prefill's cache."""
     full = torch.cat([tokens, out.tokens[:, :-1].long()], dim=1)
-    logits_p, cp = model.prefill(params, full, cache())
+    logits_p, cp = model.prefill(params, full, cache(), **(stub or {}))
     v = slice(0, cfg.vocab_size)
     got, want = out.logits[:, -1, v].float(), logits_p[:, -1, v].float()
     scale = float(want.abs().max())
@@ -3009,19 +3066,34 @@ def hold_decode_vs_prefill(torch, cfg, model, params, tokens, out, cache,
     if err > 0.05 * scale:
         fail(f"decode logits differ from the prefill's by {err:.4f} > 5% of "
              f"their largest magnitude {scale:.4f}")
-    if not torch.equal(arg_d, arg_p):
-        fail(f"decode's greedy token differs from the prefill's in "
-             f"{int((arg_d != arg_p).sum())} of {arg_d.numel()} rows")
+    # decode's token must reach the prefill's largest logit: where that
+    # maximum is unique, it is the prefill's argmax; where two bf16 logits
+    # tie at it exactly, neither is the greedy token more than the other
+    top = want.max(-1).values
+    tied = (want == top[:, None]).sum(-1) > 1
+    reach = want.gather(-1, arg_d[:, None])[:, 0] == top
+    if tied.any():
+        pairs = [torch.nonzero(r == t).flatten().tolist()
+                 for r, t in zip(want[tied], top[tied])]
+        log(f"{int(tied.sum())} rows of the prefill tie exactly at their "
+            f"largest logit (tokens {pairs}); decode's tokens there "
+            f"{arg_d[tied].tolist()}")
+    if not reach.all():
+        fail(f"decode's greedy token is not the prefill's in "
+             f"{int((~reach).sum())} of {arg_d.numel()} rows")
     return cp
 
 
-def profile_steps(torch, model, params, tokens, nxt, cache, cp, n_top):
-    """A profiled prefill of ``tokens`` into a fresh cache and a profiled
-    decode step of ``nxt`` over ``cp``: wall, device busy, launches, idle
-    share, the top kernels. Returns {name: (wall ms, busy ms)}."""
+def profile_steps(torch, model, params, tokens, nxt, cache, cp, n_top,
+                  stub=None):
+    """A profiled prefill of ``tokens`` (with ``stub``'s frames or patches)
+    into a fresh cache and a profiled decode step of ``nxt`` over ``cp``:
+    wall, device busy, launches, idle share, the top kernels. Returns
+    {name: (wall ms, busy ms)}."""
     out = {}
+    stub = stub or {}
     for name, step in (("prefill", lambda: model.prefill(params, tokens,
-                                                         cache())),
+                                                         cache(), **stub)),
                        ("decode step", lambda: model.decode(params, nxt,
                                                             cp))):
         wall, kern = profiled(torch, step)
@@ -3202,6 +3274,248 @@ def phase_rglru(torch, dev, eng):
                   cp, 8)
     log(f"16 done in {time.perf_counter() - t_phase:.1f} s")
     return counts["flash_attention"], row
+
+
+def sdpa_flash_row(torch, q, k, v, causal):
+    """Time one scaled_dot_product_attention call on the kernel's work by
+    its flash backend (bf16 q, K/V cast to bf16, GQA where Hq > Hkv); ms
+    or None where the backend refuses (the refusal logged)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    bf = torch.bfloat16
+    qs = q.transpose(1, 2).contiguous()
+    ks = k.to(bf).transpose(1, 2).contiguous()
+    vs = v.to(bf).transpose(1, 2).contiguous()
+
+    def call():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=causal,
+                enable_gqa=q.shape[2] != k.shape[2])
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"scaled_dot_product_attention's flash backend refused "
+            f"{tuple(q.shape)} over {tuple(k.shape)}: "
+            f"{' '.join(str(e).split())[:160]}")
+        return None
+    ms, wall = times(torch, call, 10)
+    return ms if ms is not None else wall
+
+
+def kernel_row(torch, name, label, call, n_iters=10):
+    """One flash_attention call ``(q, k, v, kw)`` recorded on the main
+    path, launched again on its own inputs: held against its twin and the
+    float32 plain version (``hold_bf16_attention``, recorded under
+    ``name``), timed beside its bound, the twin, the float32 plain version
+    and SDPA's flash backend on the same work. Returns the timing row."""
+    from repro_torch.kernels import flash_attn, ref
+    q, k, v, kw = call
+    full = (f"{label}: q {tuple(q.shape)} {str(q.dtype)[6:]}, k/v "
+            f"{tuple(k.shape)} {str(k.dtype)[6:]}, {kw}")
+    got = flash_attn.flash_attention(q, k, v, **kw)
+    hold_bf16_attention(torch, full, got, q, k, v, kw, name)
+    del got
+    row = timed_row(
+        torch, f"{name} {label} B={q.shape[0]} Sq={q.shape[1]} "
+        f"Sk={k.shape[1]} {q.shape[2]}/{k.shape[2]} heads, plain = the twin",
+        lambda: flash_attn.flash_attention(q, k, v, **kw),
+        lambda: ref.flash_attention_ref(q, k, v, operands=torch.bfloat16,
+                                        **kw), n_iters,
+        flash_bound(q, k, v, kw["causal"], kw["window"], kw["q_offset"],
+                    kw["kv_valid_len"]))
+    f32_ms, f32_wall = times(
+        torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3)
+    valid = k.shape[1] if kw["kv_valid_len"] is None else kw["kv_valid_len"]
+    if kw["q_offset"] != 0 or valid != (q.shape[1] if kw["causal"]
+                                        else k.shape[1]):
+        fail(f"the SDPA yardstick assumes a prefill from position 0 over "
+             f"its own keys, got {kw} at Sq {q.shape[1]}, Sk {k.shape[1]}")
+    row["library_ms"] = sdpa_flash_row(torch, q, k[:, :valid],
+                                       v[:, :valid], kw["causal"])
+    lib = row["library_ms"]
+    log(f"{name} {label}: kernel {row['ms']:.5f} ms, bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
+        f"{row['bound_ms'] / row['ms']:.3f} of the kernel's time), twin "
+        f"{row['plain_ms']:.5f}, float32 plain "
+        f"{f32_ms if f32_ms is not None else f32_wall:.5f}, SDPA flash "
+        f"{'refused' if lib is None else f'{lib:.5f}'} ms on the device")
+    return row
+
+
+def split_prefill(torch, model, params, tokens, cache, stub):
+    """One enc-dec prefill with CUDA events around its three parts (the
+    encoder, ``encdec.encode``; the cross K/V projection,
+    ``project_cross_kv``; the decoder's prefill, ``decode_forward``) and
+    the whole: {part: (ms, flash_attention launches)}, and the whole's."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+    names = ("encode", "project_cross_kv", "decode_forward")
+    real = {n: getattr(encdec, n) for n in names}
+    marks = {}
+
+    def timed(n):
+        def fn(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            n0 = ops.launch_counts()["flash_attention"]
+            e0.record()
+            r = real[n](*a, **kw)
+            e1.record()
+            marks[n] = (e0, e1, ops.launch_counts()["flash_attention"] - n0)
+            return r
+        return fn
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for n in names:
+        setattr(encdec, n, timed(n))
+    try:
+        a.record()
+        logits, c = model.prefill(params, tokens, cache, **stub)
+        b.record()
+    finally:
+        for n in names:
+            setattr(encdec, n, real[n])
+    b.synchronize()
+    out = {n: (e0.elapsed_time(e1), k) for n, (e0, e1, k) in marks.items()}
+    out["prefill"] = (a.elapsed_time(b),
+                      ops.launch_counts()["flash_attention"])
+    return out, logits, c
+
+
+def phase_encdec(torch, dev, eng):
+    """Phase 17: whisper-large-v3 at full width and depth (32 encoder + 32
+    decoder layers, 20 heads of 64, 1,500 frames) through
+    launch.serve.generate, with retrieval into the 10M engine. Returns (the
+    non-causal flash_attention launches of the counted run, the
+    flash_attention/noncausal timing row of layer 0's encoder call)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-large-v3")
+    b, prompt, n_gen = 8, 416, 32
+    log(f"{cfg.name}: {cfg.enc_layers} encoder + {cfg.n_layers} decoder "
+        f"layers, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+        f"{cfg.d_ff} ({cfg.mlp_kind}, {cfg.act}), {cfg.n_frames} frames; "
+        f"{b} requests of {prompt} prompt tokens + {n_gen} generated")
+    frames = torch.randn((b, cfg.n_frames, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(17))
+    stub = {"frames": frames}
+    calls, kept = [], {}
+
+    def record(q, k, v, **kw):
+        calls.append((kw["causal"], q.shape[1], k.shape[1]))
+        role = "encoder" if q.shape[1] == k.shape[1] == cfg.n_frames \
+            else "cross" if not kw["causal"] and q.shape[1] > 1 \
+            else "cross decode" if not kw["causal"] else None
+        if role is not None and role not in kept:     # layer 0's
+            kept[role] = (q.clone(), k.clone(), v.clone(), kw)
+    model, params, tokens, out, counts, cache, _ = serve_counted(
+        torch, dev, eng, cfg, b, prompt, n_gen, torch.float32, record, stub)
+    print("kernels encdec " + json.dumps(counts), flush=True)
+    per_prefill = cfg.enc_layers + 2 * cfg.n_layers
+    want = per_prefill + (n_gen - 1) * cfg.n_layers
+    noncausal = sum(not c for c, _, _ in calls)
+    log(f"the counted run's flash_attention calls: {len(calls)} ({noncausal}"
+        f" non-causal), launches {counts['flash_attention']}")
+    if counts["flash_attention"] != want or len(calls) != want:
+        fail(f"the counted run launched flash_attention "
+             f"{counts['flash_attention']} times ({len(calls)} calls), "
+             f"expected {per_prefill} in the prefill and {cfg.n_layers} in "
+             f"each of the {n_gen - 1} decode steps ({want})")
+    if noncausal != want - cfg.n_layers:
+        fail(f"{noncausal} non-causal calls, expected every call but the "
+             f"decoder prefill's {cfg.n_layers} self-attention layers")
+    cp = hold_decode_vs_prefill(
+        torch, cfg, model, params, tokens, out, cache,
+        "self-attention through attend_onepass, cross-attention through the "
+        "kernel at Sq = 1", stub)
+    del cp
+
+    # the prefill split by CUDA events, its launches, then one decode step's
+    parts, _, c2 = split_prefill(torch, model, params, tokens, cache(), stub)
+    for n, (ms, k) in parts.items():
+        log(f"prefill part {n}: {ms:.3f} ms (CUDA events), {k} "
+            f"flash_attention launches")
+    nxt = out.tokens[:, :1]
+    ops.reset_launch_counts()
+    model.decode(params, nxt, c2)
+    step = ops.launch_counts()["flash_attention"]
+    log(f"one decode step: {step} flash_attention launches")
+    if parts["prefill"][1] != per_prefill or step != cfg.n_layers or \
+            parts["encode"][1] != cfg.enc_layers:
+        fail(f"a prefill launched {parts['prefill'][1]} (expected "
+             f"{per_prefill}, {cfg.enc_layers} in the encoder), a decode "
+             f"step {step} (expected {cfg.n_layers})")
+
+    if set(kept) != {"encoder", "cross", "cross decode"}:
+        fail(f"the counted run recorded calls {sorted(kept)}")
+    row = kernel_row(torch, "flash_attention/noncausal", "encoder layer 0",
+                     kept["encoder"])
+    kernel_row(torch, "flash_attention/noncausal", "cross layer 0 prefill",
+               kept["cross"])
+    kernel_row(torch, "flash_attention/noncausal", "cross layer 0 decode",
+               kept["cross decode"], n_iters=30)
+    kept.clear()
+    profile_steps(torch, model, params, tokens, nxt, cache, c2, 8, stub)
+    log(f"17 done in {time.perf_counter() - t_phase:.1f} s")
+    return noncausal, row
+
+
+def phase_vlm(torch, dev, eng):
+    """Phase 18: internvl2-1b at full width and depth (24 layers, 14 / 2
+    heads of 64) through launch.serve.generate with 256 stub patches
+    before the prompt, with retrieval into the 10M engine. Returns the
+    launch counts of the counted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    cfg = get_config("internvl2-1b")
+    b, prompt, n_gen = 8, 2048 - cfg.n_patches, 32
+    log(f"{cfg.name}: {cfg.n_layers} layers, {cfg.n_heads} / "
+        f"{cfg.n_kv_heads} heads of {cfg.hd} (group "
+        f"{cfg.n_heads // cfg.n_kv_heads}), {cfg.n_patches} patches + "
+        f"{prompt} prompt tokens, {n_gen} generated")
+    patches = torch.randn((b, cfg.n_patches, cfg.d_model), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              18))
+    stub = {"patches": patches}
+    kept = []
+
+    def record(q, k, v, **kw):
+        if not kept:                       # layer 0 of the counted prefill
+            kept.append((q.clone(), k.clone(), v.clone(), kw))
+    model, params, tokens, out, counts, cache, _ = serve_counted(
+        torch, dev, eng, cfg, b, prompt, n_gen, torch.float32, record, stub)
+    print("kernels vlm " + json.dumps(counts), flush=True)
+    if counts["flash_attention"] != cfg.n_layers:
+        fail(f"the counted run launched flash_attention "
+             f"{counts['flash_attention']} times, expected {cfg.n_layers} "
+             f"in the prefill and none in a decode step")
+    cp = hold_decode_vs_prefill(torch, cfg, model, params, tokens, out,
+                                cache, "plain one-pass attention", stub)
+    pos = cp["groups"][0].pos
+    log(f"the prefill of the patches and {prompt + n_gen - 1} tokens leaves "
+        f"pos {pos} ({cfg.n_patches} patch slots first)")
+    if pos != cfg.n_patches + prompt + n_gen - 1:
+        fail(f"the vlm cache's pos is {pos}")
+    ops.reset_launch_counts()
+    model.prefill(params, tokens, cache(), **stub)
+    per_prefill = ops.launch_counts()["flash_attention"]
+    ops.reset_launch_counts()
+    model.decode(params, out.tokens[:, -1:], cp)
+    step = ops.launch_counts()["flash_attention"]
+    log(f"flash_attention launches: {per_prefill} a prefill, {step} a "
+        f"decode step")
+    if per_prefill != cfg.n_layers or step != 0:
+        fail(f"{per_prefill} launches a prefill, {step} a decode step")
+    kernel_row(torch, "flash_attention", "internvl2 layer 0", kept.pop())
+    profile_steps(torch, model, params, tokens, out.tokens[:, -1:], cache,
+                  cp, 8, stub)
+    log(f"18 done in {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 # the 13 CompactIndex tensors phase 12 holds bitwise against rebuild()
@@ -3527,6 +3841,8 @@ def main() -> None:
     mla_launches, mla = phase_mla(torch, dev, eng)
     phase_ssm(torch, dev, eng)
     hd256_launches, hd256 = phase_rglru(torch, dev, eng)
+    noncausal_launches, noncausal = phase_encdec(torch, dev, eng)
+    phase_vlm(torch, dev, eng)
     parts, icfg = [eng.index, eng.host], eng.icfg
     del eng
     mutable = phase_mutable(torch, parts, icfg, qt)
@@ -3576,6 +3892,16 @@ def main() -> None:
         ms=hd256["ms"], plain_ms=hd256["plain_ms"],
         bound_ms=hd256["bound_ms"], bound_by=hd256["bound_by"],
         library_ms=hd256["library_ms"]))
+    # the tensor-core route without the causal mask (whisper, phase 17):
+    # its non-causal launches in the counted run, layer 0's encoder call
+    kernels.append(dict(
+        name="flash_attention/noncausal", route="cuda",
+        source=src["flash_attention"][0], replaces=src["flash_attention"][1],
+        launches=noncausal_launches,
+        max_abs_err=ERRS["flash_attention/noncausal"], ms=noncausal["ms"],
+        plain_ms=noncausal["plain_ms"], bound_ms=noncausal["bound_ms"],
+        bound_by=noncausal["bound_by"],
+        library_ms=noncausal["library_ms"]))
     # each rank policy of beam_search and cluster_scan (phase 8b): its own
     # launches, times and errors, on the search of its own backend
     for name, row in ranked.items():

@@ -10,10 +10,13 @@ Served archs (on the card by default, every attention layer's prefill
 through the attention kernel): h2o-danube-1.8b, phi3-mini-3.8b,
 mistral-large-123b, stablelm-12b (dense GQA), grok-1-314b (GQA + MoE,
 logit softcap), deepseek-v2-lite-16b (MLA + MoE with shared experts),
-mamba2-1.3b (Mamba2's SSD blocks, no attention) and recurrentgemma-9b
+mamba2-1.3b (Mamba2's SSD blocks, no attention), recurrentgemma-9b
 (RG-LRU + local attention at head dim 256 over a rolling cache, logit
-softcap). whisper-large-v3 and internvl2-1b raise NotImplementedError
-naming ROADMAP A6.
+softcap), whisper-large-v3 (encoder-decoder: the encoder's self-attention
+and every cross-attention through the kernel without the causal mask) and
+internvl2-1b (vlm: patch embeddings before the prompt). The modality
+frontends are stubs, as in the JAX package: ``run`` draws whisper's frames
+(B, n_frames, d) and internvl2's patches (B, n_patches, d) from --seed.
 --rag wires the engine into the decode loop through a pluggable QUERY
 ENCODER: after the first decode step, its logits become a (B, dim) query
 batch that streams into the engine through
@@ -170,13 +173,15 @@ class Generation(NamedTuple):
 
 def generate(model: Model, params, tokens: torch.Tensor, gen: int, cache, *,
              scheduler=None, encoder: QueryEncoder | None = None,
-             tenant=None) -> Generation:
+             tenant=None, frames: torch.Tensor | None = None,
+             patches: torch.Tensor | None = None) -> Generation:
     """Prefill ``tokens`` (B, S) into ``cache``, then greedy-decode until
-    ``gen`` tokens are out. With a scheduler, the encoder turns the first
-    decode step's logits into queries and the scheduler serves them (the
-    RAG hook of the JAX package's loop), tagged with ``tenant`` (one name
-    a query) when given. On a card the steps are timed on the host clock,
-    each phase ended by a synchronise."""
+    ``gen`` tokens are out. ``frames`` (an enc-dec model's) and
+    ``patches`` (a vlm's) go to the prefill. With a scheduler, the encoder
+    turns the first decode step's logits into queries and the scheduler
+    serves them (the RAG hook of the JAX package's loop), tagged with
+    ``tenant`` (one name a query) when given. On a card the steps are timed
+    on the host clock, each phase ended by a synchronise."""
     if (scheduler is None) != (encoder is None):
         raise ValueError("retrieval needs both a scheduler and an encoder")
     cuda = tokens.device.type == "cuda"
@@ -187,7 +192,8 @@ def generate(model: Model, params, tokens: torch.Tensor, gen: int, cache, *,
         return time.perf_counter()
 
     t0 = now()
-    logits, cache = model.prefill(params, tokens, cache)
+    logits, cache = model.prefill(params, tokens, cache, frames=frames,
+                                  patches=patches)
     out = [torch.argmax(logits[:, -1:], -1).to(torch.int32)]
     t1 = now()
     report = queries = None
@@ -392,11 +398,18 @@ def _run(arch, requests, prompt_len, gen, rag, seed, verbose, query_encoder,
                            generator=gen_, device=device)
     cache = model.init_cache(B, prompt_len + gen, dtype=torch.float32,
                              device=device)
+    stub = {}   # the modality frontends' stub embeddings
+    if cfg.n_frames:
+        stub["frames"] = torch.randn((B, cfg.n_frames, cfg.d_model),
+                                     generator=gen_, device=device)
+    if cfg.n_patches:
+        stub["patches"] = torch.randn((B, cfg.n_patches, cfg.d_model),
+                                      generator=gen_, device=device)
     t0 = time.perf_counter()
     labels = None if specs is None or scheduler is None else \
         [specs[j % len(specs)].name for j in range(B)]
     out = generate(model, params, tokens, gen, cache, scheduler=scheduler,
-                   encoder=encoder, tenant=labels)
+                   encoder=encoder, tenant=labels, **stub)
     dt = time.perf_counter() - t0
     rep = out.report
     retrieved = None if rep is None else rep.ids
@@ -449,9 +462,8 @@ def main():
                     help="served: h2o-danube-1.8b, phi3-mini-3.8b, "
                          "mistral-large-123b, stablelm-12b, grok-1-314b, "
                          "deepseek-v2-lite-16b, mamba2-1.3b, "
-                         "recurrentgemma-9b (its smoke config); the enc-dec "
-                         "and vlm archs raise NotImplementedError (ROADMAP "
-                         "A6)")
+                         "recurrentgemma-9b, whisper-large-v3 (enc-dec), "
+                         "internvl2-1b (vlm) (its smoke config)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

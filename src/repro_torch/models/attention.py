@@ -17,10 +17,14 @@ heads over one KV head at head dim 256, a window of 2,048) prefills over
 its in-pass K/V through the kernel at hd 256 and stashes the window's tail
 in a rolling cache of ``window`` slots, which decode reads.
 
+Cross-attention (``gqa_apply``'s ``kv_override``: whisper's decoder over
+the encoder memory's cached K/V) attends through ``attend`` without the
+causal mask, in prefill and in every decode step (Sq = 1), as the JAX
+package does; whisper's encoder self-attention is non-causal too.
+
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A6):
-cross-attention (``kv_override``, enc-dec), attention softcap, and the
-backward pass (the JAX package's custom VJP; the port serves, it does not
-train).
+the attention softcap, and the backward pass (the JAX package's custom
+VJP; the port serves, it does not train).
 
 Layout: (B, S, H, d) at every public function, as in the JAX package.
 ``KVCache.pos`` is a Python int (the JAX package traces it as a scalar): a
@@ -146,12 +150,17 @@ def gqa_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     modulo window; kv slot positions are then reconstructed analytically.
     The cache's tensors are written IN PLACE (the JAX package returns new
     arrays; in place saves a copy of the cache per step) and returned in a
-    KVCache with the advanced pos."""
-    if kv_override is not None:
-        raise NotImplementedError(f"cross-attention (kv_override, enc-dec) "
-                                  f"is not ported: {_A6}")
+    KVCache with the advanced pos.
+
+    kv_override: (k, v) (B, F, Hkv, hd), the encoder memory's K/V for
+    cross-attention: q alone is projected (no RoPE), attends to every key
+    through ``attend`` (the kernel on a card, Sq = 1 in decode too), and
+    the cache is passed through unchanged."""
     b, sq, _ = x.shape
     q = _proj_heads(x, p["wq"])
+    if kv_override is not None:
+        out = attend(q, *kv_override, causal=False)
+        return _out_proj(out, p["wo"]), cache
     k = _proj_heads(x, p["wk"])
     v = _proj_heads(x, p["wv"])
     if cfg.rope_theta:
@@ -197,9 +206,13 @@ def gqa_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                 out = attend(q, cache.k, cache.v, causal=True, window=window,
                              q_offset=pos, kv_valid_len=pos + sq)
         cache = KVCache(cache.k, cache.v, pos + sq)
-    hq, hd, d = p["wo"].shape
-    out = out.reshape(b, sq, hq * hd) @ p["wo"].reshape(hq * hd, d)
-    return out, cache
+    return _out_proj(out, p["wo"]), cache
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    hq, hd, d = wo.shape
+    return out.reshape(*out.shape[:2], hq * hd) @ wo.reshape(hq * hd, d)
 
 
 def gqa_empty_cache(cfg, batch: int, max_len: int, dtype, *,

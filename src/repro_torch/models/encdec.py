@@ -1,0 +1,192 @@
+"""Encoder-decoder stack, whisper-large-v3's backbone (counterpart of
+``repro/models/encdec.py``).
+
+The conv / mel frontend is a stub, as in the JAX package: the encoder takes
+precomputed frame embeddings (B, n_frames, d_model) and adds sinusoidal
+positions. The decoder is a pre-LN transformer with causal self-attention
+(KV-cached), cross-attention to the encoder memory (its K/V projected once
+at prefill and cached) and a plain GeLU MLP; token and output embeddings
+are tied, LayerNorm, no RoPE (absolute sinusoidal positions on both sides).
+
+Every attention goes through ``attention.attend``, the kernel on a card:
+the encoder's self-attention and every cross-attention without the causal
+mask (cross-attention at Sq = 1 in each decode step too), the decoder's
+self-attention causal in a prefill; a decode step's self-attention reads
+the cache with the plain ``attend_onepass``, as in the dense archs.
+
+Both stacks keep the JAX package's params stacked on a leading layer axis
+(``enc``, ``dec``), so its tree carries over one to one; where it
+``lax.scan``s over them, the port loops over the layers. The decoder's
+self cache is one KVCache of (L, B, S, Hkv, hd) tensors, written in place
+one layer slice at a time, with one Python int pos (the JAX package's is an
+(L,) array of one value).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from . import attention as A
+from . import layers as L
+from .config import ModelConfig
+from .transformer import _layer, _slice, _vocab_mask
+
+__all__ = ["EncDecCache", "sinusoid", "encdec_init", "encode",
+           "project_cross_kv", "decode_forward", "encdec_empty_cache"]
+
+
+class EncDecCache(NamedTuple):
+    self_kv: A.KVCache      # stacked (L, B, S, Hkv, hd) self-attention cache
+    cross_k: torch.Tensor   # (L, B, F, Hkv, hd)
+    cross_v: torch.Tensor
+
+
+def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(S,) -> (S, d) float32 transformer sinusoidal embedding."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions[:, None].float() * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _mlp(gen, cfg, stack):
+    return L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.dtype, cfg.mlp_kind,
+                      stack=stack)
+
+
+def _norm(cfg, stack, dev):
+    return L.norm_init(cfg.d_model, cfg.norm, stack=stack, device=dev)
+
+
+def _enc_block_init(gen: torch.Generator, cfg: ModelConfig, stack: tuple
+                    ) -> dict:
+    dev = gen.device
+    return {"norm1": _norm(cfg, stack, dev),
+            "attn": A.gqa_init(gen, cfg, stack=stack),
+            "norm2": _norm(cfg, stack, dev),
+            "mlp": _mlp(gen, cfg, stack)}
+
+
+def _dec_block_init(gen: torch.Generator, cfg: ModelConfig, stack: tuple
+                    ) -> dict:
+    dev = gen.device
+    return {"norm1": _norm(cfg, stack, dev),
+            "self": A.gqa_init(gen, cfg, stack=stack),
+            "norm_x": _norm(cfg, stack, dev),
+            "cross": A.gqa_init(gen, cfg, stack=stack),
+            "norm2": _norm(cfg, stack, dev),
+            "mlp": _mlp(gen, cfg, stack)}
+
+
+def encdec_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """The JAX package's tree on the generator's device: embed, enc
+    (stacked on enc_layers), enc_norm, dec (stacked on n_layers),
+    dec_norm."""
+    return {"embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model,
+                                  cfg.dtype),
+            "enc": _enc_block_init(gen, cfg, (cfg.enc_layers,)),
+            "enc_norm": _norm(cfg, (), gen.device),
+            "dec": _dec_block_init(gen, cfg, (cfg.n_layers,)),
+            "dec_norm": _norm(cfg, (), gen.device)}
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _mlp_res(lp, x, cfg):
+    h = L.norm_apply(lp["norm2"], x, cfg.norm)
+    return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_kind, cfg.act)
+
+
+def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, F, d_model) stub embeddings -> encoder memory (B, F, d)
+    in cfg.dtype."""
+    f = frames.shape[1]
+    pos = torch.arange(f, device=frames.device)
+    x = frames.to(cfg.dtype) + sinusoid(pos, cfg.d_model)[None].to(cfg.dtype)
+    for li in range(cfg.enc_layers):
+        lp = _slice(params["enc"], li)
+        h = L.norm_apply(lp["norm1"], x, cfg.norm)
+        y, _ = A.gqa_apply(lp["attn"], h, cfg, positions=pos[None],
+                           causal=False)
+        x = _mlp_res(lp, x + y, cfg)
+    return L.norm_apply(params["enc_norm"], x, cfg.norm)
+
+
+def _cross_kv(lp, memory):
+    return (A._proj_heads(memory, lp["cross"]["wk"]),
+            A._proj_heads(memory, lp["cross"]["wv"]))
+
+
+def project_cross_kv(params, cfg: ModelConfig, memory: torch.Tensor):
+    """Every decoder layer's cross K/V of the encoder memory (prefill-once):
+    two (L, B, F, Hkv, hd) tensors in memory's dtype."""
+    kv = [_cross_kv(_slice(params["dec"], li), memory)
+          for li in range(cfg.n_layers)]
+    return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+
+
+def decode_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+                   cache: EncDecCache | None, *,
+                   memory: torch.Tensor | None = None,
+                   logits_slice: int | None = None):
+    """The decoder over tokens (B, S). cache=None -> the teacher-forced
+    full-sequence pass (memory required, each layer's cross K/V projected
+    from it); otherwise prefill / decode against the cache, whose self
+    cache is written in place and whose cross K/V are read as they are.
+
+    Returns (logits, new_cache)."""
+    b, sq = tokens.shape
+    dev = tokens.device
+    pos0 = 0 if cache is None else cache.self_kv.pos
+    pos = pos0 + torch.arange(sq, device=dev)
+    x = params["embed"][tokens.long()] + \
+        sinusoid(pos, cfg.d_model)[None].to(cfg.dtype)
+    positions = pos[None]
+    if cache is None and memory is None:
+        raise ValueError("the teacher-forced decoder pass needs the "
+                         "encoder memory")
+
+    for li in range(cfg.n_layers):
+        lp = _slice(params["dec"], li)
+        h = L.norm_apply(lp["norm1"], x, cfg.norm)
+        kv = None if cache is None else _layer(cache.self_kv, li)
+        y, _ = A.gqa_apply(lp["self"], h, cfg, positions=positions,
+                           cache=kv)
+        x = x + y
+        h = L.norm_apply(lp["norm_x"], x, cfg.norm)
+        cross = _cross_kv(lp, memory) if cache is None else \
+            (cache.cross_k[li], cache.cross_v[li])
+        y, _ = A.gqa_apply(lp["cross"], h, cfg, positions=positions,
+                           kv_override=cross)
+        x = _mlp_res(lp, x + y, cfg)
+
+    new_cache = None if cache is None else cache._replace(
+        self_kv=cache.self_kv._replace(pos=pos0 + sq))
+    x = L.norm_apply(params["dec_norm"], x, cfg.norm)
+    if logits_slice is not None:
+        x = x[:, -logits_slice:]
+    logits = x @ params["embed"].T
+    return logits + _vocab_mask(cfg, dev).to(logits.dtype), new_cache
+
+
+def encdec_empty_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                       device="cuda") -> EncDecCache:
+    """Zero self cache (L, B, max_len, Hkv, hd) at pos 0 and zero cross
+    K/V (L, B, n_frames, Hkv, hd), all in ``dtype``."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+
+    def z(s):
+        return torch.zeros(s, dtype=dtype, device=device)
+    cross = (*shape[:2], cfg.n_frames, *shape[3:])
+    return EncDecCache(A.KVCache(z(shape), z(shape), 0), z(cross), z(cross))

@@ -4,16 +4,20 @@
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     cache = model.init_cache(batch, max_len, dtype=torch.float32)
-    logits, cache = model.prefill(params, tokens, cache)
+    logits, cache = model.prefill(params, tokens, cache)  # frames=, patches=
     logits, cache = model.decode(params, tokens1, cache)
 
 ``init`` returns the param tree alone (the JAX package pairs it with
-sharding specs). Served: the dense GQA archs, grok-1 (GQA with MoE and the
-logit softcap), deepseek-v2-lite (MLA with MoE and shared experts), mamba2
-(SSD blocks) and recurrentgemma (RG-LRU with local attention). ``forward``
-returns the summed MoE aux loss beside the logits. Enc-dec and vlm configs
-raise NotImplementedError naming ROADMAP A6, and ``loss`` and
-``make_train_step`` come with the training slice there.
+sharding specs). Served: every arch of ``repro_torch.configs``: the dense
+GQA archs, grok-1 (GQA with MoE and the logit softcap), deepseek-v2-lite
+(MLA with MoE and shared experts), mamba2 (SSD blocks), recurrentgemma
+(RG-LRU with local attention), whisper (the encoder-decoder of
+``encdec.py``: a prefill takes frames (B, F, d), encodes them and caches
+every decoder layer's cross K/V) and internvl2 (a vlm: a prefill takes
+patches (B, Np, d), put before the prompt; ``init_cache`` adds their Np
+slots). Both modality frontends are stubs, as in the JAX package.
+``forward`` returns the summed MoE aux loss beside the logits; ``loss``
+and ``make_train_step`` come with the training slice (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Callable
 
 import torch
 
-from . import transformer
+from . import encdec, transformer
 from .config import ModelConfig
 
 __all__ = ["Model", "build_model", "make_serve_step", "make_prefill_step"]
@@ -36,10 +40,18 @@ class Model:
     # -- init ----------------------------------------------------------------
     def init(self, gen: torch.Generator) -> dict:
         """Params on the generator's device, drawn from it."""
+        if self.cfg.enc_layers:
+            return encdec.encdec_init(gen, self.cfg)
         return transformer.decoder_init(gen, self.cfg)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
-                   device="cuda") -> dict:
+                   device="cuda"):
+        """max_len counts text tokens; a vlm's patch slots are added here.
+        An enc-dec cache is an ``encdec.EncDecCache``, any other a dict."""
+        max_len = max_len + self.cfg.n_patches
+        if self.cfg.enc_layers:
+            return encdec.encdec_empty_cache(self.cfg, batch, max_len, dtype,
+                                             device=device)
         return transformer.decoder_empty_cache(self.cfg, batch, max_len,
                                                dtype, device=device)
 
@@ -48,25 +60,52 @@ class Model:
     def forward(self, params, batch: dict):
         """Full-sequence logits (the training forward, without a cache) and
         the aux loss: the MoE layers' Switch losses summed, a 0-d float32
-        tensor (0 for a model without MoE)."""
-        logits, _, aux = transformer.decoder_forward(params, self.cfg,
-                                                     batch["tokens"])
+        tensor (0 for a model without MoE). ``batch`` holds tokens (B, S),
+        and frames (enc-dec) or patches (vlm)."""
+        cfg = self.cfg
+        if cfg.enc_layers:
+            memory = encdec.encode(params, cfg, batch["frames"])
+            logits, _ = encdec.decode_forward(params, cfg, batch["tokens"],
+                                              None, memory=memory)
+            return logits, torch.zeros((), dtype=torch.float32,
+                                       device=logits.device)
+        logits, _, aux = transformer.decoder_forward(
+            params, cfg, batch["tokens"], patches=batch.get("patches"))
         return logits, aux
 
     # -- serving -------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, params, tokens: torch.Tensor, cache: dict):
+    def prefill(self, params, tokens: torch.Tensor, cache, *,
+                frames: torch.Tensor | None = None,
+                patches: torch.Tensor | None = None):
         """Fill the cache with tokens (B, S); logits (B, 1, Vpad) of the
         last position. The cache's tensors are written in place (an SSM
         cache's pos counts the chunk padding, as the JAX package's: ROADMAP
-        C7)."""
+        C7). An enc-dec model encodes ``frames`` (B, F, d) and writes every
+        decoder layer's cross K/V into the cache, cast to its dtype; a vlm
+        puts ``patches`` (B, Np, d) before the tokens."""
+        cfg = self.cfg
+        if cfg.enc_layers:
+            if frames is None:
+                raise ValueError(f"{cfg.name}: an enc-dec prefill needs the "
+                                 f"frames")
+            memory = encdec.encode(params, cfg, frames)
+            ck, cv = encdec.project_cross_kv(params, cfg, memory)
+            cache.cross_k.copy_(ck)
+            cache.cross_v.copy_(cv)
+            return encdec.decode_forward(params, cfg, tokens, cache,
+                                         logits_slice=1)
         logits, cache, _ = transformer.decoder_forward(
-            params, self.cfg, tokens, cache=cache, logits_slice=1)
+            params, cfg, tokens, cache=cache, patches=patches,
+            logits_slice=1)
         return logits, cache
 
     @torch.no_grad()
-    def decode(self, params, tokens: torch.Tensor, cache: dict):
+    def decode(self, params, tokens: torch.Tensor, cache):
         """One decode step; tokens (B, 1)."""
+        if self.cfg.enc_layers:
+            return encdec.decode_forward(params, self.cfg, tokens, cache,
+                                         logits_slice=1)
         logits, cache, _ = transformer.decoder_forward(
             params, self.cfg, tokens, cache=cache, logits_slice=1)
         return logits, cache
@@ -86,7 +125,11 @@ def make_serve_step(model: Model) -> Callable:
 
 
 def make_prefill_step(model: Model) -> Callable:
-    def prefill_step(params, cache, tokens):
-        return model.prefill(params, tokens, cache)
+    """prefill_step(params, cache, tokens, frames=None, patches=None) ->
+    (last-position logits, cache); frames reach an enc-dec model, patches a
+    vlm (``Model.prefill`` reads neither for any other)."""
+    def prefill_step(params, cache, tokens, frames=None, patches=None):
+        return model.prefill(params, tokens, cache, frames=frames,
+                             patches=patches)
 
     return prefill_step

@@ -23,8 +23,11 @@ Ported mixers: attn, swa and lattn (GQA), mla (latent attention), mamba
 ``rglru.py``); MLPs: dense, moe (top-k routed experts with capacity, plus
 shared experts; the first_k_dense prefix layers dense), whose Switch aux
 losses are summed over the layers, and none (the ssm family: the block is
-its mixer). Patches (vlm), encoder layers (enc-dec, cross-attention) and
-the attention softcap raise NotImplementedError naming ROADMAP A6.
+its mixer). A vlm config (``n_patches``) adds ``patch_proj``: a forward
+given patch embeddings (B, Np, d) prepends their projection to the token
+embeddings (internvl2's stub vision tower, as in the JAX package). The
+enc-dec stack (whisper) is ``encdec.py``; the attention softcap raises
+NotImplementedError naming ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -45,16 +48,6 @@ GQA_KINDS = ("attn", "swa", "lattn")
 MIXERS = (*GQA_KINDS, "mla", "mamba", "rglru")
 MLPS = ("dense", "moe", "none")
 _A6 = "ROADMAP A6 (the rest of the LM stack)"
-
-
-def _check(cfg: ModelConfig) -> None:
-    """Refuse what the port does not serve yet (enc-dec, vlm,
-    cross-attention), before any work is done. Every mixer and MLP of the
-    JAX package's configs is ported; ``_refuse`` names any other."""
-    if cfg.n_patches or cfg.enc_layers:
-        raise NotImplementedError(f"{cfg.name}: vlm patches and encoder "
-                                  f"layers (cross-attention) are not ported: "
-                                  f"{_A6}")
 
 
 def _refuse(mixer: str, mlp: str = "none") -> None:
@@ -150,7 +143,6 @@ def block_empty_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
 def decoder_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """The param tree on the generator's device, in the JAX package's
     structure; group params carry a leading n_groups axis."""
-    _check(cfg)
     n_pre, n_groups, n_tail = cfg.layer_plan()
     plen = len(cfg.pattern)
     p = {"embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, cfg.dtype),
@@ -158,6 +150,9 @@ def decoder_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_padded,
                                     cfg.dtype)
+    if cfg.n_patches:
+        p["patch_proj"] = L.dense_init(gen, cfg.d_model, cfg.d_model,
+                                       cfg.dtype)
     p["prefix"] = [block_init(gen, cfg, cfg.mixer_of(i), cfg.mlp_of(i))
                    for i in range(n_pre)]
     p["groups"] = [block_init(gen, cfg, cfg.mixer_of(n_pre + j),
@@ -172,7 +167,6 @@ def decoder_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def decoder_empty_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                         device="cuda") -> dict:
-    _check(cfg)
     n_pre, n_groups, n_tail = cfg.layer_plan()
     plen = len(cfg.pattern)
 
@@ -227,16 +221,25 @@ def _store(dst, new):
 
 
 def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-                    cache=None, logits_slice: int | None = None):
+                    cache=None, patches: torch.Tensor | None = None,
+                    logits_slice: int | None = None):
     """tokens (B, S) int. cache=None -> full-sequence forward (all logits).
     With cache -> prefill/decode; logits for the last `logits_slice` tokens.
+    patches (B, Np, d) (vlm configs): projected by ``patch_proj`` and put
+    before the tokens, whose positions then start at Np; a vlm forward
+    without a cache needs them.
 
     Returns (logits, new_cache, aux_loss_sum): the sum over the layers of
     the MoE layers' Switch losses, a 0-d float32 tensor (0 without MoE)."""
-    _check(cfg)
     n_pre, n_groups, n_tail = cfg.layer_plan()
     plen = len(cfg.pattern)
     x = params["embed"][tokens.long()]
+    if cfg.n_patches and patches is not None:
+        x = torch.cat([patches.to(cfg.dtype) @ params["patch_proj"], x],
+                      dim=1)
+    elif cfg.n_patches and cache is None:
+        raise ValueError(f"{cfg.name}: a vlm forward without a cache needs "
+                         f"the patch embeddings")
     seq = x.shape[1]
     pos0 = 0 if cache is None else _cache_pos(cache)
     positions = (pos0 + torch.arange(seq, device=x.device))[None, :]

@@ -221,16 +221,37 @@ def test_rolling_prefill_then_decode_matches_jax():
 
 
 def test_unported_attention_raises():
-    """The attention softcap and cross-attention still raise naming A6
-    (MLA, which raised here too, is served since slice 12:
-    tests/test_torch_mla.py)."""
-    _, tcfg = _mini_cfgs()
+    """The attention softcap still raises naming A6 (MLA, which raised
+    here too, is served since slice 12: tests/test_torch_mla.py; so is
+    cross-attention since slice 14: test_cross_attention_matches_jax)."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 8, 8, 2, 2, 8, 8))
     with pytest.raises(NotImplementedError, match="A6"):
         TA.attend(q, k, v, causal=True, softcap=5.0)
-    gen = torch.Generator().manual_seed(0)
-    p = TA.gqa_init(gen, tcfg)
-    x = torch.zeros((1, 4, 32))
-    with pytest.raises(NotImplementedError, match="A6"):
-        TA.gqa_apply(p, x, tcfg, positions=torch.arange(4)[None],
-                     kv_override=(k, v))
+
+
+@pytest.mark.parametrize("sq,f", [(4, 70), (1, 70), (9, 5)])
+def test_cross_attention_matches_jax(sq, f):
+    """gqa_apply with kv_override (the enc-dec decoder's cross-attention)
+    on the GQA block of group 2, against the JAX block with the same
+    params: q alone projected (no RoPE, though the config sets a theta),
+    every one of the F encoder keys attended without the causal mask, at
+    Sq > 1 (a prefill), Sq = 1 (a decode step) and Sq > F; the cache
+    passed through untouched."""
+    jcfg, tcfg = _mini_cfgs()
+    jp, _ = JA.gqa_init(jax.random.PRNGKey(5), jcfg)
+    tp = bridge.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    rng = np.random.default_rng(sq * 100 + f)
+    x = rng.standard_normal((2, sq, 32)).astype(np.float32)
+    k = rng.standard_normal((2, f, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((2, f, 2, 8)).astype(np.float32)
+    pos = 30 + np.arange(sq)[None]
+    cache = TA.gqa_empty_cache(tcfg, 2, 8, torch.float32, device="cpu")
+    got, out = TA.gqa_apply(tp, torch.from_numpy(x), tcfg,
+                            positions=torch.from_numpy(pos), cache=cache,
+                            kv_override=(torch.from_numpy(k),
+                                         torch.from_numpy(v)))
+    want, _ = JA.gqa_apply(jp, jnp.asarray(x), jcfg,
+                           positions=jnp.asarray(pos),
+                           kv_override=(jnp.asarray(k), jnp.asarray(v)))
+    assert out is cache and not cache.k.any()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)

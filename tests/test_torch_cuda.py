@@ -29,8 +29,10 @@ mutable index runs on the card: its link in rounds against ``link_new``,
 ``compact(subset)`` against ``rebuild()``, and a mutable tier swapped in
 mid-run. Two builds of one seed are the same bits (ROADMAP C5), a
 two-rank mesh tier (``exec="mesh"``, gloo, both ranks on one card) equals
-the in-process tier, and the recurrent blocks (Mamba2's SSD, the RG-LRU)
-equal their CPU runs.
+the in-process tier, the recurrent blocks (Mamba2's SSD, the RG-LRU)
+equal their CPU runs, and the tensor-core route (bf16 q) runs without the
+causal mask (whisper's encoder and cross-attention) at GQA groups 1 and 7,
+ragged Sq / Sk, Sq = 1 over float32 K/V and the padded head dims 8 / 16.
 """
 
 import numpy as np
@@ -1102,6 +1104,36 @@ def test_flash_attention_kernel_padded_head_dims(card, dk, dv, qt, kvt):
             _assert_attn_close(got, ref.flash_attention_ref(q, k, v, **kw))
 
 
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,valid,kvt", [
+    (2, 300, 1500, 20, 20, 64, None, "bf16"),   # whisper's cross, g 1
+    (2, 300, 300, 20, 20, 64, None, "bf16"),    # its encoder, one tile
+    (1, 1, 1500, 20, 20, 64, None, "f32"),      # a decode step's cross
+    (3, 1, 70, 14, 2, 64, None, "f32"),         # Sq = 1, g 7
+    (1, 129, 1500, 14, 2, 64, 1400, "bf16"),    # g 7, kv_valid_len < Sk
+    (2, 65, 150, 7, 1, 64, None, "f32"),        # g 7 over one KV head
+    (2, 70, 150, 4, 4, 16, None, "f32"),        # the whisper smoke's hd
+    (2, 9, 12, 7, 1, 8, None, "bf16"),          # internvl2 smoke's, F 12
+])
+def test_flash_attention_tensor_core_route_without_the_causal_mask(
+        card, b, sq, sk, hq, hkv, d, valid, kvt):
+    """bf16 q (``flash_tc_kernel``), causal=False: GQA groups 1 and 7 (a
+    head set of one), Sq != Sk with ragged tiles (1,500 keys are 23 tiles
+    and 28 keys), Sq = 1 (a decode step's cross-attention over the float32
+    cache), kv_valid_len < Sk, the smoke head dims 16 and 8 zero-padded
+    into 64: against the twin and the float32 plain version by the bf16
+    rule."""
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    q, k, v = _attn_inputs(card, b, sq, sk, hq, hkv, d, torch.bfloat16,
+                           types[kvt], seed=sq * 7 + sk)
+    kw = dict(causal=False, kv_valid_len=valid)
+    ops.reset_launch_counts()
+    got = flash_attn.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.shape == (b, sq, hq, d) and got.dtype == torch.bfloat16
+    _assert_bf16_kernel(got, q, k, v, kw)
+
+
 def _mla_inputs(card, b, sq, sk, hq, hkv, kvt, alias, seed):
     """q_all (B, Sq, Hq, 576) bf16 and a latent cache (B, Sk, Hkv, 576):
     v is the view cache[..., :512] when ``alias``, else a tensor of its
@@ -1149,25 +1181,19 @@ def test_flash_attention_float32_route_refuses_the_mla_pair(card):
         flash_attn.flash_attention(q.float(), k, v, causal=True)
 
 
-def _ported_archs():
-    from repro_torch.configs import all_arch_ids, get_smoke
-    from repro_torch.models import transformer
-    out = []
-    for arch in all_arch_ids():
-        try:
-            transformer._check(get_smoke(arch))
-        except NotImplementedError:
-            continue
-        out.append(arch)
-    return out
+def _archs():
+    from repro_torch.configs import all_arch_ids
+    return list(all_arch_ids())
 
 
-@pytest.mark.parametrize("arch", _ported_archs())
+@pytest.mark.parametrize("arch", _archs())
 def test_serve_runs_on_the_card(card, arch):
     """ROADMAP C6: ``serve.run(arch, rag=True)`` on the card for every
-    ported arch (smoke head dims 8, 12, 16 and the MLA pair 40 / 32 go
-    through the kernel, zero-padded), and the card's prefill logits held
-    against the plain route on the CPU with the same params.
+    arch, all of which the port serves (smoke head dims 8, 12, 16 and the
+    MLA pair 40 / 32 go through the kernel, zero-padded; whisper's encoder
+    and cross-attention without the causal mask, internvl2's patches before
+    the prompt), and the card's prefill logits held against the plain
+    route on the CPU with the same params and stub frames / patches.
 
     Tolerance: each layer's attention is the tensor-core kernel (bf16 q) on
     the card, within its twin's bound (one bf16 flip, 2^-7 of an element)
@@ -1187,16 +1213,27 @@ def test_serve_runs_on_the_card(card, arch):
     cfg = get_smoke(arch)
     attention = sum(cfg.mixer_of(i) in ("attn", "swa", "lattn", "mla")
                     for i in range(cfg.n_layers))   # mamba2: none
+    # whisper: its encoder's layers and a cross-attention a decoder layer
+    # in the prefill, then the cross-attention in each of the 3 decode steps
+    attention += cfg.enc_layers + cfg.n_layers * 4 if cfg.enc_layers else 0
     assert ops.launch_counts()["flash_attention"] == attention
     model = build_model(cfg)
     params = model.init(torch.Generator(device=card).manual_seed(3))
-    tokens = torch.randint(0, cfg.vocab_size, (2, 19),
-                           generator=torch.Generator().manual_seed(3))
+    cpu_gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 19), generator=cpu_gen)
+    stub = {}
+    if cfg.n_frames:
+        stub["frames"] = torch.randn((2, cfg.n_frames, cfg.d_model),
+                                     generator=cpu_gen)
+    if cfg.n_patches:
+        stub["patches"] = torch.randn((2, cfg.n_patches, cfg.d_model),
+                                      generator=cpu_gen)
     got, _ = model.prefill(params, tokens.to(card), model.init_cache(
-        2, 24, dtype=torch.float32, device=card))
+        2, 24, dtype=torch.float32, device=card),
+        **{k: t.to(card) for k, t in stub.items()})
     cpu = _to(params, "cpu")
     want, _ = model.prefill(cpu, tokens, model.init_cache(
-        2, 24, dtype=torch.float32, device="cpu"))
+        2, 24, dtype=torch.float32, device="cpu"), **stub)
     got, want = got.float().cpu(), want.float()
     real = slice(0, cfg.vocab_size)
     assert torch.isfinite(got[..., real]).all()

@@ -19,20 +19,20 @@ from repro.models.model import build_model as jbuild  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     build_model as tbuild, make_prefill_step, make_serve_step)
 
 # the dense GQA archs; the MoE archs (grok-1: GQA + MoE + the logit
 # softcap; deepseek-v2-lite: MLA + MoE with shared experts and a dense first
 # layer); the recurrent archs (mamba2: SSD blocks, no MLP; recurrentgemma:
-# RG-LRU + local attention, GeGLU, the logit softcap); the others wait for
-# ROADMAP A6
+# RG-LRU + local attention, GeGLU, the logit softcap); the modality archs
+# (internvl2: patches before the prompt; whisper: the encoder-decoder with
+# cross-attention, tests/test_torch_encdec.py for its pieces)
 DENSE = ("h2o-danube-1.8b", "phi3-mini-3.8b", "mistral-large-123b",
          "stablelm-12b")
 MOE = ("grok-1-314b", "deepseek-v2-lite-16b")
 RECURRENT = ("mamba2-1.3b", "recurrentgemma-9b")
-NOT_PORTED = ("internvl2-1b", "whisper-large-v3")
+MODAL = ("internvl2-1b", "whisper-large-v3")
 
 
 def _pair(arch, seed=0, **over):
@@ -48,16 +48,35 @@ def _logits(x):
         if not isinstance(x, torch.Tensor) else x.float().numpy()
 
 
+def _stub_inputs(cfg, b, seed):
+    """The modality frontends' stub embeddings, numpy float32: frames (B,
+    n_frames, d) for an enc-dec config, patches (B, n_patches, d) for a
+    vlm; {} for the others."""
+    rng = np.random.default_rng(seed + 100)
+    kw = {}
+    if cfg.n_frames:
+        kw["frames"] = rng.standard_normal(
+            (b, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    if cfg.n_patches:
+        kw["patches"] = rng.standard_normal(
+            (b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return kw
+
+
 def _serve_both(jm, jp, tm, tp, b, prompt, gen, seed, teacher=False):
     """Prefill + greedy decode on both packages; yields the (JAX, port)
     logits and tokens of every step. With ``teacher`` the port is fed the
-    JAX package's tokens."""
+    JAX package's tokens. Enc-dec and vlm configs prefill with the same
+    stub frames / patches on both sides."""
     toks = np.random.default_rng(seed).integers(
         0, jm.cfg.vocab_size, (b, prompt)).astype(np.int32)
+    stub = _stub_inputs(jm.cfg, b, seed)
     jc = jm.init_cache(b, prompt + gen, dtype=jnp.float32)
     tc = tm.init_cache(b, prompt + gen, dtype=torch.float32, device="cpu")
-    jl, jc = jm.prefill(jp, jnp.asarray(toks), jc)
-    tl, tc = tm.prefill(tp, torch.from_numpy(toks), tc)
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), jc,
+                        **{k: jnp.asarray(v) for k, v in stub.items()})
+    tl, tc = tm.prefill(tp, torch.from_numpy(toks), tc,
+                        **{k: torch.from_numpy(v) for k, v in stub.items()})
     for i in range(gen):
         jt = np.array(jnp.argmax(jl[:, -1:], -1).astype(jnp.int32))
         tt = torch.argmax(tl[:, -1:], -1).to(torch.int32)
@@ -68,7 +87,7 @@ def _serve_both(jm, jp, tm, tp, b, prompt, gen, seed, teacher=False):
         tl, tc = tm.decode(tp, torch.from_numpy(jt) if teacher else tt, tc)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + MODAL)
 def test_prefill_decode_match_jax_f32(arch):
     """float32 params: logits to 1e-4 and equal greedy tokens at every
     step. The prompt (20) is longer than danube's smoke window (16), so its
@@ -78,7 +97,9 @@ def test_prefill_decode_match_jax_f32(arch):
     deepseek attends in latent space (MLA, dk 40 / dv 32); mamba2 runs the
     chunked SSD (20 tokens over chunks of 16: a padded last chunk) then
     its recurrence, recurrentgemma the RG-LRU scan and its rolling local
-    attention (window 16)."""
+    attention (window 16); internvl2 prefills 8 patches before the prompt
+    (GQA group 7), whisper encodes 12 frames and cross-attends to them in
+    every step."""
     jm, jp, tm, tp = _pair(arch, param_dtype="float32")
     steps = 0
     for jl, tl, jt, tt in _serve_both(jm, jp, tm, tp, 2, 20, 6, seed=1):
@@ -159,7 +180,6 @@ def test_init_draws_the_jax_shapes_and_dtypes():
     tp = tm.init(torch.Generator().manual_seed(0))
     jl = jax.tree_util.tree_flatten_with_path(jp)[0]
     bl = bridge.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
-    assert transformer._check(tm.cfg) is None
     assert jax.tree.structure(jax.tree.map(lambda _: 0, bl)) == \
         jax.tree.structure(jax.tree.map(lambda _: 0, tp))
     for (path, a), b in zip(jl, jax.tree.leaves(tp)):
@@ -191,13 +211,23 @@ def test_configs_match_jax(arch):
     assert tconfigs.all_arch_ids() == jconfigs.all_arch_ids()
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_archs_raise(arch):
-    tm = tbuild(tconfigs.get_smoke(arch))
-    with pytest.raises(NotImplementedError, match="A6"):
-        tm.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A6"):
-        tm.init_cache(1, 4, device="cpu")
+@pytest.mark.parametrize("arch", MODAL)
+def test_modal_prefill_decode_match_jax_bf16(arch):
+    """The enc-dec and vlm archs, which the port served not at all before
+    (they raised naming ROADMAP A6), in bf16 params (the configs'
+    default), the port fed the JAX package's tokens: 5% of the largest
+    |logit| at every step, as the dense bf16 test; the same greedy tokens
+    in this seed's every step."""
+    jm, jp, tm, tp = _pair(arch, seed=9)
+    assert tp["embed"].dtype == torch.bfloat16
+    steps = 0
+    for jl, tl, jt, tt in _serve_both(jm, jp, tm, tp, 2, 20, 6, seed=9,
+                                      teacher=True):
+        scale = np.abs(jl).max()
+        assert np.abs(tl - jl).max() <= 0.05 * scale
+        np.testing.assert_array_equal(tt, jt)
+        steps += 1
+    assert steps == 6
 
 
 @pytest.mark.parametrize("arch", MOE)

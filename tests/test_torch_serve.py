@@ -106,6 +106,36 @@ def recurrent_stack(request, stack):
     return je, te, jm, jp, tm, tp
 
 
+@pytest.fixture(scope="module", params=["whisper-large-v3", "internvl2-1b"])
+def modal_stack(request, stack):
+    """The enc-dec and vlm archs' smoke models (float32 params) beside
+    serve.py's engine: whisper (the encoder over 12 stub frames,
+    cross-attention in every decoder layer) and internvl2 (8 stub patches
+    before the prompt, GQA group 7)."""
+    je, te = stack[:2]
+    jm = jbuild(dataclasses.replace(jsmoke(request.param),
+                                    param_dtype="float32"))
+    tm = tbuild(dataclasses.replace(tsmoke(request.param),
+                                    param_dtype="float32"))
+    jp, _ = jm.init(jax.random.PRNGKey(3))
+    tp = bridge.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return je, te, jm, jp, tm, tp
+
+
+def _stub(cfg, seed):
+    """launch/serve.py run()'s stub frames / patches for a batch of B,
+    drawn here from numpy ({} for an arch with neither)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.n_frames:
+        out["frames"] = rng.standard_normal(
+            (B, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    if cfg.n_patches:
+        out["patches"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
 def _schedulers(mode, je, te):
     stream = dict(buckets=jpipeline.bucket_ladder(B), fill_threshold=B // 2,
                   wait_limit_s=5e-3)
@@ -121,10 +151,12 @@ def _schedulers(mode, je, te):
             tfleet.TopologyConfig(shards=2, **stream).build(te))
 
 
-def _jax_loop(jm, jp, tokens, sched, encoder):
-    """launch/serve.py run()'s loop on the JAX package."""
+def _jax_loop(jm, jp, tokens, sched, encoder, stub=None):
+    """launch/serve.py run()'s loop on the JAX package; ``stub`` holds the
+    prefill's frames / patches."""
     cache = jm.init_cache(B, PROMPT + GEN, dtype=jnp.float32)
-    logits, cache = jm.prefill(jp, jnp.asarray(tokens), cache)
+    logits, cache = jm.prefill(jp, jnp.asarray(tokens), cache, **{
+        k: jnp.asarray(v) for k, v in (stub or {}).items()})
     out = [jnp.argmax(logits[:, -1:], -1).astype(jnp.int32)]
     q = rep = None
     for i in range(GEN - 1):
@@ -141,12 +173,14 @@ def _hold_generate(stacked, mode):
     tokens = np.random.default_rng(7).integers(
         0, jm.cfg.vocab_size, (B, PROMPT)).astype(np.int32)
     jsched, tsched = _schedulers(mode, je, te)
+    stub = _stub(jm.cfg, 8)
     jtoks, jq, jrep, jlogits = _jax_loop(
-        jm, jp, tokens, jsched, jserve.mean_pool_encoder(jp, 32))
+        jm, jp, tokens, jsched, jserve.mean_pool_encoder(jp, 32), stub)
     out = tserve.generate(
         tm, tp, torch.from_numpy(tokens), GEN,
         tm.init_cache(B, PROMPT + GEN, dtype=torch.float32, device="cpu"),
-        scheduler=tsched, encoder=tserve.mean_pool_encoder(tp, 32))
+        scheduler=tsched, encoder=tserve.mean_pool_encoder(tp, 32),
+        **{k: torch.from_numpy(v) for k, v in stub.items()})
     assert out.tokens.shape == (B, GEN) and out.tokens.dtype == torch.int32
     np.testing.assert_array_equal(out.tokens.numpy(), jtoks)
     np.testing.assert_allclose(out.queries, jq, atol=1e-5)
@@ -179,6 +213,15 @@ def test_recurrent_generate_matches_jax_loop(recurrent_stack, mode):
     same holds as test_generate_matches_jax_loop, on one engine and on the
     sharded tier."""
     _hold_generate(recurrent_stack, mode)
+
+
+@pytest.mark.parametrize("mode", ["stream", "sharded"])
+def test_modal_generate_matches_jax_loop(modal_stack, mode):
+    """The enc-dec and vlm archs' smoke models through the same loop and
+    the same holds as test_generate_matches_jax_loop, their stub frames /
+    patches handed to both prefills, on one engine and on the sharded
+    tier."""
+    _hold_generate(modal_stack, mode)
 
 
 @pytest.mark.parametrize("mode", ["stream", "sharded"])
@@ -278,6 +321,23 @@ def test_run_serves_the_recurrent_archs(arch, capsys):
                                      rag=True, device="cpu", **kw)
         assert toks.shape == (2, 4) and retrieved.shape == (2, 4)
     assert capsys.readouterr().out.count("[serve] rag:") >= 4
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-1b"])
+def test_run_serves_the_modal_archs(arch, capsys):
+    """--arch whisper-large-v3 and --arch internvl2-1b serve their smoke
+    configs with their stub frames / patches drawn from --seed, with --rag
+    (one engine, the sharded tier with tenants, --churn), and without it:
+    the same seed gives the same tokens."""
+    for kw in (dict(), dict(fleet=2, sharded=True, tenants="a:2,b:1"),
+               dict(churn=0.1)):
+        toks, retrieved = tserve.run(arch, requests=2, prompt_len=16, gen=4,
+                                     rag=True, device="cpu", **kw)
+        assert toks.shape == (2, 4) and retrieved.shape == (2, 4)
+    assert capsys.readouterr().out.count("[serve] rag:") >= 3
+    a, none = tserve.run(arch, 2, 16, 4, seed=5, verbose=False, device="cpu")
+    b, _ = tserve.run(arch, 2, 16, 4, seed=5, verbose=False, device="cpu")
+    assert none is None and np.array_equal(a, b)
 
 
 @pytest.mark.parametrize("kw", [

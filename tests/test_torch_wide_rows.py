@@ -9,8 +9,8 @@ held bitwise against one call of the plain version on the whole row. The
 kernels themselves go through the same compositions at C = 4,160 and
 O k = 4,800 in ``tests/test_torch_cuda.py``.
 
-Also here: every LM config that ``transformer._check`` ports has a head
-dim that the attention kernel takes (ROADMAP C2).
+Also here: every LM config, all of which the port serves, has a head dim
+that the attention kernel takes (ROADMAP C2).
 """
 
 import numpy as np
@@ -23,7 +23,6 @@ from repro_torch.kernels import flash_attn, ref  # noqa: E402
 from repro_torch.kernels.merge_topk import merge_tree  # noqa: E402
 from repro_torch.kernels.topk_select import (  # noqa: E402
     check_chunkable, chunked_select)
-from repro_torch.models import transformer  # noqa: E402
 
 
 def limited(fn, limit):
@@ -178,20 +177,17 @@ def test_merge_tree_refuses_k_over_half_the_limit():
 
 
 def test_ported_lm_configs_have_kernel_head_dims():
-    """Every config that the LM stack accepts as ported, at full width and
-    as its smoke, has an attention shape that the kernel takes, so its
-    prefill runs on the card: (hd, hd) for GQA, (kv_lora + rope, kv_lora)
-    for MLA (the absorbed form: q_all against the latent cache). A config
+    """Every LM config (the port serves them all since slice 14), at full
+    width and as its smoke, has an attention shape that the kernel takes,
+    so its prefill runs on the card: (hd, hd) for GQA, whisper's encoder
+    self-attention and its cross-attention, (kv_lora + rope, kv_lora) for
+    MLA (the absorbed form: q_all against the latent cache). A config
     without an attention mixer (mamba2) launches no attention and is
     skipped."""
     ported = []
     for name in all_arch_ids():
         for get in (get_config, get_smoke):
             cfg = get(name)
-            try:
-                transformer._check(cfg)
-            except NotImplementedError:
-                continue
             if not set(cfg.pattern) & {"attn", "swa", "lattn", "mla"}:
                 continue
             ported.append(cfg.name)
@@ -205,11 +201,17 @@ def test_ported_lm_configs_have_kernel_head_dims():
                     (flash_attn.MLA_DIMS if mla else (dk, dv)), cfg.name
     assert {"stablelm-12b", "deepseek-v2-lite-16b", "grok-1-314b",
             "deepseek-smoke", "recurrentgemma-9b",
-            "recurrentgemma-smoke"} <= set(ported)
+            "recurrentgemma-smoke", "whisper-large-v3", "whisper-smoke",
+            "internvl2-1b", "internvl2-smoke"} <= set(ported)
     assert "mamba2-1.3b" not in ported
     # recurrentgemma's 256 runs in its own instantiation, its smoke's 16
     # zero-padded into 64
     assert flash_attn.instantiation(256, 256) == (256, 256)
     assert flash_attn.instantiation(16, 16) == (64, 64)
     assert flash_attn.instantiation(200, 176) == (256, 256)
+    # whisper (20 / 20 heads) and internvl2 (14 / 2) at hd 64; their
+    # smokes' 16 and 8 zero-padded into 64
+    assert get_config("whisper-large-v3").hd == \
+        get_config("internvl2-1b").hd == 64
+    assert flash_attn.instantiation(8, 8) == (64, 64)
     assert get_config("deepseek-v2-lite-16b").attn_kind == "mla"
