@@ -52,7 +52,13 @@ Phases (each failure exits non-zero and prints no result line):
      the 256 instantiation; the tensor-core kernel (bf16 q) without the
      causal mask, as whisper calls it: GQA groups 1 and 7, Sq != Sk over
      1,500 keys (ragged tiles), Sq = 1 over float32 K/V, kv_valid_len < Sk
-     and the smoke head dims 16 and 8;
+     and the smoke head dims 16 and 8; and with ``return_lse`` (the
+     training path's call) on every case but the non-causal ones, the
+     output the bits of the call without it and the rows' logsumexp within
+     ``ref.flash_attention_lse_bound`` of the twin's (bf16 q) or of the
+     float32 plain version's (float32 q), on every route (the CUDA-core
+     kernel, the tensor-core kernel, the split-dv kernel at hd 256 and at
+     (576, 512), the zero-padded head dims);
   4. build the index of a 10M x 128 clustered corpus (big-ann-benchmarks'
      10M BIGANN/SIFT subset scale, SIFT's width) on the card, 4096 clusters
      on 8 shards; run the build's k-means twice more from its seed and
@@ -230,6 +236,44 @@ Phases (each failure exits non-zero and prints no result line):
      cache; 24 launches a prefill, none a decode step; ids, decode vs
      prefill (patches and tokens), the prefill's pos, layer 0's call (g 7)
      held and timed as in 17, a profiled prefill and decode step.
+ 19. train h2o-danube-1.8b at full width through launch.train.run (24
+     layers, d 2,560, vocab 32,000, accum_steps 2, remat on, bf16 params,
+     float32 AdamW moments, seeded weights): 16 steps of 8 x 2,048
+     synthetic tokens (data.synthetic.token_batch; the loss rises above the
+     first over steps 2-4, and 4 steps ended above it: 19w is the
+     witness), each step's loss, ms, tokens/s
+     and flash_attention launches (96: a forward and a recompute a layer
+     each micro-batch) logged with the peak device memory; every loss
+     finite and the last below the first; on layer 0's real q / k / v the
+     kernel's lse against its twin's and the float32 plain version's
+     (``ref.flash_attention_lse_bound``), its output with lse the bits of
+     its output without and held as in phase 11, the plain backward's (dq,
+     dk, dv) on layer 0's recorded backward inputs against autograd
+     through the float32 one-pass attention
+     (``ref.flash_attention_bwd_bound``), and the forward with and without
+     lse, the backward and SDPA's forward and forward + backward timed;
+     the last step run again under the profiler (its busy and idle
+     share, the kernels with the most device time);
+     19w. the witness of that rise, at danube's full width and depth: the
+     float32 gradients of one 128-token sequence on the card against the
+     CPU's (loss within 1e-4 relative, each leaf within 1e-3 of its
+     largest |grad|; global norms and the bf16 params' gradients logged),
+     and phase 19's first 4 steps at lr_peak 3e-5 (losses logged, the
+     last held below the first);
+     19b. checkpoint and resume at phi3's 100m preset (8 x 256 tokens a
+     step): 6 steps with a checkpoint every 3, --resume to 9 runs exactly 3
+     more; an uninterrupted 9-step run, a copy without step 9 resumed (its
+     last 3 losses held bitwise against the run's), a copy torn further (a
+     stray .tmp_ directory, a corrupted leaf in step 6) that must skip
+     step 6 and resume from step 3 (its last 6 losses held bitwise);
+     19c. the DP trainer (distributed.trainer.make_dp_train_step, int8
+     compressed gradients, error feedback) with 2 ranks sharing the card
+     over gloo at the same preset: params bitwise equal on both ranks
+     after a step, within 5e-2 of make_train_step on the whole batch; the
+     same step with float32 params, its first moments bitwise equal on
+     both ranks and within an int8 step's bound (``mu_bound``) of
+     make_train_step's; the step's and the gradient reduction's ms
+     logged.
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -500,6 +544,27 @@ def hold_bf16_attention(torch, label, got, q, k, v, kw,
           plain, bound, record=False)
 
 
+def hold_lse(torch, name, label, got, q, k, v, kw) -> None:
+    """The kernel asked for the rows' logsumexp (the training path's call)
+    on the inputs of a call that gave ``got``: its output must be the bits
+    of ``got``, its lse within ``ref.flash_attention_lse_bound`` of its
+    twin's (bf16 q) or of the float32 plain version's (float32 q), and the
+    twin's within it of the float32 plain version's."""
+    from repro_torch.kernels import flash_attn, ref
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+    if not torch.equal(out, got):
+        fail(f"{name} {label}: the output with lse differs from without")
+    bf = torch.bfloat16 if q.dtype == torch.bfloat16 else None
+    _, twin = ref.flash_attention_ref(q, k, v, operands=bf, return_lse=True,
+                                      **kw)
+    bound = ref.flash_attention_lse_bound(q, k, twin, **kw)
+    close(torch, name, f"{label} lse", lse, twin, bound, record=False)
+    if bf is not None:
+        _, plain = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        close(torch, name, f"{label} twin lse vs float32 plain", twin, plain,
+              bound, record=False)
+
+
 # ---------------------------------------------------------------------------
 # bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
@@ -572,6 +637,16 @@ def topk_bound(q, c, k):
             1e3 * max(tb, old))
 
 
+def visible_keys(sq, sk, causal, window, q_offset, kv_valid_len):
+    """(valid keys summed over the query rows, the furthest key any row
+    sees + 1) under the attention mask."""
+    valid = sk if kv_valid_len is None else kv_valid_len
+    pos = q_offset + np.arange(sq)
+    hi = np.minimum(valid, pos + 1) if causal else np.full(sq, valid)
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros(sq)
+    return int(np.maximum(hi - lo, 0).sum()), int(hi.max())
+
+
 def flash_bound(q, k, v, causal, window, q_offset, kv_valid_len):
     """Operations: a multiply-add per (query row, head, dk column, valid
     key) for QK^T and one per dv column for PV, 2 * B * Hq * (dk + dv) *
@@ -581,12 +656,8 @@ def flash_bound(q, k, v, causal, window, q_offset, kv_valid_len):
     the output (q's type, dv wide) once."""
     b, sq, hq, dk = q.shape
     sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    valid = sk if kv_valid_len is None else kv_valid_len
-    pos = q_offset + np.arange(sq)
-    hi = np.minimum(valid, pos + 1) if causal else np.full(sq, valid)
-    lo = np.maximum(0, pos - window + 1) if window else np.zeros(sq)
-    keys = int(np.maximum(hi - lo, 0).sum())
-    reach = int(hi.max())
+    keys, reach = visible_keys(sq, sk, causal, window, q_offset,
+                               kv_valid_len)
     alias = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
     kv_row = dk * k.element_size() + (0 if alias else dv * v.element_size())
     nbytes = (q.numel() * q.element_size() + b * sq * hq * dv
@@ -1267,6 +1338,7 @@ def phase_flash_synthetic(torch, dev):
         else:
             want = ref.flash_attention_ref(q, k, v, **kw)
             close(torch, name, label, got, want, attn_bound(torch, want))
+        hold_lse(torch, name, label, got, q, k, v, kw)
     # the smoke configs' head dims (ROADMAP C6: zero-padded into the 64
     # instantiation), heads in (160, 256) zero-padded into 256, and the MLA
     # pairs, dk != dv, v a view of k's rows (the latent cache) or a tensor
@@ -1301,6 +1373,7 @@ def phase_flash_synthetic(torch, dev):
         else:
             want = ref.flash_attention_ref(q, k, v, **kw)
             close(torch, name, label, got, want, attn_bound(torch, want))
+        hold_lse(torch, name, label, got, q, k, v, kw)
     # the tensor-core kernel (bf16 q) without the causal mask, as whisper's
     # encoder and cross-attention call it: GQA groups 1 (MHA) and 7
     # (internvl2's, a head set of one), Sq != Sk with ragged tiles (1,500
@@ -3804,6 +3877,593 @@ def phase_mutable(torch, parts, icfg, qt):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 19-19c: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "h2o-danube-1.8b"   # phase 19: full width, launch.train.run
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 16
+RESUME_ARCH = "phi3-mini-3.8b"   # phases 19b and 19c: the 100m preset
+RESUME_B, RESUME_S = 8, 256
+DP_RANKS = 2                     # phase 19c: ranks sharing the card (gloo)
+DP_ATOL = 5e-2                   # tests/test_distributed.py's DP tolerance
+# float32 gradients of one batch summed in other orders (on the card and
+# the CPU; the whole batch and its halves): within 1e-3 / 1e-4 of the
+# leaf's largest |grad| (tests/test_torch_cuda.py, tests/test_torch_train.py)
+CARD_GRAD_RTOL, GRAD_RTOL = 1e-3, 1e-4
+WITNESS_S = 128                  # phase 19w: one sequence, float32, 24 layers
+WITNESS_LR = 3e-5                # phase 19w: lr_peak of the 4-step run
+
+
+def bwd_bound(q, k, v, causal, window, q_offset, kv_valid_len):
+    """The attention backward's least time: its operations, 2.5x the
+    forward's (``flash_bound``: QK^T and PV, 2 B Hq (dk + dv) a valid key;
+    the backward recomputes S and P and takes dV = P^T dO, dP = dO V^T, dQ
+    = dS K and dK = dS^T Q, five products of that size where the forward
+    has two), at the bf16 tensor-core rate; its bytes, q, k, v, out and dout
+    read once, lse read once, dq, dk and dv written once."""
+    b, sq, hq, dk = q.shape
+    sk, dv = k.shape[1], v.shape[-1]
+    keys, _ = visible_keys(sq, sk, causal, window, q_offset, kv_valid_len)
+    e = q.element_size()
+    nbytes = (2 * (q.numel() + b * sq * hq * dv) * e      # q, dq; out, dout
+              + 2 * (k.numel() + v.numel()) * e            # k, v; dk, dv
+              + b * hq * sq * 4)                           # lse
+    ops = 2.5 * 2 * b * hq * (dk + dv) * keys
+    tb, to = nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def phase_train(torch, dev):
+    """Phase 19: h2o-danube-1.8b trains at full width through
+    ``launch.train.run``: TRAIN_STEPS steps of TRAIN_B x TRAIN_S tokens (two
+    micro-batches a step, its accum_steps), remat on, bf16 params, float32
+    moments. Each step is timed (CUDA synchronised on both sides), the
+    flash_attention launches of each step counted; the first forward
+    attention call (layer 0 of the first micro-batch) and the backward of
+    layer 0 in that micro-batch are recorded. Then, on those real inputs:
+    the kernel's lse against its twin's and the float32 plain version's
+    within ``ref.flash_attention_lse_bound``; its output with lse the bits
+    of its output without, held as in phase 11; the plain backward's (dq,
+    dk, dv) against autograd through the float32 one-pass attention within
+    ``ref.flash_attention_bwd_bound``; the forward timed with and without
+    lse, the backward, and SDPA's forward and forward + backward. Returns
+    (the flash_attention launches of the run, the timing row)."""
+    from repro_torch.kernels import flash_attn, ops, ref
+    from repro_torch.launch import train
+    from repro_torch.models.attention import attend_onepass
+    cfg = train.preset_config(TRAIN_ARCH, "full")
+    log(f"19 {cfg.name} training: {cfg.n_layers} layers x d_model "
+        f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd},"
+        f" window {cfg.window}, vocab {cfg.vocab_size}, accum_steps "
+        f"{cfg.accum_steps}, remat {cfg.remat}, params {cfg.param_dtype}; "
+        f"{TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_calls, bwd_calls, step_ms, step_launches, last = [], [], [], [], []
+    n_bwd = [0]
+    real_flash, real_bwd = ops.flash_attention, ref.flash_attention_bwd_ref
+    real_step = train.make_train_step
+
+    def rec_flash(q, k, v, **kw):
+        if not fwd_calls:
+            mask = {x: y for x, y in kw.items() if x != "return_lse"}
+            fwd_calls.append((q.detach().clone(), k.detach().clone(),
+                              v.detach().clone(), mask))
+        return real_flash(q, k, v, **kw)
+
+    def rec_bwd(q, k, v, out, lse, dout, **kw):
+        n_bwd[0] += 1
+        if n_bwd[0] == cfg.n_layers:   # layer 0, the first micro-batch
+            bwd_calls.append(tuple(t.detach().clone() for t in
+                                   (q, k, v, out, lse, dout)) + (kw,))
+        return real_bwd(q, k, v, out, lse, dout, **kw)
+
+    def timed_step_factory(model, ocfg):
+        fn = real_step(model, ocfg)
+
+        def step(*args):
+            if len(step_ms) == TRAIN_STEPS - 1:    # the last step's inputs
+                last[:] = [fn, args]
+            torch.cuda.synchronize()
+            before = ops.launch_counts()["flash_attention"]
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            step_launches.append(ops.launch_counts()["flash_attention"]
+                                 - before)
+            return out
+        return step
+
+    ops.flash_attention, ref.flash_attention_bwd_ref = rec_flash, rec_bwd
+    train.make_train_step = timed_step_factory
+    ops.reset_launch_counts()
+    try:
+        losses = train.run(TRAIN_ARCH, "full", TRAIN_STEPS, TRAIN_B,
+                           TRAIN_S, None, 0, False, log_every=1, device=dev)
+    finally:
+        ops.flash_attention, ref.flash_attention_bwd_ref = real_flash, \
+            real_bwd
+        train.make_train_step = real_step
+    counts = ops.launch_counts()
+    print("kernels train " + json.dumps(counts), flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (loss, ms, n) in enumerate(zip(losses, step_ms, step_launches)):
+        log(f"19 step {i}: loss {loss:.5f}, {ms:.1f} ms, "
+            f"{TRAIN_B * TRAIN_S / (ms / 1e3):.1f} tokens/s, "
+            f"{n} flash_attention launches")
+    steady = step_ms[1:]
+    log(f"19 train: steps after the first {np.mean(steady):.1f} ms mean, "
+        f"{TRAIN_B * TRAIN_S / (np.mean(steady) / 1e3):.1f} tokens/s; peak "
+        f"device memory {peak:.2f} GiB; flash_attention launches "
+        f"{counts['flash_attention']} in the run ({step_launches} by step: "
+        f"a forward and a recompute a layer a micro-batch)")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"19: losses {losses}: expected {TRAIN_STEPS} finite")
+    if not losses[-1] < losses[0]:
+        fail(f"19: the last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    want = 2 * cfg.accum_steps * cfg.n_layers
+    if step_launches != [want] * TRAIN_STEPS:
+        fail(f"19: flash_attention launches by step {step_launches}, "
+             f"expected {want} (forward and recompute, each layer of each "
+             f"micro-batch)")
+    if len(bwd_calls) != 1:
+        fail("19: layer 0's backward was not recorded")
+    # where a step's time goes: the last step again under the profiler
+    fn, args = last
+    last.clear()
+    wall, kern = profiled(torch, lambda: fn(*args))
+    del fn, args
+    busy = sum(ms for _, _, ms in kern)
+    log(f"19 profiled train step: {wall:.1f} ms wall, {busy:.1f} ms busy "
+        f"in {sum(n for _, n, _ in kern)} launches (idle "
+        f"{1 - busy / wall:.3f}); the kernels with the most device time:")
+    log_top(kern, 10)
+    torch.cuda.empty_cache()
+
+    q, k, v, kw = fwd_calls[0]
+    bf = torch.bfloat16
+    label = (f"train layer 0 q {tuple(q.shape)} {str(q.dtype)[6:]}, k/v "
+             f"{tuple(k.shape)} {str(k.dtype)[6:]}, {kw}")
+    name = "flash_attention/train"
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+    if not torch.equal(out, flash_attn.flash_attention(q, k, v, **kw)):
+        fail("19: the kernel's output with lse differs from without")
+    hold_bf16_attention(torch, label, out, q, k, v, kw, name)
+    _, twin_lse = ref.flash_attention_ref(q, k, v, operands=bf,
+                                          return_lse=True, **kw)
+    _, plain_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    lb = ref.flash_attention_lse_bound(q, k, twin_lse, **kw)
+    close(torch, name, f"{label} lse vs twin", lse, twin_lse, lb)
+    close(torch, name, f"{label} lse vs float32 plain", lse, plain_lse, lb,
+          record=False)
+    del out, lse, twin_lse, plain_lse, lb
+
+    bq, bk, bv, bo, blse, bdout, bkw = bwd_calls[0]
+    if not (torch.equal(bq, q) and torch.equal(bk, k)):
+        fail("19: layer 0's recomputed q / k differ from its forward's")
+    grads = ref.flash_attention_bwd_ref(bq, bk, bv, bo, blse, bdout, **bkw)
+    f32 = [t.float().requires_grad_() for t in (bq, bk, bv)]
+    want32 = torch.autograd.grad(attend_onepass(*f32, **bkw), f32,
+                                 bdout.float())
+    del f32
+    bounds = ref.flash_attention_bwd_bound(bq, bk, bv, bo, blse, bdout,
+                                           **bkw)
+    for gname, got, w, bnd in zip(("dq", "dk", "dv"), grads, want32, bounds):
+        close(torch, name, f"layer 0 backward {gname} vs autograd through "
+              f"the float32 one-pass attention", got.float(), w, bnd,
+              record=False)
+    del want32, bounds
+
+    row = timed_row(
+        torch, f"{name} (with lse) layer 0 B={q.shape[0]} Sq={q.shape[1]}, "
+        f"plain = the twin with lse",
+        lambda: flash_attn.flash_attention(q, k, v, return_lse=True, **kw),
+        lambda: ref.flash_attention_ref(q, k, v, operands=bf,
+                                        return_lse=True, **kw), 10,
+        flash_bound(q, k, v, kw["causal"], kw["window"], kw["q_offset"],
+                    kw["kv_valid_len"]))
+    no_lse, no_lse_wall = times(
+        torch, lambda: flash_attn.flash_attention(q, k, v, **kw), 10)
+    bwd_ms, bwd_wall = times(
+        torch, lambda: ref.flash_attention_bwd_ref(bq, bk, bv, bo, blse,
+                                                   bdout, **bkw), 3)
+    bwd_ms = bwd_ms if bwd_ms is not None else bwd_wall
+    bb = bwd_bound(bq, bk, bv, bkw["causal"], bkw["window"],
+                   bkw["q_offset"], bkw["kv_valid_len"])
+    n = q.shape[1]
+    if kw["window"] is not None and kw["window"] < n:
+        fail(f"19: the SDPA yardstick assumes the window ({kw['window']}) "
+             f"spans the sequence ({n})")
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (bq, bk, bv))
+    dos = bdout.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qs, ks, vs), dos)
+    with torch.no_grad():
+        lib, lib_wall = times(torch, sdpa, 10)
+    lib_fb, lib_fb_wall = times(torch, sdpa_fwd_bwd, 5)
+    row["library_ms"] = lib if lib is not None else lib_wall
+    lib_fb = lib_fb if lib_fb is not None else lib_fb_wall
+    row["no_lse_ms"] = no_lse if no_lse is not None else no_lse_wall
+    row["bwd"] = dict(ms=bwd_ms, bound_ms=bb[0], bound_by=bb[1],
+                      library_ms=lib_fb - row["library_ms"],
+                      launches=TRAIN_STEPS * cfg.accum_steps * cfg.n_layers)
+    log(f"19 {name} layer 0: forward with lse {row['ms']:.5f} ms, without "
+        f"{row['no_lse_ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']}); SDPA forward {row['library_ms']:.5f} ms; "
+        f"plain backward {bwd_ms:.5f} ms, bound {bb[0]:.5f} ms ({bb[1]}, "
+        f"{bb[0] / bwd_ms:.4f} of its time), {row['bwd']['launches']} calls "
+        f"in the run ({cfg.accum_steps * cfg.n_layers} a step); SDPA forward"
+        f" + backward {lib_fb:.5f} ms (backward alone "
+        f"{row['bwd']['library_ms']:.5f} ms) on the device")
+    row["steps"] = dict(losses=losses, step_ms=step_ms, peak_gib=peak,
+                        tokens_per_s=TRAIN_B * TRAIN_S
+                        / (np.mean(steady) / 1e3), busy_ms=busy,
+                        wall_ms=wall)
+    return counts["flash_attention"], row
+
+
+def phase_train_witness(torch, dev):
+    """Phase 19w: what phase 19's rise in loss comes from (with the
+    reference's recipe, lr 3e-4 after a warm-up of 2 steps, its steps 2-4
+    rise above the first). Two witnesses at h2o-danube-1.8b's full width
+    and depth. (1) The gradients: float32 params on the card and on the
+    CPU, one sequence of WITNESS_S tokens (row 0 of step 0's batch), the
+    loss within 1e-4 relative and each grad leaf within CARD_GRAD_RTOL of
+    its largest |grad| (float32 sums in other orders); the global grad
+    norms logged; the bf16 params' gradients on the card (the training's
+    types) logged beside them, not held (bf16 roundings through 24 layers
+    have no derived bound). (2) The recipe: phase 19's first 4 steps (the
+    same seeded params and batches, through ``make_train_step``) at
+    lr_peak WITNESS_LR, warm-up 1: each loss logged; held finite and the
+    last below the first."""
+    from repro_torch import tree as T
+    from repro_torch.data.synthetic import TokenDataConfig, token_batch
+    from repro_torch.launch import train
+    from repro_torch.models.model import (build_model, make_train_step,
+                                          value_and_grad)
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = train.preset_config(TRAIN_ARCH, "full")
+    dcfg = TokenDataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+    one = {k: v[:1, :WITNESS_S].contiguous()
+           for k, v in token_batch(dcfg, 0).items()}
+    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32"))
+    p32 = m32.init(torch.Generator(device=dev).manual_seed(0))
+    card_l, _, card_g = value_and_grad(
+        m32, p32, {k: v.to(dev) for k, v in one.items()})
+    card_g = [g.cpu() for g in card_g]
+    pc = T.tree_map(lambda x: x.cpu(), p32)
+    p16 = T.tree_map(lambda x: x.to(torch.bfloat16), p32)
+    del p32
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cpu_l, _, cpu_g = value_and_grad(m32, pc, one)
+    cpu_s = time.perf_counter() - t
+    del pc
+    m16 = build_model(cfg)
+    bf_l, _, bf_g = value_and_grad(
+        m16, p16, {k: v.to(dev) for k, v in one.items()})
+    bf_g = [g.float().cpu() for g in bf_g]
+    del p16
+    torch.cuda.empty_cache()
+
+    def norm(gs):
+        return math.sqrt(sum(float(g.double().square().sum()) for g in gs))
+    worst, worst_bf = 0.0, 0.0
+    for a, w, b in zip(card_g, cpu_g, bf_g):
+        scale = max(float(w.abs().max()), 1e-30)
+        worst = max(worst, float((a - w).abs().max()) / scale)
+        worst_bf = max(worst_bf, float((b - w).norm() / w.norm().clamp(
+            min=1e-30)))
+    log(f"19w gradients, {cfg.name} float32 at full width and depth, 1 x "
+        f"{WITNESS_S} tokens: loss card {float(card_l):.6f}, CPU "
+        f"{float(cpu_l):.6f} ({cpu_s:.1f} s on the CPU); global grad norm "
+        f"card {norm(card_g):.6f}, CPU {norm(cpu_g):.6f}; max over "
+        f"{len(cpu_g)} leaves of max |card - CPU| / max |CPU| {worst:.3g} "
+        f"(bound {CARD_GRAD_RTOL}); bf16 params on the card: loss "
+        f"{float(bf_l):.6f}, grad norm {norm(bf_g):.6f}, largest leaf "
+        f"|bf16 - float32| / |float32| (L2) {worst_bf:.3g}")
+    if abs(float(card_l) - float(cpu_l)) > 1e-4 * abs(float(cpu_l)) or \
+            worst > CARD_GRAD_RTOL:
+        fail(f"19w: the full-width gradients on the card differ from the "
+             f"CPU's: loss {float(card_l)} vs {float(cpu_l)}, leaf error "
+             f"{worst} of its largest |grad| (> {CARD_GRAD_RTOL})")
+    del card_g, cpu_g, bf_g
+
+    ocfg = adamw.AdamWConfig(lr_peak=WITNESS_LR, warmup_steps=1,
+                             decay_steps=4)
+    params = m16.init(torch.Generator(device=dev).manual_seed(0))
+    opt = adamw.init(ocfg, params)
+    step = make_train_step(m16, ocfg)
+    losses = []
+    for i in range(4):
+        b = {k: v.to(dev) for k, v in token_batch(dcfg, i).items()}
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+    del params, opt
+    torch.cuda.empty_cache()
+    log(f"19w recipe: phase 19's first 4 steps at lr_peak {WITNESS_LR} "
+        f"(warm-up 1): losses {losses}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"19w: at lr_peak {WITNESS_LR} the losses {losses} do not end "
+             f"below the first")
+
+
+def mu_bound(mu_ref, n):
+    """Per-element bound on |mu - mu_ref| of a DP step's first moment
+    against ``make_train_step``'s on the whole batch, after one step
+    without clipping (mu = (1 - b1) g, float32 params and moments):
+    ``compressed_psum_mean`` rounds each of a leaf's n flat shards to its
+    int8 grid, step max |shard| / 127, so half a step of the shard's
+    largest |g| plus dg = GRAD_RTOL max |g| (the float32 orders of the
+    halves and the whole), then dg again and 1e-6 of the largest |mu| for
+    the roundings; a leaf that takes the plain mean has no step. In mu's
+    units; tests/test_torch_trainer.py's ``_mu_bound``."""
+    m = mu_ref.double().abs().reshape(-1)
+    top = float(m.max())
+    dg = GRAD_RTOL * top
+    if m.numel() % n or m.numel() < n * 8:
+        half = m * 0
+    else:
+        half = (m.reshape(n, -1).amax(1) + dg).repeat_interleave(
+            m.numel() // n) / 254
+    return (half + dg + 1e-6 * top).reshape(mu_ref.shape)
+
+
+def phase_train_resume(torch, dev):
+    """Phase 19b: checkpoint and resume through ``launch.train.run`` at
+    RESUME_ARCH's 100m preset, RESUME_B x RESUME_S tokens a step: 6 steps
+    with a checkpoint every 3, then --resume to 9 (exactly 3 steps run);
+    an uninterrupted 9-step run (checkpoints 3, 6, 9); a copy of it without
+    step 9 resumed to 9 (its last 3 losses); a copy torn further (a stray
+    .tmp_ directory, one corrupted leaf in step 6), which must skip step 6
+    and load step 3 (its last 6 losses). The step is deterministic (the
+    same batches from (seed, step), the same kernels on the same inputs),
+    so the resumed losses are held bitwise against the uninterrupted
+    run's: a restore that lost or reset any of the optimizer state would
+    change them."""
+    import io
+    import shutil
+    from contextlib import redirect_stdout
+    from repro_torch.launch import train
+    root = ROOT / "build" / f"train-ckpt-{os.getpid()}"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+
+    def run(d, steps, resume):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            losses = train.run(RESUME_ARCH, "100m", steps, RESUME_B,
+                               RESUME_S, str(root / d), 3, resume,
+                               log_every=100, device=dev)
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"19b {d}: {line}")
+        return losses, text
+
+    try:
+        first, _ = run("a", 6, False)
+        more, text = run("a", 9, True)
+        if len(first) != 6 or len(more) != 3 or \
+                "resumed from step 6" not in text:
+            fail(f"19b: 6 steps then a resume to 9 ran {len(first)} and "
+                 f"{len(more)} steps")
+        whole, _ = run("b", 9, False)
+        shutil.copytree(root / "b", root / "c")
+        shutil.rmtree(root / "c" / "step_000000009")
+        after6, text = run("c", 9, True)
+        shutil.copytree(root / "b", root / "d")
+        shutil.rmtree(root / "d" / "step_000000009")
+        (root / "d" / ".tmp_000000009").mkdir()
+        leaf = root / "d" / "step_000000006" / "arr_00003.npy"
+        raw = bytearray(leaf.read_bytes())
+        raw[-1] ^= 0xFF
+        leaf.write_bytes(bytes(raw))
+        names = sorted(x.name for x in (root / "d").iterdir())
+        log(f"19b torn directory: {names}, step 6's arr_00003.npy "
+            f"corrupted")
+        after3, torn = run("d", 9, True)
+        if "step 6 unusable" not in torn or "resumed from step 3" not in torn:
+            fail("19b: the torn step 6 was not skipped for step 3")
+        checks = {"resume at 6": (after6, whole[6:]),
+                  "torn, resume at 3": (after3, whole[3:])}
+        for label, (got, want) in checks.items():
+            log(f"19b {label}: losses {got} vs uninterrupted {want}")
+            if got != want:
+                fail(f"19b {label}: resumed losses {got} are not the "
+                     f"uninterrupted run's {want} bit for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"19b done in {time.perf_counter() - t_phase:.1f} s: 6 + 3 steps, "
+        f"9 uninterrupted, resumed at 6 and (torn) at 3")
+
+
+def dp_rank(rank: int, world: int, init: str, device: str = "cuda") -> dict:
+    """One rank of phase 19c's DP step (this process is rank 0; the others
+    are spawned with ``dp_follower``): the group over gloo, RESUME_ARCH's
+    100m params seeded alike on every rank, one compressed
+    ``make_dp_train_step`` step on the global batch of step 0, the params'
+    SHA-256 gathered from every rank; the same step with the preset's
+    params in float32, its params' and first moments' SHA-256 gathered;
+    then the gradient reduction alone timed (compressed and plain, 2 turns
+    each, every leaf of the params' shapes). Returns the step's params,
+    loss, ms, the digests, the float32 step's first moments and the
+    reduction ms."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.data.synthetic import TokenDataConfig, token_batch
+    from repro_torch.distributed import compress, trainer
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    dev = lmesh.init_shard_group(rank, world, init_method=init,
+                                 device=device, timeout_s=MESH_TIMEOUT_S)
+    try:
+        cfg = train.preset_config(RESUME_ARCH, "100m")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        ocfg = adamw.AdamWConfig(warmup_steps=1, decay_steps=4,
+                                 clip_norm=0.0)
+        batch = {k: v.to(dev) for k, v in token_batch(TokenDataConfig(
+            cfg.vocab_size, RESUME_S, RESUME_B, seed=0), 0).items()}
+        step = trainer.make_dp_train_step(model, ocfg)
+        opt, fb = adamw.init(ocfg, params), compress.init_feedback(params)
+        step(params, opt, fb, batch)                  # warm-up
+        sync = torch.cuda.synchronize if dev.type == "cuda" else \
+            (lambda: None)
+        sync()
+        t = time.perf_counter()
+        p2, _, _, m = step(params, opt, fb, batch)
+        sync()
+        step_ms = 1e3 * (time.perf_counter() - t)
+
+        def digest(tree):
+            h = hashlib.sha256()
+            for leaf in T.leaves(tree):
+                h.update(leaf.detach().cpu().contiguous().reshape(-1)
+                         .view(torch.uint8).numpy().tobytes())
+            out = [None] * world
+            dist.all_gather_object(out, h.hexdigest())
+            return out
+        digests = digest(p2)
+        m32 = build_model(dataclasses.replace(cfg, param_dtype="float32"))
+        p32 = m32.init(torch.Generator(device=dev).manual_seed(0))
+        q32, o32, _, _ = trainer.make_dp_train_step(m32, ocfg)(
+            p32, adamw.init(ocfg, p32), compress.init_feedback(p32), batch)
+        digests32 = digest((q32, o32.mu))
+        del p32, q32
+        g = torch.Generator(device=dev).manual_seed(rank)
+        like = T.tree_map(lambda p: torch.randn(p.shape, generator=g,
+                                                device=dev), params)
+        reduce_ms = {}
+        for kind in ("compressed", "plain", "plain", "compressed"):
+            sync()
+            t = time.perf_counter()
+            T.tree_map(compress.compressed_psum_mean if kind == "compressed"
+                       else compress.psum_mean, like)
+            sync()
+            reduce_ms.setdefault(kind, []).append(
+                1e3 * (time.perf_counter() - t))
+        return dict(params=p2, loss=float(m["loss"]), step_ms=step_ms,
+                    digests=digests, digests32=digests32, mu32=o32.mu,
+                    reduce_ms=reduce_ms,
+                    n_leaves=len(T.leaves(params)),
+                    n_params=sum(p.numel() for p in T.leaves(params)))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_follower(rank: int, world: int, init: str, device: str) -> None:
+    """A spawned rank of phase 19c: ``dp_rank``, its results dropped (an
+    exception ends the process with a non-zero exit)."""
+    dp_rank(rank, world, init, device)
+
+
+def phase_train_dp(torch, dev):
+    """Phase 19c: the DP trainer on the card, DP_RANKS ranks sharing it
+    over gloo (the rule of ``launch.mesh.collective_backend``: one card for
+    two ranks), through a file store under build/ (phase 13's
+    arrangement). Holds the params bitwise equal on every rank after the
+    step, and within DP_ATOL of ``make_train_step`` on the whole batch in
+    this process (the reference test's tolerance: int8-compressed
+    gradients). A first AdamW step moves each param by about lr whatever
+    its gradient, so the params cannot show a wrong reduction; the first
+    moment (1 - b1) g can: the float32 step's moments, bitwise equal on
+    every rank, are held within ``mu_bound`` of ``make_train_step``'s.
+    Logs the step's ms and the reduction's."""
+    import torch.multiprocessing as mp
+    from repro_torch import tree as T
+    from repro_torch.data.synthetic import TokenDataConfig, token_batch
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model, make_train_step
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    store = ROOT / "build" / f"dp-store-{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    if store.exists():
+        store.unlink()
+    init = f"file://{store}"
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dp_follower,
+                         args=(r, DP_RANKS, init, dev.type))
+             for r in range(1, DP_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        res = dp_rank(0, DP_RANKS, init, dev.type)
+    finally:
+        for p in procs:
+            p.join(120)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        if store.exists():
+            store.unlink()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * len(procs):
+        fail(f"19c: DP ranks exited with {codes}")
+    if len(set(res["digests"])) != 1 or len(set(res["digests32"])) != 1:
+        fail(f"19c: the ranks' params or moments differ after the step: "
+             f"{res['digests']}, float32 {res['digests32']}")
+    cfg = train.preset_config(RESUME_ARCH, "100m")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    ocfg = adamw.AdamWConfig(warmup_steps=1, decay_steps=4, clip_norm=0.0)
+    batch = {k: v.to(dev) for k, v in token_batch(TokenDataConfig(
+        cfg.vocab_size, RESUME_S, RESUME_B, seed=0), 0).items()}
+    p_ref, _, m_ref = make_train_step(model, ocfg)(
+        params, adamw.init(ocfg, params), batch)
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(T.leaves(p_ref), T.leaves(res["params"])))
+    del p_ref
+    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32"))
+    p32 = m32.init(torch.Generator(device=dev).manual_seed(0))
+    _, o32, _ = make_train_step(m32, ocfg)(p32, adamw.init(ocfg, p32),
+                                           batch)
+    mu_excess, mu_ratio = -math.inf, 0.0
+    for got, want in zip(T.leaves(res["mu32"]), T.leaves(o32.mu)):
+        err = (got.double() - want.double()).abs()
+        bound = mu_bound(want, DP_RANKS)
+        mu_excess = max(mu_excess, float((err - bound).max()))
+        mu_ratio = max(mu_ratio, float((err / bound).max()))
+    del p32, o32
+    log(f"19c {DP_RANKS} ranks ({res['n_params'] / 1e6:.1f} M params in "
+        f"{res['n_leaves']} leaves): params equal on every rank (SHA-256 "
+        f"{res['digests'][0][:16]}); loss {res['loss']:.5f} vs "
+        f"{float(m_ref['loss']):.5f} on the whole batch; max |param - "
+        f"make_train_step's| {diff:.3g} (tolerance {DP_ATOL}); float32 "
+        f"step: moments equal on every rank, |mu - make_train_step's| at "
+        f"most {mu_ratio:.3g} of its element's bound; DP step "
+        f"{res['step_ms']:.1f} ms; the gradient reduction of every leaf "
+        f"(ms, turns): compressed {res['reduce_ms']['compressed']}, plain "
+        f"all_reduce {res['reduce_ms']['plain']}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if abs(res["loss"] - float(m_ref["loss"])) > 1e-3 or diff > DP_ATOL \
+            or mu_excess > 0:
+        fail(f"19c: the DP step differs from make_train_step: loss "
+             f"{res['loss']} vs {float(m_ref['loss'])}, params by {diff}, "
+             f"first moments by up to {mu_ratio} of their bound")
+    return res
+
+
 def main() -> None:
     try:
         import torch
@@ -3846,6 +4506,10 @@ def main() -> None:
     parts, icfg = [eng.index, eng.host], eng.icfg
     del eng
     mutable = phase_mutable(torch, parts, icfg, qt)
+    train_launches, train_row = phase_train(torch, dev)
+    phase_train_witness(torch, dev)
+    phase_train_resume(torch, dev)
+    phase_train_dp(torch, dev)
 
     src = {"binary_ip_rank": ("src/repro_torch/kernels/csrc/binary_ip.cu",
                               "src/repro/kernels/binary_ip.py:79"),
@@ -3902,6 +4566,15 @@ def main() -> None:
         plain_ms=noncausal["plain_ms"], bound_ms=noncausal["bound_ms"],
         bound_by=noncausal["bound_by"],
         library_ms=noncausal["library_ms"]))
+    # the training path (phase 19): the kernel with its lse output, its
+    # launches in the training run (a forward and a recompute a layer)
+    kernels.append(dict(
+        name="flash_attention/train", route="cuda",
+        source=src["flash_attention"][0], replaces=src["flash_attention"][1],
+        launches=train_launches, max_abs_err=ERRS["flash_attention/train"],
+        ms=train_row["ms"], plain_ms=train_row["plain_ms"],
+        bound_ms=train_row["bound_ms"], bound_by=train_row["bound_by"],
+        library_ms=train_row["library_ms"]))
     # each rank policy of beam_search and cluster_scan (phase 8b): its own
     # launches, times and errors, on the search of its own backend
     for name, row in ranked.items():

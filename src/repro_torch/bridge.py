@@ -16,7 +16,8 @@ from .core.compact_index import CompactIndex, HostStore
 from .core.placement import Placement
 
 __all__ = ["compact_index_from_numpy", "host_store_from_numpy",
-           "placement_from_numpy", "lm_params_from_numpy"]
+           "placement_from_numpy", "lm_params_from_numpy",
+           "adamw_state_from_numpy"]
 
 
 def compact_index_from_numpy(fields: dict, device="cuda") -> CompactIndex:
@@ -73,3 +74,14 @@ def lm_params_from_numpy(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return [lm_params_from_numpy(v, device) for v in tree]
     return _tensor(tree, device)
+
+
+def adamw_state_from_numpy(step, mu, nu, device="cuda"):
+    """The JAX package's ``AdamWState`` (``jax.tree.map(np.asarray,
+    state)``: its step, mu and nu) as the port's ``optim.adamw.AdamWState``:
+    the step a 0-d int32 tensor, the moments leaf for leaf in their
+    types."""
+    from .optim.adamw import AdamWState
+    return AdamWState(
+        torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        lm_params_from_numpy(mu, device), lm_params_from_numpy(nu, device))

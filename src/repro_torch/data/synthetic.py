@@ -1,5 +1,5 @@
-"""Deterministic synthetic ANNS data (counterpart of
-``repro/data/synthetic.py``).
+"""Deterministic synthetic data (counterpart of ``repro/data/synthetic.py``):
+the ANNS corpora and traffic, and the LM token batches.
 
 ``clustered_vectors``, ``query_set``, ``zipf_query_set`` and
 ``drifting_hotspot_stream`` are numpy and draw the same bits as the JAX
@@ -7,15 +7,52 @@ package's generators from the same seed, so both packages index the same
 corpus and serve the same traffic. ``ground_truth`` takes numpy arrays (the numpy path) or torch
 tensors (the torch path, which runs wherever the tensors lie — on the card
 for a corpus too large for the host's patience).
+
+``token_batch`` draws the JAX package's token distribution (Zipf unigrams
+by inverse CDF, a = 1.2, clipped to the vocabulary; with probability 0.2
+the token 8 back) from a ``torch.Generator`` seeded from (seed, step). The
+JAX package draws from ``jax.random``, which torch cannot repeat, so the two
+agree in distribution, not token for token.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-__all__ = ["clustered_vectors", "query_set", "zipf_query_set",
+__all__ = ["TokenDataConfig", "token_batch", "clustered_vectors", "query_set", "zipf_query_set",
            "drifting_hotspot_stream", "ground_truth"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenDataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    zipf_a: float = 1.2
+
+
+def token_batch(cfg: TokenDataConfig, step: int) -> dict:
+    """One global batch, {'tokens': (B, S) int32, 'labels': (B, S) int32}
+    on the CPU (labels are the tokens shifted by one), fully determined by
+    (cfg.seed, step): any host regenerates any step's batch."""
+    gen = torch.Generator().manual_seed(
+        (int(cfg.seed) * 1_000_003 + int(step)) % (1 << 63))
+    shape = (cfg.global_batch, cfg.seq_len + 1)
+    u = torch.rand(shape, generator=gen, dtype=torch.float32) * (
+        1.0 - 1e-6) + 1e-6
+    # Zipf by inverse CDF: rank ~ u^(-1/(a-1)), clipped (in float, so a
+    # huge draw saturates at the last id instead of wrapping)
+    r = torch.clamp(u ** (-1.0 / (cfg.zipf_a - 1.0)), max=cfg.vocab_size)
+    rank = torch.clamp(r.to(torch.int64) - 1, 0, cfg.vocab_size - 1)
+    # copy motifs: with p = 0.2 repeat the token 8 positions back
+    rep = torch.rand(shape, generator=gen) < 0.2
+    seq = torch.where(rep, torch.roll(rank, 8, dims=1), rank).to(torch.int32)
+    return {"tokens": seq[:, :-1].contiguous(),
+            "labels": seq[:, 1:].contiguous()}
 
 
 def clustered_vectors(seed: int, n: int, d: int, n_clusters: int,

@@ -8,7 +8,10 @@
 // the masks of the function it replaces: key j is valid for the query at
 // absolute position p = q_offset + i when j < kv_valid_len, j <= p if
 // causal, and p - j < window if window > 0. GQA reads KV head h / g for
-// query head h; K and V are not repeated. The output is written in q's type.
+// query head h; K and V are not repeated. The output is written in q's type
+// and, when asked for (the training path's residual), each row's
+// logsumexp of its scaled, masked scores in float32 (`store_lse`), from
+// the running max and denominator every route holds anyway.
 //
 // Two routes, chosen by q's type in flash_attn_launch (not a fallback: a
 // launch of either route that fails returns its error):
@@ -128,7 +131,20 @@ struct Args {
   int q_vec, kv_vec;  // rows start on 16-byte boundaries
   int dk, dv;         // the real head dims (the instantiation may be wider)
   int v_alias;        // v is the first dv columns of k's own rows
+  float* lse;         // (B, Hq, Sq) row logsumexp of the scaled, masked
+                      // scores, natural log; null when not asked for
 };
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// the row logsumexp at (batch b, head h, position p): m and the
+// denominator l of the online softmax, m in the units of the exponent
+// (natural for the CUDA-core kernel, log2 for the tensor-core kernels)
+__device__ __forceinline__ void store_lse(const Args& a, int b, int h, int p,
+                                          float m, float den, bool log2) {
+  a.lse[(static_cast<long long>(b) * a.hq + h) * a.sq + p] =
+      log2 ? __fmul_rn(m + log2f(den), kLn2) : m + logf(den);
+}
 
 // ---------------------------------------------------------------------------
 // float32 q: CUDA cores
@@ -283,6 +299,7 @@ __global__ void __launch_bounds__(kThreads)
     const int r = q0 + ty + 16 * i;
     if (r >= a.sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (a.lse != nullptr && tx == 0) store_lse(a, b, h, r, m[i], den, false);
     TQ* orow = o + ((static_cast<long long>(b) * a.sq + r) * a.hq + h) * a.dv;
 #pragma unroll
     for (int n = 0; n < kCols; ++n)
@@ -1072,6 +1089,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int p = q0 + r % rows_h;
     if (p >= a.sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (a.lse != nullptr && (lane & 3) == 0)
+      store_lse(a, b, h0 + r / rows_h, p, m[i], den, true);
     __nv_bfloat16* orow =
         o + ((static_cast<long long>(b) * a.sq + p) * a.hq + h0 + r / rows_h) *
                 a.dv +
@@ -1403,6 +1422,16 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
     if ((lane & 3) == 0) {
       sL[r_in] = l[0];
       sL[r_in + 8] = l[1];
+      // warpgroup 0 holds the softmax's running max
+      if (a.lse != nullptr) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = r_in + 8 * i;
+          if (q0 + r % rows_h < a.sq)
+            store_lse(a, b, h0 + r / rows_h, q0 + r % rows_h, m[i],
+                      fmaxf(l[i], 1e-30f), true);
+        }
+      }
     }
   }
   __syncthreads();
@@ -1534,9 +1563,12 @@ int padded_dim(int dk, int dv) {
 // that holds both (256: the split-dv kernel for bf16 q), its extra columns
 // staged as zeros (through the element loads) and never written out.
 // Anything else returns -1 without a launch.
+// lse: null, or a float32 (B, Hq, Sq) tensor that takes each row's
+// logsumexp of its scaled, masked scores (natural log).
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attn_launch(
-    const void* q, const void* k, const void* v, void* o, int q_bf16,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int q_bf16,
     int kv_bf16, int b, int sq, int sk, int hq, int hkv, int dk, int dv,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
@@ -1556,7 +1588,7 @@ extern "C" int flash_attn_launch(
                exact && rows_aligned(q, q_sb, q_ss, q_sh, q_bf16 ? 2 : 4),
                exact && rows_aligned(k, k_sb, k_ss, k_sh, kv_elem) &&
                    rows_aligned(v, v_sb, v_ss, v_sh, kv_elem),
-               dk, dv, alias};
+               dk, dv, alias, static_cast<float*>(lse)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mla)
     return kv_bf16

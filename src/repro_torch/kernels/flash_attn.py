@@ -28,6 +28,12 @@ when v is a view of k's rows; the float32 route refuses it. On the
 tensor-core route, 256 (recurrentgemma-9b's local attention, 16 query heads
 over one KV head) runs in the same split-dv kernel as the MLA pair.
 
+With ``return_lse`` every route also writes each row's logsumexp of its
+scaled, masked scores, float32 (B, Hq, Sq), from the running max and
+denominator it already holds (the training path's residual for the
+backward, ``ref.flash_attention_bwd_ref``); without it the kernels write
+nothing more.
+
 Neither route falls back on the other: a launch that fails raises.
 """
 
@@ -51,7 +57,7 @@ launches = 0   # kernel launches since the count was last set to 0
 
 def _fn():
     fn = _build.library("flash_attn").flash_attn_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -105,9 +111,11 @@ def check_args(q, k, v, *, causal: bool, window: int | None, q_offset: int,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int | None = None,
-                    q_offset: int = 0, kv_valid_len: int | None = None
-                    ) -> torch.Tensor:
+                    q_offset: int = 0, kv_valid_len: int | None = None,
+                    return_lse: bool = False):
     """(B, Sq, Hq, dv) in q.dtype; semantics of ``ref.flash_attention_ref``.
+    With ``return_lse``, (out, lse): lse (B, Hq, Sq) float32, each row's
+    logsumexp of its scaled, masked scores.
 
     q bf16 or f32, k and v of one type (bf16 or f32), each read in its own
     type: nothing is cast. Head dims as ``instantiation`` takes them
@@ -141,11 +149,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention kernel needs the head dim of q, k "
                          "and v contiguous")
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if b == 0 or sq == 0 or hq == 0:
-        return out
+        return (out, lse) if return_lse else out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    None if lse is None else lse.data_ptr(),
                     _TYPES[q.dtype], _TYPES[k.dtype], b, sq, sk, hq, hkv,
                     dk, dv,
                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -154,7 +165,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

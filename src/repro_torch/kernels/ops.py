@@ -112,19 +112,17 @@ def merge_topk(part_ids, part_dists, *, k: int, run: int | None = None):
 
 
 def flash_attention(q, k, v, *, causal: bool, window: int | None = None,
-                    q_offset: int = 0, kv_valid_len: int | None = None
-                    ) -> torch.Tensor:
-    """Masked online-softmax attention forward, (B, Sq, Hq, dv) in q.dtype;
-    see ``ref.flash_attention_ref`` for the semantics."""
+                    q_offset: int = 0, kv_valid_len: int | None = None,
+                    return_lse: bool = False):
+    """Masked online-softmax attention forward, (B, Sq, Hq, dv) in q.dtype,
+    and with ``return_lse`` the rows' logsumexp (B, Hq, Sq) float32 beside
+    it; see ``ref.flash_attention_ref`` for the semantics."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_valid_len=kv_valid_len)
     if _on_cuda(q):
-        return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                      q_offset=q_offset,
-                                      kv_valid_len=kv_valid_len)
-    _flash.check_args(q, k, v, causal=causal, window=window,
-                      q_offset=q_offset, kv_valid_len=kv_valid_len)
-    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset,
-                                    kv_valid_len=kv_valid_len)
+        return _flash.flash_attention(q, k, v, return_lse=return_lse, **kw)
+    _flash.check_args(q, k, v, **kw)
+    return _ref.flash_attention_ref(q, k, v, return_lse=return_lse, **kw)
 
 
 def launch_counts() -> dict[str, int]:

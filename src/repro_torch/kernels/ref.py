@@ -31,7 +31,9 @@ __all__ = ["INT_MAX", "INT_MIN", "NAN_BITS", "wrap_int32", "unpack_bits",
            "ranked_cluster_scan_ref", "beam_search_ref", "cluster_scan_ref",
            "topk_select_ref",
            "merge_topk_ref", "NEG_INF", "FLASH_TILE", "LOG2E",
-           "flash_attention_ref", "flash_attention_order_bound",
+           "LN2", "BWD_KV_BLOCK", "flash_attention_ref",
+           "flash_attention_bwd_ref", "flash_attention_lse_bound",
+           "flash_attention_bwd_bound", "flash_attention_order_bound",
            "flash_attention_flip_bound", "flash_attention_rounding_bound"]
 
 INT_MAX = 2**31 - 1
@@ -40,6 +42,8 @@ NAN_BITS = 0x7FC00000   # the positive quiet NaN: every NaN rank comes out so
 NEG_INF = -1e30      # the attention mask's fill (repro/models/attention.py)
 FLASH_TILE = 64      # keys per block of the scan: the CUDA kernels' KV tile
 LOG2E = 1.4426950408889634   # the kernel's literal: the same float64
+LN2 = 0.6931471805599453     # the kernels' kLn2, rounded to float32 there
+BWD_KV_BLOCK = 512           # keys per block of the backward
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -453,7 +457,8 @@ def merge_topk_ref(part_ids: torch.Tensor, part_dists: torch.Tensor, *,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: int | None = None,
                         q_offset: int = 0, kv_valid_len: int | None = None,
-                        operands: torch.dtype | None = None) -> torch.Tensor:
+                        operands: torch.dtype | None = None,
+                        return_lse: bool = False):
     """Blockwise online-softmax attention forward (``_flash_fwd`` of
     ``repro/models/attention.py``, the oracle of the Pallas
     ``flash_attention_fwd``).
@@ -478,15 +483,30 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the float32 p, and only the P.V product takes P rounded to bf16 (with
     float32 sums). What the JAX einsums at DEFAULT precision compute on a
     TPU: bf16 operands, float32 sums.
+
+    ``return_lse``: (out, lse), lse (B, Hq, Sq) float32 the logsumexp of
+    each row's scaled, masked scores, from the scan's running max m and
+    denominator l: m + log(max(l, 1e-30)) (``_flash_fwd``'s residual); the
+    twin's m is in log2 units of the scaled score, so its lse is ln 2 (m +
+    log2(max(l, 1e-30))), as the tensor-core kernels write it.
     """
-    return _flash_scan(q, k, v, causal, window, q_offset, kv_valid_len,
-                       operands)[0]
+    out, _, lse = _flash_scan(q, k, v, causal, window, q_offset,
+                              kv_valid_len, operands)
+    return (out, lse) if return_lse else out
+
+
+def _work_type(q, operands=None) -> torch.dtype:
+    """The plain attention's arithmetic type: float32, or float64 for
+    float64 q with the default operands (a gradient check's inputs)."""
+    return torch.float64 if q.dtype == torch.float64 and operands is None \
+        else torch.float32
 
 
 def _flash_scan(q, k, v, causal, window, q_offset, kv_valid_len, operands,
                 peak=False):
-    """flash_attention_ref's scan; with ``peak`` also max_j p_j max_d
-    |v_jd| / l per row, (B, Sq, Hq, 1), from the same p and l."""
+    """flash_attention_ref's scan: (out, peak, lse); with ``peak`` also
+    max_j p_j max_d |v_jd| / l per row, (B, Sq, Hq, 1), from the same p and
+    l (else None)."""
     if operands not in (None, torch.bfloat16):
         raise ValueError(f"operands {operands}: None (float32) or bfloat16")
     b, sq, hq, dk = q.shape
@@ -494,21 +514,22 @@ def _flash_scan(q, k, v, causal, window, q_offset, kv_valid_len, operands,
     g = hq // hkv
     valid = sk if kv_valid_len is None else kv_valid_len
     twin = operands is not None
+    f = _work_type(q, operands)
     if twin:
         qf = q.to(operands).float().reshape(b, sq, hkv, g, dk)
         k, v = k.to(operands), v.to(operands)
         scale = torch.tensor(LOG2E / math.sqrt(dk), dtype=torch.float32,
                              device=q.device)
     else:
-        qf = (q.float() / math.sqrt(dk)).reshape(b, sq, hkv, g, dk)
+        qf = (q.to(f) / math.sqrt(dk)).reshape(b, sq, hkv, g, dk)
     q_pos = q_offset + torch.arange(sq, device=q.device)
-    m = torch.full((b, hkv, g, sq), NEG_INF, device=q.device)
-    l = torch.zeros((b, hkv, g, sq), device=q.device)
-    acc = torch.zeros((b, hkv, g, sq, dv), device=q.device)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=f, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=f, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, dv), dtype=f, device=q.device)
     top = torch.zeros((b, hkv, g, sq), device=q.device) if peak else None
     for j0 in range(0, sk, FLASH_TILE):
-        kj = k[:, j0:j0 + FLASH_TILE].float()
-        vj = v[:, j0:j0 + FLASH_TILE].float()
+        kj = k[:, j0:j0 + FLASH_TILE].to(f)
+        vj = v[:, j0:j0 + FLASH_TILE].to(f)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kj)
         kv_pos = j0 + torch.arange(kj.shape[1], device=q.device)
         ok = (kv_pos < valid)[None, :].expand(sq, -1)
@@ -539,7 +560,77 @@ def _flash_scan(q, k, v, causal, window, q_offset, kv_valid_len, operands,
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(q.dtype)
     if peak:
         top = (top / den).permute(0, 3, 1, 2).reshape(b, sq, hq, 1)
-    return out, top
+    lse = LN2 * (m + torch.log2(den)) if twin else m + torch.log(den)
+    return out, top, lse.reshape(b, hq, sq)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool, window: int | None = None,
+                            q_offset: int = 0,
+                            kv_valid_len: int | None = None
+                            ) -> tuple[torch.Tensor, ...]:
+    """The flash backward (``_flash_bwd_rule`` of
+    ``repro/models/attention.py``): (dq, dk, dv) in q's, k's and v's types.
+
+    q, k, v as ``flash_attention_ref`` takes them; out (B, Sq, Hq, dv) and
+    lse (B, Hq, Sq) the forward's (``return_lse``); dout the output's
+    gradient. P is recomputed block by block from (q, k, lse), keys in
+    blocks of BWD_KV_BLOCK, the last one ragged: delta = rowsum(dout *
+    out), dS = P (dP - delta), dq accumulated over the blocks, each block's
+    dk and dv emitted, everything in float32 (float64 for float64 q, a
+    gradient check's inputs). Memory is O(S d) plus one
+    block's (Sq, BWD_KV_BLOCK) scores, never the (Sq, Sk) matrix. Where the
+    mask leaves a block no visible query row (causal: rows before the
+    block; a window: rows past its reach), those rows are not computed:
+    their P and dS are zero, so the sums are the reference's.
+
+    The reference keeps the forward's float32 output as its residual; here
+    ``out`` is the forward's own output, in q's type (bf16 at the serving
+    types on the card), so delta carries its rounding."""
+    b, sq, hq, dk = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(dk)
+    valid = sk if kv_valid_len is None else kv_valid_len
+    f = _work_type(q)
+    qf = (q.to(f) * scale).reshape(b, sq, hkv, g, dk)
+    go = dout.to(f).reshape(b, sq, hkv, g, dv).permute(0, 2, 3, 1, 4)
+    delta = (go * out.to(f).reshape(b, sq, hkv, g, dv).permute(
+        0, 2, 3, 1, 4)).sum(-1)                             # (b, h, g, sq)
+    lse = lse.to(f).reshape(b, hkv, g, sq)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    dq = torch.zeros((b, sq, hkv, g, dk), dtype=f, device=q.device)
+    dks = torch.zeros((b, sk, hkv, dk), dtype=f, device=q.device)
+    dvs = torch.zeros((b, sk, hkv, dv), dtype=f, device=q.device)
+    for j0 in range(0, sk, BWD_KV_BLOCK):
+        j1 = min(j0 + BWD_KV_BLOCK, sk)
+        r0 = min(max(0, j0 - q_offset), sq) if causal else 0
+        r1 = sq if window is None else \
+            max(0, min(sq, j1 - 1 + window - q_offset))
+        if r0 >= r1:
+            continue
+        kj, vj = k[:, j0:j1].to(f), v[:, j0:j1].to(f)
+        qb, gb = qf[:, r0:r1], go[:, :, :, r0:r1]
+        kv_pos = j0 + torch.arange(j1 - j0, device=q.device)
+        qp = q_pos[r0:r1]
+        ok = (kv_pos < valid)[None, :].expand(r1 - r0, -1)
+        if causal:
+            ok = ok & (kv_pos[None, :] <= qp[:, None])
+        if window is not None:
+            ok = ok & (qp[:, None] - kv_pos[None, :] < window)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kj)
+        s = torch.where(ok, s, NEG_INF)
+        p = torch.exp(s - lse[..., r0:r1, None])
+        dvs[:, j0:j1] = torch.einsum("bhgqk,bhgqd->bkhd", p, gb)
+        dp = torch.einsum("bhgqd,bkhd->bhgqk", gb, vj)
+        ds = torch.where(ok, p * (dp - delta[..., r0:r1, None]), 0.0)
+        # s = (q scale) k^T: ds/dq = k scale, ds/dk = q scale (= qf)
+        dq[:, r0:r1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kj) * scale
+        dks[:, j0:j1] = torch.einsum("bhgqk,bqhgd->bkhd", ds, qb)
+    return (dq.reshape(b, sq, hq, dk).to(q.dtype), dks.to(k.dtype),
+            dvs.to(v.dtype))
 
 
 def flash_attention_order_bound(out: torch.Tensor) -> torch.Tensor:
@@ -657,3 +748,168 @@ def flash_attention_rounding_bound(q: torch.Tensor, k: torch.Tensor,
     if not _bf16_exact(v):
         bound = bound + 2.0 ** -8 * grow * a
     return bound + flash_attention_order_bound(want)
+
+
+def _gamma(n: int) -> float:
+    """The worst relative error of a float32 sum (or dot product) of n
+    terms, in units of the sum of their magnitudes: n 2^-24."""
+    return n * 2.0 ** -24
+
+
+def flash_attention_lse_bound(q: torch.Tensor, k: torch.Tensor,
+                              lse: torch.Tensor, *, causal: bool,
+                              window: int | None = None, q_offset: int = 0,
+                              kv_valid_len: int | None = None
+                              ) -> torch.Tensor:
+    """Per-row bound, (B, Hq, Sq), of |lse - lse'| for two forwards'
+    logsumexps at the same q and k: the kernel's against its twin's or the
+    float32 plain version's, or the twin's against the float32 plain
+    version's; ``lse`` is either one's.
+
+    * The scores. Each is a float32 dot product of dk terms, summed in
+      another order by each (and scaled once, before or after the sum): it
+      lies within (dk + 1) 2^-24 A_i of the exact score in each of the
+      two, A_i = max_j sum_d |q_d||k_jd| / sqrt(dk) over row i's valid keys
+      (natural units; the kernels' log2 units' log2(e) cancels against the
+      ln 2 that turns their lse back). Shifting every score of a row by at
+      most D moves its lse by at most D: 2 (dk + 1) 2^-24 A_i for the two.
+    * The denominator l: a float32 sum of at most Sk positive terms
+      (relative error Sk 2^-24), each p_j an exponential within 2^-22 of
+      its value (torch.exp, exp2, the kernels' ex2.approx), and one
+      rescale by corr a tile (one exponential and one product, 2^-21);
+      log(l) moves by the relative error of l: 2 (Sk 2^-24 + 2^-22 + T
+      2^-21) for the two, T = ceil(Sk / FLASH_TILE) tiles.
+    * The last operations (log2f / log, the add, the kernels' product by
+      ln 2): a few ulps of |lse|, taken as 2^-21 (1 + |lse|).
+    * q or K not bf16-exact: the twin and the kernel read them rounded to
+      bf16, which moves each score by at most 2^-8 (1 + 2^-8) A_i, and the
+      lse by as much."""
+    b, sq, hq, dk = q.shape
+    sk = k.shape[1]
+    valid = sk if kv_valid_len is None else kv_valid_len
+    a = _max_abs_score(q, k, causal, window, q_offset, valid)[..., 0]
+    a = a.permute(0, 2, 1)                                  # (B, Hq, Sq)
+    tiles = -(-sk // FLASH_TILE)
+    bound = (2 * (dk + 1) * 2.0 ** -24 * a
+             + 2 * (_gamma(sk) + 2.0 ** -22 + tiles * 2.0 ** -21)
+             + 2.0 ** -21 * (1 + lse.float().abs()))
+    if not (_bf16_exact(q) and _bf16_exact(k)):
+        bound = bound + 2.0 ** -8 * (1 + 2.0 ** -8) * a
+    return bound
+
+
+def flash_attention_bwd_bound(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool, window: int | None = None,
+                              q_offset: int = 0,
+                              kv_valid_len: int | None = None
+                              ) -> tuple[torch.Tensor, ...]:
+    """Per-element bounds (float64, of dq's, dk's and dv's shapes) of
+    |g - g32|: g the gradients ``flash_attention_bwd_ref`` gives from a
+    forward's ``out`` and ``lse`` (the kernel's, out in q's type), g32
+    autograd through ``attend_onepass`` on float32 copies of q, k, v and
+    dout. Each side is bounded against the float64 gradients g64 (the same
+    softmax attention in float64, one batch row at a time) and the bound
+    is the sum of the two, plus 2^-22 |g64|.
+
+    With P the float64 weights, dP = dout . v, delta = rowsum(dout o),
+    dS = P (dP - delta), and for each side a bound dP_err on each weight,
+    e_delta on each delta and e_dp on each dP:
+      e_dS = dP_err |dP - delta| + (P + dP_err)(e_dp + e_delta)
+             + 2^-23 |dS|
+      e_dv = sum_i dP_err |dout| + gamma(g Sq) sum_i P |dout|
+      e_dq = scale (sum_j e_dS |k| + gamma(Sk) sum_j |dS| |k|)
+      e_dk = scale (sum_i e_dS |q| + gamma(g Sq) sum_i |dS| |q|)
+    (sums over the query heads of a KV head for dk and dv; gamma(n) =
+    n 2^-24, a float32 sum of n terms; e_dp = gamma(dv) sum_d |dout||v|).
+
+    * The port recomputes P = exp(s - lse) from its own lse: with delta_i
+      = |lse_i - lse64_i| (measured), s within gamma(dk) S_ij + 2^-23 |s|
+      of the exact score (S_ij = sum_d |q||k| / sqrt(dk)), and exp within
+      2^-22: dP_err = P (expm1(delta_i + gamma(dk) S_ij + 2^-23 |s_ij|) +
+      2^-22). Its delta is taken from ``out``: e_delta = sum_d |dout|
+      |out - o64| (measured) + gamma(dv) sum_d |dout| |out|. Its
+      gradients are rounded to the inputs' types at the end: 2^-8 (|g64|
+      + e) more for a bf16 input.
+    * The float32 softmax: each score within gamma(dk) A_i of its value,
+      the max subtracted, l summed over Sk terms: dP_err = P (expm1(2
+      gamma(dk) A_i + gamma(Sk)) + 2^-22); autograd's delta is sum_j P dP,
+      so e_delta = sum_j (dP_err |dP| + P e_dp) + gamma(Sk) sum_j P |dP|."""
+    b, sq, hq, dk = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = hq // hkv
+    f = torch.float64
+    scale = 1.0 / math.sqrt(dk)
+    valid = sk if kv_valid_len is None else kv_valid_len
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    kv_pos = torch.arange(sk, device=q.device)
+    ok = (kv_pos < valid)[None, :].expand(sq, sk)
+    if causal:
+        ok = ok & (kv_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        ok = ok & (q_pos[:, None] - kv_pos[None, :] < window)
+    bq, bk, bv = [], [], []
+    for i in range(b):
+        qd, gd = q[i].to(f), dout[i].to(f)                  # (Sq, Hq, d)
+        kd = k[i].to(f).repeat_interleave(g, dim=1)         # (Sk, Hq, dk)
+        vd = v[i].to(f).repeat_interleave(g, dim=1)
+        s = torch.einsum("qhd,khd->hqk", qd, kd) * scale
+        s = torch.where(ok, s, -math.inf)
+        p = torch.softmax(s, dim=-1)
+        lse64 = torch.logsumexp(s, dim=-1)                  # (Hq, Sq)
+        o64 = torch.einsum("hqk,khd->qhd", p, vd)
+        dp = torch.einsum("qhd,khd->hqk", gd, vd)
+        delta = (gd * o64).sum(-1).T                        # (Hq, Sq)
+        ds = p * (dp - delta[..., None])
+        s_abs = torch.where(ok, torch.einsum(
+            "qhd,khd->hqk", qd.abs(), kd.abs()) * scale, 0.0)
+        e_dp = _gamma(dv) * torch.einsum("qhd,khd->hqk", gd.abs(), vd.abs())
+        s_fin = torch.where(ok, s, 0.0).abs()
+
+        def grads_err(p_err, e_delta):
+            e_ds = (p_err * (dp - delta[..., None]).abs()
+                    + (p + p_err) * (e_dp + e_delta[..., None])
+                    + 2.0 ** -23 * ds.abs())
+            e_v = (torch.einsum("hqk,qhd->khd", p_err, gd.abs())
+                   + _gamma(g * sq) * torch.einsum("hqk,qhd->khd", p,
+                                                   gd.abs()))
+            e_q = scale * (torch.einsum("hqk,khd->qhd", e_ds, kd.abs())
+                           + _gamma(sk) * torch.einsum(
+                               "hqk,khd->qhd", ds.abs(), kd.abs()))
+            e_k = scale * (torch.einsum("hqk,qhd->khd", e_ds, qd.abs())
+                           + _gamma(g * sq) * torch.einsum(
+                               "hqk,qhd->khd", ds.abs(), qd.abs()))
+            fold = (sk, hkv, g, -1)
+            return e_q, e_k.reshape(fold).sum(2), e_v.reshape(fold).sum(2)
+
+        # the port: P from its own lse, delta from its own out
+        d_lse = (lse[i].to(f) - lse64).abs()
+        p_err = p * (torch.expm1(d_lse[..., None] + _gamma(dk) * s_abs
+                                 + 2.0 ** -23 * s_fin) + 2.0 ** -22)
+        e_delta = (gd.abs() * (out[i].to(f) - o64).abs()
+                   + _gamma(dv) * gd.abs() * out[i].to(f).abs()).sum(-1).T
+        port = grads_err(p_err, e_delta)
+        # autograd through the float32 one-pass softmax
+        a_row = s_abs.amax(-1, keepdim=True)
+        p_err32 = p * (torch.expm1(2 * _gamma(dk) * a_row + _gamma(sk))
+                       + 2.0 ** -22)
+        e_delta32 = (p_err32 * dp.abs() + p * e_dp).sum(-1) + \
+            _gamma(sk) * (p * dp.abs()).sum(-1)
+        f32 = grads_err(p_err32, e_delta32)
+        # the float64 gradients, for the relative terms
+        g64 = (scale * torch.einsum("hqk,khd->qhd", ds, kd),
+               (scale * torch.einsum("hqk,qhd->khd", ds, qd)).reshape(
+                   sk, hkv, g, dk).sum(2),
+               torch.einsum("hqk,qhd->khd", p, gd).reshape(
+                   sk, hkv, g, dv).sum(2))
+        outs = []
+        for e_port, e_32, ref64, like in zip(port, f32, g64, (q, k, v)):
+            e = e_port + e_32 + 2.0 ** -22 * ref64.abs()
+            if like.dtype == torch.bfloat16:
+                e = e + 2.0 ** -8 * (ref64.abs() + e_port)
+            outs.append(e)
+        bq.append(outs[0])
+        bk.append(outs[1])
+        bv.append(outs[2])
+    return torch.stack(bq), torch.stack(bk), torch.stack(bv)

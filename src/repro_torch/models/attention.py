@@ -22,9 +22,16 @@ the encoder memory's cached K/V) attends through ``attend`` without the
 causal mask, in prefill and in every decode step (Sq = 1), as the JAX
 package does; whisper's encoder self-attention is non-causal too.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A6):
-the attention softcap, and the backward pass (the JAX package's custom
-VJP; the port serves, it does not train).
+Training differentiates ``attend`` through ``_FlashAttention``, the
+counterpart of the JAX package's custom VJP: its forward is the same kernel
+asked for the rows' logsumexp beside the output, its backward the plain
+flash backward ``ref.flash_attention_bwd_ref`` (recompute P block by block
+from q, k and the logsumexp; plain PyTorch on both devices, as the JAX
+package computes it outside any Pallas kernel). A call that needs no
+gradient takes the serving path, which writes no logsumexp.
+
+Not ported yet (raises ``NotImplementedError`` naming ROADMAP A6): the
+attention softcap.
 
 Layout: (B, S, H, d) at every public function, as in the JAX package.
 ``KVCache.pos`` is a Python int (the JAX package traces it as a scalar): a
@@ -38,7 +45,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels import ops
+from ..kernels import ops, ref
 from ..kernels.ref import NEG_INF
 from . import layers as L
 
@@ -49,22 +56,49 @@ __all__ = ["attend", "attend_ref", "attend_onepass", "KVCache", "gqa_init",
 _A6 = "ROADMAP A6 (the rest of the LM stack)"
 
 
+class _FlashAttention(torch.autograd.Function):
+    """``attend`` with a gradient: the kernel's forward with the rows'
+    logsumexp, saved with q, k, v and the output; the plain flash backward.
+    v may be a view of k (MLA): autograd sums the two gradients into the
+    tensor both view."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask: dict):
+        out, lse = ops.flash_attention(q, k, v, return_lse=True, **mask)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = mask
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                 **ctx.mask)
+        return dq, dk, dv, None
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, window: int | None = None, q_offset: int = 0,
            kv_valid_len: int | None = None, softcap: float = 0.0
            ) -> torch.Tensor:
-    """Online-softmax ("flash") attention forward through the kernel seam.
+    """Online-softmax ("flash") attention through the kernel seam.
 
     q (B, Sq, Hq, dk)   k (B, Sk, Hkv, dk)   v (B, Sk, Hkv, dv),
     Hq % Hkv == 0. Returns (B, Sq, Hq, dv) in q.dtype.
     q_offset: absolute position of q[0] (chunked prefill).
     kv_valid_len: mask keys at positions >= this (cache prefill).
     The JAX package's ``kv_block`` only orders its float sums; the kernel
-    scans keys in tiles of ``ref.FLASH_TILE``."""
+    scans keys in tiles of ``ref.FLASH_TILE``, the backward in blocks of
+    ``ref.BWD_KV_BLOCK`` (its 512). Differentiable where grad mode is on
+    and an input requires grad; the serving path is the bare kernel."""
     if softcap:
         raise NotImplementedError(f"attention softcap is not ported: {_A6}")
-    return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset, kv_valid_len=kv_valid_len)
+    mask = dict(causal=causal, window=window, q_offset=q_offset,
+                kv_valid_len=kv_valid_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, mask)
+    return ops.flash_attention(q, k, v, **mask)
 
 
 def attend_ref(q, k, v, *, causal, window=None, q_offset=0,

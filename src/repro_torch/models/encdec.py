@@ -16,7 +16,9 @@ the cache with the plain ``attend_onepass``, as in the dense archs.
 
 Both stacks keep the JAX package's params stacked on a leading layer axis
 (``enc``, ``dec``), so its tree carries over one to one; where it
-``lax.scan``s over them, the port loops over the layers. The decoder's
+``lax.scan``s over them, the port loops over the layers; a cacheless
+pass with autograd on recomputes each layer in the backward when
+``cfg.remat`` is set (its ``jax.checkpoint`` of each layer body). The decoder's
 self cache is one KVCache of (L, B, S, Hkv, hd) tensors, written in place
 one layer slice at a time, with one Python int pos (the JAX package's is an
 (L,) array of one value).
@@ -114,12 +116,15 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     f = frames.shape[1]
     pos = torch.arange(f, device=frames.device)
     x = frames.to(cfg.dtype) + sinusoid(pos, cfg.d_model)[None].to(cfg.dtype)
-    for li in range(cfg.enc_layers):
+    def layer(li, xx):
         lp = _slice(params["enc"], li)
-        h = L.norm_apply(lp["norm1"], x, cfg.norm)
+        h = L.norm_apply(lp["norm1"], xx, cfg.norm)
         y, _ = A.gqa_apply(lp["attn"], h, cfg, positions=pos[None],
                            causal=False)
-        x = _mlp_res(lp, x + y, cfg)
+        return _mlp_res(lp, xx + y, cfg)
+
+    for li in range(cfg.enc_layers):
+        x = L.remat(cfg, layer, li, x)
     return L.norm_apply(params["enc_norm"], x, cfg.norm)
 
 
@@ -157,19 +162,22 @@ def decode_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError("the teacher-forced decoder pass needs the "
                          "encoder memory")
 
-    for li in range(cfg.n_layers):
+    def layer(li, xx):
         lp = _slice(params["dec"], li)
-        h = L.norm_apply(lp["norm1"], x, cfg.norm)
+        h = L.norm_apply(lp["norm1"], xx, cfg.norm)
         kv = None if cache is None else _layer(cache.self_kv, li)
         y, _ = A.gqa_apply(lp["self"], h, cfg, positions=positions,
                            cache=kv)
-        x = x + y
-        h = L.norm_apply(lp["norm_x"], x, cfg.norm)
+        xx = xx + y
+        h = L.norm_apply(lp["norm_x"], xx, cfg.norm)
         cross = _cross_kv(lp, memory) if cache is None else \
             (cache.cross_k[li], cache.cross_v[li])
         y, _ = A.gqa_apply(lp["cross"], h, cfg, positions=positions,
                            kv_override=cross)
-        x = _mlp_res(lp, x + y, cfg)
+        return _mlp_res(lp, xx + y, cfg)
+
+    for li in range(cfg.n_layers):
+        x = layer(li, x) if cache is not None else L.remat(cfg, layer, li, x)
 
     new_cache = None if cache is None else cache._replace(
         self_kv=cache.self_kv._replace(pos=pos0 + sq))

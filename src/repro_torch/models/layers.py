@@ -18,10 +18,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["trunc_normal", "dense_init", "embed_init", "norm_init",
            "norm_apply", "act_fn", "rope_freqs", "apply_rope", "mlp_init",
-           "mlp_apply", "logits_softcap"]
+           "mlp_apply", "logits_softcap", "remat"]
 
 
 # ---------------------------------------------------------------------------
@@ -147,3 +148,13 @@ def logits_softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return x
     return (torch.tanh(x.float() / cap) * cap).to(x.dtype)
+
+
+def remat(cfg, fn, *args):
+    """fn(*args), recomputed in the backward (``torch.utils.checkpoint``)
+    when ``cfg.remat`` is set and autograd is on: the JAX package's
+    ``jax.checkpoint`` of a layer group (a decoder pattern unit, an
+    enc-dec layer) in a cacheless pass."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

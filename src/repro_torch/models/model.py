@@ -1,23 +1,28 @@
-"""Model factory + serve step builders, the port's public modeling API
-(counterpart of ``repro/models/model.py``, serving half):
+"""Model factory + train / serve step builders, the port's public
+modeling API (counterpart of ``repro/models/model.py``):
 
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    loss, parts = model.loss(params, batch)
+    step = make_train_step(model, opt_cfg)   # (params, opt, batch) -> ...
     cache = model.init_cache(batch, max_len, dtype=torch.float32)
     logits, cache = model.prefill(params, tokens, cache)  # frames=, patches=
     logits, cache = model.decode(params, tokens1, cache)
 
 ``init`` returns the param tree alone (the JAX package pairs it with
-sharding specs). Served: every arch of ``repro_torch.configs``: the dense
-GQA archs, grok-1 (GQA with MoE and the logit softcap), deepseek-v2-lite
-(MLA with MoE and shared experts), mamba2 (SSD blocks), recurrentgemma
-(RG-LRU with local attention), whisper (the encoder-decoder of
-``encdec.py``: a prefill takes frames (B, F, d), encodes them and caches
-every decoder layer's cross K/V) and internvl2 (a vlm: a prefill takes
-patches (B, Np, d), put before the prompt; ``init_cache`` adds their Np
-slots). Both modality frontends are stubs, as in the JAX package.
-``forward`` returns the summed MoE aux loss beside the logits; ``loss``
-and ``make_train_step`` come with the training slice (ROADMAP A6).
+sharding specs). Every arch of ``repro_torch.configs`` is served and
+trained: the dense GQA archs, grok-1 (GQA with MoE and the logit softcap),
+deepseek-v2-lite (MLA with MoE and shared experts), mamba2 (SSD blocks),
+recurrentgemma (RG-LRU with local attention), whisper (the encoder-decoder
+of ``encdec.py``: a prefill takes frames (B, F, d), encodes them and
+caches every decoder layer's cross K/V) and internvl2 (a vlm: a prefill
+takes patches (B, Np, d), put before the prompt; ``init_cache`` adds their
+Np slots). Both modality frontends are stubs, as in the JAX package.
+
+``batch`` dicts: tokens / labels (B, S) int; enc-dec adds frames (B, F,
+d), vlm patches (B, Np, d). ``forward`` is the teacher-forced pass with
+autograd on (each layer group recomputed in the backward when
+``cfg.remat``); the serving calls run under ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -27,10 +32,13 @@ from typing import Callable
 
 import torch
 
+from .. import tree as T
+from ..optim import adamw
 from . import encdec, transformer
 from .config import ModelConfig
 
-__all__ = ["Model", "build_model", "make_serve_step", "make_prefill_step"]
+__all__ = ["Model", "build_model", "value_and_grad", "make_train_step",
+           "make_serve_step", "make_prefill_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +64,6 @@ class Model:
                                                dtype, device=device)
 
     # -- forward -------------------------------------------------------------
-    @torch.no_grad()
     def forward(self, params, batch: dict):
         """Full-sequence logits (the training forward, without a cache) and
         the aux loss: the MoE layers' Switch losses summed, a 0-d float32
@@ -72,6 +79,24 @@ class Model:
         logits, _, aux = transformer.decoder_forward(
             params, cfg, batch["tokens"], patches=batch.get("patches"))
         return logits, aux
+
+    def loss(self, params, batch: dict):
+        """(loss, {"ce", "aux"}): the float32 logsumexp cross-entropy of the
+        logits against ``batch["labels"]`` over the labels >= 0 (a vlm's
+        text logits only), plus router_aux_coef times the aux loss."""
+        cfg = self.cfg
+        logits, aux = self.forward(params, batch)
+        if cfg.n_patches:                      # vlm: text logits only
+            logits = logits[:, cfg.n_patches:]
+        labels = batch["labels"]
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        # a masked label (< 0) reads column 0; its term is multiplied by 0
+        gold = torch.gather(lf, -1, labels.long().clamp(min=0)[..., None]
+                            )[..., 0]
+        mask = (labels >= 0).float()
+        ce = torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+        return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     # -- serving -------------------------------------------------------------
     @torch.no_grad()
@@ -113,6 +138,58 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)
+
+
+def value_and_grad(model: Model, params, batch: dict):
+    """(loss, parts, grads as a list in ``tree.leaves(params)``'s order):
+    ``jax.value_and_grad(model.loss, has_aux=True)``. The grads are taken
+    by ``torch.autograd.grad`` over the param leaves, each in its param's
+    type; the params themselves are not marked."""
+    live = [p.detach().requires_grad_(True) for p in T.leaves(params)]
+    with torch.enable_grad():
+        loss, parts = model.loss(T.unflatten_like(params, live), batch)
+        grads = torch.autograd.grad(loss, live)
+    return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
+
+
+def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig) -> Callable:
+    """train_step(params, opt_state, batch) -> (params, opt_state, metrics),
+    metrics {"loss", "ce", "aux", "grad_norm", "lr"} as 0-d tensors.
+
+    cfg.accum_steps > 1 splits the batch's leading axis into that many
+    micro-batches, sums their grads in float32 and divides by their count
+    (the JAX package's ``lax.scan`` branch: its metrics then hold the mean
+    loss as "ce" and an aux of 0); the live activations are those of one
+    micro-batch."""
+    accum = model.cfg.accum_steps
+
+    def train_step(params, opt_state, batch):
+        if accum <= 1:
+            loss, parts, g = value_and_grad(model, params, batch)
+            grads = T.unflatten_like(params, list(g))
+        else:
+            gsum, lsum = None, None
+            for i in range(accum):
+                mb = {k: v.reshape(accum, v.shape[0] // accum,
+                                   *v.shape[1:])[i] for k, v in batch.items()}
+                loss_i, _, g = value_and_grad(model, params, mb)
+                if gsum is None:
+                    gsum = [x.float() for x in g]
+                    lsum = loss_i.float()
+                else:
+                    for acc, x in zip(gsum, g):
+                        acc.add_(x)
+                    lsum = lsum + loss_i
+                del g
+            grads = T.unflatten_like(params, [x.div_(accum) for x in gsum])
+            loss = lsum / accum
+            parts = {"ce": loss, "aux": torch.zeros((), dtype=torch.float32,
+                                                    device=loss.device)}
+        params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
+                                             params)
+        return params, opt_state, {"loss": loss, **parts, **om}
+
+    return train_step
 
 
 def make_serve_step(model: Model) -> Callable:

@@ -6,9 +6,13 @@ one to one: the per-layer mixer is cfg.pattern[i % len(pattern)]; layers are
 grouped into repeating pattern units whose params are stacked on a leading
 n_groups axis; first_k_dense prefix layers and the pattern remainder (tail)
 stand alone. Where the JAX package ``lax.scan``s a unit over the stacked
-params, the port loops over the stacked slices in Python. Its ``remat``
-(recompute in the backward pass) and ``constrain`` (sharding annotations)
-have no meaning for a forward pass on one card and are dropped.
+params, the port loops over the stacked slices in Python. Its ``remat`` is
+kept: a forward with autograd on and no cache runs each group slice (one
+pattern unit) under ``torch.utils.checkpoint`` when ``cfg.remat`` is set,
+so the backward recomputes the group's activations from its input, as
+``jax.checkpoint(group_body)`` does (the prefix and tail layers are not
+recomputed there either). ``constrain`` (sharding annotations) has no
+meaning on one card and is dropped (the sharded LM is ROADMAP A6).
 
 Caches mirror the param structure: {"prefix": [...], "groups": [one
 cache per pattern slot, its tensors stacked on a leading n_groups axis],
@@ -248,37 +252,42 @@ def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def run_block(p, xx, li, c):
-        nonlocal aux_total
-        xx, c2, aux = block_apply(p, xx, cfg, cfg.mixer_of(li),
-                                  cfg.mlp_of(li), positions=positions,
-                                  cache=c)
-        aux_total = aux_total + aux
-        return xx, c2
+        return block_apply(p, xx, cfg, cfg.mixer_of(li), cfg.mlp_of(li),
+                           positions=positions, cache=c)
 
     for i in range(n_pre):
         c = None if cache is None else cache["prefix"][i]
-        x, c2 = run_block(params["prefix"][i], x, i, c)
+        x, c2, aux = run_block(params["prefix"][i], x, i, c)
+        aux_total = aux_total + aux
         if cache is not None:
             new_cache["prefix"].append(_store(c, c2))
 
-    if n_groups:
-        slots = None if cache is None else cache["groups"]
-        pos = [None] * plen
-        for gi in range(n_groups):          # the JAX package's lax.scan
-            for j in range(plen):           # layer n_pre + gi * plen + j
-                c = None if slots is None else _layer(slots[j], gi)
-                x, c2 = run_block(_slice(params["groups"][j], gi), x,
-                                  n_pre + j, c)
-                if c is not None:
-                    pos[j] = _store(c, c2).pos
-        if cache is not None:
-            new_cache["groups"] = [s._replace(pos=p)
-                                   for s, p in zip(slots, pos)]
+    pos = [None] * plen
+
+    def group(gi, xx, aux_acc):
+        """Group gi: layers n_pre + gi * plen + j; with a cache, each
+        block's state is written into its slice and its pos kept."""
+        for j in range(plen):
+            c = None if cache is None else _layer(cache["groups"][j], gi)
+            xx, c2, aux = run_block(_slice(params["groups"][j], gi), xx,
+                                    n_pre + j, c)
+            aux_acc = aux_acc + aux
+            if cache is not None:
+                pos[j] = _store(c, c2).pos
+        return xx, aux_acc
+
+    for gi in range(n_groups):              # the JAX package's lax.scan
+        x, aux_total = group(gi, x, aux_total) if cache is not None \
+            else L.remat(cfg, group, gi, x, aux_total)
+    if cache is not None and n_groups:
+        new_cache["groups"] = [s._replace(pos=p) for s, p in
+                               zip(cache["groups"], pos)]
 
     first_tail = n_pre + n_groups * plen
     for t in range(n_tail):
         c = None if cache is None else cache["tail"][t]
-        x, c2 = run_block(params["tail"][t], x, first_tail + t, c)
+        x, c2, aux = run_block(params["tail"][t], x, first_tail + t, c)
+        aux_total = aux_total + aux
         if cache is not None:
             new_cache["tail"].append(_store(c, c2))
 

@@ -255,3 +255,132 @@ def test_cross_attention_matches_jax(sq, f):
                            kv_override=(jnp.asarray(k), jnp.asarray(v)))
     assert out is cache and not cache.k.any()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the training path: the logsumexp output and the backward
+# ---------------------------------------------------------------------------
+
+# float32 on both sides, sums in other orders (the JAX scan's blocks of 512
+# keys and 16 / 64 in the forward); the gradients are sums of up to Sk
+# products of O(1) terms: 1e-5 of each tensor's largest |gradient|
+GRAD_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,dk,dv,causal,win,q_off,valid,alias", [
+    (2, 33, 33, 4, 2, 16, 16, True, None, 0, None, False),   # causal, GQA
+    (2, 64, 64, 4, 4, 8, 8, True, 24, 0, None, False),       # a window
+    (1, 17, 40, 6, 2, 8, 12, False, None, 0, None, False),   # not causal
+    (2, 20, 50, 4, 2, 16, 16, True, None, 30, None, False),  # q_offset
+    (1, 24, 64, 4, 1, 8, 8, True, 16, 10, 40, False),        # cache prefill
+    (2, 21, 21, 8, 1, 24, 16, True, None, 0, None, True),    # MLA's v = k
+    (1, 12, 600, 4, 2, 8, 8, False, 500, 590, None, False),  # Sk > 512
+])
+def test_attend_gradients_match_jax_vjp(b, sq, sk, hq, hkv, dk, dv, causal,
+                                        win, q_off, valid, alias):
+    """(dq, dk, dv) of the port's ``attend`` (the plain forward with its
+    logsumexp, then ``ref.flash_attention_bwd_ref``) against ``jax.vjp`` of
+    the JAX package's ``attend`` (its custom VJP), float32. MLA's form
+    passes v as a view of k: both gradients reach the one tensor. Sk = 600
+    is not a multiple of the backward's blocks of 512."""
+    q, k, v = _qkv(sq * 100 + sk, b, sq, sk, hq, hkv, dk, dv)
+    go = np.random.default_rng(7).standard_normal(
+        (b, sq, hq, dv)).astype(np.float32)
+    kw = dict(causal=causal, window=win, q_offset=q_off, kv_valid_len=valid)
+
+    def jfn(jq, jk, jv):
+        return JA.attend(jq, jk, jk[..., :dv] if alias else jv, **kw)
+    _, vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(go))]
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = TA.attend(tq, tk, tk[..., :dv] if alias else tv, **kw)
+    leaves = (tq, tk) if alias else (tq, tk, tv)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(go))
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w, rtol=0,
+                                   atol=GRAD_RTOL * np.abs(w).max())
+
+
+@pytest.mark.parametrize("causal,win,q_off,valid", [
+    (True, None, 0, None), (True, 12, 8, 40), (False, None, 0, 30)])
+def test_plain_lse_matches_jax_flash_fwd(causal, win, q_off, valid):
+    """``flash_attention_ref(..., return_lse=True)``'s lse against the
+    residual lse of the JAX package's ``_flash_fwd`` (m + log(max(l,
+    1e-30)), natural log), float32; the output is the call without lse."""
+    b, sq, sk, hq, hkv, d = 2, 24, 48, 4, 2, 16
+    q, k, v = _qkv(5, b, sq, sk, hq, hkv, d, d)
+    vl = sk if valid is None else valid
+    _, jlse = JA._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jnp.int32(q_off), jnp.int32(vl), causal, win,
+                            16, 0.0)
+    want = np.asarray(jlse).reshape(b, hq, sq)       # (b, hkv, g, sq)
+    kw = dict(causal=causal, window=win, q_offset=q_off, kv_valid_len=valid)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = ops.flash_attention(tq, tk, tv, return_lse=True, **kw)
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), want, rtol=0, atol=2e-5)
+    assert torch.equal(out, ops.flash_attention(tq, tk, tv, **kw))
+
+
+def test_attend_backward_gradcheck_float64():
+    """``torch.autograd.gradcheck`` of the autograd Function (the plain
+    forward and backward run in float64 for float64 inputs) at a tiny
+    shape: causal with GQA, a window, and without the causal mask."""
+    rng = np.random.default_rng(3)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).requires_grad_()
+    q, k, v = t(1, 6, 4, 4), t(1, 6, 2, 4), t(1, 6, 2, 3)
+    for kw in (dict(causal=True), dict(causal=True, window=2, q_offset=0),
+               dict(causal=False, kv_valid_len=5)):
+        assert torch.autograd.gradcheck(
+            lambda a, b_, c: TA.attend(a, b_, c, **kw), (q, k, v))
+
+
+def test_serving_attend_takes_no_lse():
+    """Without gradients ``attend`` is the bare seam call (the serving
+    path: no lse written); with them the autograd Function, whose forward
+    is the same output."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 1, 10, 10, 2, 1, 8, 8))
+    calls = []
+    real = ops.flash_attention
+
+    def spy(*a, **kw):
+        calls.append(kw.get("return_lse", False))
+        return real(*a, **kw)
+    ops.flash_attention = spy
+    try:
+        plain = TA.attend(q, k, v, causal=True)
+        diff = TA.attend(q.requires_grad_(), k, v, causal=True)
+    finally:
+        ops.flash_attention = real
+    assert calls == [False, True]
+    assert torch.equal(plain, diff.detach()) and diff.requires_grad
+
+
+def test_flash_backward_bound_catches_planted_faults():
+    """``ref.flash_attention_bwd_bound`` (the phase-19 rule of the smoke)
+    holds the plain backward from a bf16 forward against autograd through
+    the float32 one-pass attention, and catches a delta taken from an
+    output off by 1% and an lse off by 1e-3."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return (torch.randn(shape, generator=gen) * 1.5).bfloat16()
+    q, k, v, go = r(2, 64, 8, 16), r(2, 64, 2, 16), r(2, 64, 2, 16), \
+        r(2, 64, 8, 16)
+    kw = dict(causal=True)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    f32 = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(TA.attend_onepass(*f32, **kw), f32,
+                               go.float())
+    bound = ref.flash_attention_bwd_bound(q, k, v, out, lse, go, **kw)
+
+    def worst(o, l):
+        got = ref.flash_attention_bwd_ref(q, k, v, o, l, go, **kw)
+        return max(float(((a.double() - w.double()).abs() / b).max())
+                   for a, w, b in zip(got, want, bound))
+    assert worst(out, lse) <= 1.0
+    assert worst(out * 1.01, lse) > 1.0
+    assert worst(out, lse + 1e-3) > 1.0

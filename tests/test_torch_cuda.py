@@ -33,6 +33,10 @@ the in-process tier, the recurrent blocks (Mamba2's SSD, the RG-LRU)
 equal their CPU runs, and the tensor-core route (bf16 q) runs without the
 causal mask (whisper's encoder and cross-attention) at GQA groups 1 and 7,
 ragged Sq / Sk, Sq = 1 over float32 K/V and the padded head dims 8 / 16.
+The training path: every route's logsumexp output (``return_lse``)
+against its twin, ``attend``'s gradients within
+``ref.flash_attention_bwd_bound`` of float32 autograd, every arch's
+gradients and one train step against the CPU's.
 """
 
 import numpy as np
@@ -1309,3 +1313,172 @@ def test_moe_layer_makes_no_host_sync_on_the_card(card):
     again, aux2 = moe.moe_apply(p, x, cfg)
     assert out.shape == x.shape and torch.isfinite(out.float()).all()
     assert torch.equal(out, again) and torch.equal(aux, aux2)
+
+
+# ---------------------------------------------------------------------------
+# the training path: the kernel's logsumexp output, autograd, a train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,dk,dv,causal,window,q_off,valid,qt,"
+                         "kvt,alias", [
+    (2, 100, 100, 8, 2, 80, 80, True, None, 0, None, "bf16", "bf16", False),
+    (1, 130, 130, 32, 8, 80, 80, True, 64, 0, None, "bf16", "bf16", False),
+    (2, 70, 160, 8, 2, 80, 80, True, 40, 60, 150, "bf16", "f32", False),
+    (2, 64, 64, 4, 4, 64, 64, True, None, 0, None, "f32", "f32", False),
+    (1, 17, 93, 4, 2, 96, 96, False, None, 0, 77, "f32", "bf16", False),
+    (1, 150, 150, 4, 1, 160, 160, True, None, 0, None, "bf16", "bf16", False),
+    (2, 300, 300, 16, 1, 256, 256, True, 100, 0, None, "bf16", "bf16", False),
+    (1, 65, 65, 4, 2, 256, 256, True, None, 0, None, "f32", "bf16", False),
+    (1, 100, 100, 16, 1, 576, 512, True, 0, 0, None, "bf16", "bf16", True),
+    (3, 33, 100, 16, 1, 576, 512, True, None, 60, 93, "bf16", "f32", False),
+    (2, 24, 24, 4, 2, 16, 16, True, None, 0, None, "bf16", "bf16", False),
+    (2, 24, 24, 4, 4, 12, 12, False, None, 0, None, "f32", "f32", False),
+    (1, 20, 20, 4, 1, 40, 32, True, None, 0, None, "bf16", "bf16", False),
+])
+def test_flash_attention_kernel_writes_the_rows_logsumexp(
+        card, b, sq, sk, hq, hkv, dk, dv, causal, window, q_off, valid, qt,
+        kvt, alias):
+    """Each route (the CUDA-core kernel for float32 q, the tensor-core
+    kernel, the split-dv kernel at hd 256 and (576, 512), the padded smoke
+    dims) writes the rows' logsumexp with ``return_lse``: within
+    ``ref.flash_attention_lse_bound`` of its twin's (bf16 q) or the float32
+    plain version's (float32 q), and the twin's within it of the float32
+    plain version's; its output is the bits of the call without lse."""
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = torch.Generator(device=card).manual_seed(sq + dk)
+    q = torch.randn((b, sq, hq, dk), generator=g, device=card).to(types[qt])
+    k = torch.randn((b, sk, hkv, dk), generator=g, device=card).to(
+        types[kvt])
+    v = k[..., :dv] if alias else torch.randn(
+        (b, sk, hkv, dv), generator=g, device=card).to(types[kvt])
+    kw = dict(causal=causal, window=window or None, q_offset=q_off,
+              kv_valid_len=valid)
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, flash_attn.flash_attention(q, k, v, **kw))
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    bf = torch.bfloat16 if qt == "bf16" else None
+    _, twin = ref.flash_attention_ref(q, k, v, operands=bf, return_lse=True,
+                                      **kw)
+    _, plain = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    bound = ref.flash_attention_lse_bound(q, k, twin, **kw)
+    assert ((lse - twin).abs() <= bound).all()
+    assert ((twin - plain).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("causal,window,hq,hkv,dk,dv,alias", [
+    (True, None, 32, 8, 80, 80, False),     # danube's heads
+    (True, 48, 8, 2, 64, 64, False),
+    (False, None, 4, 4, 64, 64, False),     # whisper's encoder form
+    (True, None, 16, 1, 576, 512, True),    # MLA: v a view of k
+])
+def test_attend_gradients_on_the_card_within_the_bound(card, causal, window,
+                                                       hq, hkv, dk, dv,
+                                                       alias):
+    """``attend``'s gradients on the card (the kernel's forward with its
+    logsumexp, the plain backward) and on the CPU (the plain versions),
+    bf16 inputs, each within ``ref.flash_attention_bwd_bound`` of
+    autograd through the float32 one-pass attention."""
+    from repro_torch.models.attention import attend, attend_onepass
+    gen = torch.Generator().manual_seed(dk + hq)
+    b, s = 2, 130
+    q = torch.randn((b, s, hq, dk), generator=gen).bfloat16()
+    kk = torch.randn((b, s, hkv, dk), generator=gen).bfloat16()
+    vv = kk[..., :dv] if alias else torch.randn(
+        (b, s, hkv, dv), generator=gen).bfloat16()
+    go = torch.randn((b, s, hq, dv), generator=gen).bfloat16()
+    kw = dict(causal=causal, window=window)
+    leaves = (q, kk) if alias else (q, kk, vv)
+    f32 = [t.float().requires_grad_() for t in leaves]
+    fk = f32[1]
+    want = torch.autograd.grad(attend_onepass(
+        f32[0], fk, fk[..., :dv] if alias else f32[2], **kw), f32,
+        go.float())
+    for dev in (card, "cpu"):
+        x = [t.to(dev).requires_grad_() for t in leaves]
+        xv = x[1][..., :dv] if alias else x[2]
+        out = attend(x[0], x[1], xv, **kw)
+        got = torch.autograd.grad(out, x, go.to(dev))
+        with torch.no_grad():
+            o, lse = ops.flash_attention(x[0], x[1], xv, return_lse=True,
+                                         **kw)
+            bq, bk, bv = ref.flash_attention_bwd_bound(
+                x[0], x[1], xv, o, lse, go.to(dev), **kw)
+        if alias:      # dk and dv both reach the one latent tensor
+            bk = bk.clone()
+            bk[..., :dv] += bv
+        for a, w, bnd in zip(got, want, (bq, bk, bv)):
+            assert ((a.double().cpu() - w.double()).abs()
+                    <= bnd.cpu()).all()
+
+
+@pytest.mark.parametrize("arch", _archs())
+def test_gradients_on_the_card_match_the_cpu(card, arch):
+    """``value_and_grad`` of each smoke config with float32 params on the
+    card (the attention kernel's float32 route and the plain backward)
+    against the CPU's: the loss within 1e-4 relative, each grad leaf
+    within 1e-3 of its largest |grad| (float32 sums in other orders,
+    carried through 2-3 layers' backward)."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import build_model, value_and_grad
+    cfg = dataclasses.replace(get_smoke(arch), param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1))
+    batch = _train_batch(cfg, 2, 24)
+    want_l, _, want = value_and_grad(model, params, batch)
+    got_l, _, got = value_and_grad(model, _to(params, card),
+                                   {k: v.to(card) for k, v in batch.items()})
+    assert abs(float(got_l) - float(want_l)) <= 1e-4 * abs(float(want_l))
+    for path, a, w in zip([p for p, _ in tree.leaves_with_paths(params)],
+                          got, want):
+        scale = max(float(w.abs().max()), 1e-12)
+        assert float((a.cpu() - w).abs().max()) <= 1e-3 * scale, path
+
+
+def _train_batch(cfg, b, s, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen),
+             "labels": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen)}
+    if cfg.n_frames:
+        batch["frames"] = torch.randn((b, cfg.n_frames, cfg.d_model),
+                                      generator=gen)
+    if cfg.n_patches:
+        batch["patches"] = torch.randn((b, cfg.n_patches, cfg.d_model),
+                                       generator=gen)
+    return batch
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """One ``make_train_step`` (accum 2) of the danube smoke in float32 on
+    the card and on the CPU: the loss within 1e-4 relative, every param
+    within 2.2 lr of the CPU's (a first AdamW step moves each param by lr
+    (sign(g) + weight decay p): a grad near 0 may take the other sign on
+    the other device) and the moments within 1e-3 of their largest
+    value."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import build_model, make_train_step
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_smoke("h2o-danube-1.8b"),
+                              param_dtype="float32", accum_steps=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(2))
+    ocfg = adamw.AdamWConfig(warmup_steps=1, decay_steps=4)
+    step = make_train_step(model, ocfg)
+    batch = _train_batch(cfg, 4, 24, seed=5)
+    p_cpu, o_cpu, m_cpu = step(params, adamw.init(ocfg, params), batch)
+    pc = _to(params, card)
+    p_gpu, o_gpu, m_gpu = step(pc, adamw.init(ocfg, pc),
+                               {k: v.to(card) for k, v in batch.items()})
+    assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) <= \
+        1e-4 * abs(float(m_cpu["loss"]))
+    lr = float(m_cpu["lr"])
+    for a, w in zip(tree.leaves(p_gpu), tree.leaves(p_cpu)):
+        assert float((a.cpu() - w).abs().max()) <= 2.2 * lr
+    for a, w in zip(tree.leaves(o_gpu.nu), tree.leaves(o_cpu.nu)):
+        assert float((a.cpu() - w).abs().max()) <= \
+            1e-3 * max(float(w.abs().max()), 1e-30)
