@@ -136,6 +136,23 @@ Phases (each failure exits non-zero and prints no result line):
      (results unchanged), each rank's peak memory; then a gemv mesh tier
      (cluster_scan on every rank, rank 0's held against the plain
      version) against the in-process tier over its partitions;
+     13b. the paper's search step on a (2 data x 4 model) mesh
+     (launch.anns_step, after phase 13's ranks are down): phase 4's index
+     placed round-robin over 4 model shards (1,024 clusters each), 8 gloo
+     ranks sharing the card (7 spawned); the origin's one-process
+     build_search_step first, on the same round-robin index; then every
+     rank takes its model block of the index and its data block of the
+     vectors (elastic.place, one leaf at a time), 1024 queries, nprobe 8,
+     EF 40, k 10, beam then gemv, mulfree, owner-computes rerank: one
+     warm-up and five runs, the first counted on every rank, each held
+     bitwise (ids, distances, hops, dropped lanes) against the
+     one-process step; QPS (median of 5) beside phases 5 and 13, recall@10,
+     the collectives a step by kind and bytes, one more run timed by stage
+     on rank 0, launches, allocated and
+     peak memory by rank beside the reckoning; rank 0's beam_search,
+     cluster_scan and topk_select calls held bitwise against their plain
+     versions; the SIFT1B footprint a rank on both production meshes
+     (computed, --account);
  11. serve h2o-danube-1.8b at full width (24 x 2560, 32 / 8 heads of 80,
      seeded random bf16 weights) through repro_torch.launch.serve.generate:
      8 requests of 2048 prompt tokens, 32 generated, float32 KV cache, the
@@ -273,6 +290,12 @@ Phases (each failure exits non-zero and prints no result line):
      same step with float32 params, its first moments bitwise equal on
      both ranks and within an int8 step's bound (``mu_bound``) of
      make_train_step's; the step's and the gradient reduction's ms
+     logged;
+     19d. the same DP step on a (2 pod x 2 data) mesh of 4 gloo ranks
+     sharing the card: a plain mean over 'pod', then the compressed mean
+     over 'data' (the reference's order, ROADMAP C9); held as 19c is, the
+     first moments within ``mu_bound`` over the 2 shards of 'data'; the
+     step's and the two-stage reduction's ms (compressed and plain)
      logged.
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -308,6 +331,7 @@ INT_MAX = 2**31 - 1
 MIXED = ("mulfree", "exact", "hamming")   # phase 9b's backends, by shard
 MESH_RANKS = 8               # phase 13: one process a shard, phase 9's 8
 MESH_TIMEOUT_S = 300.0       # a mesh collective that waits longer fails
+ANNS_MESH = (2, 4)           # phase 13b: ('data', 'model') ranks
 # recall@10 floors of phase 8b: the JAX package's recall on a 100k-point,
 # 40-cluster version of the corpus (scripts/backend_recall.py, CPU), less
 # the margin the mulfree floor of 0.5 keeps below its JAX recall there
@@ -2360,6 +2384,289 @@ def phase_mesh(torch, eng, qt, rep9, med9) -> dict:
     return out
 
 
+def anns_rank(rank: int, world: int, init: str, device: str,
+              origin: dict | None = None) -> dict | None:
+    """One rank of phase 13b's (data x model) mesh: rank 0 is this process
+    and brings ``origin`` (the round-robin placed index on the host, the
+    engine's vectors, centroids and rotation, the scale and the queries);
+    the others are spawned with ``anns_follower``. Every rank takes its
+    blocks (``anns_step.place_step_inputs``), then for each scan runs a
+    warm-up step, one counted step (every count set to 0 just before, read
+    just after; rank 0 records its kernel calls) and four more, rank 0
+    timing each. Returns, on rank 0, each scan's results, times, counted
+    calls, collectives and every rank's launches and memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import beam_search, cluster_scan, ops, topk_select
+    from repro_torch.launch import anns_step
+    from repro_torch.launch import mesh as lmesh
+    dev = lmesh.init_shard_group(rank, world, init_method=init,
+                                 device=device, timeout_s=MESH_TIMEOUT_S)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    try:
+        mesh = lmesh.make_mesh(ANNS_MESH, ("data", "model"), device=device)
+        box = [origin["scale"] if origin else None]
+        dist.broadcast_object_list(box, src=0)
+        s = box[0]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        o = origin or {}
+        local = anns_step.place_step_inputs(
+            mesh, o.get("placed"), o.get("vectors"), o.get("centroids"),
+            o.get("rotation"), device=dev)
+        sync()
+        place_s = time.perf_counter() - t
+        mem = [torch.cuda.memory_allocated(dev) if cuda else 0]
+        q = o.get("queries")
+        out = {"place_s": place_s, "scans": {}}
+        for scan in ("beam", "gemv"):
+            step = anns_step.build_search_step(
+                s, ANNS_MESH[1], scan, mesh, owner_rerank=True)
+            step(*local, q)                          # warm-up
+            sync()
+            dist.barrier()
+            ops.reset_launch_counts()
+            step.collectives.reset()
+            targets = [(topk_select, "topk_select"),
+                       (cluster_scan, "ranked_cluster_scan")
+                       if scan == "gemv" else
+                       (beam_search, "ranked_beam_search")]
+            t = time.perf_counter()
+            (res, hops, dropped), calls = recording_calls(
+                targets if rank == 0 else [], lambda: step(*local, q))
+            sync()
+            ms = [1e3 * (time.perf_counter() - t)]
+            launches = ops.launch_counts()
+            coll = step.collectives.as_dict()
+            runs = [(res, hops, dropped)]
+            for _ in range(4):
+                t = time.perf_counter()
+                runs.append(step(*local, q))
+                sync()
+                ms.append(1e3 * (time.perf_counter() - t))
+            # one more run, rank 0 timing its stages (each synced)
+            staged = step_stages(torch, step, sync, lambda: step(*local, q)) \
+                if rank == 0 else step(*local, q)
+            by_rank = [None] * world
+            dist.all_gather_object(by_rank, launches)
+            out["scans"][scan] = dict(runs=runs, ms=ms, calls=calls,
+                                      collectives=coll, launches=by_rank,
+                                      stages=staged if rank == 0 else None)
+        mem.append(torch.cuda.max_memory_allocated(dev) if cuda else 0)
+        mems = [None] * world
+        dist.all_gather_object(mems, mem)
+        out["memory"] = mems
+        out["blocks"] = [tuple(local[0].codes.shape),
+                         tuple(local[3].shape)]
+        return out if rank == 0 else None
+    finally:
+        dist.destroy_process_group()
+
+
+def step_stages(torch, step, sync, fn) -> dict:
+    """fn(), one call of the mesh search step ``step``, with each of its
+    stages timed on this rank's host clock, synced before and after
+    (``sync``): the queries' broadcast, the routing (cluster filter and
+    lane tables), the lanes' search, the all_gather, the candidates'
+    gather, the rerank's distances, its MIN all_reduce and the selection;
+    "other" is the rest of the call. A collective's time includes the wait
+    for the slowest rank. Returns {stage: ms}."""
+    import torch.distributed as dist
+    from repro_torch.core import engine, rerank
+    from repro_torch.kernels import ops
+    stages = {}
+    targets = [(dist, "broadcast", "broadcast"), (step, "route", "route"),
+               (engine, "search_lanes", "search"),
+               (dist, "all_gather", "all_gather"),
+               (engine, "gather_candidates", "gather"),
+               (rerank, "exact_sqdist", "distances"),
+               (dist, "all_reduce", "all_reduce_min"),
+               (ops, "topk_select", "topk_select")]
+    real = [getattr(obj, name) for obj, name, _ in targets]
+
+    def timed(f, label):
+        def call(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            out = f(*a, **kw)
+            sync()
+            stages[label] = stages.get(label, 0.0) + 1e3 * (
+                time.perf_counter() - t)
+            return out
+        return call
+    for (obj, name, label), f in zip(targets, real):
+        setattr(obj, name, timed(f, label))
+    try:
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        total = 1e3 * (time.perf_counter() - t)
+    finally:
+        for (obj, name, _), f in zip(targets, real):
+            setattr(obj, name, f)
+        step.__dict__.pop("route", None)
+    stages["other"] = total - sum(stages.values())
+    stages["total"] = total
+    return stages
+
+
+def anns_follower(rank: int, world: int, init: str, device: str) -> None:
+    """A spawned rank of phase 13b: ``anns_rank``, nothing returned (an
+    exception ends the process with a non-zero exit)."""
+    anns_rank(rank, world, init, device)
+
+
+def same_bits(torch, label, got, want) -> None:
+    """Ids, distances, hops and dropped lanes of a step, bit for bit."""
+    (gr, gh, gd), (wr, wh, wd) = got, want
+    if not (torch.equal(gr.ids, wr.ids)
+            and torch.equal(gr.dists.view(torch.int32),
+                            wr.dists.view(torch.int32))
+            and torch.equal(gh, wh) and int(gd) == int(wd)):
+        fail(f"{label}: differs from the one-process step (ids equal "
+             f"{float((gr.ids == wr.ids).float().mean()):.4f}, dropped "
+             f"{int(gd)} vs {int(wd)})")
+
+
+def phase_anns_step(torch, eng, qt, qps5, mesh13) -> dict:
+    """Phase 13b: ``launch.anns_step``'s search step at 10M on a (2 data x
+    4 model) mesh of 8 gloo ranks sharing the card (see the module's
+    docstring). The engine's own placed index is dropped while the phase
+    runs, to make room, and placed anew after it."""
+    import torch.distributed as dist  # noqa: F401
+    import torch.multiprocessing as mp
+    from repro_torch.core import backends, engine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import anns_step
+    t_phase = time.perf_counter()
+    cuda = eng.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    world = ANNS_MESH[0] * ANNS_MESH[1]
+    n_model = ANNS_MESH[1]
+    s = anns_step.AnnsScale(n=N, dim=128, n_clusters=eng.index.n_clusters,
+                            budget=eng.index.budget, degree=eng.icfg.degree,
+                            queries=qt.shape[0])
+    for line in anns_step.account_lines():
+        log(f"13b --account: {line}")
+    from repro_torch.launch import mesh as lmesh
+    fp = anns_step.footprint(lmesh.MeshShape(("data", "model"), ANNS_MESH),
+                             s)
+    log(f"13b reckoning a rank at this scale (computed from shapes): index "
+        f"{fp['index'] / 2**30:.3f} GiB + vectors "
+        f"{fp['vectors'] / 2**30:.3f} GiB")
+    eng.placed = None                  # 13b's round-robin copy takes its room
+    sync()
+    rr = engine._place(eng.index, anns_step.round_robin(s.n_clusters,
+                                                        n_model),
+                       backends.get_backend("mulfree"))
+    one = {}
+    for scan in ("beam", "gemv"):
+        step = anns_step.build_search_step(s, n_model, scan)
+        args = (rr, eng.index.centroids, eng.index.rotation,
+                eng.host.vectors, qt)
+        step(*args)
+        sync()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        one[scan] = step(*args)
+        sync()
+        log(f"13b one-process step ({scan}, {n_model} shards round-robin): "
+            f"{1e3 * (time.perf_counter() - t):.2f} ms, launches "
+            f"{json.dumps(ops.launch_counts())}")
+    rr_host = engine.PlacedIndex(
+        *(t.cpu() for t in (rr.centroids, rr.codes, rr.neighbors, rr.entry,
+                            rr.n_valid, rr.node_ids)),
+        arrays=type(rr.arrays)(*(t.cpu() for t in rr.arrays)))
+    del rr
+    sync()
+    store = ROOT / "build" / f"anns-store-{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    if store.exists():
+        store.unlink()
+    init = f"file://{store}"
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    ctx = mp.get_context("spawn")
+    t = time.perf_counter()
+    procs = [ctx.Process(target=anns_follower,
+                         args=(r, world, init, eng.device.type))
+             for r in range(1, world)]
+    for p in procs:
+        p.start()
+    try:
+        out = anns_rank(0, world, init, eng.device.type, origin=dict(
+            scale=s, placed=rr_host, vectors=eng.host.vectors,
+            centroids=eng.index.centroids, rotation=eng.index.rotation,
+            queries=qt))
+    finally:
+        for p in procs:
+            p.join(120)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        if store.exists():
+            store.unlink()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * len(procs):
+        fail(f"13b: ranks exited with {codes}")
+    del rr_host
+    log(f"13b {world} ranks up and placed in {time.perf_counter() - t:.1f} "
+        f"s (placement {out['place_s']:.1f} s); each holds index "
+        f"{out['blocks'][0]} and vectors {out['blocks'][1]}; GiB by rank "
+        f"after placement [" + ", ".join(f"{m[0] / 2**30:.2f}" for m in
+                                         out["memory"])
+        + "], peak [" + ", ".join(f"{m[1] / 2**30:.2f}" for m in
+                                  out["memory"]) + "] (rank 0 also holds "
+        f"the engine's index and vectors)")
+    result = {}
+    for scan, r in out["scans"].items():
+        for i, run in enumerate(r["runs"]):
+            same_bits(torch, f"13b {scan} mesh run {i}", run, one[scan])
+        res, hops, dropped = r["runs"][0]
+        recall = recall_at(torch, eng, qt, res.ids)
+        qps = sorted(1e3 * qt.shape[0] / m for m in r["ms"])
+        med = qps[len(qps) // 2]
+        want = "cluster_scan" if scan == "gemv" else "beam_search"
+        for k, lc in enumerate(r["launches"]):
+            if lc[want] != 1 or lc["topk_select"] != 1:
+                fail(f"13b {scan}: rank {k} launched {lc}, expected one "
+                     f"{want} and one topk_select")
+        print(f"kernels anns {scan} " + json.dumps(
+            {k: sum(lc[k] for lc in r["launches"]) for k in
+             r["launches"][0]}), flush=True)
+        hold_rank0_kernels(torch, r["calls"], f"13b {scan}")
+        log(f"13b {scan}: one more run by stage on rank 0 (ms, each synced "
+            f"on both sides): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in r["stages"].items()))
+        log(f"13b {scan}: runs of {qt.shape[0]} queries "
+            f"{', '.join(f'{m:.2f}' for m in r['ms'])} ms (the first "
+            f"counted), median QPS {med:.1f}; phase 5's single engine "
+            f"{sorted(qps5)[len(qps5) // 2]:.1f}, phase 13's mesh tier "
+            f"{mesh13['med']['qps']:.1f} in this call; recall@10 "
+            f"{recall:.4f}; dropped lanes {int(dropped)}; mean hops "
+            f"{float(hops[hops > 0].float().mean()):.2f}; collectives a "
+            f"step on rank 0 {json.dumps(r['collectives'])}; launches by "
+            f"rank {json.dumps(r['launches'])}; every run bitwise the "
+            f"one-process step's")
+        if recall < 0.5:
+            fail(f"13b {scan}: recall@10 {recall:.4f} < 0.5")
+        result[scan] = dict(qps=med, recall=recall)
+    eng.placed = engine._place(eng.index, eng.place, eng.backend)
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"13b done in {result['phase_s']:.1f} s; the engine placed anew")
+    return result
+
+
 def phase_skewed_tier(torch, eng):
     """Phase 9c: the skew-aware tier on the 10M engine. (a) 4,096 Zipf(1.0)
     queries on the size-prior 8-shard tier, then on a heat-aware tier
@@ -3878,7 +4185,7 @@ def phase_mutable(torch, parts, icfg, qt):
 
 
 # ---------------------------------------------------------------------------
-# phases 19-19c: the training path
+# phases 19-19d: the training path
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "h2o-danube-1.8b"   # phase 19: full width, launch.train.run
@@ -3886,6 +4193,7 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 16
 RESUME_ARCH = "phi3-mini-3.8b"   # phases 19b and 19c: the 100m preset
 RESUME_B, RESUME_S = 8, 256
 DP_RANKS = 2                     # phase 19c: ranks sharing the card (gloo)
+                                 # (19d: 2 pod x 2 data)
 DP_ATOL = 5e-2                   # tests/test_distributed.py's DP tolerance
 # float32 gradients of one batch summed in other orders (on the card and
 # the CPU; the whole batch and its halves): within 1e-3 / 1e-4 of the
@@ -4292,15 +4600,18 @@ def phase_train_resume(torch, dev):
         f"9 uninterrupted, resumed at 6 and (torn) at 3")
 
 
-def dp_rank(rank: int, world: int, init: str, device: str = "cuda") -> dict:
+def dp_rank(rank: int, world: int, init: str, device: str = "cuda",
+            pod: bool = False) -> dict:
     """One rank of phase 19c's DP step (this process is rank 0; the others
-    are spawned with ``dp_follower``): the group over gloo, RESUME_ARCH's
+    are spawned with ``dp_follower``), or with ``pod`` of phase 19d's on a
+    (2 pod x 2 data) mesh: the group over gloo, RESUME_ARCH's
     100m params seeded alike on every rank, one compressed
     ``make_dp_train_step`` step on the global batch of step 0, the params'
     SHA-256 gathered from every rank; the same step with the preset's
     params in float32, its params' and first moments' SHA-256 gathered;
-    then the gradient reduction alone timed (compressed and plain, 2 turns
-    each, every leaf of the params' shapes). Returns the step's params,
+    then the gradient reduction alone timed (``trainer.reduce_mean``,
+    compressed and plain, 2 turns each, every leaf of the params' shapes).
+    Returns the step's params,
     loss, ms, the digests, the float32 step's first moments and the
     reduction ms."""
     import torch
@@ -4315,6 +4626,9 @@ def dp_rank(rank: int, world: int, init: str, device: str = "cuda") -> dict:
     dev = lmesh.init_shard_group(rank, world, init_method=init,
                                  device=device, timeout_s=MESH_TIMEOUT_S)
     try:
+        group = lmesh.make_mesh((2, world // 2), ("pod", "data"),
+                                device=device) if pod else None
+        groups = trainer.data_groups(group)[0]
         cfg = train.preset_config(RESUME_ARCH, "100m")
         model = build_model(cfg)
         params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -4322,7 +4636,7 @@ def dp_rank(rank: int, world: int, init: str, device: str = "cuda") -> dict:
                                  clip_norm=0.0)
         batch = {k: v.to(dev) for k, v in token_batch(TokenDataConfig(
             cfg.vocab_size, RESUME_S, RESUME_B, seed=0), 0).items()}
-        step = trainer.make_dp_train_step(model, ocfg)
+        step = trainer.make_dp_train_step(model, ocfg, group)
         opt, fb = adamw.init(ocfg, params), compress.init_feedback(params)
         step(params, opt, fb, batch)                  # warm-up
         sync = torch.cuda.synchronize if dev.type == "cuda" else \
@@ -4344,7 +4658,7 @@ def dp_rank(rank: int, world: int, init: str, device: str = "cuda") -> dict:
         digests = digest(p2)
         m32 = build_model(dataclasses.replace(cfg, param_dtype="float32"))
         p32 = m32.init(torch.Generator(device=dev).manual_seed(0))
-        q32, o32, _, _ = trainer.make_dp_train_step(m32, ocfg)(
+        q32, o32, _, _ = trainer.make_dp_train_step(m32, ocfg, group)(
             p32, adamw.init(ocfg, p32), compress.init_feedback(p32), batch)
         digests32 = digest((q32, o32.mu))
         del p32, q32
@@ -4355,8 +4669,8 @@ def dp_rank(rank: int, world: int, init: str, device: str = "cuda") -> dict:
         for kind in ("compressed", "plain", "plain", "compressed"):
             sync()
             t = time.perf_counter()
-            T.tree_map(compress.compressed_psum_mean if kind == "compressed"
-                       else compress.psum_mean, like)
+            T.tree_map(lambda g: trainer.reduce_mean(
+                g, groups, kind == "compressed"), like)
             sync()
             reduce_ms.setdefault(kind, []).append(
                 1e3 * (time.perf_counter() - t))
@@ -4369,13 +4683,15 @@ def dp_rank(rank: int, world: int, init: str, device: str = "cuda") -> dict:
         dist.destroy_process_group()
 
 
-def dp_follower(rank: int, world: int, init: str, device: str) -> None:
-    """A spawned rank of phase 19c: ``dp_rank``, its results dropped (an
-    exception ends the process with a non-zero exit)."""
-    dp_rank(rank, world, init, device)
+def dp_follower(rank: int, world: int, init: str, device: str,
+                pod: bool = False) -> None:
+    """A spawned rank of phase 19c (19d with ``pod``): ``dp_rank``, its
+    results dropped (an exception ends the process with a non-zero
+    exit)."""
+    dp_rank(rank, world, init, device, pod)
 
 
-def phase_train_dp(torch, dev):
+def phase_train_dp(torch, dev, pod: bool = False):
     """Phase 19c: the DP trainer on the card, DP_RANKS ranks sharing it
     over gloo (the rule of ``launch.mesh.collective_backend``: one card for
     two ranks), through a file store under build/ (phase 13's
@@ -4386,7 +4702,11 @@ def phase_train_dp(torch, dev):
     its gradient, so the params cannot show a wrong reduction; the first
     moment (1 - b1) g can: the float32 step's moments, bitwise equal on
     every rank, are held within ``mu_bound`` of ``make_train_step``'s.
-    Logs the step's ms and the reduction's."""
+    Logs the step's ms and the reduction's. With ``pod``, phase 19d: the
+    same on a (2 pod x 2 data) mesh of 4 ranks, the reduction a plain mean
+    over 'pod' then the compressed mean over 'data', so the moments' bound
+    is ``mu_bound`` over the 2 shards of 'data' (the pod mean is exact to
+    float32 orders, which the bound's dg covers)."""
     import torch.multiprocessing as mp
     from repro_torch import tree as T
     from repro_torch.data.synthetic import TokenDataConfig, token_batch
@@ -4394,6 +4714,8 @@ def phase_train_dp(torch, dev):
     from repro_torch.models.model import build_model, make_train_step
     from repro_torch.optim import adamw
     t_phase = time.perf_counter()
+    tag, world = ("19d", 4) if pod else ("19c", DP_RANKS)
+    n_data = 2 if pod else DP_RANKS
     store = ROOT / "build" / f"dp-store-{os.getpid()}"
     store.parent.mkdir(exist_ok=True)
     if store.exists():
@@ -4402,12 +4724,12 @@ def phase_train_dp(torch, dev):
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=dp_follower,
-                         args=(r, DP_RANKS, init, dev.type))
-             for r in range(1, DP_RANKS)]
+                         args=(r, world, init, dev.type, pod))
+             for r in range(1, world)]
     for p in procs:
         p.start()
     try:
-        res = dp_rank(0, DP_RANKS, init, dev.type)
+        res = dp_rank(0, world, init, dev.type, pod)
     finally:
         for p in procs:
             p.join(120)
@@ -4419,9 +4741,9 @@ def phase_train_dp(torch, dev):
             store.unlink()
     codes = [p.exitcode for p in procs]
     if codes != [0] * len(procs):
-        fail(f"19c: DP ranks exited with {codes}")
+        fail(f"{tag}: DP ranks exited with {codes}")
     if len(set(res["digests"])) != 1 or len(set(res["digests32"])) != 1:
-        fail(f"19c: the ranks' params or moments differ after the step: "
+        fail(f"{tag}: the ranks' params or moments differ after the step: "
              f"{res['digests']}, float32 {res['digests32']}")
     cfg = train.preset_config(RESUME_ARCH, "100m")
     model = build_model(cfg)
@@ -4441,11 +4763,12 @@ def phase_train_dp(torch, dev):
     mu_excess, mu_ratio = -math.inf, 0.0
     for got, want in zip(T.leaves(res["mu32"]), T.leaves(o32.mu)):
         err = (got.double() - want.double()).abs()
-        bound = mu_bound(want, DP_RANKS)
+        bound = mu_bound(want, n_data)
         mu_excess = max(mu_excess, float((err - bound).max()))
         mu_ratio = max(mu_ratio, float((err / bound).max()))
     del p32, o32
-    log(f"19c {DP_RANKS} ranks ({res['n_params'] / 1e6:.1f} M params in "
+    log(f"{tag} {world} ranks{' (2 pod x 2 data)' if pod else ''} "
+        f"({res['n_params'] / 1e6:.1f} M params in "
         f"{res['n_leaves']} leaves): params equal on every rank (SHA-256 "
         f"{res['digests'][0][:16]}); loss {res['loss']:.5f} vs "
         f"{float(m_ref['loss']):.5f} on the whole batch; max |param - "
@@ -4453,12 +4776,14 @@ def phase_train_dp(torch, dev):
         f"step: moments equal on every rank, |mu - make_train_step's| at "
         f"most {mu_ratio:.3g} of its element's bound; DP step "
         f"{res['step_ms']:.1f} ms; the gradient reduction of every leaf "
-        f"(ms, turns): compressed {res['reduce_ms']['compressed']}, plain "
-        f"all_reduce {res['reduce_ms']['plain']}; phase "
+        f"(ms, turns; {'a plain mean over pod, then ' if pod else ''}the "
+        f"compressed or the plain mean{' over data' if pod else ''}): "
+        f"compressed {res['reduce_ms']['compressed']}, plain "
+        f"{res['reduce_ms']['plain']}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     if abs(res["loss"] - float(m_ref["loss"])) > 1e-3 or diff > DP_ATOL \
             or mu_excess > 0:
-        fail(f"19c: the DP step differs from make_train_step: loss "
+        fail(f"{tag}: the DP step differs from make_train_step: loss "
              f"{res['loss']} vs {float(m_ref['loss'])}, params by {diff}, "
              f"first moments by up to {mu_ratio} of their bound")
     return res
@@ -4496,6 +4821,7 @@ def main() -> None:
     timing.update(phase_new_kernels_real(torch, topo, rep, scan_call, qt))
     del topo, scan_call
     mesh = phase_mesh(torch, eng, qt, rep, med)
+    anns = phase_anns_step(torch, eng, qt, qps, mesh)
     phase_skewed_tier(torch, eng)
     lm_counts, timing["flash_attention"] = phase_lm(torch, dev, eng)
     mla_launches, mla = phase_mla(torch, dev, eng)
@@ -4510,6 +4836,7 @@ def main() -> None:
     phase_train_witness(torch, dev)
     phase_train_resume(torch, dev)
     phase_train_dp(torch, dev)
+    phase_train_dp(torch, dev, pod=True)
 
     src = {"binary_ip_rank": ("src/repro_torch/kernels/csrc/binary_ip.cu",
                               "src/repro/kernels/binary_ip.py:79"),
@@ -4590,7 +4917,9 @@ def main() -> None:
         f"{recall:.4f} beam, {gemv_recall:.4f} gemv, sharded equal to beam; "
         f"QPS {qps[0]:.1f} beam, {gemv_qps[0]:.1f} gemv, {med['qps']:.1f} "
         f"sharded (median of 5), {mesh['med']['qps']:.1f} on the "
-        f"{MESH_RANKS}-rank mesh (median of 5); mutable tier QPS "
+        f"{MESH_RANKS}-rank mesh (median of 5), {anns['beam']['qps']:.1f} / "
+        f"{anns['gemv']['qps']:.1f} beam / gemv on the {ANNS_MESH[0]} x "
+        f"{ANNS_MESH[1]} search step (median of 5); mutable tier QPS "
         f"{mutable['tier_qps']:.1f}, "
         f"recall drift at ef 64 "
         f"{abs(mutable['recall_mut64'] - mutable['recall_compact64']):.4f}; "

@@ -16,8 +16,8 @@ from .core.compact_index import CompactIndex, HostStore
 from .core.placement import Placement
 
 __all__ = ["compact_index_from_numpy", "host_store_from_numpy",
-           "placement_from_numpy", "lm_params_from_numpy",
-           "adamw_state_from_numpy"]
+           "placement_from_numpy", "placed_index_from_numpy",
+           "lm_params_from_numpy", "adamw_state_from_numpy"]
 
 
 def compact_index_from_numpy(fields: dict, device="cuda") -> CompactIndex:
@@ -51,6 +51,23 @@ def placement_from_numpy(order, shard_of, local_slot, n_shards: int,
                      owners_of=opt(owners_of, np.int32),
                      locals_of=opt(locals_of, np.int32),
                      resident_table=opt(resident_table, np.int32))
+
+
+def placed_index_from_numpy(fields: dict, arrays: dict, mode: str,
+                            device="cuda"):
+    """The JAX package's ``PlacedIndex`` (its six shard-major fields and
+    its backend's ``arrays`` NamedTuple, each as a dict of numpy arrays)
+    as the port's, for the backend ``mode``: a JAX round-robin placed
+    index (``launch/anns_step.py``) searched by both packages."""
+    from .core import backends
+    from .core.engine import PlacedIndex
+    kind = type(backends.get_backend(mode).array_specs((1,), 1, 8))
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
+    return PlacedIndex(**{f: t(fields[f]) for f in (
+        "centroids", "codes", "neighbors", "entry", "n_valid", "node_ids")},
+        arrays=kind(**{f: t(arrays[f]) for f in kind._fields}))
 
 
 def _tensor(a, device) -> torch.Tensor:

@@ -38,7 +38,7 @@ __all__ = ["LaneConfig", "RankingBackend", "KernelBackend",
            "register_backend", "get_backend", "available_backends",
            "MulFreeBackend", "ExactBackend", "HammingBackend",
            "MulFreeArrays", "ExactArrays", "HammingArrays", "MulFreeLanes",
-           "ExactLanes", "HammingLanes"]
+           "ExactLanes", "HammingLanes", "meta_tensor"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +83,12 @@ class HammingLanes(NamedTuple):
     qcode: torch.Tensor       # (L, W) uint8 packed sign code of the query
 
 
+def meta_tensor(shape, dtype=torch.float32) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` without storage (the JAX
+    package's ``ShapeDtypeStruct``)."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
 def _rows(shard, cl, ids) -> torch.Tensor:
     """Flat code-table rows of the (L, R) local ids of cluster cl[l], -1
     where an id is -1."""
@@ -111,6 +117,14 @@ class RankingBackend:
 
     def index_arrays(self, idx) -> Any:
         """This backend's per-node / per-cluster tensors of a CompactIndex."""
+        raise NotImplementedError
+
+    def array_specs(self, lead: tuple[int, ...], budget: int, dim: int
+                    ) -> Any:
+        """``index_arrays``'s tree as meta tensors (no storage) with leading
+        dims ``lead`` (e.g. (S, C/S)): shapes and dtypes for accounting at
+        scales no device holds (the JAX package's ``ShapeDtypeStruct``
+        stand-ins)."""
         raise NotImplementedError
 
     def prepare_lanes(self, qv, cv, rotation, arrays, lane_cl, dim: int):
@@ -235,6 +249,12 @@ class MulFreeBackend(KernelBackend):
         return MulFreeArrays(f_add=idx.f_add, rho=idx.rho,
                              shift1=idx.shift1, shift2=idx.shift2)
 
+    def array_specs(self, lead, budget, dim) -> MulFreeArrays:
+        return MulFreeArrays(f_add=meta_tensor((*lead, budget), torch.int32),
+                             rho=meta_tensor(lead, torch.float32),
+                             shift1=meta_tensor(lead, torch.int32),
+                             shift2=meta_tensor(lead, torch.int32))
+
     def prepare_lanes(self, qv, cv, rotation, arrays: MulFreeArrays,
                       lane_cl, dim) -> MulFreeLanes:
         zero = torch.zeros_like(arrays.rho[lane_cl])
@@ -278,6 +298,11 @@ class ExactBackend(KernelBackend):
         return ExactArrays(residual_norm=idx.residual_norm,
                            cos_theta=idx.cos_theta)
 
+    def array_specs(self, lead, budget, dim) -> ExactArrays:
+        return ExactArrays(
+            residual_norm=meta_tensor((*lead, budget), torch.float32),
+            cos_theta=meta_tensor((*lead, budget), torch.float32))
+
     def prepare_lanes(self, qv, cv, rotation, arrays, lane_cl,
                       dim) -> ExactLanes:
         qlut = rabitq.prepare_query(qv, cv, rotation)
@@ -319,6 +344,9 @@ class HammingBackend(KernelBackend):
         return INT_MAX
 
     def index_arrays(self, idx) -> HammingArrays:
+        return HammingArrays()
+
+    def array_specs(self, lead, budget, dim) -> HammingArrays:
         return HammingArrays()
 
     def prepare_lanes(self, qv, cv, rotation, arrays, lane_cl,

@@ -32,7 +32,8 @@ from . import beam_search, compact_index, ivf, placement as placement_mod
 from . import rerank as rerank_mod
 
 __all__ = ["SearchConfig", "PlacedIndex", "PIMCQGEngine", "SearchStats",
-           "ShardState", "probed_block", "place_arrays", "route_lanes"]
+           "ShardState", "probed_block", "place_arrays", "placed_specs",
+           "route_lanes", "search_lanes", "gather_candidates"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +131,25 @@ def _place(idx: compact_index.CompactIndex, pl: placement_mod.Placement,
         arrays=place_arrays(backend.index_arrays(idx), pl))
 
 
+def placed_specs(n_shards: int, clusters_per_shard: int, budget: int,
+                 degree: int, dim: int,
+                 backend: backends_mod.RankingBackend) -> PlacedIndex:
+    """The tree ``_place`` builds, as meta tensors (shapes and dtypes, no
+    storage), the backend's slice included: accounting at scales no
+    device holds (``launch/anns_step.py``)."""
+    lead = (n_shards, clusters_per_shard)
+    w = (dim + (-dim) % 8) // 8
+    meta = backends_mod.meta_tensor
+    return PlacedIndex(
+        centroids=meta((*lead, dim), torch.float32),
+        codes=meta((*lead, budget, w), torch.uint8),
+        neighbors=meta((*lead, budget, degree), torch.int32),
+        entry=meta(lead, torch.int32),
+        n_valid=meta(lead, torch.int32),
+        node_ids=meta((*lead, budget), torch.int32),
+        arrays=backend.array_specs(lead, budget, dim))
+
+
 # ---------------------------------------------------------------------------
 # Lane routing: (Q, nprobe) probes -> per-shard lane tables
 # ---------------------------------------------------------------------------
@@ -225,12 +245,13 @@ def _lanes(st: ShardState, backend, queries, lane_q, lane_cl):
     return shard, fc, lanes, lane_cl >= 0
 
 
-def _candidates(st: ShardState, scfg: SearchConfig, queries, nq: int,
-                probe):
-    """Route, search every lane, and gather each query's candidates:
-    -> (valid (B,), cand (B, P*ef) ids, SearchStats)."""
+def search_lanes(st: ShardState, scfg: SearchConfig, queries, lane_q,
+                 lane_cl) -> tuple[torch.Tensor, torch.Tensor]:
+    """The beam (or gemv) search of every lane of the (S, L) tables over
+    ``st``'s S shards: -> (gids (S*L, ef) global ids, -1 pad; hops (S, L),
+    0 on pad lanes). The lanes of one shard may be any slice of its
+    table: a lane's search reads only its query and its cluster."""
     backend = backends_mod.get_backend(scfg.mode)
-    valid, lane_q, lane_cl, inv, dropped = _route(st, scfg, probe, nq)
     shard, fc, lanes, live = _lanes(st, backend, queries, lane_q, lane_cl)
     scan = beam_search.full_scan_lane if scfg.scan == "gemv" \
         else beam_search.beam_search_lane
@@ -239,11 +260,25 @@ def _candidates(st: ShardState, scfg: SearchConfig, queries, nq: int,
     res = scan(shard, fc, lanes, backend=backend, cfg=lane_cfg, active=live)
     gids = shard.node_ids[fc[:, None], res.ids.clamp(min=0).long()]
     gids = torch.where((res.ids >= 0) & live[:, None], gids, -1)
-    hops = torch.where(live, res.hops, 0).reshape(lane_q.shape)
+    return gids, torch.where(live, res.hops, 0).reshape(lane_q.shape)
+
+
+def gather_candidates(gids: torch.Tensor, inv: torch.Tensor
+                      ) -> torch.Tensor:
+    """Each query's candidates through the inverse lane map: (S*L, ef)
+    lane results, (B, P) flat lane slots (-1 dropped) -> (B, P*ef)."""
     cand = gids[inv.clamp(min=0).long()]                  # (B, P, EF)
     cand = torch.where((inv >= 0)[..., None], cand, -1)
-    cand = cand.reshape(queries.shape[0], inv.shape[1] * scfg.ef)
-    return valid, cand.contiguous(), SearchStats(hops, dropped)
+    return cand.reshape(inv.shape[0], -1).contiguous()
+
+
+def _candidates(st: ShardState, scfg: SearchConfig, queries, nq: int,
+                probe):
+    """Route, search every lane, and gather each query's candidates:
+    -> (valid (B,), cand (B, P*ef) ids, SearchStats)."""
+    valid, lane_q, lane_cl, inv, dropped = _route(st, scfg, probe, nq)
+    gids, hops = search_lanes(st, scfg, queries, lane_q, lane_cl)
+    return valid, gather_candidates(gids, inv), SearchStats(hops, dropped)
 
 
 def probed_block(st: ShardState, scfg: SearchConfig, queries: torch.Tensor,

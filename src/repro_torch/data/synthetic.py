@@ -8,11 +8,10 @@ corpus and serve the same traffic. ``ground_truth`` takes numpy arrays (the nump
 tensors (the torch path, which runs wherever the tensors lie — on the card
 for a corpus too large for the host's patience).
 
-``token_batch`` draws the JAX package's token distribution (Zipf unigrams
+``token_batch`` draws the JAX package's tokens bit for bit (Zipf unigrams
 by inverse CDF, a = 1.2, clipped to the vocabulary; with probability 0.2
-the token 8 back) from a ``torch.Generator`` seeded from (seed, step). The
-JAX package draws from ``jax.random``, which torch cannot repeat, so the two
-agree in distribution, not token for token.
+the token 8 back) from ``data/prng.py``'s numpy copy of ``jax.random``'s
+threefry, in the ``jax_threefry_partitionable=True`` layout.
 """
 
 from __future__ import annotations
@@ -21,6 +20,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from . import prng
 
 __all__ = ["TokenDataConfig", "token_batch", "clustered_vectors", "query_set", "zipf_query_set",
            "drifting_hotspot_stream", "ground_truth"]
@@ -38,21 +39,29 @@ class TokenDataConfig:
 def token_batch(cfg: TokenDataConfig, step: int) -> dict:
     """One global batch, {'tokens': (B, S) int32, 'labels': (B, S) int32}
     on the CPU (labels are the tokens shifted by one), fully determined by
-    (cfg.seed, step): any host regenerates any step's batch."""
-    gen = torch.Generator().manual_seed(
-        (int(cfg.seed) * 1_000_003 + int(step)) % (1 << 63))
+    (cfg.seed, step): any host regenerates any step's batch, and the JAX
+    package's ``token_batch`` gives the same bits.
+
+    The rank u^(-1/(a-1)) is computed in float64 from the float32 u and
+    the float32 exponent, and rounded to float32 once: XLA's float32 pow
+    gives those bits here, where numpy's float32 pow differs in the last
+    bit of about a fifth of the values (and then in a few tokens). It is
+    clipped at the vocabulary before the cast, since a draw near 1e-6
+    gives ~1e30, which XLA's cast saturates and numpy's leaves
+    undefined."""
+    key = prng.fold_in(prng.PRNGKey(cfg.seed), step)
+    k1, k2 = prng.split(key)
     shape = (cfg.global_batch, cfg.seq_len + 1)
-    u = torch.rand(shape, generator=gen, dtype=torch.float32) * (
-        1.0 - 1e-6) + 1e-6
-    # Zipf by inverse CDF: rank ~ u^(-1/(a-1)), clipped (in float, so a
-    # huge draw saturates at the last id instead of wrapping)
-    r = torch.clamp(u ** (-1.0 / (cfg.zipf_a - 1.0)), max=cfg.vocab_size)
-    rank = torch.clamp(r.to(torch.int64) - 1, 0, cfg.vocab_size - 1)
+    u = prng.uniform(k1, shape, minval=1e-6, maxval=1.0)
+    expo = np.float32(-1.0 / (cfg.zipf_a - 1.0))
+    r = (u.astype(np.float64) ** np.float64(expo)).astype(np.float32)
+    r = np.minimum(r, np.float32(cfg.vocab_size))
+    rank = np.clip(r.astype(np.int32) - 1, 0, cfg.vocab_size - 1)
     # copy motifs: with p = 0.2 repeat the token 8 positions back
-    rep = torch.rand(shape, generator=gen) < 0.2
-    seq = torch.where(rep, torch.roll(rank, 8, dims=1), rank).to(torch.int32)
-    return {"tokens": seq[:, :-1].contiguous(),
-            "labels": seq[:, 1:].contiguous()}
+    rep = prng.uniform(k2, shape) < np.float32(0.2)
+    seq = np.where(rep, np.roll(rank, 8, axis=1), rank).astype(np.int32)
+    return {"tokens": torch.from_numpy(np.ascontiguousarray(seq[:, :-1])),
+            "labels": torch.from_numpy(np.ascontiguousarray(seq[:, 1:]))}
 
 
 def clustered_vectors(seed: int, n: int, d: int, n_clusters: int,

@@ -11,22 +11,25 @@ placement per mesh dimension, as ``torch.distributed.tensor`` takes them:
 ``Shard(d)`` where the axis splits tensor dim d, ``Replicate()`` where it
 splits none.
 
-``resolve_spec`` and ``resolve_tree`` read only the mesh's axis names and
-sizes (``mesh_dim_names``, ``shape``), so they take any object that has
-them. ``constrain`` and ``shardings_tree`` serve the sharded LM and are not
-ported yet (ROADMAP A6).
+``resolve_spec``, ``resolve_tree`` and ``shardings_tree`` read only the
+mesh's axis names and sizes (``mesh_dim_names``, ``shape``), so they take
+any object that has them (``launch.mesh.production_shape``: accounting on
+the production shapes without processes). ``constrain`` serves the sharded
+LM and is not ported yet (ROADMAP A6).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
 from torch.distributed.tensor import Replicate, Shard
 
-__all__ = ["P", "current_mesh", "use_mesh", "resolve_entries",
-           "resolve_spec", "resolve_tree", "tree_flatten", "tree_unflatten"]
+__all__ = ["P", "NamedSharding", "current_mesh", "use_mesh",
+           "resolve_entries", "resolve_spec", "resolve_tree",
+           "shardings_tree", "tree_flatten", "tree_unflatten"]
 
 _state = threading.local()
 
@@ -41,6 +44,18 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A leaf's layout on a mesh (the JAX package's ``NamedSharding``):
+    ``mesh``, ``spec`` (the resolved spec, which keeps the order of the
+    axes that split one dim) and ``placements`` (``resolve_spec``'s, one
+    per mesh dimension). ``elastic.place`` takes a tree of these in place
+    of a tree of specs."""
+    mesh: Any
+    spec: "P"
+    placements: tuple
 
 
 def current_mesh():
@@ -121,8 +136,9 @@ def resolve_spec(mesh, spec: Sequence, shape: Sequence[int]) -> tuple:
 
 
 def tree_flatten(tree, is_leaf=None) -> tuple[list, Any]:
-    """(leaves, structure) of a tree of dicts, lists, tuples and
-    NamedTuples; the structure pickles (NamedTuple types by reference)."""
+    """(leaves, structure) of a tree of dicts, lists, tuples, NamedTuples
+    and dataclasses (fields in order); the structure pickles (NamedTuple
+    and dataclass types by reference)."""
     if is_leaf is not None and is_leaf(tree):
         return [tree], None
     if isinstance(tree, dict):
@@ -130,6 +146,11 @@ def tree_flatten(tree, is_leaf=None) -> tuple[list, Any]:
         parts = [tree_flatten(tree[k], is_leaf) for k in keys]
         return ([x for p in parts for x in p[0]],
                 ("dict", keys, [p[1] for p in parts]))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        fields = [f.name for f in dataclasses.fields(tree)]
+        parts = [tree_flatten(getattr(tree, f), is_leaf) for f in fields]
+        return ([x for p in parts for x in p[0]],
+                ("dataclass", type(tree), [p[1] for p in parts]))
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         parts = [tree_flatten(v, is_leaf) for v in tree]
         return ([x for p in parts for x in p[0]],
@@ -152,18 +173,21 @@ def tree_unflatten(structure, leaves: list):
         vals = [build(c) for c in children]
         if kind == "dict":
             return dict(zip(meta, vals))
-        if kind == "namedtuple":
+        if kind in ("namedtuple", "dataclass"):
             return meta(*vals)
         return list(vals) if kind == "list" else tuple(vals)
     return build(structure)
 
 
+def _is_shape(x) -> bool:
+    return hasattr(x, "shape") or (
+        type(x) is tuple and all(isinstance(d, int) for d in x))
+
+
 def resolve_tree(mesh, params: Any, specs: Any) -> Any:
     """Pairwise ``resolve_spec`` of a spec tree against a tree of tensors
     (or of shapes)."""
-    shapes, structure = tree_flatten(
-        params, is_leaf=lambda x: hasattr(x, "shape")
-        or (isinstance(x, tuple) and all(isinstance(d, int) for d in x)))
+    shapes, structure = tree_flatten(params, is_leaf=_is_shape)
     spec_leaves, _ = tree_flatten(specs, is_leaf=lambda x: isinstance(x, P))
     if len(spec_leaves) != len(shapes):
         raise ValueError(f"{len(spec_leaves)} specs for {len(shapes)} "
@@ -171,3 +195,21 @@ def resolve_tree(mesh, params: Any, specs: Any) -> Any:
     return tree_unflatten(structure, [
         resolve_spec(mesh, s, p.shape if hasattr(p, "shape") else tuple(p))
         for p, s in zip(shapes, spec_leaves)])
+
+
+def shardings_tree(mesh, params: Any, specs: Any) -> Any:
+    """A ``NamedSharding`` for every leaf of ``params`` (tensors, meta
+    tensors or shapes) under its spec, resolved with ``resolve_entries``'
+    fallbacks: what ``elastic.place`` consumes, and what accounting reads
+    (``launch/anns_step.footprint``)."""
+    shapes, structure = tree_flatten(params, is_leaf=_is_shape)
+    spec_leaves, _ = tree_flatten(specs, is_leaf=lambda x: isinstance(x, P))
+    if len(spec_leaves) != len(shapes):
+        raise ValueError(f"{len(spec_leaves)} specs for {len(shapes)} "
+                         f"leaves")
+    out = []
+    for p, s in zip(shapes, spec_leaves):
+        shape = p.shape if hasattr(p, "shape") else tuple(p)
+        out.append(NamedSharding(mesh, resolve_entries(mesh, s, shape),
+                                 resolve_spec(mesh, s, shape)))
+    return tree_unflatten(structure, out)

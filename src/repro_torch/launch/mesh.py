@@ -23,14 +23,17 @@ from __future__ import annotations
 
 import datetime
 import logging
+import math
 import os
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["collective_backend", "init_shard_group", "init_from_env",
-           "make_shard_mesh", "make_test_mesh", "rank_device",
-           "follower_main"]
+           "MeshShape", "production_shape", "make_mesh",
+           "make_production_mesh", "make_shard_mesh", "make_test_mesh",
+           "rank_device", "follower_main"]
 
 log = logging.getLogger(__name__)
 
@@ -87,6 +90,70 @@ def init_from_env(device="cuda", timeout_s: float = TIMEOUT_S
     return init_shard_group(int(os.environ["RANK"]),
                             int(os.environ["WORLD_SIZE"]),
                             device=device, timeout_s=timeout_s)
+
+
+class MeshShape(NamedTuple):
+    """A mesh's axis names and sizes, without processes: what
+    ``sharding.resolve_spec`` and ``launch.anns_step.footprint`` read of a
+    mesh."""
+    mesh_dim_names: tuple
+    shape: tuple
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def production_shape(*, multi_pod: bool = False) -> MeshShape:
+    """The JAX package's production mesh, (16, 16) over ('data', 'model'),
+    or (2, 16, 16) over ('pod', 'data', 'model') with ``multi_pod``."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def _world_of(n: int, what: str) -> None:
+    """Raise unless the initialised process group has ``n`` ranks."""
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != n:
+        found = "no process group is initialised" if have is None \
+            else f"the process group has {have} ranks"
+        raise ValueError(
+            f"{what} needs {n} ranks, one process a rank, but {found} — "
+            f"launch with torchrun --nproc-per-node={n} (or call "
+            f"init_process_group with RANK, WORLD_SIZE, MASTER_ADDR and "
+            f"MASTER_PORT in the environment; launch.mesh.init_shard_group "
+            f"does it for spawned ranks)")
+
+
+def make_mesh(shape: tuple, names: tuple, *, device="cuda"):
+    """A DeviceMesh of ``shape`` over ``names`` on the initialised process
+    group, whose world size must be the product of ``shape``; rank r at
+    flat position r. Its device type is where the collectives run
+    (``"cpu"`` for gloo, ``"cuda"`` for NCCL)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, names = tuple(int(n) for n in shape), tuple(names)
+    if len(shape) != len(names) or min(shape, default=0) < 1:
+        raise ValueError(f"mesh shape {shape} over axes {names}")
+    _world_of(math.prod(shape), f"a {shape} mesh over {names}")
+    backend = dist.get_backend()
+    if backend == "nccl" and torch.device(device).type != "cuda":
+        raise ValueError("an NCCL group computes on cards; got device "
+                         f"{device!r}")
+    return init_device_mesh("cuda" if backend == "nccl" else "cpu", shape,
+                            mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The production mesh (``production_shape``) as a DeviceMesh over the
+    initialised process group of 256 (512) ranks; raises otherwise, naming
+    the launch. For accounting without processes, pass
+    ``production_shape`` itself wherever a mesh is read."""
+    ps = production_shape(multi_pod=multi_pod)
+    return make_mesh(ps.shape, ps.mesh_dim_names, device=device)
 
 
 def make_shard_mesh(n_shards: int, axis: str = "shard", *, device="cuda"):

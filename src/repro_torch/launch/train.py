@@ -18,8 +18,10 @@ step); the vlm's patches and the enc-dec's frames are stubs drawn from the
 seed and the step.
 
 ``--mesh test`` (one device) is the only mesh: ``single`` and ``multi``
-need the production TPU mesh and its v5e constants (``make_production_mesh``),
-which are ROADMAP A7.
+train the LM sharded over the production mesh (``launch.mesh.
+make_production_mesh``, 256 or 512 ranks), which needs ``constrain``
+through the models (ROADMAP A6) and the compile-analysis tools beside it
+(ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ from ..optim import adamw
 
 __all__ = ["preset_config", "stub_inputs", "run", "main"]
 
-_A7 = ("ROADMAP A7 (the production TPU mesh, make_production_mesh, and its "
-       "v5e constants)")
+_A7 = ("ROADMAP A7 (training on the production mesh: the sharded LM, "
+       "constrain through the models, is ROADMAP A6)")
 
 
 def preset_config(arch: str, preset: str):

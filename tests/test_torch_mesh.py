@@ -633,11 +633,13 @@ def test_serve_exec_mesh_under_torchrun_equals_inproc():
 
 
 def test_mesh_modules_import_no_jax():
-    """The mesh backend's modules leave jax and the JAX package out of
-    sys.modules, in a fresh interpreter."""
+    """The mesh backend's modules, the search step's and the token
+    batches' leave jax and the JAX package out of sys.modules, in a fresh
+    interpreter."""
     code = ("import sys, repro_torch.core.execbackend, "
             "repro_torch.launch.mesh, repro_torch.distributed.elastic, "
-            "repro_torch.distributed.sharding; "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.launch.anns_step, repro_torch.data.synthetic; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro imported'")
