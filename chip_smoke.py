@@ -271,10 +271,11 @@ Phases (each failure exits non-zero and prints no result line):
      lse, the backward and SDPA's forward and forward + backward timed;
      the last step run again under the profiler (its busy and idle
      share, the kernels with the most device time);
-     19w. the witness of that rise, at danube's full width and depth: the
-     float32 gradients of one 128-token sequence on the card against the
-     CPU's (loss within 1e-4 relative, each leaf within 1e-3 of its
-     largest |grad|; global norms and the bf16 params' gradients logged),
+     19w. the witness of that rise, at danube's full width: the float32
+     gradients of one 128-token sequence through its first 8 layers (the
+     depth cut to 8 of 24 for phase 11s) on the card against the CPU's
+     (loss within 1e-4 relative, each leaf within 1e-3 of its largest
+     |grad|; global norms and the bf16 params' gradients logged),
      and phase 19's first 4 steps at lr_peak 3e-5 (losses logged, the
      last held below the first);
      19b. checkpoint and resume at phi3's 100m preset (8 x 256 tokens a
@@ -297,6 +298,21 @@ Phases (each failure exits non-zero and prints no result line):
      first moments within ``mu_bound`` over the 2 shards of 'data'; the
      step's and the two-stage reduction's ms (compressed and plain)
      logged.
+     11s. the sharded LM (after phase 19d): h2o-danube-1.8b at full width
+     and depth on a (1 data x 4 model) mesh of gloo ranks sharing the card
+     (this process and 3 spawned), tensor parallelism over 'model' (each
+     rank 8 / 2 heads, d_ff 1,728, 8,000 vocab rows, drawn whole from seed
+     0 on the card as one process draws them, and cut to its blocks); 4
+     requests of 512 prompt tokens, 8 generated, a float32 cache, through
+     launch.serve.generate under sharding.use_mesh, counted (24
+     flash_attention launches on every rank, the collectives by kind and
+     bytes against sharded_reckoning), then a prefill and 7 decode steps
+     teacher-forced with a one-process run's tokens: each step's logits
+     within 5% of the largest |logit| of the one-process run's (phase 11's
+     bound), the greedy token reaching the one-process row's maximum
+     within it, the same tokens on every rank, each window's collectives
+     equal to the reckoning; rank 0's layer-0 call held and timed as in
+     phase 17; prefill and decode ms, weights and peak memory by rank.
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -4199,7 +4215,8 @@ DP_ATOL = 5e-2                   # tests/test_distributed.py's DP tolerance
 # the CPU; the whole batch and its halves): within 1e-3 / 1e-4 of the
 # leaf's largest |grad| (tests/test_torch_cuda.py, tests/test_torch_train.py)
 CARD_GRAD_RTOL, GRAD_RTOL = 1e-3, 1e-4
-WITNESS_S = 128                  # phase 19w: one sequence, float32, 24 layers
+WITNESS_S = 128                  # phase 19w: one sequence, float32 ...
+WITNESS_LAYERS = 8               # ... through 8 of danube's 24 layers
 WITNESS_LR = 3e-5                # phase 19w: lr_peak of the 4-step run
 
 
@@ -4423,13 +4440,15 @@ def phase_train(torch, dev):
 def phase_train_witness(torch, dev):
     """Phase 19w: what phase 19's rise in loss comes from (with the
     reference's recipe, lr 3e-4 after a warm-up of 2 steps, its steps 2-4
-    rise above the first). Two witnesses at h2o-danube-1.8b's full width
-    and depth. (1) The gradients: float32 params on the card and on the
+    rise above the first). Two witnesses at h2o-danube-1.8b's full
+    width. (1) The gradients, at full width through the first
+    WITNESS_LAYERS layers (the depth cut to pay for phase 11s, most of it
+    the CPU pass's): float32 params on the card and on the
     CPU, one sequence of WITNESS_S tokens (row 0 of step 0's batch), the
     loss within 1e-4 relative and each grad leaf within CARD_GRAD_RTOL of
     its largest |grad| (float32 sums in other orders); the global grad
     norms logged; the bf16 params' gradients on the card (the training's
-    types) logged beside them, not held (bf16 roundings through 24 layers
+    types) logged beside them, not held (bf16 roundings through the layers
     have no derived bound). (2) The recipe: phase 19's first 4 steps (the
     same seeded params and batches, through ``make_train_step``) at
     lr_peak WITNESS_LR, warm-up 1: each loss logged; held finite and the
@@ -4446,7 +4465,8 @@ def phase_train_witness(torch, dev):
     dcfg = TokenDataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
     one = {k: v[:1, :WITNESS_S].contiguous()
            for k, v in token_batch(dcfg, 0).items()}
-    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32"))
+    cut = dataclasses.replace(cfg, n_layers=WITNESS_LAYERS)
+    m32 = build_model(dataclasses.replace(cut, param_dtype="float32"))
     p32 = m32.init(torch.Generator(device=dev).manual_seed(0))
     card_l, _, card_g = value_and_grad(
         m32, p32, {k: v.to(dev) for k, v in one.items()})
@@ -4459,9 +4479,8 @@ def phase_train_witness(torch, dev):
     cpu_l, _, cpu_g = value_and_grad(m32, pc, one)
     cpu_s = time.perf_counter() - t
     del pc
-    m16 = build_model(cfg)
     bf_l, _, bf_g = value_and_grad(
-        m16, p16, {k: v.to(dev) for k, v in one.items()})
+        build_model(cut), p16, {k: v.to(dev) for k, v in one.items()})
     bf_g = [g.float().cpu() for g in bf_g]
     del p16
     torch.cuda.empty_cache()
@@ -4474,7 +4493,8 @@ def phase_train_witness(torch, dev):
         worst = max(worst, float((a - w).abs().max()) / scale)
         worst_bf = max(worst_bf, float((b - w).norm() / w.norm().clamp(
             min=1e-30)))
-    log(f"19w gradients, {cfg.name} float32 at full width and depth, 1 x "
+    log(f"19w gradients, {cfg.name} float32 at full width through "
+        f"{WITNESS_LAYERS} of its {cfg.n_layers} layers, 1 x "
         f"{WITNESS_S} tokens: loss card {float(card_l):.6f}, CPU "
         f"{float(cpu_l):.6f} ({cpu_s:.1f} s on the CPU); global grad norm "
         f"card {norm(card_g):.6f}, CPU {norm(cpu_g):.6f}; max over "
@@ -4491,6 +4511,7 @@ def phase_train_witness(torch, dev):
 
     ocfg = adamw.AdamWConfig(lr_peak=WITNESS_LR, warmup_steps=1,
                              decay_steps=4)
+    m16 = build_model(cfg)
     params = m16.init(torch.Generator(device=dev).manual_seed(0))
     opt = adamw.init(ocfg, params)
     step = make_train_step(m16, ocfg)
@@ -4789,6 +4810,291 @@ def phase_train_dp(torch, dev, pod: bool = False):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11s: the sharded LM
+# ---------------------------------------------------------------------------
+
+SHARDED_ARCH = "h2o-danube-1.8b"  # phase 11s: full width and depth ...
+SHARDED_MESH = (1, 4)             # ... on ('data', 'model') gloo ranks
+SHARDED_REQ = (4, 512, 8)         # requests, prompt tokens, generated
+
+
+def sharded_reckoning(cfg, b, s) -> dict:
+    """The collectives of phase 11s's windows on each rank, by kind: calls
+    and bytes, written from the shapes (``models/transformer.py``'s
+    docstring). A prefill of S split over 'model' (m ranks): per layer an
+    all_gather of the normed input (B, S, d) before the attention and the
+    MLP and a reduce_scatter of each row-parallel output into (B, S / m,
+    d); the embedding's all_reduce (B, S, d); the last token's broadcast
+    (B, 1, d); the greedy token's all_gather of m (value, index) float64
+    pairs a row. A decode step (S = 1, whole): per layer 2 all_reduces of
+    (B, 1, d), the embedding's, and the greedy all_gather. bf16
+    activations."""
+    m, d, n = SHARDED_MESH[1], cfg.d_model, cfg.n_layers
+    act = cfg.dtype.itemsize
+    pairs = m * b * 2 * 8
+    prefill = {"all_gather": [2 * n + 1, 2 * n * b * s * d * act + pairs],
+               "reduce_scatter": [2 * n, 2 * n * b * (s // m) * d * act],
+               "all_reduce": [1, b * s * d * act],
+               "broadcast": [1, b * d * act]}
+    decode = {"all_gather": [1, pairs],
+              "all_reduce": [2 * n + 1, (2 * n + 1) * b * d * act]}
+
+    def fmt(w):
+        return {k: {"calls": c, "bytes": x} for k, (c, x) in sorted(w.items())}
+    return {"prefill": fmt(prefill), "decode": fmt(decode)}
+
+
+def sharded_rank(rank: int, world: int, init: str, device: str,
+                 teacher=None) -> dict | None:
+    """One rank of phase 11s: rank 0 is this process and brings the
+    one-process run's greedy tokens (``teacher``); the others are spawned
+    with ``sharded_follower``. Each rank draws danube's whole param tree
+    from seed 0 on the card, as the one-process run did, keeps its blocks
+    (``sharding.blocks_of``, no collective) and frees the rest; under
+    ``sharding.use_mesh``: a warm-up generate of 2 tokens, then the
+    counted ``launch.serve.generate`` (every launch count and collective
+    count set to 0 just before, read just after; rank 0 records its
+    flash_attention calls), then the held run: a prefill and the decode
+    steps teacher-forced with the one-process tokens, each window's
+    collectives and its logits block kept. Returns, on rank 0, every
+    rank's results."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model, greedy
+    dev = lmesh.init_shard_group(rank, world, init_method=init,
+                                 device=device, timeout_s=MESH_TIMEOUT_S)
+    b, s, n_gen = SHARDED_REQ
+
+    def sync():
+        torch.cuda.synchronize(dev)
+    try:
+        mesh = lmesh.make_mesh(SHARDED_MESH, ("data", "model"), device=device)
+        box = [teacher]
+        dist.broadcast_object_list(box, src=0)
+        teacher = box[0].to(dev)
+        cfg = get_config(SHARDED_ARCH)
+        model = build_model(cfg)
+        t = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        whole = model.init(gen)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device=dev)
+        with sharding.use_mesh(mesh):
+            params = sharding.blocks_of(whole, model.specs())
+        del whole
+        sync()
+        torch.cuda.empty_cache()
+        draw_s = time.perf_counter() - t
+        weights = sum(x.numel() * x.element_size() for x in leaves(params))
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def cache():
+            return model.init_cache(b, s + n_gen, dtype=torch.float32,
+                                    device=dev)
+        calls = []
+        real = ops.flash_attention
+
+        def record(q, k, v, **kw):
+            if not calls:                 # layer 0 of the counted prefill
+                calls.append((q.clone(), k.clone(), v.clone(), kw))
+            return real(q, k, v, **kw)
+        coll = sharding.collectives()
+        with sharding.use_mesh(mesh):
+            serve.generate(model, params, tokens, 2, cache())     # warm-up
+            c = cache()
+            sync()
+            dist.barrier()
+            if rank == 0:
+                ops.flash_attention = record
+            ops.reset_launch_counts()
+            coll.reset()
+            try:
+                out = serve.generate(model, params, tokens, n_gen, c)
+            finally:
+                ops.flash_attention = real
+            launches = ops.launch_counts()
+            counted = coll.as_dict()
+            # the held run: decode teacher-forced with one process's tokens
+            c = cache()
+            coll.reset()
+            logits, c = model.prefill(params, tokens, c)
+            toks = [greedy(logits, cfg, b)]
+            windows = {"prefill": coll.as_dict()}
+            rows = [logits[:, -1].float().cpu()]
+            for i in range(n_gen - 1):
+                coll.reset()
+                logits, c = model.decode(params, teacher[:, i:i + 1], c)
+                toks.append(greedy(logits, cfg, b))
+                rows.append(logits[:, -1].float().cpu())
+            windows["decode"] = coll.as_dict()
+        sync()
+        mine = dict(coord=list(mesh.get_coordinate()), weights=weights,
+                    peak=torch.cuda.max_memory_allocated(dev),
+                    launches=launches, counted=counted, windows=windows,
+                    rows=torch.stack(rows), toks=torch.cat(toks, 1).cpu(),
+                    gen_tokens=out.tokens.cpu(), prefill_s=out.prefill_s,
+                    decode_s=out.decode_s, draw_s=draw_s)
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        if rank == 0:
+            return dict(ranks=every, call=calls[0] if calls else None)
+        return None
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_follower(rank: int, world: int, init: str, device: str) -> None:
+    """A spawned rank of phase 11s: ``sharded_rank``, nothing returned (an
+    exception ends the process with a non-zero exit)."""
+    sharded_rank(rank, world, init, device)
+
+
+def phase_sharded_lm(torch, dev) -> tuple[int, dict]:
+    """Phase 11s: the sharded LM (tensor parallelism over 'model') serving
+    h2o-danube-1.8b at full width and depth on a (1 data x 4 model) mesh
+    of gloo ranks sharing the card (this process and 3 spawned; see the
+    module's docstring). Returns (rank 0's flash_attention launches in
+    the counted run, the kernel's timing row on rank 0's layer-0 call)."""
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    cfg = get_config(SHARDED_ARCH)
+    b, s, n_gen = SHARDED_REQ
+    world = SHARDED_MESH[0] * SHARDED_MESH[1]
+    want = sharded_reckoning(cfg, b, s)
+    log(f"11s reckoning a rank (from shapes): weights "
+        f"{cfg.param_count() * cfg.dtype.itemsize / world / 1e9:.3f} GB "
+        f"(norms left out); collectives a prefill {json.dumps(want['prefill'])}"
+        f", a decode step {json.dumps(want['decode'])}")
+    # the one-process run on the same draw: its logits and greedy tokens
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    c = model.init_cache(b, s + n_gen, dtype=torch.float32, device=dev)
+    logits, c = model.prefill(params, tokens, c)
+    one_toks = [torch.argmax(logits[:, -1:], -1).to(torch.int32)]
+    one_rows = [logits[:, -1].float().cpu()]
+    for _ in range(n_gen - 1):
+        logits, c = model.decode(params, one_toks[-1], c)
+        one_toks.append(torch.argmax(logits[:, -1:], -1).to(torch.int32))
+        one_rows.append(logits[:, -1].float().cpu())
+    teacher = torch.cat(one_toks, 1).cpu()
+    one_rows = torch.stack(one_rows)
+    del params, c, logits, tokens
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    store = ROOT / "build" / f"sharded-store-{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    if store.exists():
+        store.unlink()
+    init = f"file://{store}"
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    ctx = mp.get_context("spawn")
+    t = time.perf_counter()
+    procs = [ctx.Process(target=sharded_follower,
+                         args=(r, world, init, dev.type))
+             for r in range(1, world)]
+    for p in procs:
+        p.start()
+    try:
+        out = sharded_rank(0, world, init, dev.type, teacher=teacher)
+    finally:
+        for p in procs:
+            p.join(120)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        if store.exists():
+            store.unlink()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * len(procs):
+        fail(f"11s: ranks exited with {codes}")
+    ranks = out["ranks"]
+    r0 = ranks[0]
+    log(f"11s {world} ranks ran in {time.perf_counter() - t:.1f} s (3 "
+        f"spawned); each drew the whole tree and kept its blocks in "
+        f"{', '.join(f'{r['draw_s']:.1f}' for r in ranks)} s; weights a "
+        f"rank {', '.join(f'{r['weights'] / 1e9:.3f}' for r in ranks)} GB, "
+        f"peak allocated after the draw "
+        f"{', '.join(f'{r['peak'] / 2**30:.2f}' for r in ranks)} GiB")
+    log(f"11s generate B={b} prompt={s} gen={n_gen} on rank 0: prefill "
+        f"{r0['prefill_s'] * 1e3:.2f} ms, decode "
+        f"{r0['decode_s'] * 1e3 / (n_gen - 1):.3f} ms per step; launches by "
+        f"rank {json.dumps([r['launches'] for r in ranks])}; its "
+        f"collectives on rank 0 {json.dumps(r0['counted'])}")
+    print("kernels sharded " + json.dumps(
+        {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}),
+        flush=True)
+    for k, r in enumerate(ranks):
+        if r["launches"]["flash_attention"] != cfg.n_layers:
+            fail(f"11s: rank {k} launched flash_attention "
+                 f"{r['launches']['flash_attention']} times in the counted "
+                 f"run, expected one a layer of the prefill ({cfg.n_layers})")
+        got = r["windows"]
+        if got != want:
+            fail(f"11s: rank {k}'s collectives {json.dumps(got)} differ from "
+                 f"the reckoning {json.dumps(want)}")
+        total = {kind: {"calls": want["prefill"].get(kind, {}).get("calls", 0)
+                        + (n_gen - 1) * want["decode"].get(kind, {}).get(
+                            "calls", 0),
+                        "bytes": want["prefill"].get(kind, {}).get("bytes", 0)
+                        + (n_gen - 1) * want["decode"].get(kind, {}).get(
+                            "bytes", 0)}
+                 for kind in sorted(set(want["prefill"]) | set(
+                     want["decode"]))}
+        if r["counted"] != total:
+            fail(f"11s: rank {k}'s collectives in generate "
+                 f"{json.dumps(r['counted'])} differ from the reckoning "
+                 f"{json.dumps(total)}")
+        if not torch.equal(r["toks"], ranks[0]["toks"]) or not torch.equal(
+                r["gen_tokens"], ranks[0]["gen_tokens"]):
+            fail(f"11s: rank {k}'s greedy tokens differ from rank 0's")
+    log(f"11s collectives by rank equal the reckoning in every window "
+        f"(a prefill, a decode step, generate's {n_gen - 1} steps)")
+    # the held run's logits, assembled from the vocabulary blocks
+    blocks = sorted(ranks, key=lambda r: r["coord"][1])
+    got = torch.cat([r["rows"] for r in blocks], dim=-1)
+    v = slice(0, cfg.vocab_size)
+    for i in range(n_gen):
+        g, w = got[i, :, v], one_rows[i, :, v]
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        tok = ranks[0]["toks"][:, i].long()
+        reach = w.gather(-1, tok[:, None])[:, 0] >= w.max(-1).values \
+            - 0.05 * scale
+        what = "prefill" if i == 0 else f"decode step {i}"
+        log(f"11s {what} (teacher-forced) vs one process: max |diff| "
+            f"{err:.4f}, max |logit| {scale:.4f} (ratio {err / scale:.4f}); "
+            f"greedy tokens equal in {int((tok == teacher[:, i]).sum())} of "
+            f"{b} rows")
+        if err > 0.05 * scale:
+            fail(f"11s {what}: the sharded logits differ from one process's "
+                 f"by {err:.4f} > 5% of their largest magnitude {scale:.4f}")
+        if not reach.all():
+            fail(f"11s {what}: the sharded greedy token is not within the "
+                 f"bound of the one-process row's maximum in "
+                 f"{int((~reach).sum())} rows")
+    same = int((ranks[0]["gen_tokens"] == teacher).sum())
+    log(f"11s generate's own greedy tokens equal the one-process run's in "
+        f"{same} of {teacher.numel()}")
+    # rank 0's layer-0 call: its 8 / 2 heads, held and timed
+    row = kernel_row(torch, "flash_attention/sharded",
+                     "11s rank 0 layer 0", out["call"])
+    log(f"11s done in {time.perf_counter() - t_phase:.1f} s")
+    return r0["launches"]["flash_attention"], row
+
+
 def main() -> None:
     try:
         import torch
@@ -4837,6 +5143,7 @@ def main() -> None:
     phase_train_resume(torch, dev)
     phase_train_dp(torch, dev)
     phase_train_dp(torch, dev, pod=True)
+    sharded_launches, sharded_row = phase_sharded_lm(torch, dev)
 
     src = {"binary_ip_rank": ("src/repro_torch/kernels/csrc/binary_ip.cu",
                               "src/repro/kernels/binary_ip.py:79"),
@@ -4902,6 +5209,16 @@ def main() -> None:
         ms=train_row["ms"], plain_ms=train_row["plain_ms"],
         bound_ms=train_row["bound_ms"], bound_by=train_row["bound_by"],
         library_ms=train_row["library_ms"]))
+    # the sharded LM (phase 11s): rank 0's launches in the counted run, its
+    # layer-0 call (8 / 2 heads of 80) held and timed
+    kernels.append(dict(
+        name="flash_attention/sharded", route="cuda",
+        source=src["flash_attention"][0], replaces=src["flash_attention"][1],
+        launches=sharded_launches,
+        max_abs_err=ERRS["flash_attention/sharded"], ms=sharded_row["ms"],
+        plain_ms=sharded_row["plain_ms"], bound_ms=sharded_row["bound_ms"],
+        bound_by=sharded_row["bound_by"],
+        library_ms=sharded_row["library_ms"]))
     # each rank policy of beam_search and cluster_scan (phase 8b): its own
     # launches, times and errors, on the search of its own backend
     for name, row in ranked.items():

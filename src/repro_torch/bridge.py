@@ -17,7 +17,8 @@ from .core.placement import Placement
 
 __all__ = ["compact_index_from_numpy", "host_store_from_numpy",
            "placement_from_numpy", "placed_index_from_numpy",
-           "lm_params_from_numpy", "adamw_state_from_numpy"]
+           "lm_params_from_numpy", "lm_params_onto_mesh",
+           "adamw_state_from_numpy"]
 
 
 def compact_index_from_numpy(fields: dict, device="cuda") -> CompactIndex:
@@ -91,6 +92,44 @@ def lm_params_from_numpy(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return [lm_params_from_numpy(v, device) for v in tree]
     return _tensor(tree, device)
+
+
+def lm_params_onto_mesh(tree, specs, mesh, device="cuda"):
+    """The JAX package's LM param tree (numpy, as ``lm_params_from_numpy``
+    takes it) placed on ``mesh`` from its origin (flat mesh position 0),
+    which passes the tree and its specs (``Model.specs()``); the other
+    ranks pass None for both. Each leaf goes through ``elastic.place``
+    under its spec, resolved with the divisibility fallbacks, one leaf at
+    a time: every rank gets the block JAX's ``NamedSharding`` of that spec
+    gives its device, as a plain tensor on ``device``. Collective: every
+    rank of the mesh calls it."""
+    import torch.distributed as dist
+    from .distributed import elastic
+    from .distributed.sharding import P, tree_flatten, tree_unflatten
+
+    def leaf(x):
+        return x is None or hasattr(x, "shape") or isinstance(x, P)
+    group, ranks = elastic.mesh_ranks(mesh)
+    box = [None, None]
+    if ranks[0] == dist.get_rank():
+        leaves, structure = tree_flatten(
+            lm_params_from_numpy(tree, "cpu"), is_leaf=leaf)
+        spec_leaves, _ = tree_flatten(specs, is_leaf=leaf)
+        box = [[x is not None for x in leaves], structure]
+    else:
+        leaves = spec_leaves = None
+    dist.broadcast_object_list(box, src=ranks[0], group=group)
+    present, structure = box
+    out = []
+    for i, there in enumerate(present):
+        if not there:
+            out.append(None)
+            continue
+        mine = elastic.place(None if leaves is None else leaves[i],
+                             None if spec_leaves is None else spec_leaves[i],
+                             mesh)
+        out.append(mine.to_local().to(device))
+    return tree_unflatten(structure, out)
 
 
 def adamw_state_from_numpy(step, mu, nu, device="cuda"):

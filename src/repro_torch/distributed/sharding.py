@@ -14,22 +14,42 @@ splits none.
 ``resolve_spec``, ``resolve_tree`` and ``shardings_tree`` read only the
 mesh's axis names and sizes (``mesh_dim_names``, ``shape``), so they take
 any object that has them (``launch.mesh.production_shape``: accounting on
-the production shapes without processes). ``constrain`` serves the sharded
-LM and is not ported yet (ROADMAP A6).
+the production shapes without processes).
+
+``constrain`` is the sharded LM's layout change (the JAX package's
+``with_sharding_constraint``). The port runs one process a rank on plain
+local tensors, so no propagation decides a layout: the caller says how its
+local tensor lies (``have``: the resolved entries of its split dims;
+``partial``: the mesh axis over which it is a partial sum), and
+``constrain`` issues the one collective that turns that layout into the
+target, resolved with ``resolve_entries``' fallbacks on the tensor's global
+shape:
+
+  partial -> replicated  all_reduce         split -> replicated  all_gather
+  partial -> split       reduce_scatter     replicated -> split  a local slice
+
+Outside a mesh it returns its input and issues nothing. Collectives run
+in the tensor's dtype on the mesh's device type (gloo: staged through
+host memory) and are counted by kind (``collectives``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
-from typing import Any, NamedTuple, Sequence
+from typing import Any, Sequence
 
+import torch
+import torch.distributed as dist
 from torch.distributed.tensor import Replicate, Shard
 
-__all__ = ["P", "NamedSharding", "current_mesh", "use_mesh",
+__all__ = ["P", "NamedSharding", "Collectives", "current_mesh", "use_mesh",
            "resolve_entries", "resolve_spec", "resolve_tree",
-           "shardings_tree", "tree_flatten", "tree_unflatten"]
+           "shardings_tree", "tree_flatten", "tree_unflatten", "constrain",
+           "collectives", "axis_size", "axis_index", "local_shape",
+           "block_of", "blocks_of", "broadcast_from", "staged"]
 
 _state = threading.local()
 
@@ -138,14 +158,17 @@ def resolve_spec(mesh, spec: Sequence, shape: Sequence[int]) -> tuple:
 def tree_flatten(tree, is_leaf=None) -> tuple[list, Any]:
     """(leaves, structure) of a tree of dicts, lists, tuples, NamedTuples
     and dataclasses (fields in order); the structure pickles (NamedTuple
-    and dataclass types by reference)."""
+    and dataclass types by reference). A dict's leaves come in its keys'
+    sorted order, as JAX flattens it, so a tree and its spec tree pair
+    leaf for leaf whatever order their dicts were built in; unflattening
+    rebuilds each dict in its own key order."""
     if is_leaf is not None and is_leaf(tree):
         return [tree], None
     if isinstance(tree, dict):
-        keys = list(tree)
+        keys = sorted(tree)
         parts = [tree_flatten(tree[k], is_leaf) for k in keys]
         return ([x for p in parts for x in p[0]],
-                ("dict", keys, [p[1] for p in parts]))
+                ("dict", (keys, list(tree)), [p[1] for p in parts]))
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         fields = [f.name for f in dataclasses.fields(tree)]
         parts = [tree_flatten(getattr(tree, f), is_leaf) for f in fields]
@@ -172,7 +195,8 @@ def tree_unflatten(structure, leaves: list):
         kind, meta, children = s
         vals = [build(c) for c in children]
         if kind == "dict":
-            return dict(zip(meta, vals))
+            got = dict(zip(meta[0], vals))
+            return {k: got[k] for k in meta[1]}
         if kind in ("namedtuple", "dataclass"):
             return meta(*vals)
         return list(vals) if kind == "list" else tuple(vals)
@@ -213,3 +237,216 @@ def shardings_tree(mesh, params: Any, specs: Any) -> Any:
         out.append(NamedSharding(mesh, resolve_entries(mesh, s, shape),
                                  resolve_spec(mesh, s, shape)))
     return tree_unflatten(structure, out)
+
+
+# ---------------------------------------------------------------------------
+# constrain: the layout changes of the sharded LM, as explicit collectives
+# ---------------------------------------------------------------------------
+
+class Collectives:
+    """Counts of collectives on this rank: by kind, the calls and the bytes
+    of the tensors this rank holds after each call."""
+
+    def __init__(self):
+        self.counts: dict[str, list[int]] = {}
+
+    def reset(self) -> None:
+        self.counts = {}
+
+    def _add(self, kind: str, nbytes: int) -> None:
+        c = self.counts.setdefault(kind, [0, 0])
+        c[0] += 1
+        c[1] += int(nbytes)
+
+    def as_dict(self) -> dict:
+        return {k: {"calls": c, "bytes": b}
+                for k, (c, b) in sorted(self.counts.items())}
+
+
+_COUNTS = Collectives()
+
+
+def collectives() -> Collectives:
+    """The sharded LM's collectives on this rank since the last
+    ``reset()``: every ``constrain`` and ``broadcast_from`` call that
+    moved data, by kind."""
+    return _COUNTS
+
+
+def axis_size(axis, mesh=None) -> int:
+    """Ranks along mesh axis ``axis`` (1 when it is absent or there is no
+    mesh)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None or axis is None:
+        return 1
+    return _sizes(mesh).get(axis, 1)
+
+
+def axis_index(axis, mesh=None) -> int:
+    """This rank's coordinate along ``axis`` (0 when absent)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None or axis not in _sizes(mesh):
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+def _single(entry, what: str):
+    """The one mesh axis of a resolved entry; a dim split over several
+    axes at once moves through no collective here."""
+    if isinstance(entry, tuple):
+        if len(entry) != 1:
+            raise NotImplementedError(
+                f"{what} of a dim split over {entry} at once is not ported: "
+                f"ROADMAP A6 (the sharded LM)")
+        return entry[0]
+    return entry
+
+
+def _factor(sizes: dict, entry) -> int:
+    if entry is None:
+        return 1
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    return math.prod(sizes.get(a, 1) for a in axes)
+
+
+def _global_shape(shape: Sequence[int], have: Sequence, mesh=None) -> tuple:
+    """The global shape of a local block of ``shape`` laid out as ``have``
+    (resolved entries, one a dim)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        return tuple(shape)
+    sizes = _sizes(mesh)
+    have = list(have) + [None] * (len(shape) - len(have))
+    return tuple(n * _factor(sizes, e) for n, e in zip(shape, have))
+
+
+def local_shape(shape: Sequence[int], spec: Sequence, mesh=None) -> tuple:
+    """The block of a global ``shape`` that a rank holds under ``spec``,
+    resolved on the current mesh (``shape`` itself without a mesh)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        return tuple(shape)
+    sizes = _sizes(mesh)
+    res = resolve_entries(mesh, spec, shape)
+    return tuple(n // _factor(sizes, e) for n, e in zip(shape, res))
+
+
+def block_of(x: torch.Tensor, spec: Sequence, mesh=None) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``spec`` resolved
+    on the mesh (``x`` itself without a mesh): a view, no collective."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        return x
+    res = resolve_entries(mesh, spec, x.shape)
+    for d, e in enumerate(res):
+        if e is not None:
+            x = _slice_dim(x, mesh, _single(e, "a slice"), d)
+    return x
+
+
+def _is_leaf(x) -> bool:
+    return x is None or hasattr(x, "shape") or isinstance(x, P)
+
+
+def blocks_of(tree: Any, specs: Any, mesh=None) -> Any:
+    """``block_of`` of every leaf of ``tree`` under its spec in ``specs``
+    (a tree of the same structure; None subtrees pass through): a rank's
+    share of a tree every rank holds whole, with no collective, each
+    block a contiguous copy."""
+    mesh = mesh if mesh is not None else current_mesh()
+    leaves, structure = tree_flatten(tree, is_leaf=_is_leaf)
+    spec_leaves, _ = tree_flatten(specs, is_leaf=_is_leaf)
+    if len(spec_leaves) != len(leaves):
+        raise ValueError(f"{len(spec_leaves)} specs for {len(leaves)} "
+                         f"leaves")
+    return tree_unflatten(structure, [
+        None if x is None else block_of(x, s, mesh).contiguous()
+        for x, s in zip(leaves, spec_leaves)])
+
+
+def _slice_dim(x: torch.Tensor, mesh, axis, d: int) -> torch.Tensor:
+    n = axis_size(axis, mesh)
+    size = x.shape[d] // n
+    return x.narrow(d, axis_index(axis, mesh) * size, size)
+
+
+def staged(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` contiguous on the device the mesh's collectives run on (gloo:
+    the host)."""
+    return x.to(mesh.device_type).contiguous()
+
+
+def _all_reduce(x, mesh, axis):
+    buf = x.to(mesh.device_type, copy=True).contiguous()
+    dist.all_reduce(buf, group=mesh.get_group(axis))
+    _COUNTS._add("all_reduce", buf.nbytes)
+    return buf.to(x.device)
+
+
+def _all_gather(x, mesh, axis, d):
+    xs = staged(x.movedim(d, 0), mesh)
+    out = xs.new_empty((axis_size(axis, mesh) * xs.shape[0], *xs.shape[1:]))
+    dist.all_gather_into_tensor(out, xs, group=mesh.get_group(axis))
+    _COUNTS._add("all_gather", out.nbytes)
+    return out.to(x.device).movedim(0, d).contiguous()
+
+
+def _reduce_scatter(x, mesh, axis, d):
+    xs = staged(x.movedim(d, 0), mesh)
+    out = xs.new_empty((xs.shape[0] // axis_size(axis, mesh),
+                        *xs.shape[1:]))
+    dist.reduce_scatter_tensor(out, xs, group=mesh.get_group(axis))
+    _COUNTS._add("reduce_scatter", out.nbytes)
+    return out.to(x.device).movedim(0, d).contiguous()
+
+
+def constrain(x: torch.Tensor, *spec_entries, have: Sequence = (),
+              partial: str | None = None) -> torch.Tensor:
+    """``x`` in the layout ``spec_entries`` resolve to on its global shape
+    (the JAX package's ``constrain``, ``sharding.py:103-110``): ``x`` is
+    this rank's block laid out as ``have`` (resolved entries; a dim left
+    out is whole) and, with ``partial``, a partial sum over that mesh
+    axis. One collective a transition (see the module's docstring): a
+    partial sum is reduced first (scattered onto the target's dim split
+    over the same axis, else all-reduced), then each dim whose entry
+    changes is gathered and / or sliced. Returns ``x`` itself without a
+    mesh, or when nothing changes."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    sizes = _sizes(mesh)
+    have = list(have) + [None] * (x.ndim - len(have))
+    want = list(resolve_entries(mesh, spec_entries,
+                                _global_shape(x.shape, have, mesh)))
+    if partial is not None and sizes.get(partial, 1) > 1:
+        dims = [d for d, e in enumerate(want) if e == partial
+                and have[d] is None]
+        if dims:
+            x = _reduce_scatter(x, mesh, partial, dims[0])
+            have[dims[0]] = partial
+        else:
+            x = _all_reduce(x, mesh, partial)
+    for d, (h, w) in enumerate(zip(have, want)):
+        if h == w:
+            continue
+        if h is not None and _factor(sizes, h) > 1:
+            x = _all_gather(x, mesh, _single(h, "a gather"), d)
+        if w is not None and _factor(sizes, w) > 1:
+            x = _slice_dim(x, mesh, _single(w, "a slice"), d).contiguous()
+    return x
+
+
+def broadcast_from(x: torch.Tensor, axis: str, index: int) -> torch.Tensor:
+    """``x`` as the rank at coordinate ``index`` along ``axis`` holds it,
+    on every rank of this rank's group along ``axis`` (each passes a
+    tensor of the same shape and type); ``x`` itself without a mesh or
+    when the axis has one rank."""
+    mesh = current_mesh()
+    if mesh is None or axis_size(axis, mesh) == 1:
+        return x
+    group = mesh.get_group(axis)
+    buf = x.to(mesh.device_type, copy=True).contiguous()
+    dist.broadcast(buf, group=group,
+                   src=dist.get_global_rank(group, index))
+    _COUNTS._add("broadcast", buf.nbytes)
+    return buf.to(x.device)

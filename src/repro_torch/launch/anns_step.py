@@ -53,8 +53,8 @@ from ..core import backends as backends_mod
 from ..core import engine, ivf, placement as placement_mod
 from ..core import rerank as rerank_mod
 from ..distributed import elastic
-from ..distributed.sharding import (P, shardings_tree, tree_flatten,
-                                    tree_unflatten)
+from ..distributed.sharding import (P, Collectives, shardings_tree, staged,
+                                    tree_flatten, tree_unflatten)
 from ..kernels import ops as kernel_ops
 
 __all__ = ["DP", "AnnsScale", "index_specs", "placed_index_spec_tree",
@@ -162,32 +162,6 @@ def model_flops(s: AnnsScale, hops_est: int = 32) -> float:
 # collectives, staged through the mesh's device type and counted
 # ---------------------------------------------------------------------------
 
-class Collectives:
-    """Counts of a step's collectives on this rank: by kind, the calls and
-    the bytes of the tensors this rank holds after each call."""
-
-    def __init__(self):
-        self.counts: dict[str, list[int]] = {}
-
-    def reset(self) -> None:
-        self.counts = {}
-
-    def _add(self, kind: str, nbytes: int) -> None:
-        c = self.counts.setdefault(kind, [0, 0])
-        c[0] += 1
-        c[1] += int(nbytes)
-
-    def as_dict(self) -> dict:
-        return {k: {"calls": c, "bytes": b}
-                for k, (c, b) in sorted(self.counts.items())}
-
-
-def _staged(t: torch.Tensor, mesh) -> torch.Tensor:
-    """``t`` on the device the mesh's collectives run on (gloo: the
-    host)."""
-    return t.to(mesh.device_type).contiguous()
-
-
 def _dp_axes(mesh) -> tuple[str, ...]:
     return tuple(a for a in DP if a in mesh.mesh_dim_names)
 
@@ -229,7 +203,7 @@ def sharded_rerank(queries: torch.Tensor, cand_ids: torch.Tensor,
     mine = (local >= 0) & (local < rows) & (cand_ids >= 0)
     d2 = rerank_mod.exact_sqdist(queries, local, vectors)
     d2 = torch.where(mine, d2, float("inf"))
-    buf = _staged(d2, mesh)
+    buf = staged(d2, mesh)
     for ax in dp_axes:
         dist.all_reduce(buf, op=dist.ReduceOp.MIN, group=mesh.get_group(ax))
         if coll is not None:
@@ -352,7 +326,7 @@ class SearchStep:
         dev = centroids.device
         group, ranks = elastic.mesh_ranks(mesh)
         # 1. the origin's queries to every rank
-        buf = _staged(queries, mesh) if dist.get_rank() == ranks[0] else \
+        buf = staged(queries, mesh) if dist.get_rank() == ranks[0] else \
             torch.empty((s.queries, s.dim), dtype=torch.float32,
                         device=mesh.device_type)
         dist.broadcast(buf, src=ranks[0], group=group)
@@ -378,7 +352,7 @@ class SearchStep:
                           device=dev)
         mine[:, :hi - lo, :s.ef] = gids.reshape(per, hi - lo, s.ef)
         mine[:, :hi - lo, s.ef] = hops
-        mine = _staged(mine, mesh)
+        mine = staged(mine, mesh)
         parts = [torch.empty_like(mine) for _ in ranks]
         dist.all_gather(parts, mine, group=group)
         coll._add("all_gather", sum(p.nbytes for p in parts))

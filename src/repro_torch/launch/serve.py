@@ -53,6 +53,13 @@ process group of --fleet ranks, ``launch.mesh.make_shard_mesh`` raises.
 
 --sharded / --replicas without --fleet >= 2 is an argument ERROR, not a
 silent single-engine run.
+
+``generate`` also serves the sharded LM: called on every rank of a
+('data', 'model') mesh under ``sharding.use_mesh`` with the rank's param
+blocks and cache (``models/model.py``'s docstring), the greedy tokens are
+``model.greedy``'s (the largest logit across the vocabulary's blocks, the
+first index among equal ones), the same on every rank. Retrieval reads
+whole logits and is not ported there (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -75,7 +82,8 @@ from ..core.execbackend import MeshBackend
 from ..core.pipeline import StreamingScheduler, bucket_ladder
 from ..core.topology import ServingTopology
 from ..data.synthetic import clustered_vectors, zipf_query_set
-from ..models.model import Model, build_model
+from ..distributed.sharding import current_mesh
+from ..models.model import Model, build_model, greedy
 from . import mesh as mesh_mod
 
 __all__ = ["QueryEncoder", "mean_pool_encoder", "logit_slice_encoder",
@@ -163,7 +171,8 @@ def parse_tenants(spec: str) -> list[TenantSpec]:
 
 class Generation(NamedTuple):
     tokens: torch.Tensor       # (B, gen) int32 greedy tokens
-    logits: torch.Tensor       # (B, 1, Vpad) logits of the last step
+    logits: torch.Tensor       # (B, 1, Vpad) logits of the last step (on a
+    #                            mesh, the rank's block of them)
     report: Any                # the retrieval's report, None without one
     queries: np.ndarray | None  # the encoded retrieval queries
     prefill_s: float           # host clock, ended by a synchronise
@@ -181,9 +190,16 @@ def generate(model: Model, params, tokens: torch.Tensor, gen: int, cache, *,
     turns the first decode step's logits into queries and the scheduler
     serves them (the RAG hook of the JAX package's loop), tagged with
     ``tenant`` (one name a query) when given. On a card the steps are timed
-    on the host clock, each phase ended by a synchronise."""
+    on the host clock, each phase ended by a synchronise. On a mesh (see
+    the module's docstring) every rank calls it with the whole tokens and
+    gets the whole batch's tokens; retrieval raises there."""
     if (scheduler is None) != (encoder is None):
         raise ValueError("retrieval needs both a scheduler and an encoder")
+    if scheduler is not None and current_mesh() is not None:
+        raise NotImplementedError(
+            "retrieval reads whole logits; on a mesh each rank holds a block "
+            "of them: ROADMAP A6 (the sharded LM)")
+    b = tokens.shape[0]
     cuda = tokens.device.type == "cuda"
 
     def now():
@@ -194,13 +210,13 @@ def generate(model: Model, params, tokens: torch.Tensor, gen: int, cache, *,
     t0 = now()
     logits, cache = model.prefill(params, tokens, cache, frames=frames,
                                   patches=patches)
-    out = [torch.argmax(logits[:, -1:], -1).to(torch.int32)]
+    out = [greedy(logits, model.cfg, b)]
     t1 = now()
     report = queries = None
     retrieve_s = 0.0
     for i in range(gen - 1):
         logits, cache = model.decode(params, out[-1], cache)
-        out.append(torch.argmax(logits[:, -1:], -1).to(torch.int32))
+        out.append(greedy(logits, model.cfg, b))
         if scheduler is not None and i == 0:
             tr = now()
             queries = encoder(logits)

@@ -30,6 +30,20 @@ from q, k and the logsumexp; plain PyTorch on both devices, as the JAX
 package computes it outside any Pallas kernel). A call that needs no
 gradient takes the serving path, which writes no logsumexp.
 
+On a mesh (``sharding.use_mesh``) the heads lie over 'model', as the JAX
+package's specs put them (``gqa_specs``, ``mla_specs``; the divisibility
+fallback replicates a head count the axis does not divide): q / k / v come
+out of the rank's column blocks already split on heads, which is their
+``constrain`` target (JAX ``attention.py:269``), so no collective runs
+there; ``attend`` (the kernel) sees the rank's own heads; ``wo`` is
+row-parallel, so the output is a partial sum that the output ``constrain``
+(``:336``) reduces into the residual's layout (``resid``). Where q's heads
+are split and k / v's are replicated (a kv head count 'model' does not
+divide), the rank's q heads r hq_loc + i read kv heads (r hq_loc + i) // g
+of the replicated set (``_local_kv``). The KV cache follows the heads:
+(B, S, Hkv, hd) lies as P(DATA, None, MODEL, None), replicated where Hkv
+does not divide; MLA's latent cache (one head) is replicated over 'model'.
+
 Not ported yet (raises ``NotImplementedError`` naming ROADMAP A6): the
 attention softcap.
 
@@ -45,13 +59,14 @@ from typing import NamedTuple
 
 import torch
 
+from ..distributed.sharding import P, axis_index, constrain, local_shape
 from ..kernels import ops, ref
 from ..kernels.ref import NEG_INF
 from . import layers as L
 
 __all__ = ["attend", "attend_ref", "attend_onepass", "KVCache", "gqa_init",
-           "gqa_apply", "gqa_empty_cache", "mla_init", "mla_apply",
-           "mla_empty_cache"]
+           "gqa_specs", "gqa_apply", "gqa_empty_cache", "mla_init",
+           "mla_specs", "mla_apply", "mla_empty_cache", "split_axis"]
 
 _A6 = "ROADMAP A6 (the rest of the LM stack)"
 
@@ -168,6 +183,46 @@ def gqa_init(gen: torch.Generator, cfg, *, stack: tuple = ()) -> dict:
             "wo": head_w((hq, hd, d), 1.0 / math.sqrt(hq * hd))}
 
 
+def gqa_specs() -> dict:
+    """Heads over 'model' (the JAX package's ``gqa_init``)."""
+    return {"wq": P(None, L.MODEL, None), "wk": P(None, L.MODEL, None),
+            "wv": P(None, L.MODEL, None), "wo": P(L.MODEL, None, None)}
+
+
+def split_axis(local: int, whole: int) -> str | None:
+    """'model' when a rank holds ``local`` of ``whole`` (a dim split over
+    it), None when it holds the whole dim."""
+    return L.MODEL if local != whole else None
+
+
+def _local_kv(k: torch.Tensor, v: torch.Tensor, hq_loc: int, cfg):
+    """k, v (B, S, Hkv_loc, d) as this rank's q heads read them. Heads
+    split on both (or on neither): as they are, the GQA group intact.
+    q's split and kv's replicated (the fallback): the kv heads
+    (r hq_loc + i) // g of this rank's q heads r hq_loc + i, as a slice of
+    whole groups where they form them, else one kv head a q head."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if hq_loc == hq or k.shape[2] != hkv:
+        return k, v
+    g = hq // hkv
+    first = axis_index(L.MODEL) * hq_loc
+    idx = [(first + i) // g for i in range(hq_loc)]
+    n = idx[-1] - idx[0] + 1
+    if hq_loc % n == 0 and idx == [idx[0] + i // (hq_loc // n)
+                                   for i in range(hq_loc)]:
+        return k.narrow(2, idx[0], n), v.narrow(2, idx[0], n)
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def _resid_io(resid):
+    """(the batch entry of the residual's layout, the output constrain's
+    entries): the JAX package's (DATA, None, None) without ``resid``."""
+    if resid is None:
+        return None, (L.DATA, None, None)
+    return resid[0], tuple(resid)
+
+
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul; the result is contiguous."""
     d, h, k = w.shape
@@ -176,7 +231,7 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def gqa_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               cache: KVCache | None = None, window: int | None = None,
-              kv_override=None, causal: bool = True):
+              kv_override=None, causal: bool = True, resid=None):
     """x (B, S, d). Train/prefill when cache is None or being filled;
     decode when S == 1 against an existing cache.
 
@@ -189,20 +244,33 @@ def gqa_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     kv_override: (k, v) (B, F, Hkv, hd), the encoder memory's K/V for
     cross-attention: q alone is projected (no RoPE), attends to every key
     through ``attend`` (the kernel on a card, Sq = 1 in decode too), and
-    the cache is passed through unchanged."""
+    the cache is passed through unchanged.
+
+    On a mesh, x is whole on S and ``resid`` is the residual stream's
+    resolved layout (B, S, d), which the output is reduced into; the
+    params, the cache and kv_override hold this rank's heads."""
     b, sq, _ = x.shape
-    q = _proj_heads(x, p["wq"])
+    rb, out_entries = _resid_io(resid)
+    hq_loc = p["wq"].shape[-2]
+    q = constrain(_proj_heads(x, p["wq"]), L.DATA, None, L.MODEL, None,
+                  have=(rb, None, split_axis(hq_loc, cfg.n_heads)))
+    partial = split_axis(p["wo"].shape[-3], cfg.n_heads)
     if kv_override is not None:
-        out = attend(q, *kv_override, causal=False)
-        return _out_proj(out, p["wo"]), cache
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
+        out = attend(q, *_local_kv(*kv_override, hq_loc, cfg), causal=False)
+        return constrain(_out_proj(out, p["wo"]), *out_entries,
+                         have=(rb,), partial=partial), cache
+    hkv_at = split_axis(p["wk"].shape[-2], cfg.n_kv_heads)
+    k = constrain(_proj_heads(x, p["wk"]), L.DATA, None, L.MODEL, None,
+                  have=(rb, None, hkv_at))
+    v = constrain(_proj_heads(x, p["wv"]), L.DATA, None, L.MODEL, None,
+                  have=(rb, None, hkv_at))
     if cfg.rope_theta:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = attend(q, k, v, causal=causal, window=window)
+        out = attend(q, *_local_kv(k, v, hq_loc, cfg), causal=causal,
+                     window=window)
     else:
         pos = cache.pos
         slots = cache.k.shape[1]
@@ -215,12 +283,14 @@ def gqa_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                 # slot s holds absolute position pos - ((pos - s) mod W)
                 kv_positions = pos - (pos - torch.arange(
                     window, device=x.device)) % window
-                out = attend_onepass(q, cache.k, cache.v, causal=True,
-                                     q_offset=pos, kv_positions=kv_positions)
+                out = attend_onepass(q, *_local_kv(cache.k, cache.v, hq_loc,
+                                                   cfg),
+                                     causal=True, q_offset=pos,
+                                     kv_positions=kv_positions)
             else:
                 # prefill from zero: attend over in-pass K/V, stash the tail
-                out = attend(q, k, v, causal=causal, window=window,
-                             q_offset=pos)
+                out = attend(q, *_local_kv(k, v, hq_loc, cfg), causal=causal,
+                             window=window, q_offset=pos)
                 take = min(window, sq)
                 idx = (pos + sq - take + torch.arange(
                     take, device=x.device)) % window
@@ -232,15 +302,16 @@ def gqa_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                                  f"tokens and cannot take {sq} more")
             cache.k[:, pos:pos + sq] = k
             cache.v[:, pos:pos + sq] = v
+            kc, vc = _local_kv(cache.k, cache.v, hq_loc, cfg)
             if sq == 1:
-                out = attend_onepass(q, cache.k, cache.v, causal=True,
-                                     window=window, q_offset=pos,
-                                     kv_valid_len=pos + 1)
+                out = attend_onepass(q, kc, vc, causal=True, window=window,
+                                     q_offset=pos, kv_valid_len=pos + 1)
             else:
-                out = attend(q, cache.k, cache.v, causal=True, window=window,
+                out = attend(q, kc, vc, causal=True, window=window,
                              q_offset=pos, kv_valid_len=pos + sq)
         cache = KVCache(cache.k, cache.v, pos + sq)
-    return _out_proj(out, p["wo"]), cache
+    return constrain(_out_proj(out, p["wo"]), *out_entries, have=(rb,),
+                     partial=partial), cache
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -251,9 +322,12 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 def gqa_empty_cache(cfg, batch: int, max_len: int, dtype, *,
                     stack: tuple = (), device="cuda") -> KVCache:
+    """Zero K / V of (*stack, B, max_len, Hkv, hd); on a mesh this rank's
+    block of P(DATA, None, MODEL, None), lifted over ``stack``."""
     hkv = cfg.n_kv_heads
     hd = cfg.head_dim or cfg.d_model // cfg.n_heads
-    shape = (*stack, batch, max_len, hkv, hd)
+    shape = local_shape((*stack, batch, max_len, hkv, hd),
+                        P(*(None,) * len(stack), L.DATA, None, L.MODEL, None))
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
@@ -283,8 +357,27 @@ def mla_init(gen: torch.Generator, cfg, *, stack: tuple = ()) -> dict:
             "wo": dense(hq * vd, d, 1.0 / math.sqrt(hq * vd))}
 
 
+def mla_specs() -> dict:
+    """The JAX package's ``mla_init`` specs: the head columns of wq, wuk
+    and wuv over 'model', wo's rows; the latent projection replicated."""
+    return {"wq": P(None, L.MODEL), "wdkv": P(None, None),
+            "kv_norm": L.norm_specs("rmsnorm"), "wuk": P(None, L.MODEL),
+            "wuv": P(None, L.MODEL), "wo": P(L.MODEL, None)}
+
+
+def _mla_heads(p, cfg, nope: int, rope: int) -> int:
+    """This rank's head count: wq's column block holds whole heads, or
+    the sharded path does not run."""
+    hq_loc, cols = divmod(p["wq"].shape[-1], nope + rope)
+    if cols:
+        raise NotImplementedError(
+            f"MLA's wq split into {p['wq'].shape[-1]} columns cuts a head "
+            f"of {nope + rope}: ROADMAP A6 (the sharded LM)")
+    return hq_loc
+
+
 def mla_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-              cache: KVCache | None = None):
+              cache: KVCache | None = None, resid=None):
     """x (B, S, d). Queries are absorbed into latent space (q_nope @ W_uk),
     so attention runs with ONE KV head of width kv_lora + rope: dk 576, dv
     512 at deepseek-v2-lite's width. K is the normalised latent with the
@@ -295,11 +388,16 @@ def mla_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     package's KVCache(kc, kc, pos): written in place, read as k and, through
     the view kc[..., :kv_lora], as v. A prefill attends through ``attend``
     (the kernel on a card), a decode step (S == 1) through the plain
-    ``attend_onepass``, as in the JAX package."""
-    hq = cfg.n_heads
+    ``attend_onepass``, as in the JAX package.
+
+    On a mesh, x is whole on S, the rank holds its heads' columns of wq,
+    wuk and wuv and its rows of wo, and the latent K / V (one head) and
+    the cache are replicated over 'model'; ``resid`` as in ``gqa_apply``."""
     nope = cfg.head_dim or 128
     rope, lora, vd = cfg.qk_rope_dim, cfg.kv_lora_rank, cfg.mla_v_dim
+    hq = _mla_heads(p, cfg, nope, rope)
     b, sq, _ = x.shape
+    rb, out_entries = _resid_io(resid)
 
     q = (x @ p["wq"]).view(b, sq, hq, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
@@ -307,7 +405,9 @@ def mla_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     wuk = p["wuk"].view(lora, hq, nope)
     q_lat = torch.einsum("bshn,lhn->bshl", q_nope.float(),
                          wuk.float()).to(x.dtype)
-    q_all = torch.cat([q_lat, q_rope], dim=-1)        # (B, S, H, lora+rope)
+    q_all = constrain(torch.cat([q_lat, q_rope], dim=-1),  # (B,S,H,l+r)
+                      L.DATA, None, L.MODEL, None,
+                      have=(rb, None, split_axis(hq, cfg.n_heads)))
 
     ckv = x @ p["wdkv"]                               # (B, S, lora+rope)
     lat = L.norm_apply(p["kv_norm"], ckv[..., :lora], "rmsnorm")
@@ -331,14 +431,17 @@ def mla_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                  kv_valid_len=pos + sq)
     wuv = p["wuv"].view(lora, hq, vd)
     o = torch.einsum("bshl,lhv->bshv", out.float(), wuv.float()).to(x.dtype)
-    return o.reshape(b, sq, hq * vd) @ p["wo"], cache
+    return constrain(o.reshape(b, sq, hq * vd) @ p["wo"], *out_entries,
+                     have=(rb,), partial=split_axis(hq, cfg.n_heads)), cache
 
 
 def mla_empty_cache(cfg, batch: int, max_len: int, dtype, *,
                     stack: tuple = (), device="cuda") -> KVCache:
     """One zero tensor (*stack, B, max_len, 1, kv_lora + rope), held as
-    both k and v."""
-    z = torch.zeros((*stack, batch, max_len, 1,
-                     cfg.kv_lora_rank + cfg.qk_rope_dim), dtype=dtype,
-                    device=device)
+    both k and v; on a mesh this rank's batch block (replicated over
+    'model')."""
+    shape = local_shape((*stack, batch, max_len, 1,
+                         cfg.kv_lora_rank + cfg.qk_rope_dim),
+                        P(*(None,) * len(stack), L.DATA))
+    z = torch.zeros(shape, dtype=dtype, device=device)
     return KVCache(z, z, 0)

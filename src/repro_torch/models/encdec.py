@@ -22,6 +22,17 @@ pass with autograd on recomputes each layer in the backward when
 self cache is one KVCache of (L, B, S, Hkv, hd) tensors, written in place
 one layer slice at a time, with one Python int pos (the JAX package's is an
 (L,) array of one value).
+
+On a mesh (``encdec_specs``; the JAX package puts no ``seq_constrain``
+here, so the residual stays whole on S): a rank takes its batch rows of
+the frames and tokens, the attention runs on its heads (whisper's 20 at a
+'model' size that does not divide them fall back to replicated, the
+JAX package's stated design), the cross K/V and the caches hold its kv
+heads (P(None, DATA, None, MODEL, None) on the stacked tensors), the
+MLPs are Megatron's, the tied embedding's vocab rows lie over 'model'
+(a masked lookup whose partial sum is all-reduced at x's ``constrain``,
+JAX ``encdec.py:135``, before the positions are added) and the logits
+come back as the rank's vocabulary block (``:182``).
 """
 
 from __future__ import annotations
@@ -31,13 +42,16 @@ from typing import NamedTuple
 
 import torch
 
+from ..distributed.sharding import P, block_of, constrain, local_shape
 from . import attention as A
 from . import layers as L
 from .config import ModelConfig
-from .transformer import _layer, _slice, _vocab_mask
+from .transformer import (_layer, _local_mask, _slice, embed_lookup, lift,
+                          resid_spec)
 
-__all__ = ["EncDecCache", "sinusoid", "encdec_init", "encode",
-           "project_cross_kv", "decode_forward", "encdec_empty_cache"]
+__all__ = ["EncDecCache", "sinusoid", "encdec_init", "encdec_specs",
+           "encode", "project_cross_kv", "decode_forward",
+           "encdec_empty_cache"]
 
 
 class EncDecCache(NamedTuple):
@@ -101,27 +115,49 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
             "dec_norm": _norm(cfg, (), gen.device)}
 
 
+def encdec_specs(cfg: ModelConfig) -> dict:
+    """The JAX package's spec tree of ``encdec_init``: the embedding's
+    vocab rows over 'model', the stacked layers' specs lifted."""
+    norm = L.norm_specs(cfg.norm)
+    mlp = L.mlp_specs(cfg.mlp_kind)
+    return {"embed": L.EMBED_SPEC,
+            "enc": lift({"norm1": norm, "attn": A.gqa_specs(),
+                         "norm2": norm, "mlp": mlp}),
+            "enc_norm": norm,
+            "dec": lift({"norm1": norm, "self": A.gqa_specs(),
+                         "norm_x": norm, "cross": A.gqa_specs(),
+                         "norm2": norm, "mlp": mlp}),
+            "dec_norm": norm}
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
-def _mlp_res(lp, x, cfg):
+def _mlp_res(lp, x, cfg, resid=None):
     h = L.norm_apply(lp["norm2"], x, cfg.norm)
-    return x + L.mlp_apply(lp["mlp"], h, cfg.mlp_kind, cfg.act)
+    y = L.mlp_apply(lp["mlp"], h, cfg.mlp_kind, cfg.act)
+    if resid is not None:
+        y = constrain(y, *resid, have=(resid[0],),
+                      partial=L.mlp_partial(lp["mlp"], cfg.d_ff))
+    return x + y
 
 
 def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames (B, F, d_model) stub embeddings -> encoder memory (B, F, d)
-    in cfg.dtype."""
-    f = frames.shape[1]
+    in cfg.dtype (on a mesh: the rank's batch rows of the whole frames)."""
+    b, f = frames.shape[:2]
     pos = torch.arange(f, device=frames.device)
-    x = frames.to(cfg.dtype) + sinusoid(pos, cfg.d_model)[None].to(cfg.dtype)
+    resid = resid_spec(cfg, b, f, False)
+    x = block_of(frames, P(L.DATA)).to(cfg.dtype) + \
+        sinusoid(pos, cfg.d_model)[None].to(cfg.dtype)
+
     def layer(li, xx):
         lp = _slice(params["enc"], li)
         h = L.norm_apply(lp["norm1"], xx, cfg.norm)
         y, _ = A.gqa_apply(lp["attn"], h, cfg, positions=pos[None],
-                           causal=False)
-        return _mlp_res(lp, xx + y, cfg)
+                           causal=False, resid=resid)
+        return _mlp_res(lp, xx + y, cfg, resid)
 
     for li in range(cfg.enc_layers):
         x = L.remat(cfg, layer, li, x)
@@ -155,7 +191,10 @@ def decode_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     dev = tokens.device
     pos0 = 0 if cache is None else cache.self_kv.pos
     pos = pos0 + torch.arange(sq, device=dev)
-    x = params["embed"][tokens.long()] + \
+    resid = resid_spec(cfg, b, sq, False)
+    rb = None if resid is None else resid[0]
+    x, part = embed_lookup(params["embed"], block_of(tokens, P(L.DATA)), cfg)
+    x = constrain(x, L.DATA, None, None, have=(rb,), partial=part) + \
         sinusoid(pos, cfg.d_model)[None].to(cfg.dtype)
     positions = pos[None]
     if cache is None and memory is None:
@@ -167,14 +206,14 @@ def decode_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         h = L.norm_apply(lp["norm1"], xx, cfg.norm)
         kv = None if cache is None else _layer(cache.self_kv, li)
         y, _ = A.gqa_apply(lp["self"], h, cfg, positions=positions,
-                           cache=kv)
+                           cache=kv, resid=resid)
         xx = xx + y
         h = L.norm_apply(lp["norm_x"], xx, cfg.norm)
         cross = _cross_kv(lp, memory) if cache is None else \
             (cache.cross_k[li], cache.cross_v[li])
         y, _ = A.gqa_apply(lp["cross"], h, cfg, positions=positions,
-                           kv_override=cross)
-        return _mlp_res(lp, xx + y, cfg)
+                           kv_override=cross, resid=resid)
+        return _mlp_res(lp, xx + y, cfg, resid)
 
     for li in range(cfg.n_layers):
         x = layer(li, x) if cache is not None else L.remat(cfg, layer, li, x)
@@ -184,17 +223,22 @@ def decode_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     x = L.norm_apply(params["dec_norm"], x, cfg.norm)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
-    logits = x @ params["embed"].T
-    return logits + _vocab_mask(cfg, dev).to(logits.dtype), new_cache
+    head = params["embed"].T
+    logits = x @ head
+    logits = logits + _local_mask(cfg, head.shape[-1], dev).to(logits.dtype)
+    return constrain(logits, L.DATA, None, L.MODEL, have=(
+        rb, None, A.split_axis(head.shape[-1], cfg.vocab_padded))), new_cache
 
 
 def encdec_empty_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                        device="cuda") -> EncDecCache:
     """Zero self cache (L, B, max_len, Hkv, hd) at pos 0 and zero cross
-    K/V (L, B, n_frames, Hkv, hd), all in ``dtype``."""
+    K/V (L, B, n_frames, Hkv, hd), all in ``dtype``; on a mesh this rank's
+    blocks of P(None, DATA, None, MODEL, None)."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
 
     def z(s):
-        return torch.zeros(s, dtype=dtype, device=device)
+        return torch.zeros(local_shape(s, P(None, L.DATA, None, L.MODEL)),
+                           dtype=dtype, device=device)
     cross = (*shape[:2], cfg.n_frames, *shape[3:])
     return EncDecCache(A.KVCache(z(shape), z(shape), 0), z(cross), z(cross))

@@ -3,8 +3,15 @@ functional, over plain dicts of tensors.
 
 Params keep the JAX package's layouts and dtypes, so a JAX param tree
 carries over one to one (``repro_torch.bridge.lm_params_from_numpy``). The
-JAX package pairs each param with a sharding spec; the port runs on one
-card and keeps none.
+JAX package's init pairs each param with a sharding spec; the port's
+``*_specs`` functions return the same specs as a tree of their own
+(``Model.specs``), with the logical axes ``DATA`` and ``MODEL``.
+
+On a mesh (``sharding.use_mesh``) a rank holds the block of every param
+that its resolved spec gives it. ``mlp_apply`` is then Megatron's MLP:
+``wi`` / ``wg`` column-parallel, ``wo`` row-parallel, so its output is a
+partial sum over 'model' when ``wo`` is split (``mlp_partial``); the
+caller reduces it where the layout changes.
 
 Init draws truncated normals from an explicit ``torch.Generator``: the same
 distributions as ``jax.random``, not the same numbers. Dtype policy: params
@@ -20,9 +27,16 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["trunc_normal", "dense_init", "embed_init", "norm_init",
-           "norm_apply", "act_fn", "rope_freqs", "apply_rope", "mlp_init",
-           "mlp_apply", "logits_softcap", "remat"]
+from ..distributed.sharding import P
+
+__all__ = ["DATA", "MODEL", "trunc_normal", "dense_init", "embed_init",
+           "norm_init", "norm_specs", "norm_apply", "act_fn", "rope_freqs",
+           "apply_rope", "mlp_init", "mlp_specs", "mlp_apply", "mlp_partial",
+           "logits_softcap", "remat", "EMBED_SPEC"]
+
+DATA = ("pod", "data")  # batch axes ('pod' collapses onto 'data' when absent)
+MODEL = "model"
+EMBED_SPEC = P(MODEL, None)   # the vocab rows over 'model'
 
 
 # ---------------------------------------------------------------------------
@@ -69,6 +83,12 @@ def norm_init(d: int, kind: str, *, stack: tuple = (), device="cuda"
     if kind == "layernorm":
         return {"scale": ones, "bias": torch.zeros_like(ones)}
     return {"scale": ones}
+
+
+def norm_specs(kind: str) -> dict:
+    if kind == "layernorm":
+        return {"scale": P(None), "bias": P(None)}
+    return {"scale": P(None)}
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +152,22 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype, kind: str, *,
     p["wo"] = dense_init(gen, d_ff, d, dtype, scale=1.0 / math.sqrt(d_ff),
                          stack=stack)
     return p
+
+
+def mlp_specs(kind: str) -> dict:
+    """wi / wg column-parallel, wo row-parallel (the JAX package's
+    ``mlp_init``)."""
+    s = {"wi": P(None, MODEL)}
+    if kind in ("swiglu", "geglu"):
+        s["wg"] = P(None, MODEL)
+    s["wo"] = P(MODEL, None)
+    return s
+
+
+def mlp_partial(p, d_ff: int) -> str | None:
+    """'model' when ``mlp_apply``'s output is a partial sum over it (this
+    rank holds ``wo``'s rows of a split d_ff), else None."""
+    return MODEL if p["wo"].shape[-2] != d_ff else None
 
 
 def mlp_apply(p, x: torch.Tensor, kind: str, act: str) -> torch.Tensor:

@@ -9,8 +9,8 @@ modeling API (counterpart of ``repro/models/model.py``):
     logits, cache = model.prefill(params, tokens, cache)  # frames=, patches=
     logits, cache = model.decode(params, tokens1, cache)
 
-``init`` returns the param tree alone (the JAX package pairs it with
-sharding specs). Every arch of ``repro_torch.configs`` is served and
+``init`` returns the param tree alone; ``specs`` returns the sharding
+specs the JAX package's init pairs with it. Every arch of ``repro_torch.configs`` is served and
 trained: the dense GQA archs, grok-1 (GQA with MoE and the logit softcap),
 deepseek-v2-lite (MLA with MoE and shared experts), mamba2 (SSD blocks),
 recurrentgemma (RG-LRU with local attention), whisper (the encoder-decoder
@@ -23,6 +23,18 @@ Np slots). Both modality frontends are stubs, as in the JAX package.
 d), vlm patches (B, Np, d). ``forward`` is the teacher-forced pass with
 autograd on (each layer group recomputed in the backward when
 ``cfg.remat``); the serving calls run under ``torch.no_grad``.
+
+The sharded LM (ROADMAP A6): under ``sharding.use_mesh(mesh)``, a
+('data', 'model') DeviceMesh, each rank holds the block of every param
+that ``shardings_tree(mesh, params, model.specs())`` gives it
+(``bridge.lm_params_onto_mesh``, or ``sharding.blocks_of`` of a tree
+drawn whole on every rank), ``init_cache`` makes its block of the cache, and
+``prefill`` / ``decode`` take the whole tokens and return the rank's
+block P(DATA, None, MODEL) of the logits (``transformer.py``'s
+docstring); ``greedy`` gives every rank the whole batch's tokens. Every
+family runs so. Outside a mesh nothing changes. Training under a mesh
+(autograd through the collectives) raises ``NotImplementedError`` naming
+ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -33,13 +45,15 @@ from typing import Callable
 import torch
 
 from .. import tree as T
+from ..distributed.sharding import (axis_index, constrain, current_mesh,
+                                    resolve_entries)
 from ..optim import adamw
 from . import encdec, transformer
+from . import layers as L
 from .config import ModelConfig
 
 __all__ = ["Model", "build_model", "value_and_grad", "make_train_step",
-           "make_serve_step", "make_prefill_step"]
-
+           "make_serve_step", "make_prefill_step", "greedy"]
 
 @dataclasses.dataclass(frozen=True)
 class Model:
@@ -52,10 +66,18 @@ class Model:
             return encdec.encdec_init(gen, self.cfg)
         return transformer.decoder_init(gen, self.cfg)
 
+    def specs(self) -> dict:
+        """The JAX package's sharding specs of ``init``'s tree, leaf for
+        leaf (its ``init`` returns them beside the params)."""
+        if self.cfg.enc_layers:
+            return encdec.encdec_specs(self.cfg)
+        return transformer.decoder_specs(self.cfg)
+
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device="cuda"):
         """max_len counts text tokens; a vlm's patch slots are added here.
-        An enc-dec cache is an ``encdec.EncDecCache``, any other a dict."""
+        An enc-dec cache is an ``encdec.EncDecCache``, any other a dict.
+        On a mesh, this rank's block of the cache for ``batch`` requests."""
         max_len = max_len + self.cfg.n_patches
         if self.cfg.enc_layers:
             return encdec.encdec_empty_cache(self.cfg, batch, max_len, dtype,
@@ -140,11 +162,45 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)
 
 
+def greedy(logits: torch.Tensor, cfg: ModelConfig, batch: int
+           ) -> torch.Tensor:
+    """The greedy tokens (B, 1) int32 of the last position of logits (B,
+    T, Vpad): ``torch.argmax``'s, the first of equal maxima. On a mesh,
+    ``logits`` is this rank's block P(DATA, None, MODEL) of ``batch``
+    rows; each rank takes its block's maximum and its first index, the
+    'model' group all-gathers the pairs and keeps the largest value, the
+    smallest global index among equal ones (a collective the vocabulary's
+    split forces), and a batch split over 'data' is all-gathered, so every
+    rank returns the whole batch's tokens."""
+    last = logits[:, -1:]
+    if current_mesh() is None:
+        return torch.argmax(last, -1).to(torch.int32)
+    cols = last.shape[-1]
+    idx = torch.argmax(last, -1)                                  # (b, 1)
+    pair = torch.stack([last.gather(-1, idx[..., None])[..., 0].double(),
+                        (idx + axis_index(L.MODEL) * cols).double()], -1)
+    if cols != cfg.vocab_padded:
+        pair = constrain(pair[None], None, have=(L.MODEL,))  # (m, b, 1, 2)
+        val, gidx = pair[..., 0], pair[..., 1]
+        top = val.max(0).values
+        pair = torch.where(val == top, gidx, float("inf")).min(0).values
+    else:
+        pair = pair[..., 1]
+    rb = resolve_entries(current_mesh(), (L.DATA,), (batch,))[0]
+    return constrain(pair.to(torch.int32), None, None, have=(rb, None))
+
+
 def value_and_grad(model: Model, params, batch: dict):
     """(loss, parts, grads as a list in ``tree.leaves(params)``'s order):
     ``jax.value_and_grad(model.loss, has_aux=True)``. The grads are taken
     by ``torch.autograd.grad`` over the param leaves, each in its param's
     type; the params themselves are not marked."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.size() > 1:
+        raise NotImplementedError(
+            "training under a mesh (autograd through sharding.constrain's "
+            "collectives) is not ported: ROADMAP A6 (the sharded LM); the "
+            "DP trainer is distributed.trainer.make_dp_train_step")
     live = [p.detach().requires_grad_(True) for p in T.leaves(params)]
     with torch.enable_grad():
         loss, parts = model.loss(T.unflatten_like(params, live), batch)

@@ -13,9 +13,17 @@ a drop is not made up for. Every shape is static and nothing syncs with
 the host.
 
 The expert products are plain batched matmuls (``torch.bmm``), as the JAX
-package leaves them to XLA; there is no kernel of its own here. The JAX
-package's sharding annotations have no meaning on one card and are
-dropped.
+package leaves them to XLA; there is no kernel of its own here.
+
+On a mesh (``moe_specs``): the router is replicated, so every rank of a
+'model' group routes its (whole-S) rows identically; the capacity buffer
+is replicated over 'model' (its ``constrain``, JAX ``moe.py:99``); each
+rank holds a d_ff block of every expert, so the hidden state lies split on
+f (``:106``) and the row-parallel ``wo``, the gather back and the
+weighted combine (all linear in it) give a partial sum over 'model', as
+the shared experts' MLP does; the output ``constrain`` (``:120``)
+reduces their sum into the residual's layout (``resid``). The aux loss is
+over this rank's batch rows.
 
 Aux loss: the Switch load-balance loss, E * sum_e (share of tokens whose
 first choice is e) * (mean router probability of e), a 0-d float32 tensor.
@@ -27,9 +35,11 @@ import math
 
 import torch
 
+from ..distributed.sharding import P, constrain
 from . import layers as L
 
-__all__ = ["moe_init", "moe_apply", "route", "route_rows", "capacity"]
+__all__ = ["moe_init", "moe_specs", "moe_apply", "route", "route_rows",
+           "capacity"]
 
 
 def capacity(cfg, seq: int) -> int:
@@ -57,6 +67,17 @@ def moe_init(gen: torch.Generator, cfg, *, stack: tuple = ()) -> dict:
         p["shared"] = L.mlp_init(gen, d, cfg.n_shared_experts * f, cfg.dtype,
                                  cfg.mlp_kind, stack=stack)
     return p
+
+
+def moe_specs(cfg) -> dict:
+    """The JAX package's ``moe_init`` specs: the router replicated, each
+    expert's d_ff over 'model' (wi / wg columns, wo rows), the shared
+    experts' MLP as ``mlp_specs``."""
+    s = {"router": P(None, None), "wi": P(None, None, L.MODEL),
+         "wg": P(None, None, L.MODEL), "wo": P(None, L.MODEL, None)}
+    if cfg.n_shared_experts:
+        s["shared"] = L.mlp_specs(cfg.mlp_kind)
+    return s
 
 
 def route_rows(top_i: torch.Tensor, cap: int, n_experts: int
@@ -89,8 +110,10 @@ def route(p, x: torch.Tensor, cfg):
     return probs, top_p, top_i
 
 
-def moe_apply(p, x: torch.Tensor, cfg):
-    """x (B, S, d) -> (out (B, S, d) in x.dtype, aux_loss 0-d float32)."""
+def moe_apply(p, x: torch.Tensor, cfg, resid=None):
+    """x (B, S, d) -> (out (B, S, d) in x.dtype, aux_loss 0-d float32).
+    On a mesh x is whole on S and ``resid`` the residual's layout, as in
+    ``attention.gqa_apply``."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_active
     cap = capacity(cfg, s)
@@ -123,6 +146,14 @@ def moe_apply(p, x: torch.Tensor, cfg):
     out = torch.einsum("bskd,bsk->bsd", routed.reshape(b, s, k, d).float(),
                        top_p).to(x.dtype)
 
+    f = cfg.moe_d_ff or cfg.d_ff
+    partial = L.MODEL if p["wo"].shape[-2] != f else None
     if cfg.n_shared_experts:
+        if L.mlp_partial(p["shared"], cfg.n_shared_experts * f) != partial:
+            raise NotImplementedError(
+                "the routed and the shared experts' d_ff split unlike over "
+                "'model': ROADMAP A6 (the sharded LM)")
         out = out + L.mlp_apply(p["shared"], x, cfg.mlp_kind, act)
+    if resid is not None:
+        out = constrain(out, *resid, have=(resid[0],), partial=partial)
     return out, aux

@@ -21,6 +21,16 @@ Plain PyTorch: the JAX package computes all of it outside any Pallas
 kernel. As in the reference (ROADMAP C7), a prefill into a non-empty cache
 convolves over zero padding, not over the cached window, and seeds the
 scan with the cached state.
+
+On a mesh (``rglru_specs``) the channels lie over 'model': the gate branch,
+the input projection, the conv and the recurrence run on the rank's
+channels (u's ``constrain``, JAX ``rglru.py:94``, is their layout), but
+the (w, w) gate matrices ``wa`` / ``wi`` take the whole of u to give the
+rank's output channels, so u is all-gathered for them (a collective their
+column split forces); ``wo`` is row-parallel and the output ``constrain``
+(``:110``, ``:131``) reduces it into the residual's layout. The cache
+follows the channels: h (B, w) as P(DATA, MODEL), the conv window (B,
+W - 1, w) as P(DATA, None, MODEL).
 """
 
 from __future__ import annotations
@@ -31,10 +41,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import P, constrain, local_shape
 from . import layers as L
 
-__all__ = ["RGLRUCache", "rglru_init", "rglru_apply", "rglru_decode",
-           "rglru_empty_cache"]
+__all__ = ["RGLRUCache", "rglru_init", "rglru_specs", "rglru_apply",
+           "rglru_decode", "rglru_empty_cache"]
 
 _C = 8.0
 
@@ -75,12 +86,24 @@ def rglru_init(gen: torch.Generator, cfg, *, stack: tuple = ()) -> dict:
             "wo": dense(w, d, 1.0 / math.sqrt(w))}
 
 
-def _gates(p, u: torch.Tensor):
+def rglru_specs() -> dict:
+    """The JAX package's ``rglru_init`` specs: the channels over 'model'
+    (the (w, w) gate matrices by their output columns), wo's rows."""
+    m = L.MODEL
+    return {"wy": P(None, m), "wx": P(None, m), "conv_w": P(None, m),
+            "conv_b": P(m), "wa": P(None, m), "ba": P(m), "wi": P(None, m),
+            "bi": P(m), "lam": P(m), "wo": P(m, None)}
+
+
+def _gates(p, u: torch.Tensor, rb=None):
     """u (B, S, W), the conv's output -> (log_a, gated input), both
-    float32."""
+    float32. On a mesh, u holds the rank's channels and is all-gathered
+    for the gate matrices' products."""
     uf = u.float()
-    r = torch.sigmoid(uf @ p["wa"].float() + p["ba"])
-    i = torch.sigmoid(uf @ p["wi"].float() + p["bi"])
+    whole = uf if p["wa"].shape[-2] == u.shape[-1] else constrain(
+        uf, rb, None, None, have=(rb, None, L.MODEL))
+    r = torch.sigmoid(whole @ p["wa"].float() + p["ba"])
+    i = torch.sigmoid(whole @ p["wi"].float() + p["bi"])
     log_a = -_C * F.softplus(p["lam"]) * r                      # < 0
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return log_a, beta * (i * uf)
@@ -113,17 +136,32 @@ def _scan(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rglru_apply(p, x: torch.Tensor, cfg, *, cache: RGLRUCache | None = None):
+def _out(p, hy: torch.Tensor, cfg, resid) -> torch.Tensor:
+    """(h y) @ wo, reduced into the residual's layout on a mesh."""
+    w = cfg.rnn_width or cfg.d_model
+    rb = None if resid is None else resid[0]
+    return constrain(hy @ p["wo"], *((L.DATA, None, None) if resid is None
+                                     else resid), have=(rb,),
+                     partial=L.MODEL if p["wo"].shape[-2] != w else None)
+
+
+def rglru_apply(p, x: torch.Tensor, cfg, *, cache: RGLRUCache | None = None,
+                resid=None):
     """x (B, S, d_model) -> (out (B, S, d_model), new cache or None); with
     a cache and S == 1, one step of the recurrence (``rglru_decode``). The
-    cache's tensors are not written: a new RGLRUCache is returned."""
+    cache's tensors are not written: a new RGLRUCache is returned. On a
+    mesh x is whole on S and ``resid`` the residual's layout, as in
+    ``attention.gqa_apply``."""
     b, s, _ = x.shape
     if cache is not None and s == 1:
-        return rglru_decode(p, x, cfg, cache)
+        return rglru_decode(p, x, cfg, cache, resid=resid)
+    rb = None if resid is None else resid[0]
     y = L.act_fn("gelu")(x @ p["wy"])                           # gate branch
     u_in = x @ p["wx"]
     u = _conv(u_in, p["conv_w"], p["conv_b"])
-    log_a, gi = _gates(p, u)
+    u = constrain(u, L.DATA, None, L.MODEL, have=(rb, None, None if
+                  u.shape[-1] == (cfg.rnn_width or cfg.d_model) else L.MODEL))
+    log_a, gi = _gates(p, u, rb)
     if cache is not None:
         # seed the scan with the cached state as a virtual step 0
         log_a = torch.cat([torch.zeros_like(log_a[:, :1]), log_a], dim=1)
@@ -131,7 +169,7 @@ def rglru_apply(p, x: torch.Tensor, cfg, *, cache: RGLRUCache | None = None):
     h = _scan(log_a, gi)
     if cache is not None:
         h = h[:, 1:]
-    out = (h.to(x.dtype) * y) @ p["wo"]
+    out = _out(p, h.to(x.dtype) * y, cfg, resid)
     if cache is None:
         return out, None
     new_conv = u_in[:, -(cfg.conv_width - 1):]
@@ -143,27 +181,31 @@ def rglru_apply(p, x: torch.Tensor, cfg, *, cache: RGLRUCache | None = None):
                            new_conv.to(cache.conv.dtype), cache.pos + s)
 
 
-def rglru_decode(p, x: torch.Tensor, cfg, cache: RGLRUCache):
-    """One token of the recurrence. x (B, 1, d_model)."""
+def rglru_decode(p, x: torch.Tensor, cfg, cache: RGLRUCache, resid=None):
+    """One token of the recurrence. x (B, 1, d_model); on a mesh as
+    ``rglru_apply``."""
     y = L.act_fn("gelu")(x @ p["wy"])                           # (B,1,W)
     u_new = x @ p["wx"]                                         # (B,1,W)
     wide = torch.promote_types(cache.conv.dtype, u_new.dtype)
     hist = torch.cat([cache.conv.to(wide), u_new.to(wide)], dim=1)
     u = (torch.einsum("bwc,wc->bc", hist.float(), p["conv_w"].float())
          + p["conv_b"].float())[:, None].to(x.dtype)
-    log_a, gi = _gates(p, u)                                    # (B,1,W)
-    h = torch.exp(log_a[:, 0]) * cache.h.float() + gi[:, 0]
-    out = (h[:, None].to(x.dtype) * y) @ p["wo"]
+    log_a, gi = _gates(p, u, None if resid is None else resid[0])
+    h = torch.exp(log_a[:, 0]) * cache.h.float() + gi[:, 0]     # (B, W)
+    out = _out(p, h[:, None].to(x.dtype) * y, cfg, resid)
     return out, RGLRUCache(h.to(cache.h.dtype),
                            hist[:, 1:].to(cache.conv.dtype), cache.pos + 1)
 
 
 def rglru_empty_cache(cfg, batch: int, dtype, *, stack: tuple = (),
                       device="cuda") -> RGLRUCache:
+    """Zero state and conv window; on a mesh this rank's channel blocks,
+    lifted over ``stack``."""
     w = cfg.rnn_width or cfg.d_model
+    lift = (None,) * len(stack)
+    h = local_shape((*stack, batch, w), P(*lift, L.DATA, L.MODEL))
+    conv = local_shape((*stack, batch, cfg.conv_width - 1, w),
+                       P(*lift, L.DATA, None, L.MODEL))
     return RGLRUCache(
-        h=torch.zeros((*stack, batch, w), dtype=torch.float32,
-                      device=device),
-        conv=torch.zeros((*stack, batch, cfg.conv_width - 1, w), dtype=dtype,
-                         device=device),
-        pos=0)
+        h=torch.zeros(h, dtype=torch.float32, device=device),
+        conv=torch.zeros(conv, dtype=dtype, device=device), pos=0)

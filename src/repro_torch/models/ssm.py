@@ -24,6 +24,19 @@ prefill into a non-empty cache convolves over zero padding, not over the
 cached window. Where the reference writes a conv window of the wrong shape
 (a prefill of 2 <= S < conv_width - 1 tokens into a cache, which its own
 decode cannot read), the port raises ``ValueError`` naming C7.
+
+On a mesh (``ssd_specs``) the heads lie over 'model'. in_proj's packed
+columns (z | x | B | C | dt) split into blocks that cut across the parts,
+so its output is all-gathered (a collective the heads' ``constrain``, JAX
+``ssm.py:120``, forces); the conv's channels (x | B | C) are split the same
+way, so a rank convolves its own block of channels (its block of the conv
+cache) and the result is all-gathered; x and dt then keep the rank's
+heads (a local slice: the ``constrain`` at ``:120``), B and C stay whole.
+The gate norm is an RMSNorm over the whole d_inner with its scale split,
+so its sum of squares is all-reduced; ``out_proj`` is row-parallel and the
+output ``constrain`` (``:102``) reduces it into the residual's layout.
+The cache: the state (B, H, N, P) as P(DATA, MODEL, None, None), the conv
+window (B, W - 1, C) as P(DATA, None, MODEL).
 """
 
 from __future__ import annotations
@@ -34,9 +47,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import P, axis_index, constrain, local_shape
 from . import layers as L
 
-__all__ = ["SSMCache", "ssd_init", "ssd_apply", "ssd_decode",
+__all__ = ["SSMCache", "ssd_init", "ssd_specs", "ssd_apply", "ssd_decode",
            "ssm_empty_cache"]
 
 NEG_INF = -1e30
@@ -89,6 +103,16 @@ def ssd_init(gen: torch.Generator, cfg, *, stack: tuple = ()) -> dict:
     }
 
 
+def ssd_specs() -> dict:
+    """The JAX package's ``ssd_init`` specs: in_proj's packed columns, the
+    conv's channels, the per-head vectors and the gate norm over 'model',
+    out_proj's rows."""
+    return {"in_proj": P(None, L.MODEL), "conv_w": P(None, L.MODEL),
+            "conv_b": P(L.MODEL), "A_log": P(L.MODEL),
+            "dt_bias": P(L.MODEL), "D": P(L.MODEL),
+            "gate_norm": {"scale": P(L.MODEL)}, "out_proj": P(L.MODEL, None)}
+
+
 def _split_proj(zxbcdt: torch.Tensor, cfg):
     d_inner, _, nheads = _dims(cfg)
     n = cfg.ssm_state
@@ -107,20 +131,65 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return F.silu(out + b.float()).to(u.dtype)
 
 
-def _gated_out(p, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    y = L.norm_apply(p["gate_norm"], (y * F.silu(z.float())).to(y.dtype),
-                     "rmsnorm")
-    return y.to(p["out_proj"].dtype) @ p["out_proj"]
+def _gated_out(p, y: torch.Tensor, z: torch.Tensor, cfg, rb=None,
+               out_entries=(L.DATA, None, None)) -> torch.Tensor:
+    """The gated RMSNorm and out_proj. On a mesh with the norm's scale
+    split, y and z are taken at the rank's channels and the sum of squares
+    over d_inner is all-reduced; the row-parallel product is reduced into
+    ``out_entries``."""
+    d_inner, _, _ = _dims(cfg)
+    sc = p["gate_norm"]["scale"].shape[-1]
+    if sc == d_inner:
+        y = L.norm_apply(p["gate_norm"], (y * F.silu(z.float())).to(y.dtype),
+                         "rmsnorm")
+    else:
+        lo = axis_index(L.MODEL) * sc
+        if y.shape[-1] != sc:
+            y = y[..., lo:lo + sc]
+        g = (y * F.silu(z[..., lo:lo + sc].float())).to(y.dtype).float()
+        ss = constrain((g * g).sum(-1, keepdim=True), rb, None, None,
+                       have=(rb,), partial=L.MODEL)
+        y = (g * torch.rsqrt(ss / d_inner + 1e-6)
+             * p["gate_norm"]["scale"]).to(y.dtype)
+    out = y.to(p["out_proj"].dtype) @ p["out_proj"]
+    return constrain(out, *out_entries, have=(rb,), partial=L.MODEL
+                     if p["out_proj"].shape[-2] != d_inner else None)
 
 
-def _project(p, x: torch.Tensor, cfg):
+def _in_proj(p, x: torch.Tensor, cfg, rb) -> torch.Tensor:
+    """x @ in_proj, whole: a rank's block of the packed columns is
+    all-gathered."""
+    zxbcdt = x @ p["in_proj"]
+    d_inner, _, nheads = _dims(cfg)
+    if zxbcdt.shape[-1] != 2 * d_inner + 2 * cfg.ssm_state + nheads:
+        zxbcdt = constrain(zxbcdt, rb, None, None, have=(rb, None, L.MODEL))
+    return zxbcdt
+
+
+def _chunk(t: torch.Tensor, c_loc: int) -> torch.Tensor:
+    """The rank's block of ``c_loc`` channels of t (B, S, C)."""
+    if c_loc == t.shape[-1]:
+        return t
+    return t[..., axis_index(L.MODEL) * c_loc:][..., :c_loc]
+
+
+def _whole_channels(t: torch.Tensor, conv_ch: int, rb) -> torch.Tensor:
+    """A conv output of the rank's channel block, all-gathered."""
+    if t.shape[-1] == conv_ch:
+        return t
+    return constrain(t, rb, None, None, have=(rb, None, L.MODEL))
+
+
+def _project(p, x: torch.Tensor, cfg, rb=None):
     """in_proj and the causal conv: (z, conv_in, xs, bmat, cmat, dt), dt
-    the raw projection."""
+    the raw projection; conv_in the rank's channel block on a mesh."""
     d_inner, _, _ = _dims(cfg)
     n = cfg.ssm_state
-    z, xs, bmat, cmat, dt = _split_proj(x @ p["in_proj"], cfg)
-    conv_in = torch.cat([xs, bmat, cmat], dim=-1)
-    conv_out = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
+    z, xs, bmat, cmat, dt = _split_proj(_in_proj(p, x, cfg, rb), cfg)
+    conv_in = _chunk(torch.cat([xs, bmat, cmat], dim=-1),
+                     p["conv_w"].shape[-1])
+    conv_out = _whole_channels(
+        _causal_conv(conv_in, p["conv_w"], p["conv_b"]), d_inner + 2 * n, rb)
     xs, bmat, cmat = torch.split(conv_out, [d_inner, n, n], dim=-1)
     return z, conv_in, xs, bmat, cmat, dt
 
@@ -160,12 +229,15 @@ def _inter_chunk(s_chunk, a_total, init, cc, cum):
     return y * torch.exp(cum)[..., None], st
 
 
-def ssd_apply(p, x: torch.Tensor, cfg, *, cache: SSMCache | None = None):
+def ssd_apply(p, x: torch.Tensor, cfg, *, cache: SSMCache | None = None,
+              resid=None):
     """x (B, S, d_model) -> (out (B, S, d_model), new cache or None). The
     chunked SSD; with a cache and S == 1, the recurrence (``ssd_decode``).
-    The cache's tensors are not written: a new SSMCache is returned."""
+    The cache's tensors are not written: a new SSMCache is returned. On a
+    mesh x is whole on S and ``resid`` the residual's layout, as in
+    ``attention.gqa_apply``."""
     if cache is not None and x.shape[1] == 1:
-        return ssd_decode(p, x, cfg, cache)
+        return ssd_decode(p, x, cfg, cache, resid=resid)
     b, s, _ = x.shape
     if cache is not None and s < cfg.conv_width - 1:
         raise ValueError(
@@ -175,9 +247,14 @@ def ssd_apply(p, x: torch.Tensor, cfg, *, cache: SSMCache | None = None):
             f"C7); prefill at least {cfg.conv_width - 1} tokens or one")
     d_inner, pdim, nheads = _dims(cfg)
     n = cfg.ssm_state
-    z, conv_in, xs, bmat, cmat, dt = _project(p, x, cfg)
-    xh = xs.reshape(b, s, nheads, pdim)
-    dt = F.softplus(dt.float() + p["dt_bias"])                  # (B,S,H)
+    rb = None if resid is None else resid[0]
+    out_entries = (L.DATA, None, None) if resid is None else tuple(resid)
+    z, conv_in, xs, bmat, cmat, dt = _project(p, x, cfg, rb)
+    xh = constrain(xs.reshape(b, s, nheads, pdim), L.DATA, None, L.MODEL,
+                   None, have=(rb,))
+    nheads = xh.shape[2]                                # this rank's heads
+    dt = F.softplus(constrain(dt, L.DATA, None, L.MODEL, have=(rb,)).float()
+                    + p["dt_bias"])                             # (B,S,H)
 
     # pad to a chunk multiple; dt = 0 at pads -> a = 0 (identity decay) and
     # no state contribution, so padding is exactly inert
@@ -206,8 +283,8 @@ def ssd_apply(p, x: torch.Tensor, cfg, *, cache: SSMCache | None = None):
 
     y = (y_intra + y_inter).reshape(b, s, nheads, pdim) \
         + p["D"][None, None, :, None] * xh.float()
-    y = y.reshape(b, s, d_inner)[:, :s_true]
-    out = _gated_out(p, y, z)
+    y = y.reshape(b, s, nheads * pdim)[:, :s_true]
+    out = _gated_out(p, y, z, cfg, rb, out_entries)
     if cache is None:
         return out, None
     new_conv = conv_in[:, -(cfg.conv_width - 1):].to(cache.conv.dtype)
@@ -215,40 +292,53 @@ def ssd_apply(p, x: torch.Tensor, cfg, *, cache: SSMCache | None = None):
                          cache.pos + s)
 
 
-def ssd_decode(p, x: torch.Tensor, cfg, cache: SSMCache):
-    """One token of the recurrence. x (B, 1, d_model)."""
+def ssd_decode(p, x: torch.Tensor, cfg, cache: SSMCache, resid=None):
+    """One token of the recurrence. x (B, 1, d_model); on a mesh as
+    ``ssd_apply``."""
     b = x.shape[0]
     d_inner, pdim, nheads = _dims(cfg)
     n = cfg.ssm_state
-    z, xs, bmat, cmat, dt = _split_proj(x @ p["in_proj"], cfg)
-    conv_in = torch.cat([xs, bmat, cmat], dim=-1)               # (B,1,C)
+    rb = None if resid is None else resid[0]
+    out_entries = (L.DATA, None, None) if resid is None else tuple(resid)
+    z, xs, bmat, cmat, dt = _split_proj(_in_proj(p, x, cfg, rb), cfg)
+    conv_in = _chunk(torch.cat([xs, bmat, cmat], dim=-1),
+                     p["conv_w"].shape[-1])                     # (B,1,C)
     wide = torch.promote_types(cache.conv.dtype, conv_in.dtype)
     hist = torch.cat([cache.conv.to(wide), conv_in.to(wide)], dim=1)
-    conv_out = F.silu(
+    conv_out = _whole_channels(F.silu(
         torch.einsum("bwc,wc->bc", hist.float(), p["conv_w"].float())
-        + p["conv_b"].float())[:, None].to(x.dtype)
+        + p["conv_b"].float())[:, None].to(x.dtype), d_inner + 2 * n, rb)
     xs, bmat, cmat = torch.split(conv_out, [d_inner, n, n], dim=-1)
 
-    xh = xs.reshape(b, nheads, pdim).float()
-    dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"])           # (B,H)
+    xh = constrain(xs.reshape(b, nheads, pdim), L.DATA, L.MODEL, None,
+                   have=(rb,)).float()
+    nheads = xh.shape[1]                                # this rank's heads
+    dt1 = F.softplus(constrain(dt[:, 0], L.DATA, L.MODEL, have=(rb,))
+                     .float() + p["dt_bias"])                   # (B,H)
     a = torch.exp(-torch.exp(p["A_log"]) * dt1)                 # (B,H)
     bx = torch.einsum("bn,bhp->bhnp", bmat[:, 0].float(), xh)
     state = a[..., None, None] * cache.state.float() \
         + dt1[..., None, None] * bx
     y = torch.einsum("bn,bhnp->bhp", cmat[:, 0].float(), state) \
         + p["D"][None, :, None] * xh
-    out = _gated_out(p, y.reshape(b, 1, d_inner), z)
+    out = _gated_out(p, y.reshape(b, 1, nheads * pdim), z, cfg, rb,
+                     out_entries)
     return out, SSMCache(state.to(cache.state.dtype),
                          hist[:, 1:].to(cache.conv.dtype), cache.pos + 1)
 
 
 def ssm_empty_cache(cfg, batch: int, dtype, *, stack: tuple = (),
                     device="cuda") -> SSMCache:
+    """Zero state and conv window; on a mesh this rank's blocks (see the
+    module's docstring), lifted over ``stack``."""
     d_inner, pdim, nheads = _dims(cfg)
     conv_ch = d_inner + 2 * cfg.ssm_state
+    lift = (None,) * len(stack)
+    state = local_shape((*stack, batch, nheads, cfg.ssm_state, pdim),
+                        P(*lift, L.DATA, L.MODEL, None, None))
+    conv = local_shape((*stack, batch, cfg.conv_width - 1, conv_ch),
+                       P(*lift, L.DATA, None, L.MODEL))
     return SSMCache(
-        state=torch.zeros((*stack, batch, nheads, cfg.ssm_state, pdim),
-                          dtype=torch.float32, device=device),
-        conv=torch.zeros((*stack, batch, cfg.conv_width - 1, conv_ch),
-                         dtype=dtype, device=device),
+        state=torch.zeros(state, dtype=torch.float32, device=device),
+        conv=torch.zeros(conv, dtype=dtype, device=device),
         pos=0)

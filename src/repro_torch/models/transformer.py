@@ -11,8 +11,28 @@ kept: a forward with autograd on and no cache runs each group slice (one
 pattern unit) under ``torch.utils.checkpoint`` when ``cfg.remat`` is set,
 so the backward recomputes the group's activations from its input, as
 ``jax.checkpoint(group_body)`` does (the prefix and tail layers are not
-recomputed there either). ``constrain`` (sharding annotations) has no
-meaning on one card and is dropped (the sharded LM is ROADMAP A6).
+recomputed there either).
+
+On a mesh (``sharding.use_mesh``; ``decoder_specs`` is the JAX package's
+spec tree, the stacked groups' specs lifted by a leading None) every rank
+runs the forward on its own blocks, SPMD, with the JAX package's
+``constrain`` points as explicit collectives (``sharding.constrain``).
+The caller passes the whole tokens; a rank takes its batch rows
+(``DATA``) and gets back its block of the logits, P(DATA, None, MODEL).
+Besides the ``constrain`` points, three collectives are forced by a
+layout, as GSPMD forces them: (1) the embedding's rows lie over 'model',
+so a rank looks up the tokens it holds and the partial sum is all-reduced
+at x's ``constrain`` (JAX ``transformer.py:213``); (2) under
+``cfg.seq_shard`` the residual stream lies split on S between blocks
+(Megatron sequence parallelism, ``:222-234``): before a mixer or an MLP
+the normed input is all-gathered on S (q / k / v's ``constrain`` wants S
+whole), and the row-parallel output's reduction scatters onto S (a
+reduce_scatter: the output ``constrain`` and the block's
+``seq_constrain`` as one, as XLA's reduce-scatter creator makes them); a
+sequence 'model' does not divide (decode's S = 1) stays whole, and the
+reductions are all-reduces; (3) ``logits_slice`` of an S-split residual:
+its last rows lie on the last 'model' rank, which broadcasts them.
+The vocabulary-split logits then need no collective (``:288``).
 
 Caches mirror the param structure: {"prefix": [...], "groups": [one
 cache per pattern slot, its tensors stacked on a leading n_groups axis],
@@ -38,6 +58,9 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import (P, axis_index, axis_size, block_of,
+                                    broadcast_from, constrain, current_mesh,
+                                    resolve_entries)
 from . import attention as A
 from . import layers as L
 from . import moe as M
@@ -45,8 +68,9 @@ from . import rglru as R
 from . import ssm as S
 from .config import ModelConfig
 
-__all__ = ["block_init", "block_apply", "block_empty_cache", "decoder_init",
-           "decoder_empty_cache", "decoder_forward"]
+__all__ = ["block_init", "block_specs", "block_apply", "block_empty_cache",
+           "decoder_init", "decoder_specs", "decoder_empty_cache",
+           "decoder_forward", "lift", "resid_spec", "embed_lookup"]
 
 GQA_KINDS = ("attn", "swa", "lattn")
 MIXERS = (*GQA_KINDS, "mla", "mamba", "rglru")
@@ -92,33 +116,64 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, mlp: str,
     return p
 
 
-def block_apply(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, mlp: str,
-                *, positions: torch.Tensor, cache=None):
-    """Returns (x, new_cache, aux_loss); aux_loss is the MoE's Switch loss,
-    a 0-d float32 tensor (0 for a dense MLP or none)."""
+def block_specs(cfg: ModelConfig, mixer: str, mlp: str) -> dict:
+    """The JAX package's specs of one block (``block_init``'s tree)."""
     _refuse(mixer, mlp)
-    h = L.norm_apply(p["norm1"], x, cfg.norm)
+    mix = {"mla": A.mla_specs, "mamba": S.ssd_specs,
+           "rglru": R.rglru_specs}.get(mixer, A.gqa_specs)()
+    s = {"norm1": L.norm_specs(cfg.norm), "mixer": mix}
+    if mlp == "none":
+        return s
+    s["norm2"] = L.norm_specs(cfg.norm)
+    if mlp == "moe":
+        s["moe"] = M.moe_specs(cfg)
+    else:
+        s["mlp"] = L.mlp_specs(cfg.mlp_kind)
+    return s
+
+
+def _whole_seq(h: torch.Tensor, resid) -> torch.Tensor:
+    """A block input whole on S: Megatron-SP's all_gather when the
+    residual lies split on S (q / k / v's ``constrain`` wants S whole)."""
+    if resid is None or resid[1] is None:
+        return h
+    return constrain(h, resid[0], None, None, have=resid)
+
+
+def block_apply(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, mlp: str,
+                *, positions: torch.Tensor, cache=None, resid=None):
+    """Returns (x, new_cache, aux_loss); aux_loss is the MoE's Switch loss,
+    a 0-d float32 tensor (0 for a dense MLP or none). On a mesh, x is this
+    rank's block of the residual stream, laid out as ``resid``
+    (``resid_spec``), and so is the returned x."""
+    _refuse(mixer, mlp)
+    h = _whole_seq(L.norm_apply(p["norm1"], x, cfg.norm), resid)
     if mixer == "mla":
         y, cache = A.mla_apply(p["mixer"], h, cfg, positions=positions,
-                               cache=cache)
+                               cache=cache, resid=resid)
     elif mixer in GQA_KINDS:
         win = cfg.window if mixer in ("swa", "lattn") else None
         y, cache = A.gqa_apply(p["mixer"], h, cfg, positions=positions,
-                               cache=cache, window=win)
+                               cache=cache, window=win, resid=resid)
     elif mixer == "mamba":
-        y, cache = S.ssd_apply(p["mixer"], h, cfg, cache=cache)
+        y, cache = S.ssd_apply(p["mixer"], h, cfg, cache=cache, resid=resid)
     else:
-        y, cache = R.rglru_apply(p["mixer"], h, cfg, cache=cache)
+        y, cache = R.rglru_apply(p["mixer"], h, cfg, cache=cache,
+                                 resid=resid)
     x = x + y
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if mlp == "none":
         return x, cache, zero
-    h = L.norm_apply(p["norm2"], x, cfg.norm)
+    h = _whole_seq(L.norm_apply(p["norm2"], x, cfg.norm), resid)
     if mlp == "moe":
-        y, aux = M.moe_apply(p["moe"], h, cfg)
+        y, aux = M.moe_apply(p["moe"], h, cfg, resid=resid)
         return x + y, cache, aux
     act = "silu" if cfg.mlp_kind == "swiglu" else "gelu"
-    return x + L.mlp_apply(p["mlp"], h, cfg.mlp_kind, act), cache, zero
+    y = L.mlp_apply(p["mlp"], h, cfg.mlp_kind, act)
+    if resid is not None:       # the row-parallel product into the residual
+        y = constrain(y, *resid, have=(resid[0],),
+                      partial=L.mlp_partial(p["mlp"], cfg.d_ff))
+    return x + y, cache, zero
 
 
 def block_empty_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
@@ -169,6 +224,37 @@ def decoder_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def lift(specs):
+    """Specs of a block stacked on a leading n_groups axis: P(None, *s)
+    (the JAX package's ``_stack_init``)."""
+    if isinstance(specs, dict):
+        return {k: lift(v) for k, v in specs.items()}
+    return P(None, *specs)
+
+
+def decoder_specs(cfg: ModelConfig) -> dict:
+    """The JAX package's spec tree of ``decoder_init``'s params, leaf for
+    leaf: the embedding's vocab rows and lm_head's vocab columns over
+    'model', the blocks' specs, the stacked groups' lifted."""
+    n_pre, n_groups, n_tail = cfg.layer_plan()
+    plen = len(cfg.pattern)
+    s = {"embed": L.EMBED_SPEC, "final_norm": L.norm_specs(cfg.norm)}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = P(None, L.MODEL)
+    if cfg.n_patches:
+        s["patch_proj"] = P(None, None)
+    s["prefix"] = [block_specs(cfg, cfg.mixer_of(i), cfg.mlp_of(i))
+                   for i in range(n_pre)]
+    s["groups"] = [lift(block_specs(cfg, cfg.mixer_of(n_pre + j),
+                                    cfg.mlp_of(n_pre + j)))
+                   if n_groups else None for j in range(plen)]
+    first_tail = n_pre + n_groups * plen
+    s["tail"] = [block_specs(cfg, cfg.mixer_of(first_tail + t),
+                             cfg.mlp_of(first_tail + t))
+                 for t in range(n_tail)]
+    return s
+
+
 def decoder_empty_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                         device="cuda") -> dict:
     n_pre, n_groups, n_tail = cfg.layer_plan()
@@ -195,6 +281,45 @@ def _vocab_mask(cfg, device="cuda") -> torch.Tensor:
     """(Vpad,) additive mask: -1e30 on padding columns."""
     v = torch.arange(cfg.vocab_padded, device=device)
     return torch.where(v < cfg.vocab_size, 0.0, -1e30).float()
+
+
+def resid_spec(cfg: ModelConfig, batch: int, seq: int, seq_shard: bool
+               ) -> P | None:
+    """The residual stream's layout (B, S, d) on the current mesh, resolved
+    with the fallbacks: the batch over DATA, S over 'model' under
+    ``seq_shard``; None without a mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    return resolve_entries(mesh, (L.DATA, L.MODEL if seq_shard else None,
+                                  None), (batch, seq, cfg.d_model))
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, cfg
+                 ) -> tuple[torch.Tensor, str | None]:
+    """(the rows of ``tokens``, the axis they are a partial sum over). A
+    rank holding a block of the vocab rows (P(MODEL, None)) looks up the
+    tokens in it and zeros the others: the sum over 'model' is the lookup
+    of the whole table."""
+    if table.shape[0] == cfg.vocab_padded:
+        return table[tokens.long()], None
+    idx = tokens.long() - axis_index(L.MODEL) * table.shape[0]
+    mine = (idx >= 0) & (idx < table.shape[0])
+    rows = table[torch.where(mine, idx, 0)]
+    return rows * mine[..., None].to(rows.dtype), L.MODEL
+
+
+def _last_rows(x: torch.Tensor, n: int, resid) -> torch.Tensor:
+    """The last ``n`` positions of the residual (all of them for n =
+    None), whole on S: the last 'model' rank broadcasts its tail of an
+    S-split residual."""
+    if resid is None or resid[1] is None:
+        return x if n is None else x[:, -n:]
+    if n is None or n > x.shape[1]:
+        x = constrain(x, resid[0], None, None, have=resid)
+        return x if n is None else x[:, -n:]
+    return broadcast_from(x[:, -n:].contiguous(), resid[1],
+                          axis_size(resid[1]) - 1)
 
 
 def _slice(tree, g: int):
@@ -237,10 +362,15 @@ def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     the MoE layers' Switch losses, a 0-d float32 tensor (0 without MoE)."""
     n_pre, n_groups, n_tail = cfg.layer_plan()
     plen = len(cfg.pattern)
-    x = params["embed"][tokens.long()]
+    b = tokens.shape[0]
+    rb = None if current_mesh() is None else resolve_entries(
+        current_mesh(), (L.DATA,), (b,))[0]
+    x, part = embed_lookup(params["embed"], block_of(tokens, P(L.DATA)),
+                           cfg)
+    x = constrain(x, L.DATA, None, None, have=(rb,), partial=part)
     if cfg.n_patches and patches is not None:
-        x = torch.cat([patches.to(cfg.dtype) @ params["patch_proj"], x],
-                      dim=1)
+        px = block_of(patches, P(L.DATA)).to(cfg.dtype)
+        x = torch.cat([px @ params["patch_proj"], x], dim=1)
     elif cfg.n_patches and cache is None:
         raise ValueError(f"{cfg.name}: a vlm forward without a cache needs "
                          f"the patch embeddings")
@@ -250,10 +380,13 @@ def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     new_cache = {"prefix": [], "groups": [], "tail": []} \
         if cache is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    resid = resid_spec(cfg, b, seq, cfg.seq_shard)
+    if resid is not None:               # the seq_constrain: a local slice
+        x = constrain(x, *resid, have=(rb,))
 
     def run_block(p, xx, li, c):
         return block_apply(p, xx, cfg, cfg.mixer_of(li), cfg.mlp_of(li),
-                           positions=positions, cache=c)
+                           positions=positions, cache=c, resid=resid)
 
     for i in range(n_pre):
         c = None if cache is None else cache["prefix"][i]
@@ -291,13 +424,23 @@ def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         if cache is not None:
             new_cache["tail"].append(_store(c, c2))
 
-    x = L.norm_apply(params["final_norm"], x, cfg.norm)
-    if logits_slice is not None:
-        x = x[:, -logits_slice:]
+    x = _last_rows(L.norm_apply(params["final_norm"], x, cfg.norm),
+                   logits_slice, resid)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = L.logits_softcap(x @ head, cfg.logit_softcap)
-    logits = logits + _vocab_mask(cfg, x.device).to(logits.dtype)
-    return logits, new_cache, aux_total
+    logits = logits + _local_mask(cfg, head.shape[-1], x.device).to(
+        logits.dtype)
+    return constrain(logits, L.DATA, None, L.MODEL, have=(
+        rb, None, A.split_axis(head.shape[-1], cfg.vocab_padded))), \
+        new_cache, aux_total
+
+
+def _local_mask(cfg, cols: int, device) -> torch.Tensor:
+    """``_vocab_mask`` over this rank's ``cols`` vocabulary columns."""
+    mask = _vocab_mask(cfg, device)
+    if cols == mask.shape[0]:
+        return mask
+    return mask.narrow(0, axis_index(L.MODEL) * cols, cols)
 
 
 def _cache_pos(cache) -> int:
