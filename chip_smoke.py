@@ -253,6 +253,25 @@ Phases (each failure exits non-zero and prints no result line):
      cache; 24 launches a prefill, none a decode step; ids, decode vs
      prefill (patches and tokens), the prefill's pos, layer 0's call (g 7)
      held and timed as in 17, a profiled prefill and decode step.
+     11s. the sharded LM (after phase 18, while phase 4's engine lives):
+     h2o-danube-1.8b at full width and depth on a (1 data x 4 model)
+     mesh of gloo ranks sharing the card
+     (this process and 3 spawned), tensor parallelism over 'model' (each
+     rank 8 / 2 heads, d_ff 1,728, 8,000 vocab rows, drawn whole from seed
+     0 on the card as one process draws them, and cut to its blocks); 4
+     requests of 512 prompt tokens, 8 generated, a float32 cache, through
+     launch.serve.generate under sharding.use_mesh with retrieval (every
+     rank encodes its logits block by a vocabulary-parallel softmax, this
+     process serves the queries from the engine and broadcasts the report;
+     the ids held against engine.search of the queries), counted (24
+     flash_attention launches on every rank, the collectives by kind and
+     bytes against sharded_reckoning), then a prefill and 7 decode steps
+     teacher-forced with a one-process run's tokens: each step's logits
+     within 5% of the largest |logit| of the one-process run's (phase 11's
+     bound), the greedy token reaching the one-process row's maximum
+     within it, the same tokens on every rank, each window's collectives
+     equal to the reckoning; rank 0's layer-0 call held and timed as in
+     phase 17; prefill and decode ms, weights and peak memory by rank.
  19. train h2o-danube-1.8b at full width through launch.train.run (24
      layers, d 2,560, vocab 32,000, accum_steps 2, remat on, bf16 params,
      float32 AdamW moments, seeded weights): 16 steps of 8 x 2,048
@@ -298,21 +317,22 @@ Phases (each failure exits non-zero and prints no result line):
      first moments within ``mu_bound`` over the 2 shards of 'data'; the
      step's and the two-stage reduction's ms (compressed and plain)
      logged.
-     11s. the sharded LM (after phase 19d): h2o-danube-1.8b at full width
-     and depth on a (1 data x 4 model) mesh of gloo ranks sharing the card
-     (this process and 3 spawned), tensor parallelism over 'model' (each
-     rank 8 / 2 heads, d_ff 1,728, 8,000 vocab rows, drawn whole from seed
-     0 on the card as one process draws them, and cut to its blocks); 4
-     requests of 512 prompt tokens, 8 generated, a float32 cache, through
-     launch.serve.generate under sharding.use_mesh, counted (24
-     flash_attention launches on every rank, the collectives by kind and
-     bytes against sharded_reckoning), then a prefill and 7 decode steps
-     teacher-forced with a one-process run's tokens: each step's logits
-     within 5% of the largest |logit| of the one-process run's (phase 11's
-     bound), the greedy token reaching the one-process row's maximum
-     within it, the same tokens on every rank, each window's collectives
-     equal to the reckoning; rank 0's layer-0 call held and timed as in
-     phase 17; prefill and decode ms, weights and peak memory by rank.
+     19s. the sharded train step (last): h2o-danube-1.8b's full config
+     (as 19) through launch.train.run(..., mesh=) on a (2 data x 2
+     model) mesh of gloo ranks sharing the card (this process and 3
+     spawned; each rank draws the whole tree from seed 0 and keeps its
+     blocks: 16 / 4 heads, d_ff 3,456, 16,000 vocab rows), 2 steps of 4 x
+     512 token_batch tokens (accum 2: a rank 1 row a micro-batch); first
+     the reckoning by rank (weights, moments, gradient sum, micro-batch
+     gradients) and the same 2 steps in one process (the witness); held:
+     loss and grad_norm equal on every rank bit for bit, each step's loss
+     within 4 u (bf16's unit roundoff) of the witness's relatively, the
+     first moments after step 1 rank by rank within ``bf16_mu_bound`` of
+     the witness's blocks, 96 flash_attention launches a rank a step, each
+     rank's collectives a step by kind and bytes equal to
+     ``sharded_train_reckoning``; step ms and peak memory by rank; rank
+     0's layer-0 call (B 1, S 512, 16 / 4 heads of 80, with lse) held and
+     timed beside its bound and SDPA.
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -4285,8 +4305,8 @@ def phase_train(torch, dev):
                                    (q, k, v, out, lse, dout)) + (kw,))
         return real_bwd(q, k, v, out, lse, dout, **kw)
 
-    def timed_step_factory(model, ocfg):
-        fn = real_step(model, ocfg)
+    def timed_step_factory(model, ocfg, donate=False):
+        fn = real_step(model, ocfg, donate)
 
         def step(*args):
             if len(step_ms) == TRAIN_STEPS - 1:    # the last step's inputs
@@ -4846,22 +4866,25 @@ def sharded_reckoning(cfg, b, s) -> dict:
 
 
 def sharded_rank(rank: int, world: int, init: str, device: str,
-                 teacher=None) -> dict | None:
+                 teacher=None, eng=None) -> dict | None:
     """One rank of phase 11s: rank 0 is this process and brings the
-    one-process run's greedy tokens (``teacher``); the others are spawned
-    with ``sharded_follower``. Each rank draws danube's whole param tree
-    from seed 0 on the card, as the one-process run did, keeps its blocks
-    (``sharding.blocks_of``, no collective) and frees the rest; under
-    ``sharding.use_mesh``: a warm-up generate of 2 tokens, then the
-    counted ``launch.serve.generate`` (every launch count and collective
-    count set to 0 just before, read just after; rank 0 records its
-    flash_attention calls), then the held run: a prefill and the decode
-    steps teacher-forced with the one-process tokens, each window's
-    collectives and its logits block kept. Returns, on rank 0, every
-    rank's results."""
+    one-process run's greedy tokens (``teacher``) and phase 4's engine
+    (``eng``); the others are spawned with ``sharded_follower``. Each rank
+    draws danube's whole param tree from seed 0 on the card, as the
+    one-process run did, keeps its blocks (``sharding.blocks_of``, no
+    collective) and frees the rest; under ``sharding.use_mesh``: a
+    warm-up generate of 2 tokens, then the counted
+    ``launch.serve.generate`` with retrieval (every rank encodes its
+    logits block, rank 0 alone runs the scheduler over the engine; every
+    launch count and collective count set to 0 just before, read just
+    after; rank 0 records its flash_attention calls), then the held run:
+    a prefill and the decode steps teacher-forced with the one-process
+    tokens, each window's collectives and its logits block kept. Returns,
+    on rank 0, every rank's results."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import StreamingScheduler, bucket_ladder
     from repro_torch.distributed import sharding
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as lmesh
@@ -4875,9 +4898,9 @@ def sharded_rank(rank: int, world: int, init: str, device: str,
         torch.cuda.synchronize(dev)
     try:
         mesh = lmesh.make_mesh(SHARDED_MESH, ("data", "model"), device=device)
-        box = [teacher]
+        box = [teacher, None if eng is None else eng.icfg.dim]
         dist.broadcast_object_list(box, src=0)
-        teacher = box[0].to(dev)
+        teacher, dim = box[0].to(dev), box[1]
         cfg = get_config(SHARDED_ARCH)
         model = build_model(cfg)
         t = time.perf_counter()
@@ -4905,7 +4928,12 @@ def sharded_rank(rank: int, world: int, init: str, device: str,
                 calls.append((q.clone(), k.clone(), v.clone(), kw))
             return real(q, k, v, **kw)
         coll = sharding.collectives()
+        sched = None if eng is None else StreamingScheduler(
+            eng, buckets=bucket_ladder(b), fill_threshold=max(b // 2, 1),
+            wait_limit_s=5e-3)
         with sharding.use_mesh(mesh):
+            enc = serve.mean_pool_encoder(params, dim,
+                                          vocab=cfg.vocab_padded)
             serve.generate(model, params, tokens, 2, cache())     # warm-up
             c = cache()
             sync()
@@ -4915,7 +4943,8 @@ def sharded_rank(rank: int, world: int, init: str, device: str,
             ops.reset_launch_counts()
             coll.reset()
             try:
-                out = serve.generate(model, params, tokens, n_gen, c)
+                out = serve.generate(model, params, tokens, n_gen, c,
+                                     scheduler=sched, encoder=enc)
             finally:
                 ops.flash_attention = real
             launches = ops.launch_counts()
@@ -4939,7 +4968,9 @@ def sharded_rank(rank: int, world: int, init: str, device: str,
                     launches=launches, counted=counted, windows=windows,
                     rows=torch.stack(rows), toks=torch.cat(toks, 1).cpu(),
                     gen_tokens=out.tokens.cpu(), prefill_s=out.prefill_s,
-                    decode_s=out.decode_s, draw_s=draw_s)
+                    decode_s=out.decode_s, draw_s=draw_s,
+                    retrieve_s=out.retrieve_s, ids=out.report.ids,
+                    queries=out.queries)
         every = [None] * world
         dist.all_gather_object(every, mine)
         if rank == 0:
@@ -4955,12 +4986,24 @@ def sharded_follower(rank: int, world: int, init: str, device: str) -> None:
     sharded_rank(rank, world, init, device)
 
 
-def phase_sharded_lm(torch, dev) -> tuple[int, dict]:
+def retrieval_reckoning(cfg, b) -> dict:
+    """The collectives retrieval adds to 11s's counted generate on each
+    rank: the encoder's all_reduces over 'model' (the rows' maxima (b, 1)
+    and the (b, d + 1) ``exp @ emb`` partials beside the sums), float32,
+    with the batch whole over 'data' (1 rank); then one broadcast of the
+    origin's report (pickled: its bytes are the report's, not a shape's,
+    and are held equal across ranks)."""
+    return {"all_reduce": [2, b * 4 + b * (cfg.d_model + 1) * 4],
+            "broadcast_object": [1, None]}
+
+
+def phase_sharded_lm(torch, dev, eng) -> tuple[int, dict]:
     """Phase 11s: the sharded LM (tensor parallelism over 'model') serving
     h2o-danube-1.8b at full width and depth on a (1 data x 4 model) mesh
     of gloo ranks sharing the card (this process and 3 spawned; see the
-    module's docstring). Returns (rank 0's flash_attention launches in
-    the counted run, the kernel's timing row on rank 0's layer-0 call)."""
+    module's docstring), with retrieval into phase 4's engine (held
+    in this process). Returns (rank 0's flash_attention launches in the
+    counted run, the kernel's timing row on rank 0's layer-0 call)."""
     import torch.multiprocessing as mp
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
@@ -5007,7 +5050,8 @@ def phase_sharded_lm(torch, dev) -> tuple[int, dict]:
     for p in procs:
         p.start()
     try:
-        out = sharded_rank(0, world, init, dev.type, teacher=teacher)
+        out = sharded_rank(0, world, init, dev.type, teacher=teacher,
+                           eng=eng)
     finally:
         for p in procs:
             p.join(120)
@@ -5053,6 +5097,12 @@ def phase_sharded_lm(torch, dev) -> tuple[int, dict]:
                             "bytes", 0)}
                  for kind in sorted(set(want["prefill"]) | set(
                      want["decode"]))}
+        for kind, (calls, nbytes) in retrieval_reckoning(cfg, b).items():
+            t = total.setdefault(kind, {"calls": 0, "bytes": 0})
+            t["calls"] += calls
+            t["bytes"] += r0["counted"][kind]["bytes"] if nbytes is None \
+                else nbytes
+        total = dict(sorted(total.items()))
         if r["counted"] != total:
             fail(f"11s: rank {k}'s collectives in generate "
                  f"{json.dumps(r['counted'])} differ from the reckoning "
@@ -5061,7 +5111,20 @@ def phase_sharded_lm(torch, dev) -> tuple[int, dict]:
                 r["gen_tokens"], ranks[0]["gen_tokens"]):
             fail(f"11s: rank {k}'s greedy tokens differ from rank 0's")
     log(f"11s collectives by rank equal the reckoning in every window "
-        f"(a prefill, a decode step, generate's {n_gen - 1} steps)")
+        f"(a prefill, a decode step, generate's {n_gen - 1} steps and its "
+        f"retrieval)")
+    # retrieval: rank 0 served the queries every rank encoded
+    res, _ = eng.search(torch.from_numpy(r0["queries"]).to(dev))
+    same = r0["ids"] == res.ids.cpu().numpy()
+    log(f"11s retrieval on the mesh ({r0['retrieve_s'] * 1e3:.2f} ms on rank "
+        f"0): ids equal engine.search of the encoded queries in "
+        f"{int(same.sum())} of {same.size} slots")
+    if not same.all():
+        fail("11s: the mesh's retrieved ids differ from engine.search")
+    for k, r in enumerate(ranks):
+        if not (np.array_equal(r["ids"], r0["ids"])
+                and np.array_equal(r["queries"], r0["queries"])):
+            fail(f"11s: rank {k}'s queries or ids differ from rank 0's")
     # the held run's logits, assembled from the vocabulary blocks
     blocks = sorted(ranks, key=lambda r: r["coord"][1])
     got = torch.cat([r["rows"] for r in blocks], dim=-1)
@@ -5093,6 +5156,403 @@ def phase_sharded_lm(torch, dev) -> tuple[int, dict]:
                      "11s rank 0 layer 0", out["call"])
     log(f"11s done in {time.perf_counter() - t_phase:.1f} s")
     return r0["launches"]["flash_attention"], row
+
+
+# ---------------------------------------------------------------------------
+# phase 19s: the sharded train step
+# ---------------------------------------------------------------------------
+
+SHARDED_TRAIN_MESH = (2, 2)       # phase 19s: ('data', 'model') gloo ranks
+SHARDED_TRAIN = (2, 4, 512)       # steps, rows, tokens a row (19's 16 x 8 x
+#                                   2,048 cut for gloo's time, and to 2
+#                                   steps for the smoke's; width and depth
+#                                   whole)
+BF16_U = 2.0 ** -8                # bf16's unit roundoff
+
+
+def local_leaves(model, grid) -> list:
+    """(this rank's block shape, dtype) of each param leaf on a mesh of
+    ``grid``'s shape (``launch.mesh.MeshShape``), from the shapes alone."""
+    from repro_torch import tree as T
+    from repro_torch.distributed import sharding
+    return [(sharding.local_shape(x.shape, ns.spec, grid), x.dtype)
+            for x, ns in zip(T.leaves(model.shapes()),
+                             T.leaves(model.shardings(grid)))]
+
+
+def sharded_train_reckoning(cfg, model, b, s) -> dict:
+    """The collectives of one step of phase 19s on each rank, by kind:
+    calls and bytes (of the tensor each rank holds after the call),
+    written from the shapes (``distributed/sharding.py``'s and
+    ``models/transformer.py``'s docstrings). A micro-batch holds b / data
+    rows of S tokens a rank, S split over 'model' (m ranks) between the
+    blocks, bf16 activations. Forward: the embedding's all_reduce (rows,
+    S, d); a layer's 2 all_gathers of the normed input (rows, S, d) and 2
+    reduce_scatters of the row-parallel outputs (rows, S / m, d); the
+    head's all_gather; the loss's all_reduces (the rows' maxima (rows, S,
+    1) and (sum of exponentials, gold logit) (2, rows, S) over 'model',
+    its (sum, count) over 'data'), float32. The backward recomputes each
+    layer's 2 all_gathers and its attention's reduce_scatter (remat; the
+    recompute stops at the last tensor the backward saved, before the
+    MLP's reduce_scatter), and transposes: each reduce_scatter an
+    all_gather, each all_gather of a block input a reduce_scatter (its
+    readers compute a part a rank), the head's too, the embedding's
+    slice into S an all_gather; the S-split norms' gradients (d,) are
+    all-reduced over 'model', 2 a layer and the final norm's, float32.
+    After the accum_steps micro-batches, each leaf's float32 gradient
+    sum is all-reduced over 'data' (the rank's block), and the global
+    norm's sum of squares of the split leaves over 'model'."""
+    from repro_torch.launch import mesh as lmesh
+    data, m = SHARDED_TRAIN_MESH
+    rows = b // cfg.accum_steps // data
+    d, n, act = cfg.d_model, cfg.n_layers, cfg.dtype.itemsize
+    whole, part = rows * s * d * act, rows * (s // m) * d * act
+    micro = {"all_gather": [6 * n + 2, (6 * n + 2) * whole],
+             "reduce_scatter": [5 * n + 1, (5 * n + 1) * part],
+             "all_reduce": [2 * n + 5, whole + rows * s * 4
+                            + 2 * rows * s * 4 + 2 * 4 + (2 * n + 1) * d * 4]}
+    grid = lmesh.MeshShape(("data", "model"), SHARDED_TRAIN_MESH)
+    leaves = local_leaves(model, grid)
+    out = {k: [c * cfg.accum_steps, x * cfg.accum_steps]
+           for k, (c, x) in micro.items()}
+    out["all_reduce"][0] += len(leaves) + 1
+    out["all_reduce"][1] += sum(math.prod(loc) * 4 for loc, _ in leaves) \
+        + 4
+    return {k: {"calls": c, "bytes": x} for k, (c, x) in sorted(out.items())}
+
+
+def bf16_mu_bound(mu_ref):
+    """Per-element bound on |mu - mu_ref| of 19s's first moments after
+    step 1 against the one-process run's: ``mu_bound``'s rule for a leaf
+    that takes the plain mean (no int8 step), dg + 1e-6 of the leaf's
+    largest |mu|, with dg = 16 BF16_U of it for GRAD_RTOL: both runs'
+    gradients are bf16 tensors made by other partial sums and summed over
+    two micro-batches in float32 (a rounding of u a micro-batch, and each
+    activation's cotangent rounded to bf16 at every op of a 24-layer
+    backward, which compound), so a gradient's error is a few u of its
+    leaf's scale, not float32's GRAD_RTOL. One number a leaf."""
+    top = float(mu_ref.double().abs().max())
+    return 16 * BF16_U * top + 1e-6 * top
+
+
+def sharded_train_rank(rank: int, world: int, init: str, device: str,
+                       ref_mu=None) -> dict | None:
+    """One rank of phase 19s: rank 0 is this process and brings the
+    one-process run's first moments after step 1 (``ref_mu``, host
+    tensors); the others are spawned with ``sharded_train_follower``.
+    Under ``launch.train.run(..., mesh=)`` every rank draws danube's whole
+    tree from seed 0 on the card, keeps its blocks and trains them
+    (SHARDED_TRAIN steps of ``token_batch`` tokens, accum_steps 2); each
+    step is timed, its metrics kept (the bits too), its flash_attention
+    launches and collectives counted (launch counts set to 0 just before
+    the run, read after each step), the moments after step 1 copied to the
+    host. Then every rank's moment blocks go to rank 0, which holds each
+    against the one-process run's block at that rank's coordinate
+    (``bf16_mu_bound``). Returns, on rank 0, every rank's results."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train
+    dev = lmesh.init_shard_group(rank, world, init_method=init,
+                                 device=device, timeout_s=MESH_TIMEOUT_S)
+    steps, b, s = SHARDED_TRAIN
+    try:
+        mesh = lmesh.make_mesh(SHARDED_TRAIN_MESH, ("data", "model"),
+                               device=device)
+        calls, metrics, bits, step_ms, launches, colls, mu1 = \
+            [], [], [], [], [], [], []
+        real_flash, real_step = ops.flash_attention, train.make_train_step
+        coll = sharding.collectives()
+
+        def rec_flash(q, k, v, **kw):
+            if rank == 0 and not calls:   # layer 0, the first micro-batch
+                calls.append((q.detach().clone(), k.detach().clone(),
+                              v.detach().clone(),
+                              {x: y for x, y in kw.items()
+                               if x != "return_lse"}))
+            return real_flash(q, k, v, **kw)
+
+        def factory(model, ocfg, donate=False):
+            fn = real_step(model, ocfg, donate)
+
+            def step(*args):
+                torch.cuda.synchronize(dev)
+                before = ops.launch_counts()["flash_attention"]
+                coll.reset()
+                t = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize(dev)
+                step_ms.append(1e3 * (time.perf_counter() - t))
+                colls.append(coll.as_dict())
+                launches.append(ops.launch_counts()["flash_attention"]
+                                - before)
+                metrics.append({k: float(v) for k, v in out[2].items()})
+                bits.append({k: v.float().cpu().numpy().tobytes().hex()
+                             for k, v in sorted(out[2].items())})
+                if not mu1:     # the moments after step 1, before step 2
+                    mu1.extend(x.detach().to("cpu", copy=True)
+                               for x in T.leaves(out[1].mu))
+                return out
+            return step
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.flash_attention, train.make_train_step = rec_flash, factory
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            losses = train.run(TRAIN_ARCH, "full", steps, b, s, None, 0,
+                               False, log_every=1, device=device, mesh=mesh)
+        finally:
+            ops.flash_attention, train.make_train_step = real_flash, \
+                real_step
+        run_s = time.perf_counter() - t
+        counted = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        # every rank's moment blocks to rank 0, one leaf at a time
+        coords = [None] * world
+        dist.all_gather_object(coords, list(mesh.get_coordinate()))
+        held = []
+        model_specs = None
+        if rank == 0:
+            from repro_torch.configs import get_config
+            from repro_torch.models.model import build_model
+            model = build_model(get_config(TRAIN_ARCH))
+            model_specs = [ns.spec for ns in T.leaves(model.shardings(mesh))]
+        for i, x in enumerate(mu1):
+            got = [torch.empty_like(x) for _ in range(world)] \
+                if rank == 0 else None
+            dist.gather(x, got, dst=0)
+            if rank != 0:
+                continue
+            want = ref_mu[i]
+            for r, g in enumerate(got):
+                w = want
+                for dim, e in enumerate(model_specs[i]):
+                    if e is not None:
+                        n = w.shape[dim] // SHARDED_TRAIN_MESH[1]
+                        w = w.narrow(dim, coords[r][1] * n, n)
+                wd, gd = w.to(dev), g.to(dev)
+                err = (gd.double() - wd.double()).abs()
+                bound = bf16_mu_bound(wd)
+                top = float(wd.double().abs().max())
+                held.append((i, r, float(err.max()) / max(top, 1e-30),
+                             float(err.max()) / max(bound, 1e-300),
+                             bool((err <= bound).all())))
+                del wd, gd, err
+        mine = dict(coord=list(mesh.get_coordinate()), losses=losses,
+                    metrics=metrics, bits=bits, step_ms=step_ms,
+                    launches=launches, colls=colls, counted=counted,
+                    peak=peak, run_s=run_s)
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        if rank == 0:
+            return dict(ranks=every, held=held,
+                        call=calls[0] if calls else None)
+        return None
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_train_follower(rank: int, world: int, init: str,
+                           device: str) -> None:
+    """A spawned rank of phase 19s: ``sharded_train_rank``, nothing
+    returned (an exception ends the process with a non-zero exit)."""
+    sharded_train_rank(rank, world, init, device)
+
+
+def lse_kernel_row(torch, name, label, call):
+    """A training forward call ``(q, k, v, kw)`` (the kernel asked for the
+    rows' logsumexp) launched again on its inputs: its output held as in
+    phase 11 (recorded under ``name``), its lse by ``hold_lse``, timed with
+    lse beside its bound, the twin with lse and SDPA's flash backend on
+    the same work. Returns the timing row."""
+    from repro_torch.kernels import flash_attn, ref
+    q, k, v, kw = call
+    full = (f"{label}: q {tuple(q.shape)} {str(q.dtype)[6:]}, k/v "
+            f"{tuple(k.shape)} {str(k.dtype)[6:]}, {kw}")
+    got = flash_attn.flash_attention(q, k, v, **kw)
+    hold_bf16_attention(torch, full, got, q, k, v, kw, name)
+    hold_lse(torch, name, full, got, q, k, v, kw)
+    del got
+    row = timed_row(
+        torch, f"{name} (with lse) {label} B={q.shape[0]} Sq={q.shape[1]} "
+        f"{q.shape[2]}/{k.shape[2]} heads, plain = the twin with lse",
+        lambda: flash_attn.flash_attention(q, k, v, return_lse=True, **kw),
+        lambda: ref.flash_attention_ref(q, k, v, operands=torch.bfloat16,
+                                        return_lse=True, **kw), 10,
+        flash_bound(q, k, v, kw["causal"], kw["window"], kw["q_offset"],
+                    kw["kv_valid_len"]))
+    if kw["q_offset"] != 0 or kw["kv_valid_len"] not in (None, q.shape[1]) \
+            or (kw["window"] is not None and kw["window"] < q.shape[1]):
+        fail(f"the SDPA yardstick assumes a causal prefill from position 0 "
+             f"over its own keys, got {kw}")
+    row["library_ms"] = sdpa_flash_row(torch, q, k, v, kw["causal"])
+    lib = row["library_ms"]
+    log(f"{name} {label}: kernel with lse {row['ms']:.5f} ms, bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
+        f"{row['bound_ms'] / row['ms']:.3f} of the kernel's time), twin "
+        f"{row['plain_ms']:.5f}, SDPA flash "
+        f"{'refused' if lib is None else f'{lib:.5f}'} ms on the device")
+    return row
+
+
+def phase_sharded_train(torch, dev) -> tuple[int, dict]:
+    """Phase 19s: the sharded train step (autograd through the
+    collectives, the vocabulary-parallel loss, AdamW on the blocks):
+    h2o-danube-1.8b's full config through ``launch.train.run(...,
+    mesh=)`` on a (2 data x 2 model) mesh of gloo ranks sharing the card
+    (this process and 3 spawned). First the one-process run of the same
+    steps on the same draw and batches (the witness: its losses, grad
+    norms and first moments after step 1). Holds: loss and grad_norm
+    equal on every rank bit for bit; each step's loss within 4 BF16_U of
+    the one-process loss, relatively (each run's logits are bf16 numbers
+    made by other partial sums, and the loss moves by at most twice a
+    logit's error); the first moments after step 1 rank by rank within
+    ``bf16_mu_bound`` of the one-process run's blocks; 96 flash_attention
+    launches a rank a step; each rank's collectives a step equal to
+    ``sharded_train_reckoning``. Returns (rank 0's flash_attention
+    launches in the run, the kernel's row on rank 0's layer-0 call)."""
+    import torch.multiprocessing as mp
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    steps, b, s = SHARDED_TRAIN
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    world = SHARDED_TRAIN_MESH[0] * SHARDED_TRAIN_MESH[1]
+    want = sharded_train_reckoning(cfg, model, b, s)
+    grid = lmesh.MeshShape(("data", "model"), SHARDED_TRAIN_MESH)
+    leaves = local_leaves(model, grid)
+    weights = sum(math.prod(loc) * dt.itemsize for loc, dt in leaves)
+    n_loc = sum(math.prod(loc) for loc, _ in leaves)
+    log(f"19s reckoning a rank (from shapes, {SHARDED_TRAIN_MESH[0]} data x "
+        f"{SHARDED_TRAIN_MESH[1]} model): weights {weights / 1e9:.3f} GB, "
+        f"float32 moments {2 * n_loc * 4 / 1e9:.3f} GB, the float32 "
+        f"gradient sum {n_loc * 4 / 1e9:.3f} GB, one micro-batch's bf16 "
+        f"gradients {weights / 1e9:.3f} GB: "
+        f"{(2 * weights + 3 * n_loc * 4) / 1e9:.3f} GB a rank, "
+        f"{world * (2 * weights + 3 * n_loc * 4) / 1e9:.3f} GB for the "
+        f"{world}; collectives a step {json.dumps(want)}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the witness: the same steps in one process
+    ref_mu, one = [], []
+    real_step = train.make_train_step
+
+    def factory(m, ocfg, donate=False):
+        fn = real_step(m, ocfg, donate)
+
+        def step(*args):
+            out = fn(*args)
+            one.append({k: float(v) for k, v in out[2].items()})
+            if not ref_mu:
+                ref_mu.extend(x.detach().to("cpu", copy=True)
+                              for x in T.leaves(out[1].mu))
+            return out
+        return step
+    t = time.perf_counter()
+    train.make_train_step = factory
+    try:
+        one_losses = train.run(TRAIN_ARCH, "full", steps, b, s, None, 0,
+                               False, log_every=1, device=dev)
+    finally:
+        train.make_train_step = real_step
+    torch.cuda.synchronize()
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    log(f"19s one-process witness: {steps} steps of {b} x {s} in "
+        f"{time.perf_counter() - t:.1f} s, losses {one_losses}, grad norms "
+        f"{[m['grad_norm'] for m in one]}; peak {one_peak:.2f} GiB")
+
+    store = ROOT / "build" / f"sharded-train-store-{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    if store.exists():
+        store.unlink()
+    init = f"file://{store}"
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    ctx = mp.get_context("spawn")
+    t = time.perf_counter()
+    procs = [ctx.Process(target=sharded_train_follower,
+                         args=(r, world, init, dev.type))
+             for r in range(1, world)]
+    for p in procs:
+        p.start()
+    try:
+        out = sharded_train_rank(0, world, init, dev.type, ref_mu=ref_mu)
+    finally:
+        for p in procs:
+            p.join(300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        if store.exists():
+            store.unlink()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * len(procs):
+        fail(f"19s: ranks exited with {codes}")
+    del ref_mu
+    ranks = out["ranks"]
+    r0 = ranks[0]
+    log(f"19s {world} ranks ran in {time.perf_counter() - t:.1f} s (3 "
+        f"spawned; train.run {', '.join(f'{r['run_s']:.1f}' for r in ranks)}"
+        f" s by rank, the whole draw included); peak allocated by rank "
+        f"{', '.join(f'{r['peak'] / 2**30:.2f}' for r in ranks)} GiB "
+        f"(the reckoning's {(2 * weights + 3 * n_loc * 4) / 2**30:.2f} GiB)")
+    for i in range(steps):
+        ms = [r["step_ms"][i] for r in ranks]
+        log(f"19s step {i}: loss {r0['losses'][i]:.6f} (one process "
+            f"{one_losses[i]:.6f}, |diff| "
+            f"{abs(r0['losses'][i] - one_losses[i]):.3g}), grad_norm "
+            f"{r0['metrics'][i]['grad_norm']:.6f} (one process "
+            f"{one[i]['grad_norm']:.6f}); ms by rank "
+            f"{', '.join(f'{x:.1f}' for x in ms)}; "
+            f"{b * s / (max(ms) / 1e3):.1f} tokens/s; launches by rank "
+            f"{[r['launches'][i] for r in ranks]}")
+    log(f"19s rank 0's collectives a step: {json.dumps(r0['colls'][0])}")
+    for k, r in enumerate(ranks):
+        if r["bits"] != r0["bits"]:
+            fail(f"19s: rank {k}'s metrics differ from rank 0's: "
+                 f"{r['metrics']} vs {r0['metrics']}")
+        want_l = 2 * cfg.accum_steps * cfg.n_layers
+        if r["launches"] != [want_l] * steps:
+            fail(f"19s: rank {k} launched flash_attention {r['launches']} "
+                 f"times by step, expected {want_l} (a forward and a "
+                 f"recompute a layer, two micro-batches)")
+        for i, got in enumerate(r["colls"]):
+            if got != want:
+                fail(f"19s: rank {k}'s collectives in step {i} "
+                     f"{json.dumps(got)} differ from the reckoning "
+                     f"{json.dumps(want)}")
+    for i, (a, w) in enumerate(zip(r0["losses"], one_losses)):
+        if not math.isfinite(a) or abs(a - w) > 4 * BF16_U * abs(w):
+            fail(f"19s step {i}: the sharded loss {a} is not within "
+                 f"4 u = {4 * BF16_U:.5f} of the one-process loss {w}, "
+                 f"relatively")
+    worst = max(out["held"], key=lambda h: h[3])
+    log(f"19s first moments after step 1 against the one-process run's "
+        f"blocks, {len(out['held'])} (leaf, rank) pairs: max |diff| over "
+        f"the leaf's largest |mu| {max(h[2] for h in out['held']):.4g}, "
+        f"at most {worst[3]:.4g} of the element's bound (leaf {worst[0]}, "
+        f"rank {worst[1]})")
+    if not all(h[4] for h in out["held"]):
+        bad = [h[:2] for h in out["held"] if not h[4]]
+        fail(f"19s: first moments outside bf16_mu_bound at (leaf, rank) "
+             f"{bad}")
+    log(f"19s loss and grad_norm equal on every rank bit for bit; "
+        f"collectives by rank equal the reckoning in every step")
+    print("kernels sharded-train " + json.dumps(
+        {k: sum(r["counted"][k] for r in ranks) for k in r0["counted"]}),
+        flush=True)
+    row = lse_kernel_row(torch, "flash_attention/sharded-train",
+                         "19s rank 0 layer 0", out["call"])
+    log(f"19s done in {time.perf_counter() - t_phase:.1f} s")
+    return r0["counted"]["flash_attention"], row
 
 
 def main() -> None:
@@ -5135,6 +5595,7 @@ def main() -> None:
     hd256_launches, hd256 = phase_rglru(torch, dev, eng)
     noncausal_launches, noncausal = phase_encdec(torch, dev, eng)
     phase_vlm(torch, dev, eng)
+    sharded_launches, sharded_row = phase_sharded_lm(torch, dev, eng)
     parts, icfg = [eng.index, eng.host], eng.icfg
     del eng
     mutable = phase_mutable(torch, parts, icfg, qt)
@@ -5143,7 +5604,7 @@ def main() -> None:
     phase_train_resume(torch, dev)
     phase_train_dp(torch, dev)
     phase_train_dp(torch, dev, pod=True)
-    sharded_launches, sharded_row = phase_sharded_lm(torch, dev)
+    strain_launches, strain_row = phase_sharded_train(torch, dev)
 
     src = {"binary_ip_rank": ("src/repro_torch/kernels/csrc/binary_ip.cu",
                               "src/repro/kernels/binary_ip.py:79"),
@@ -5219,6 +5680,16 @@ def main() -> None:
         plain_ms=sharded_row["plain_ms"], bound_ms=sharded_row["bound_ms"],
         bound_by=sharded_row["bound_by"],
         library_ms=sharded_row["library_ms"]))
+    # the sharded train step (phase 19s): rank 0's launches in its run,
+    # its layer-0 call (16 / 4 heads of 80, with lse) held and timed
+    kernels.append(dict(
+        name="flash_attention/sharded-train", route="cuda",
+        source=src["flash_attention"][0], replaces=src["flash_attention"][1],
+        launches=strain_launches,
+        max_abs_err=ERRS["flash_attention/sharded-train"],
+        ms=strain_row["ms"], plain_ms=strain_row["plain_ms"],
+        bound_ms=strain_row["bound_ms"], bound_by=strain_row["bound_by"],
+        library_ms=strain_row["library_ms"]))
     # each rank policy of beam_search and cluster_scan (phase 8b): its own
     # launches, times and errors, on the search of its own backend
     for name, row in ranked.items():

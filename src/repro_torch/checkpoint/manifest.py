@@ -21,6 +21,16 @@ final name in one step: a torn write never leaves a directory that
 and the config hash and raises on a mismatch (``launch/train.py`` then
 falls back to the previous step). ``AsyncWriter`` copies the tree to the
 host at once and serialises it on a thread.
+
+On a mesh (``sharding.use_mesh``, every rank calling) a tree of rank
+blocks comes with ``shardings``, a tree of the same structure holding
+each leaf's ``sharding.NamedSharding`` (None for a replicated leaf):
+``save`` gathers each leaf whole, one leaf at a time, and the origin
+(flat mesh position 0) writes the files a one-process run writes (the JAX
+package writes ``np.asarray`` of the global array); ``restore`` reads
+each leaf whole on every rank and keeps the rank's block. A checkpoint
+saved on a mesh restores in one process, and one saved in one process
+on a mesh, bit for bit.
 """
 
 from __future__ import annotations
@@ -36,8 +46,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import tree as T
+from ..distributed.sharding import block_of, current_mesh, gather_whole
 
 __all__ = ["save", "restore", "latest_step", "AsyncWriter", "config_hash"]
 
@@ -59,10 +71,61 @@ def _raw(t: torch.Tensor) -> np.ndarray:
         np.zeros((0,), np.uint8)
 
 
+def _spec_leaves(tree: Any, shardings: Any) -> list:
+    """Each leaf's resolved spec (None: whole), in ``T.leaves``' order."""
+    n = len(T.leaves(tree))
+    if shardings is None:
+        return [None] * n
+    specs = [None if ns is None else ns.spec for _, ns in
+             _pairs(tree, shardings)]
+    if len(specs) != n:
+        raise ValueError(f"{len(specs)} shardings for {n} leaves")
+    return specs
+
+
+def _pairs(tree, shardings):
+    """(leaf, its sharding) of ``tree`` and a tree of shardings of the
+    same structure, where a None sharding stands for a whole subtree."""
+    if tree is None:
+        return []
+    kids = T._children(tree)
+    if kids is None:
+        return [(tree, shardings)]
+    if shardings is None:
+        return [(x, None) for x in T.leaves(tree)]
+    return [pair for (_, a), (_, b) in zip(kids, T._children(shardings))
+            for pair in _pairs(a, b)]
+
+
+def _writes() -> bool:
+    """Whether this rank writes: the origin of the current mesh, or the
+    only process."""
+    mesh = current_mesh()
+    return mesh is None or int(mesh.mesh.reshape(-1)[0]) == dist.get_rank()
+
+
+def _host_whole(tree: Any, shardings: Any) -> Any:
+    """On the writing rank, ``tree``'s leaves whole on the host; None on
+    the others. Each leaf is gathered and copied one at a time."""
+    out = []
+    for x, spec in zip(T.leaves(tree), _spec_leaves(tree, shardings)):
+        w = x if spec is None else gather_whole(x, spec)
+        out.append(w.detach().to("cpu", copy=True) if _writes() else None)
+        del w
+    return T.unflatten_like(tree, out) if _writes() else None
+
+
 def save(root: str | pathlib.Path, step: int, tree: Any, *,
-         config: Any = None, extra: dict | None = None) -> pathlib.Path:
+         config: Any = None, extra: dict | None = None,
+         shardings: Any = None) -> pathlib.Path:
     """Write ``tree`` (tensors in dicts, lists, tuples and NamedTuples) as
-    step ``step`` under ``root``; returns the step's directory."""
+    step ``step`` under ``root``; returns the step's directory. On a mesh
+    (the module's docstring) every rank calls it with its blocks and their
+    ``shardings``; the origin writes."""
+    if shardings is not None and current_mesh() is not None:
+        tree = _host_whole(tree, shardings)
+        if tree is None:
+            return pathlib.Path(root) / f"step_{step:09d}"
     root = pathlib.Path(root)
     root.mkdir(parents=True, exist_ok=True)
     tmp = root / f".tmp_{step:09d}"
@@ -109,11 +172,15 @@ def latest_step(root: str | pathlib.Path) -> int | None:
 
 
 def restore(root: str | pathlib.Path, step: int, like: Any, *,
-            config: Any = None) -> Any:
+            config: Any = None, shardings: Any = None) -> Any:
     """Step ``step`` in the structure of ``like`` (a tree of tensors): each
     leaf on its ``like`` leaf's device, cast to its type where the stored
     type differs. Verifies the checksums (``IOError``), the config hash,
-    the leaf count and the shapes (``ValueError``)."""
+    the leaf count and the shapes (``ValueError``). On a mesh, ``like``
+    holds the rank's blocks and ``shardings`` their layout: each leaf is
+    read whole and the rank keeps its block."""
+    specs = _spec_leaves(like, shardings) if current_mesh() is not None \
+        else [None] * len(T.leaves(like))
     d = pathlib.Path(root) / f"step_{step:09d}"
     manifest = json.loads((d / "manifest.json").read_text())
     if config is not None and manifest.get("config_hash") not in (
@@ -131,6 +198,8 @@ def restore(root: str | pathlib.Path, step: int, like: Any, *,
         dtype = getattr(torch, meta["dtype"])
         arr = torch.from_numpy(raw.copy()).view(dtype).reshape(meta["shape"]) \
             if raw.size else torch.zeros(meta["shape"], dtype=dtype)
+        if specs[i] is not None:
+            arr = block_of(arr, specs[i]).contiguous()
         if list(arr.shape) != list(leaf.shape):
             raise ValueError(f"shape mismatch leaf {i}: "
                              f"{tuple(arr.shape)} vs {tuple(leaf.shape)}")
@@ -148,10 +217,19 @@ class AsyncWriter:
     _thread: threading.Thread | None = None
     error: BaseException | None = None
 
-    def save(self, step: int, tree: Any, extra: dict | None = None):
+    def save(self, step: int, tree: Any, extra: dict | None = None,
+             shardings: Any = None):
+        """On a mesh every rank calls it with its blocks and their
+        ``shardings``: each leaf is gathered whole at once, the origin
+        keeping a host copy, which it writes on its thread."""
         self.wait()
-        host_tree = T.tree_map(
-            lambda t: t.detach().to("cpu", copy=True), tree)   # snapshot now
+        if shardings is not None and current_mesh() is not None:
+            host_tree = _host_whole(tree, shardings)
+            if host_tree is None:
+                return
+        else:
+            host_tree = T.tree_map(
+                lambda t: t.detach().to("cpu", copy=True), tree)  # snapshot
 
         def work():
             try:

@@ -30,7 +30,39 @@ shape:
 
 Outside a mesh it returns its input and issues nothing. Collectives run
 in the tensor's dtype on the mesh's device type (gloo: staged through
-host memory) and are counted by kind (``collectives``).
+host memory) and are counted by kind (``collectives``), those of a
+backward too.
+
+Gradients (the sharded train step). Every collective is differentiable,
+under one rule for cotangents: a replicated tensor's cotangent is the
+whole cotangent, the same on every rank; a split tensor's is the rank's
+block; a partial sum's is the whole cotangent of the sum. The transposes:
+
+  partial -> replicated  identity           split -> replicated  slice
+  partial -> split       all_gather         replicated -> split  all_gather
+
+A replicated tensor read by compute split over an axis (a column-parallel
+product, one head block of a replicated K / V, a param used on rows split
+over the axis) gets from it only a partial sum of its cotangent. Where
+such a tensor enters that compute, ``sum_grad`` all-reduces its gradient
+(Megatron's "f": the identity forward, an all_reduce backward); inside
+the compute, until its row-parallel output is reduced, replicated tensors
+carry partial cotangents, and a ``constrain`` there says so
+(``grad_partial``): its transposes are then the exact adjoints,
+
+  partial -> replicated  all_reduce         split -> replicated  reduce_scatter
+  replicated -> split    zeros outside the rank's block
+
+(Megatron-SP's entry is that all_gather, a reduce_scatter backward). A
+replicated value with a whole cotangent handed into such compute goes
+through ``grad_once`` (kept on the axis' first rank). ``psum`` reduces
+over the batch axes, ('pod', 'data') in one group over both.
+
+Every rank builds the same graph, so autograd issues the backward's
+collectives in one order on all of them (its sequence numbers order
+independent branches alike), and remat's recompute issues the forward's
+again as it meets them; a rank whose order differed would wait, and the
+group's timeout (``launch/mesh.TIMEOUT_S``) turns that into a failure.
 """
 
 from __future__ import annotations
@@ -38,6 +70,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import pickle
 import threading
 from typing import Any, Sequence
 
@@ -49,7 +82,8 @@ __all__ = ["P", "NamedSharding", "Collectives", "current_mesh", "use_mesh",
            "resolve_entries", "resolve_spec", "resolve_tree",
            "shardings_tree", "tree_flatten", "tree_unflatten", "constrain",
            "collectives", "axis_size", "axis_index", "local_shape",
-           "block_of", "blocks_of", "broadcast_from", "staged"]
+           "block_of", "blocks_of", "broadcast_from", "staged", "sum_grad",
+           "grad_once", "psum", "gather_whole", "broadcast_object"]
 
 _state = threading.local()
 
@@ -273,26 +307,41 @@ def collectives() -> Collectives:
     return _COUNTS
 
 
+def _axes(axis) -> tuple:
+    """The mesh axes of an entry (a name or a tuple of names)."""
+    if axis is None:
+        return ()
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
 def axis_size(axis, mesh=None) -> int:
-    """Ranks along mesh axis ``axis`` (1 when it is absent or there is no
-    mesh)."""
+    """Ranks along mesh axis ``axis``, or along the axes of a tuple of
+    them together (1 for an absent axis, or without a mesh)."""
     mesh = mesh if mesh is not None else current_mesh()
     if mesh is None or axis is None:
         return 1
-    return _sizes(mesh).get(axis, 1)
+    sizes = _sizes(mesh)
+    return math.prod(sizes.get(a, 1) for a in _axes(axis))
 
 
 def axis_index(axis, mesh=None) -> int:
-    """This rank's coordinate along ``axis`` (0 when absent)."""
+    """This rank's coordinate along ``axis`` (0 when absent); along a tuple
+    of axes, the coordinate of the block they split a dim into together,
+    the first axis outermost."""
     mesh = mesh if mesh is not None else current_mesh()
-    if mesh is None or axis not in _sizes(mesh):
+    if mesh is None:
         return 0
-    return mesh.get_local_rank(axis)
+    sizes, idx = _sizes(mesh), 0
+    for a in _axes(axis):
+        if a in sizes:
+            idx = idx * sizes[a] + mesh.get_local_rank(a)
+    return idx
 
 
 def _single(entry, what: str):
     """The one mesh axis of a resolved entry; a dim split over several
-    axes at once moves through no collective here."""
+    axes at once is gathered or scattered through no collective here
+    (only sliced, reduced, and summed in a gradient)."""
     if isinstance(entry, tuple):
         if len(entry) != 1:
             raise NotImplementedError(
@@ -303,10 +352,7 @@ def _single(entry, what: str):
 
 
 def _factor(sizes: dict, entry) -> int:
-    if entry is None:
-        return 1
-    axes = entry if isinstance(entry, tuple) else (entry,)
-    return math.prod(sizes.get(a, 1) for a in axes)
+    return math.prod(sizes.get(a, 1) for a in _axes(entry))
 
 
 def _global_shape(shape: Sequence[int], have: Sequence, mesh=None) -> tuple:
@@ -340,7 +386,7 @@ def block_of(x: torch.Tensor, spec: Sequence, mesh=None) -> torch.Tensor:
     res = resolve_entries(mesh, spec, x.shape)
     for d, e in enumerate(res):
         if e is not None:
-            x = _slice_dim(x, mesh, _single(e, "a slice"), d)
+            x = _slice_dim(x, mesh, e, d)
     return x
 
 
@@ -376,9 +422,31 @@ def staged(x: torch.Tensor, mesh) -> torch.Tensor:
     return x.to(mesh.device_type).contiguous()
 
 
-def _all_reduce(x, mesh, axis):
+_GROUPS: dict = {}
+
+
+def _group(mesh, axis):
+    """The process group of this rank along ``axis``, or along a tuple of
+    axes together (made once a mesh, by every rank, in the same order: the
+    ranks that share their coordinates on the other axes)."""
+    axes = tuple(a for a in _axes(axis) if a in _sizes(mesh))
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), axes)
+    if key not in _GROUPS:
+        names = list(mesh.mesh_dim_names)
+        grid = mesh.mesh.permute(
+            [i for i, a in enumerate(names) if a not in axes]
+            + [names.index(a) for a in axes])
+        rows = grid.reshape(-1, math.prod(_sizes(mesh)[a] for a in axes))
+        mine, _ = dist.new_subgroups_by_enumeration(rows.tolist())
+        _GROUPS[key] = (mesh, mine)      # the mesh kept: its id stays its own
+    return _GROUPS[key][1]
+
+
+def _all_reduce(x, mesh, axis, op=dist.ReduceOp.SUM):
     buf = x.to(mesh.device_type, copy=True).contiguous()
-    dist.all_reduce(buf, group=mesh.get_group(axis))
+    dist.all_reduce(buf, op=op, group=_group(mesh, axis))
     _COUNTS._add("all_reduce", buf.nbytes)
     return buf.to(x.device)
 
@@ -400,17 +468,108 @@ def _reduce_scatter(x, mesh, axis, d):
     return out.to(x.device).movedim(0, d).contiguous()
 
 
+def _zero_padded(g, mesh, axis, d):
+    """A block's gradient ``g`` in the rank's place of the whole dim ``d``,
+    zeros elsewhere (a local slice's own transpose)."""
+    whole = list(g.shape)
+    whole[d] *= axis_size(axis, mesh)
+    out = g.new_zeros(whole)
+    _slice_dim(out, mesh, axis, d).copy_(g)
+    return out
+
+
+# Each collective is an autograd Function whose backward is its transpose
+# under the cotangent rule of the module's docstring. ``part``: the
+# replicated tensors on both sides have partial cotangents over the axis.
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, part):
+        ctx.mesh, ctx.axis, ctx.part = mesh, axis, part
+        return _all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.part:
+            g = _all_reduce(g, ctx.mesh, ctx.axis)
+        return g, None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, d, part):
+        ctx.mesh, ctx.axis, ctx.d, ctx.part = mesh, axis, d, part
+        return _all_gather(x, mesh, axis, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _reduce_scatter(g, ctx.mesh, ctx.axis, ctx.d) if ctx.part else \
+            _slice_dim(g, ctx.mesh, ctx.axis, ctx.d).contiguous()
+        return g, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, d):
+        ctx.mesh, ctx.axis, ctx.d = mesh, axis, d
+        return _reduce_scatter(x, mesh, axis, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, ctx.axis, ctx.d), None, None, None
+
+
+class _Slice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, d, part):
+        ctx.mesh, ctx.axis, ctx.d, ctx.part = mesh, axis, d, part
+        return _slice_dim(x, mesh, axis, d).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _zero_padded(g, ctx.mesh, ctx.axis, ctx.d) if ctx.part else \
+            _all_gather(g, ctx.mesh, _single(ctx.axis, "a slice's "
+                                             "gradient"), ctx.d)
+        return g, None, None, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+class _GradOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.first = axis_index(axis, mesh) == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None, None
+
+
 def constrain(x: torch.Tensor, *spec_entries, have: Sequence = (),
-              partial: str | None = None) -> torch.Tensor:
+              partial=None, grad_partial: str | None = None
+              ) -> torch.Tensor:
     """``x`` in the layout ``spec_entries`` resolve to on its global shape
     (the JAX package's ``constrain``, ``sharding.py:103-110``): ``x`` is
     this rank's block laid out as ``have`` (resolved entries; a dim left
     out is whole) and, with ``partial``, a partial sum over that mesh
-    axis. One collective a transition (see the module's docstring): a
-    partial sum is reduced first (scattered onto the target's dim split
-    over the same axis, else all-reduced), then each dim whose entry
-    changes is gathered and / or sliced. Returns ``x`` itself without a
-    mesh, or when nothing changes."""
+    axis (or those axes together). One collective a transition (see the
+    module's docstring): a partial sum is reduced first (scattered onto
+    the target's dim split over the same axis, else all-reduced), then
+    each dim whose entry changes is gathered and / or sliced.
+    ``grad_partial``: the call sits where replicated tensors have partial
+    cotangents over that axis (their readers compute a part a rank), which
+    picks the transposes of the second table. Returns ``x`` itself without
+    a mesh, or when nothing changes."""
     mesh = current_mesh()
     if mesh is None:
         return x
@@ -418,35 +577,117 @@ def constrain(x: torch.Tensor, *spec_entries, have: Sequence = (),
     have = list(have) + [None] * (x.ndim - len(have))
     want = list(resolve_entries(mesh, spec_entries,
                                 _global_shape(x.shape, have, mesh)))
-    if partial is not None and sizes.get(partial, 1) > 1:
+    part = grad_partial if _factor(sizes, grad_partial) > 1 else None
+    partial = _clean_axis(sizes, partial)
+    if partial is not None and _factor(sizes, partial) > 1:
         dims = [d for d, e in enumerate(want) if e == partial
                 and have[d] is None]
         if dims:
-            x = _reduce_scatter(x, mesh, partial, dims[0])
+            x = _ReduceScatter.apply(x, mesh, _single(partial, "a scatter"),
+                                     dims[0])
             have[dims[0]] = partial
         else:
-            x = _all_reduce(x, mesh, partial)
+            x = _AllReduce.apply(x, mesh, partial, part == partial)
     for d, (h, w) in enumerate(zip(have, want)):
         if h == w:
             continue
         if h is not None and _factor(sizes, h) > 1:
-            x = _all_gather(x, mesh, _single(h, "a gather"), d)
+            ax = _single(h, "a gather")
+            x = _AllGather.apply(x, mesh, ax, d, part == ax)
         if w is not None and _factor(sizes, w) > 1:
-            x = _slice_dim(x, mesh, _single(w, "a slice"), d).contiguous()
+            x = _Slice.apply(x, mesh, w, d,
+                             part is not None and part in _axes(w))
     return x
+
+
+def sum_grad(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` itself in the forward; in the backward its gradient is
+    all-reduced over ``axis`` (Megatron's "f"): where ``x`` is replicated
+    over the axis but read by compute split over it (a column-parallel
+    product, a param used on rows split over it), each rank's gradient is
+    a partial sum. ``x`` itself without a mesh or when the axis has one
+    rank."""
+    mesh = current_mesh()
+    if mesh is None or axis_size(axis, mesh) == 1:
+        return x
+    return _SumGrad.apply(x, mesh, axis)
+
+
+def grad_once(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` itself in the forward; in the backward its gradient is kept on
+    the axis' first rank and zero on the others: a replicated value whose
+    cotangent is whole on every rank, handed to compute whose cotangents
+    are partial sums over the axis, counted once."""
+    mesh = current_mesh()
+    if mesh is None or axis_size(axis, mesh) == 1:
+        return x
+    return _GradOnce.apply(x, mesh, axis)
+
+
+def psum(x: torch.Tensor, axis, op: str = "sum") -> torch.Tensor:
+    """The sum (``op="max"``: the largest element) of ``x`` over ``axis``
+    (a name or a tuple of names, one group over them together), on every
+    rank; its gradient (the sum's only) passes through unchanged, the
+    cotangent of the replicated sum being whole on every rank. ``x``
+    itself without a mesh or when the axis has one rank."""
+    mesh = current_mesh()
+    if mesh is None or axis_size(axis, mesh) == 1:
+        return x
+    if op == "max":
+        return _all_reduce(x.detach(), mesh, axis, dist.ReduceOp.MAX)
+    return _AllReduce.apply(x, mesh, axis, False)
+
+
+def gather_whole(x: torch.Tensor, entries: Sequence) -> torch.Tensor:
+    """The whole tensor of which ``x`` is this rank's block, laid out as
+    ``entries`` (a resolved spec): each split dim all-gathered over its
+    axis, in the rank's own memory. ``x`` itself without a mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    for d, e in enumerate(entries):
+        if e is not None and axis_size(e, mesh) > 1:
+            x = _all_gather(x, mesh, _single(e, "a gather"), d)
+    return x
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, index):
+        ctx.mine = axis_index(axis, mesh) == index
+        group = mesh.get_group(axis)
+        buf = x.to(mesh.device_type, copy=True).contiguous()
+        dist.broadcast(buf, group=group,
+                       src=dist.get_global_rank(group, index))
+        _COUNTS._add("broadcast", buf.nbytes)
+        return buf.to(x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.mine else torch.zeros_like(g)), None, None, None
 
 
 def broadcast_from(x: torch.Tensor, axis: str, index: int) -> torch.Tensor:
     """``x`` as the rank at coordinate ``index`` along ``axis`` holds it,
     on every rank of this rank's group along ``axis`` (each passes a
     tensor of the same shape and type); ``x`` itself without a mesh or
-    when the axis has one rank."""
+    when the axis has one rank. Its backward gives the source rank the
+    (whole) cotangent of the replicated output and the others zero."""
     mesh = current_mesh()
     if mesh is None or axis_size(axis, mesh) == 1:
         return x
-    group = mesh.get_group(axis)
-    buf = x.to(mesh.device_type, copy=True).contiguous()
-    dist.broadcast(buf, group=group,
-                   src=dist.get_global_rank(group, index))
-    _COUNTS._add("broadcast", buf.nbytes)
-    return buf.to(x.device)
+    return _Broadcast.apply(x, mesh, axis, index)
+
+
+def broadcast_object(obj: Any) -> Any:
+    """The Python object the origin of the current mesh (flat position 0)
+    passes, on every rank of the mesh (counted as a "broadcast_object" of
+    its pickled bytes); ``obj`` itself without a mesh."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=int(mesh.mesh.reshape(-1)[0]),
+                               group=_group(mesh, tuple(mesh.mesh_dim_names)))
+    _COUNTS._add("broadcast_object", len(pickle.dumps(box[0])))
+    return box[0]

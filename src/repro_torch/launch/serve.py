@@ -58,8 +58,9 @@ silent single-engine run.
 ('data', 'model') mesh under ``sharding.use_mesh`` with the rank's param
 blocks and cache (``models/model.py``'s docstring), the greedy tokens are
 ``model.greedy``'s (the largest logit across the vocabulary's blocks, the
-first index among equal ones), the same on every rank. Retrieval reads
-whole logits and is not ported there (ROADMAP A6).
+first index among equal ones), the same on every rank; with retrieval
+the encoder runs on every rank's logits block (a vocabulary-parallel
+softmax), the origin serves the queries and broadcasts the report.
 """
 
 from __future__ import annotations
@@ -82,7 +83,9 @@ from ..core.execbackend import MeshBackend
 from ..core.pipeline import StreamingScheduler, bucket_ladder
 from ..core.topology import ServingTopology
 from ..data.synthetic import clustered_vectors, zipf_query_set
-from ..distributed.sharding import current_mesh
+from ..distributed.sharding import (broadcast_object, constrain,
+                                    current_mesh, psum, resolve_entries)
+from ..models.layers import DATA, MODEL
 from ..models.model import Model, build_model, greedy
 from . import mesh as mesh_mod
 
@@ -100,19 +103,45 @@ class QueryEncoder(Protocol):
     def __call__(self, logits: torch.Tensor) -> np.ndarray: ...
 
 
-def mean_pool_encoder(params, dim: int) -> QueryEncoder:
+def mean_pool_encoder(params, dim: int, vocab: int | None = None
+                      ) -> QueryEncoder:
     """Default encoder: probability-weighted mean token embedding.
 
     Mean-pools the logits over positions, softmaxes over the vocab, and
     takes the expected row of the model's own embedding table, truncated to
-    the engine's ``dim`` and L2-normalized."""
+    the engine's ``dim`` and L2-normalized.
+
+    On a mesh (``sharding.use_mesh``), ``params`` holds the rank's blocks
+    and ``vocab`` is the model's padded vocabulary (``cfg.vocab_padded``),
+    which says whether the embedding's rows and the logits' columns lie
+    split over 'model'. The softmax is then vocabulary-parallel: the rows'
+    maxima and each rank's ``exp @ emb`` partials beside its sum of
+    exponentials are all-reduced over 'model'; the queries are those of
+    the rank's rows of the batch (``generate`` gathers them)."""
     emb = params["embed"]
     if emb.shape[-1] < dim:
         raise ValueError(f"d_model {emb.shape[-1]} < engine dim {dim}")
 
     def encode(logits: torch.Tensor) -> np.ndarray:
-        p = torch.softmax(logits.float().mean(1), -1)
-        e = (p @ emb[:p.shape[-1]].float())[:, :dim]       # (B, dim)
+        mesh = current_mesh()
+        if mesh is None:
+            p = torch.softmax(logits.float().mean(1), -1)
+            e = (p @ emb[:p.shape[-1]].float())[:, :dim]       # (B, dim)
+        else:
+            if vocab is None:
+                raise ValueError("on a mesh the encoder needs the padded "
+                                 "vocabulary (vocab=cfg.vocab_padded)")
+            lf = logits.float().mean(1)                        # (b, V_loc)
+            split = lf.shape[-1] != vocab
+            top = lf.amax(-1, keepdim=True)
+            if split:
+                top = psum(top, MODEL, op="max")
+            ex = torch.exp(lf - top)
+            part = torch.cat([ex @ emb[:lf.shape[-1]].float(),
+                              ex.sum(-1, keepdim=True)], -1)
+            if split:
+                part = psum(part, MODEL)
+            e = (part[:, :-1] / part[:, -1:])[:, :dim]
         e = e / torch.clamp(torch.linalg.norm(e, dim=-1, keepdim=True),
                             min=1e-6)
         return e.cpu().numpy().astype(np.float32)
@@ -192,13 +221,19 @@ def generate(model: Model, params, tokens: torch.Tensor, gen: int, cache, *,
     ``tenant`` (one name a query) when given. On a card the steps are timed
     on the host clock, each phase ended by a synchronise. On a mesh (see
     the module's docstring) every rank calls it with the whole tokens and
-    gets the whole batch's tokens; retrieval raises there."""
-    if (scheduler is None) != (encoder is None):
-        raise ValueError("retrieval needs both a scheduler and an encoder")
-    if scheduler is not None and current_mesh() is not None:
-        raise NotImplementedError(
-            "retrieval reads whole logits; on a mesh each rank holds a block "
-            "of them: ROADMAP A6 (the sharded LM)")
+    gets the whole batch's tokens. Retrieval there: every rank passes the
+    encoder (``mean_pool_encoder(..., vocab=)``, its queries gathered over
+    the batch's rows), the origin (flat mesh position 0) alone needs the
+    scheduler and runs it, and its report is broadcast, so every rank
+    returns the same tokens, queries and report."""
+    mesh = current_mesh()
+    origin = mesh is None or \
+        int(mesh.mesh.reshape(-1)[0]) == dist.get_rank()
+    if (scheduler is None) != (encoder is None) and (
+            mesh is None or origin or scheduler is not None):
+        raise ValueError("retrieval needs both a scheduler and an encoder"
+                         + (" (the origin runs it)" if mesh is not None
+                            else ""))
     b = tokens.shape[0]
     cuda = tokens.device.type == "cuda"
 
@@ -217,11 +252,17 @@ def generate(model: Model, params, tokens: torch.Tensor, gen: int, cache, *,
     for i in range(gen - 1):
         logits, cache = model.decode(params, out[-1], cache)
         out.append(greedy(logits, model.cfg, b))
-        if scheduler is not None and i == 0:
+        if encoder is not None and i == 0:
             tr = now()
             queries = encoder(logits)
-            report = scheduler.run(queries) if tenant is None \
-                else scheduler.run(queries, tenant=tenant)
+            if mesh is not None:
+                rb = resolve_entries(mesh, (DATA,), (b,))[0]
+                queries = constrain(torch.from_numpy(queries), None, None,
+                                    have=(rb, None)).numpy()
+            if origin:
+                report = scheduler.run(queries) if tenant is None \
+                    else scheduler.run(queries, tenant=tenant)
+            report = broadcast_object(report)
             retrieve_s = now() - tr
     t2 = now()
     return Generation(torch.cat(out, dim=1), logits, report, queries,

@@ -17,11 +17,23 @@ the remaining steps. Batches are ``data.synthetic.token_batch`` of (seed,
 step); the vlm's patches and the enc-dec's frames are stubs drawn from the
 seed and the step.
 
-``--mesh test`` (one device) is the only mesh: ``single`` and ``multi``
-train the LM sharded over the production mesh (``launch.mesh.
-make_production_mesh``, 256 or 512 ranks), which needs ``constrain``
-through the models (ROADMAP A6) and the compile-analysis tools beside it
-(ROADMAP A7).
+``--mesh test`` trains on one device. ``--mesh single`` and ``--mesh
+multi`` train the LM sharded over the production mesh (``launch.mesh.
+make_production_mesh``: (16, 16) over ('data', 'model'), or (2, 16, 16)
+over ('pod', 'data', 'model')), one process a rank under torchrun:
+
+    torchrun --nproc-per-node=256 -m repro_torch.launch.train \
+        --arch h2o-danube-1.8b --preset full --mesh single
+
+Each rank draws the whole param tree from the seed, as the JAX run does,
+and keeps its blocks (``sharding.blocks_of``); every rank reads the whole
+batch of each step and the model takes its rows (``models/model.py``'s
+docstring); checkpoints are gathered whole leaf by leaf and written by
+the origin, and a resume restores each rank's blocks
+(``checkpoint/manifest.py``). Without a process group of 256 (512) ranks
+the run raises ``launch.mesh``'s error, naming the launch. ``run(...,
+mesh=m)`` trains the same loop on any DeviceMesh ``m`` over the
+initialised group (the tests' and the smoke's smaller meshes).
 """
 
 from __future__ import annotations
@@ -32,18 +44,17 @@ import pathlib
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import manifest
 from ..configs import get_config, get_smoke
 from ..data.synthetic import TokenDataConfig, token_batch
+from ..distributed.sharding import blocks_of, use_mesh
 from ..models.model import build_model, make_train_step
 from ..optim import adamw
+from . import mesh as lmesh
 
 __all__ = ["preset_config", "stub_inputs", "run", "main"]
-
-_A7 = ("ROADMAP A7 (training on the production mesh: the sharded LM, "
-       "constrain through the models, is ROADMAP A6)")
-
 
 def preset_config(arch: str, preset: str):
     if preset == "full":
@@ -73,7 +84,7 @@ def stub_inputs(cfg, batch: int, seed: int, step: int, device) -> dict:
     return out
 
 
-def _restore_latest(ckpt_dir: str, like, cfg):
+def _restore_latest(ckpt_dir: str, like, cfg, shardings=None, say=print):
     """(step, state) of the newest step under ckpt_dir that restores, or
     (0, None); each unusable step is reported and skipped."""
     root = pathlib.Path(ckpt_dir)
@@ -81,12 +92,13 @@ def _restore_latest(ckpt_dir: str, like, cfg):
                    reverse=True) if root.exists() else []
     for latest in steps:
         try:
-            state = manifest.restore(ckpt_dir, latest, like, config=cfg)
+            state = manifest.restore(ckpt_dir, latest, like, config=cfg,
+                                     shardings=shardings)
         except Exception as e:                          # noqa: BLE001
-            print(f"[train] step {latest} unusable ({e}); falling back",
-                  flush=True)
+            say(f"[train] step {latest} unusable ({e}); falling back",
+                flush=True)
             continue
-        print(f"[train] resumed from step {latest}", flush=True)
+        say(f"[train] resumed from step {latest}", flush=True)
         return latest, state
     return 0, None
 
@@ -94,58 +106,76 @@ def _restore_latest(ckpt_dir: str, like, cfg):
 def run(arch: str, preset: str, steps: int, batch: int, seq: int,
         ckpt_dir: str | None, ckpt_every: int, resume: bool,
         mesh_kind: str = "test", log_every: int = 10, seed: int = 0,
-        device="cuda") -> list[float]:
+        device="cuda", mesh=None) -> list[float]:
     """Train ``steps`` steps (fewer after a resume) on ``device``;
-    returns the loss of each step run."""
-    if mesh_kind in ("single", "multi"):
-        raise NotImplementedError(f"--mesh {mesh_kind} is not ported: {_A7}")
-    if mesh_kind != "test":
+    returns the loss of each step run. ``mesh_kind`` single or multi, or
+    a DeviceMesh ``mesh``: every rank of the mesh calls it and trains its
+    blocks (the module's docstring), on its own card under ``device``
+    'cuda'; the origin alone prints and writes checkpoints."""
+    if mesh_kind not in ("test", "single", "multi"):
         raise ValueError(f"unknown mesh {mesh_kind!r}: test, single or multi")
+    if mesh is None and mesh_kind != "test":
+        mesh = lmesh.make_production_mesh(multi_pod=mesh_kind == "multi",
+                                          device=device)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training asks for a card and none is visible: "
                            "pass device='cpu' to run on the CPU")
+    say = print
+    if mesh is not None:
+        device = lmesh.rank_device(dist.get_rank(), device)
+        if int(mesh.mesh.reshape(-1)[0]) != dist.get_rank():
+            def say(*args, **kw):
+                pass
     cfg = preset_config(arch, preset)
     model = build_model(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(seed))
-    ocfg = adamw.AdamWConfig(warmup_steps=min(100, steps // 10 + 1),
-                             decay_steps=steps)
-    opt_state = adamw.init(ocfg, params)
-    step_fn = make_train_step(model, ocfg)
+    with use_mesh(mesh):
+        params = model.init(torch.Generator(device=device).manual_seed(seed))
+        shardings = None
+        if mesh is not None:
+            params = blocks_of(params, model.specs())
+            lay = model.shardings(mesh)
+            shardings = {"p": lay, "o": adamw.AdamWState(None, lay, lay)}
+        ocfg = adamw.AdamWConfig(warmup_steps=min(100, steps // 10 + 1),
+                                 decay_steps=steps)
+        opt_state = adamw.init(ocfg, params)
+        # a rank holds its blocks once: the step writes them in place
+        step_fn = make_train_step(model, ocfg, donate=mesh is not None)
 
-    start, writer = 0, None
-    if ckpt_dir:
-        writer = manifest.AsyncWriter(ckpt_dir, config=cfg)
-        if resume:
-            start, state = _restore_latest(
-                ckpt_dir, {"p": params, "o": opt_state}, cfg)
-            if state is not None:
-                params, opt_state = state["p"], state["o"]
+        start, writer = 0, None
+        if ckpt_dir:
+            writer = manifest.AsyncWriter(ckpt_dir, config=cfg)
+            if resume:
+                start, state = _restore_latest(
+                    ckpt_dir, {"p": params, "o": opt_state}, cfg, shardings,
+                    say)
+                if state is not None:
+                    params, opt_state = state["p"], state["o"]
 
-    dcfg = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                           global_batch=batch, seed=seed)
-    t0 = time.time()
-    losses = []
-    for step in range(start, steps):
-        b = {k: v.to(device) for k, v in token_batch(dcfg, step).items()}
-        b.update(stub_inputs(cfg, batch, seed, step, device))
-        params, opt_state, m = step_fn(params, opt_state, b)
-        losses.append(float(m["loss"]))
-        if step % log_every == 0 or step == steps - 1:
-            dt = time.time() - t0
-            tps = (step - start + 1) * batch * seq / max(dt, 1e-9)
-            print(f"[train] step {step:5d} loss {losses[-1]:.4f} "
-                  f"lr {float(m['lr']):.2e} gnorm "
-                  f"{float(m['grad_norm']):.3f} tok/s {tps:,.0f}",
-                  flush=True)
-        if writer and ckpt_every and (step + 1) % ckpt_every == 0:
-            writer.save(step + 1, {"p": params, "o": opt_state},
-                        extra={"loss": losses[-1]})
-    if writer:
-        if losses:
-            writer.save(steps, {"p": params, "o": opt_state},
-                        extra={"loss": losses[-1]})
-        writer.wait()
+        dcfg = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                               global_batch=batch, seed=seed)
+        t0 = time.time()
+        losses = []
+        for step in range(start, steps):
+            b = {k: v.to(device) for k, v in token_batch(dcfg, step).items()}
+            b.update(stub_inputs(cfg, batch, seed, step, device))
+            params, opt_state, m = step_fn(params, opt_state, b)
+            losses.append(float(m["loss"]))
+            if step % log_every == 0 or step == steps - 1:
+                dt = time.time() - t0
+                tps = (step - start + 1) * batch * seq / max(dt, 1e-9)
+                say(f"[train] step {step:5d} loss {losses[-1]:.4f} "
+                    f"lr {float(m['lr']):.2e} gnorm "
+                    f"{float(m['grad_norm']):.3f} tok/s {tps:,.0f}",
+                    flush=True)
+            if writer and ckpt_every and (step + 1) % ckpt_every == 0:
+                writer.save(step + 1, {"p": params, "o": opt_state},
+                            extra={"loss": losses[-1]}, shardings=shardings)
+        if writer:
+            if losses:
+                writer.save(steps, {"p": params, "o": opt_state},
+                            extra={"loss": losses[-1]}, shardings=shardings)
+            writer.wait()
     return losses
 
 
@@ -164,9 +194,15 @@ def main():
                     choices=["test", "single", "multi"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-    run(args.arch, args.preset, args.steps, args.batch, args.seq,
-        args.ckpt_dir, args.ckpt_every, args.resume, args.mesh,
-        device=args.device)
+    if args.mesh != "test":
+        lmesh.init_from_env(args.device)     # torchrun's group, if any
+    try:
+        run(args.arch, args.preset, args.steps, args.batch, args.seq,
+            args.ckpt_dir, args.ckpt_every, args.resume, args.mesh,
+            device=args.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -59,7 +59,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..distributed.sharding import P, axis_index, constrain, local_shape
+from ..distributed.sharding import (P, axis_index, constrain, local_shape,
+                                    sum_grad)
 from ..kernels import ops, ref
 from ..kernels.ref import NEG_INF
 from . import layers as L
@@ -260,9 +261,14 @@ def gqa_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         return constrain(_out_proj(out, p["wo"]), *out_entries,
                          have=(rb,), partial=partial), cache
     hkv_at = split_axis(p["wk"].shape[-2], cfg.n_kv_heads)
-    k = constrain(_proj_heads(x, p["wk"]), L.DATA, None, L.MODEL, None,
+    wk, wv = p["wk"], p["wv"]
+    if hkv_at is None and hq_loc != cfg.n_heads:
+        # K / V replicated, each rank reading its q heads' part of them
+        # (``_local_kv``): their projections' gradients are partial sums
+        wk, wv = sum_grad(wk, L.MODEL), sum_grad(wv, L.MODEL)
+    k = constrain(_proj_heads(x, wk), L.DATA, None, L.MODEL, None,
                   have=(rb, None, hkv_at))
-    v = constrain(_proj_heads(x, p["wv"]), L.DATA, None, L.MODEL, None,
+    v = constrain(_proj_heads(x, wv), L.DATA, None, L.MODEL, None,
                   have=(rb, None, hkv_at))
     if cfg.rope_theta:
         q = L.apply_rope(q, positions, cfg.rope_theta)
@@ -409,8 +415,14 @@ def mla_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                       L.DATA, None, L.MODEL, None,
                       have=(rb, None, split_axis(hq, cfg.n_heads)))
 
-    ckv = x @ p["wdkv"]                               # (B, S, lora+rope)
-    lat = L.norm_apply(p["kv_norm"], ckv[..., :lora], "rmsnorm")
+    wdkv, kv_norm = p["wdkv"], p["kv_norm"]
+    if hq != cfg.n_heads:
+        # the latent K / V replicated, each rank attending with its heads:
+        # the latent projection's and its norm's gradients are partial sums
+        wdkv = sum_grad(wdkv, L.MODEL)
+        kv_norm = {k: sum_grad(v, L.MODEL) for k, v in kv_norm.items()}
+    ckv = x @ wdkv                                    # (B, S, lora+rope)
+    lat = L.norm_apply(kv_norm, ckv[..., :lora], "rmsnorm")
     k_rope = L.apply_rope(ckv[..., None, lora:], positions, cfg.rope_theta)
     kv = torch.cat([lat[..., None, :], k_rope], dim=-1)   # (B, S, 1, l+r)
     # score scale: MLA normalizes by sqrt(nope + rope), not the latent width

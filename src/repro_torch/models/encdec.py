@@ -42,12 +42,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..distributed.sharding import P, block_of, constrain, local_shape
+from ..distributed.sharding import P, block_of, constrain, local_shape, sum_grad
 from . import attention as A
 from . import layers as L
 from .config import ModelConfig
-from .transformer import (_layer, _local_mask, _slice, embed_lookup, lift,
-                          resid_spec)
+from .transformer import (_layer, _local_mask, _slice, _whole_seq,
+                          embed_lookup, lift, reads_part, resid_spec)
 
 __all__ = ["EncDecCache", "sinusoid", "encdec_init", "encdec_specs",
            "encode", "project_cross_kv", "decode_forward",
@@ -135,7 +135,8 @@ def encdec_specs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def _mlp_res(lp, x, cfg, resid=None):
-    h = L.norm_apply(lp["norm2"], x, cfg.norm)
+    h = _whole_seq(L.norm_apply(lp["norm2"], x, cfg.norm), resid,
+                   resid is not None and reads_part(lp["mlp"], "dense", cfg))
     y = L.mlp_apply(lp["mlp"], h, cfg.mlp_kind, cfg.act)
     if resid is not None:
         y = constrain(y, *resid, have=(resid[0],),
@@ -154,7 +155,9 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
 
     def layer(li, xx):
         lp = _slice(params["enc"], li)
-        h = L.norm_apply(lp["norm1"], xx, cfg.norm)
+        h = _whole_seq(L.norm_apply(lp["norm1"], xx, cfg.norm), resid,
+                       resid is not None and reads_part(lp["attn"], "attn",
+                                                        cfg))
         y, _ = A.gqa_apply(lp["attn"], h, cfg, positions=pos[None],
                            causal=False, resid=resid)
         return _mlp_res(lp, xx + y, cfg, resid)
@@ -164,15 +167,19 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     return L.norm_apply(params["enc_norm"], x, cfg.norm)
 
 
-def _cross_kv(lp, memory):
-    return (A._proj_heads(memory, lp["cross"]["wk"]),
-            A._proj_heads(memory, lp["cross"]["wv"]))
+def _cross_kv(lp, memory, cfg):
+    wk, wv = lp["cross"]["wk"], lp["cross"]["wv"]
+    if wk.shape[-2] == cfg.n_kv_heads and \
+            lp["cross"]["wq"].shape[-2] != cfg.n_heads:
+        # replicated K / V read a part a rank (``gqa_apply``)
+        wk, wv = sum_grad(wk, L.MODEL), sum_grad(wv, L.MODEL)
+    return A._proj_heads(memory, wk), A._proj_heads(memory, wv)
 
 
 def project_cross_kv(params, cfg: ModelConfig, memory: torch.Tensor):
     """Every decoder layer's cross K/V of the encoder memory (prefill-once):
     two (L, B, F, Hkv, hd) tensors in memory's dtype."""
-    kv = [_cross_kv(_slice(params["dec"], li), memory)
+    kv = [_cross_kv(_slice(params["dec"], li), memory, cfg)
           for li in range(cfg.n_layers)]
     return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
 
@@ -200,16 +207,23 @@ def decode_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     if cache is None and memory is None:
         raise ValueError("the teacher-forced decoder pass needs the "
                          "encoder memory")
+    part = resid is not None and reads_part(params["dec"]["self"], "attn",
+                                            cfg)
+    cross_part = resid is not None and reads_part(params["dec"]["cross"],
+                                                  "attn", cfg)
+    if cache is None:           # every layer's cross K/V read a part a rank
+        memory = _whole_seq(memory, resid, cross_part)
 
     def layer(li, xx):
         lp = _slice(params["dec"], li)
-        h = L.norm_apply(lp["norm1"], xx, cfg.norm)
+        h = _whole_seq(L.norm_apply(lp["norm1"], xx, cfg.norm), resid, part)
         kv = None if cache is None else _layer(cache.self_kv, li)
         y, _ = A.gqa_apply(lp["self"], h, cfg, positions=positions,
                            cache=kv, resid=resid)
         xx = xx + y
-        h = L.norm_apply(lp["norm_x"], xx, cfg.norm)
-        cross = _cross_kv(lp, memory) if cache is None else \
+        h = _whole_seq(L.norm_apply(lp["norm_x"], xx, cfg.norm), resid,
+                       cross_part)
+        cross = _cross_kv(lp, memory, cfg) if cache is None else \
             (cache.cross_k[li], cache.cross_v[li])
         y, _ = A.gqa_apply(lp["cross"], h, cfg, positions=positions,
                            kv_override=cross, resid=resid)
@@ -220,10 +234,11 @@ def decode_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
 
     new_cache = None if cache is None else cache._replace(
         self_kv=cache.self_kv._replace(pos=pos0 + sq))
-    x = L.norm_apply(params["dec_norm"], x, cfg.norm)
+    head = params["embed"].T
+    x = _whole_seq(L.norm_apply(params["dec_norm"], x, cfg.norm), resid,
+                   head.shape[-1] != cfg.vocab_padded)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
-    head = params["embed"].T
     logits = x @ head
     logits = logits + _local_mask(cfg, head.shape[-1], dev).to(logits.dtype)
     return constrain(logits, L.DATA, None, L.MODEL, have=(

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import P
+from ..distributed.sharding import P, current_mesh, use_mesh
 
 __all__ = ["DATA", "MODEL", "trunc_normal", "dense_init", "embed_init",
            "norm_init", "norm_specs", "norm_apply", "act_fn", "rope_freqs",
@@ -190,7 +190,14 @@ def remat(cfg, fn, *args):
     """fn(*args), recomputed in the backward (``torch.utils.checkpoint``)
     when ``cfg.remat`` is set and autograd is on: the JAX package's
     ``jax.checkpoint`` of a layer group (a decoder pattern unit, an
-    enc-dec layer) in a cacheless pass."""
+    enc-dec layer) in a cacheless pass. The recompute runs under the mesh
+    of the forward: autograd runs a card's backward on a thread of its
+    own, which ``sharding.use_mesh`` (thread-local) does not reach."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        mesh = current_mesh()
+
+        def under_mesh(*a):
+            with use_mesh(mesh):
+                return fn(*a)
+        return checkpoint(under_mesh, *args, use_reentrant=False)
     return fn(*args)

@@ -25,16 +25,21 @@ autograd on (each layer group recomputed in the backward when
 ``cfg.remat``); the serving calls run under ``torch.no_grad``.
 
 The sharded LM (ROADMAP A6): under ``sharding.use_mesh(mesh)``, a
-('data', 'model') DeviceMesh, each rank holds the block of every param
-that ``shardings_tree(mesh, params, model.specs())`` gives it
+('data', 'model') DeviceMesh (or ('pod', 'data', 'model')), each rank
+holds the block of every param that ``model.shardings(mesh)`` gives it
 (``bridge.lm_params_onto_mesh``, or ``sharding.blocks_of`` of a tree
-drawn whole on every rank), ``init_cache`` makes its block of the cache, and
-``prefill`` / ``decode`` take the whole tokens and return the rank's
+drawn whole on every rank), ``init_cache`` makes its block of the cache,
+and ``prefill`` / ``decode`` take the whole tokens and return the rank's
 block P(DATA, None, MODEL) of the logits (``transformer.py``'s
 docstring); ``greedy`` gives every rank the whole batch's tokens. Every
-family runs so. Outside a mesh nothing changes. Training under a mesh
-(autograd through the collectives) raises ``NotImplementedError`` naming
-ROADMAP A6.
+family runs so, and trains so: ``loss`` takes the whole batch and is the
+vocabulary-parallel cross-entropy of the rank's logits block (the same
+loss on every rank), ``value_and_grad`` gives each rank the gradient
+block of its param blocks (autograd through the collectives,
+``distributed/sharding.py``'s docstring, then one reduction over the
+batch axes), and ``make_train_step`` takes its micro-batches from the
+whole batch and runs AdamW on the blocks. Outside a mesh nothing
+changes.
 """
 
 from __future__ import annotations
@@ -45,8 +50,9 @@ from typing import Callable
 import torch
 
 from .. import tree as T
-from ..distributed.sharding import (axis_index, constrain, current_mesh,
-                                    resolve_entries)
+from ..distributed.sharding import (P, axis_index, block_of, constrain,
+                                    current_mesh, psum, resolve_entries,
+                                    shardings_tree)
 from ..optim import adamw
 from . import encdec, transformer
 from . import layers as L
@@ -72,6 +78,16 @@ class Model:
         if self.cfg.enc_layers:
             return encdec.encdec_specs(self.cfg)
         return transformer.decoder_specs(self.cfg)
+
+    def shapes(self) -> dict:
+        """``init``'s tree as meta tensors: the whole shapes and types, no
+        memory, no numbers drawn (the JAX package's ``jax.eval_shape``)."""
+        return self.init(_MetaGenerator())
+
+    def shardings(self, mesh) -> dict:
+        """A ``sharding.NamedSharding`` for each param: its spec resolved on
+        the whole shape, with the divisibility fallbacks."""
+        return shardings_tree(mesh, self.shapes(), self.specs())
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device="cuda"):
@@ -105,12 +121,17 @@ class Model:
     def loss(self, params, batch: dict):
         """(loss, {"ce", "aux"}): the float32 logsumexp cross-entropy of the
         logits against ``batch["labels"]`` over the labels >= 0 (a vlm's
-        text logits only), plus router_aux_coef times the aux loss."""
+        text logits only), plus router_aux_coef times the aux loss. On a
+        mesh, the batch is the whole batch and the cross-entropy the
+        vocabulary-parallel one (``_sharded_ce``)."""
         cfg = self.cfg
         logits, aux = self.forward(params, batch)
         if cfg.n_patches:                      # vlm: text logits only
             logits = logits[:, cfg.n_patches:]
         labels = batch["labels"]
+        if current_mesh() is not None:
+            ce = _sharded_ce(logits, labels, cfg)
+            return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
         lf = logits.float()
         lse = torch.logsumexp(lf, dim=-1)
         # a masked label (< 0) reads column 0; its term is multiplied by 0
@@ -158,8 +179,49 @@ class Model:
         return logits, cache
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: ``init`` with it
+    builds the tree's shapes and types and nothing else."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)
+
+
+def _sharded_ce(logits: torch.Tensor, labels: torch.Tensor, cfg
+                ) -> torch.Tensor:
+    """The cross-entropy of the whole batch from this rank's logits block
+    P(DATA, None, MODEL) (Megatron's vocabulary-parallel loss): the rows'
+    maxima and sums of exponentials reduced over 'model', the gold logit
+    taken on the rank whose columns hold the label (zero elsewhere, summed
+    with the exponentials in one all_reduce), the sum of the masked terms
+    and the count of labels >= 0 reduced over the batch axes. Its backward
+    is softmax minus one-hot on each rank's columns, over the global count
+    (the all_reduces' transposes are identities)."""
+    rb = resolve_entries(current_mesh(), (L.DATA,), (labels.shape[0],))[0]
+    labels = block_of(labels, P(L.DATA)).long()
+    lf = logits.float()
+    cols = lf.shape[-1]
+    split = cols != cfg.vocab_padded
+    top = lf.detach().amax(-1, keepdim=True)
+    if split:
+        top = psum(top, L.MODEL, op="max")
+    idx = labels - (axis_index(L.MODEL) * cols if split else 0)
+    mine = (idx >= 0) & (idx < cols) & (labels >= 0)
+    gold = torch.gather(lf, -1, torch.where(mine, idx, 0)[..., None]
+                        )[..., 0] * mine
+    se = torch.exp(lf - top).sum(-1)
+    if split:
+        se, gold = psum(torch.stack([se, gold]), L.MODEL)
+    mask = (labels >= 0).float()
+    lse = top[..., 0] + torch.log(se)
+    tot, n = psum(torch.stack([torch.sum((lse - gold) * mask), mask.sum()]),
+                  rb)
+    return tot / torch.clamp(n, min=1.0)
 
 
 def greedy(logits: torch.Tensor, cfg: ModelConfig, batch: int
@@ -190,17 +252,10 @@ def greedy(logits: torch.Tensor, cfg: ModelConfig, batch: int
     return constrain(pair.to(torch.int32), None, None, have=(rb, None))
 
 
-def value_and_grad(model: Model, params, batch: dict):
-    """(loss, parts, grads as a list in ``tree.leaves(params)``'s order):
-    ``jax.value_and_grad(model.loss, has_aux=True)``. The grads are taken
-    by ``torch.autograd.grad`` over the param leaves, each in its param's
-    type; the params themselves are not marked."""
-    mesh = current_mesh()
-    if mesh is not None and mesh.size() > 1:
-        raise NotImplementedError(
-            "training under a mesh (autograd through sharding.constrain's "
-            "collectives) is not ported: ROADMAP A6 (the sharded LM); the "
-            "DP trainer is distributed.trainer.make_dp_train_step")
+def _local_grads(model: Model, params, batch: dict):
+    """(loss, parts, this rank's grads): the backward on the rank's blocks,
+    each gradient exact over 'model' and, on a mesh, a partial sum over
+    the batch axes."""
     live = [p.detach().requires_grad_(True) for p in T.leaves(params)]
     with torch.enable_grad():
         loss, parts = model.loss(T.unflatten_like(params, live), batch)
@@ -208,7 +263,48 @@ def value_and_grad(model: Model, params, batch: dict):
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
 
 
-def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig) -> Callable:
+def _batch_axes(batch: dict):
+    """The batch axes the rows of ``batch`` split over on the current
+    mesh (its resolved DATA entry), or None."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    return resolve_entries(mesh, (L.DATA,), (batch["tokens"].shape[0],))[0]
+
+
+def value_and_grad(model: Model, params, batch: dict):
+    """(loss, parts, grads as a list in ``tree.leaves(params)``'s order):
+    ``jax.value_and_grad(model.loss, has_aux=True)``. The grads are taken
+    by ``torch.autograd.grad`` over the param leaves, each in its param's
+    type; the params themselves are not marked. On a mesh, each rank
+    passes its param blocks and the whole batch and gets the gradient
+    block of each: its backward's, all-reduced over the batch axes."""
+    loss, parts, grads = _local_grads(model, params, batch)
+    return loss, parts, _batch_sum(list(grads), _batch_axes(batch))
+
+
+def _batch_sum(grads: list, rb) -> list:
+    """Each gradient all-reduced over the batch axes ``rb`` (none without
+    a mesh), in the list's place, one leaf at a time."""
+    if rb is not None:
+        for i, g in enumerate(grads):
+            grads[i] = psum(g, rb)
+    return grads
+
+
+def _split_axes(model: Model) -> list | None:
+    """The mesh axes each param leaf is split over on the current mesh
+    (``global_norm`` sums a leaf's squares over them), or None."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    return [tuple(a for e in ns.spec if e is not None
+                  for a in (e if isinstance(e, tuple) else (e,)))
+            for ns in T.leaves(model.shardings(mesh))]
+
+
+def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
+                    donate: bool = False) -> Callable:
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics),
     metrics {"loss", "ce", "aux", "grad_norm", "lr"} as 0-d tensors.
 
@@ -216,10 +312,20 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig) -> Callable:
     micro-batches, sums their grads in float32 and divides by their count
     (the JAX package's ``lax.scan`` branch: its metrics then hold the mean
     loss as "ce" and an aux of 0); the live activations are those of one
-    micro-batch."""
+    micro-batch. On a mesh (the module's docstring) the micro-batches come
+    from the whole batch, as the JAX package's reshape makes them, before
+    a rank takes its rows of each; their summed grads are all-reduced over
+    the batch axes once, and the global norm sums each leaf's squares over
+    the axes it is split over. ``donate``: the step writes the new params
+    and moments into the given ones (``adamw.update``)."""
     accum = model.cfg.accum_steps
+    split = {}
 
     def train_step(params, opt_state, batch):
+        mesh = current_mesh()
+        if mesh not in split:
+            split.clear()
+            split[mesh] = _split_axes(model)
         if accum <= 1:
             loss, parts, g = value_and_grad(model, params, batch)
             grads = T.unflatten_like(params, list(g))
@@ -228,7 +334,7 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig) -> Callable:
             for i in range(accum):
                 mb = {k: v.reshape(accum, v.shape[0] // accum,
                                    *v.shape[1:])[i] for k, v in batch.items()}
-                loss_i, _, g = value_and_grad(model, params, mb)
+                loss_i, _, g = _local_grads(model, params, mb)
                 if gsum is None:
                     gsum = [x.float() for x in g]
                     lsum = loss_i.float()
@@ -237,12 +343,14 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig) -> Callable:
                         acc.add_(x)
                     lsum = lsum + loss_i
                 del g
+            gsum = _batch_sum(gsum, _batch_axes(mb))
             grads = T.unflatten_like(params, [x.div_(accum) for x in gsum])
             loss = lsum / accum
             parts = {"ce": loss, "aux": torch.zeros((), dtype=torch.float32,
                                                     device=loss.device)}
         params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
-                                             params)
+                                             params, split=split[mesh],
+                                             donate=donate)
         return params, opt_state, {"loss": loss, **parts, **om}
 
     return train_step

@@ -22,8 +22,12 @@ rank holds a d_ff block of every expert, so the hidden state lies split on
 f (``:106``) and the row-parallel ``wo``, the gather back and the
 weighted combine (all linear in it) give a partial sum over 'model', as
 the shared experts' MLP does; the output ``constrain`` (``:120``)
-reduces their sum into the residual's layout (``resid``). The aux loss is
-over this rank's batch rows.
+reduces their sum into the residual's layout (``resid``). The aux loss's
+two means are reduced over the batch axes (``_aux``). In training the
+router's part of the block reads a part a rank too: its cotangents are
+partial sums over 'model' (the replicated router's gradient is
+all-reduced, the loss's cotangent counted once), as
+``distributed/sharding.py``'s docstring sets out.
 
 Aux loss: the Switch load-balance loss, E * sum_e (share of tokens whose
 first choice is e) * (mean router probability of e), a 0-d float32 tensor.
@@ -35,7 +39,8 @@ import math
 
 import torch
 
-from ..distributed.sharding import P, constrain
+from ..distributed.sharding import (P, axis_size, constrain, current_mesh,
+                                    grad_once, psum, sum_grad)
 from . import layers as L
 
 __all__ = ["moe_init", "moe_specs", "moe_apply", "route", "route_rows",
@@ -110,6 +115,27 @@ def route(p, x: torch.Tensor, cfg):
     return probs, top_p, top_i
 
 
+def _aux(probs: torch.Tensor, top_i: torch.Tensor, e: int, rb, part):
+    """The Switch loss: E * sum_e (share of first choices e) * (mean
+    probability of e), both over the whole batch and sequence. On a mesh
+    a rank holds rows ``rb`` of the batch: both are reduced over the batch
+    axes before their product (a product of local means is not the
+    product of the global ones); ``part``: the router's cotangents are
+    partial sums over 'model' (its readers compute a part a rank), so the
+    whole cotangent of the replicated loss is counted once."""
+    b, s = top_i.shape[:2]
+    counts = torch.zeros(e, dtype=torch.float32, device=top_i.device
+                         ).index_add_(0, top_i[..., 0].reshape(-1),
+                                      torch.ones(b * s, dtype=torch.float32,
+                                                 device=top_i.device))
+    if current_mesh() is None:
+        return e * torch.sum(counts / (b * s) * probs.mean(dim=(0, 1)))
+    n = b * s * axis_size(rb)
+    frac, mean = psum(torch.stack([counts, probs.sum(dim=(0, 1))]), rb) / n
+    aux = e * torch.sum(frac * mean)
+    return grad_once(aux, L.MODEL) if part else aux
+
+
 def moe_apply(p, x: torch.Tensor, cfg, resid=None):
     """x (B, S, d) -> (out (B, S, d) in x.dtype, aux_loss 0-d float32).
     On a mesh x is whole on S and ``resid`` the residual's layout, as in
@@ -117,12 +143,13 @@ def moe_apply(p, x: torch.Tensor, cfg, resid=None):
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_active
     cap = capacity(cfg, s)
-    probs, top_p, top_i = route(p, x, cfg)
-
-    frac = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
-        0, top_i[..., 0].reshape(-1),
-        torch.ones(b * s, dtype=torch.float32, device=x.device)) / (b * s)
-    aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
+    f = cfg.moe_d_ff or cfg.d_ff
+    partial = L.MODEL if p["wo"].shape[-2] != f else None
+    router = p["router"] if partial is None else \
+        sum_grad(p["router"], L.MODEL)      # read by the split experts
+    probs, top_p, top_i = route({"router": router}, x, cfg)
+    aux = _aux(probs, top_i, e, None if resid is None else resid[0],
+               partial)
 
     dest = route_rows(top_i, cap, e).long()                    # (B, S k)
 
@@ -146,8 +173,6 @@ def moe_apply(p, x: torch.Tensor, cfg, resid=None):
     out = torch.einsum("bskd,bsk->bsd", routed.reshape(b, s, k, d).float(),
                        top_p).to(x.dtype)
 
-    f = cfg.moe_d_ff or cfg.d_ff
-    partial = L.MODEL if p["wo"].shape[-2] != f else None
     if cfg.n_shared_experts:
         if L.mlp_partial(p["shared"], cfg.n_shared_experts * f) != partial:
             raise NotImplementedError(

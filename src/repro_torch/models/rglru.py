@@ -30,7 +30,9 @@ rank's output channels, so u is all-gathered for them (a collective their
 column split forces); ``wo`` is row-parallel and the output ``constrain``
 (``:110``, ``:131``) reduces it into the residual's layout. The cache
 follows the channels: h (B, w) as P(DATA, MODEL), the conv window (B,
-W - 1, w) as P(DATA, None, MODEL).
+W - 1, w) as P(DATA, None, MODEL). Under autograd the gathered u is read a
+part a rank (each rank's gate columns), so its gather's backward is a
+reduce_scatter (``distributed/sharding.py``'s docstring).
 """
 
 from __future__ import annotations
@@ -101,7 +103,7 @@ def _gates(p, u: torch.Tensor, rb=None):
     for the gate matrices' products."""
     uf = u.float()
     whole = uf if p["wa"].shape[-2] == u.shape[-1] else constrain(
-        uf, rb, None, None, have=(rb, None, L.MODEL))
+        uf, rb, None, None, have=(rb, None, L.MODEL), grad_partial=L.MODEL)
     r = torch.sigmoid(whole @ p["wa"].float() + p["ba"])
     i = torch.sigmoid(whole @ p["wi"].float() + p["bi"])
     log_a = -_C * F.softplus(p["lam"]) * r                      # < 0

@@ -37,6 +37,14 @@ so its sum of squares is all-reduced; ``out_proj`` is row-parallel and the
 output ``constrain`` (``:102``) reduces it into the residual's layout.
 The cache: the state (B, H, N, P) as P(DATA, MODEL, None, None), the conv
 window (B, W - 1, C) as P(DATA, None, MODEL).
+
+Under autograd on a mesh the block's replicated tensors (the whole
+in_proj and conv outputs, B and C) are read a part a rank, so their
+cotangents are partial sums over 'model' and every ``constrain`` here says
+so (``grad_partial``): the two gathers' backward is a reduce_scatter,
+the heads' slices zero-pad, and the gate norm's all-reduced sum of squares
+is all-reduced again in the backward (each rank normalises its own
+channels with it).
 """
 
 from __future__ import annotations
@@ -113,6 +121,26 @@ def ssd_specs() -> dict:
             "gate_norm": {"scale": P(L.MODEL)}, "out_proj": P(L.MODEL, None)}
 
 
+def ssd_split(p, cfg) -> bool:
+    """Whether this rank holds a part of the block (its params split over
+    'model'). Under autograd a block is split whole or not at all: the
+    cotangents inside a split block are partial sums over 'model' (the
+    module's docstring), which a block of replicated and split parts
+    would mix."""
+    d_inner, _, nheads = _dims(cfg)
+    n = cfg.ssm_state
+    parts = [p["in_proj"].shape[-1] != 2 * d_inner + 2 * n + nheads,
+             p["conv_w"].shape[-1] != d_inner + 2 * n,
+             p["A_log"].shape[-1] != nheads,
+             p["gate_norm"]["scale"].shape[-1] != d_inner,
+             p["out_proj"].shape[-2] != d_inner]
+    if any(parts) and not all(parts) and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "training an SSD block whose params split unlike over 'model' "
+            "is not ported: ROADMAP A6 (the sharded LM)")
+    return any(parts)
+
+
 def _split_proj(zxbcdt: torch.Tensor, cfg):
     d_inner, _, nheads = _dims(cfg)
     n = cfg.ssm_state
@@ -148,7 +176,7 @@ def _gated_out(p, y: torch.Tensor, z: torch.Tensor, cfg, rb=None,
             y = y[..., lo:lo + sc]
         g = (y * F.silu(z[..., lo:lo + sc].float())).to(y.dtype).float()
         ss = constrain((g * g).sum(-1, keepdim=True), rb, None, None,
-                       have=(rb,), partial=L.MODEL)
+                       have=(rb,), partial=L.MODEL, grad_partial=L.MODEL)
         y = (g * torch.rsqrt(ss / d_inner + 1e-6)
              * p["gate_norm"]["scale"]).to(y.dtype)
     out = y.to(p["out_proj"].dtype) @ p["out_proj"]
@@ -162,7 +190,8 @@ def _in_proj(p, x: torch.Tensor, cfg, rb) -> torch.Tensor:
     zxbcdt = x @ p["in_proj"]
     d_inner, _, nheads = _dims(cfg)
     if zxbcdt.shape[-1] != 2 * d_inner + 2 * cfg.ssm_state + nheads:
-        zxbcdt = constrain(zxbcdt, rb, None, None, have=(rb, None, L.MODEL))
+        zxbcdt = constrain(zxbcdt, rb, None, None, have=(rb, None, L.MODEL),
+                           grad_partial=L.MODEL)
     return zxbcdt
 
 
@@ -177,7 +206,8 @@ def _whole_channels(t: torch.Tensor, conv_ch: int, rb) -> torch.Tensor:
     """A conv output of the rank's channel block, all-gathered."""
     if t.shape[-1] == conv_ch:
         return t
-    return constrain(t, rb, None, None, have=(rb, None, L.MODEL))
+    return constrain(t, rb, None, None, have=(rb, None, L.MODEL),
+                     grad_partial=L.MODEL)
 
 
 def _project(p, x: torch.Tensor, cfg, rb=None):
@@ -251,9 +281,10 @@ def ssd_apply(p, x: torch.Tensor, cfg, *, cache: SSMCache | None = None,
     out_entries = (L.DATA, None, None) if resid is None else tuple(resid)
     z, conv_in, xs, bmat, cmat, dt = _project(p, x, cfg, rb)
     xh = constrain(xs.reshape(b, s, nheads, pdim), L.DATA, None, L.MODEL,
-                   None, have=(rb,))
+                   None, have=(rb,), grad_partial=L.MODEL)
     nheads = xh.shape[2]                                # this rank's heads
-    dt = F.softplus(constrain(dt, L.DATA, None, L.MODEL, have=(rb,)).float()
+    dt = F.softplus(constrain(dt, L.DATA, None, L.MODEL, have=(rb,),
+                              grad_partial=L.MODEL).float()
                     + p["dt_bias"])                             # (B,S,H)
 
     # pad to a chunk multiple; dt = 0 at pads -> a = 0 (identity decay) and

@@ -60,7 +60,7 @@ import torch
 
 from ..distributed.sharding import (P, axis_index, axis_size, block_of,
                                     broadcast_from, constrain, current_mesh,
-                                    resolve_entries)
+                                    resolve_entries, sum_grad)
 from . import attention as A
 from . import layers as L
 from . import moe as M
@@ -132,12 +132,46 @@ def block_specs(cfg: ModelConfig, mixer: str, mlp: str) -> dict:
     return s
 
 
-def _whole_seq(h: torch.Tensor, resid) -> torch.Tensor:
-    """A block input whole on S: Megatron-SP's all_gather when the
-    residual lies split on S (q / k / v's ``constrain`` wants S whole)."""
-    if resid is None or resid[1] is None:
+def _whole_seq(h: torch.Tensor, resid, part: bool = False) -> torch.Tensor:
+    """A block input as its mixer or MLP reads it, whole on S: Megatron-SP's
+    all_gather when the residual lies split on S (q / k / v's
+    ``constrain`` wants S whole). ``part``: the reader computes a part a
+    rank (its params split over 'model'), so the cotangent it gives h is
+    a partial sum over 'model' (the module's docstring): the gather's
+    backward is then a reduce_scatter, and a whole-S h goes through
+    ``sum_grad`` (an all_reduce backward)."""
+    if resid is None:
         return h
-    return constrain(h, resid[0], None, None, have=resid)
+    if resid[1] is not None:
+        return constrain(h, resid[0], None, None, have=resid,
+                         grad_partial=L.MODEL if part else None)
+    return sum_grad(h, L.MODEL) if part else h
+
+
+def _norm(p, x: torch.Tensor, cfg: ModelConfig, resid) -> torch.Tensor:
+    """``norm_apply`` on the residual stream; where its rows lie split on
+    S, the norm's gradient on a rank is a partial sum over that axis."""
+    if resid is not None and resid[1] is not None:
+        p = {k: sum_grad(v, resid[1]) for k, v in p.items()}
+    return L.norm_apply(p, x, cfg.norm)
+
+
+def reads_part(p, kind: str, cfg: ModelConfig) -> bool:
+    """Whether a mixer or an MLP of kind ``kind`` computes a part a rank
+    from its input: its params (``p``, this rank's blocks) split over
+    'model', the column-parallel products of tensor parallelism."""
+    if kind in GQA_KINDS:
+        return p["wq"].shape[-2] != cfg.n_heads
+    if kind == "mla":
+        nope = cfg.head_dim or 128
+        return p["wq"].shape[-1] != cfg.n_heads * (nope + cfg.qk_rope_dim)
+    if kind == "mamba":
+        return S.ssd_split(p, cfg)
+    if kind == "rglru":
+        return p["wx"].shape[-1] != (cfg.rnn_width or cfg.d_model)
+    if kind == "moe":
+        return p["wo"].shape[-2] != (cfg.moe_d_ff or cfg.d_ff)
+    return L.mlp_partial(p, cfg.d_ff) is not None
 
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, mlp: str,
@@ -147,7 +181,8 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, mlp: str,
     rank's block of the residual stream, laid out as ``resid``
     (``resid_spec``), and so is the returned x."""
     _refuse(mixer, mlp)
-    h = _whole_seq(L.norm_apply(p["norm1"], x, cfg.norm), resid)
+    h = _whole_seq(_norm(p["norm1"], x, cfg, resid), resid,
+                   resid is not None and reads_part(p["mixer"], mixer, cfg))
     if mixer == "mla":
         y, cache = A.mla_apply(p["mixer"], h, cfg, positions=positions,
                                cache=cache, resid=resid)
@@ -164,7 +199,9 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, mlp: str,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if mlp == "none":
         return x, cache, zero
-    h = _whole_seq(L.norm_apply(p["norm2"], x, cfg.norm), resid)
+    key = "moe" if mlp == "moe" else "mlp"
+    h = _whole_seq(_norm(p["norm2"], x, cfg, resid), resid,
+                   resid is not None and reads_part(p[key], mlp, cfg))
     if mlp == "moe":
         y, aux = M.moe_apply(p["moe"], h, cfg, resid=resid)
         return x + y, cache, aux
@@ -309,17 +346,17 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, cfg
     return rows * mine[..., None].to(rows.dtype), L.MODEL
 
 
-def _last_rows(x: torch.Tensor, n: int, resid) -> torch.Tensor:
+def _last_rows(x: torch.Tensor, n: int, resid, part: bool) -> torch.Tensor:
     """The last ``n`` positions of the residual (all of them for n =
     None), whole on S: the last 'model' rank broadcasts its tail of an
-    S-split residual."""
-    if resid is None or resid[1] is None:
-        return x if n is None else x[:, -n:]
-    if n is None or n > x.shape[1]:
-        x = constrain(x, resid[0], None, None, have=resid)
-        return x if n is None else x[:, -n:]
-    return broadcast_from(x[:, -n:].contiguous(), resid[1],
-                          axis_size(resid[1]) - 1)
+    S-split residual. ``part``: the vocabulary-split head reads them
+    (``_whole_seq``)."""
+    if resid is not None and resid[1] is not None and n is not None \
+            and n <= x.shape[1]:
+        return broadcast_from(x[:, -n:].contiguous(), resid[1],
+                              axis_size(resid[1]) - 1)
+    x = _whole_seq(x, resid, part)
+    return x if n is None else x[:, -n:]
 
 
 def _slice(tree, g: int):
@@ -424,9 +461,9 @@ def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         if cache is not None:
             new_cache["tail"].append(_store(c, c2))
 
-    x = _last_rows(L.norm_apply(params["final_norm"], x, cfg.norm),
-                   logits_slice, resid)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    x = _last_rows(_norm(params["final_norm"], x, cfg, resid), logits_slice,
+                   resid, head.shape[-1] != cfg.vocab_padded)
     logits = L.logits_softcap(x @ head, cfg.logit_softcap)
     logits = logits + _local_mask(cfg, head.shape[-1], x.device).to(
         logits.dtype)

@@ -53,8 +53,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.model import (build_model, greedy,  # noqa: E402
-                                      make_prefill_step, make_serve_step,
-                                      value_and_grad)
+                                      make_prefill_step, make_serve_step)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TIMEOUT_S = 60.0             # a collective that waits longer fails a rank
@@ -612,19 +611,10 @@ def test_collectives_by_kind(runs, tag):
 # ---------------------------------------------------------------------------
 
 def test_refusals_name_roadmap_a6():
-    """Under a mesh: training (autograd through the collectives) and
-    retrieval (whole logits) raise naming A6; an MLA wq split mid-head,
-    routed and shared experts split unlike, and a dim moved over two
-    axes at once raise naming A6 wherever they are met."""
-    cfg = get_smoke("h2o-danube-1.8b")
-    model = build_model(cfg)
-    grid = lmesh.MeshShape(("data", "model"), (1, 2))
-    with sharding.use_mesh(grid):
-        with pytest.raises(NotImplementedError, match="A6"):
-            value_and_grad(model, {}, {})
-        with pytest.raises(NotImplementedError, match="A6"):
-            serve.generate(model, {}, torch.zeros(1, 1, dtype=torch.int32),
-                           1, None, scheduler=object(), encoder=object())
+    """An MLA wq split mid-head, routed and shared experts split unlike,
+    and a dim gathered over two axes at once raise naming A6 wherever
+    they are met. (Training and retrieval on a mesh run since the sharded
+    train step: ``tests/test_torch_sharded_train.py``.)"""
     mla = get_smoke("deepseek-v2-lite-16b")
     nope, rope = mla.head_dim, mla.qk_rope_dim
     with pytest.raises(NotImplementedError, match="A6"):

@@ -6,9 +6,10 @@ float32 params carried into the JAX package's tree) against
 accum_steps 1 and 2 against the JAX package's step; remat on and off
 giving the same gradients; ``launch.train.run`` on the CPU: a resume that
 runs only the remaining steps, a torn checkpoint directory skipped for the
-previous step, and the meshes that are not ported raising. The JAX
-package's ``launch/train.run`` itself fails on the installed jax (ROADMAP
-C), so the trainer is held by its behaviour and by these direct calls.
+previous step, and the production meshes raising without their launch.
+The JAX package's ``launch/train.run`` itself fails on the installed jax
+(ROADMAP C), so the trainer is held by its behaviour and by these direct
+calls.
 """
 
 import dataclasses
@@ -217,7 +218,13 @@ def test_train_run_draws_stub_inputs(arch):
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 def test_unported_meshes_raise(mesh):
-    with pytest.raises(NotImplementedError, match="A7"):
+    """--mesh single / multi train on the production mesh (the sharded
+    train step, tests/test_torch_sharded_train.py); without a process
+    group of its 256 / 512 ranks the run raises launch.mesh's world-size
+    error, naming the torchrun launch."""
+    n = 256 if mesh == "single" else 512
+    with pytest.raises(ValueError, match=f"needs {n} ranks.*torchrun "
+                                         f"--nproc-per-node={n}"):
         train.run("phi3-mini-3.8b", "smoke", 1, 2, 8, None, 0, False,
                   mesh_kind=mesh, device="cpu")
 
