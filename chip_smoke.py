@@ -8,7 +8,7 @@ Phases (each failure exits non-zero and prints no result line):
      the TF32 flags, which are switched off;
   2. build every kernel from src/repro_torch/kernels/csrc/ (one nvcc per
      source, all started together) into build/kernels/, log ptxas's
-     registers, shared memory and spills of each kernel (the four head-dim
+     registers, shared memory and spills of each kernel (the eight head-dim
      256 instantiations of the attention kernel must not spill) and the
      dynamic
      shared memory a block of each selection route takes, and count the
@@ -321,10 +321,10 @@ Phases (each failure exits non-zero and prints no result line):
      (as 19) through launch.train.run(..., mesh=) on a (2 data x 2
      model) mesh of gloo ranks sharing the card (this process and 3
      spawned; each rank draws the whole tree from seed 0 and keeps its
-     blocks: 16 / 4 heads, d_ff 3,456, 16,000 vocab rows), 2 steps of 4 x
+     blocks: 16 / 4 heads, d_ff 3,456, 16,000 vocab rows), 1 step of 4 x
      512 token_batch tokens (accum 2: a rank 1 row a micro-batch); first
      the reckoning by rank (weights, moments, gradient sum, micro-batch
-     gradients) and the same 2 steps in one process (the witness); held:
+     gradients) and the same step in one process (the witness); held:
      loss and grad_norm equal on every rank bit for bit, each step's loss
      within 4 u (bf16's unit roundoff) of the witness's relatively, the
      first moments after step 1 rank by rank within ``bf16_mu_bound`` of
@@ -333,6 +333,24 @@ Phases (each failure exits non-zero and prints no result line):
      ``sharded_train_reckoning``; step ms and peak memory by rank; rank
      0's layer-0 call (B 1, S 512, 16 / 4 heads of 80, with lse) held and
      timed beside its bound and SDPA.
+     21a. (right after 19, on its params and optimizer state) the dry-run's
+     accounting (launch.op_stats on meta tensors, a one-rank
+     AccountingMesh) of phase 11's prefill and 19's step against the card:
+     argument bytes against torch.cuda.memory_allocated of a copy (exact,
+     in 512-byte blocks), matmul FLOPs against torch.profiler's with_flops
+     (within 1%); the roofline step time, the measured step time and MFU
+     printed. 21b. (after 19s) 11s's windows on a (1 x 4) and 19s's step
+     on a (2 x 2) AccountingMesh, every coordinate, equal to the card's
+     collectives by kind, calls and bytes.
+ 20. the attention softcap (cap 50) on each kernel template at its path's
+     full width (danube's layer 0 causal and in float32 q, whisper's
+     encoder shape non-causal, MLA (576, 512), hd 256 with a window; q
+     scaled by 6): attend(softcap=) with the counts set to 0 just before
+     each route's call and read just after (one launch a route), each
+     held against its capped twin / plain version and lse bound, the
+     uncapped kernel outside that bound, timed by CUDA events beside its
+     bound (no library call caps the scores); the capped backward on the
+     card against the CPU's.
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -356,13 +374,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 N = 10_000_000               # corpus rows: big-ann-benchmarks' 10M scale
-H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
-# Instruction rates outside the tensor cores: 132 SMs at the 1.98 GHz boost
-# clock; per SM and clock 128 float32 lanes (the data sheet's 67 TFLOP/s
-# counts an FMA as two) and 64 int32 lanes (Hopper architecture whitepaper).
-H100_FP32_OPS = 132 * 128 * 1.98e9
-H100_INT32_OPS = 132 * 64 * 1.98e9
-H100_BF16_FLOPS = 989e12     # dense tensor-core bf16, H100 SXM data sheet
+# The card's rates (H100 SXM5 datasheet, Hopper whitepaper) are
+# repro_torch.launch.mesh's PEAK_FLOPS_BF16, HBM_BW, PEAK_FP32_OPS and
+# PEAK_INT32_OPS, which every bound reads through repro_torch.kernels.cost.
 INT_MAX = 2**31 - 1
 MIXED = ("mulfree", "exact", "hamming")   # phase 9b's backends, by shard
 MESH_RANKS = 8               # phase 13: one process a shard, phase 9's 8
@@ -579,7 +593,7 @@ def attn_bound(torch, want):
 
 
 def hold_bf16_attention(torch, label, got, q, k, v, kw,
-                        kernel="flash_attention") -> None:
+                        kernel="flash_attention"):
     """The tensor-core kernel's output ``got`` (bf16 q) held twice: against
     its twin within ``attn_bound`` plus ``ref.flash_attention_flip_bound``
     (a weight that the kernel's ex2 and torch.exp2, or S summed in another
@@ -587,7 +601,8 @@ def hold_bf16_attention(torch, label, got, q, k, v, kw,
     the row's largest p_j |v_j| / l; the elements that needed the term are
     counted), and against the float32 plain version within
     ``ref.flash_attention_rounding_bound``, as the twin itself is. The
-    error against the twin is recorded under ``kernel``."""
+    error against the twin is recorded under ``kernel``. Returns (the
+    float32 plain version, that bound)."""
     from repro_torch.kernels import ref
     twin = ref.flash_attention_ref(q, k, v, operands=torch.bfloat16, **kw)
     base = attn_bound(torch, twin)
@@ -602,6 +617,7 @@ def hold_bf16_attention(torch, label, got, q, k, v, kw,
           bound, record=False)
     close(torch, kernel, f"{label} twin vs float32 plain", twin,
           plain, bound, record=False)
+    return plain, bound
 
 
 def hold_lse(torch, name, label, got, q, k, v, kw) -> None:
@@ -630,101 +646,66 @@ def hold_lse(torch, name, label, got, q, k, v, kw) -> None:
 # ---------------------------------------------------------------------------
 
 def rank_bound(torch, rows, lut, w, dim):
-    """Bytes: each distinct real row's code and f_add once (lanes that probe
-    one cluster gather the same rows), the LUT, sumq, s1 and s2 of each lane
-    with a real row (a lane of -1 rows needs none), every row id, every rank
-    written. Operations: a mask and an add per code bit of each real
-    (lane, row) slot, at the int32 rate."""
+    """``cost.binary_ip_rank`` of these rows: the distinct real rows, the
+    lanes with a real row and the real (lane, row) slots counted from
+    them."""
+    from repro_torch.kernels import cost
     real = rows >= 0
-    distinct = int(torch.unique(rows[real]).numel())
-    live = int(real.any(-1).sum())
-    nbytes = (distinct * (w + 4) + live * (lut.shape[1] + 3) * 4
-              + rows.numel() * 4 + rows.numel() * 4)
-    ops = 2 * int(real.sum()) * dim
-    tb, to = nbytes / H100_BYTES_PER_S, ops / H100_INT32_OPS
-    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+    return cost.binary_ip_rank(
+        slots=rows.numel(), real_slots=int(real.sum()),
+        distinct_rows=int(torch.unique(rows[real]).numel()),
+        live_lanes=int(real.any(-1).sum()), w=w, dim=dim,
+        lut_width=lut.shape[1]).bound()
 
 
 def scan_bound(torch, args, dim, ef):
-    """Bytes: each distinct probed cluster's valid rows (code and per-row
-    factors, ``rank_bytes``) once, the rank operands and two scalars of
-    each live lane, the (L, EF) ids and ranks written. Operations:
-    ``slot_ops`` per valid row of every live lane (O3: one table lookup and
-    one add per code byte, 2 W a row: a lane's LUT is fixed for its scan,
-    so S = sum over the code bytes b of T[b][code[b]], with T[b][x] the LUT
-    summed over the set bits of x, the least a row's rank takes; the
-    tables' ~8 x 256 W adds a lane and the epilogue's few operations a row
-    are left out). ``args`` are the ranked arguments (codes, rank,
-    base_rows, n_valid, active). Returns (ms, "bytes" or "operations", ms
-    by the bit count): the last prices a mask and an add per code bit, 2
-    dim operations a row, as the bound of a kernel that ranks bit by
-    bit."""
+    """``cost.cluster_scan`` of the ranked arguments (codes, rank,
+    base_rows, n_valid, active): the distinct probed clusters' valid rows
+    and every live lane's valid rows counted from them. Returns (ms,
+    "bytes" or "operations", ms by the bit count): the last prices a mask
+    and an add per code bit, 2 dim operations a row, as the bound of a
+    kernel that ranks bit by bit."""
+    from repro_torch.kernels import cost
     codes, rank, base_rows, n_valid, active = args
     w = codes.shape[1]
     nv = n_valid[active].long()
     clusters = torch.unique(torch.stack([base_rows[active].long(), nv], 1),
                             dim=0)
-    n_live = int(active.sum())
-    row_extra, lane_bytes = rank_bytes(rank, w)
-    nbytes = (int(clusters[:, 1].sum()) * (w + row_extra)
-              + n_live * (lane_bytes + 2 * 4) + active.numel() * ef * 8)
-    per_slot, rate = slot_ops(rank, w)
-    tb, to = nbytes / H100_BYTES_PER_S, per_slot * int(nv.sum()) / rate
-    old = max(tb, 2 * int(nv.sum()) * dim / H100_INT32_OPS)
-    return (1e3 * max(tb, to), "bytes" if tb >= to else "operations",
-            1e3 * old)
+    work = cost.cluster_scan(kind=rank.kind, w=w, ef=ef,
+                             n_lanes=active.numel(),
+                             live_lanes=int(active.sum()),
+                             cluster_rows=int(clusters[:, 1].sum()),
+                             scanned_rows=int(nv.sum()))
+    old = cost.Work({"int32": 2 * int(nv.sum()) * dim}, work.bytes)
+    return (*work.bound(), old.bound_ms())
 
 
 def merge_bound(q, w, k):
-    """Bytes: every (id, dist) slot read once, k of each written per row.
-    Operations: one compare per slot, at the float32 rate."""
-    nbytes = q * w * 8 + q * k * 8
-    tb, to = nbytes / H100_BYTES_PER_S, q * w / H100_FP32_OPS
-    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+    from repro_torch.kernels import cost
+    return cost.merge_topk(q, w, k).bound()
 
 
 def topk_bound(q, c, k):
-    """Bytes: ids and dists read, k of each written per row. Operations:
-    one keep-first table probe and one compare per slot, 2 Q C at the
-    float32 rate (as ``merge_bound``). Returns (ms, "bytes" or
-    "operations", ms by the first design's count): the last prices the
-    compares of two C log2 C sorts a row, that design's work rather than
-    the function's, and is logged beside the bound only."""
-    nbytes = q * c * 8 + q * k * 8
-    tb, to = nbytes / H100_BYTES_PER_S, 2 * q * c / H100_FP32_OPS
-    old = 2 * q * c * max(1, math.ceil(math.log2(c))) / H100_FP32_OPS
-    return (1e3 * max(tb, to), "bytes" if tb >= to else "operations",
-            1e3 * max(tb, old))
+    """``cost.topk_select``'s bound, and the first design's count
+    (``cost.topk_select_sorts``) logged beside it only."""
+    from repro_torch.kernels import cost
+    return (*cost.topk_select(q, c, k).bound(),
+            cost.topk_select_sorts(q, c, k).bound_ms())
 
 
-def visible_keys(sq, sk, causal, window, q_offset, kv_valid_len):
-    """(valid keys summed over the query rows, the furthest key any row
-    sees + 1) under the attention mask."""
-    valid = sk if kv_valid_len is None else kv_valid_len
-    pos = q_offset + np.arange(sq)
-    hi = np.minimum(valid, pos + 1) if causal else np.full(sq, valid)
-    lo = np.maximum(0, pos - window + 1) if window else np.zeros(sq)
-    return int(np.maximum(hi - lo, 0).sum()), int(hi.max())
-
-
-def flash_bound(q, k, v, causal, window, q_offset, kv_valid_len):
-    """Operations: a multiply-add per (query row, head, dk column, valid
-    key) for QK^T and one per dv column for PV, 2 * B * Hq * (dk + dv) *
-    (valid keys summed over the rows), at the dense bf16 tensor-core rate.
-    Bytes: q once, the K rows some query can see once and the V rows once
-    (not again when v is a view of k's own rows, as MLA's latent cache),
-    the output (q's type, dv wide) once."""
+def flash_bound(q, k, v, causal, window, q_offset, kv_valid_len,
+                softcap=0.0):
+    """``cost.flash_attention`` at these tensors' shapes and types (v a
+    view of k's rows counts once)."""
+    from repro_torch.kernels import cost
     b, sq, hq, dk = q.shape
-    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    keys, reach = visible_keys(sq, sk, causal, window, q_offset,
-                               kv_valid_len)
     alias = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
-    kv_row = dk * k.element_size() + (0 if alias else dv * v.element_size())
-    nbytes = (q.numel() * q.element_size() + b * sq * hq * dv
-              * q.element_size() + b * reach * hkv * kv_row)
-    ops = 2 * b * hq * (dk + dv) * keys
-    tb, to = nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
-    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+    return cost.flash_attention(
+        b=b, sq=sq, sk=k.shape[1], hq=hq, hkv=k.shape[2], dk=dk,
+        dv=v.shape[-1], q_bytes=q.element_size(),
+        kv_bytes=k.element_size(), causal=causal, window=window,
+        q_offset=q_offset, kv_valid_len=kv_valid_len, alias=alias,
+        softcap=softcap).bound()
 
 
 # ---------------------------------------------------------------------------
@@ -789,8 +770,9 @@ def phase_build_kernels():
 def hold_hd256_spills(report: str) -> None:
     """The head-dim-256 instantiations in ptxas's report of the flash
     library (the split-dv kernel for bf16 q, the CUDA-core kernel for
-    float32 q, each over bf16 and float32 K/V): logged, and none may spill
-    (a spill would put O's registers through local memory)."""
+    float32 q, each over bf16 and float32 K/V, each without and with the
+    softcap): logged, and none may spill (a spill would put O's registers
+    through local memory)."""
     fn, seen = None, 0
     for line in report.splitlines():
         if "Compiling entry function" in line:
@@ -805,8 +787,8 @@ def hold_hd256_spills(report: str) -> None:
             if " 0 bytes spill stores, 0 bytes spill loads" not in \
                     f" {line.strip()}":
                 fail(f"the hd-256 instantiation {fn} spills: {line.strip()}")
-    if report and seen != 4:
-        fail(f"ptxas reported {seen} head-dim-256 instantiations, expected 4")
+    if report and seen != 8:
+        fail(f"ptxas reported {seen} head-dim-256 instantiations, expected 8")
 
 
 def synthetic_rank_inputs(torch, dev, n_lanes, n_rows, w, t_rows, seed):
@@ -1126,59 +1108,25 @@ def plain_beam_counted(torch, args, dim, ef, iters, m):
                           int(torch.unique(expanded).numel()))
 
 
-def rank_bytes(rank, w):
-    """(bytes a ranked row reads beside its W code bytes, bytes of a lane's
-    rank operands): O3 f_add and the int32 LUT, sumq, s1, s2; Hamming
-    nothing and the W-byte qcode; Exact residual_norm and cos_theta and the
-    float LUT, sum_lut, query_norm."""
-    if rank.kind == "hamming":
-        return 0, w
-    if rank.kind == "exact":
-        return 8, (8 * w + 2) * 4
-    return 4, (8 * w + 3) * 4
-
-
-def slot_ops(rank, w):
-    """(operations ranking one (lane, row) slot takes at least, the rate's
-    name): a table lookup and an add per code byte (O3, 2 W), per half
-    byte in float32 plus the estimator's ten (Exact, 4 W + 10), an XOR, a
-    popcount and an add per 32-bit word (Hamming, 3 W / 4)."""
-    if rank.kind == "hamming":
-        return 3 * w / 4, H100_INT32_OPS
-    if rank.kind == "exact":
-        return 4 * w + 10, H100_FP32_OPS
-    return 2 * w, H100_INT32_OPS
-
-
 def beam_bound(args, ef, dim, reads):
-    """Bytes: each distinct neighbour-table row expanded (4 R) and each
-    distinct row ranked (its code and per-row factors, ``rank_bytes``)
-    once, since lanes that probe one cluster start from its entry and share
-    rows (as ``rank_bound`` counts them); the rank operands of each lane
-    with an entry (every such lane ranks it), each lane's two int32 scalars
-    and its active flag, the (L, EF) ids and ranks and the (L,) hops
-    written. Operations: ``slot_ops`` per ranked (lane, row) slot, the
-    least a row's rank takes. ``args`` are the ranked arguments (codes,
-    rank, nbrs, base_rows, entry, active); ``reads`` is this run's
+    """``cost.beam_search`` of the ranked arguments (codes, rank, nbrs,
+    base_rows, entry, active) with this run's ``reads``
     (``plain_beam_counted``). Returns (ms, "bytes" or "operations", ms by
     the bit count, ms by the kernel's nibble tables): the last two price
     2 dim and 4 W operations an O3 slot against the same bytes, and are
     logged beside the bound only."""
+    from repro_torch.kernels import cost
     codes, rank, nbrs, entry = args[0], args[1], args[2], args[4]
-    w, r = codes.shape[1], nbrs.shape[1]
-    n_lanes = entry.numel()
-    row_extra, lane_bytes = rank_bytes(rank, w)
-    nbytes = (reads.expanded * 4 * r + reads.rows * (w + row_extra)
-              + int((entry >= 0).sum()) * lane_bytes
-              + n_lanes * (2 * 4 + 1) + n_lanes * (ef * 8 + 4))
-    tb = nbytes / H100_BYTES_PER_S
-    per_slot, rate = slot_ops(rank, w)
-    to = reads.slots * per_slot / rate
+    work = cost.beam_search(kind=rank.kind, w=codes.shape[1],
+                            r=nbrs.shape[1], ef=ef, n_lanes=entry.numel(),
+                            entries=int((entry >= 0).sum()),
+                            expanded=reads.expanded, rows=reads.rows,
+                            slots=reads.slots)
 
     def by(ops):
-        return 1e3 * max(tb, ops / H100_INT32_OPS)
-    return (1e3 * max(tb, to), "bytes" if tb >= to else "operations",
-            by(2 * reads.slots * dim), by(4 * reads.slots * w))
+        return cost.Work({"int32": ops}, work.bytes).bound_ms()
+    return (*work.bound(), by(2 * reads.slots * dim),
+            by(4 * reads.slots * codes.shape[1]))
 
 
 def quirk_beam_inputs(torch, dev):
@@ -3051,6 +2999,7 @@ def phase_lm(torch, dev, eng):
                                 cache, "plain one-pass attention")
 
     q0, k0, v0, kw0 = calls[0]
+    SAVED["lm_layer0"] = calls[0]          # phase 20's tensor-core inputs
     bf = torch.bfloat16
     exact = [torch.equal(t.to(bf).float(), t) for t in (k0, v0)]
     log(f"layer 0's K / V ({k0.dtype}) bf16-exact: {exact[0]} / {exact[1]}")
@@ -4247,16 +4196,17 @@ def bwd_bound(q, k, v, causal, window, q_offset, kv_valid_len):
     = dS K and dK = dS^T Q, five products of that size where the forward
     has two), at the bf16 tensor-core rate; its bytes, q, k, v, out and dout
     read once, lse read once, dq, dk and dv written once."""
+    from repro_torch.kernels import cost
     b, sq, hq, dk = q.shape
     sk, dv = k.shape[1], v.shape[-1]
-    keys, _ = visible_keys(sq, sk, causal, window, q_offset, kv_valid_len)
+    keys, _ = cost.visible_keys(sq, sk, causal, window, q_offset,
+                                kv_valid_len)
     e = q.element_size()
     nbytes = (2 * (q.numel() + b * sq * hq * dv) * e      # q, dq; out, dout
               + 2 * (k.numel() + v.numel()) * e            # k, v; dk, dv
               + b * hq * sq * 4)                           # lse
-    ops = 2.5 * 2 * b * hq * (dk + dv) * keys
-    tb, to = nbytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
-    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+    return cost.Work({"bf16": 2.5 * 2 * b * hq * (dk + dv) * keys},
+                     nbytes).bound()
 
 
 def phase_train(torch, dev):
@@ -4360,6 +4310,7 @@ def phase_train(torch, dev):
     # where a step's time goes: the last step again under the profiler
     fn, args = last
     last.clear()
+    SAVED["train_step"] = (fn, args, float(np.median(steady)) / 1e3)
     wall, kern = profiled(torch, lambda: fn(*args))
     del fn, args
     busy = sum(ms for _, _, ms in kern)
@@ -5110,6 +5061,7 @@ def phase_sharded_lm(torch, dev, eng) -> tuple[int, dict]:
         if not torch.equal(r["toks"], ranks[0]["toks"]) or not torch.equal(
                 r["gen_tokens"], ranks[0]["gen_tokens"]):
             fail(f"11s: rank {k}'s greedy tokens differ from rank 0's")
+    SAVED["11s"] = r0["windows"]          # phase 21b's witness
     log(f"11s collectives by rank equal the reckoning in every window "
         f"(a prefill, a decode step, generate's {n_gen - 1} steps and its "
         f"retrieval)")
@@ -5163,9 +5115,9 @@ def phase_sharded_lm(torch, dev, eng) -> tuple[int, dict]:
 # ---------------------------------------------------------------------------
 
 SHARDED_TRAIN_MESH = (2, 2)       # phase 19s: ('data', 'model') gloo ranks
-SHARDED_TRAIN = (2, 4, 512)       # steps, rows, tokens a row (19's 16 x 8 x
-#                                   2,048 cut for gloo's time, and to 2
-#                                   steps for the smoke's; width and depth
+SHARDED_TRAIN = (1, 4, 512)       # steps, rows, tokens a row (19's 16 x 8 x
+#                                   2,048 cut for gloo's time, and to 1
+#                                   step for the smoke's; width and depth
 #                                   whole)
 BF16_U = 2.0 ** -8                # bf16's unit roundoff
 
@@ -5515,6 +5467,7 @@ def phase_sharded_train(torch, dev) -> tuple[int, dict]:
             f"{b * s / (max(ms) / 1e3):.1f} tokens/s; launches by rank "
             f"{[r['launches'][i] for r in ranks]}")
     log(f"19s rank 0's collectives a step: {json.dumps(r0['colls'][0])}")
+    SAVED["19s"] = r0["colls"][0]         # phase 21b's witness
     for k, r in enumerate(ranks):
         if r["bits"] != r0["bits"]:
             fail(f"19s: rank {k}'s metrics differ from rank 0's: "
@@ -5553,6 +5506,418 @@ def phase_sharded_train(torch, dev) -> tuple[int, dict]:
                          "19s rank 0 layer 0", out["call"])
     log(f"19s done in {time.perf_counter() - t_phase:.1f} s")
     return r0["counted"]["flash_attention"], row
+
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the attention softcap on every kernel route
+# ---------------------------------------------------------------------------
+
+SOFTCAP = 50.0     # Gemma 2's published attn_logit_softcapping: a test input
+SAVED: dict = {}   # what a later phase reuses of an earlier one's run
+
+
+def event_ms(torch, fn, iters: int) -> float:
+    """ms a call of fn() by CUDA events around ``iters`` calls launched
+    back to back, after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def softcap_routes(torch, dev) -> dict:
+    """The softcap phase's inputs by route: (q, k, v, mask). danube's real
+    layer-0 prefill inputs of phase 11 (B 8, S 2,048, 32 / 8 heads of 80,
+    bf16 q, the float32 cache) on the tensor-core route, causal, and in
+    float32 on the CUDA-core route; whisper's encoder shape (B 8, 1,500
+    frames, 20 heads of 64, bf16) non-causal; MLA's (576, 512) at
+    deepseek-v2-lite's prefill (B 8, S 2,048, 16 heads over the bf16
+    latent cache, v its first 512 columns); recurrentgemma's hd 256 (B 8,
+    S 3,072, 16 heads over one, window 2,048). Every route takes q scaled
+    by 6, so that the scores reach the cap's bend and an uncapped kernel
+    falls outside the bound (``phase_softcap``)."""
+    g = torch.Generator(device=dev).manual_seed(29)
+
+    def rnd(shape, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+    q0, k0, v0, kw0 = SAVED.pop("lm_layer0")
+    lat = rnd((8, 2048, 1, 576))
+    return {
+        "tc": (q0 * 6, k0, v0, dict(kw0)),
+        "noncausal": (rnd((8, 1500, 20, 64), 6), rnd((8, 1500, 20, 64)),
+                      rnd((8, 1500, 20, 64)), dict(causal=False)),
+        "float32": (q0.float() * 6, k0, v0, dict(kw0)),
+        "mla": (rnd((8, 2048, 16, 576), 6), lat, lat[..., :512],
+                dict(causal=True)),
+        "hd256": (rnd((8, 3072, 16, 256), 6), rnd((8, 3072, 1, 256)),
+                  rnd((8, 3072, 1, 256)), dict(causal=True, window=2048)),
+    }
+
+
+def hold_seq_split_calls(torch, dev) -> None:
+    """The kernel calls of a decode step over a sequence-split cache
+    (``models.attention._seq_split_step``, the dry-run's decode cells) at
+    a danube decode_32k rank's shape: one float32 row a request (B 8, 32 /
+    8 heads of 80) over the rank's 2,048 bf16 slots, non-causal, asked for
+    the lse; the valid slots of a rolling cache (1,500 of them), and a
+    window of 2,500 seen from a query 4,000 positions past the rank's
+    first slot (its last 547 slots). Each output held against the float32
+    plain version within ``attn_bound``, its lse by ``hold_lse``."""
+    from repro_torch.kernels import flash_attn, ref
+    g = torch.Generator(device=dev).manual_seed(2029)
+    q = torch.randn((8, 1, 32, 80), generator=g, device=dev)
+    k = torch.randn((8, 2048, 8, 80), generator=g, device=dev).bfloat16()
+    v = torch.randn((8, 2048, 8, 80), generator=g, device=dev).bfloat16()
+    for kw in (dict(causal=False, kv_valid_len=1500),
+               dict(causal=False, window=2500, q_offset=4000)):
+        label = f"seq-split decode call {kw}"
+        got = flash_attn.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        close(torch, "flash_attention", label, got, want,
+              attn_bound(torch, want), record=False)
+        hold_lse(torch, "flash_attention", label, got, q, k, v, kw)
+
+
+def phase_softcap(torch, dev) -> dict:
+    """Phase 20: the attention softcap (cap 50) on each kernel template:
+    ``flash_tc_kernel`` causal (danube's layer 0) and non-causal
+    (whisper's encoder shape), the CUDA-core ``flash_fwd_kernel`` (float32
+    q), ``flash_mla_kernel`` at (576, 512) and at hd 256 with a window.
+    The path, ``models.attention.attend(..., softcap=)``, runs on each
+    route's inputs with the launch counts set to 0 just before and read
+    just after, route by route: one launch each. Each output is held as
+    in phase 11 (bf16 q: against the capped twin with the flip term and
+    the float32 plain version within ``flash_attention_rounding_bound``;
+    float32 q: against the float32 plain version within ``attn_bound``),
+    its lse by ``hold_lse``; the uncapped kernel's output on the same
+    inputs must fall outside the bound against the capped float32 plain
+    version somewhere (a kernel that ignored the cap would fail the hold);
+    the kernel, its plain version (the twin for bf16 q) and
+    the bound (``kernels/cost.py``) timed and logged, by CUDA events.
+    ``scaled_dot_product_attention`` has no score cap: no library time.
+    Then the capped backward: ``attend``'s gradients on the card against
+    the CPU's at a training shape (B 2, S 512, danube's heads, bf16), each
+    within ``ref.flash_attention_bwd_bound`` of float32 autograd, so the
+    two within the sum of their bounds. Returns the kernels-line rows."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention import attend, attend_onepass
+    t_phase = time.perf_counter()
+    routes = softcap_routes(torch, dev)
+    for q, k, v, kw in routes.values():
+        kw["softcap"] = SOFTCAP
+    outs, launches = {}, {}
+    for name, (q, k, v, kw) in routes.items():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        outs[name] = attend(q, k, v, **kw)
+        torch.cuda.synchronize()
+        launches[name] = ops.launch_counts()["flash_attention"]
+    print("kernels softcap " + json.dumps(launches), flush=True)
+    if any(n != 1 for n in launches.values()):
+        fail(f"20: attend(softcap=) launched flash_attention {launches} "
+             f"times by route, expected once a route")
+    rows = {}
+    for name, (q, k, v, kw) in routes.items():
+        kernel = f"flash_attention/softcap/{name}"
+        label = (f"q {tuple(q.shape)} {str(q.dtype)[6:]}, k/v "
+                 f"{tuple(k.shape)} / {tuple(v.shape)} {str(k.dtype)[6:]}, "
+                 f"{kw}")
+        got = outs.pop(name)
+        if q.dtype == torch.bfloat16:
+            want, bound = hold_bf16_attention(torch, label, got, q, k, v, kw,
+                                              kernel)
+            plain = lambda: ref.flash_attention_ref(   # noqa: E731
+                q, k, v, operands=torch.bfloat16, **kw)
+        else:
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            bound = attn_bound(torch, want)
+            close(torch, kernel, label, got, want, bound)
+            plain = lambda: ref.flash_attention_ref(q, k, v, **kw)  # noqa
+        hold_lse(torch, kernel, label, got, q, k, v, kw)
+        bare = ops.flash_attention(
+            q, k, v, **{x: y for x, y in kw.items() if x != "softcap"})
+        moved = float((got.double() - bare.double()).abs().max())
+        over = int(((bare.double() - want.double()).abs() > bound).sum())
+        if not over:
+            fail(f"20 {kernel}: the uncapped kernel's output is within the "
+                 f"bound the capped one is held to (the cap moves it by "
+                 f"{moved:.4g}): a kernel that ignored the cap would pass")
+        del got, want, bound, bare
+        ms = event_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), 10)
+        plain_ms = event_ms(torch, plain, 2)
+        bound = flash_bound(q, k, v, kw["causal"], kw.get("window"),
+                            kw.get("q_offset", 0), kw.get("kv_valid_len"),
+                            softcap=SOFTCAP)
+        rows[kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                            bound_by=bound[1], library_ms=None,
+                            launches=launches[name])
+        log(f"20 {kernel}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+            f"bound {bound[0]:.5f} ms ({bound[1]}) by CUDA events; the cap "
+            f"moves the output by up to {moved:.4g} (uncapped kernel; "
+            f"{over} elements outside the capped hold's bound); no library "
+            f"call caps the scores")
+    del routes, outs
+    torch.cuda.empty_cache()
+    hold_seq_split_calls(torch, dev)
+    # the capped backward on the card against the CPU's
+    gen = torch.Generator().manual_seed(20)
+    q = (6 * torch.randn((2, 512, 32, 80), generator=gen)).bfloat16()
+    k = torch.randn((2, 512, 8, 80), generator=gen).bfloat16()
+    v = torch.randn((2, 512, 8, 80), generator=gen).bfloat16()
+    go = torch.randn((2, 512, 32, 80), generator=gen).bfloat16()
+    kw = dict(causal=True, softcap=SOFTCAP)
+    f32 = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attend_onepass(*f32, **kw), f32, go.float())
+    got, bounds = {}, {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        x = [t.to(d).requires_grad_() for t in (q, k, v)]
+        got[side] = torch.autograd.grad(attend(*x, **kw), x, go.to(d))
+        with torch.no_grad():
+            o, lse = ops.flash_attention(*x, return_lse=True, **kw)
+            bounds[side] = ref.flash_attention_bwd_bound(
+                *x, o, lse, go.to(d), **kw)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        card_g, cpu_g = got["card"][i].double().cpu(), got["cpu"][i].double()
+        for side, g_, b_ in (("card", card_g, bounds["card"][i].cpu()),
+                             ("cpu", cpu_g, bounds["cpu"][i])):
+            if not bool(((g_ - want[i].double()).abs() <= b_).all()):
+                fail(f"20: the capped backward's {name} on the {side} is "
+                     f"outside flash_attention_bwd_bound of float32 "
+                     f"autograd")
+        both = bounds["card"][i].cpu() + bounds["cpu"][i]
+        diff = (card_g - cpu_g).abs()
+        log(f"20 capped backward {name} (B 2, S 512, 32 / 8 heads of 80, "
+            f"bf16): card vs CPU max |diff| {float(diff.max()):.4g}, at "
+            f"most {float((diff / both).max()):.3g} of the summed bounds")
+    log(f"20 done in {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the dry-run's accounting held against the card
+# ---------------------------------------------------------------------------
+
+def profiled_matmul_flops(torch, fn) -> tuple[float, object]:
+    """(the matrix products' FLOPs ``torch.profiler``'s ``with_flops``
+    gives for one call of fn: aten::mm, addmm, bmm, baddbmm and the
+    convolutions; its other counted ops, elementwise, are left out as the
+    accounting leaves them out; fn's result). Run with the checkpoint's
+    early stop off, as ``op_stats.count`` runs (its docstring): the same
+    program on both sides."""
+    import torch.utils.checkpoint as checkpoint
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with checkpoint.set_checkpoint_early_stop(False), \
+            profile(activities=[ProfilerActivity.CPU],
+                    with_flops=True) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    keep = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
+            "aten::conv", "aten::convolution", "aten::_convolution")
+    return float(sum(e.flops for e in prof.key_averages()
+                     if e.flops and e.key.startswith(keep)
+                     and not e.key.startswith("aten::conv_"))), out
+
+
+def placed_bytes(torch, tree) -> tuple[int, int, int]:
+    """(torch.cuda.memory_allocated() taken by a copy of the tensors of
+    ``tree`` made here, their bytes, the bytes the caching allocator's
+    512-byte blocks round them to)."""
+    from repro_torch import tree as T
+    leaves = [x for x in T.leaves(tree) if isinstance(x, torch.Tensor)]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    copy = [x.clone() for x in leaves]
+    torch.cuda.synchronize()
+    got = torch.cuda.memory_allocated() - before
+    del copy
+    torch.cuda.empty_cache()
+    nbytes = [x.numel() * x.element_size() for x in leaves]
+    return got, sum(nbytes), sum(-(-n // 512) * 512 for n in nbytes)
+
+
+def phase_witness_card(torch, dev, card: str) -> None:
+    """Phase 21a (right after phase 19, on its params and optimizer state,
+    its full preset's config):
+    the dry-run's accounting (``launch.op_stats.count`` on meta tensors on
+    a one-rank ``AccountingMesh``) of danube's prefill of phase 11 (B 8,
+    S 2,048, a float32 cache) and of phase 19's train step held against
+    the card: the argument bytes against ``torch.cuda.memory_allocated()``
+    of a copy of the placed params and cache, or params and optimizer
+    state (the caching allocator gives whole 512-byte blocks, so the
+    allocated bytes are the count's bytes rounded up a tensor at a time:
+    that sum must be met exactly); the matrix products' FLOPs within 1% of
+    ``torch.profiler``'s ``with_flops`` for the same step; the roofline
+    step time (``launch/roofline.py``), the measured step time and MFU =
+    model_flops / (t_measured x peak), each on its own line."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import op_stats, roofline, train
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    fn, args, step_s = SAVED.pop("train_step")
+    params, opt, batch = args
+    cfg = train.preset_config(TRAIN_ARCH, "full")
+    model = build_model(cfg)
+    one = S.AccountingMesh(("data", "model"), (1, 1))
+    meta = model.shapes()
+
+    def meta_like(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+    b, s = 8, 2048
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev)
+    cache = model.init_cache(b, s, dtype=torch.float32, device=dev)
+    mcache = model.init_cache(b, s, dtype=torch.float32, device="meta")
+
+    def real_prefill():
+        return model.prefill(params, tokens, cache)
+    # the measured prefill: median of 5 after a warm-up
+    real_prefill()
+    ts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_prefill()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t)
+    pre_s = float(np.median(ts))
+    prof_pre, _ = profiled_matmul_flops(torch, real_prefill)
+    with S.use_mesh(one):
+        _, acc_pre = op_stats.count(
+            lambda: model.prefill(meta, meta_like(tokens), mcache))
+    got_pre = placed_bytes(torch, [params, cache])
+    acc_pre_args = sum(x.numel() * x.element_size() for x in
+                       S.tree_flatten([meta, mcache],
+                                      is_leaf=lambda x: hasattr(x, "shape")
+                                      )[0] if isinstance(x, torch.Tensor))
+    del cache
+    # the train step of phase 19 on its last step's arguments
+    prof_tr, _ = profiled_matmul_flops(torch, lambda: fn(*args))
+    from repro_torch.models.model import make_train_step
+    from repro_torch.optim import adamw
+    ocfg = adamw.AdamWConfig(warmup_steps=min(100, TRAIN_STEPS // 10 + 1),
+                             decay_steps=TRAIN_STEPS)
+    mopt = adamw.init(ocfg, meta)
+    mbatch = {k: meta_like(v) for k, v in batch.items()}
+    with S.use_mesh(one):
+        _, acc_tr = op_stats.count(
+            lambda: make_train_step(model, ocfg)(meta, mopt, mbatch))
+    got_tr = placed_bytes(torch, [params, opt])
+    acc_tr_args = sum(x.numel() * x.element_size() for x in
+                      S.tree_flatten([meta, mopt],
+                                     is_leaf=lambda x: hasattr(x, "shape")
+                                     )[0] if isinstance(x, torch.Tensor))
+    n_act = cfg.active_param_count()
+    for name, acc, prof, got, args_b, t_meas, model_flops in (
+            ("prefill (phase 11's, B 8 x 2,048)", acc_pre, prof_pre,
+             got_pre, acc_pre_args, pre_s, 2.0 * n_act * b * s),
+            (f"train step (phase 19's, {TRAIN_B} x {TRAIN_S})", acc_tr,
+             prof_tr, got_tr, acc_tr_args, step_s,
+             6.0 * n_act * TRAIN_B * TRAIN_S)):
+        alloc, counted, rounded = got
+        log(f"21 {name}: argument bytes counted {args_b} (accounting), "
+            f"{counted} (the card's tensors), {rounded} rounded to 512-byte "
+            f"blocks; torch.cuda.memory_allocated of their copy {alloc}")
+        if args_b != counted or alloc != rounded:
+            fail(f"21 {name}: the argument bytes {args_b} / {counted} and "
+                 f"the allocation {alloc} / {rounded} differ")
+        rel = abs(acc.matmul_flops - prof) / prof
+        log(f"21 {name}: matrix-product FLOPs counted "
+            f"{acc.matmul_flops:.6g}, torch.profiler with_flops {prof:.6g} "
+            f"(|diff| {rel:.3g} of it); the kernels' "
+            f"{json.dumps({k: v['launches'] for k, v in acc.kernels.items()})}"
+            f" launches")
+        if rel > 0.01:
+            fail(f"21 {name}: the counted matmul FLOPs are not within 1% of "
+                 f"the profiler's")
+        terms = roofline.RooflineTerms(
+            flops=acc.flops, hbm_bytes=acc.bytes, coll_bytes=acc.coll_bytes,
+            chips=1, peak_flops=lmesh.PEAK_FLOPS_BF16, hbm_bw=lmesh.HBM_BW,
+            link_bw=lmesh.ICI_BW, model_flops=model_flops)
+        print(f"21 {name} roofline step time {terms.step_time_s * 1e3:.3f} "
+              f"ms ({terms.bottleneck}; computed from shapes)", flush=True)
+        print(f"21 {name} measured step time {t_meas * 1e3:.3f} ms "
+              f"({card})", flush=True)
+        mfu = model_flops / (t_meas * lmesh.PEAK_FLOPS_BF16)
+        print(f"21 {name} MFU {mfu:.4f} = model_flops {model_flops:.6g} / "
+              f"(t_measured x "
+              f"{lmesh.PEAK_FLOPS_BF16:.4g} FLOP/s) on {card}; at the "
+              f"roofline {terms.mfu:.4f}", flush=True)
+    log(f"21a done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_witness_mesh(torch) -> None:
+    """Phase 21b: the collectives of phase 11s's windows (a prefill, a
+    decode step, each with its greedy token) on a (1 x 4)
+    ``AccountingMesh`` and of phase 19s's train step on a (2 x 2) one,
+    each rank's program run on meta tensors, by kind, calls and bytes,
+    against what 11s's and 19s's rank 0 counted on the card (reused, not
+    run again)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models.model import build_model, greedy, make_train_step
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    cfg = get_config(SHARDED_ARCH)
+    model = build_model(cfg)
+    meta = model.shapes()
+    b, s, n_gen = SHARDED_REQ
+    coll = S.collectives()
+    for m in range(SHARDED_MESH[1]):
+        with S.use_mesh(S.AccountingMesh(("data", "model"), SHARDED_MESH,
+                                         (0, m))):
+            params = S.blocks_of(meta, model.specs())
+            cache = model.init_cache(b, s + n_gen, dtype=torch.float32,
+                                     device="meta")
+            tok = torch.empty((b, s), dtype=torch.int64, device="meta")
+            coll.reset()
+            logits, cache = model.prefill(params, tok, cache)
+            greedy(logits, cfg, b)
+            got = {"prefill": coll.as_dict()}
+            coll.reset()
+            logits, cache = model.decode(params, tok[:, :1], cache)
+            greedy(logits, cfg, b)
+            got["decode"] = coll.as_dict()
+        if got != SAVED["11s"]:
+            fail(f"21b: the accounting mesh's 11s windows at (0, {m}) "
+                 f"{json.dumps(got)} differ from the card's "
+                 f"{json.dumps(SAVED['11s'])}")
+    log(f"21b 11s windows on the (1 x 4) accounting mesh equal the card's "
+        f"at every coordinate: {json.dumps(SAVED['11s'])}")
+    from repro_torch.launch import train
+    steps, b, s = SHARDED_TRAIN
+    tcfg = train.preset_config(TRAIN_ARCH, "full")
+    tmodel = build_model(tcfg)
+    tmeta = tmodel.shapes()
+    ocfg = adamw.AdamWConfig(warmup_steps=min(100, steps // 10 + 1),
+                             decay_steps=steps)
+    batch = {k: torch.empty((b, s), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}     # token_batch's int32
+    for d in range(SHARDED_TRAIN_MESH[0]):
+        for m in range(SHARDED_TRAIN_MESH[1]):
+            with S.use_mesh(S.AccountingMesh(("data", "model"),
+                                             SHARDED_TRAIN_MESH, (d, m))):
+                params = S.blocks_of(tmeta, tmodel.specs())
+                opt = adamw.init(ocfg, params)
+                step = make_train_step(tmodel, ocfg, donate=True)
+                coll.reset()
+                step(params, opt, batch)
+                got = coll.as_dict()
+            if got != SAVED["19s"]:
+                fail(f"21b: the accounting mesh's 19s step at ({d}, {m}) "
+                     f"{json.dumps(got)} differs from the card's "
+                     f"{json.dumps(SAVED['19s'])}")
+    log(f"21b 19s step on the (2 x 2) accounting mesh equals the card's at "
+        f"every coordinate: {json.dumps(SAVED['19s'])}")
+    log(f"21b done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -5600,11 +5965,14 @@ def main() -> None:
     del eng
     mutable = phase_mutable(torch, parts, icfg, qt)
     train_launches, train_row = phase_train(torch, dev)
+    phase_witness_card(torch, dev, card)
     phase_train_witness(torch, dev)
     phase_train_resume(torch, dev)
     phase_train_dp(torch, dev)
     phase_train_dp(torch, dev, pod=True)
     strain_launches, strain_row = phase_sharded_train(torch, dev)
+    phase_witness_mesh(torch)
+    softcap_rows = phase_softcap(torch, dev)
 
     src = {"binary_ip_rank": ("src/repro_torch/kernels/csrc/binary_ip.cu",
                               "src/repro/kernels/binary_ip.py:79"),
@@ -5690,6 +6058,16 @@ def main() -> None:
         ms=strain_row["ms"], plain_ms=strain_row["plain_ms"],
         bound_ms=strain_row["bound_ms"], bound_by=strain_row["bound_by"],
         library_ms=strain_row["library_ms"]))
+    # the attention softcap (phase 20), one row a kernel template's route:
+    # its launch in the phase's counted run, its time by CUDA events; no
+    # library call caps the scores (library_ms null)
+    for name, row in softcap_rows.items():
+        kernels.append(dict(
+            name=name, route="cuda", source=src["flash_attention"][0],
+            replaces=src["flash_attention"][1], launches=row["launches"],
+            max_abs_err=ERRS[name], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"]))
     # each rank policy of beam_search and cluster_scan (phase 8b): its own
     # launches, times and errors, on the search of its own backend
     for name, row in ranked.items():

@@ -58,6 +58,15 @@ replicated value with a whole cotangent handed into such compute goes
 through ``grad_once`` (kept on the axis' first rank). ``psum`` reduces
 over the batch axes, ('pod', 'data') in one group over both.
 
+Accounting (the dry-run, ``launch/dryrun.py``): an ``AccountingMesh`` is
+a mesh with no processes, its axis names and sizes and one rank's
+coordinate on it (the origin unless told). Under ``use_mesh`` of one the
+model runs unchanged on meta tensors as that rank: every collective
+returns a meta tensor of the shape the real one returns and adds the
+bytes the real one adds to ``collectives()``, ``axis_index`` gives the
+rank's coordinate, and nothing is sent. It is never chosen for a caller:
+a caller passes it.
+
 Every rank builds the same graph, so autograd issues the backward's
 collectives in one order on all of them (its sequence numbers order
 independent branches alike), and remat's recompute issues the forward's
@@ -78,12 +87,16 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import Replicate, Shard
 
-__all__ = ["P", "NamedSharding", "Collectives", "current_mesh", "use_mesh",
+__all__ = ["P", "NamedSharding", "Collectives", "AccountingMesh",
+           "is_accounting",
+           "current_mesh", "use_mesh",
            "resolve_entries", "resolve_spec", "resolve_tree",
            "shardings_tree", "tree_flatten", "tree_unflatten", "constrain",
            "collectives", "axis_size", "axis_index", "local_shape",
            "block_of", "blocks_of", "broadcast_from", "staged", "sum_grad",
-           "grad_once", "psum", "gather_whole", "broadcast_object"]
+           "grad_once", "psum", "all_reduce", "all_gather", "gather_whole",
+           "broadcast_object",
+           "fsdp_specs"]
 
 _state = threading.local()
 
@@ -110,6 +123,56 @@ class NamedSharding:
     mesh: Any
     spec: "P"
     placements: tuple
+
+
+class AccountingMesh:
+    """A mesh with no processes: axis names, sizes and the coordinate of
+    the one rank whose program runs (the origin by default). Its device
+    type is "meta": the collectives of this module run on it as meta
+    tensors and count what the real ones count (the module's docstring).
+    """
+
+    device_type = "meta"
+
+    def __init__(self, names: Sequence[str], shape: Sequence[int],
+                 coord: Sequence[int] | None = None):
+        self.mesh_dim_names = tuple(names)
+        self.shape = tuple(int(n) for n in shape)
+        self.coord = tuple(coord) if coord is not None else \
+            (0,) * len(self.shape)
+        if len(self.mesh_dim_names) != len(self.shape) or \
+                len(self.coord) != len(self.shape) or \
+                not all(0 <= c < n for c, n in zip(self.coord, self.shape)):
+            raise ValueError(f"accounting mesh {self.shape} over "
+                             f"{self.mesh_dim_names} at {self.coord}")
+        self.mesh = torch.arange(math.prod(self.shape)).reshape(self.shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coord[self.mesh_dim_names.index(axis)]
+
+    def get_coordinate(self) -> list[int]:
+        return list(self.coord)
+
+    def __repr__(self) -> str:
+        return (f"AccountingMesh({self.mesh_dim_names}, {self.shape}, "
+                f"coord={self.coord})")
+
+
+def is_accounting(mesh) -> bool:
+    """Whether ``mesh`` is an ``AccountingMesh`` (no processes)."""
+    return isinstance(mesh, AccountingMesh)
+
+
+
+def _meta(shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=like.dtype, device="meta")
 
 
 def current_mesh():
@@ -273,6 +336,38 @@ def shardings_tree(mesh, params: Any, specs: Any) -> Any:
     return tree_unflatten(structure, out)
 
 
+def fsdp_specs(specs: Any, shapes: Any, mesh) -> Any:
+    """ZeRO-3 / FSDP (the JAX package's dry-run ``_apply_fsdp``): every
+    weight of two dims or more also split over 'data', by three
+    preferences: a tensor that stays over 256 MB a rank even split over
+    'model' and 'data' (the MoE expert stacks) takes ('model', 'data') on
+    its 'model' dim where that dim divides; else 'data' on the first spare
+    trailing dim 'data' divides; else on dim 0 (a stacked layer dim).
+    ``shapes``: the tree's tensors (meta ones too), whole."""
+    sizes = _sizes(mesh)
+    dp, tp = sizes.get("data", 1), sizes.get("model", 1)
+    leaves, structure = tree_flatten(shapes, is_leaf=_is_shape)
+    spec_leaves, _ = tree_flatten(specs, is_leaf=lambda x: isinstance(x, P))
+
+    def one(spec, t):
+        dims = tuple(t.shape)
+        if len(dims) < 2:
+            return spec
+        entries = list(spec) + [None] * (len(dims) - len(spec))
+        if t.numel() * t.element_size() / (tp * dp) > 256e6:
+            for i, e in enumerate(entries):
+                if e == "model" and dims[i] % (tp * dp) == 0:
+                    entries[i] = ("model", "data")
+                    return P(*entries)
+        for i in list(range(1, len(dims))) + [0]:
+            if entries[i] is None and dims[i] % dp == 0 and dims[i] >= dp:
+                entries[i] = "data"
+                return P(*entries)
+        return spec
+    return tree_unflatten(structure, [one(sp, t) for sp, t in
+                                      zip(spec_leaves, leaves)])
+
+
 # ---------------------------------------------------------------------------
 # constrain: the layout changes of the sharded LM, as explicit collectives
 # ---------------------------------------------------------------------------
@@ -340,8 +435,9 @@ def axis_index(axis, mesh=None) -> int:
 
 def _single(entry, what: str):
     """The one mesh axis of a resolved entry; a dim split over several
-    axes at once is gathered or scattered through no collective here
-    (only sliced, reduced, and summed in a gradient)."""
+    axes at once is scattered (a partial sum onto it, a slice's gradient)
+    through no collective here; it is gathered one axis at a time
+    (``_gather_axes``)."""
     if isinstance(entry, tuple):
         if len(entry) != 1:
             raise NotImplementedError(
@@ -418,7 +514,9 @@ def _slice_dim(x: torch.Tensor, mesh, axis, d: int) -> torch.Tensor:
 
 def staged(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` contiguous on the device the mesh's collectives run on (gloo:
-    the host)."""
+    the host); a meta tensor stays where it is."""
+    if x.device.type == "meta":
+        return x.contiguous()
     return x.to(mesh.device_type).contiguous()
 
 
@@ -444,22 +542,45 @@ def _group(mesh, axis):
     return _GROUPS[key][1]
 
 
-def _all_reduce(x, mesh, axis, op=dist.ReduceOp.SUM):
+# ``counts``: the ``Collectives`` a call adds to (the module's by default)
+
+def _all_reduce(x, mesh, axis, op=dist.ReduceOp.SUM, kind="all_reduce",
+                counts=None):
+    counts = _COUNTS if counts is None else counts
+    if is_accounting(mesh):
+        counts._add(kind, x.nbytes)
+        return _meta(x.shape, x)
     buf = x.to(mesh.device_type, copy=True).contiguous()
     dist.all_reduce(buf, op=op, group=_group(mesh, axis))
-    _COUNTS._add("all_reduce", buf.nbytes)
+    counts._add(kind, buf.nbytes)
     return buf.to(x.device)
 
 
-def _all_gather(x, mesh, axis, d):
+def _all_gather(x, mesh, axis, d, counts=None):
+    """The blocks of every rank along ``axis`` concatenated on dim ``d``:
+    along a tuple of axes, in the group's rank order (ascending global
+    rank)."""
+    counts = _COUNTS if counts is None else counts
+    if is_accounting(mesh):
+        shape = list(x.shape)
+        shape[d] *= axis_size(axis, mesh)
+        out = _meta(shape, x)
+        counts._add("all_gather", out.nbytes)
+        return out
     xs = staged(x.movedim(d, 0), mesh)
     out = xs.new_empty((axis_size(axis, mesh) * xs.shape[0], *xs.shape[1:]))
-    dist.all_gather_into_tensor(out, xs, group=mesh.get_group(axis))
-    _COUNTS._add("all_gather", out.nbytes)
+    dist.all_gather_into_tensor(out, xs, group=_group(mesh, axis))
+    counts._add("all_gather", out.nbytes)
     return out.to(x.device).movedim(0, d).contiguous()
 
 
 def _reduce_scatter(x, mesh, axis, d):
+    if is_accounting(mesh):
+        shape = list(x.shape)
+        shape[d] //= axis_size(axis, mesh)
+        out = _meta(shape, x)
+        _COUNTS._add("reduce_scatter", out.nbytes)
+        return out
     xs = staged(x.movedim(d, 0), mesh)
     out = xs.new_empty((xs.shape[0] // axis_size(axis, mesh),
                         *xs.shape[1:]))
@@ -591,12 +712,26 @@ def constrain(x: torch.Tensor, *spec_entries, have: Sequence = (),
     for d, (h, w) in enumerate(zip(have, want)):
         if h == w:
             continue
-        if h is not None and _factor(sizes, h) > 1:
-            ax = _single(h, "a gather")
-            x = _AllGather.apply(x, mesh, ax, d, part == ax)
-        if w is not None and _factor(sizes, w) > 1:
+        hs, ws = _axes(h), _axes(w)
+        keep = ws if ws and hs[:len(ws)] == ws else ()
+        x = _gather_axes(x, mesh, hs[len(keep):], d, part)
+        if not keep and w is not None and _factor(sizes, w) > 1:
             x = _Slice.apply(x, mesh, w, d,
                              part is not None and part in _axes(w))
+    return x
+
+
+def _gather_axes(x, mesh, axes: tuple, d: int, part) -> torch.Tensor:
+    """``x``'s dim ``d``, split over ``axes`` at once (the first
+    outermost), gathered over them: one all_gather an axis, the innermost
+    first, each over its own axis' group (a tuple group's ranks come in
+    the mesh's order, which need not be the entry's); ``axes`` may be the
+    inner part of an entry whose outer axes stay split (FSDP's ('model',
+    'data') read as 'model')."""
+    sizes = _sizes(mesh)
+    for ax in reversed(axes):
+        if sizes.get(ax, 1) > 1:
+            x = _AllGather.apply(x, mesh, ax, d, part == ax)
     return x
 
 
@@ -633,9 +768,39 @@ def psum(x: torch.Tensor, axis, op: str = "sum") -> torch.Tensor:
     mesh = current_mesh()
     if mesh is None or axis_size(axis, mesh) == 1:
         return x
-    if op == "max":
-        return _all_reduce(x.detach(), mesh, axis, dist.ReduceOp.MAX)
+    if op != "sum":
+        return all_reduce(x, axis, op, mesh=mesh)
     return _AllReduce.apply(x, mesh, axis, False)
+
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}
+
+
+def all_reduce(x: torch.Tensor, axis, op: str = "sum", *, mesh=None,
+               kind: str = "all_reduce", counts: Collectives | None = None
+               ) -> torch.Tensor:
+    """``x`` reduced by ``op`` ("sum", "max" or "min") over ``axis`` of
+    ``mesh`` (the current mesh by default) on every rank, counted in
+    ``counts`` as ``kind``; no gradient. ``x`` itself without a mesh or
+    when the axis has one rank."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None or axis_size(axis, mesh) == 1:
+        return x
+    return _all_reduce(x.detach(), mesh, axis, _REDUCE_OPS[op], kind,
+                       counts)
+
+
+def all_gather(x: torch.Tensor, axis, *, mesh=None,
+               counts: Collectives | None = None) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis`` of ``mesh`` (the current mesh by
+    default; along a tuple of axes, in the group's rank order, ascending
+    global rank), stacked on a new dim 0, counted in ``counts``; no
+    gradient."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None or axis_size(axis, mesh) == 1:
+        return x.unsqueeze(0)
+    return _all_gather(x.detach().unsqueeze(0), mesh, axis, 0, counts)
 
 
 def gather_whole(x: torch.Tensor, entries: Sequence) -> torch.Tensor:
@@ -646,37 +811,47 @@ def gather_whole(x: torch.Tensor, entries: Sequence) -> torch.Tensor:
     if mesh is None:
         return x
     for d, e in enumerate(entries):
-        if e is not None and axis_size(e, mesh) > 1:
-            x = _all_gather(x, mesh, _single(e, "a gather"), d)
+        for ax in reversed(_axes(e)):
+            if axis_size(ax, mesh) > 1:
+                x = _all_gather(x, mesh, ax, d)
     return x
 
 
 class _Broadcast(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis, index):
+    def forward(ctx, x, mesh, axis, index, counts):
         ctx.mine = axis_index(axis, mesh) == index
-        group = mesh.get_group(axis)
+        counts = _COUNTS if counts is None else counts
+        if is_accounting(mesh):
+            counts._add("broadcast", x.nbytes)
+            return _meta(x.shape, x)
+        group = _group(mesh, axis)
         buf = x.to(mesh.device_type, copy=True).contiguous()
         dist.broadcast(buf, group=group,
                        src=dist.get_global_rank(group, index))
-        _COUNTS._add("broadcast", buf.nbytes)
+        counts._add("broadcast", buf.nbytes)
         return buf.to(x.device)
 
     @staticmethod
     def backward(ctx, g):
-        return (g if ctx.mine else torch.zeros_like(g)), None, None, None
+        return (g if ctx.mine else torch.zeros_like(g)), None, None, None, \
+            None
 
 
-def broadcast_from(x: torch.Tensor, axis: str, index: int) -> torch.Tensor:
-    """``x`` as the rank at coordinate ``index`` along ``axis`` holds it,
-    on every rank of this rank's group along ``axis`` (each passes a
-    tensor of the same shape and type); ``x`` itself without a mesh or
-    when the axis has one rank. Its backward gives the source rank the
-    (whole) cotangent of the replicated output and the others zero."""
-    mesh = current_mesh()
+def broadcast_from(x: torch.Tensor, axis, index: int, *, mesh=None,
+                   counts: Collectives | None = None) -> torch.Tensor:
+    """``x`` as the rank at coordinate ``index`` along ``axis`` (a name,
+    or a tuple of names: ``axis_index``'s coordinate, which is the group
+    rank where the mesh's global ranks ascend) of ``mesh`` (the current
+    mesh by default) holds it, on every rank of this rank's group along
+    ``axis`` (each passes a tensor of the same shape and type), counted
+    in ``counts``; ``x`` itself without a mesh or when the axis has one
+    rank. Its backward gives the source rank the (whole) cotangent of the
+    replicated output and the others zero."""
+    mesh = mesh if mesh is not None else current_mesh()
     if mesh is None or axis_size(axis, mesh) == 1:
         return x
-    return _Broadcast.apply(x, mesh, axis, index)
+    return _Broadcast.apply(x, mesh, axis, index, counts)
 
 
 def broadcast_object(obj: Any) -> Any:
@@ -685,6 +860,9 @@ def broadcast_object(obj: Any) -> Any:
     its pickled bytes); ``obj`` itself without a mesh."""
     mesh = current_mesh()
     if mesh is None or mesh.size() == 1:
+        return obj
+    if is_accounting(mesh):
+        _COUNTS._add("broadcast_object", len(pickle.dumps(obj)))
         return obj
     box = [obj]
     dist.broadcast_object_list(box, src=int(mesh.mesh.reshape(-1)[0]),

@@ -131,6 +131,9 @@ struct Args {
   int q_vec, kv_vec;  // rows start on 16-byte boundaries
   int dk, dv;         // the real head dims (the instantiation may be wider)
   int v_alias;        // v is the first dv columns of k's own rows
+  float softcap;      // > 0: a scaled score s becomes softcap tanh(s / softcap)
+  float cap_inv;      // 1 / (sqrt(dk) softcap), rounded once to float32
+  float cap_log2;     // log2(e) softcap, rounded once to float32
   float* lse;         // (B, Hq, Sq) row logsumexp of the scaled, masked
                       // scores, natural log; null when not asked for
 };
@@ -144,6 +147,22 @@ __device__ __forceinline__ void store_lse(const Args& a, int b, int h, int p,
                                           float m, float den, bool log2) {
   a.lse[(static_cast<long long>(b) * a.hq + h) * a.sq + p] =
       log2 ? __fmul_rn(m + log2f(den), kLn2) : m + logf(den);
+}
+
+// The attention softcap (repro/models/attention.py `_flash_fwd`: s =
+// tanh(s / cap) cap, after the 1 / sqrt(dk) scale and before the mask).
+// The CUDA-core kernel caps its scaled score; the tensor-core kernels turn
+// the raw sum S into the capped score in log2 units, log2(e) cap tanh(S /
+// (sqrt(dk) cap)), through the two float32 constants of Args, each product
+// rounded on its own (the twin, ref.py `_flash_scan`, rounds alike). tanhf
+// is the accurate one (2 ulp), not tanh.approx.f32 (2^-11): the bounds of
+// ref.py take its error. The running max, the log2 units of the lse and the
+// masks are unchanged: a capped score is one more score.
+__device__ __forceinline__ float cap_scaled(const Args& a, float s) {
+  return __fmul_rn(tanhf(__fdiv_rn(s, a.softcap)), a.softcap);
+}
+__device__ __forceinline__ float cap_log2(const Args& a, float raw) {
+  return __fmul_rn(tanhf(__fmul_rn(raw, a.cap_inv)), a.cap_log2);
 }
 
 // ---------------------------------------------------------------------------
@@ -166,7 +185,7 @@ constexpr size_t smem_bytes() {
          (kBQ * (DK + 1) + kBK * (DK + 1) + kBK * DV + kBQ * (kBK + 1));
 }
 
-template <typename TQ, typename TKV, int DK, int DV>
+template <typename TQ, typename TKV, int DK, int DV, bool kCap>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                      const TKV* __restrict__ v, TQ* __restrict__ o, Args a) {
@@ -245,6 +264,12 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
+    if constexpr (kCap) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = cap_scaled(a, s[i][j]);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -778,7 +803,7 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
   else wgmma_rs_n160(o, p, v);
 }
 
-template <typename TKV, int D>
+template <typename TKV, int D, bool kCap>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const TKV* __restrict__ k, const TKV* __restrict__ v,
@@ -985,7 +1010,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          float t = __fmul_rn(sc[4 * n + 2 * i + j], a.scale_log2);
+          float t = kCap
+                        ? cap_log2(a, sc[4 * n + 2 * i + j])
+                        : __fmul_rn(sc[4 * n + 2 * i + j], a.scale_log2);
           if (!whole) {
             const int kp = kv0 + 8 * n + col + j;
             const bool ok = kp < kv_lim && (!a.causal || kp <= qpos[i]) &&
@@ -1224,7 +1251,7 @@ __device__ __forceinline__ void wgmma_ss_pv(float (&o)[N / 2], uint64_t p,
 // vectors). Head dims in (160, 256) run at 256 with zeros past their real
 // columns (element loads with a column limit); the output is written at
 // its real dv.
-template <typename TKV, int DK, int DV>
+template <typename TKV, int DK, int DV, bool kCap>
 __global__ void __launch_bounds__(kMlaThreads, 1)
     flash_mla_kernel(const __nv_bfloat16* __restrict__ q,
                      const TKV* __restrict__ k, const TKV* __restrict__ v,
@@ -1347,7 +1374,9 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            float t = __fmul_rn(sc[4 * n + 2 * i + j], a.scale_log2);
+            float t = kCap
+                          ? cap_log2(a, sc[4 * n + 2 * i + j])
+                          : __fmul_rn(sc[4 * n + 2 * i + j], a.scale_log2);
             if (!whole) {
               const int kp = kv0 + 8 * n + col + j;
               const bool ok = kp < kv_lim && (!a.causal || kp <= qpos[i]) &&
@@ -1461,10 +1490,10 @@ __global__ void __launch_bounds__(kMlaThreads, 1)
   }
 }
 
-template <typename TKV, int DK, int DV>
+template <typename TKV, int DK, int DV, bool kCap>
 int launch_mla(const void* q, const void* k, const void* v, void* o, int b,
                const Args& a, cudaStream_t stream) {
-  auto kernel = flash_mla_kernel<TKV, DK, DV>;
+  auto kernel = flash_mla_kernel<TKV, DK, DV, kCap>;
   constexpr size_t smem = mla_smem_bytes<DK>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1481,10 +1510,10 @@ int launch_mla(const void* q, const void* k, const void* v, void* o, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TQ, typename TKV, int D>
+template <typename TQ, typename TKV, int D, bool kCap>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            const Args& a, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<TQ, TKV, D, D>;
+  auto kernel = flash_fwd_kernel<TQ, TKV, D, D, kCap>;
   constexpr size_t smem = smem_bytes<D, D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1496,10 +1525,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TKV, int D>
+template <typename TKV, int D, bool kCap>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
               const Args& a, cudaStream_t stream) {
-  auto kernel = flash_tc_kernel<TKV, D>;
+  auto kernel = flash_tc_kernel<TKV, D, kCap>;
   constexpr size_t smem = tc_smem_bytes<TKV, D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1514,28 +1543,49 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TKV>
+template <typename TKV, bool kCap>
 int launch_d(const void* q, const void* k, const void* v, void* o, int q_bf16,
              int b, int d, const Args& a, cudaStream_t stream) {
   switch (d) {
-    case 64: return q_bf16 ? launch_tc<TKV, 64>(q, k, v, o, b, a, stream)
-                           : launch<float, TKV, 64>(q, k, v, o, b, a, stream);
-    case 80: return q_bf16 ? launch_tc<TKV, 80>(q, k, v, o, b, a, stream)
-                           : launch<float, TKV, 80>(q, k, v, o, b, a, stream);
-    case 96: return q_bf16 ? launch_tc<TKV, 96>(q, k, v, o, b, a, stream)
-                           : launch<float, TKV, 96>(q, k, v, o, b, a, stream);
+    case 64:
+      return q_bf16 ? launch_tc<TKV, 64, kCap>(q, k, v, o, b, a, stream)
+                    : launch<float, TKV, 64, kCap>(q, k, v, o, b, a, stream);
+    case 80:
+      return q_bf16 ? launch_tc<TKV, 80, kCap>(q, k, v, o, b, a, stream)
+                    : launch<float, TKV, 80, kCap>(q, k, v, o, b, a, stream);
+    case 96:
+      return q_bf16 ? launch_tc<TKV, 96, kCap>(q, k, v, o, b, a, stream)
+                    : launch<float, TKV, 96, kCap>(q, k, v, o, b, a, stream);
     case 128:
-      return q_bf16 ? launch_tc<TKV, 128>(q, k, v, o, b, a, stream)
-                    : launch<float, TKV, 128>(q, k, v, o, b, a, stream);
+      return q_bf16 ? launch_tc<TKV, 128, kCap>(q, k, v, o, b, a, stream)
+                    : launch<float, TKV, 128, kCap>(q, k, v, o, b, a, stream);
     case 160:
-      return q_bf16 ? launch_tc<TKV, 160>(q, k, v, o, b, a, stream)
-                    : launch<float, TKV, 160>(q, k, v, o, b, a, stream);
+      return q_bf16 ? launch_tc<TKV, 160, kCap>(q, k, v, o, b, a, stream)
+                    : launch<float, TKV, 160, kCap>(q, k, v, o, b, a, stream);
     case kWideD:
-      return q_bf16
-                 ? launch_mla<TKV, kWideD, kWideD>(q, k, v, o, b, a, stream)
-                 : launch<float, TKV, kWideD>(q, k, v, o, b, a, stream);
+      return q_bf16 ? launch_mla<TKV, kWideD, kWideD, kCap>(q, k, v, o, b, a,
+                                                           stream)
+                    : launch<float, TKV, kWideD, kCap>(q, k, v, o, b, a,
+                                                       stream);
     default: return -1;
   }
+}
+
+// every route, its softcap a compile-time flag: an uncapped launch runs the
+// kernels without a line of the cap (kCap false), so the cap costs the
+// uncapped path neither registers nor instructions
+template <bool kCap>
+int launch_all(const void* q, const void* k, const void* v, void* o,
+               int q_bf16, int kv_bf16, int b, bool mla, int d, const Args& a,
+               cudaStream_t s) {
+  if (mla)
+    return kv_bf16
+               ? launch_mla<__nv_bfloat16, kMlaDK, kMlaDV, kCap>(q, k, v, o,
+                                                                 b, a, s)
+               : launch_mla<float, kMlaDK, kMlaDV, kCap>(q, k, v, o, b, a, s);
+  if (kv_bf16)
+    return launch_d<__nv_bfloat16, kCap>(q, k, v, o, q_bf16, b, d, a, s);
+  return launch_d<float, kCap>(q, k, v, o, q_bf16, b, d, a, s);
 }
 
 // 16-byte aligned rows: the base and the batch, sequence and head strides
@@ -1565,6 +1615,8 @@ int padded_dim(int dk, int dv) {
 // Anything else returns -1 without a launch.
 // lse: null, or a float32 (B, Hq, Sq) tensor that takes each row's
 // logsumexp of its scaled, masked scores (natural log).
+// softcap: 0 for none; > 0 caps each scaled score at softcap tanh(s /
+// softcap) before the mask (the lse is then of the capped scores).
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attn_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
@@ -1573,7 +1625,8 @@ extern "C" int flash_attn_launch(
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, int causal, int window, int q_offset, int kv_valid,
-    float sqrt_dk, void* stream) {
+    float sqrt_dk, float softcap, void* stream) {
+  if (!(softcap >= 0.f) || isinf(softcap)) return -1;
   const int kv_elem = kv_bf16 ? 2 : 4;
   const bool mla = dk == kMlaDK && dv == kMlaDV;
   const int d = mla ? 0 : padded_dim(dk, dv);
@@ -1588,12 +1641,14 @@ extern "C" int flash_attn_launch(
                exact && rows_aligned(q, q_sb, q_ss, q_sh, q_bf16 ? 2 : 4),
                exact && rows_aligned(k, k_sb, k_ss, k_sh, kv_elem) &&
                    rows_aligned(v, v_sb, v_ss, v_sh, kv_elem),
-               dk, dv, alias, static_cast<float*>(lse)};
+               dk, dv, alias, softcap,
+               softcap > 0.f ? static_cast<float>(
+                                   1.0 / (sqrt((double)dk) * (double)softcap))
+                             : 0.f,
+               static_cast<float>(1.4426950408889634 * (double)softcap),
+               static_cast<float*>(lse)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mla)
-    return kv_bf16
-               ? launch_mla<__nv_bfloat16, kMlaDK, kMlaDV>(q, k, v, o, b, a, s)
-               : launch_mla<float, kMlaDK, kMlaDV>(q, k, v, o, b, a, s);
-  if (kv_bf16) return launch_d<__nv_bfloat16>(q, k, v, o, q_bf16, b, d, a, s);
-  return launch_d<float>(q, k, v, o, q_bf16, b, d, a, s);
+  if (a.softcap > 0.f) return launch_all<true>(q, k, v, o, q_bf16, kv_bf16,
+                                               b, mla, d, a, s);
+  return launch_all<false>(q, k, v, o, q_bf16, kv_bf16, b, mla, d, a, s);
 }

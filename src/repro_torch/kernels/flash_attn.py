@@ -34,6 +34,11 @@ denominator it already holds (the training path's residual for the
 backward, ``ref.flash_attention_bwd_ref``); without it the kernels write
 nothing more.
 
+``softcap`` > 0 caps each scaled score at softcap tanh(s / softcap) before
+the mask (the JAX package's attention softcap; 0 is off) on every route:
+the CUDA-core kernel on its scaled score, the tensor-core kernels in their
+log2 units (``ref._flash_scan``'s twin rounds where they do).
+
 Neither route falls back on the other: a launch that fails raises.
 """
 
@@ -59,7 +64,7 @@ def _fn():
     fn = _build.library("flash_attn").flash_attn_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -74,7 +79,7 @@ def instantiation(dk: int, dv: int) -> tuple[int, int] | None:
 
 
 def check_args(q, k, v, *, causal: bool, window: int | None, q_offset: int,
-               kv_valid_len: int | None) -> int:
+               kv_valid_len: int | None, softcap: float = 0.0) -> int:
     """Validate the shapes and the mask; returns kv_valid_len (Sk if None).
 
     Every query row must keep at least one valid key: for such a row the
@@ -100,6 +105,8 @@ def check_args(q, k, v, *, causal: bool, window: int | None, q_offset: int,
         raise ValueError(f"q_offset {q_offset} < 0")
     if window is not None and window < 1:
         raise ValueError(f"window {window} < 1 leaves no key")
+    if not (math.isfinite(softcap) and softcap >= 0):
+        raise ValueError(f"softcap {softcap}: 0 (off) or a finite cap > 0")
     if causal and q_offset + sq > valid:
         raise ValueError(f"causal rows up to position {q_offset + sq - 1} "
                          f"need their own key, but only {valid} are valid")
@@ -112,7 +119,7 @@ def check_args(q, k, v, *, causal: bool, window: int | None, q_offset: int,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int | None = None,
                     q_offset: int = 0, kv_valid_len: int | None = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, softcap: float = 0.0):
     """(B, Sq, Hq, dv) in q.dtype; semantics of ``ref.flash_attention_ref``.
     With ``return_lse``, (out, lse): lse (B, Hq, Sq) float32, each row's
     logsumexp of its scaled, masked scores.
@@ -123,7 +130,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (any other strides are passed on; v may be a view of k's rows)."""
     global launches
     valid = check_args(q, k, v, causal=causal, window=window,
-                       q_offset=q_offset, kv_valid_len=kv_valid_len)
+                       q_offset=q_offset, kv_valid_len=kv_valid_len,
+                       softcap=softcap)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash_attention kernel needs q, k, v on one CUDA "
@@ -161,7 +169,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     dk, dv,
                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                     int(causal), 0 if window is None else int(window),
-                    int(q_offset), valid, math.sqrt(dk), stream)
+                    int(q_offset), valid, math.sqrt(dk), float(softcap),
+                    stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1

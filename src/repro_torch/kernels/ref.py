@@ -458,7 +458,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: int | None = None,
                         q_offset: int = 0, kv_valid_len: int | None = None,
                         operands: torch.dtype | None = None,
-                        return_lse: bool = False):
+                        return_lse: bool = False, softcap: float = 0.0):
     """Blockwise online-softmax attention forward (``_flash_fwd`` of
     ``repro/models/attention.py``, the oracle of the Pallas
     ``flash_attention_fwd``).
@@ -489,9 +489,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     denominator l: m + log(max(l, 1e-30)) (``_flash_fwd``'s residual); the
     twin's m is in log2 units of the scaled score, so its lse is ln 2 (m +
     log2(max(l, 1e-30))), as the tensor-core kernels write it.
+
+    ``softcap`` > 0 (0 is off, as in the JAX package): each scaled score s
+    becomes cap tanh(s / cap) before the mask, and the lse is of the capped
+    scores. The twin computes it as the tensor-core kernels do, in log2
+    units from the raw sum S: t = float32(log2(e) cap) tanh(S
+    float32(1 / (sqrt(dk) cap))), each product rounded to float32.
     """
     out, _, lse = _flash_scan(q, k, v, causal, window, q_offset,
-                              kv_valid_len, operands)
+                              kv_valid_len, operands, softcap=softcap)
     return (out, lse) if return_lse else out
 
 
@@ -502,8 +508,17 @@ def _work_type(q, operands=None) -> torch.dtype:
         else torch.float32
 
 
+def _cap_consts(dk: int, softcap: float, device) -> tuple:
+    """The tensor-core kernels' two float32 constants of the capped score
+    in log2 units: (1 / (sqrt(dk) cap), log2(e) cap), each rounded once
+    from float64 (``flash_attn_launch``'s)."""
+    return (torch.tensor(1.0 / (math.sqrt(dk) * softcap), dtype=torch.float32,
+                         device=device),
+            torch.tensor(LOG2E * softcap, dtype=torch.float32, device=device))
+
+
 def _flash_scan(q, k, v, causal, window, q_offset, kv_valid_len, operands,
-                peak=False):
+                peak=False, softcap=0.0):
     """flash_attention_ref's scan: (out, peak, lse); with ``peak`` also
     max_j p_j max_d |v_jd| / l per row, (B, Sq, Hq, 1), from the same p and
     l (else None)."""
@@ -520,6 +535,8 @@ def _flash_scan(q, k, v, causal, window, q_offset, kv_valid_len, operands,
         k, v = k.to(operands), v.to(operands)
         scale = torch.tensor(LOG2E / math.sqrt(dk), dtype=torch.float32,
                              device=q.device)
+        if softcap:
+            cap_in, cap_out = _cap_consts(dk, softcap, q.device)
     else:
         qf = (q.to(f) / math.sqrt(dk)).reshape(b, sq, hkv, g, dk)
     q_pos = q_offset + torch.arange(sq, device=q.device)
@@ -538,12 +555,15 @@ def _flash_scan(q, k, v, causal, window, q_offset, kv_valid_len, operands,
         if window is not None:
             ok = ok & (q_pos[:, None] - kv_pos[None, :] < window)
         if twin:
-            s = torch.where(ok, s * scale, -math.inf)
+            s = torch.tanh(s * cap_in) * cap_out if softcap else s * scale
+            s = torch.where(ok, s, -math.inf)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp2(s - m_new[..., None])
             corr = torch.exp2(m - m_new)
             pv = p.to(operands).float()
         else:
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
             s = torch.where(ok, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
@@ -569,7 +589,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             lse: torch.Tensor, dout: torch.Tensor, *,
                             causal: bool, window: int | None = None,
                             q_offset: int = 0,
-                            kv_valid_len: int | None = None
+                            kv_valid_len: int | None = None,
+                            softcap: float = 0.0
                             ) -> tuple[torch.Tensor, ...]:
     """The flash backward (``_flash_bwd_rule`` of
     ``repro/models/attention.py``): (dq, dk, dv) in q's, k's and v's types.
@@ -585,6 +606,10 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     mask leaves a block no visible query row (causal: rows before the
     block; a window: rows past its reach), those rows are not computed:
     their P and dS are zero, so the sums are the reference's.
+
+    ``softcap`` > 0: the scores are recomputed capped, t = tanh(s / cap)
+    and cap t, and dS is multiplied by the cap's derivative 1 - t^2 before
+    the mask zeroes it (``_flash_bwd_rule``).
 
     The reference keeps the forward's float32 output as its residual; here
     ``out`` is the forward's own output, in q's type (bf16 at the serving
@@ -621,11 +646,17 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         if window is not None:
             ok = ok & (qp[:, None] - kv_pos[None, :] < window)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kj)
+        if softcap:
+            t = torch.tanh(s / softcap)
+            s = t * softcap
         s = torch.where(ok, s, NEG_INF)
         p = torch.exp(s - lse[..., r0:r1, None])
         dvs[:, j0:j1] = torch.einsum("bhgqk,bhgqd->bkhd", p, gb)
         dp = torch.einsum("bhgqd,bkhd->bhgqk", gb, vj)
-        ds = torch.where(ok, p * (dp - delta[..., r0:r1, None]), 0.0)
+        ds = p * (dp - delta[..., r0:r1, None])
+        if softcap:
+            ds = ds * (1.0 - t * t)
+        ds = torch.where(ok, ds, 0.0)
         # s = (q scale) k^T: ds/dq = k scale, ds/dk = q scale (= qf)
         dq[:, r0:r1] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kj) * scale
         dks[:, j0:j1] = torch.einsum("bhgqk,bqhgd->bkhd", ds, qb)
@@ -654,8 +685,8 @@ def flash_attention_order_bound(out: torch.Tensor) -> torch.Tensor:
 def flash_attention_flip_bound(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool,
                                window: int | None = None, q_offset: int = 0,
-                               kv_valid_len: int | None = None
-                               ) -> torch.Tensor:
+                               kv_valid_len: int | None = None,
+                               softcap: float = 0.0) -> torch.Tensor:
     """Per-row bound, (B, Sq, Hq, 1), of what one weight rounded to the
     other bf16 neighbour moves in the tensor-core kernel's output against
     its twin (``flash_attention_ref(..., operands=torch.bfloat16)``).
@@ -672,10 +703,12 @@ def flash_attention_flip_bound(q: torch.Tensor, k: torch.Tensor,
     the twin's p and l. Rounding that differs on a second weight of the
     same row is ~1e-4 as likely again (the weights differ by a few float32
     ulps, a bf16 ulp is 2^16 of those) and moves the row by its own,
-    smaller, p_j."""
+    smaller, p_j. With ``softcap`` the weights are the capped twin's (its
+    tanh and the kernel's tanhf differ in the last bits too, which is the
+    same near-midpoint case)."""
     return 2.0 ** -7 * _flash_scan(q, k, v, causal, window, q_offset,
                                    kv_valid_len, torch.bfloat16,
-                                   peak=True)[1]
+                                   peak=True, softcap=softcap)[1]
 
 
 def _bf16_exact(t: torch.Tensor) -> bool:
@@ -708,8 +741,8 @@ def flash_attention_rounding_bound(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, *, causal: bool,
                                    window: int | None = None,
                                    q_offset: int = 0,
-                                   kv_valid_len: int | None = None
-                                   ) -> torch.Tensor:
+                                   kv_valid_len: int | None = None,
+                                   softcap: float = 0.0) -> torch.Tensor:
     """Per-element bound of |twin - float32 plain|: ``flash_attention_ref``
     with ``operands=torch.bfloat16`` against the default, (B, Sq, Hq, dv).
 
@@ -731,17 +764,35 @@ def flash_attention_rounding_bound(q: torch.Tensor, k: torch.Tensor,
       2^-9 of itself, so the output by 2^-9 e^2D A, taken as 2^-8 e^2D A.
     * The sums in other orders and the rounding of the output to q's type:
       ``flash_attention_order_bound`` of the float32 plain output.
+    * ``softcap`` (the weights and A are then the capped ones). The cap
+      c(s) = cap tanh(s / cap) has slope 1 - tanh^2 <= 1, so a shift of at
+      most D in the raw scores stays one of at most D in the capped
+      scores, and the terms above hold as they are. Each side evaluates
+      the cap in float32 its own way (the twin tanh(S float32(1 / (sqrt(dk)
+      cap))) float32(log2(e) cap), the plain version tanh(s / cap) cap):
+      the argument's rounding and its constant's (2^-23 of x = s / cap)
+      move cap tanh by at most cap (1 - t^2) |x| 2^-23 <= 2^-23 |s|; tanh
+      itself (torch.tanh, and the kernels' tanhf, within 2 ulp) by 2^-22
+      |c| <= 2^-22 |s|; the product by cap and its constant's rounding by
+      2^-23 |c|. So each capped score lies within 2^-21 |s| <= 2^-21 A_i
+      of the exact one, A_i = max_j sum_d |q_d||k_jd| / sqrt(dk), and the
+      two sides' scores differ by one more shift of at most 2^-20 A_i,
+      which adds to D (and makes D nonzero even for bf16-exact q and K).
     """
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               kv_valid_len=kv_valid_len)
-    want = flash_attention_ref(q, k, v, **kw)
-    a = flash_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+    want = flash_attention_ref(q, k, v, softcap=softcap, **kw)
+    a = flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                            softcap=softcap, **kw)
     grow = torch.ones((), device=q.device)
     bound = torch.zeros_like(a)
-    if not (_bf16_exact(q) and _bf16_exact(k)):
+    rounded = not (_bf16_exact(q) and _bf16_exact(k))
+    if rounded or softcap:
         valid = k.shape[1] if kv_valid_len is None else kv_valid_len
-        d = 2.0 ** -8 * (1 + 2.0 ** -8) * _max_abs_score(
-            q, k, causal, window, q_offset, valid)
+        score = _max_abs_score(q, k, causal, window, q_offset, valid)
+        d = (2.0 ** -8 * (1 + 2.0 ** -8) if rounded else 0.0) * score
+        if softcap:
+            d = d + 2.0 ** -20 * score
         grow = torch.exp(2 * d)
         bound = torch.expm1(2 * d) * a
     bound = bound + 2.0 ** -8 * grow * a
@@ -759,8 +810,8 @@ def _gamma(n: int) -> float:
 def flash_attention_lse_bound(q: torch.Tensor, k: torch.Tensor,
                               lse: torch.Tensor, *, causal: bool,
                               window: int | None = None, q_offset: int = 0,
-                              kv_valid_len: int | None = None
-                              ) -> torch.Tensor:
+                              kv_valid_len: int | None = None,
+                              softcap: float = 0.0) -> torch.Tensor:
     """Per-row bound, (B, Hq, Sq), of |lse - lse'| for two forwards'
     logsumexps at the same q and k: the kernel's against its twin's or the
     float32 plain version's, or the twin's against the float32 plain
@@ -783,7 +834,12 @@ def flash_attention_lse_bound(q: torch.Tensor, k: torch.Tensor,
       ln 2): a few ulps of |lse|, taken as 2^-21 (1 + |lse|).
     * q or K not bf16-exact: the twin and the kernel read them rounded to
       bf16, which moves each score by at most 2^-8 (1 + 2^-8) A_i, and the
-      lse by as much."""
+      lse by as much.
+    * ``softcap``: the cap cap tanh(s / cap) has slope at most 1, so the
+      shifts above pass through it unchanged; its float32 evaluation puts
+      each capped score within 2^-21 A_i of the exact one on each side
+      (``flash_attention_rounding_bound``'s derivation), 2^-20 A_i for the
+      two, and the lse moves by as much."""
     b, sq, hq, dk = q.shape
     sk = k.shape[1]
     valid = sk if kv_valid_len is None else kv_valid_len
@@ -795,6 +851,8 @@ def flash_attention_lse_bound(q: torch.Tensor, k: torch.Tensor,
              + 2.0 ** -21 * (1 + lse.float().abs()))
     if not (_bf16_exact(q) and _bf16_exact(k)):
         bound = bound + 2.0 ** -8 * (1 + 2.0 ** -8) * a
+    if softcap:
+        bound = bound + 2.0 ** -20 * a
     return bound
 
 
@@ -803,7 +861,8 @@ def flash_attention_bwd_bound(q: torch.Tensor, k: torch.Tensor,
                               lse: torch.Tensor, dout: torch.Tensor, *,
                               causal: bool, window: int | None = None,
                               q_offset: int = 0,
-                              kv_valid_len: int | None = None
+                              kv_valid_len: int | None = None,
+                              softcap: float = 0.0
                               ) -> tuple[torch.Tensor, ...]:
     """Per-element bounds (float64, of dq's, dk's and dv's shapes) of
     |g - g32|: g the gradients ``flash_attention_bwd_ref`` gives from a
@@ -835,7 +894,21 @@ def flash_attention_bwd_bound(q: torch.Tensor, k: torch.Tensor,
     * The float32 softmax: each score within gamma(dk) A_i of its value,
       the max subtracted, l summed over Sk terms: dP_err = P (expm1(2
       gamma(dk) A_i + gamma(Sk)) + 2^-22); autograd's delta is sum_j P dP,
-      so e_delta = sum_j (dP_err |dP| + P e_dp) + gamma(Sk) sum_j P |dP|."""
+      so e_delta = sum_j (dP_err |dP| + P e_dp) + gamma(Sk) sum_j P |dP|.
+
+    ``softcap``: P is the softmax of the capped scores c = cap t, t =
+    tanh(s / cap), and dS = P (dP - delta) f with f = 1 - t^2 (the cap's
+    slope). The slope is at most 1, so each side's score errors above pass
+    through the cap, and its float32 evaluation adds 2^-21 |s| to each
+    capped score (``flash_attention_rounding_bound``'s derivation): the
+    port's dP_err takes 2^-21 |s_ij| more in its exponent, the float32
+    side's 2 2^-21 A_i. Each side's f is off by e_f: its score's error e_s
+    moves t by f e_s / cap, so t^2 by 2 |t| f e_s / cap; the evaluation of
+    t (2^-22 |t|, and under 2^-24 from the argument's rounding, max_x x
+    sech^2 x < 1/2) moves t^2 by under 2^-21 + 2^-23, and the square and
+    the subtraction round by 2^-24 each: e_f <= 2 |t| f e_s / cap + 2^-20.
+    So e_dS = f (dP_err |dP - delta| + (P + dP_err)(e_dp + e_delta))
+    + e_f |P (dP - delta)| + 2^-23 |dS|."""
     b, sq, hq, dk = q.shape
     sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
@@ -849,28 +922,40 @@ def flash_attention_bwd_bound(q: torch.Tensor, k: torch.Tensor,
         ok = ok & (kv_pos[None, :] <= q_pos[:, None])
     if window is not None:
         ok = ok & (q_pos[:, None] - kv_pos[None, :] < window)
+    cap_err = 2.0 ** -21 if softcap else 0.0
     bq, bk, bv = [], [], []
     for i in range(b):
         qd, gd = q[i].to(f), dout[i].to(f)                  # (Sq, Hq, d)
         kd = k[i].to(f).repeat_interleave(g, dim=1)         # (Sk, Hq, dk)
         vd = v[i].to(f).repeat_interleave(g, dim=1)
         s = torch.einsum("qhd,khd->hqk", qd, kd) * scale
+        s_fin = torch.where(ok, s, 0.0).abs()               # raw |s|
+        t, fac = None, 1.0
+        if softcap:
+            t = torch.tanh(s / softcap)
+            s = t * softcap
+            fac = 1.0 - t * t
         s = torch.where(ok, s, -math.inf)
         p = torch.softmax(s, dim=-1)
         lse64 = torch.logsumexp(s, dim=-1)                  # (Hq, Sq)
         o64 = torch.einsum("hqk,khd->qhd", p, vd)
         dp = torch.einsum("qhd,khd->hqk", gd, vd)
         delta = (gd * o64).sum(-1).T                        # (Hq, Sq)
-        ds = p * (dp - delta[..., None])
+        ds_c = p * (dp - delta[..., None])
+        ds = ds_c * fac
         s_abs = torch.where(ok, torch.einsum(
             "qhd,khd->hqk", qd.abs(), kd.abs()) * scale, 0.0)
         e_dp = _gamma(dv) * torch.einsum("qhd,khd->hqk", gd.abs(), vd.abs())
-        s_fin = torch.where(ok, s, 0.0).abs()
 
-        def grads_err(p_err, e_delta):
-            e_ds = (p_err * (dp - delta[..., None]).abs()
-                    + (p + p_err) * (e_dp + e_delta[..., None])
-                    + 2.0 ** -23 * ds.abs())
+        def fac_err(e_s):
+            if not softcap:
+                return 0.0
+            return 2 * t.abs() * fac * e_s / softcap + 2.0 ** -20
+
+        def grads_err(p_err, e_delta, e_fac):
+            e_ds = (fac * (p_err * (dp - delta[..., None]).abs()
+                           + (p + p_err) * (e_dp + e_delta[..., None]))
+                    + e_fac * ds_c.abs() + 2.0 ** -23 * ds.abs())
             e_v = (torch.einsum("hqk,qhd->khd", p_err, gd.abs())
                    + _gamma(g * sq) * torch.einsum("hqk,qhd->khd", p,
                                                    gd.abs()))
@@ -885,18 +970,19 @@ def flash_attention_bwd_bound(q: torch.Tensor, k: torch.Tensor,
 
         # the port: P from its own lse, delta from its own out
         d_lse = (lse[i].to(f) - lse64).abs()
-        p_err = p * (torch.expm1(d_lse[..., None] + _gamma(dk) * s_abs
-                                 + 2.0 ** -23 * s_fin) + 2.0 ** -22)
+        e_s = _gamma(dk) * s_abs + 2.0 ** -23 * s_fin
+        p_err = p * (torch.expm1(d_lse[..., None] + e_s + cap_err * s_fin)
+                     + 2.0 ** -22)
         e_delta = (gd.abs() * (out[i].to(f) - o64).abs()
                    + _gamma(dv) * gd.abs() * out[i].to(f).abs()).sum(-1).T
-        port = grads_err(p_err, e_delta)
+        port = grads_err(p_err, e_delta, fac_err(e_s))
         # autograd through the float32 one-pass softmax
         a_row = s_abs.amax(-1, keepdim=True)
-        p_err32 = p * (torch.expm1(2 * _gamma(dk) * a_row + _gamma(sk))
-                       + 2.0 ** -22)
+        p_err32 = p * (torch.expm1(2 * (_gamma(dk) + cap_err) * a_row
+                                   + _gamma(sk)) + 2.0 ** -22)
         e_delta32 = (p_err32 * dp.abs() + p * e_dp).sum(-1) + \
             _gamma(sk) * (p * dp.abs()).sum(-1)
-        f32 = grads_err(p_err32, e_delta32)
+        f32 = grads_err(p_err32, e_delta32, fac_err(_gamma(dk) * a_row))
         # the float64 gradients, for the relative terms
         g64 = (scale * torch.einsum("hqk,khd->qhd", ds, kd),
                (scale * torch.einsum("hqk,qhd->khd", ds, qd)).reshape(

@@ -30,11 +30,17 @@ same lanes, each searched alone; each distance computed by one rank from
 the same bits), and counts its collectives.
 
 The JAX package lowers this step through XLA on the production mesh
-(``lower_anns``); the port runs it. Its accounting counterpart,
-``footprint``, reads meta tensors and the resolved placements, with no
-processes:
+(``lower_anns``) and reads its cost from the HLO; the port runs it, and
+its ``lower_anns`` runs the same step as one rank of an
+``AccountingMesh`` on meta tensors at the SIFT1B scale, counting its
+FLOPs, bytes and collectives (``launch/op_stats.py``; the beam search at
+``max_iters`` hops a lane, ``kernels/cost.py``). ``footprint`` reads the
+bytes a rank holds from meta tensors and the resolved placements. Neither
+starts a process:
 
     python -m repro_torch.launch.anns_step --account
+    python -m repro_torch.launch.anns_step --lower --owner-rerank \\
+        [--scan gemv] [--masked] [--mode mulfree] [--out build/dryrun]
     torchrun --nproc-per-node=8 -m repro_torch.launch.anns_step \\
         --data 2 --model 4 --n 1000000 --clusters 1024
 """
@@ -53,14 +59,17 @@ from ..core import backends as backends_mod
 from ..core import engine, ivf, placement as placement_mod
 from ..core import rerank as rerank_mod
 from ..distributed import elastic
-from ..distributed.sharding import (P, Collectives, shardings_tree, staged,
-                                    tree_flatten, tree_unflatten)
+from ..distributed.sharding import (P, AccountingMesh, Collectives,
+                                    all_gather, all_reduce, blocks_of,
+                                    broadcast_from, is_accounting,
+                                    shardings_tree, tree_flatten,
+                                    tree_unflatten)
 from ..kernels import ops as kernel_ops
 
 __all__ = ["DP", "AnnsScale", "index_specs", "placed_index_spec_tree",
            "host_spec_tree", "footprint", "model_flops", "Collectives",
            "sharded_rerank", "build_search_step", "round_robin",
-           "place_step_inputs", "lower_anns", "main"]
+           "place_step_inputs", "lower_anns", "lower_main", "main"]
 
 DP = ("pod", "data")
 
@@ -203,12 +212,9 @@ def sharded_rerank(queries: torch.Tensor, cand_ids: torch.Tensor,
     mine = (local >= 0) & (local < rows) & (cand_ids >= 0)
     d2 = rerank_mod.exact_sqdist(queries, local, vectors)
     d2 = torch.where(mine, d2, float("inf"))
-    buf = staged(d2, mesh)
     for ax in dp_axes:
-        dist.all_reduce(buf, op=dist.ReduceOp.MIN, group=mesh.get_group(ax))
-        if coll is not None:
-            coll._add("all_reduce_min", buf.nbytes)
-    d2 = buf.to(d2.device)
+        d2 = all_reduce(d2, ax, "min", mesh=mesh, kind="all_reduce_min",
+                        counts=coll)
     ids, dists = kernel_ops.topk_select(cand_ids.contiguous(),
                                         d2.contiguous(), k=k)
     return rerank_mod.RerankResult(ids, dists)
@@ -324,14 +330,11 @@ class SearchStep:
             raise ValueError(f"a model rank holds {per} shards, got "
                              f"{placed.codes.shape[0]}")
         dev = centroids.device
-        group, ranks = elastic.mesh_ranks(mesh)
+        every = tuple(names)
         # 1. the origin's queries to every rank
-        buf = staged(queries, mesh) if dist.get_rank() == ranks[0] else \
-            torch.empty((s.queries, s.dim), dtype=torch.float32,
-                        device=mesh.device_type)
-        dist.broadcast(buf, src=ranks[0], group=group)
-        coll._add("broadcast", buf.nbytes)
-        queries = buf.to(dev)
+        queries = queries.to(dev) if not any(coord) else \
+            torch.empty((s.queries, s.dim), dtype=torch.float32, device=dev)
+        queries = broadcast_from(queries, every, 0, mesh=mesh, counts=coll)
         # 2. every rank routes from the same bits
         valid, lane_q, lane_cl, inv, dropped = self.route(
             queries, centroids, n_valid)
@@ -352,19 +355,17 @@ class SearchStep:
                           device=dev)
         mine[:, :hi - lo, :s.ef] = gids.reshape(per, hi - lo, s.ef)
         mine[:, :hi - lo, s.ef] = hops
-        mine = staged(mine, mesh)
-        parts = [torch.empty_like(mine) for _ in ranks]
-        dist.all_gather(parts, mine, group=group)
-        coll._add("all_gather", sum(p.nbytes for p in parts))
+        parts = all_gather(mine, every, mesh=mesh, counts=coll)
         full = torch.empty((self.n_shards, cap, s.ef + 1), dtype=torch.int32,
-                           device=parts[0].device)
-        for p, part in enumerate(parts):
+                           device=dev)
+        # part i is the rank of the i-th smallest global rank
+        flat = np.argsort(mesh.mesh.reshape(-1).numpy(), kind="stable")
+        for part, p in zip(parts, flat):
             c = np.unravel_index(p, tuple(mesh.shape))
             dd, _ = _dp_index(mesh, c)
             mm = int(c[names.index("model")])
             a, b = lanes_of(dd)
             full[mm * per:(mm + 1) * per, a:b] = part[:, :b - a]
-        full = full.to(dev)
         hops = full[:, :, s.ef].contiguous()
         cand = engine.gather_candidates(
             full[:, :, :s.ef].reshape(self.n_shards * cap, s.ef), inv)
@@ -423,13 +424,49 @@ def place_step_inputs(mesh, placed, vectors, centroids, rotation, *,
             one(rotation, P() if origin else None), vectors)
 
 
-def lower_anns(*args, **kwargs):
-    """The JAX package lowers the step through XLA on the production mesh
-    and reads its HLO's cost; the port has no XLA. Not ported: ROADMAP A7
-    (the compile-analysis tools); ``footprint`` gives the per-rank bytes."""
-    raise NotImplementedError(
-        "lower_anns lowers through XLA: ROADMAP A7 (the compile-analysis "
-        "tools); footprint() gives the per-rank argument bytes")
+def lower_anns(mesh, s: AnnsScale | None = None, scan: str = "beam",
+               owner_rerank: bool = False, masked: bool = False,
+               mode: str = "mulfree"):
+    """The step of ``build_search_step`` run once on meta tensors as the
+    origin of ``mesh`` (an ``AccountingMesh``, or a mesh's names and
+    shape: ``launch.mesh.production_shape``), at the scale ``s`` (SIFT1B
+    by default): the JAX package's ``lower_anns``, which lowers the step
+    through XLA on the production mesh. Returns (``op_stats.OpTotals`` of
+    the rank, the step's collectives included, its argument bytes, ``s``).
+
+    The argument bytes are what the rank holds: its model block of the
+    placed index, the replicated centroids and rotation, its DP block of
+    the queries (the batch's share a rank holds, as the reference's
+    in_shardings give it; the origin reads the whole batch to broadcast
+    it), and the vectors, its DP block under ``owner_rerank`` (then the
+    argument bytes are ``footprint``'s) or all of them without (the port's
+    plain rerank reads every row). ``masked`` passes ``n_valid`` (the
+    shape-stable serving variant). The beam search is costed at
+    ``max_iters`` hops a lane, the gemv scan at every row valid
+    (``kernels/cost.py``)."""
+    from . import op_stats
+    s = s or AnnsScale()
+    if not is_accounting(mesh):
+        mesh = AccountingMesh(mesh.mesh_dim_names, mesh.shape)
+    n_shards = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+    placed, host = index_specs(s, n_shards, mode)
+    placed = blocks_of(placed, placed_index_spec_tree(placed), mesh)
+    vectors = blocks_of(host["vectors"], P(DP, None), mesh) \
+        if owner_rerank else host["vectors"]
+    args = (placed, host["centroids"], host["rotation"], vectors,
+            host["queries"])
+    step = build_search_step(s, n_shards, scan, mesh,
+                             owner_rerank=owner_rerank, mode=mode)
+    _, totals = op_stats.count(step, *args,
+                               n_valid=s.queries if masked else None)
+    for kind, (calls, nbytes) in step.collectives.counts.items():
+        totals.coll_by_op[kind] = totals.coll_by_op.get(kind, 0.0) + nbytes
+        totals.coll_calls[kind] = totals.coll_calls.get(kind, 0) + calls
+    totals.coll_bytes = float(sum(totals.coll_by_op.values()))
+    held = (*args[:4], blocks_of(host["queries"], P(DP, None), mesh))
+    arg_bytes = sum(t.numel() * t.element_size() for t in tree_flatten(
+        held, is_leaf=lambda x: hasattr(x, "shape"))[0])
+    return totals, arg_bytes, s
 
 
 # ---------------------------------------------------------------------------
@@ -527,6 +564,16 @@ def main(argv=None) -> None:
     ap.add_argument("--account", action="store_true",
                     help="print the SIFT1B bytes a rank holds on both "
                          "production meshes (no processes) and exit")
+    ap.add_argument("--lower", action="store_true",
+                    help="count the SIFT1B step of one rank on the "
+                         "production meshes (lower_anns, no processes), "
+                         "write one JSON a mesh to --out and exit")
+    ap.add_argument("--mesh", default="both",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--owner-rerank", action="store_true")
+    ap.add_argument("--masked", action="store_true",
+                    help="the shape-stable (n_valid-masked) step")
+    ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--mode", default="mulfree",
                     choices=list(backends_mod.available_backends()))
     ap.add_argument("--scan", default="beam", choices=["beam", "gemv"])
@@ -548,7 +595,66 @@ def main(argv=None) -> None:
         for line in account_lines(mode=args.mode):
             print(line, flush=True)
         return
+    if args.lower:
+        lower_main(args)
+        return
     _run(args)
+
+
+def lower_main(args) -> list[dict]:
+    """``--lower``: one record a production mesh, written to
+    ``{out}/pimcqg-engine__{variant}__{mesh}.json`` as the JAX package's
+    ``main`` writes it; counted from shapes, not measured."""
+    import json
+    import pathlib
+
+    from . import mesh as lmesh
+    from .roofline import RooflineTerms
+    out = pathlib.Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    recs = []
+    for mp in {"single": [False], "multi": [True],
+               "both": [False, True]}[args.mesh]:
+        mesh_name = "pod2x16x16" if mp else "pod16x16"
+        shape = lmesh.production_shape(multi_pod=mp)
+        t0 = time.time()
+        totals, arg_bytes, s = lower_anns(
+            shape, scan=args.scan, owner_rerank=args.owner_rerank,
+            masked=args.masked, mode=args.mode)
+        chips = shape.size()
+        terms = RooflineTerms(
+            flops=totals.flops * chips, hbm_bytes=totals.bytes * chips,
+            coll_bytes=totals.coll_bytes * chips, chips=chips,
+            peak_flops=lmesh.PEAK_FLOPS_BF16, hbm_bw=lmesh.HBM_BW,
+            link_bw=lmesh.ICI_BW, model_flops=model_flops(s))
+        variant = f"serve_b1_{args.scan}" + \
+            (f"_{args.mode}" if args.mode != "mulfree" else "") + \
+            ("_ownrr" if args.owner_rerank else "") + \
+            ("_masked" if args.masked else "")
+        rec = dict(arch="pimcqg-engine", shape=variant, mesh=mesh_name,
+                   status="ok", chips=chips,
+                   memory={"argument_size_in_bytes": arg_bytes,
+                           "footprint": footprint(shape, s, args.mode),
+                           "activation_peak_bytes":
+                               totals.activation_peak},
+                   roofline=terms.as_dict(),
+                   ops={"per_device_flops": totals.flops,
+                        "per_device_bytes": totals.bytes,
+                        "per_device_coll_bytes": totals.coll_bytes,
+                        "coll_by_op": totals.coll_by_op,
+                        "coll_calls": totals.coll_calls,
+                        "kernels": totals.kernels},
+                   measured=False, wall_s=round(time.time() - t0, 2))
+        path = out / f"pimcqg-engine__{variant}__{mesh_name}.json"
+        path.write_text(json.dumps(rec, indent=1, default=float))
+        r = rec["roofline"]
+        print(f"[pimcqg-engine|{variant}|{mesh_name}] ok ({rec['wall_s']}s)"
+              f" bneck={r['bottleneck']} tc={r['t_compute_s']:.3e} "
+              f"tm={r['t_memory_s']:.3e} tx={r['t_collective_s']:.3e} "
+              f"args={arg_bytes / 1e9:.3f} GB (computed from shapes)",
+              flush=True)
+        recs.append(rec)
+    return recs
 
 
 if __name__ == "__main__":

@@ -33,11 +33,33 @@ import torch.distributed as dist
 __all__ = ["collective_backend", "init_shard_group", "init_from_env",
            "MeshShape", "production_shape", "make_mesh",
            "make_production_mesh", "make_shard_mesh", "make_test_mesh",
-           "rank_device", "follower_main"]
+           "rank_device", "follower_main", "PEAK_FLOPS_BF16", "HBM_BW",
+           "ICI_BW", "PEAK_FP32_OPS", "PEAK_INT32_OPS", "HBM_BYTES"]
 
 log = logging.getLogger(__name__)
 
 TIMEOUT_S = 300.0   # a collective that waits longer fails the run
+
+# NVIDIA H100 SXM5 80GB (the card nvidia-smi names "NVIDIA H100 80GB
+# HBM3", 700 W): the roofline's denominators, counterparts of the JAX
+# package's TPU v5e constants. Dense bf16 tensor-core rate and HBM3
+# bandwidth from NVIDIA's H100 datasheet, SXM5 column; these rates assume
+# the full 700 W limit.
+PEAK_FLOPS_BF16 = 989.4e12        # FLOP/s a card, dense bf16
+HBM_BW = 3.35e12                  # bytes/s a card
+HBM_BYTES = 80e9                  # device memory a card
+# A rank's collective bandwidth. A 16 x 16 mesh of H100s spans 32 nodes of
+# eight, so most of its collectives cross nodes: one 400 Gb/s NDR
+# InfiniBand port a GPU (NVIDIA DGX H100 user guide: eight ConnectX-7
+# ports for the eight GPUs), 50e9 bytes/s each way. NVLink inside a node
+# (450 GB/s each way) is faster and is not what bounds such a mesh.
+ICI_BW = 50e9                     # bytes/s a rank
+# Instruction rates outside the tensor cores: 132 SMs at the 1.98 GHz
+# boost clock; per SM and clock 128 float32 lanes (the datasheet's 67
+# TFLOP/s counts an FMA as two) and 64 int32 lanes (NVIDIA Hopper
+# architecture whitepaper).
+PEAK_FP32_OPS = 132 * 128 * 1.98e9
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
 
 
 def collective_backend(world_size: int, device="cuda") -> str:

@@ -44,8 +44,25 @@ of the replicated set (``_local_kv``). The KV cache follows the heads:
 (B, S, Hkv, hd) lies as P(DATA, None, MODEL, None), replicated where Hkv
 does not divide; MLA's latent cache (one head) is replicated over 'model'.
 
-Not ported yet (raises ``NotImplementedError`` naming ROADMAP A6): the
-attention softcap.
+A KV cache may instead lie split on the SEQUENCE over 'model'
+(``SeqKVCache``, ``init_cache(..., seq_split=True)``), the JAX package's
+decode layout (``repro/launch/dryrun.py`` ``_cache_specs``: its dry-run's
+decode cells), heads whole on every rank: a decode step all-gathers the
+rank's q heads and the new k / v heads over 'model', writes the new row
+on the rank that holds its slot, attends over the rank's slots through
+the kernel (``flash_attention`` asked for the rows' logsumexp, float32 q
+over the cache in its own type), and combines the partials by their
+logsumexp: a max all_reduce of it, then one sum all_reduce over 'model'
+of exp(lse - max) times the output and of exp(lse - max) itself, a
+weight of 0 on a rank that holds no key the query sees (flash-decoding);
+its output keeps the rank's q heads for the row-parallel ``wo``. A
+prefill into it (from position 0) attends over its in-pass K / V through
+the kernel and writes the rows of the rank's slots. MLA's latent cache,
+the recurrent states and an enc-dec cache keep their layouts.
+
+The attention softcap (``softcap`` > 0: each scaled score s becomes
+softcap tanh(s / softcap) before the mask) runs through the kernel on
+every route, and the backward multiplies dS by the cap's slope.
 
 Layout: (B, S, H, d) at every public function, as in the JAX package.
 ``KVCache.pos`` is a Python int (the JAX package traces it as a scalar): a
@@ -59,13 +76,14 @@ from typing import NamedTuple
 
 import torch
 
-from ..distributed.sharding import (P, axis_index, constrain, local_shape,
-                                    sum_grad)
+from ..distributed.sharding import (P, axis_index, axis_size, constrain,
+                                    local_shape, psum, sum_grad)
 from ..kernels import ops, ref
 from ..kernels.ref import NEG_INF
 from . import layers as L
 
-__all__ = ["attend", "attend_ref", "attend_onepass", "KVCache", "gqa_init",
+__all__ = ["attend", "attend_ref", "attend_onepass", "KVCache",
+           "SeqKVCache", "gqa_init",
            "gqa_specs", "gqa_apply", "gqa_empty_cache", "mla_init",
            "mla_specs", "mla_apply", "mla_empty_cache", "split_axis"]
 
@@ -105,12 +123,14 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_valid_len: mask keys at positions >= this (cache prefill).
     The JAX package's ``kv_block`` only orders its float sums; the kernel
     scans keys in tiles of ``ref.FLASH_TILE``, the backward in blocks of
-    ``ref.BWD_KV_BLOCK`` (its 512). Differentiable where grad mode is on
-    and an input requires grad; the serving path is the bare kernel."""
-    if softcap:
-        raise NotImplementedError(f"attention softcap is not ported: {_A6}")
+    ``ref.BWD_KV_BLOCK`` (its 512). ``softcap`` > 0 caps each scaled
+    score at softcap tanh(s / softcap) before the mask, forward and
+    backward (0 is off). Differentiable where grad mode is on and an input
+    requires grad; the serving path is the bare kernel."""
     mask = dict(causal=causal, window=window, q_offset=q_offset,
                 kv_valid_len=kv_valid_len)
+    if softcap:
+        mask["softcap"] = softcap
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, mask)
@@ -167,6 +187,13 @@ class KVCache(NamedTuple):
     k: torch.Tensor    # (B, Smax, Hkv, dk)
     v: torch.Tensor    # (B, Smax, Hkv, dv)
     pos: int           # tokens already cached
+
+
+class SeqKVCache(KVCache):
+    """A ``KVCache`` whose slots lie split over 'model' (rank r holds
+    slots [r S / m, (r + 1) S / m) of every head): the module's docstring.
+    Made only where 'model' divides the slots."""
+    __slots__ = ()
 
 
 def gqa_init(gen: torch.Generator, cfg, *, stack: tuple = ()) -> dict:
@@ -274,6 +301,11 @@ def gqa_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
+    if isinstance(cache, SeqKVCache):
+        out = _seq_split_step(q, k, v, cache, cfg, rb, hq_loc, window,
+                              causal)
+        return constrain(_out_proj(out, p["wo"]), *out_entries, have=(rb,),
+                         partial=partial), cache._replace(pos=cache.pos + sq)
     if cache is None:
         out = attend(q, *_local_kv(k, v, hq_loc, cfg), causal=causal,
                      window=window)
@@ -315,9 +347,75 @@ def gqa_apply(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             else:
                 out = attend(q, kc, vc, causal=True, window=window,
                              q_offset=pos, kv_valid_len=pos + sq)
-        cache = KVCache(cache.k, cache.v, pos + sq)
+        cache = cache._replace(pos=pos + sq)
     return constrain(_out_proj(out, p["wo"]), *out_entries, have=(rb,),
                      partial=partial), cache
+
+
+def _whole_heads(t: torch.Tensor, whole: int, rb) -> torch.Tensor:
+    """(B, S, H_loc, d) of this rank's heads as every head (an all_gather
+    over 'model' where they are split)."""
+    return constrain(t, L.DATA, None, None, None,
+                     have=(rb, None, split_axis(t.shape[2], whole)))
+
+
+def _seq_split_step(q, k, v, cache: SeqKVCache, cfg, rb, hq_loc: int,
+                    window: int | None, causal: bool) -> torch.Tensor:
+    """The attention of ``gqa_apply`` over a ``SeqKVCache`` (the module's
+    docstring): writes the new rows of this rank's slots in place and
+    returns the output of this rank's q heads (B, Sq, hq_loc, hd)."""
+    m, r = axis_size(L.MODEL), axis_index(L.MODEL)
+    b, sq = q.shape[:2]
+    pos, slots = cache.pos, cache.k.shape[1]
+    total, lo = slots * m, r * slots
+    rolling = window is not None and total == window
+    if sq > 1 and pos:
+        raise ValueError(f"a prefill into a sequence-split cache starts at "
+                         f"position 0, not {pos}")
+    if not rolling and pos + sq > total:
+        raise ValueError(f"KV cache of {total} slots holds {pos} tokens and "
+                         f"cannot take {sq} more")
+    kw, vw = _whole_heads(k, cfg.n_kv_heads, rb), \
+        _whole_heads(v, cfg.n_kv_heads, rb)
+    # the new rows that land in this rank's slots (a rolling cache keeps
+    # the last `window` positions, slot t % window), as slices
+    first = max(pos, pos + sq - total) if rolling else pos
+    t = first
+    while t < pos + sq:
+        slot = t % total
+        run = min(pos + sq - t, total - slot)
+        a, z = max(slot, lo), min(slot + run, lo + slots)
+        if a < z:
+            src = slice(t - pos + a - slot, t - pos + z - slot)
+            cache.k[:, a - lo:z - lo] = kw[:, src].to(cache.k.dtype)
+            cache.v[:, a - lo:z - lo] = vw[:, src].to(cache.v.dtype)
+        t += run
+    if sq > 1:                          # the prefill: in-pass keys
+        return attend(q, *_local_kv(k, v, hq_loc, cfg), causal=causal,
+                      window=window)
+    qw = _whole_heads(q, cfg.n_heads, rb)
+    hq = cfg.n_heads
+    # this rank's keys: its slots below pos + 1 (a rolling cache then
+    # holds the last `window` positions, all in reach), within the window
+    n = min(max(pos + 1 - lo, 0), slots)
+    if n and not rolling and window is not None and \
+            pos - (lo + n - 1) >= window:
+        n = 0
+    if n:
+        out, lse = ops.flash_attention(
+            qw.float(), cache.k, cache.v, causal=False,
+            window=None if rolling else window, q_offset=pos - lo,
+            kv_valid_len=n, return_lse=True)
+    else:                   # no key here: a weight of 0 in the sums below
+        out = torch.zeros((b, 1, hq, cache.v.shape[-1]),
+                          dtype=torch.float32, device=q.device)
+        lse = torch.full((b, hq, 1), -math.inf, dtype=torch.float32,
+                         device=q.device)
+    top = psum(lse, L.MODEL, op="max")
+    w = torch.exp(lse - top).transpose(1, 2)[..., None]    # (B, 1, Hq, 1)
+    both = psum(torch.cat([out * w, w], -1), L.MODEL)
+    out = (both[..., :-1] / both[..., -1:]).to(q.dtype)
+    return out.narrow(2, r * hq_loc, hq_loc) if hq_loc != hq else out
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -327,15 +425,25 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def gqa_empty_cache(cfg, batch: int, max_len: int, dtype, *,
-                    stack: tuple = (), device="cuda") -> KVCache:
+                    stack: tuple = (), device="cuda",
+                    seq_split: bool = False) -> KVCache:
     """Zero K / V of (*stack, B, max_len, Hkv, hd); on a mesh this rank's
-    block of P(DATA, None, MODEL, None), lifted over ``stack``."""
+    block of P(DATA, None, MODEL, None), lifted over ``stack``, or with
+    ``seq_split`` a ``SeqKVCache``, its block of P(DATA, MODEL, None,
+    None), where 'model' divides max_len (else the heads' layout)."""
     hkv = cfg.n_kv_heads
     hd = cfg.head_dim or cfg.d_model // cfg.n_heads
-    shape = local_shape((*stack, batch, max_len, hkv, hd),
-                        P(*(None,) * len(stack), L.DATA, None, L.MODEL, None))
-    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device), 0)
+    whole = (*stack, batch, max_len, hkv, hd)
+    lift = (None,) * len(stack)
+    m = axis_size(L.MODEL)
+    kind = KVCache
+    if seq_split and m > 1 and max_len % m == 0:
+        shape, kind = local_shape(whole, P(*lift, L.DATA, L.MODEL)), \
+            SeqKVCache
+    else:
+        shape = local_shape(whole, P(*lift, L.DATA, None, L.MODEL, None))
+    return kind(torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device), 0)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,15 @@ d), vlm patches (B, Np, d). ``forward`` is the teacher-forced pass with
 autograd on (each layer group recomputed in the backward when
 ``cfg.remat``); the serving calls run under ``torch.no_grad``.
 
+FSDP (``Model(cfg, fsdp=True)``, the JAX package's dry-run layout above
+8e9 bytes of params a model shard): on a mesh, ``specs`` are
+``sharding.fsdp_specs`` of the JAX package's (every weight also split
+over 'data'), each rank holds those blocks, and the forward gathers each
+weight back to its base layout where a layer reads it
+(``transformer.decoder_forward``'s ``layout``: an all_gather over 'data',
+whose transpose reduce-scatters the weight's gradient over 'data', so the
+batch reduction skips 'data' for those leaves). Decoder-only models.
+
 The sharded LM (ROADMAP A6): under ``sharding.use_mesh(mesh)``, a
 ('data', 'model') DeviceMesh (or ('pod', 'data', 'model')), each rank
 holds the block of every param that ``model.shardings(mesh)`` gives it
@@ -45,14 +54,16 @@ changes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
 
 from .. import tree as T
 from ..distributed.sharding import (P, axis_index, block_of, constrain,
-                                    current_mesh, psum, resolve_entries,
-                                    shardings_tree)
+                                    current_mesh, fsdp_specs, psum,
+                                    resolve_entries, shardings_tree,
+                                    tree_flatten, tree_unflatten)
 from ..optim import adamw
 from . import encdec, transformer
 from . import layers as L
@@ -64,6 +75,7 @@ __all__ = ["Model", "build_model", "value_and_grad", "make_train_step",
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
+    fsdp: bool = False
 
     # -- init ----------------------------------------------------------------
     def init(self, gen: torch.Generator) -> dict:
@@ -74,14 +86,53 @@ class Model:
 
     def specs(self) -> dict:
         """The JAX package's sharding specs of ``init``'s tree, leaf for
-        leaf (its ``init`` returns them beside the params)."""
+        leaf (its ``init`` returns them beside the params); with ``fsdp``
+        on a mesh, their ``sharding.fsdp_specs``."""
         if self.cfg.enc_layers:
+            if self.fsdp:
+                raise NotImplementedError(
+                    f"{self.cfg.name}: FSDP of an enc-dec model is not "
+                    f"ported: ROADMAP A7")
             return encdec.encdec_specs(self.cfg)
-        return transformer.decoder_specs(self.cfg)
+        base = transformer.decoder_specs(self.cfg)
+        mesh = current_mesh()
+        if not self.fsdp or mesh is None:
+            return base
+        return fsdp_specs(base, self.shapes(), mesh)
+
+    def layout(self):
+        """With ``fsdp`` on a mesh, a tree of the params' structure whose
+        leaves are a ``transformer.Gather`` (the rank's resolved FSDP
+        entries and the base ones) where they differ, else False
+        (``decoder_forward`` gathers the former where a layer reads them);
+        None without FSDP."""
+        mesh = current_mesh()
+        if not self.fsdp or mesh is None:
+            return None
+        shapes, structure = tree_flatten(self.shapes(), is_leaf=_is_leaf)
+        spec = lambda x: x is None or isinstance(x, P)        # noqa: E731
+        base = tree_flatten(transformer.decoder_specs(self.cfg),
+                            is_leaf=spec)[0]
+        have = tree_flatten(self.specs(), is_leaf=spec)[0]
+        out = []
+        for t, b, h in zip(shapes, base, have):
+            if t is None:
+                out.append(None)
+                continue
+            hb = resolve_entries(mesh, h, t.shape)
+            bb = resolve_entries(mesh, b, t.shape)
+            out.append(False if hb == bb else transformer.Gather(hb, bb))
+        return tree_unflatten(structure, out)
 
     def shapes(self) -> dict:
         """``init``'s tree as meta tensors: the whole shapes and types, no
-        memory, no numbers drawn (the JAX package's ``jax.eval_shape``)."""
+        memory, no numbers drawn (the JAX package's ``jax.eval_shape``);
+        made once a model (``specs``, ``layout`` and ``shardings`` read it
+        inside a step, where an accounting run would count a new one)."""
+        return self._shapes
+
+    @functools.cached_property
+    def _shapes(self) -> dict:
         return self.init(_MetaGenerator())
 
     def shardings(self, mesh) -> dict:
@@ -90,16 +141,20 @@ class Model:
         return shardings_tree(mesh, self.shapes(), self.specs())
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
-                   device="cuda"):
+                   device="cuda", seq_split: bool = False):
         """max_len counts text tokens; a vlm's patch slots are added here.
         An enc-dec cache is an ``encdec.EncDecCache``, any other a dict.
-        On a mesh, this rank's block of the cache for ``batch`` requests."""
+        On a mesh, this rank's block of the cache for ``batch`` requests;
+        ``seq_split``: its GQA caches split on the sequence over 'model'
+        (``attention.SeqKVCache``, the JAX package's decode layout; an
+        enc-dec cache keeps its layout)."""
         max_len = max_len + self.cfg.n_patches
         if self.cfg.enc_layers:
             return encdec.encdec_empty_cache(self.cfg, batch, max_len, dtype,
                                              device=device)
         return transformer.decoder_empty_cache(self.cfg, batch, max_len,
-                                               dtype, device=device)
+                                               dtype, device=device,
+                                               seq_split=seq_split)
 
     # -- forward -------------------------------------------------------------
     def forward(self, params, batch: dict):
@@ -115,7 +170,8 @@ class Model:
             return logits, torch.zeros((), dtype=torch.float32,
                                        device=logits.device)
         logits, _, aux = transformer.decoder_forward(
-            params, cfg, batch["tokens"], patches=batch.get("patches"))
+            params, cfg, batch["tokens"], patches=batch.get("patches"),
+            layout=self.layout())
         return logits, aux
 
     def loss(self, params, batch: dict):
@@ -165,7 +221,7 @@ class Model:
                                          logits_slice=1)
         logits, cache, _ = transformer.decoder_forward(
             params, cfg, tokens, cache=cache, patches=patches,
-            logits_slice=1)
+            logits_slice=1, layout=self.layout())
         return logits, cache
 
     @torch.no_grad()
@@ -175,7 +231,8 @@ class Model:
             return encdec.decode_forward(params, self.cfg, tokens, cache,
                                          logits_slice=1)
         logits, cache, _ = transformer.decoder_forward(
-            params, self.cfg, tokens, cache=cache, logits_slice=1)
+            params, self.cfg, tokens, cache=cache, logits_slice=1,
+            layout=self.layout())
         return logits, cache
 
 
@@ -186,6 +243,10 @@ class _MetaGenerator(torch.Generator):
     @property
     def device(self):
         return torch.device("meta")
+
+
+def _is_leaf(x) -> bool:
+    return x is None or hasattr(x, "shape")
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -280,15 +341,25 @@ def value_and_grad(model: Model, params, batch: dict):
     passes its param blocks and the whole batch and gets the gradient
     block of each: its backward's, all-reduced over the batch axes."""
     loss, parts, grads = _local_grads(model, params, batch)
-    return loss, parts, _batch_sum(list(grads), _batch_axes(batch))
+    return loss, parts, _batch_sum(list(grads), _batch_axes(batch), model)
 
 
-def _batch_sum(grads: list, rb) -> list:
+def _batch_sum(grads: list, rb, model: Model) -> list:
     """Each gradient all-reduced over the batch axes ``rb`` (none without
-    a mesh), in the list's place, one leaf at a time."""
-    if rb is not None:
-        for i, g in enumerate(grads):
-            grads[i] = psum(g, rb)
+    a mesh), in the list's place, one leaf at a time; an FSDP leaf's over
+    them less 'data' (its gather's transpose reduce-scattered it over
+    'data')."""
+    if rb is None:
+        return grads
+    lay = model.layout()
+    lay = T.leaves(lay) if lay is not None else [None] * len(grads)
+    rest = tuple(a for a in ((rb,) if isinstance(rb, str) else rb)
+                 if a != transformer.FSDP_AXIS)
+    for i, g in enumerate(grads):
+        axes = (rest or None) if isinstance(lay[i], transformer.Gather) \
+            else rb
+        if axes is not None:
+            grads[i] = psum(g, axes)
     return grads
 
 
@@ -343,7 +414,7 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
                         acc.add_(x)
                     lsum = lsum + loss_i
                 del g
-            gsum = _batch_sum(gsum, _batch_axes(mb))
+            gsum = _batch_sum(gsum, _batch_axes(mb), model)
             grads = T.unflatten_like(params, [x.div_(accum) for x in gsum])
             loss = lsum / accum
             parts = {"ce": loss, "aux": torch.zeros((), dtype=torch.float32,

@@ -50,11 +50,12 @@ losses are summed over the layers, and none (the ssm family: the block is
 its mixer). A vlm config (``n_patches``) adds ``patch_proj``: a forward
 given patch embeddings (B, Np, d) prepends their projection to the token
 embeddings (internvl2's stub vision tower, as in the JAX package). The
-enc-dec stack (whisper) is ``encdec.py``; the attention softcap raises
-NotImplementedError naming ROADMAP A6.
+enc-dec stack (whisper) is ``encdec.py``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -70,7 +71,8 @@ from .config import ModelConfig
 
 __all__ = ["block_init", "block_specs", "block_apply", "block_empty_cache",
            "decoder_init", "decoder_specs", "decoder_empty_cache",
-           "decoder_forward", "lift", "resid_spec", "embed_lookup"]
+           "decoder_forward", "lift", "resid_spec", "embed_lookup", "Gather",
+           "FSDP_AXIS"]
 
 GQA_KINDS = ("attn", "swa", "lattn")
 MIXERS = (*GQA_KINDS, "mla", "mamba", "rglru")
@@ -214,7 +216,8 @@ def block_apply(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, mlp: str,
 
 
 def block_empty_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
-                      dtype, *, stack: tuple = (), device="cuda"):
+                      dtype, *, stack: tuple = (), device="cuda",
+                      seq_split: bool = False):
     _refuse(mixer)
     if mixer == "mla":
         return A.mla_empty_cache(cfg, batch, max_len, dtype, stack=stack,
@@ -229,7 +232,7 @@ def block_empty_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
     ln = max_len if cfg.window is None or mixer == "attn" \
         else min(max_len, cfg.window)
     return A.gqa_empty_cache(cfg, batch, ln, dtype, stack=stack,
-                             device=device)
+                             device=device, seq_split=seq_split)
 
 
 # ---------------------------------------------------------------------------
@@ -293,13 +296,14 @@ def decoder_specs(cfg: ModelConfig) -> dict:
 
 
 def decoder_empty_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                        device="cuda") -> dict:
+                        device="cuda", seq_split: bool = False) -> dict:
     n_pre, n_groups, n_tail = cfg.layer_plan()
     plen = len(cfg.pattern)
 
     def one(mixer, stack=()):
         return block_empty_cache(cfg, mixer, batch, max_len, dtype,
-                                 stack=stack, device=device)
+                                 stack=stack, device=device,
+                                 seq_split=seq_split)
 
     first_tail = n_pre + n_groups * plen
     return {
@@ -359,6 +363,60 @@ def _last_rows(x: torch.Tensor, n: int, resid, part: bool) -> torch.Tensor:
     return x if n is None else x[:, -n:]
 
 
+FSDP_AXIS = "data"    # the mesh axis FSDP also splits the weights over
+
+
+@dataclasses.dataclass(frozen=True)
+class Gather:
+    """An FSDP leaf of ``Model.layout``: the rank holds the block of the
+    resolved entries ``have`` and a layer reads the block of ``want``."""
+    have: tuple
+    want: tuple
+
+
+def _read(p, lay):
+    """The params ``p`` as a layer reads them: each ``Gather`` leaf of
+    ``lay`` (a tree of p's structure, or None / False for none) gathered
+    from its FSDP block to its base block through ``constrain`` (an
+    all_gather over 'data'; its transpose reduce-scatters the weight's
+    gradient, a partial sum over 'data', onto the block)."""
+    if lay is None or lay is False:
+        return p
+    if isinstance(lay, Gather):
+        return constrain(p, *lay.want, have=lay.have, grad_partial=FSDP_AXIS)
+    if isinstance(lay, dict):
+        return {k: _read(v, lay[k]) for k, v in p.items()}
+    return type(p)(_read(v, w) for v, w in zip(p, lay))
+
+
+def _stacked(lay):
+    """``lay`` of a stacked group as one layer reads it: each ``Gather``'s
+    leading (stack) entry dropped; a stack split over 'data' (FSDP's last
+    resort) has no layer block, so the whole stack is gathered first
+    (``_whole_stack``)."""
+    if lay is None or lay is False:
+        return lay
+    if isinstance(lay, Gather):
+        return Gather(lay.have[1:], lay.want[1:])
+    return {k: _stacked(v) for k, v in lay.items()}
+
+
+def _whole_stack(p, lay):
+    """The stacked params ``p`` with each leaf split over 'data' on its
+    stack dim gathered whole on that dim (and its ``lay`` entry with it)."""
+    if lay is None or lay is False:
+        return p, lay
+    if isinstance(lay, Gather):
+        if lay.have[0] is None:
+            return p, lay
+        g = Gather((lay.want[0], *lay.have[1:]), lay.want)
+        x = constrain(p, *g.have, have=lay.have, grad_partial=FSDP_AXIS)
+        return x, (False if g.have == g.want else g)
+    out = {k: _whole_stack(v, lay[k]) for k, v in p.items()}
+    return {k: v[0] for k, v in out.items()}, \
+        {k: v[1] for k, v in out.items()}
+
+
 def _slice(tree, g: int):
     """Layer g of a stacked param dict."""
     return {k: _slice(v, g) if isinstance(v, dict) else v[g]
@@ -388,26 +446,35 @@ def _store(dst, new):
 
 def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                     cache=None, patches: torch.Tensor | None = None,
-                    logits_slice: int | None = None):
+                    logits_slice: int | None = None, layout=None):
     """tokens (B, S) int. cache=None -> full-sequence forward (all logits).
     With cache -> prefill/decode; logits for the last `logits_slice` tokens.
     patches (B, Np, d) (vlm configs): projected by ``patch_proj`` and put
     before the tokens, whose positions then start at Np; a vlm forward
     without a cache needs them.
 
+    ``layout``: ``Model.layout()`` (FSDP): each layer's weights are
+    gathered where the layer reads them (``_read``).
+
     Returns (logits, new_cache, aux_loss_sum): the sum over the layers of
     the MoE layers' Switch losses, a 0-d float32 tensor (0 without MoE)."""
+    lay = layout or {}
+
+    def read(key, i=None):
+        p, w = params[key], lay.get(key)
+        if i is not None:
+            p, w = p[i], (None if w is None else w[i])
+        return _read(p, w)
     n_pre, n_groups, n_tail = cfg.layer_plan()
     plen = len(cfg.pattern)
     b = tokens.shape[0]
     rb = None if current_mesh() is None else resolve_entries(
         current_mesh(), (L.DATA,), (b,))[0]
-    x, part = embed_lookup(params["embed"], block_of(tokens, P(L.DATA)),
-                           cfg)
+    x, part = embed_lookup(read("embed"), block_of(tokens, P(L.DATA)), cfg)
     x = constrain(x, L.DATA, None, None, have=(rb,), partial=part)
     if cfg.n_patches and patches is not None:
         px = block_of(patches, P(L.DATA)).to(cfg.dtype)
-        x = torch.cat([px @ params["patch_proj"], x], dim=1)
+        x = torch.cat([px @ read("patch_proj"), x], dim=1)
     elif cfg.n_patches and cache is None:
         raise ValueError(f"{cfg.name}: a vlm forward without a cache needs "
                          f"the patch embeddings")
@@ -427,20 +494,24 @@ def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     for i in range(n_pre):
         c = None if cache is None else cache["prefix"][i]
-        x, c2, aux = run_block(params["prefix"][i], x, i, c)
+        x, c2, aux = run_block(read("prefix", i), x, i, c)
         aux_total = aux_total + aux
         if cache is not None:
             new_cache["prefix"].append(_store(c, c2))
 
     pos = [None] * plen
+    stacks = [_whole_stack(params["groups"][j],
+                           None if "groups" not in lay else lay["groups"][j])
+              for j in range(plen)] if n_groups else []
 
     def group(gi, xx, aux_acc):
         """Group gi: layers n_pre + gi * plen + j; with a cache, each
         block's state is written into its slice and its pos kept."""
         for j in range(plen):
             c = None if cache is None else _layer(cache["groups"][j], gi)
-            xx, c2, aux = run_block(_slice(params["groups"][j], gi), xx,
-                                    n_pre + j, c)
+            stack, slay = stacks[j]
+            xx, c2, aux = run_block(_read(_slice(stack, gi), _stacked(slay)),
+                                    xx, n_pre + j, c)
             aux_acc = aux_acc + aux
             if cache is not None:
                 pos[j] = _store(c, c2).pos
@@ -456,13 +527,13 @@ def decoder_forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     first_tail = n_pre + n_groups * plen
     for t in range(n_tail):
         c = None if cache is None else cache["tail"][t]
-        x, c2, aux = run_block(params["tail"][t], x, first_tail + t, c)
+        x, c2, aux = run_block(read("tail", t), x, first_tail + t, c)
         aux_total = aux_total + aux
         if cache is not None:
             new_cache["tail"].append(_store(c, c2))
 
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    x = _last_rows(_norm(params["final_norm"], x, cfg, resid), logits_slice,
+    head = read("embed").T if cfg.tie_embeddings else read("lm_head")
+    x = _last_rows(_norm(read("final_norm"), x, cfg, resid), logits_slice,
                    resid, head.shape[-1] != cfg.vocab_padded)
     logits = L.logits_softcap(x @ head, cfg.logit_softcap)
     logits = logits + _local_mask(cfg, head.shape[-1], x.device).to(

@@ -422,14 +422,19 @@ def test_footprint_matches_jax_resolve_spec(multi_pod, mode):
 def test_account_lines_and_production_mesh():
     """--account's lines name both meshes and say the bytes are computed;
     make_production_mesh without 256 ranks raises naming torchrun;
-    lower_anns raises naming A7."""
+    lower_anns, which raised naming A7 before it was ported, counts the
+    step on the production mesh's shape (no processes), its argument
+    bytes footprint()'s (tests/test_torch_dryrun.py holds it against the
+    JAX package's)."""
     lines = tstep.account_lines()
     assert len(lines) == 2 and all("computed" in x for x in lines)
     assert "'pod': 2" in lines[1] and "10.201 GB of index" in lines[0]
     with pytest.raises(ValueError, match="torchrun --nproc-per-node=256"):
         lmesh.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="A7"):
-        tstep.lower_anns()
+    shape = lmesh.production_shape()
+    totals, arg_bytes, s = tstep.lower_anns(shape, owner_rerank=True)
+    assert arg_bytes == tstep.footprint(shape, s)["total"]
+    assert totals.kernels["beam_search"]["launches"] == 1
     assert tstep.model_flops(tstep.AnnsScale()) == pytest.approx(
         4096 * (8 * 32 * 32 * 2.0 * 128 + 8 * 40 * 3.0 * 128))
 

@@ -221,12 +221,18 @@ def test_rolling_prefill_then_decode_matches_jax():
 
 
 def test_unported_attention_raises():
-    """The attention softcap still raises naming A6 (MLA, which raised
-    here too, is served since slice 12: tests/test_torch_mla.py; so is
-    cross-attention since slice 14: test_cross_attention_matches_jax)."""
+    """Nothing of the attention is left unported: the softcap runs
+    (tests/test_torch_softcap.py holds it against the JAX package), as MLA
+    does (tests/test_torch_mla.py) and cross-attention does
+    (test_cross_attention_matches_jax). What is still refused is a cap
+    that is no cap: negative, infinite or NaN."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 8, 8, 2, 2, 8, 8))
-    with pytest.raises(NotImplementedError, match="A6"):
-        TA.attend(q, k, v, causal=True, softcap=5.0)
+    out = TA.attend(q, k, v, causal=True, softcap=5.0)
+    want = JA.attend(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                     jnp.asarray(v.numpy()), causal=True, softcap=5.0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=ATOL)
+    with pytest.raises(ValueError, match="softcap"):
+        TA.attend(q, k, v, causal=True, softcap=-5.0)
 
 
 @pytest.mark.parametrize("sq,f", [(4, 70), (1, 70), (9, 5)])

@@ -36,7 +36,8 @@ ragged Sq / Sk, Sq = 1 over float32 K/V and the padded head dims 8 / 16.
 The training path: every route's logsumexp output (``return_lse``)
 against its twin, ``attend``'s gradients within
 ``ref.flash_attention_bwd_bound`` of float32 autograd, every arch's
-gradients and one train step against the CPU's.
+gradients and one train step against the CPU's. The attention softcap on
+each of the three kernel templates (output, lse and gradients).
 """
 
 import numpy as np
@@ -1005,6 +1006,12 @@ def _assert_bf16_kernel(got, q, k, v, kw):
     (1, 33, 300, 2, 1, 256, False, 80, 250, 290, "bf16", "bf16"),
     (2, 70, 130, 16, 1, 256, True, 50, 50, 125, "f32", "f32"),
     (1, 65, 65, 4, 2, 256, True, None, 0, None, "f32", "bf16"),
+    # a decode step over a sequence-split cache (``attention._seq_split_step``):
+    # one float32 row over the rank's bf16 slots, non-causal, the valid
+    # slots of a rolling cache; a window from a query past the rank's slots
+    (2, 1, 96, 32, 8, 80, False, None, 0, 40, "f32", "bf16"),
+    (2, 1, 96, 32, 8, 80, False, 64, 150, 96, "f32", "bf16"),
+    (1, 1, 64, 16, 1, 256, False, 40, 70, 64, "f32", "bf16"),
 ])
 def test_flash_attention_kernel_matches_plain(card, b, sq, sk, hq, hkv, d,
                                               causal, window, q_off, valid,
@@ -1334,6 +1341,9 @@ def test_moe_layer_makes_no_host_sync_on_the_card(card):
     (2, 24, 24, 4, 2, 16, 16, True, None, 0, None, "bf16", "bf16", False),
     (2, 24, 24, 4, 4, 12, 12, False, None, 0, None, "f32", "f32", False),
     (1, 20, 20, 4, 1, 40, 32, True, None, 0, None, "bf16", "bf16", False),
+    # the sequence-split decode's calls (above)
+    (2, 1, 96, 32, 8, 80, 80, False, None, 0, 40, "f32", "bf16", False),
+    (2, 1, 96, 32, 8, 80, 80, False, 64, 150, 96, "f32", "bf16", False),
 ])
 def test_flash_attention_kernel_writes_the_rows_logsumexp(
         card, b, sq, sk, hq, hkv, dk, dv, causal, window, q_off, valid, qt,
@@ -1409,6 +1419,119 @@ def test_attend_gradients_on_the_card_within_the_bound(card, causal, window,
         for a, w, bnd in zip(got, want, (bq, bk, bv)):
             assert ((a.double().cpu() - w.double()).abs()
                     <= bnd.cpu()).all()
+
+
+# the attention softcap on every route: b, sq, sk, hq, hkv, dk, dv, causal,
+# window, q_offset, kv_valid_len, q type, K/V type, v a view of k, cap
+SOFTCAP_CASES = [
+    # the CUDA-core kernel (float32 q): hd 64, ragged, kv_valid_len; hd 256
+    (2, 64, 64, 4, 4, 64, 64, True, None, 0, None, "f32", "f32", False, 2.0),
+    (1, 17, 93, 4, 2, 96, 96, False, None, 0, 77, "f32", "bf16", False, 1.0),
+    (2, 70, 130, 16, 1, 256, 256, True, 50, 50, 125, "f32", "f32", False,
+     3.0),
+    # flash_tc_kernel (bf16 q): danube's heads, causal and not, a window,
+    # a cache prefill, hd 160, the padded smoke dims
+    (1, 300, 300, 32, 8, 80, 80, True, None, 0, None, "bf16", "f32", False,
+     2.0),
+    (2, 300, 1500, 20, 20, 64, 64, False, None, 0, None, "bf16", "bf16",
+     False, 2.0),
+    (2, 70, 160, 8, 2, 80, 80, True, 40, 60, 150, "bf16", "f32", False, 1.0),
+    (1, 150, 213, 8, 2, 160, 160, True, None, 63, None, "bf16", "bf16",
+     False, 5.0),
+    (2, 24, 24, 4, 2, 16, 16, True, None, 0, None, "bf16", "bf16", False,
+     0.5),
+    # flash_mla_kernel: (576, 512) over an aliased latent cache, and hd 256
+    # with a window
+    (1, 100, 100, 16, 1, 576, 512, True, None, 0, None, "bf16", "bf16", True,
+     2.0),
+    (3, 33, 100, 16, 1, 576, 512, True, None, 60, 93, "bf16", "f32", False,
+     50.0),
+    (2, 300, 300, 16, 1, 256, 256, True, 100, 0, None, "bf16", "bf16", False,
+     2.0),
+    (1, 33, 300, 2, 1, 256, 256, False, 80, 250, 290, "bf16", "f32", False,
+     1.0),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,dk,dv,causal,window,q_off,valid,qt,"
+                         "kvt,alias,cap", SOFTCAP_CASES)
+def test_flash_attention_softcap_kernel(card, b, sq, sk, hq, hkv, dk, dv,
+                                        causal, window, q_off, valid, qt,
+                                        kvt, alias, cap):
+    """Each of the three kernel templates with ``softcap``: the output
+    against the twin by the bf16 rule with the flip term and within
+    ``flash_attention_rounding_bound`` of the float32 plain version (bf16
+    q), or against the float32 plain version (float32 q); the lse within
+    ``flash_attention_lse_bound``; inputs scaled by 2 so that the cap
+    bites, and the capped output apart from the uncapped one."""
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = torch.Generator(device=card).manual_seed(sq * 3 + dk)
+    q = (2 * torch.randn((b, sq, hq, dk), generator=g, device=card)).to(
+        types[qt])
+    k = (2 * torch.randn((b, sk, hkv, dk), generator=g, device=card)).to(
+        types[kvt])
+    v = k[..., :dv] if alias else torch.randn(
+        (b, sk, hkv, dv), generator=g, device=card).to(types[kvt])
+    kw = dict(causal=causal, window=window, q_offset=q_off,
+              kv_valid_len=valid, softcap=cap)
+    ops.reset_launch_counts()
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert torch.equal(out, flash_attn.flash_attention(q, k, v, **kw))
+    if qt == "bf16":
+        _assert_bf16_kernel(out, q, k, v, kw)
+    else:
+        _assert_attn_close(out, ref.flash_attention_ref(q, k, v, **kw))
+    bf = torch.bfloat16 if qt == "bf16" else None
+    _, twin = ref.flash_attention_ref(q, k, v, operands=bf, return_lse=True,
+                                      **kw)
+    assert ((lse - twin).abs()
+            <= ref.flash_attention_lse_bound(q, k, twin, **kw)).all()
+    uncapped = flash_attn.flash_attention(q, k, v, **{**kw, "softcap": 0.0})
+    if cap < 10:
+        assert (uncapped.float() - out.float()).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("causal,window,hq,hkv,dk,dv,alias", [
+    (True, None, 32, 8, 80, 80, False),
+    (False, None, 4, 4, 64, 64, False),
+    (True, 48, 16, 1, 256, 256, False),
+    (True, None, 16, 1, 576, 512, True),
+])
+def test_attend_softcap_gradients_on_the_card_within_the_bound(
+        card, causal, window, hq, hkv, dk, dv, alias):
+    """``attend(..., softcap=2)``'s gradients on the card (the kernel's
+    capped forward with its logsumexp, the plain capped backward), bf16
+    inputs, within ``ref.flash_attention_bwd_bound`` of autograd through
+    the float32 one-pass attention with the cap."""
+    from repro_torch.models.attention import attend, attend_onepass
+    gen = torch.Generator().manual_seed(dk + hq + 1)
+    b, s = 2, 130
+    q = (2 * torch.randn((b, s, hq, dk), generator=gen)).bfloat16()
+    kk = (2 * torch.randn((b, s, hkv, dk), generator=gen)).bfloat16()
+    vv = kk[..., :dv] if alias else torch.randn(
+        (b, s, hkv, dv), generator=gen).bfloat16()
+    go = torch.randn((b, s, hq, dv), generator=gen).bfloat16()
+    kw = dict(causal=causal, window=window, softcap=2.0)
+    leaves = (q, kk) if alias else (q, kk, vv)
+    f32 = [t.float().requires_grad_() for t in leaves]
+    fk = f32[1]
+    want = torch.autograd.grad(attend_onepass(
+        f32[0], fk, fk[..., :dv] if alias else f32[2], **kw), f32,
+        go.float())
+    x = [t.to(card).requires_grad_() for t in leaves]
+    xv = x[1][..., :dv] if alias else x[2]
+    got = torch.autograd.grad(attend(x[0], x[1], xv, **kw), x, go.to(card))
+    with torch.no_grad():
+        o, lse = ops.flash_attention(x[0], x[1], xv, return_lse=True, **kw)
+        bq, bk, bv = ref.flash_attention_bwd_bound(x[0], x[1], xv, o, lse,
+                                                   go.to(card), **kw)
+    if alias:
+        bk = bk.clone()
+        bk[..., :dv] += bv
+    for a, w, bnd in zip(got, want, (bq, bk, bv)):
+        assert ((a.double().cpu() - w.double()).abs() <= bnd.cpu()).all()
 
 
 @pytest.mark.parametrize("arch", _archs())
