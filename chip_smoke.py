@@ -57,8 +57,8 @@ Phases (each failure exits non-zero and prints no result line):
      output the bits of the call without it and the rows' logsumexp within
      ``ref.flash_attention_lse_bound`` of the twin's (bf16 q) or of the
      float32 plain version's (float32 q), on every route (the CUDA-core
-     kernel, the tensor-core kernel, the split-dv kernel at hd 256 and at
-     (576, 512), the zero-padded head dims);
+     kernel, the tensor-core kernel, the wide kernel at hd 256, the
+     split-dv kernel at (576, 512), the zero-padded head dims);
   4. build the index of a 10M x 128 clustered corpus (big-ann-benchmarks'
      10M BIGANN/SIFT subset scale, SIFT's width) on the card, 4096 clusters
      on 8 shards; run the build's k-means twice more from its seed and
@@ -769,18 +769,29 @@ def phase_build_kernels():
 
 def hold_hd256_spills(report: str) -> None:
     """The head-dim-256 instantiations in ptxas's report of the flash
-    library (the split-dv kernel for bf16 q, the CUDA-core kernel for
-    float32 q, each over bf16 and float32 K/V, each without and with the
-    softcap): logged, and none may spill (a spill would put O's registers
-    through local memory)."""
+    library (the wide kernel for bf16 q, the CUDA-core kernel for float32
+    q, each over bf16 and float32 K/V, each without and with the softcap):
+    logged, and none may spill (a spill would put O's registers through
+    local memory). The split-dv kernel's four (MLA's (576, 512)) are
+    logged beside them."""
     fn, seen = None, 0
     for line in report.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
-        elif fn and "Li256ELi256E" in fn and "spill" in line:
-            kind = "split-dv" if "flash_mla_kernel" in fn else "CUDA-core"
-            kv = "float32" if "kernelIfLi" in fn or "kernelIffLi" in fn \
-                else "bf16"
+        elif fn and "spill" in line:
+            if "flash_mla_kernel" in fn:
+                kv = "float32" if "flash_mla_kernelIf" in fn else "bf16"
+                log(f"  ptxas flash_attention/mla (split-dv, {kv} K/V): "
+                    f"{line.strip()}")
+                continue
+            if "flash_wide_kernel" in fn:
+                kind = "wide"
+                kv = "float32" if "flash_wide_kernelIf" in fn else "bf16"
+            elif "Li256ELi256E" in fn:
+                kind = "CUDA-core"
+                kv = "float32" if "kernelIffLi" in fn else "bf16"
+            else:
+                continue
             log(f"  ptxas flash_attention/hd256 ({kind}, {kv} K/V): "
                 f"{line.strip()}")
             seen += 1
@@ -789,6 +800,28 @@ def hold_hd256_spills(report: str) -> None:
                 fail(f"the hd-256 instantiation {fn} spills: {line.strip()}")
     if report and seen != 8:
         fail(f"ptxas reported {seen} head-dim-256 instantiations, expected 8")
+
+
+def log_staged(q, k, v, kw, ms, label) -> None:
+    """The K/V bytes the split-dv or wide kernel stages from L2 on these
+    inputs (``kernels/cost.py`` ``flash_staged_bytes`` at the kernel's
+    query rows a block and cluster sharing, ``flash_attn.split_design``)
+    and their rate at the kernel's ms, logged; beside them the bytes the
+    redesign's parent staged (64-row blocks, no sharing)."""
+    from repro_torch.kernels import cost, flash_attn
+    b, sq, hq, dk = q.shape
+    rows, share = flash_attn.split_design(q, k, v)
+    alias = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+    kw_bytes = dict(
+        b=b, sq=sq, sk=k.shape[1], hq=hq, hkv=k.shape[2], dk=dk,
+        dv=v.shape[-1], kv_bytes=k.element_size(), causal=kw["causal"],
+        window=kw.get("window"), q_offset=kw.get("q_offset", 0),
+        kv_valid_len=kw.get("kv_valid_len"), alias=alias)
+    staged = cost.flash_staged_bytes(rows=rows, share=share, **kw_bytes)
+    before = cost.flash_staged_bytes(rows=64, share=1, **kw_bytes)
+    log(f"{label}: stages {staged / 1e9:.4f} GB of K/V from L2 ({rows}-row "
+        f"blocks, {share} a tile), {staged / ms / 1e9:.4f} TB/s at "
+        f"{ms:.5f} ms (64-row blocks alone: {before / 1e9:.4f} GB)")
 
 
 def synthetic_rank_inputs(torch, dev, n_lanes, n_rows, w, t_rows, seed):
@@ -1318,7 +1351,7 @@ def phase_flash_synthetic(torch, dev):
         (2, 257, 330, 8, 2, 160, True, None, 0, 300, bf, f32),
         (1, 200, 200, 4, 1, 160, True, 48, 0, None, bf, bf),
         (2, 129, 200, 4, 1, 160, True, None, 71, None, f32, f32),
-        # head dim 256 (recurrentgemma-9b's local attention, the split-dv
+        # head dim 256 (recurrentgemma-9b's local attention, the wide
         # kernel for bf16 q): GQA groups 16, 4 and 1, ragged Sq / Sk,
         # q_offset, kv_valid_len < Sk, windows that bite, bf16 q over bf16
         # and float32 K/V; the float32 route
@@ -3276,6 +3309,7 @@ def phase_mla(torch, dev, eng):
         lambda: ref.flash_attention_ref(q0, k0, v0, operands=bf, **kw0), 10,
         flash_bound(q0, k0, v0, kw0["causal"], kw0["window"],
                     kw0["q_offset"], kw0["kv_valid_len"]))
+    log_staged(q0, k0, v0, kw0, row["ms"], "flash_attention/mla")
     f32_ms, f32_wall = times(
         torch, lambda: ref.flash_attention_ref(q0, k0, v0, **kw0), 3)
     log(f"flash_attention/mla float32 plain version: "
@@ -3605,6 +3639,7 @@ def phase_rglru(torch, dev, eng):
         lambda: ref.flash_attention_ref(q0, k0, v0, operands=bf, **kw0), 10,
         flash_bound(q0, k0, v0, kw0["causal"], kw0["window"],
                     kw0["q_offset"], kw0["kv_valid_len"]))
+    log_staged(q0, k0, v0, kw0, row["ms"], "flash_attention/hd256")
     f32_ms, f32_wall = times(
         torch, lambda: ref.flash_attention_ref(q0, k0, v0, **kw0), 3)
     log(f"flash_attention/hd256 float32 plain version: "
@@ -5590,7 +5625,8 @@ def phase_softcap(torch, dev) -> dict:
     """Phase 20: the attention softcap (cap 50) on each kernel template:
     ``flash_tc_kernel`` causal (danube's layer 0) and non-causal
     (whisper's encoder shape), the CUDA-core ``flash_fwd_kernel`` (float32
-    q), ``flash_mla_kernel`` at (576, 512) and at hd 256 with a window.
+    q), ``flash_mla_kernel`` at (576, 512) and ``flash_wide_kernel`` at hd
+    256 with a window.
     The path, ``models.attention.attend(..., softcap=)``, runs on each
     route's inputs with the launch counts set to 0 just before and read
     just after, route by route: one launch each. Each output is held as
@@ -5664,6 +5700,8 @@ def phase_softcap(torch, dev) -> dict:
             f"moves the output by up to {moved:.4g} (uncapped kernel; "
             f"{over} elements outside the capped hold's bound); no library "
             f"call caps the scores")
+        if name in ("mla", "hd256"):
+            log_staged(q, k, v, kw, ms, f"20 {kernel}")
     del routes, outs
     torch.cuda.empty_cache()
     hold_seq_split_calls(torch, dev)
@@ -6011,7 +6049,7 @@ def main() -> None:
         launches=mla_launches, max_abs_err=ERRS["flash_attention/mla"],
         ms=mla["ms"], plain_ms=mla["plain_ms"], bound_ms=mla["bound_ms"],
         bound_by=mla["bound_by"], library_ms=mla["library_ms"]))
-    # the head-dim-256 instantiation (the split-dv kernel) of phase 16
+    # the head-dim-256 instantiation (the wide kernel) of phase 16
     kernels.append(dict(
         name="flash_attention/hd256", route="cuda",
         source=src["flash_attention"][0], replaces=src["flash_attention"][1],

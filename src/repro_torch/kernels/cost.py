@@ -34,8 +34,8 @@ from ..launch.mesh import HBM_BW, PEAK_FLOPS_BF16, PEAK_FP32_OPS, \
 __all__ = ["RATES", "Work", "rank_bytes", "slot_ops", "binary_ip_rank",
            "cluster_scan", "cluster_scan_worst", "beam_search",
            "beam_search_worst", "topk_select", "topk_select_sorts",
-           "merge_topk", "visible_keys", "flash_attention", "recording",
-           "record"]
+           "merge_topk", "visible_keys", "flash_attention",
+           "flash_staged_bytes", "recording", "record"]
 
 RATES = {"bf16": PEAK_FLOPS_BF16, "fp32": PEAK_FP32_OPS,
          "int32": PEAK_INT32_OPS}
@@ -227,6 +227,37 @@ def flash_attention(*, b: int, sq: int, sk: int, hq: int, hkv: int, dk: int,
     if softcap:
         ops["fp32"] = 3 * b * hq * keys
     return Work(ops, nbytes)
+
+
+def flash_staged_bytes(*, b: int, sq: int, sk: int, hq: int, hkv: int,
+                       dk: int, dv: int, kv_bytes: int, causal: bool,
+                       window: int | None = None, q_offset: int = 0,
+                       kv_valid_len: int | None = None, alias: bool = False,
+                       rows: int = 64, share: int = 1) -> int:
+    """The K/V bytes one launch of a tensor-core attention kernel stages
+    from L2 into shared memory: the traffic its design makes, not its
+    bound. A block serves ``rows`` query rows, gh query heads of one KV
+    head (the largest of 16, 8, 4, 2 and 1 that divides the group) at rows
+    / gh positions, and stages every 64-key tile that some row of it can
+    see, whole (rows past the cache count too): dk columns of K and,
+    unless v is a view of k's rows (``alias``), dv of V, ``kv_bytes``
+    each. The blocks of a KV head go head sets first, then query blocks
+    from the last; ``share`` consecutive ones form a cluster that stages
+    the union of their tiles once (each tile multicast to all of them)."""
+    g = hq // hkv
+    gh = next(x for x in (16, 8, 4, 2, 1) if g % x == 0)
+    rows_h = rows // gh
+    valid = sk if kv_valid_len is None else kv_valid_len
+    n_qb = -(-sq // rows_h)
+    q0 = (n_qb - 1 - np.arange(g // gh * n_qb) // (g // gh)) * rows_h
+    lo = q_offset + q0
+    hi = q_offset + np.minimum(q0 + rows_h, sq) - 1
+    end = np.minimum(valid, hi + 1) if causal else np.full(len(q0), valid)
+    first = (np.maximum(0, lo - window + 1) if window else 0 * lo) // 64 * 64
+    tiles = sum(-(-(end[i:i + share].max() - first[i:i + share].min()) // 64)
+                for i in range(0, len(q0), share))
+    row_bytes = (dk + (0 if alias else dv)) * kv_bytes
+    return int(b * hkv * tiles * 64 * row_bytes)
 
 
 # ---------------------------------------------------------------------------

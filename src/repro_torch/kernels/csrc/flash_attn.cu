@@ -89,30 +89,35 @@
 // it.
 //
 // Head dim 256 (recurrentgemma-9b's local attention: 16 query heads over one
-// KV head, a window of 2,048) runs on the tensor cores in the split-dv
-// kernel that MLA's pair uses (`flash_mla_kernel<TKV, 256, 256>`): one
-// consumer of `flash_tc_kernel` would hold a 64 x 256 float32 O, 128
-// registers a thread, beside S's 32, over the 168 that
-// __launch_bounds__(384, 1) leaves a thread. Its g = 16 heads share each
-// K/V tile in one block, as MLA's do. What bounds it at the serving path's
-// prefill (B = 8, S = 3,072, window 2,048): the operations, 4 B Hq hd x
+// KV head, a window of 2,048) runs on the tensor cores in the wide kernel,
+// `flash_wide_kernel<TKV, kCap>`, and (dk, dv) = (576, 512), MLA's absorbed
+// attention (deepseek-v2-lite: q_all of 16 heads against one latent head, V
+// the latent cache's first 512 columns), in the split-dv kernel,
+// `flash_mla_kernel<TKV, kCap>` (their designs are beside them). Both are a
+// producer warpgroup and two consumer warpgroups (384 threads, one block an
+// SM; setmaxnreg gives the producer 40 registers and each consumer 232 of
+// the 168 a thread starts with).
+// What bounds them on an H100 at the serving path's prefills: the
+// operations. hd 256 (B = 8, S = 3,072, window 2,048): 4 B Hq hd x
 // 4,195,328 windowed causal keys = 550 GFLOP, 0.556 ms at 989 TFLOP/s; the
-// bytes (q, K, V once, the output) 0.13 ms. It runs in 4.71 ms (NVIDIA
-// H100 80GB HBM3, 700 W, chip_smoke.py phase 16): warpgroup 1 waits while
-// warpgroup 0 computes S, and 6,144 blocks re-read the K/V tiles from L2
-// (PERF.md). The float32 route runs hd 256 on the CUDA cores (213,760
-// bytes of shared memory a block).
-//
-// (dk, dv) = (576, 512), MLA's absorbed attention (deepseek-v2-lite: q_all
-// of 16 heads against one latent head, V the latent cache's first 512
-// columns), has a tensor-core kernel of its own, `flash_mla_kernel` (its
-// design is beside it). What bounds it on an H100, at the prefill of the
-// serving path (B = 8, S = 2048, causal): the operations, 2 B Hq (dk + dv)
-// x 2,098,176 valid keys = 584 GFLOP a layer, 0.59 ms at 989 TFLOP/s; the
-// bytes (q, the latent cache once, the output) 0.59 GB, 0.18 ms. It runs in
-// 3.19 ms (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py phase 14): warpgroup
-// 1 waits while warpgroup 0 computes S and the softmax (PERF.md).
+// bytes (q, K, V once, the output) 0.13 ms. MLA (B = 8, S = 2,048, causal):
+// 2 B Hq (dk + dv) x 2,098,176 valid keys = 584 GFLOP, 0.59 ms; the bytes
+// (q, the latent cache once, the output) 0.59 GB, 0.18 ms.
+// What they stage from L2 there (kernels/cost.py `flash_staged_bytes`,
+// tests/test_torch_flash_staging.py): the 64-row blocks of the design
+// before (warpgroup 0 alone computed S and the softmax while warpgroup 1
+// waited; all 256 threads staged by cp.async, two stages) staged 4.98 GB of
+// latent tiles for MLA and 8.86 GB of K/V for hd 256. Now each tile comes
+// by TMA once for a cluster pair of neighbouring blocks (multicast): MLA
+// 2.49 GB (64-row blocks: O is 64 x 512), hd 256 2.21 GB (128-row blocks,
+// a quarter). Shared memory: 214,624 bytes a block at MLA's width (Q's
+// first 448 columns, two latent tiles, the P tile), 197,728 at 256 (Q's
+// 128 rows, two K and two V tiles). Measured times, the limits that hold
+// them and the ablations behind the design are in PERF.md.
+// The float32 route runs hd 256 on the CUDA cores (213,760 bytes of shared
+// memory a block).
 
+#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1139,72 +1144,377 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 
 // ---------------------------------------------------------------------------
-// bf16 q at (dk, dv) = (576, 512), MLA's latent (absorbed) attention, and at
-// head dim 256 (recurrentgemma's local attention): the split-dv kernel
+// bf16 q at (dk, dv) = (576, 512), MLA's latent (absorbed) attention: the
+// split-dv kernel; and at head dim 256 (recurrentgemma's local attention):
+// the wide kernel. Both: a producer warpgroup and two consumer warpgroups.
 // ---------------------------------------------------------------------------
 
 constexpr int kMlaDK = 576;       // kv_lora + rope: q_all and the cache row
 constexpr int kMlaDV = 512;       // kv_lora: V is the cache row's head
 constexpr int kWideD = 256;       // the widest dk == dv instantiation
-constexpr int kMlaThreads = 256;  // two warpgroups, each half of dv
+constexpr int kSdThreads = 384;   // a producer and two consumer warpgroups
+// setmaxnreg: __launch_bounds__(384, 1) gives every thread 168 registers;
+// the producer gives 128 of them back, 128 x 40 + 256 x 232 = 64,512
+constexpr int kProdRegs = 40;
+constexpr int kConsRegs = 232;
+constexpr int kBoxCols = 64;              // bf16 columns of a swizzle box
+constexpr int kBox = kTcKeys * kBoxCols;  // elements of a 64-row box: 8 KB
+// the K/V ring (elements): two latent tiles of 64 x 576 (73,728 bytes each),
+// or one latent tile and a V tile of its own; at 256 four K tiles or two
+// K + V pairs (32,768 bytes a tile)
+constexpr int kMlaRing = 2 * kTcKeys * kMlaDK;
+constexpr int kWideRing = 4 * kTcKeys * kWideD;
+// Shared memory a block, with 1,024 bytes to align the base for the
+// 128-byte swizzle: Q's first 448 columns (its last 128 live in
+// registers), the ring, the P tile, the row maxima of both warpgroups, 12
+// mbarriers (214,624 bytes); at 256 the two warpgroups' Q rows, the ring,
+// 12 mbarriers (197,728).
+constexpr size_t kMlaSmem =
+    sizeof(__nv_bfloat16) *
+        (kTcKeys * (kMlaDK - 128) + kMlaRing + kTcKeys * kTcKeys) +
+    2 * kTcKeys * sizeof(float) + 12 * sizeof(uint64_t) + 1024;
+constexpr size_t kWideSmem =
+    sizeof(__nv_bfloat16) * (kTcRows * kWideD + kWideRing) +
+    12 * sizeof(uint64_t) + 1024;
 
-// K/V tiles of kTcKeys x DK in the ring: two at MLA's width (73,728 bytes
-// each), four at DK = 256 (32,768 each)
-template <int DK>
-constexpr int kRingOf = DK > kWideD ? 2 : 4;
-
-template <int DK>
-constexpr size_t mla_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (kTcKeys * DK + kRingOf<DK> * kTcKeys * DK +
-                                  kTcKeys * kTcKeys) +
-         2 * kTcKeys * sizeof(float);
+// Element offset of the 8 columns at (r, c), c a multiple of 8, in a tile
+// of 64 rows stored as 64-column boxes in the 128-byte swizzle, TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B: box after box, a row 128 bytes, its 16-byte
+// chunk c / 8 % 8 at chunk (c / 8 % 8) ^ (r % 8). Boxes are 1,024-byte
+// aligned, so the pattern follows the address, as wgmma reads it.
+__device__ __forceinline__ int sw_off(int r, int c) {
+  return (c >> 6) * kBox + r * kBoxCols + ((((c >> 3) & 7) ^ (r & 7)) << 3);
 }
 
-// Rows row0 .. row0 + 63 of K or V (`cols` columns, a multiple of 16, of
-// which the first `real` are read and the rest are zeros; rows at or past
-// lim zeros) into a core-matrix tile of row pitch DK, by the block's 256
-// threads: cp.async for aligned bf16 rows of the real width, else element
-// loads through registers (float32 rounded to bf16). Lanes 2k and 2k + 1
-// copy the two halves of one 32-byte sector of a row.
-template <int DK, typename T>
-__device__ __forceinline__ void mla_stage(__nv_bfloat16* dst, const T* src,
-                                          long long ss, int row0, int lim,
-                                          int cols, int real, bool vec,
-                                          int t) {
-  for (int u = t; u < kTcKeys * cols / 8; u += kMlaThreads) {
-    const int rest = u >> 4;
-    const int r = (rest / (cols / 16)) * 8 + ((u >> 1) & 7);
-    const int c = (2 * (rest % (cols / 16)) + (u & 1)) * 8;
-    const bool in = row0 + r < lim;
-    __nv_bfloat16* d = dst + cm_off<DK>(r, c);
-    if constexpr (sizeof(T) == 2) {
-      if (vec) {
-        cp_async16(d, in ? src + (row0 + r) * ss + c : src, in ? 16 : 0);
-        continue;
-      }
+// wgmma descriptors of the 128-byte swizzle (layout type 1). K-major (Q, K:
+// a row's columns contiguous): 8-row groups 1,024 bytes apart, the start
+// stepping 32 bytes (16 columns) inside the 128-byte atom. MN-major (V as
+// the transposed B of P.V: a key's columns contiguous): 64-column atoms
+// lbo bytes apart, 8-key groups 1,024 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p,
+                                                  uint32_t lbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// an arrival on bar that also expects `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// the two consumer warpgroups' barrier (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// 8 consecutive elements as bf16: 16-byte loads where the row is aligned
+// and whole (vec), else element loads of the first n (zeros after)
+__device__ __forceinline__ uint4 load8v(const __nv_bfloat16* p, int n,
+                                        bool vec) {
+  return vec ? __ldg(reinterpret_cast<const uint4*>(p)) : load8n(p, n);
+}
+__device__ __forceinline__ uint4 load8v(const float* p, int n, bool vec) {
+  if (!vec) return load8n(p, n);
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 y = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  return make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w),
+                    pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
+}
+
+// Rows row0 .. row0 + 63 of K or V (D columns, the first `cols` real and
+// the rest zeros; rows at or past lim zeros) into a swizzled tile through
+// registers (float32 rounded to bf16), by the producer warpgroup (t =
+// 0..127), two 8-column units a thread in flight. A row's units are
+// consecutive across lanes: 8 lanes read 128 contiguous bytes of bf16 and
+// fill one box row, 8 distinct bank groups.
+template <int D, typename T>
+__device__ __forceinline__ void stage_sw(__nv_bfloat16* dst, const T* src,
+                                         long long ss, int row0, int lim,
+                                         int cols, bool vec, int t) {
+  constexpr int kUnits = kTcKeys * D / 8;
+  static_assert(kUnits % 256 == 0, "two units a thread a round");
+#pragma unroll 1
+  for (int u0 = t; u0 < kUnits; u0 += 256) {
+    uint4 x[2];
+    int off[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int u = u0 + 128 * j;
+      const int r = u / (D / 8), c = (u % (D / 8)) * 8;
+      off[j] = sw_off(r, c);
+      x[j] = row0 + r < lim ? load8v(src + (row0 + r) * ss + c, cols - c, vec)
+                            : make_uint4(0u, 0u, 0u, 0u);
     }
-    *reinterpret_cast<uint4*>(d) =
-        in ? load8n(src + (row0 + r) * ss + c, real - c)
-           : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      *reinterpret_cast<uint4*>(dst + off[j]) = x[j];
   }
 }
 
-// O += P V over N = 128 output columns, P from shared memory (K-major), V
-// MN-major: half of dv = 256 a warpgroup
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+// The scores of a tile in log2 units, S log2(e) / sqrt(dk) (or capped),
+// over N 8-column chunks of the S accumulator (sc[4 n + 2 i + j]: row i,
+// key k0 + 8 n + j), and the rows' maxima. Only a tile that straddles a
+// mask edge (`masked`) computes the mask, in a pass of its own, branch-free,
+// to -inf: one branch a tile, not one a score.
+template <bool kCap, int N>
+__device__ __forceinline__ void tile_scores(float (&sc)[4 * N],
+                                            float (&mx)[2], const Args& a,
+                                            bool masked, int k0,
+                                            const int (&qpos)[2],
+                                            int kv_lim) {
+#pragma unroll
+  for (int e = 0; e < 4 * N; ++e)
+    sc[e] = kCap ? cap_log2(a, sc[e]) : __fmul_rn(sc[e], a.scale_log2);
+  if (masked) {
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int kp = k0 + 8 * n + j;
+          const bool ok = kp < kv_lim && (!a.causal || kp <= qpos[i]) &&
+                          (a.window <= 0 || qpos[i] - kp < a.window);
+          if (!ok) sc[4 * n + 2 * i + j] = -INFINITY;
+        }
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        mx[i] = fmaxf(mx[i], sc[4 * n + 2 * i + j]);
+}
+
+// Block rows row0 .. row0 + 63 of Q (D columns) into a swizzled 64-row
+// tile by `n` threads (t = 0 .. n - 1): block row br is head h0 + br /
+// rows_h at position q0 + br % rows_h; positions past Sq are zeros. Whole,
+// aligned rows by cp.async, every copy of a thread in flight at once (the
+// caller waits for them); others by element loads with a column limit.
+template <int D>
+__device__ __forceinline__ void stage_q(__nv_bfloat16* dst,
+                                        const __nv_bfloat16* q, const Args& a,
+                                        int b, int h0, int q0, int rows_h,
+                                        int row0, int t, int n) {
+  for (int u = t; u < kTcKeys * D / 8; u += n) {
+    const int r = u / (D / 8), c = (u % (D / 8)) * 8;
+    const int br = row0 + r;
+    const int p = q0 + br % rows_h;
+    const __nv_bfloat16* qr =
+        q + b * a.q_sb + (h0 + br / rows_h) * a.q_sh + p * a.q_ss + c;
+    if (a.q_vec)
+      cp_async16(dst + sw_off(r, c), p < a.sq ? qr : q, p < a.sq ? 16 : 0);
+    else
+      *reinterpret_cast<uint4*>(dst + sw_off(r, c)) =
+          p < a.sq ? load8n(qr, a.dk - c) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// A consumer warp's release of a slot: its lane 0 arrives on the slot's
+// empty barrier in this block and, in a cluster pair, in the peer's (whose
+// producer multicasts into this block's slot too)
+__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar,
+                                                 uint32_t peer) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+      :: "r"(smem_u32(bar)), "r"(peer) : "memory");
+}
+__device__ __forceinline__ void release_slot(uint64_t* empty, int lane,
+                                             bool pair, uint32_t peer) {
+  if (lane == 0) {
+    mbar_arrive(empty);
+    if (pair) mbar_arrive_peer(empty, peer);
+  }
+}
+
+// every thread of both blocks of a cluster pair (their barriers initialised
+// before either touches the other's)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// one box of a 4-D tensor map at (c0, c1, c2, c3) into the same offset of
+// both blocks of a cluster pair, its bytes counted on the barrier at bar's
+// offset in each
+__device__ __forceinline__ void tma_load_4d_pair(void* dst,
+                                                 const CUtensorMap* map,
+                                                 uint64_t* bar, int c0,
+                                                 int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "h"(static_cast<uint16_t>(3))
+      : "memory");
+}
+
+// Where a block's K and V tiles sit. K and V have rings of their own (ks
+// and vs slots), so a K slot is free once S has read it and a V slot once
+// P.V has; when v aliases k there is no V ring (vs = 0) and V is the first
+// dv columns of the K slot, free after P.V. Each slot has a full barrier
+// (the tile has landed) and an empty one (every consumer warp of the
+// block, and of its cluster peer, is done with it).
+struct Ring {
+  __nv_bfloat16* base;
+  int k_elems, v_elems, ks, vs;
+  uint64_t *full_k, *empty_k, *full_v, *empty_v;
+  __device__ __nv_bfloat16* k(int it) const {
+    return base + (it % ks) * k_elems;
+  }
+  __device__ __nv_bfloat16* v(int it) const {
+    return vs ? base + ks * k_elems + (it % vs) * v_elems : k(it);
+  }
+};
+
+// the ring of `elems` elements at base: as many K slots as fit when v
+// aliases k, else as many K + V pairs; bars holds 12 barriers
+template <int DK, int DV>
+__device__ __forceinline__ Ring make_ring(__nv_bfloat16* base, int elems,
+                                          bool alias, uint64_t* bars) {
+  Ring r;
+  r.base = base;
+  r.k_elems = kTcKeys * DK;
+  r.v_elems = kTcKeys * DV;
+  r.ks = alias ? elems / r.k_elems : elems / (r.k_elems + r.v_elems);
+  r.vs = alias ? 0 : r.ks;
+  r.full_k = bars;
+  r.empty_k = bars + 4;
+  r.full_v = bars + 8;
+  r.empty_v = bars + 10;
+  return r;
+}
+
+// The producer warpgroup (t = 0..127): the block's tiles, keys first + 64
+// it for it = 0 .. n_tiles - 1, K then V of each, into the ring. bf16
+// rows that are 16-byte aligned and whole (kv_vec) come by TMA, and the
+// block is one of a cluster pair: thread 0 waits for the slot, expects the
+// tile's bytes on its full barrier and issues every other 64 x 64 box of
+// it (the peer the others), each multicast into both blocks (rows at or
+// past kv_valid_len are outside the map and land as zeros); it stays until
+// its slots' last releases, the peer's included, have arrived, since the
+// peer's consumers arrive on this block's barriers. Any other K/V
+// (float32, unaligned rows, a head dim padded into the instantiation) the
+// warpgroup loads, converts and stores, then arrives on the full barrier,
+// 128 arrivals.
+template <int DK, int DV, typename TKV>
+__device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* mk,
+                                        const CUtensorMap* mv, const TKV* kb,
+                                        const TKV* vb, const Args& a, int b,
+                                        int hk, int first, int n_tiles,
+                                        int kv_lim, int rank, int t) {
+  const bool tma = sizeof(TKV) == 2 && a.kv_vec;  // and so a cluster pair
+  if (tma && t != 0) return;
+  auto fill = [&](__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* full,
+                  int cols, int kv0) {
+    mbar_expect_tx(full, sizeof(__nv_bfloat16) * kTcKeys * cols);
+#pragma unroll 1
+    for (int i = rank; i < cols / kBoxCols; i += 2)
+      tma_load_4d_pair(dst + i * kBox, map, full, kBoxCols * i, kv0, hk, b);
+  };
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kv0 = first + it * kTcKeys;
+    if (it >= r.ks) mbar_wait(&r.empty_k[it % r.ks], (it / r.ks - 1) & 1);
+    if (tma) {
+      fill(r.k(it), mk, &r.full_k[it % r.ks], DK, kv0);
+    } else {
+      stage_sw<DK>(r.k(it), kb, a.k_ss, kv0, kv_lim, a.dk, a.kv_vec, t);
+      fence_async_smem();
+      mbar_arrive(&r.full_k[it % r.ks]);
+    }
+    if (!r.vs) continue;
+    if (it >= r.vs) mbar_wait(&r.empty_v[it % r.vs], (it / r.vs - 1) & 1);
+    if (tma) {
+      fill(r.v(it), mv, &r.full_v[it % r.vs], DV, kv0);
+    } else {
+      stage_sw<DV>(r.v(it), vb, a.v_ss, kv0, kv_lim, a.dv, a.kv_vec, t);
+      fence_async_smem();
+      mbar_arrive(&r.full_v[it % r.vs]);
+    }
+  }
+  if (tma) {
+    for (int it = max(0, n_tiles - r.ks); it < n_tiles; ++it)
+      mbar_wait(&r.empty_k[it % r.ks], (it / r.ks) & 1);
+    for (int it = max(0, n_tiles - r.vs); it < n_tiles; ++it)
+      mbar_wait(&r.empty_v[it % r.vs], (it / r.vs) & 1);
+  }
+}
+
+// wgmma m64n32k16 (the split-dv kernel's S: 32 keys a warpgroup), Q from
+// shared memory or, for the 64 rope columns, from registers; and m64n256k16
+// with P from registers (the wide kernel's P.V, V MN-major)
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
                                               uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}"
-      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -1217,296 +1527,750 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_ss_pv(float (&o)[N / 2], uint64_t p,
-                                            uint64_t v) {
-  if constexpr (N == 256) wgmma_ss_n256(o, p, v);
-  else wgmma_ss_n128(o, p, v);
+
+// The split kernels' grid: per (batch row, KV head) `per` blocks, head
+// sets fastest, then query blocks, the heaviest (the last rows) first; a
+// block serves gh query heads of one KV head (16, 8, 4, 2 or 1, the largest
+// that divides the group) at rows / gh positions each. In cluster pairs
+// `per` is made even by a block that serves no row.
+struct Geometry {
+  int g, gh, rows_h, n_qb, per;
+};
+__host__ __device__ inline Geometry geometry(const Args& a, int rows,
+                                             bool pair) {
+  Geometry s;
+  s.g = a.hq / a.hkv;
+  s.gh = s.g % 16 == 0 ? 16 : s.g % 8 == 0 ? 8 : s.g % 4 == 0 ? 4
+       : s.g % 2 == 0 ? 2 : 1;
+  s.rows_h = rows / s.gh;
+  s.n_qb = (a.sq + s.rows_h - 1) / s.rows_h;
+  s.per = s.g / s.gh * s.n_qb;
+  if (pair) s.per += s.per & 1;
+  return s;
 }
 
-// One block of two warpgroups a work item of 64 query rows: gh query heads
-// of one KV head (16, 8, 4, 2 or 1, the largest that divides the group) at
-// 64 / gh positions each, so a K/V tile is staged once for gh heads; at
-// deepseek-v2-lite's and recurrentgemma-9b's g = 16, all 16 heads at 4
-// positions. At MLA's width the O accumulator of 64 rows x 512 columns is
-// 256 float32 registers a thread in one warpgroup, so dv is split:
-// warpgroup w owns columns DV / 2 w .. DV / 2 (w + 1) - 1 (128 registers at
-// DV = 512, 64 at DV = 256, where one consumer of the three-warpgroup
-// kernel would hold all 128 beside S and spill under its 168-register
-// ceiling). Warpgroup 0 alone computes S = Q.K^T (DK / 16 wgmma m64n64k16
-// steps) and the online softmax, and writes P (bf16, the A operand's
-// core-matrix layout) and the rows' rescale factors to shared memory; then
-// both run O += P.V by wgmma m64n{DV / 2}k16 from shared memory.
-// Tiles: when v aliases k (MLA's one-tensor cache, v = k[..., :512]) a tile
-// is staged once and its first DV columns are V. Two stages: the next
-// tile's cp.async (or element loads) run during this one's products, one
-// tile each when v aliases k, a K and a V tile each otherwise, except at
-// MLA's width, where a separate V takes the second of its two tiles, loaded
-// with K, one stage. Shared memory: 229,888 bytes at (576, 512) (Q, two
-// tiles, P, two row vectors), 172,544 at (256, 256) (Q, four tiles, P, the
-// vectors). Head dims in (160, 256) run at 256 with zeros past their real
-// columns (element loads with a column limit); the output is written at
-// its real dv.
-template <typename TKV, int DK, int DV, bool kCap>
-__global__ void __launch_bounds__(kMlaThreads, 1)
+// This block's work item and its tiles: first and n_tiles cover the keys
+// some row of it can see and, in a cluster pair, the keys its peer's rows
+// can see (both blocks stage the same tiles; a neighbouring query block's
+// differ by at most one at either end). The block that pads a pair (no
+// rows, q0 = Sq) takes its peer's tiles.
+struct Item {
+  int b, hk, h0, q0, rows_h, first, n_tiles, kv_lim, qp_lo, qp_hi;
+};
+__device__ __forceinline__ Item block_item(const Args& a, int rows,
+                                           bool pair) {
+  const Geometry s = geometry(a, rows, pair);
+  const int sets = s.g / s.gh, real = sets * s.n_qb;
+  const int bh = blockIdx.x / s.per, y = blockIdx.x % s.per;
+  Item it;
+  it.hk = bh % a.hkv;
+  it.b = bh / a.hkv;
+  it.rows_h = s.rows_h;
+  it.kv_lim = min(a.sk, a.kv_valid);
+  // the keys [first, end) the rows of block yy (< real) can see
+  auto span = [&](int yy, int& first, int& end) {
+    const int q0 = (s.n_qb - 1 - yy / sets) * s.rows_h;
+    const int lo = a.q_offset + q0;
+    const int hi = a.q_offset + min(q0 + s.rows_h, a.sq) - 1;
+    end = a.causal ? min(it.kv_lim, hi + 1) : it.kv_lim;
+    first = (a.window > 0 ? max(0, lo - a.window + 1) : 0) / kTcKeys *
+            kTcKeys;
+  };
+  const bool pad = y >= real;
+  it.q0 = pad ? a.sq : (s.n_qb - 1 - y / sets) * s.rows_h;
+  it.h0 = it.hk * s.g + (pad ? 0 : y % sets) * s.gh;
+  it.qp_lo = a.q_offset + it.q0;
+  it.qp_hi = a.q_offset + min(it.q0 + s.rows_h, a.sq) - 1;
+  int first, end;
+  span(pad ? y - 1 : y, first, end);
+  if (pair && (y ^ 1) < real) {
+    int f2, e2;
+    span(y ^ 1, f2, e2);
+    first = min(first, f2);
+    end = max(end, e2);
+  }
+  it.first = first;
+  it.n_tiles = (end - first + kTcKeys - 1) / kTcKeys;
+  return it;
+}
+
+// The split-dv kernel, MLA's (576, 512). One block of a producer and two
+// consumer warpgroups a work item of 64 query rows: gh query heads of one
+// KV head at 64 / gh positions (deepseek-v2-lite's g = 16: all 16 heads at
+// 4 positions). A 64 x 512 float32 O is 256 registers a thread in one
+// warpgroup, so dv is split: warpgroup w owns O's columns 256 w .. 256 w +
+// 255 (128 registers). S is split too, by keys: warpgroup w computes S for
+// keys 32 w .. 32 w + 31 of each tile (36 wgmma m64n32k16: 32 with Q's
+// nope columns from shared memory, 4 with its rope columns from
+// registers), so neither waits while the other computes S. The two
+// exchange their rows' maxima through shared memory (the 64-key step of
+// ref._flash_scan exact: one running max over the whole tile), each writes
+// its 32 columns of P (bf16) into the P tile, and each runs O += P.V for
+// its half of dv (4 wgmma m64n256k16, P from shared memory, V MN-major).
+// A tile's slot is read until P.V of it lands; P.V of tile j - 1 is issued
+// before S of tile j, so the slot comes free early in tile j's step and
+// the producer has the rest of that step (S, the softmax) to bring tile j +
+// 1 into it. Two barriers of the consumers a tile (the maxima, P written).
+// The producer keeps a ring of two latent tiles full by TMA (the tile is
+// staged once: V is its first 512 columns; a V of its own has a ring of
+// its own); pairs of neighbouring blocks form a cluster, and each latent
+// tile comes from L2 once for both, multicast.
+template <typename TKV, bool kCap>
+__global__ void __launch_bounds__(kSdThreads, 1)
     flash_mla_kernel(const __nv_bfloat16* __restrict__ q,
                      const TKV* __restrict__ k, const TKV* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, Args a) {
-  static_assert(DV <= DK && DK % 16 == 0 && (DV == 256 || DV == 512),
-                "split-dv head dims");
-  constexpr int kTile = kTcKeys * DK;     // elements of one K or V tile
-  constexpr int kRing = kRingOf<DK>;
+                     __nv_bfloat16* __restrict__ o, Args a,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv) {
+  constexpr int DK = kMlaDK, DV = kMlaDV;
+  constexpr int kRegSteps = 8;             // Q's k-steps from registers
+  constexpr int kQs = DK - 16 * kRegSteps;  // Q's columns in shared memory
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ring = sQ + kTcKeys * DK;   // kRing tiles of pitch DK
-  __nv_bfloat16* sP = ring + kRing * kTile;  // 64 x 64, pitch 64
-  float* sCorr = reinterpret_cast<float*>(sP + kTcKeys * kTcKeys);
-  float* sL = sCorr + kTcKeys;
+  unsigned char* base =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(base);  // 7 boxes
+  __nv_bfloat16* ring_base = sQ + kTcKeys * kQs;
+  __nv_bfloat16* sP = ring_base + kMlaRing;  // 64 x 64, core matrices
+  float* sMax = reinterpret_cast<float*>(sP + kTcKeys * kTcKeys);  // 2 x 64
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sMax + 2 * kTcKeys);
 
-  const int g = a.hq / a.hkv;
-  const int gh = g % 16 == 0 ? 16 : g % 8 == 0 ? 8 : g % 4 == 0 ? 4
-               : g % 2 == 0 ? 2 : 1;
-  const int rows_h = kTcKeys / gh;
-  const int n_qb = (a.sq + rows_h - 1) / rows_h;
-  int x = blockIdx.x;
-  const int h_set = x % (g / gh);
-  x /= g / gh;
-  const int q0 = (n_qb - 1 - x % n_qb) * rows_h;
-  x /= n_qb;
-  const int hk = x % a.hkv;
-  const int b = x / a.hkv;
-  const int h0 = hk * g + h_set * gh;
+  const bool pair = sizeof(TKV) == 2 && a.kv_vec;  // TMA, in cluster pairs
+  const Item item = block_item(a, kTcKeys, pair);
+  const int rows_h = item.rows_h, q0 = item.q0, b = item.b, h0 = item.h0;
+  const int first = item.first, n_tiles = item.n_tiles;
+  const Ring ring = make_ring<DK, DV>(ring_base, kMlaRing, a.v_alias, bars);
   const int tid = threadIdx.x;
-  const int w = tid / 128;
+  const uint32_t rank = blockIdx.x & 1, peer = rank ^ 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < ring.ks; ++s) {
+      mbar_init(&ring.full_k[s], pair ? 1 : 128);
+      mbar_init(&ring.empty_k[s], pair ? 16 : 8);  // every consumer warp
+    }
+    for (int s = 0; s < ring.vs; ++s) {
+      mbar_init(&ring.full_v[s], pair ? 1 : 128);
+      mbar_init(&ring.empty_v[s], pair ? 16 : 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (pair) cluster_sync();
+  else __syncthreads();
+
+  if (tid < 128) {
+    regs_dec<kProdRegs>();
+    produce<DK, DV>(ring, &mk, &mv, k + b * a.k_sb + item.hk * a.k_sh,
+                    v + b * a.v_sb + item.hk * a.v_sh, a, b, item.hk, first,
+                    n_tiles, item.kv_lim, rank, tid);
+    return;
+  }
+  regs_inc<kConsRegs>();
+
+  const int w = tid / 128 - 1;
   const int lane = tid & 31;
-
-  const int qp_lo = a.q_offset + q0;
-  const int qp_hi = a.q_offset + min(q0 + rows_h, a.sq) - 1;
-  const int kv_lim = min(a.sk, a.kv_valid);
-  const int kv_end = a.causal ? min(kv_lim, qp_hi + 1) : kv_lim;
-  const int first =
-      (a.window > 0 ? max(0, qp_lo - a.window + 1) : 0) / kTcKeys * kTcKeys;
-  const int n_tiles = (kv_end - first + kTcKeys - 1) / kTcKeys;
-
   // this thread's two accumulator rows r_in + 8 i of the 64 (both
   // warpgroups hold the same rows), their positions, its column pair
   const int r_in = 16 * ((tid & 127) >> 5) + (lane >> 2);
+  const int col = 2 * (lane & 3);
   int qpos[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
     qpos[i] = a.q_offset + q0 + (r_in + 8 * i) % rows_h;
-  const int col = 2 * (lane & 3);
 
-  // Q (positions past Sq as zeros, columns past dk as zeros), by the block
-  for (int u = tid; u < kTcKeys * DK / 8; u += kMlaThreads) {
-    const int r = (u & 7) + 8 * (u / DK);
-    const int c = ((u >> 3) % (DK / 8)) * 8;
+  // Q's first 448 columns into shared memory by both warpgroups (positions
+  // past Sq as zeros), all of a thread's copies in flight at once; its last
+  // 128 (64 nope, the 64 rope) into each warpgroup's registers in the A
+  // operand's layout (columns 16 kk .. 16 kk + 15 of the kk-th of the last
+  // k-steps): the S products read a sixth less from shared memory
+  stage_q<kQs>(sQ, q, a, b, h0, q0, rows_h, 0, tid - 128, 256);
+  uint32_t qa[kRegSteps][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_in + 8 * i;
     const int p = q0 + r % rows_h;
     const __nv_bfloat16* qr =
-        q + b * a.q_sb + (h0 + r / rows_h) * a.q_sh + p * a.q_ss + c;
-    *reinterpret_cast<uint4*>(sQ + cm_off<DK>(r, c)) =
-        p >= a.sq  ? make_uint4(0u, 0u, 0u, 0u)
-        : a.q_vec ? load8(qr, true)
-                  : load8n(qr, a.dk - c);
-  }
-
-  const TKV* kb = k + b * a.k_sb + hk * a.k_sh;
-  const TKV* vb = v + b * a.v_sb + hk * a.v_sh;
-  const bool alias = a.v_alias;
-  const int stages = alias ? 2 : kRing / 2;
-  auto k_tile = [&](int it) {
-    return ring + (alias ? it % 2 : 2 * (it % stages)) * kTile;
-  };
-  auto v_tile = [&](int it) { return alias ? k_tile(it) : k_tile(it) + kTile; };
-  auto load = [&](int it) {
-    const int kv0 = first + it * kTcKeys;
-    mla_stage<DK>(k_tile(it), kb, a.k_ss, kv0, kv_lim, DK, a.dk, a.kv_vec,
-                  tid);
-    if (!alias)
-      mla_stage<DK>(v_tile(it), vb, a.v_ss, kv0, kv_lim, DV, a.dv, a.kv_vec,
-                    tid);
-    cp_async_commit();
-  };
-
-  float acc[DV / 4];
+        q + b * a.q_sb + (h0 + r / rows_h) * a.q_sh + p * a.q_ss + kQs + col;
 #pragma unroll
-  for (int i = 0; i < DV / 4; ++i) acc[i] = 0.f;
-  float sc[32];
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
-
-  if (stages == 2) load(0);
-  for (int it = 0; it < n_tiles; ++it) {
-    if (stages == 2) {
-      // the other stage held it - 1, released at the end of that iteration
-      if (it + 1 < n_tiles) load(it + 1);
-      else cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      load(it);
-      cp_async_wait<0>();
-    }
-    fence_async_smem();  // this thread's tile (and Q) stores, to wgmma
-    __syncthreads();
-    const __nv_bfloat16* kt = k_tile(it);
-    if (w == 0) {
-      // S = Q K^T (64 x 64), then the online softmax: as flash_tc_kernel's
-      reg_fence(sc);
-      wgmma_fence();
+    for (int kk = 0; kk < kRegSteps; ++kk)
 #pragma unroll
-      for (int kk = 0; kk < DK / 16; ++kk)
-        wgmma_ss_n64(sc, gmma_desc(sQ + 128 * kk, 128, 16 * DK),
-                     gmma_desc(kt + 128 * kk, 128, 16 * DK), kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      reg_fence(sc);
-      const int kv0 = first + it * kTcKeys;
-      const bool whole = kv0 + kTcKeys <= kv_lim &&
-                         (!a.causal || kv0 + kTcKeys - 1 <= qp_lo) &&
-                         (a.window <= 0 || qp_hi - kv0 < a.window);
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            float t = kCap
-                          ? cap_log2(a, sc[4 * n + 2 * i + j])
-                          : __fmul_rn(sc[4 * n + 2 * i + j], a.scale_log2);
-            if (!whole) {
-              const int kp = kv0 + 8 * n + col + j;
-              const bool ok = kp < kv_lim && (!a.causal || kp <= qpos[i]) &&
-                              (a.window <= 0 || qpos[i] - kp < a.window);
-              if (!ok) t = -INFINITY;
-            }
-            sc[4 * n + 2 * i + j] = t;
-            mx[i] = fmaxf(mx[i], t);
-          }
-      float psum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m[i], mx[i]);
-        corr[i] = exp2_ftz(m[i] - m_new);
-        m[i] = m_new;
+      for (int hf = 0; hf < 2; ++hf) {
+        const int c = 16 * kk + 8 * hf;
+        qa[kk][i + 2 * hf] =
+            p >= a.sq ? 0u
+            : a.q_vec ? __ldg(reinterpret_cast<const unsigned*>(qr + c))
+                      : static_cast<uint32_t>(
+                            reinterpret_cast<const unsigned short*>(qr)[c]) |
+                            static_cast<uint32_t>(
+                                reinterpret_cast<const unsigned short*>(
+                                    qr)[c + 1])
+                                << 16;
       }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float p0 = exp2_ftz(sc[4 * n + 2 * i] - m[i]);
-          const float p1 = exp2_ftz(sc[4 * n + 2 * i + 1] - m[i]);
-          psum[i] += p0;
-          psum[i] += p1;
-          *reinterpret_cast<uint32_t*>(
-              sP + cm_off<kTcKeys>(r_in + 8 * i, 8 * n) + col) =
-              pack_bf16(p0, p1);
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
-      if ((lane & 3) == 0) {
-        sCorr[r_in] = corr[0];
-        sCorr[r_in + 8] = corr[1];
-      }
-      fence_async_smem();  // P, to wgmma
-    }
-    __syncthreads();  // P and the rescale factors are written
-    if (w == 1) {
-      corr[0] = sCorr[r_in];
-      corr[1] = sCorr[r_in + 8];
-    }
-    reg_fence(acc);
-#pragma unroll
-    for (int n = 0; n < DV / 16; ++n) {
-      acc[4 * n] *= corr[0];
-      acc[4 * n + 1] *= corr[0];
-      acc[4 * n + 2] *= corr[1];
-      acc[4 * n + 3] *= corr[1];
-    }
-    reg_fence(acc);
-    wgmma_fence();
-    const __nv_bfloat16* vt = v_tile(it) + DV / 2 / 8 * 64 * w;
-#pragma unroll
-    for (int kk = 0; kk < kTcKeys / 16; ++kk)
-      wgmma_ss_pv<DV / 2>(acc, gmma_desc(sP + 128 * kk, 128, 16 * kTcKeys),
-                          gmma_desc(vt + 16 * DK * kk, 16 * DK, 128));
-    wgmma_commit();
-    wgmma_wait<0>();
-    reg_fence(acc);
-    __syncthreads();  // P, the factors and this tile may be overwritten
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+  fence_async_smem();
+  consumers_sync(1);
 
-  if (w == 0) {
+  auto wait_k = [&](int it) {
+    mbar_wait(&ring.full_k[it % ring.ks], (it / ring.ks) & 1);
+  };
+  auto wait_v = [&](int it) {
+    if (ring.vs) mbar_wait(&ring.full_v[it % ring.vs], (it / ring.vs) & 1);
+  };
+  // after S of tile it: its K slot, unless V lives there
+  auto release_k = [&](int it) {
+    if (ring.vs) release_slot(&ring.empty_k[it % ring.ks], lane, pair, peer);
+  };
+  // after P.V of tile it: its V slot, or the K slot that holds V
+  auto release_v = [&](int it) {
+    release_slot(ring.vs ? &ring.empty_v[it % ring.vs]
+                         : &ring.empty_k[it % ring.ks],
+                 lane, pair, peer);
+  };
+
+  float acc[DV / 4];  // O's columns 256 w .. 256 w + 255 of the two rows
+#pragma unroll
+  for (int i = 0; i < DV / 4; ++i) acc[i] = 0.f;
+  float sc[16];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+
+  // S = Q K^T over this warpgroup's 32 keys of tile it, issued: Q's first
+  // kQs columns from shared memory, the rest from registers
+  auto issue_s = [&](int it) {
+    const __nv_bfloat16* kt = ring.k(it) + 32 * w * kBoxCols;
+#pragma unroll
+    for (int kk = 0; kk < kQs / 16; ++kk)
+      wgmma_ss_n32(sc, desc_sw128(sQ + (kk >> 2) * kBox + (kk & 3) * 16),
+                   desc_sw128(kt + (kk >> 2) * kBox + (kk & 3) * 16),
+                   kk > 0);
+#pragma unroll
+    for (int kk = kQs / 16; kk < DK / 16; ++kk)
+      wgmma_rs_n32(sc, qa[kk - kQs / 16],
+                   desc_sw128(kt + (kk >> 2) * kBox + (kk & 3) * 16));
+    wgmma_commit();
+  };
+  // O += P V of tile it over this warpgroup's 256 columns of V
+  auto issue_pv = [&](int it) {
+    const __nv_bfloat16* vt = ring.v(it) + 4 * w * kBox;
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk)
+      wgmma_ss_n256(acc, gmma_desc(sP + 128 * kk, 128, 16 * kTcKeys),
+                    desc_sw128_mn(vt + 16 * kk * kBoxCols,
+                                  sizeof(__nv_bfloat16) * kBox));
+    wgmma_commit();
+  };
+  // the online softmax of tile it: t = S log2(e) / sqrt(dk) (or capped) on
+  // this warpgroup's keys, masked where the tile straddles a mask edge; the
+  // rows' maxima of both warpgroups through sMax give the one running max
+  // of the 64-key step; sc becomes p, m, l (this warpgroup's keys) and corr
+  // advance
+  auto softmax = [&](int it) {
+    const int kv0 = first + it * kTcKeys;
+    const bool whole = kv0 + kTcKeys <= item.kv_lim &&
+                       (!a.causal || kv0 + kTcKeys - 1 <= item.qp_lo) &&
+                       (a.window <= 0 || item.qp_hi - kv0 < a.window);
+    float mx[2] = {-INFINITY, -INFINITY};
+    tile_scores<kCap, 4>(sc, mx, a, !whole, kv0 + 32 * w + col, qpos,
+                         item.kv_lim);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
     }
     if ((lane & 3) == 0) {
-      sL[r_in] = l[0];
-      sL[r_in + 8] = l[1];
-      // warpgroup 0 holds the softmax's running max
-      if (a.lse != nullptr) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = r_in + 8 * i;
-          if (q0 + r % rows_h < a.sq)
-            store_lse(a, b, h0 + r / rows_h, q0 + r % rows_h, m[i],
-                      fmaxf(l[i], 1e-30f), true);
-        }
-      }
+      sMax[kTcKeys * w + r_in] = mx[0];
+      sMax[kTcKeys * w + r_in + 8] = mx[1];
     }
+    consumers_sync(2);
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r_in + 8 * i;
+      const float m_new = fmaxf(m[i], fmaxf(sMax[r], sMax[kTcKeys + r]));
+      corr[i] = exp2_ftz(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float p = exp2_ftz(sc[4 * n + 2 * i + j] - m[i]);
+          sc[4 * n + 2 * i + j] = p;
+          psum[i] += p;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
+  };
+  // O rescaled by the tile's factors (a warp whose rows all keep their max
+  // skips it: x * 1 is x), and this warpgroup's 32 columns of P (bf16) into
+  // the P tile
+  auto rescale_and_write_p = [&]() {
+    if (!__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) {
+      reg_fence(acc);
+#pragma unroll
+      for (int n = 0; n < DV / 16; ++n) {
+        acc[4 * n] *= corr[0];
+        acc[4 * n + 1] *= corr[0];
+        acc[4 * n + 2] *= corr[1];
+        acc[4 * n + 3] *= corr[1];
+      }
+      reg_fence(acc);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<uint32_t*>(
+            sP + cm_off<kTcKeys>(r_in + 8 * i, 32 * w + 8 * n) + col) =
+            pack_bf16(sc[4 * n + 2 * i], sc[4 * n + 2 * i + 1]);
+  };
+
+  for (int it = 0; it < n_tiles; ++it) {
+    wait_k(it);
+    if (it > 0) wait_v(it - 1);
+    reg_fence(sc);
+    reg_fence(acc);
+    wgmma_fence();
+    if (it > 0) issue_pv(it - 1);
+    issue_s(it);
+    if (it > 0) {
+      wgmma_wait<1>();  // P.V of tile it - 1 has landed
+      reg_fence(acc);
+      release_v(it - 1);
+    }
+    wgmma_wait<0>();  // S of tile it has landed
+    reg_fence(sc);
+    release_k(it);
+    // the maxima's barrier inside also means both warpgroups' P.V of tile
+    // it - 1 has landed: the P tile may be written
+    softmax(it);
+    rescale_and_write_p();
+    fence_async_smem();
+    consumers_sync(1);  // P of tile it is whole
   }
-  __syncthreads();
+  wait_v(n_tiles - 1);
+  reg_fence(acc);
+  wgmma_fence();
+  issue_pv(n_tiles - 1);
+  wgmma_wait<0>();
+  reg_fence(acc);
+  release_v(n_tiles - 1);
+
+  // the denominator: both warpgroups' sums of their keys' p (sMax is free:
+  // its last reads came before the last barrier)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  if ((lane & 3) == 0) {
+    sMax[kTcKeys * w + r_in] = l[0];
+    sMax[kTcKeys * w + r_in + 8] = l[1];
+  }
+  consumers_sync(2);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r_in + 8 * i;
     const int p = q0 + r % rows_h;
     if (p >= a.sq) continue;
-    const float den = fmaxf(sL[r], 1e-30f);
-    const int c0 = DV / 2 * w + col;  // this thread's first column
+    const float den = fmaxf(sMax[r] + sMax[kTcKeys + r], 1e-30f);
+    if (w == 0 && a.lse != nullptr && (lane & 3) == 0)
+      store_lse(a, b, h0 + r / rows_h, p, m[i], den, true);
     __nv_bfloat16* orow =
         o + ((static_cast<long long>(b) * a.sq + p) * a.hq + h0 + r / rows_h) *
                 a.dv +
-        c0;
+        DV / 2 * w + col;
 #pragma unroll
-    for (int n = 0; n < DV / 16; ++n) {
+    for (int n = 0; n < DV / 16; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * i] / den,
+                                acc[4 * n + 2 * i + 1] / den);
+  }
+}
+
+// The wide kernel, head dim 256 (dk and dv up to 256, padded into it). One
+// block of a producer and two consumer warpgroups a work item of 128 query
+// rows, gh heads of one KV head at 128 / gh positions (recurrentgemma-9b's
+// g = 16: all 16 heads at 8 positions, so a K/V tile is staged once for
+// twice the rows of a 64-row block). Warpgroup w owns rows 64 w .. 64 w +
+// 63 whole, as a consumer of flash_tc_kernel does: S = Q.K^T by 16 wgmma
+// m64n64k16 (Q and K in shared memory), the online softmax in registers,
+// O += P.V by 4 wgmma m64n256k16 with P from registers (the S
+// accumulator's layout is the A operand's) and V MN-major; the softmax of
+// tile j runs while the tensor cores do P.V of tile j - 1. O (128 float32
+// registers), S (32) and P (16) fit under the 232 registers setmaxnreg
+// gives a consumer. The warpgroups do not wait on each other: each waits
+// for the tiles, and the producer for both to release a slot. K and V have
+// rings of two slots each (four K slots when v aliases k): a K slot comes
+// free when S has read it, so the producer brings K of tile j + 2 while
+// the consumers work on tile j. Pairs of neighbouring blocks form a
+// cluster, and each tile comes from L2 once for both, multicast.
+template <typename TKV, bool kCap>
+__global__ void __launch_bounds__(kSdThreads, 1)
+    flash_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                      const TKV* __restrict__ k, const TKV* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o, Args a,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv) {
+  constexpr int D = kWideD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* ring_base = sQ + kTcRows * D;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring_base + kWideRing);
+
+  const bool pair = sizeof(TKV) == 2 && a.kv_vec;  // TMA, in cluster pairs
+  const Item item = block_item(a, kTcRows, pair);
+  const int rows_h = item.rows_h, q0 = item.q0, b = item.b, h0 = item.h0;
+  const int first = item.first, n_tiles = item.n_tiles;
+  const Ring ring = make_ring<D, D>(ring_base, kWideRing, a.v_alias, bars);
+  const int tid = threadIdx.x;
+  const uint32_t rank = blockIdx.x & 1, peer = rank ^ 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < ring.ks; ++s) {
+      mbar_init(&ring.full_k[s], pair ? 1 : 128);
+      mbar_init(&ring.empty_k[s], pair ? 16 : 8);  // every consumer warp
+    }
+    for (int s = 0; s < ring.vs; ++s) {
+      mbar_init(&ring.full_v[s], pair ? 1 : 128);
+      mbar_init(&ring.empty_v[s], pair ? 16 : 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (pair) cluster_sync();
+  else __syncthreads();
+
+  if (tid < 128) {
+    regs_dec<kProdRegs>();
+    produce<D, D>(ring, &mk, &mv, k + b * a.k_sb + item.hk * a.k_sh,
+                  v + b * a.v_sb + item.hk * a.v_sh, a, b, item.hk, first,
+                  n_tiles, item.kv_lim, rank, tid);
+    return;
+  }
+  regs_inc<kConsRegs>();
+
+  // consumers: warpgroup w (0 or 1) owns block rows 64 w .. 64 w + 63,
+  // whose positions are wg_p0 .. wg_p0 + wg_n - 1 (wg_n <= 0: none)
+  const int w = tid / 128 - 1;
+  const int tw = tid & 127;
+  const int lane = tid & 31;
+  const int wg_p0 = q0 + (rows_h == kTcRows ? 64 * w : 0);
+  const int wg_n = min(min(64, rows_h), a.sq - wg_p0);
+  const int wp_lo = a.q_offset + wg_p0, wp_hi = wp_lo + wg_n - 1;
+  const int r_in = 16 * (tw >> 5) + (lane >> 2);
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    qpos[i] = a.q_offset + q0 + (64 * w + r_in + 8 * i) % rows_h;
+  const int col = 2 * (lane & 3);
+
+  // this warpgroup's Q rows (positions past Sq, columns past dk as zeros)
+  __nv_bfloat16* sQw = sQ + 64 * w * D;
+  stage_q<D>(sQw, q, a, b, h0, q0, rows_h, 64 * w, tw, 128);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  fence_async_smem();
+  warpgroup_sync(1 + w);
+
+  // The tiles this warpgroup's rows can see are a contiguous run [lo, hi]
+  // of the block's: the causal limit cuts from above, the window from
+  // below. The others are only waited for and released.
+  int lo = 0, hi = n_tiles - 1;
+  if (wg_n <= 0) {
+    hi = -1;
+  } else {
+    if (a.causal) hi = min(hi, (wp_hi - first) / kTcKeys);
+    if (a.window > 0)
+      lo = max(0, (wp_lo - a.window + 1 - first) / kTcKeys);
+  }
+  auto wait_k = [&](int it) {
+    mbar_wait(&ring.full_k[it % ring.ks], (it / ring.ks) & 1);
+  };
+  auto wait_v = [&](int it) {
+    if (ring.vs) mbar_wait(&ring.full_v[it % ring.vs], (it / ring.vs) & 1);
+  };
+  // after S of tile it: its K slot, unless V lives there
+  auto release_k = [&](int it) {
+    if (ring.vs) release_slot(&ring.empty_k[it % ring.ks], lane, pair, peer);
+  };
+  // after P.V of tile it: its V slot, or the K slot that holds V
+  auto release_v = [&](int it) {
+    release_slot(ring.vs ? &ring.empty_v[it % ring.vs]
+                         : &ring.empty_k[it % ring.ks],
+                 lane, pair, peer);
+  };
+  // a tile this warpgroup's rows cannot see
+  auto skip = [&](int it) {
+    wait_k(it);
+    release_k(it);
+    wait_v(it);
+    release_v(it);
+  };
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[32];
+  uint32_t pa[4][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+
+  // S = Q K^T of tile it (64 x 64, float32 sums of bf16 products), issued
+  auto issue_s = [&](int it) {
+    const __nv_bfloat16* kt = ring.k(it);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(sc, desc_sw128(sQw + (kk >> 2) * kBox + (kk & 3) * 16),
+                   desc_sw128(kt + (kk >> 2) * kBox + (kk & 3) * 16),
+                   kk > 0);
+    wgmma_commit();
+  };
+  // O += P V of tile it, V the B operand in its transposed (MN-major) form
+  auto issue_pv = [&](int it) {
+    const __nv_bfloat16* vt = ring.v(it);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n256(acc, pa[kk],
+                    desc_sw128_mn(vt + 16 * kk * kBoxCols,
+                                  sizeof(__nv_bfloat16) * kBox));
+    wgmma_commit();
+  };
+  // the online softmax of tile it on sc, as flash_tc_kernel's
+  auto softmax = [&](int it) {
+    const int kv0 = first + it * kTcKeys;
+    const bool whole = kv0 + kTcKeys <= item.kv_lim &&
+                       (!a.causal || kv0 + kTcKeys - 1 <= wp_lo) &&
+                       (a.window <= 0 || wp_hi - kv0 < a.window);
+    float mx[2] = {-INFINITY, -INFINITY};
+    tile_scores<kCap, 8>(sc, mx, a, !whole, kv0 + col, qpos, item.kv_lim);
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2_ftz(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float p = exp2_ftz(sc[4 * n + 2 * i + j] - m[i]);
+          sc[4 * n + 2 * i + j] = p;
+          psum[i] += p;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
+  };
+  // after the previous P.V has landed: rescale O (a warp whose rows all
+  // keep their max skips it: x * 1 is x), and P into bf16 in the A
+  // operand's register layout
+  auto rescale_and_pack = [&]() {
+    reg_fence(acc);
+    reg_fence(sc);
+    if (!__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n] *= corr[0];
+        acc[4 * n + 1] *= corr[0];
+        acc[4 * n + 2] *= corr[1];
+        acc[4 * n + 3] *= corr[1];
+      }
+      reg_fence(acc);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  };
+
+  for (int it = 0; it < lo && it < n_tiles; ++it) skip(it);
+  if (lo <= hi) {
+    wait_k(lo);
+    reg_fence(sc);
+    wgmma_fence();
+    issue_s(lo);
+    wgmma_wait<0>();
+    reg_fence(sc);
+    release_k(lo);
+    softmax(lo);
+    rescale_and_pack();
+    for (int it = lo + 1; it <= hi; ++it) {
+      wait_k(it);
+      wait_v(it - 1);
+      reg_fence(sc);
+      reg_fence(acc);
+      wgmma_fence();
+      issue_s(it);
+      issue_pv(it - 1);
+      wgmma_wait<1>();  // S of tile it has landed
+      reg_fence(sc);
+      release_k(it);
+      softmax(it);
+      wgmma_wait<0>();  // P.V of tile it - 1 has landed
+      release_v(it - 1);
+      rescale_and_pack();
+    }
+    wait_v(hi);
+    reg_fence(acc);
+    wgmma_fence();
+    issue_pv(hi);
+    wgmma_wait<0>();
+    reg_fence(acc);
+    release_v(hi);
+  }
+  for (int it = max(hi + 1, lo); it < n_tiles; ++it) skip(it);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 64 * w + r_in + 8 * i;
+    const int p = q0 + r % rows_h;
+    if (p >= a.sq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    if (a.lse != nullptr && (lane & 3) == 0)
+      store_lse(a, b, h0 + r / rows_h, p, m[i], den, true);
+    __nv_bfloat16* orow =
+        o + ((static_cast<long long>(b) * a.sq + p) * a.hq + h0 + r / rows_h) *
+                a.dv +
+        col;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
       const float x0 = acc[4 * n + 2 * i] / den;
       const float x1 = acc[4 * n + 2 * i + 1] / den;
-      if (a.dv == DV) {
+      if (a.dv == D) {
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
             __floats2bfloat162_rn(x0, x1);
       } else {  // a padded dv: only its real columns, one at a time
-        if (c0 + 8 * n < a.dv) orow[8 * n] = __float2bfloat16_rn(x0);
-        if (c0 + 8 * n + 1 < a.dv) orow[8 * n + 1] = __float2bfloat16_rn(x1);
+        if (8 * n + col < a.dv) orow[8 * n] = __float2bfloat16_rn(x0);
+        if (8 * n + col + 1 < a.dv) orow[8 * n + 1] = __float2bfloat16_rn(x1);
       }
     }
   }
 }
 
-template <typename TKV, int DK, int DV, bool kCap>
-int launch_mla(const void* q, const void* k, const void* v, void* o, int b,
-               const Args& a, cudaStream_t stream) {
-  auto kernel = flash_mla_kernel<TKV, DK, DV, kCap>;
-  constexpr size_t smem = mla_smem_bytes<DK>();
+// cuTensorMapEncodeTiled of libcuda, found through the runtime (no link
+// against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a bf16 K or V (B, S, H, cols): dims (cols, rows, heads,
+// batch) innermost first, element strides in bytes, 64 x 64 boxes in the
+// 128-byte swizzle; the rows stop at `rows` (kv_valid_len), so a box's
+// rows past it land as zeros. 0, or -2 / -3 when libcuda has no encoder
+// or refuses the map.
+int tile_map(CUtensorMap* map, const void* base, int cols, int rows,
+             int heads, int batch, long long ss, long long sh, long long sb) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kBoxCols, kTcKeys, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
+}
+
+// The split-dv (kMla) or the wide kernel. bf16 K/V with aligned, whole rows
+// and positive strides take TMA (their maps made here) in cluster pairs of
+// neighbouring blocks; any other K/V the producer's loads, one block a
+// cluster.
+template <typename TKV, bool kCap, bool kMla>
+int launch_split(const void* q, const void* k, const void* v, void* o, int b,
+                 Args a, cudaStream_t stream) {
+  auto kernel = kMla ? flash_mla_kernel<TKV, kCap>
+                     : flash_wide_kernel<TKV, kCap>;
+  constexpr size_t smem = kMla ? kMlaSmem : kWideSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int g = a.hq / a.hkv;
-  const int gh = g % 16 == 0 ? 16 : g % 8 == 0 ? 8 : g % 4 == 0 ? 4
-               : g % 2 == 0 ? 2 : 1;
-  const int rows_h = kTcKeys / gh;
-  const unsigned blocks = static_cast<unsigned>(b) * a.hq / gh *
-                          ((a.sq + rows_h - 1) / rows_h);
-  kernel<<<blocks, kMlaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), static_cast<__nv_bfloat16*>(o), a);
+  if (a.k_sb <= 0 || a.k_ss <= 0 || a.k_sh <= 0 || a.v_sb <= 0 ||
+      a.v_ss <= 0 || a.v_sh <= 0)
+    a.kv_vec = 0;
+  const bool pair = sizeof(TKV) == 2 && a.kv_vec;
+  CUtensorMap mk{}, mv{};
+  if (pair) {
+    const int rows = a.sk < a.kv_valid ? a.sk : a.kv_valid;
+    int e = tile_map(&mk, k, a.dk, rows, a.hkv, b, a.k_ss, a.k_sh, a.k_sb);
+    if (e == 0 && !a.v_alias)
+      e = tile_map(&mv, v, a.dv, rows, a.hkv, b, a.v_ss, a.v_sh, a.v_sb);
+    if (e != 0) return e;
+  }
+  const Geometry s = geometry(a, kMla ? kTcKeys : kTcRows, pair);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(b) * a.hkv * s.per);
+  cfg.blockDim = dim3(kSdThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = pair ? 2 : 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const TKV*>(k),
+                           static_cast<const TKV*>(v),
+                           static_cast<__nv_bfloat16*>(o), a, mk, mv);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1563,8 +2327,8 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int q_bf16,
       return q_bf16 ? launch_tc<TKV, 160, kCap>(q, k, v, o, b, a, stream)
                     : launch<float, TKV, 160, kCap>(q, k, v, o, b, a, stream);
     case kWideD:
-      return q_bf16 ? launch_mla<TKV, kWideD, kWideD, kCap>(q, k, v, o, b, a,
-                                                           stream)
+      return q_bf16 ? launch_split<TKV, kCap, false>(q, k, v, o, b, a,
+                                                     stream)
                     : launch<float, TKV, kWideD, kCap>(q, k, v, o, b, a,
                                                        stream);
     default: return -1;
@@ -1580,9 +2344,8 @@ int launch_all(const void* q, const void* k, const void* v, void* o,
                cudaStream_t s) {
   if (mla)
     return kv_bf16
-               ? launch_mla<__nv_bfloat16, kMlaDK, kMlaDV, kCap>(q, k, v, o,
-                                                                 b, a, s)
-               : launch_mla<float, kMlaDK, kMlaDV, kCap>(q, k, v, o, b, a, s);
+               ? launch_split<__nv_bfloat16, kCap, true>(q, k, v, o, b, a, s)
+               : launch_split<float, kCap, true>(q, k, v, o, b, a, s);
   if (kv_bf16)
     return launch_d<__nv_bfloat16, kCap>(q, k, v, o, q_bf16, b, d, a, s);
   return launch_d<float, kCap>(q, k, v, o, q_bf16, b, d, a, s);

@@ -23,10 +23,14 @@ as zeros inside the kernel (the smoke configs' 8, 12 and 16, the deepseek
 smoke's MLA pair (40, 32), and any head in (160, 256) at 256); (dk, dv) =
 ``MLA_DIMS`` = (576, 512), the absorbed MLA attention of deepseek-v2-lite
 (q_all against the latent cache, V the cache's first 512 columns), has an
-instantiation of its own on the tensor-core route, which stages a tile once
+instantiation of its own on the tensor-core route, the split-dv kernel (64
+query rows a block, dv split over two warpgroups), which stages a tile once
 when v is a view of k's rows; the float32 route refuses it. On the
 tensor-core route, 256 (recurrentgemma-9b's local attention, 16 query heads
-over one KV head) runs in the same split-dv kernel as the MLA pair.
+over one KV head) runs in the wide kernel (128 query rows a block). Both
+bring bf16 K/V with aligned rows by TMA, in cluster pairs of neighbouring
+blocks that share each tile (``BLOCK_ROWS``; ``cost.flash_staged_bytes``
+reckons what a launch stages).
 
 With ``return_lse`` every route also writes each row's logsumexp of its
 scaled, masked scores, float32 (B, Hq, Sq), from the running max and
@@ -52,10 +56,14 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "check_args",
-           "instantiation", "HEAD_DIMS", "MLA_DIMS", "launches"]
+           "instantiation", "split_design", "HEAD_DIMS", "MLA_DIMS",
+           "BLOCK_ROWS", "launches"]
 
 HEAD_DIMS = (64, 80, 96, 128, 160, 256)  # instantiations, dk == dv
 MLA_DIMS = (576, 512)               # the latent-attention kernel's (dk, dv)
+# query rows a block of the bf16-q split-dv kernel (MLA_DIMS) and wide
+# kernel (256), for the reckoning of what a launch stages
+BLOCK_ROWS = {MLA_DIMS: 64, (256, 256): 128}
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0   # kernel launches since the count was last set to 0
 
@@ -76,6 +84,23 @@ def instantiation(dk: int, dv: int) -> tuple[int, int] | None:
         return MLA_DIMS
     d = next((h for h in HEAD_DIMS if h >= max(dk, dv)), None)
     return None if d is None else (d, d)
+
+
+def split_design(q, k, v) -> tuple[int, int]:
+    """(query rows a block, blocks that stage each K/V tile once between
+    them) of the bf16-q split-dv or wide kernel on these inputs: bf16 K/V
+    whose rows are 16-byte aligned and as wide as the instantiation come by
+    TMA, multicast to a cluster pair of neighbouring blocks (2); any other
+    K/V is staged by each block (1). ``flash_attn_launch``'s rule."""
+    inst = instantiation(q.shape[-1], v.shape[-1])
+    if inst not in BLOCK_ROWS:
+        raise ValueError(f"head dims {q.shape[-1]}, {v.shape[-1]} do not "
+                         f"run in the split-dv or the wide kernel")
+    exact = inst == (k.shape[-1], v.shape[-1])
+    aligned = all(t.data_ptr() % 16 == 0 and all(
+        x > 0 and 2 * x % 16 == 0 for x in t.stride()[:3]) for t in (k, v))
+    pair = k.dtype == torch.bfloat16 and exact and aligned
+    return BLOCK_ROWS[inst], 2 if pair else 1
 
 
 def check_args(q, k, v, *, causal: bool, window: int | None, q_offset: int,

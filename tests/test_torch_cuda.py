@@ -37,7 +37,10 @@ The training path: every route's logsumexp output (``return_lse``)
 against its twin, ``attend``'s gradients within
 ``ref.flash_attention_bwd_bound`` of float32 autograd, every arch's
 gradients and one train step against the CPU's. The attention softcap on
-each of the three kernel templates (output, lse and gradients).
+each of the three kernel templates (output, lse and gradients). The
+split-dv and wide kernels on their design's edges: 1, 2 and odd tile
+counts, cluster pairs padded or with tile counts of their own, windows
+and cache lengths inside a tile, head sets of 16 to 1, float32 K/V.
 """
 
 import numpy as np
@@ -1186,6 +1189,75 @@ def test_flash_attention_mla_kernel(card, b, sq, sk, hq, hkv, causal, q_off,
     _assert_bf16_kernel(got, q, k, v, kw)
 
 
+# The split-dv kernel (576, 512) and the wide kernel (256) where their
+# design has edges: 1, 2 and an odd number of 64-key tiles; an odd count of
+# blocks a KV head (a cluster pair padded by a block of no rows); causal
+# neighbours in a cluster pair whose own tiles differ in number (the pair
+# stages the union); a window that starts inside a tile; kv_valid_len
+# inside the last tile; GQA head sets of 16, 8, 4, 2 and 1 (at 1 the wide
+# kernel's warpgroups see different tiles); float32 K/V and an own V
+# (the producer's loads and the V ring); capped. b, sq, sk, hq, hkv, dk,
+# dv, causal, window, q_offset, kv_valid_len, K/V type, v a view of k, cap
+SPLIT_EDGES = [
+    (2, 40, 40, 16, 1, 576, 512, True, None, 0, None, "bf16", True, 0.0),
+    (1, 128, 128, 16, 1, 576, 512, True, None, 0, None, "bf16", True, 0.0),
+    (1, 16, 74, 16, 1, 576, 512, True, None, 58, None, "bf16", True, 0.0),
+    (1, 9, 150, 16, 1, 576, 512, True, None, 141, None, "bf16", True, 0.0),
+    (1, 100, 200, 16, 1, 576, 512, True, 37, 100, None, "bf16", True, 2.0),
+    (2, 50, 200, 16, 1, 576, 512, True, None, 100, 150, "bf16", True, 0.0),
+    (1, 70, 70, 8, 1, 576, 512, True, None, 0, None, "bf16", True, 0.0),
+    (1, 70, 100, 8, 2, 576, 512, True, None, 30, None, "bf16", False, 0.0),
+    (1, 66, 66, 4, 2, 576, 512, False, None, 0, 60, "bf16", True, 1.0),
+    (1, 130, 130, 2, 2, 576, 512, True, None, 0, None, "bf16", True, 0.0),
+    (1, 70, 130, 16, 1, 576, 512, True, None, 60, None, "f32", True, 2.0),
+    (2, 30, 30, 16, 1, 256, 256, True, None, 0, None, "bf16", False, 0.0),
+    (1, 100, 100, 16, 1, 256, 256, True, None, 0, None, "bf16", False, 0.0),
+    (1, 32, 84, 16, 1, 256, 256, True, None, 52, None, "bf16", False, 0.0),
+    (1, 17, 190, 16, 1, 256, 256, True, None, 173, None, "bf16", False, 0.0),
+    (1, 200, 300, 16, 1, 256, 256, True, 100, 100, None, "bf16", False, 2.0),
+    (1, 60, 300, 16, 1, 256, 256, True, 64, 230, 290, "bf16", False, 0.0),
+    (1, 90, 90, 8, 1, 256, 256, True, 50, 0, None, "bf16", True, 0.0),
+    (1, 90, 150, 8, 2, 256, 256, True, None, 60, None, "bf16", False, 1.0),
+    (1, 100, 100, 4, 2, 256, 256, True, None, 0, None, "bf16", False, 0.0),
+    (1, 200, 260, 2, 2, 256, 256, False, 90, 60, None, "bf16", False, 0.0),
+    (1, 150, 150, 16, 1, 256, 256, True, 64, 0, None, "f32", False, 0.0),
+    (2, 33, 300, 16, 1, 256, 256, False, 80, 250, 290, "f32", False, 2.0),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,dk,dv,causal,window,q_off,valid,"
+                         "kvt,alias,cap", SPLIT_EDGES)
+def test_flash_attention_split_kernels_on_their_edges(
+        card, b, sq, sk, hq, hkv, dk, dv, causal, window, q_off, valid, kvt,
+        alias, cap):
+    """One launch, its output against the twin and the float32 plain
+    version by the bf16 rule, its rows' logsumexp within
+    ``ref.flash_attention_lse_bound`` of the twin's, and the output with lse
+    the bits of the one without."""
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = torch.Generator(device=card).manual_seed(sq * 31 + sk + dk)
+    scale = 2.0 if cap else 1.0
+    q = (scale * torch.randn((b, sq, hq, dk), generator=g, device=card)).to(
+        torch.bfloat16)
+    k = (scale * torch.randn((b, sk, hkv, dk), generator=g, device=card)).to(
+        types[kvt])
+    v = k[..., :dv] if alias else torch.randn(
+        (b, sk, hkv, dv), generator=g, device=card).to(types[kvt])
+    kw = dict(causal=causal, window=window, q_offset=q_off,
+              kv_valid_len=valid, softcap=cap)
+    ops.reset_launch_counts()
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert out.shape == (b, sq, hq, dv) and out.dtype == torch.bfloat16
+    assert torch.equal(out, flash_attn.flash_attention(q, k, v, **kw))
+    _assert_bf16_kernel(out, q, k, v, kw)
+    _, twin = ref.flash_attention_ref(q, k, v, operands=torch.bfloat16,
+                                      return_lse=True, **kw)
+    assert ((lse - twin).abs()
+            <= ref.flash_attention_lse_bound(q, k, twin, **kw)).all()
+
+
 def test_flash_attention_float32_route_refuses_the_mla_pair(card):
     q, k, v = _mla_inputs(card, 1, 8, 8, 16, 1, torch.float32, True, 0)
     with pytest.raises(ValueError, match=r"float32 route does not take"):
@@ -1440,8 +1512,8 @@ SOFTCAP_CASES = [
      False, 5.0),
     (2, 24, 24, 4, 2, 16, 16, True, None, 0, None, "bf16", "bf16", False,
      0.5),
-    # flash_mla_kernel: (576, 512) over an aliased latent cache, and hd 256
-    # with a window
+    # flash_mla_kernel: (576, 512) over an aliased latent cache; and
+    # flash_wide_kernel: hd 256 with a window
     (1, 100, 100, 16, 1, 576, 512, True, None, 0, None, "bf16", "bf16", True,
      2.0),
     (3, 33, 100, 16, 1, 576, 512, True, None, 60, 93, "bf16", "f32", False,
