@@ -9,7 +9,8 @@ Phases (each failure exits non-zero and prints no result line):
   2. build every kernel from src/repro_torch/kernels/csrc/ (one nvcc per
      source, all started together) into build/kernels/, log ptxas's
      registers, shared memory and spills of each kernel (the eight head-dim
-     256 instantiations of the attention kernel must not spill) and the
+     256 instantiations of the attention kernel and the 24 of the split-KV
+     decode kernel, flash_decode.cu, must not spill) and the
      dynamic
      shared memory a block of each selection route takes, and count the
      tensor-core instructions (HGMMA / HMMA) in the flash library's SASS,
@@ -270,8 +271,18 @@ Phases (each failure exits non-zero and prints no result line):
      within 5% of the largest |logit| of the one-process run's (phase 11's
      bound), the greedy token reaching the one-process row's maximum
      within it, the same tokens on every rank, each window's collectives
-     equal to the reckoning; rank 0's layer-0 call held and timed as in
-     phase 17; prefill and decode ms, weights and peak memory by rank.
+     equal to the reckoning; then the sequence-split run: the cache split
+     on the sequence over 'model' (init_cache(..., seq_split=True), 520
+     slots, 130 a rank, float32), a prefill and 2 decode steps
+     teacher-forced, each layer's decode attention the split-KV decode
+     kernel over the rank's slots (24 launches a step on every rank),
+     each step's logits within the same 5% of the one-process run's, each
+     window's collectives and its seconds logged; rank 0's layer-0 call
+     held and timed as in phase 17, and its first sequence-split decode
+     call (float32 q and K/V) held against the float32 plain version and
+     timed beside its bound and SDPA: the kernels line's
+     flash_attention/decode row; prefill and decode ms, weights and peak
+     memory by rank.
  19. train h2o-danube-1.8b at full width through launch.train.run (24
      layers, d 2,560, vocab 32,000, accum_steps 2, remat on, bf16 params,
      float32 AdamW moments, seeded weights): 16 steps of 8 x 2,048
@@ -349,9 +360,17 @@ Phases (each failure exits non-zero and prints no result line):
      each route's call and read just after (one launch a route), each
      held against its capped twin / plain version and lse bound, the
      uncapped kernel outside that bound, timed by CUDA events beside its
-     bound (no library call caps the scores); the capped backward on the
-     card against the CPU's.
-The second-to-last line is the kernels JSON; the last line is
+     bound (no library call caps the scores); the sequence-split decode
+     step's kernel calls (float32 q, one row a request over a danube
+     decode_32k rank's 2,048 bf16 slots: a rolling cache's 1,500, a
+     window past the slots, every slot; and B 1 over 32,768 slots) on
+     the split-KV decode kernel, held against the float32 plain version
+     with their lse, and at the full rank shape and at B 1 timed on the
+     device beside the plain version, the bound and SDPA on float32 K/V;
+     the capped backward on the card against the CPU's.
+Each phase logs "<tag> done in X s (T s since start)" when it ends; before
+the result lines one line "phase seconds {...}" holds every phase's
+seconds. The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -393,6 +412,21 @@ RECALL_FLOORS = {"exact/beam": 0.50, "exact/gemv": 0.48,
 ERRS: dict[str, float] = {}  # kernel name -> max |kernel - plain| seen
 PTXAS: dict[str, list] = {}  # kernel name -> phase 2's ptxas resource lines
 T0 = time.perf_counter()
+
+
+PHASE_S: dict = {}  # seconds of each phase, in the order they ran
+
+
+def phase(tag: str, fn, *args, **kw):
+    """fn(*args, **kw) as phase ``tag``: its seconds kept in PHASE_S and
+    logged when it ends, with the seconds since the start, so a run cut
+    short shows how far it got."""
+    t = time.perf_counter()
+    out = fn(*args, **kw)
+    now = time.perf_counter()
+    PHASE_S[tag] = round(now - t, 2)
+    log(f"{tag} done in {now - t:.1f} s ({now - T0:.1f} s since start)")
+    return out
 
 
 def fail(msg: str) -> None:
@@ -488,20 +522,45 @@ def route_turns(torch, name, launch, iters):
         f"on the device (turns warp, block, block, warp)")
 
 
+def event_ms(torch, fn, iters: int = 1, warm: int = 1,
+             lead: bool = False) -> float:
+    """ms a call of fn() by CUDA events around ``iters`` calls launched
+    back to back, after ``warm`` warm-up calls. With ``lead`` the calls
+    queue behind a spin kernel (``torch.cuda._sleep``, ~0.1 s at the
+    H100's clocks) that outlasts their launch on the host, so the events
+    span the device's work alone, the gaps between its kernels included.
+    A plain version is no yardstick of speed: one warm-up and one call,
+    the defaults, are its time."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    if lead:
+        torch.cuda._sleep(200_000_000)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def timed_row(torch, name, kernel, plain, iters, bound):
-    """Time a kernel and its plain version (device ms as the result, the
-    event wall ms beside it) and log them with the bound."""
+    """Time a kernel (device ms as the result, the event wall ms beside
+    it) and its plain version (``event_ms``) and log them with the
+    bound."""
     ms, wall = times(torch, kernel, iters)
-    plain_ms, plain_wall = times(torch, plain, max(iters // 10, 3))
-    if ms is None or plain_ms is None:
+    plain_ms = event_ms(torch, plain)
+    if ms is None:
         log(f"{name}: device time not measured (no profiler session kept "
             f"every launch); CUDA-event wall ms stand in")
-        ms, plain_ms = wall, plain_wall
+        ms = wall
     row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                bound_by=bound[1])
     log(f"{name}: kernel {ms:.5f} ms on the device ({wall:.5f} ms event "
-        f"wall per back-to-back call), plain {plain_ms:.5f} ms on the device "
-        f"({plain_wall:.5f} wall), bound {bound[0]:.5f} ms ({bound[1]})")
+        f"wall per back-to-back call), plain {plain_ms:.5f} ms (one call, "
+        f"CUDA events), bound {bound[0]:.5f} ms ({bound[1]})")
     return row
 
 
@@ -744,6 +803,7 @@ def phase_build_kernels():
                 log(f"  ptxas {name}: {line.strip()}")
                 PTXAS.setdefault(name, []).append(line.strip())
     hold_hd256_spills(reports.get("flash_attn", ""))
+    hold_decode_spills(reports.get("flash_decode", ""))
     cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(_build._target("flash_attn"))],
@@ -800,6 +860,42 @@ def hold_hd256_spills(report: str) -> None:
                 fail(f"the hd-256 instantiation {fn} spills: {line.strip()}")
     if report and seen != 8:
         fail(f"ptxas reported {seen} head-dim-256 instantiations, expected 8")
+
+
+def hold_decode_spills(report: str) -> None:
+    """ptxas's report of the split-KV decode library: each instantiation
+    of ``flash_decode_kernel`` (bf16 and float32 K/V, head dims 64 to 256,
+    without and with the softcap: 24) and the combine kernel logged with
+    its registers, static shared memory and spills; none may spill. The
+    dynamic shared memory a block takes (the query rows and each warp's
+    ring) is set at the launch and not in the report."""
+    import re
+    fn, seen = None, 0
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "spill" in line:
+            spill = line.strip()
+        elif fn and "registers" in line:
+            if "flash_decode_kernel" in fn:
+                kv = "float32" if "flash_decode_kernelIf" in fn else "bf16"
+                d = re.search(r"Li(\d+)ELb", fn)
+                cap = "capped" if "Lb1E" in fn else "uncapped"
+                what = f"flash_decode_kernel<{kv} K/V, {d and d.group(1)}, " \
+                       f"{cap}>"
+                seen += 1
+            elif "flash_decode_combine" in fn:
+                what = "flash_decode_combine"
+            else:
+                continue
+            log(f"  ptxas flash_attention/decode {what}: "
+                f"{line.split(': ', 1)[-1].strip()}; {spill}")
+            if "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                fail(f"the decode instantiation {fn} spills: {spill}")
+            fn = None
+    if report and seen != 24:
+        fail(f"ptxas reported {seen} flash_decode_kernel instantiations, "
+             f"expected 24")
 
 
 def log_staged(q, k, v, kw, ms, label) -> None:
@@ -2397,7 +2493,7 @@ def phase_mesh(torch, eng, qt, rep9, med9) -> dict:
     if codes != [0] * len(procs):
         fail(f"13: follower ranks exited with {codes}")
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"13 done in {out['phase_s']:.1f} s; followers exited 0")
+    log("13: followers exited 0")
     return out
 
 
@@ -2680,7 +2776,7 @@ def phase_anns_step(torch, eng, qt, qps5, mesh13) -> dict:
         result[scan] = dict(qps=med, recall=recall)
     eng.placed = engine._place(eng.index, eng.place, eng.backend)
     result["phase_s"] = time.perf_counter() - t_phase
-    log(f"13b done in {result['phase_s']:.1f} s; the engine placed anew")
+    log("13b: the engine placed anew")
     return result
 
 
@@ -2699,7 +2795,6 @@ def phase_skewed_tier(torch, eng):
     from repro_torch.data import synthetic
     from repro_torch.distributed.straggler import HedgeConfig
     from repro_torch.kernels import ops
-    t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -2877,7 +2972,6 @@ def phase_skewed_tier(torch, eng):
         f"{plain.p99_ms:.2f})")
     del hedged, tenanted, topo
     torch.cuda.empty_cache()
-    log(f"9c done in {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -3047,10 +3141,10 @@ def phase_lm(torch, dev, eng):
         lambda: ref.flash_attention_ref(q0, k0, v0, operands=bf, **kw0), 10,
         flash_bound(q0, k0, v0, kw0["causal"], kw0["window"],
                     kw0["q_offset"], kw0["kv_valid_len"]))
-    f32_ms, f32_wall = times(
-        torch, lambda: ref.flash_attention_ref(q0, k0, v0, **kw0), 3)
-    log(f"flash_attention float32 plain version: "
-        f"{f32_ms if f32_ms is not None else f32_wall:.5f} ms on the device")
+    f32_ms = event_ms(
+        torch, lambda: ref.flash_attention_ref(q0, k0, v0, **kw0))
+    log(f"flash_attention float32 plain version: {f32_ms:.5f} ms (one "
+        f"call, CUDA events)")
     n = q0.shape[1]
     qs = q0.transpose(1, 2).contiguous()
     ks = k0[:, :n].to(bf).transpose(1, 2).contiguous()
@@ -3205,7 +3299,6 @@ def phase_mla(torch, dev, eng):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attn, ref
     from repro_torch.models import moe
-    t_phase = time.perf_counter()
     cfg = get_config("deepseek-v2-lite-16b")
     b, prompt, n_gen = 8, 2048, 32
     log(f"{cfg.name}: {cfg.n_heads} heads, MLA kv_lora {cfg.kv_lora_rank} "
@@ -3310,10 +3403,10 @@ def phase_mla(torch, dev, eng):
         flash_bound(q0, k0, v0, kw0["causal"], kw0["window"],
                     kw0["q_offset"], kw0["kv_valid_len"]))
     log_staged(q0, k0, v0, kw0, row["ms"], "flash_attention/mla")
-    f32_ms, f32_wall = times(
-        torch, lambda: ref.flash_attention_ref(q0, k0, v0, **kw0), 3)
-    log(f"flash_attention/mla float32 plain version: "
-        f"{f32_ms if f32_ms is not None else f32_wall:.5f} ms on the device")
+    f32_ms = event_ms(
+        torch, lambda: ref.flash_attention_ref(q0, k0, v0, **kw0))
+    log(f"flash_attention/mla float32 plain version: {f32_ms:.5f} ms (one "
+        f"call, CUDA events)")
     lib, backend, refused = sdpa_row(torch, q0, k0, v0, q0.shape[1])
     for line in refused:
         log(f"scaled_dot_product_attention at dk 576 / dv 512 refused by "
@@ -3331,7 +3424,6 @@ def phase_mla(torch, dev, eng):
     # where a prefill's and a decode step's time goes (the decode step at
     # the last slot of the cache)
     profile_steps(torch, model, params, tokens, toks[:, -1:], cache, cp, 8)
-    log(f"14 done in {time.perf_counter() - t_phase:.1f} s")
     return counts["flash_attention"], row
 
 
@@ -3511,7 +3603,6 @@ def phase_ssm(torch, dev, eng):
     engine. Returns the launch counts of the counted run."""
     from repro_torch.configs import get_config
     from repro_torch.models import ssm
-    t_phase = time.perf_counter()
     cfg = get_config("mamba2-1.3b")
     d_inner = cfg.ssm_expand * cfg.d_model
     log(f"{cfg.name}: SSD d_inner {d_inner}, {d_inner // cfg.ssm_head_dim} "
@@ -3543,7 +3634,6 @@ def phase_ssm(torch, dev, eng):
     stage_times(torch, "SSD", ssm, calls, cfg.n_layers)
     profile_steps(torch, model, params, tokens, out.tokens[:, -1:], cache,
                   cp, 8)
-    log(f"15 done in {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -3588,7 +3678,6 @@ def phase_rglru(torch, dev, eng):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attn, ref
     from repro_torch.models import rglru
-    t_phase = time.perf_counter()
     cfg = get_config("recurrentgemma-9b")
     n_attn = sum(cfg.mixer_of(i) == "lattn" for i in range(cfg.n_layers))
     log(f"{cfg.name}: {cfg.n_heads} query heads over {cfg.n_kv_heads} KV "
@@ -3640,10 +3729,10 @@ def phase_rglru(torch, dev, eng):
         flash_bound(q0, k0, v0, kw0["causal"], kw0["window"],
                     kw0["q_offset"], kw0["kv_valid_len"]))
     log_staged(q0, k0, v0, kw0, row["ms"], "flash_attention/hd256")
-    f32_ms, f32_wall = times(
-        torch, lambda: ref.flash_attention_ref(q0, k0, v0, **kw0), 3)
-    log(f"flash_attention/hd256 float32 plain version: "
-        f"{f32_ms if f32_ms is not None else f32_wall:.5f} ms on the device")
+    f32_ms = event_ms(
+        torch, lambda: ref.flash_attention_ref(q0, k0, v0, **kw0))
+    log(f"flash_attention/hd256 float32 plain version: {f32_ms:.5f} ms (one "
+        f"call, CUDA events)")
     if kw0["q_offset"] != 0 or kw0["kv_valid_len"] is not None:
         fail(f"the SDPA yardstick assumes a prefill from position 0 over "
              f"every key, got {kw0}")
@@ -3672,7 +3761,6 @@ def phase_rglru(torch, dev, eng):
     del stage_calls
     profile_steps(torch, model, params, tokens, out.tokens[:, -1:], cache,
                   cp, 8)
-    log(f"16 done in {time.perf_counter() - t_phase:.1f} s")
     return counts["flash_attention"], row
 
 
@@ -3724,8 +3812,7 @@ def kernel_row(torch, name, label, call, n_iters=10):
                                         **kw), n_iters,
         flash_bound(q, k, v, kw["causal"], kw["window"], kw["q_offset"],
                     kw["kv_valid_len"]))
-    f32_ms, f32_wall = times(
-        torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3)
+    f32_ms = event_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw))
     valid = k.shape[1] if kw["kv_valid_len"] is None else kw["kv_valid_len"]
     if kw["q_offset"] != 0 or valid != (q.shape[1] if kw["causal"]
                                         else k.shape[1]):
@@ -3737,8 +3824,7 @@ def kernel_row(torch, name, label, call, n_iters=10):
     log(f"{name} {label}: kernel {row['ms']:.5f} ms, bound "
         f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
         f"{row['bound_ms'] / row['ms']:.3f} of the kernel's time), twin "
-        f"{row['plain_ms']:.5f}, float32 plain "
-        f"{f32_ms if f32_ms is not None else f32_wall:.5f}, SDPA flash "
+        f"{row['plain_ms']:.5f}, float32 plain {f32_ms:.5f}, SDPA flash "
         f"{'refused' if lib is None else f'{lib:.5f}'} ms on the device")
     return row
 
@@ -3793,7 +3879,6 @@ def phase_encdec(torch, dev, eng):
     flash_attention/noncausal timing row of layer 0's encoder call)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    t_phase = time.perf_counter()
     cfg = get_config("whisper-large-v3")
     b, prompt, n_gen = 8, 416, 32
     log(f"{cfg.name}: {cfg.enc_layers} encoder + {cfg.n_layers} decoder "
@@ -3860,7 +3945,6 @@ def phase_encdec(torch, dev, eng):
                kept["cross decode"], n_iters=30)
     kept.clear()
     profile_steps(torch, model, params, tokens, nxt, cache, c2, 8, stub)
-    log(f"17 done in {time.perf_counter() - t_phase:.1f} s")
     return noncausal, row
 
 
@@ -3871,7 +3955,6 @@ def phase_vlm(torch, dev, eng):
     launch counts of the counted run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    t_phase = time.perf_counter()
     cfg = get_config("internvl2-1b")
     b, prompt, n_gen = 8, 2048 - cfg.n_patches, 32
     log(f"{cfg.name}: {cfg.n_layers} layers, {cfg.n_heads} / "
@@ -3914,7 +3997,6 @@ def phase_vlm(torch, dev, eng):
     kernel_row(torch, "flash_attention", "internvl2 layer 0", kept.pop())
     profile_steps(torch, model, params, tokens, out.tokens[:, -1:], cache,
                   cp, 8, stub)
-    log(f"18 done in {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -4195,7 +4277,7 @@ def phase_mutable(torch, parts, icfg, qt):
     del topo, mut_eng, mut
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"12 done in {out['phase_s']:.1f} s; peak device memory "
+    log(f"12: peak device memory "
         f"{out['peak_gib']:.2f} GiB; steps (s) " + json.dumps(
             {k: round(v, 3) for k, v in out.items() if k.endswith("_s")})
         + "; peak allocated by step (GiB) " + json.dumps(
@@ -4577,7 +4659,6 @@ def phase_train_resume(torch, dev):
     if root.exists():
         shutil.rmtree(root)
     root.mkdir(parents=True)
-    t_phase = time.perf_counter()
 
     def run(d, steps, resume):
         buf = io.StringIO()
@@ -4623,7 +4704,7 @@ def phase_train_resume(torch, dev):
                      f"uninterrupted run's {want} bit for bit")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log(f"19b done in {time.perf_counter() - t_phase:.1f} s: 6 + 3 steps, "
+    log(f"19b: 6 + 3 steps, "
         f"9 uninterrupted, resumed at 6 and (torn) at 3")
 
 
@@ -4823,6 +4904,7 @@ def phase_train_dp(torch, dev, pod: bool = False):
 SHARDED_ARCH = "h2o-danube-1.8b"  # phase 11s: full width and depth ...
 SHARDED_MESH = (1, 4)             # ... on ('data', 'model') gloo ranks
 SHARDED_REQ = (4, 512, 8)         # requests, prompt tokens, generated
+SEQ_SPLIT_STEPS = 2               # 11s: decode steps over a SeqKVCache
 
 
 def sharded_reckoning(cfg, b, s) -> dict:
@@ -4851,6 +4933,64 @@ def sharded_reckoning(cfg, b, s) -> dict:
     return {"prefill": fmt(prefill), "decode": fmt(decode)}
 
 
+def cache_kinds(tree) -> set:
+    """The type names of the layer caches in a model's cache tree."""
+    if isinstance(tree, dict):
+        return set().union(*map(cache_kinds, tree.values()))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {type(tree).__name__}
+    if isinstance(tree, (list, tuple)):
+        return set().union(*map(cache_kinds, tree))
+    return set()
+
+
+def seq_split_run(torch, model, params, tokens, teacher, slots, coll,
+                  sync, keep=None) -> dict:
+    """Phase 11s's sequence-split run on a rank, under its mesh: the
+    cache split on the sequence over 'model' (``init_cache(...,
+    seq_split=True)``: ``attention.SeqKVCache``, slots / m a rank, the
+    JAX package's decode layout), float32; a prefill, then
+    SEQ_SPLIT_STEPS decode steps teacher-forced with the one-process
+    tokens, each layer's attention the kernel over the rank's slots
+    (float32 q and K/V: the decode route) combined by its lse over
+    'model'. The decode steps' flash_attention launches (the counts set
+    to 0 just before, read just after), each window's collectives, the
+    last-token logits and the seconds are kept; a list ``keep`` gets a
+    copy of the first decode step's layer-0 call ``(q, k, v, kw)``."""
+    from repro_torch.kernels import ops
+    t = time.perf_counter()
+    real = ops.flash_attention
+
+    def record(q, k, v, **kw):
+        if not keep:
+            keep.append((q.clone(), k.clone(), v.clone(),
+                         {x: y for x, y in kw.items() if x != "return_lse"}))
+        return real(q, k, v, **kw)
+    c = model.init_cache(tokens.shape[0], slots, dtype=torch.float32,
+                         device=tokens.device, seq_split=True)
+    kinds = sorted(cache_kinds(c))
+    coll.reset()
+    logits, c = model.prefill(params, tokens, c)
+    rows = [logits[:, -1].float().cpu()]
+    windows = {"prefill": coll.as_dict()}
+    sync()
+    if keep is not None:
+        ops.flash_attention = record
+    ops.reset_launch_counts()
+    coll.reset()
+    try:
+        for i in range(SEQ_SPLIT_STEPS):
+            logits, c = model.decode(params, teacher[:, i:i + 1], c)
+            rows.append(logits[:, -1].float().cpu())
+    finally:
+        ops.flash_attention = real
+    sync()
+    launches = ops.launch_counts()["flash_attention"]
+    windows["decode"] = coll.as_dict()
+    return dict(rows=torch.stack(rows), launches=launches, windows=windows,
+                kinds=kinds, seconds=time.perf_counter() - t)
+
+
 def sharded_rank(rank: int, world: int, init: str, device: str,
                  teacher=None, eng=None) -> dict | None:
     """One rank of phase 11s: rank 0 is this process and brings the
@@ -4865,8 +5005,9 @@ def sharded_rank(rank: int, world: int, init: str, device: str,
     launch count and collective count set to 0 just before, read just
     after; rank 0 records its flash_attention calls), then the held run:
     a prefill and the decode steps teacher-forced with the one-process
-    tokens, each window's collectives and its logits block kept. Returns,
-    on rank 0, every rank's results."""
+    tokens, each window's collectives and its logits block kept; then the
+    sequence-split run (``seq_split_run``; rank 0 records its first decode
+    call). Returns, on rank 0, every rank's results."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -4948,6 +5089,9 @@ def sharded_rank(rank: int, world: int, init: str, device: str,
                 toks.append(greedy(logits, cfg, b))
                 rows.append(logits[:, -1].float().cpu())
             windows["decode"] = coll.as_dict()
+            seq_calls = [] if rank == 0 else None
+            seq = seq_split_run(torch, model, params, tokens, teacher,
+                                s + n_gen, coll, sync, seq_calls)
         sync()
         mine = dict(coord=list(mesh.get_coordinate()), weights=weights,
                     peak=torch.cuda.max_memory_allocated(dev),
@@ -4956,11 +5100,12 @@ def sharded_rank(rank: int, world: int, init: str, device: str,
                     gen_tokens=out.tokens.cpu(), prefill_s=out.prefill_s,
                     decode_s=out.decode_s, draw_s=draw_s,
                     retrieve_s=out.retrieve_s, ids=out.report.ids,
-                    queries=out.queries)
+                    queries=out.queries, seq=seq)
         every = [None] * world
         dist.all_gather_object(every, mine)
         if rank == 0:
-            return dict(ranks=every, call=calls[0] if calls else None)
+            return dict(ranks=every, call=calls[0] if calls else None,
+                        seq_call=seq_calls[0] if seq_calls else None)
         return None
     finally:
         dist.destroy_process_group()
@@ -4983,17 +5128,19 @@ def retrieval_reckoning(cfg, b) -> dict:
             "broadcast_object": [1, None]}
 
 
-def phase_sharded_lm(torch, dev, eng) -> tuple[int, dict]:
+def phase_sharded_lm(torch, dev, eng) -> tuple[int, dict, int, dict]:
     """Phase 11s: the sharded LM (tensor parallelism over 'model') serving
     h2o-danube-1.8b at full width and depth on a (1 data x 4 model) mesh
     of gloo ranks sharing the card (this process and 3 spawned; see the
     module's docstring), with retrieval into phase 4's engine (held
     in this process). Returns (rank 0's flash_attention launches in the
-    counted run, the kernel's timing row on rank 0's layer-0 call)."""
+    counted run, the kernel's timing row on rank 0's layer-0 call, rank
+    0's launches in the sequence-split decode steps, the decode route's
+    timing row on rank 0's first call there)."""
     import torch.multiprocessing as mp
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn
     from repro_torch.models.model import build_model
-    t_phase = time.perf_counter()
     cfg = get_config(SHARDED_ARCH)
     b, s, n_gen = SHARDED_REQ
     world = SHARDED_MESH[0] * SHARDED_MESH[1]
@@ -5138,11 +5285,66 @@ def phase_sharded_lm(torch, dev, eng) -> tuple[int, dict]:
     same = int((ranks[0]["gen_tokens"] == teacher).sum())
     log(f"11s generate's own greedy tokens equal the one-process run's in "
         f"{same} of {teacher.numel()}")
+    seq_launches = hold_seq_split_run(torch, cfg, ranks, one_rows)
     # rank 0's layer-0 call: its 8 / 2 heads, held and timed
     row = kernel_row(torch, "flash_attention/sharded",
                      "11s rank 0 layer 0", out["call"])
-    log(f"11s done in {time.perf_counter() - t_phase:.1f} s")
-    return r0["launches"]["flash_attention"], row
+    # rank 0's first sequence-split decode call: float32 q and K/V over
+    # its 130 slots, held and timed
+    if out["seq_call"] is None:
+        fail("11s: rank 0 recorded no sequence-split decode call")
+    q, k = out["seq_call"][:2]
+    if not flash_attn.decode_route(q.dtype, q.shape[1], q.shape[2],
+                                   k.shape[2]):
+        fail("11s: rank 0's sequence-split decode call is off the decode "
+             "route")
+    seq_row = decode_row(torch, "11s rank 0 decode step 1 layer 0",
+                         *out["seq_call"])
+    return r0["launches"]["flash_attention"], row, seq_launches, seq_row
+
+
+def hold_seq_split_run(torch, cfg, ranks, one_rows) -> int:
+    """Phase 11s's sequence-split run (``seq_split_run``) held: every
+    rank's cache a SeqKVCache, its decode steps one flash_attention launch
+    a layer a step, its prefill and each step's logits (assembled from the
+    vocabulary blocks) within 5% of the largest |logit| of the one-process
+    run's (phase 11's bound); each window's collectives and the run's
+    seconds logged. Returns rank 0's launches in the decode steps."""
+    b, s, n_gen = SHARDED_REQ
+    want = SEQ_SPLIT_STEPS * cfg.n_layers
+    for k, r in enumerate(ranks):
+        seq = r["seq"]
+        if seq["kinds"] != ["SeqKVCache"]:
+            fail(f"11s: rank {k}'s sequence-split cache holds "
+                 f"{seq['kinds']}, not a SeqKVCache a layer")
+        if seq["launches"] != want:
+            fail(f"11s: rank {k} launched flash_attention {seq['launches']} "
+                 f"times in {SEQ_SPLIT_STEPS} sequence-split decode steps, "
+                 f"expected one a layer a step ({want})")
+    r0 = ranks[0]["seq"]
+    log(f"11s sequence-split run ({s + n_gen} slots, "
+        f"{(s + n_gen) // SHARDED_MESH[1]} a rank, float32): a prefill and "
+        f"{SEQ_SPLIT_STEPS} decode steps in "
+        f"{', '.join(f'{r['seq']['seconds']:.2f}' for r in ranks)} s by rank;"
+        f" rank 0's collectives a window {json.dumps(r0['windows'])}; "
+        f"flash_attention launches by rank in the decode steps "
+        f"{[r['seq']['launches'] for r in ranks]}")
+    blocks = sorted(ranks, key=lambda r: r["coord"][1])
+    got = torch.cat([r["seq"]["rows"] for r in blocks], dim=-1)
+    v = slice(0, cfg.vocab_size)
+    for i in range(SEQ_SPLIT_STEPS + 1):
+        g, w = got[i, :, v], one_rows[i, :, v]
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        what = "prefill" if i == 0 else f"decode step {i}"
+        log(f"11s sequence-split {what} (teacher-forced) vs one process: "
+            f"max |diff| {err:.4f}, max |logit| {scale:.4f} (ratio "
+            f"{err / scale:.4f})")
+        if err > 0.05 * scale:
+            fail(f"11s sequence-split {what}: the logits differ from one "
+                 f"process's by {err:.4f} > 5% of their largest magnitude "
+                 f"{scale:.4f}")
+    return ranks[0]["seq"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -5407,7 +5609,6 @@ def phase_sharded_train(torch, dev) -> tuple[int, dict]:
     from repro_torch.launch import mesh as lmesh
     from repro_torch.launch import train
     from repro_torch.models.model import build_model
-    t_phase = time.perf_counter()
     steps, b, s = SHARDED_TRAIN
     cfg = get_config(TRAIN_ARCH)
     model = build_model(cfg)
@@ -5539,7 +5740,6 @@ def phase_sharded_train(torch, dev) -> tuple[int, dict]:
         flush=True)
     row = lse_kernel_row(torch, "flash_attention/sharded-train",
                          "19s rank 0 layer 0", out["call"])
-    log(f"19s done in {time.perf_counter() - t_phase:.1f} s")
     return r0["counted"]["flash_attention"], row
 
 
@@ -5550,22 +5750,6 @@ def phase_sharded_train(torch, dev) -> tuple[int, dict]:
 
 SOFTCAP = 50.0     # Gemma 2's published attn_logit_softcapping: a test input
 SAVED: dict = {}   # what a later phase reuses of an earlier one's run
-
-
-def event_ms(torch, fn, iters: int) -> float:
-    """ms a call of fn() by CUDA events around ``iters`` calls launched
-    back to back, after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
 
 
 def softcap_routes(torch, dev) -> dict:
@@ -5597,28 +5781,89 @@ def softcap_routes(torch, dev) -> dict:
     }
 
 
+def decode_row(torch, label, q, k, v, kw, time_it=True):
+    """A call of the split-KV decode route (float32 q, Sq x g <= 64) held
+    against the float32 plain version within ``attn_bound``, its lse by
+    ``hold_lse``; with ``time_it``, timed: the kernel on the device
+    (``event_ms`` behind a spin kernel, 50 calls; its two launches, the
+    chunks and their combine, in one call), the plain version (one
+    call), the bound (``kernels/cost.py``) and
+    ``scaled_dot_product_attention`` on float32 copies of K/V made before
+    the timed calls (``enable_gqa``; the mask as a boolean tensor where a
+    key is masked). Returns the timing row (None without ``time_it``)."""
+    from repro_torch.kernels import flash_attn, ref
+    b, sq, hq, _ = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    split = flash_attn.decode_design(b, sq, hq, hkv, sk, **kw)
+    full = (f"{label} q {tuple(q.shape)}, k/v {tuple(k.shape)} "
+            f"{str(k.dtype)[6:]}, {kw}, (rows, chunks) {split}")
+    got = flash_attn.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    close(torch, "flash_attention/decode", full, got, want,
+          attn_bound(torch, want))
+    hold_lse(torch, "flash_attention/decode", full, got, q, k, v, kw)
+    del got, want
+    if not time_it:
+        return None
+    call = dict(kw, return_lse=True)
+    ms = event_ms(torch, lambda: flash_attn.flash_attention(q, k, v, **call),
+                  50, lead=True)
+    plain_ms = event_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, return_lse=True, **kw))
+    bound = flash_bound(q, k, v, kw["causal"], kw.get("window"),
+                        kw.get("q_offset", 0), kw.get("kv_valid_len"))
+    keys = torch.arange(sk, device=q.device)
+    pos = kw.get("q_offset", 0) + torch.arange(sq, device=q.device)[:, None]
+    valid = kw.get("kv_valid_len")
+    ok = keys[None, :] < (sk if valid is None else valid)
+    if kw["causal"]:
+        ok = ok & (keys[None, :] <= pos)
+    if kw.get("window"):
+        ok = ok & (pos - keys[None, :] < kw["window"])
+    mask = None if bool(ok.all()) else ok
+    qs = q.transpose(1, 2)
+    ks, vs = k.float().transpose(1, 2), v.float().transpose(1, 2)
+    lib = event_ms(torch, lambda: (
+        torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)), 50, lead=True)
+    del ks, vs
+    log(f"flash_attention/decode {label} (B {b}, {sk} slots, "
+        f"{str(k.dtype)[6:]} K/V): kernel {ms:.5f} ms on the device, bound "
+        f"{bound[0]:.5f} ms ({bound[1]}, {bound[0] / ms:.3f} of the "
+        f"kernel's time), plain {plain_ms:.5f} ms (one call), SDPA on "
+        f"float32 K/V {lib:.5f} ms on the device")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=lib)
+
+
 def hold_seq_split_calls(torch, dev) -> None:
     """The kernel calls of a decode step over a sequence-split cache
     (``models.attention._seq_split_step``, the dry-run's decode cells) at
-    a danube decode_32k rank's shape: one float32 row a request (B 8, 32 /
-    8 heads of 80) over the rank's 2,048 bf16 slots, non-causal, asked for
-    the lse; the valid slots of a rolling cache (1,500 of them), and a
+    full size, all on the split-KV decode route (float32 q, one row a
+    request, danube's 32 / 8 heads of 80, bf16 K/V, non-causal, asked for
+    the lse), each held and the rank and long forms timed
+    (``decode_row``): at a danube decode_32k rank's shape (B 8 over the
+    rank's 2,048 slots) the valid slots of a rolling cache (1,500), a
     window of 2,500 seen from a query 4,000 positions past the rank's
-    first slot (its last 547 slots). Each output held against the float32
-    plain version within ``attn_bound``, its lse by ``hold_lse``."""
-    from repro_torch.kernels import flash_attn, ref
+    first slot (its last 547 slots) and every slot valid ("rank"); and
+    one long context, B 1 over 32,768 slots ("long"). Phase 11s holds
+    and times the call its own sequence-split run made, float32 K/V."""
     g = torch.Generator(device=dev).manual_seed(2029)
     q = torch.randn((8, 1, 32, 80), generator=g, device=dev)
     k = torch.randn((8, 2048, 8, 80), generator=g, device=dev).bfloat16()
     v = torch.randn((8, 2048, 8, 80), generator=g, device=dev).bfloat16()
-    for kw in (dict(causal=False, kv_valid_len=1500),
-               dict(causal=False, window=2500, q_offset=4000)):
-        label = f"seq-split decode call {kw}"
-        got = flash_attn.flash_attention(q, k, v, **kw)
-        want = ref.flash_attention_ref(q, k, v, **kw)
-        close(torch, "flash_attention", label, got, want,
-              attn_bound(torch, want), record=False)
-        hold_lse(torch, "flash_attention", label, got, q, k, v, kw)
+    q1 = torch.randn((1, 1, 32, 80), generator=g, device=dev)
+    k1 = torch.randn((1, 32768, 8, 80), generator=g, device=dev).bfloat16()
+    v1 = torch.randn((1, 32768, 8, 80), generator=g, device=dev).bfloat16()
+    forms = {"rolling": (q, k, v, dict(causal=False, kv_valid_len=1500)),
+             "window": (q, k, v, dict(causal=False, window=2500,
+                                      q_offset=4000)),
+             "rank": (q, k, v, dict(causal=False)),
+             "long": (q1, k1, v1, dict(causal=False))}
+    for name, (qf, kf, vf, kw) in forms.items():
+        decode_row(torch, f"20 seq-split decode call {name}", qf, kf, vf, kw,
+                   time_it=name in ("rank", "long"))
+    torch.cuda.empty_cache()
 
 
 def phase_softcap(torch, dev) -> dict:
@@ -5642,10 +5887,11 @@ def phase_softcap(torch, dev) -> dict:
     Then the capped backward: ``attend``'s gradients on the card against
     the CPU's at a training shape (B 2, S 512, danube's heads, bf16), each
     within ``ref.flash_attention_bwd_bound`` of float32 autograd, so the
-    two within the sum of their bounds. Returns the kernels-line rows."""
+    two within the sum of their bounds. Between the two, the calls of
+    the sequence-split decode step (``hold_seq_split_calls``). Returns the
+    kernels-line rows."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models.attention import attend, attend_onepass
-    t_phase = time.perf_counter()
     routes = softcap_routes(torch, dev)
     for q, k, v, kw in routes.values():
         kw["softcap"] = SOFTCAP
@@ -5687,8 +5933,9 @@ def phase_softcap(torch, dev) -> dict:
                  f"bound the capped one is held to (the cap moves it by "
                  f"{moved:.4g}): a kernel that ignored the cap would pass")
         del got, want, bound, bare
-        ms = event_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), 10)
-        plain_ms = event_ms(torch, plain, 2)
+        ms = event_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), 10,
+                      warm=2)
+        plain_ms = event_ms(torch, plain)
         bound = flash_bound(q, k, v, kw["causal"], kw.get("window"),
                             kw.get("q_offset", 0), kw.get("kv_valid_len"),
                             softcap=SOFTCAP)
@@ -5735,7 +5982,6 @@ def phase_softcap(torch, dev) -> dict:
         log(f"20 capped backward {name} (B 2, S 512, 32 / 8 heads of 80, "
             f"bf16): card vs CPU max |diff| {float(diff.max()):.4g}, at "
             f"most {float((diff / both).max()):.3g} of the summed bounds")
-    log(f"20 done in {time.perf_counter() - t_phase:.1f} s")
     return rows
 
 
@@ -5800,7 +6046,6 @@ def phase_witness_card(torch, dev, card: str) -> None:
     from repro_torch.launch import op_stats, roofline, train
     from repro_torch.launch import mesh as lmesh
     from repro_torch.models.model import build_model
-    t_phase = time.perf_counter()
     fn, args, step_s = SAVED.pop("train_step")
     params, opt, batch = args
     cfg = train.preset_config(TRAIN_ARCH, "full")
@@ -5889,7 +6134,6 @@ def phase_witness_card(torch, dev, card: str) -> None:
               f"(t_measured x "
               f"{lmesh.PEAK_FLOPS_BF16:.4g} FLOP/s) on {card}; at the "
               f"roofline {terms.mfu:.4f}", flush=True)
-    log(f"21a done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_witness_mesh(torch) -> None:
@@ -5903,7 +6147,6 @@ def phase_witness_mesh(torch) -> None:
     from repro_torch.distributed import sharding as S
     from repro_torch.models.model import build_model, greedy, make_train_step
     from repro_torch.optim import adamw
-    t_phase = time.perf_counter()
     cfg = get_config(SHARDED_ARCH)
     model = build_model(cfg)
     meta = model.shapes()
@@ -5955,7 +6198,6 @@ def phase_witness_mesh(torch) -> None:
                      f"{json.dumps(SAVED['19s'])}")
     log(f"21b 19s step on the (2 x 2) accounting mesh equals the card's at "
         f"every coordinate: {json.dumps(SAVED['19s'])}")
-    log(f"21b done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -5972,45 +6214,49 @@ def main() -> None:
              f"root of a checkout")
     dev = torch.device("cuda", 0)
 
-    card = phase_card(torch)
-    phase_build_kernels()
-    phase_kernels_synthetic(torch, dev)
-    eng, qt, build_s = phase_build_index(torch, dev)
-    counts, recall, qps, single = phase_search(torch, eng, qt)
-    phase_breakdown(torch, eng, qt,
-                    1e3 * qt.shape[0] / sorted(qps)[len(qps) // 2])
-    timing = phase_kernels_real(torch, eng, qt)
-    scan_call, gemv_counts, gemv_recall, gemv_qps = phase_gemv(
-        torch, eng, qt, recall)
+    card = phase("1", phase_card, torch)
+    phase("2", phase_build_kernels)
+    phase("3", phase_kernels_synthetic, torch, dev)
+    eng, qt, build_s = phase("4", phase_build_index, torch, dev)
+    counts, recall, qps, single = phase("5", phase_search, torch, eng, qt)
+    phase("6", phase_breakdown, torch, eng, qt,
+          1e3 * qt.shape[0] / sorted(qps)[len(qps) // 2])
+    timing = phase("7", phase_kernels_real, torch, eng, qt)
+    scan_call, gemv_counts, gemv_recall, gemv_qps = phase(
+        "8", phase_gemv, torch, eng, qt, recall)
     recalls = {"mulfree/beam": recall, "mulfree/gemv": gemv_recall}
-    ranked = phase_backends(torch, eng, qt, recalls)
-    topo, sharded_counts, rep, med = phase_sharded(torch, eng, qt, single,
-                                                   recall)
-    phase_mixed_tier(torch, topo, qt)
-    timing.update(phase_new_kernels_real(torch, topo, rep, scan_call, qt))
+    ranked = phase("8b", phase_backends, torch, eng, qt, recalls)
+    topo, sharded_counts, rep, med = phase("9", phase_sharded, torch, eng,
+                                           qt, single, recall)
+    phase("9b", phase_mixed_tier, torch, topo, qt)
+    timing.update(phase("10", phase_new_kernels_real, torch, topo, rep,
+                        scan_call, qt))
     del topo, scan_call
-    mesh = phase_mesh(torch, eng, qt, rep, med)
-    anns = phase_anns_step(torch, eng, qt, qps, mesh)
-    phase_skewed_tier(torch, eng)
-    lm_counts, timing["flash_attention"] = phase_lm(torch, dev, eng)
-    mla_launches, mla = phase_mla(torch, dev, eng)
-    phase_ssm(torch, dev, eng)
-    hd256_launches, hd256 = phase_rglru(torch, dev, eng)
-    noncausal_launches, noncausal = phase_encdec(torch, dev, eng)
-    phase_vlm(torch, dev, eng)
-    sharded_launches, sharded_row = phase_sharded_lm(torch, dev, eng)
+    mesh = phase("13", phase_mesh, torch, eng, qt, rep, med)
+    anns = phase("13b", phase_anns_step, torch, eng, qt, qps, mesh)
+    phase("9c", phase_skewed_tier, torch, eng)
+    lm_counts, timing["flash_attention"] = phase("11", phase_lm, torch, dev,
+                                                 eng)
+    mla_launches, mla = phase("14", phase_mla, torch, dev, eng)
+    phase("15", phase_ssm, torch, dev, eng)
+    hd256_launches, hd256 = phase("16", phase_rglru, torch, dev, eng)
+    noncausal_launches, noncausal = phase("17", phase_encdec, torch, dev, eng)
+    phase("18", phase_vlm, torch, dev, eng)
+    sharded_launches, sharded_row, decode_launches, seq_row = phase(
+        "11s", phase_sharded_lm, torch, dev, eng)
     parts, icfg = [eng.index, eng.host], eng.icfg
     del eng
-    mutable = phase_mutable(torch, parts, icfg, qt)
-    train_launches, train_row = phase_train(torch, dev)
-    phase_witness_card(torch, dev, card)
-    phase_train_witness(torch, dev)
-    phase_train_resume(torch, dev)
-    phase_train_dp(torch, dev)
-    phase_train_dp(torch, dev, pod=True)
-    strain_launches, strain_row = phase_sharded_train(torch, dev)
-    phase_witness_mesh(torch)
-    softcap_rows = phase_softcap(torch, dev)
+    mutable = phase("12", phase_mutable, torch, parts, icfg, qt)
+    train_launches, train_row = phase("19", phase_train, torch, dev)
+    phase("21a", phase_witness_card, torch, dev, card)
+    phase("19w", phase_train_witness, torch, dev)
+    phase("19b", phase_train_resume, torch, dev)
+    phase("19c", phase_train_dp, torch, dev)
+    phase("19d", phase_train_dp, torch, dev, pod=True)
+    strain_launches, strain_row = phase("19s", phase_sharded_train, torch,
+                                        dev)
+    phase("21b", phase_witness_mesh, torch)
+    softcap_rows = phase("20", phase_softcap, torch, dev)
 
     src = {"binary_ip_rank": ("src/repro_torch/kernels/csrc/binary_ip.cu",
                               "src/repro/kernels/binary_ip.py:79"),
@@ -6106,6 +6352,17 @@ def main() -> None:
             max_abs_err=ERRS[name], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"]))
+    # the split-KV decode kernel: its launches in phase 11s's
+    # sequence-split decode steps on rank 0, its times on the first of
+    # those calls (float32 K/V); max_abs_err over every call held, phase
+    # 20's full-size bf16 ones too
+    kernels.append(dict(
+        name="flash_attention/decode", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_decode.cu",
+        replaces=src["flash_attention"][1], launches=decode_launches,
+        max_abs_err=ERRS["flash_attention/decode"], ms=seq_row["ms"],
+        plain_ms=seq_row["plain_ms"], bound_ms=seq_row["bound_ms"],
+        bound_by=seq_row["bound_by"], library_ms=seq_row["library_ms"]))
     # each rank policy of beam_search and cluster_scan (phase 8b): its own
     # launches, times and errors, on the search of its own backend
     for name, row in ranked.items():
@@ -6131,6 +6388,8 @@ def main() -> None:
         f"topk_select (a dedup first), cluster_scan (a rank and a "
         f"selection) or beam_search (a graph search), so their library_ms "
         f"is null")
+    log(f"total {time.perf_counter() - T0:.1f} s")
+    print("phase seconds " + json.dumps(PHASE_S), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

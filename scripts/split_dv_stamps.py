@@ -8,8 +8,9 @@ with ``clock64()`` stamps at the steps of each kernel's tile loop (and,
 for MLA, of its prologue and epilogue), written by the first thread of
 each consumer warpgroup of the first 256 blocks through the lse pointer
 (the copy writes no lse). The inputs are those of
-``scripts/time_split_dv.py`` (seeded bf16: MLA B 8, S 2,048, 16 heads over
-the latent cache; hd 256 B 8, S 3,072, 16 heads over one, window 2,048).
+``scripts/time_attention.py``'s ``mla`` and ``hd256`` calls (seeded bf16:
+MLA B 8, S 2,048, 16 heads over the latent cache; hd 256 B 8, S 3,072, 16
+heads over one, window 2,048).
 Prints, in SM cycles, the mean of each step over the steady tiles (the
 third on) and the median tile period; for MLA also the medians of the
 prologue (entry to Q in shared memory, to the loop, the first tile's

@@ -23,7 +23,7 @@ __all__ = ["SOURCES", "build_all", "library"]
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("binary_ip", "topk_select", "merge_topk", "cluster_scan",
-           "flash_attn", "beam_search")
+           "flash_attn", "flash_decode", "beam_search")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -25,9 +25,12 @@
 //    tiles, l summed from the float32 p, and P rounded to bf16 for the P.V
 //    product only. This is what the JAX package's einsums at DEFAULT
 //    precision computed on the TPU (bf16 operands, float32 sums).
-//  * float32 q (no path on the card sends it; tests do): `flash_fwd_kernel`,
-//    the CUDA-core kernel in float32 throughout, plain version
-//    `flash_attention_ref` with the default operands.
+//  * float32 q: `flash_fwd_kernel`, the CUDA-core kernel in float32
+//    throughout, plain version `flash_attention_ref` with the default
+//    operands. kernels/flash_attn.py sends it only the calls whose query
+//    rows that read one KV head exceed 64 (Sq x Hq / Hkv); the others, the
+//    decode step over a sequence-split cache among them, take the split-KV
+//    kernel of flash_decode.cu.
 //
 // What bounds it on an H100: at the serving path's prefill shapes (B = 8,
 // S = 2048, 32 query heads over 8 KV heads, head_dim 80) the operations,

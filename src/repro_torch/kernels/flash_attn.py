@@ -16,6 +16,15 @@ One launch, two kernels, chosen by q's type inside ``flash_attn_launch``:
   ``ref.flash_attention_rounding_bound`` of the float32 plain version.
 * float32 q: the CUDA-core kernel, float32 throughout; its plain version is
   ``ref.flash_attention_ref`` with the default operands.
+* float32 q whose rows that read one KV head fit one tile, Sq x (Hq / Hkv)
+  <= ``DECODE_ROWS`` (the decode step over a sequence-split cache): the
+  split-KV decode kernel of ``csrc/flash_decode.cu``: a launch of one warp
+  per (batch row, KV head, KV chunk), each staging its chunk's K/V tiles by
+  cp.async into a two-stage ring of its own, and a second that combines
+  each row's chunks in chunk order (``decode_design`` gives the split; the wrapper
+  allocates its float32 workspace); float32 throughout, the same plain
+  version. The route is a rule on shapes alone (``decode_route``); a call
+  counts as one launch.
 
 Head dims (``instantiation``): dk and dv up to 256 run in the instantiation
 of the smallest of ``HEAD_DIMS`` that holds both, the extra columns staged
@@ -56,8 +65,9 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "check_args",
-           "instantiation", "split_design", "HEAD_DIMS", "MLA_DIMS",
-           "BLOCK_ROWS", "launches"]
+           "instantiation", "split_design", "decode_route", "decode_design",
+           "decode_chunks", "HEAD_DIMS", "MLA_DIMS", "BLOCK_ROWS",
+           "DECODE_ROWS", "DECODE_TILE", "DECODE_WARPS", "launches"]
 
 HEAD_DIMS = (64, 80, 96, 128, 160, 256)  # instantiations, dk == dv
 MLA_DIMS = (576, 512)               # the latent-attention kernel's (dk, dv)
@@ -65,6 +75,9 @@ MLA_DIMS = (576, 512)               # the latent-attention kernel's (dk, dv)
 # kernel (256), for the reckoning of what a launch stages
 BLOCK_ROWS = {MLA_DIMS: 64, (256, 256): 128}
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
+DECODE_ROWS = 64          # query rows a block of the decode kernel at most
+DECODE_TILE = 32          # keys a K/V tile of the decode kernel
+DECODE_WARPS = 8 * 132    # the chunks a split aims at: 8 warps an H100 SM
 launches = 0   # kernel launches since the count was last set to 0
 
 
@@ -73,6 +86,16 @@ def _fn():
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _decode_fn():
+    fn = _build.library("flash_decode").flash_decode_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -101,6 +124,61 @@ def split_design(q, k, v) -> tuple[int, int]:
         x > 0 and 2 * x % 16 == 0 for x in t.stride()[:3]) for t in (k, v))
     pair = k.dtype == torch.bfloat16 and exact and aligned
     return BLOCK_ROWS[inst], 2 if pair else 1
+
+
+def decode_route(dtype: torch.dtype, sq: int, hq: int, hkv: int) -> bool:
+    """Whether a call takes the split-KV decode kernel: float32 q whose
+    query rows that read one KV head, Sq x (Hq / Hkv), fit one block."""
+    return dtype == torch.float32 and sq * (hq // hkv) <= DECODE_ROWS
+
+
+def _decode_split(b: int, sq: int, hq: int, hkv: int, sk: int, *,
+                  causal: bool, window: int | None = None, q_offset: int = 0,
+                  kv_valid_len: int | None = None
+                  ) -> tuple[int, int, int, int, int]:
+    """(rows, t0, t1, tiles a chunk, chunks): the keys some row sees,
+    [kv_begin, kv_end) as ``flash_fwd_kernel`` bounds them, in tiles
+    [t0, t1) of ``DECODE_TILE`` keys, cut into chunks of whole tiles (one
+    warp each), as many as give ``DECODE_WARPS`` warps over the B x Hkv
+    (batch row, KV head) items and no more than there are tiles; none is
+    empty."""
+    valid = sk if kv_valid_len is None else int(kv_valid_len)
+    end = min(sk, valid)
+    if causal:
+        end = min(end, q_offset + sq)
+    begin = max(0, q_offset - window + 1) if window else 0
+    t0, t1 = begin // DECODE_TILE, -(-end // DECODE_TILE)
+    tiles = t1 - t0
+    want = min(tiles, -(-DECODE_WARPS // max(b * hkv, 1)))
+    tpc = -(-tiles // want)
+    return sq * (hq // hkv), t0, t1, tpc, -(-tiles // tpc)
+
+
+def decode_design(b: int, sq: int, hq: int, hkv: int, sk: int, *,
+                  causal: bool, window: int | None = None, q_offset: int = 0,
+                  kv_valid_len: int | None = None) -> tuple[int, int]:
+    """(query rows a block, KV chunks) of the decode kernel on a call of
+    these shapes and mask; the wrapper hands the split to
+    ``flash_decode_launch``. One warp per (batch row, KV head, chunk), up to
+    four chunks of one (batch row, KV head) a block."""
+    rows, _, _, _, chunks = _decode_split(
+        b, sq, hq, hkv, sk, causal=causal, window=window, q_offset=q_offset,
+        kv_valid_len=kv_valid_len)
+    return rows, chunks
+
+
+def decode_chunks(b: int, sq: int, hq: int, hkv: int, sk: int, *,
+                  causal: bool, window: int | None = None, q_offset: int = 0,
+                  kv_valid_len: int | None = None) -> list[tuple[int, int]]:
+    """The keys [begin, end) each chunk of ``decode_design`` stages, in
+    chunk order: whole tiles, the last one cut at min(Sk, kv_valid_len)."""
+    _, t0, t1, tpc, chunks = _decode_split(
+        b, sq, hq, hkv, sk, causal=causal, window=window, q_offset=q_offset,
+        kv_valid_len=kv_valid_len)
+    limit = min(sk, sk if kv_valid_len is None else int(kv_valid_len))
+    return [((t0 + c * tpc) * DECODE_TILE,
+             min(min(t0 + (c + 1) * tpc, t1) * DECODE_TILE, limit))
+            for c in range(chunks)]
 
 
 def check_args(q, k, v, *, causal: bool, window: int | None, q_offset: int,
@@ -186,6 +264,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if return_lse else None
     if b == 0 or sq == 0 or hq == 0:
         return (out, lse) if return_lse else out
+    if decode_route(q.dtype, sq, hq, hkv):
+        return _decode(q, k, v, out, lse, valid, causal=causal,
+                       window=window, q_offset=q_offset, softcap=softcap)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -200,6 +281,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1
     return (out, lse) if return_lse else out
+
+
+def _decode(q, k, v, out, lse, valid, *, causal, window, q_offset, softcap):
+    """The decode route of ``flash_attention``: its split, its workspace
+    (float32: each chunk's acc rows at the instantiation's width, then its
+    (m, l) pairs) and the two launches."""
+    global launches
+    b, sq, hq, dk = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    rows, t0, t1, tpc, chunks = _decode_split(
+        b, sq, hq, hkv, sk, causal=causal, window=window, q_offset=q_offset,
+        kv_valid_len=valid)
+    width = instantiation(dk, dv)[0]
+    ws = torch.empty(b * hkv * chunks * rows * (width + 2),
+                     dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _decode_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), ws.data_ptr(),
+            _TYPES[k.dtype], b, sq, sk, hq, hkv, dk, dv,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+            0 if window is None else int(window), int(q_offset), valid,
+            math.sqrt(dk), float(softcap), t0, t1, tpc, chunks, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention decode launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
+    return (out, lse) if lse is not None else out
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

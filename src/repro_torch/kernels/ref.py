@@ -31,7 +31,7 @@ __all__ = ["INT_MAX", "INT_MIN", "NAN_BITS", "wrap_int32", "unpack_bits",
            "ranked_cluster_scan_ref", "beam_search_ref", "cluster_scan_ref",
            "topk_select_ref",
            "merge_topk_ref", "NEG_INF", "FLASH_TILE", "LOG2E",
-           "LN2", "BWD_KV_BLOCK", "flash_attention_ref",
+           "LN2", "BWD_KV_BLOCK", "flash_attention_ref", "flash_decode_ref",
            "flash_attention_bwd_ref", "flash_attention_lse_bound",
            "flash_attention_bwd_bound", "flash_attention_order_bound",
            "flash_attention_flip_bound", "flash_attention_rounding_bound"]
@@ -498,6 +498,77 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     out, _, lse = _flash_scan(q, k, v, causal, window, q_offset,
                               kv_valid_len, operands, softcap=softcap)
+    return (out, lse) if return_lse else out
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool, window: int | None = None,
+                     q_offset: int = 0, kv_valid_len: int | None = None,
+                     return_lse: bool = False, softcap: float = 0.0):
+    """The split-KV decode kernel (``csrc/flash_decode.cu``) step by step
+    in plain PyTorch, for the tests: the split of ``flash_attn.decode_design``
+    (chunks of whole tiles of ``DECODE_TILE`` keys), each chunk's online
+    softmax over its tiles from m = NEG_INF, l = 0, acc = 0 (a masked key
+    weighs exactly 0; K/V rows past min(Sk, kv_valid_len) read as zeros),
+    then the combine in chunk order: M = max m_c, L = sum l_c exp(m_c - M),
+    out = sum acc_c exp(m_c - M) / max(L, 1e-30), lse = M + log(max(L,
+    1e-30)). Float32 throughout; same arguments and results as
+    ``flash_attention_ref`` (float32 q). The kernel's sums within a tile
+    go in another order, and its combine adds runs of consecutive chunks,
+    then the runs, in order."""
+    from .flash_attn import DECODE_TILE, decode_chunks
+    b, sq, hq, dk = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = hq // hkv
+    rows = sq * g
+    limit = min(sk, sk if kv_valid_len is None else int(kv_valid_len))
+    dev = q.device
+    # row r = position r // g, head hk g + r % g of KV head hk
+    qs = (q.float() / math.sqrt(dk)).reshape(b, sq, hkv, g, dk).permute(
+        0, 2, 1, 3, 4).reshape(b, hkv, rows, dk)
+    q_pos = q_offset + torch.arange(rows, device=dev) // g
+    parts = []
+    for begin, end in decode_chunks(
+            b, sq, hq, hkv, sk, causal=causal, window=window,
+            q_offset=q_offset, kv_valid_len=kv_valid_len):
+        m = torch.full((b, hkv, rows), NEG_INF, device=dev)
+        l = torch.zeros((b, hkv, rows), device=dev)
+        acc = torch.zeros((b, hkv, rows, dv), device=dev)
+        for key0 in range(begin, end, DECODE_TILE):
+            keys = key0 + torch.arange(DECODE_TILE, device=dev)
+            live = keys < limit
+            at = keys.clamp(max=sk - 1)
+            kt = torch.where(live[None, :, None, None], k[:, at].float(),
+                             0.0).permute(0, 2, 1, 3)
+            vt = torch.where(live[None, :, None, None], v[:, at].float(),
+                             0.0).permute(0, 2, 1, 3)
+            s = qs @ kt.transpose(-1, -2)                  # (B, Hkv, R, 32)
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            ok = live[None, :].expand(rows, -1)
+            if causal:
+                ok = ok & (keys[None, :] <= q_pos[:, None])
+            if window is not None:
+                ok = ok & (q_pos[:, None] - keys[None, :] < window)
+            m_new = torch.maximum(m, torch.where(ok, s, NEG_INF).amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p @ vt
+            m = m_new
+        parts.append((m, l, acc))
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    den = torch.zeros_like(top)
+    out = torch.zeros((b, hkv, rows, dv), device=dev)
+    for m, l, acc in parts:
+        w = torch.exp(m - top)
+        den = den + l * w
+        out = out + acc * w[..., None]
+    den = den.clamp(min=1e-30)
+    out = (out / den[..., None]).reshape(b, hkv, sq, g, dv).permute(
+        0, 2, 1, 3, 4).reshape(b, sq, hq, dv).to(q.dtype)
+    lse = (top + torch.log(den)).reshape(b, hkv, sq, g).permute(
+        0, 1, 3, 2).reshape(b, hq, sq)
     return (out, lse) if return_lse else out
 
 

@@ -1015,6 +1015,18 @@ def _assert_bf16_kernel(got, q, k, v, kw):
     (2, 1, 96, 32, 8, 80, False, None, 0, 40, "f32", "bf16"),
     (2, 1, 96, 32, 8, 80, False, 64, 150, 96, "f32", "bf16"),
     (1, 1, 64, 16, 1, 256, False, 40, 70, 64, "f32", "bf16"),
+    # the split-KV decode route's edges (float32 q, Sq x g <= 64): chunks
+    # that some rows cannot see (a window past a causal block), a single
+    # valid key, Sq x g = 64 over float32 K/V against 65 (flash_fwd_kernel),
+    # hd 256 at g 16, B 1 over 32,768 slots
+    (1, 16, 700, 4, 1, 80, True, 40, 594, 610, "f32", "bf16"),
+    (2, 1, 96, 32, 8, 80, False, None, 0, 1, "f32", "bf16"),
+    (1, 16, 200, 64, 16, 80, True, None, 184, None, "f32", "f32"),
+    (1, 13, 150, 10, 2, 64, True, None, 137, None, "f32", "bf16"),
+    (2, 4, 300, 16, 1, 256, True, 100, 296, None, "f32", "bf16"),
+    (1, 1, 32768, 32, 8, 80, False, None, 0, None, "f32", "bf16"),
+    # phase 11s's sequence-split decode call on a rank: float32 K/V
+    (4, 1, 130, 32, 8, 80, False, None, 512, 130, "f32", "f32"),
 ])
 def test_flash_attention_kernel_matches_plain(card, b, sq, sk, hq, hkv, d,
                                               causal, window, q_off, valid,
@@ -1051,6 +1063,34 @@ def test_flash_attention_kernel_strided_and_tpu_view(card):
     torch.testing.assert_close(got, ref.flash_attention_ref(
         qf[:, 32:, None], kf[:, :, None], vf[:, :, None], causal=True,
         q_offset=32)[:, :, 0], rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("kvt", ["f32", "bf16"])
+def test_flash_attention_decode_route_unaligned_rows(card, kvt):
+    """K/V rows that do not start on 16-byte boundaries (a head dim sliced
+    out of a wider buffer, and a head dim that is not a whole number of
+    16-byte groups) take the decode kernel's element loads."""
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn((2, 1, 32, 80), generator=g, device=card)
+    wide = torch.randn((2, 300, 8, 83), generator=g, device=card).to(
+        types[kvt])
+    k, v = wide[..., 1:81], wide[..., 3:83]
+    assert k.stride(-1) == 1 and not k.is_contiguous()
+    kw = dict(causal=False, window=100, q_offset=280, kv_valid_len=290)
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+    _assert_attn_close(out, ref.flash_attention_ref(q, k, v, **kw))
+    _, want = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert ((lse - want).abs()
+            <= ref.flash_attention_lse_bound(q, k, want, **kw)).all()
+    q12 = torch.randn((1, 3, 8, 12), generator=g, device=card)
+    k12 = torch.randn((1, 50, 2, 12), generator=g, device=card).to(
+        types[kvt])
+    v12 = torch.randn((1, 50, 2, 12), generator=g, device=card).to(
+        types[kvt])
+    kw = dict(causal=True, q_offset=47)
+    _assert_attn_close(flash_attn.flash_attention(q12, k12, v12, **kw),
+                       ref.flash_attention_ref(q12, k12, v12, **kw))
 
 
 @pytest.mark.parametrize("kvt", ["f32", "bf16"])
@@ -1416,6 +1456,15 @@ def test_moe_layer_makes_no_host_sync_on_the_card(card):
     # the sequence-split decode's calls (above)
     (2, 1, 96, 32, 8, 80, 80, False, None, 0, 40, "f32", "bf16", False),
     (2, 1, 96, 32, 8, 80, 80, False, 64, 150, 96, "f32", "bf16", False),
+    # the split-KV decode route's edges (above)
+    (1, 16, 700, 4, 1, 80, 80, True, 40, 594, 610, "f32", "bf16", False),
+    (2, 1, 96, 32, 8, 80, 80, False, None, 0, 1, "f32", "bf16", False),
+    (1, 16, 200, 64, 16, 80, 80, True, None, 184, None, "f32", "f32", False),
+    (1, 13, 150, 10, 2, 64, 64, True, None, 137, None, "f32", "bf16",
+     False),
+    (2, 4, 300, 16, 1, 256, 256, True, 100, 296, None, "f32", "bf16", False),
+    (1, 1, 32768, 32, 8, 80, 80, False, None, 0, None, "f32", "bf16",
+     False),
 ])
 def test_flash_attention_kernel_writes_the_rows_logsumexp(
         card, b, sq, sk, hq, hkv, dk, dv, causal, window, q_off, valid, qt,
@@ -1522,6 +1571,12 @@ SOFTCAP_CASES = [
      2.0),
     (1, 33, 300, 2, 1, 256, 256, False, 80, 250, 290, "bf16", "f32", False,
      1.0),
+    # the split-KV decode kernel (float32 q, Sq x g <= 64), capped with its
+    # lse: chunks some rows cannot see, and a decode_32k rank's call
+    (1, 16, 700, 4, 1, 80, 80, True, 40, 594, 610, "f32", "bf16", False,
+     2.0),
+    (8, 1, 2048, 32, 8, 80, 80, False, None, 0, None, "f32", "bf16", False,
+     3.0),
 ]
 
 
